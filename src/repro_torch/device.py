@@ -1,0 +1,35 @@
+"""Device resolution for the port's entry points."""
+from __future__ import annotations
+
+from typing import Union
+
+import torch
+
+DeviceLike = Union[str, torch.device]
+
+
+def resolve_device(device: DeviceLike = "cuda") -> torch.device:
+    """``device`` as a `torch.device`; raises when CUDA is asked for and
+    absent, so no entry point carries on quietly on the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"device {str(dev)!r} requested but torch.cuda.is_available()"
+                " is False; pass device='cpu' for the plain CPU path")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {str(dev)!r}: cuda or cpu")
+    return dev
+
+
+def as_f32(a, device: torch.device) -> torch.Tensor:
+    """``a`` (numpy array or tensor) as a float32 tensor on ``device``."""
+    return torch.as_tensor(a, dtype=torch.float32, device=device)
+
+
+def synchronize(device: torch.device) -> None:
+    """Wait for the card's queued work (no-op on the CPU)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

@@ -1,0 +1,189 @@
+"""Sweep backends — the one place the Kolen–Hutcheson sweep is chosen.
+
+Counterpart of `repro.engine.backend`.  Every layer (driver race,
+combiner, reducer, WFCMPB blocks) runs one primitive, the O(n·c)
+accumulation sweep (paper Alg. 1 body): recompute the membership term
+u_ik^m on the fly and accumulate ``V_i += w_k·u_ik^m·x_k``,
+``W_i += w_k·u_ik^m``.  A *backend* is an implementation of it,
+selected once by name:
+
+  ``torch``             — f32 eager PyTorch, the port's oracle (the
+                          reference's ``jnp``).  It runs its matmuls in
+                          IEEE fp32: the d² = x² + v² − 2·x·vᵀ
+                          cancellation cannot afford TF32, so the
+                          backend sets ``torch.backends.cuda.matmul.
+                          allow_tf32 = False`` before it runs.
+  ``hopper``            — the hand-written Hopper kernel's fused sweep
+                          (`repro_torch.kernels.ops`).
+  ``hopper_accumulate`` — the kernel's raw-accumulator entry plus an
+                          out-of-kernel normalization.
+
+``resolve_backend(None | "auto", device=...)`` picks by device: a CUDA
+device gets ``hopper``, a CPU device ``torch``.  The reference's
+measured calibration race (`repro.perf.calibrate`) is not ported yet,
+nor are its obs events, the bf16 backend or the tenant-batched entries.
+The kernel backends register from `repro_torch.kernels.ops`, which
+`repro_torch.engine` imports outright: a kernel that cannot be built
+on a CUDA host makes the fit raise, never degrade.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Union
+
+import torch
+
+_D2_FLOOR = 1e-12  # distance floor: a record sitting exactly on a center
+
+
+# ------------------------------------------------------------ sweep math ---
+
+def pairwise_sqdist(x: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
+    """‖x−v‖² via the matmul expansion x² + v² − 2·x·vᵀ."""
+    x = x.float()
+    centers = centers.float()
+    x2 = torch.sum(x * x, dim=-1, keepdim=True)          # (N, 1)
+    v2 = torch.sum(centers * centers, dim=-1)            # (C,)
+    cross = x @ centers.T                                # (N, C)
+    return torch.clamp(x2 + v2 - 2.0 * cross, min=_D2_FLOOR)
+
+
+def _u_from_d2(d2: torch.Tensor, m: float) -> torch.Tensor:
+    """Membership degrees u from the Eq.-5 ratio in log space with
+    max-normalization (u_i = r_i/Σr_j, r_i = (d_min/d_i)^(1/(m−1)) ≤ 1),
+    avoiding the d^(2/(m−1)) overflow/underflow for m near 1."""
+    expo = 1.0 / (m - 1.0)
+    logd = torch.log(d2)
+    lmin = torch.min(logd, dim=-1, keepdim=True).values
+    r = torch.exp(-expo * (logd - lmin))            # (N, C), in (0, 1]
+    return r / torch.sum(r, dim=-1, keepdim=True)
+
+
+def _um_from_d2(d2: torch.Tensor, m: float) -> torch.Tensor:
+    """u^m — the membership *term* the sweep accumulates."""
+    return torch.pow(_u_from_d2(d2, m), m)
+
+
+def membership_terms(x, centers, m: float) -> torch.Tensor:
+    """u_ik^m for every record/center pair.  x: (N,d), centers: (C,d) →
+    (N,C).  The normalizing denominator is computed once per record —
+    the O(n·c) trick of paper Eq. (5)."""
+    return _um_from_d2(pairwise_sqdist(x, centers), m)
+
+
+def fcm_accumulate(x, weights, centers, m):
+    """Raw Alg.-1 accumulators (v_num, w_i, q) — normalization deferred.
+
+    All three outputs are plain sums over records, so partial results
+    from chunks add elementwise before a single normalization."""
+    d2 = pairwise_sqdist(x, centers)
+    wum = _um_from_d2(d2, m) * weights.float()[:, None]   # w_k · u_ik^m
+    w_i = torch.sum(wum, dim=0)                          # (C,)
+    v_num = wum.T @ x.float()                            # (C, d)
+    q = torch.sum(wum * d2)                              # objective, Eq. (2)
+    return v_num, w_i, q
+
+
+def normalize_accumulators(v_num, w_i, q):
+    """The one deferred normalization: (v_num, w_i, q) → (v_new, w_i, q)."""
+    return v_num / torch.clamp(w_i, min=_D2_FLOOR)[..., None], w_i, q
+
+
+def fcm_sweep(x, weights, centers, m):
+    """One full accumulation sweep (Alg. 1 body).  Returns (V_new, W, Q)."""
+    return normalize_accumulators(*fcm_accumulate(x, weights, centers, m))
+
+
+def soft_assign(x, centers, m: float = 2.0) -> torch.Tensor:
+    """Membership degrees u_ik (not raised to m), in the log-space form
+    the sweep itself accumulates."""
+    return _u_from_d2(pairwise_sqdist(x, centers), m)
+
+
+def hard_assign(x, centers) -> torch.Tensor:
+    return torch.argmin(pairwise_sqdist(x, centers), dim=-1)
+
+
+# -------------------------------------------------------------- backends ---
+
+class SweepBackend:
+    """One implementation of the accumulation sweep.
+
+    Subclasses provide ``accumulate`` (raw sums) and may override
+    ``sweep`` with a fused version.  Every method computes on the device
+    its tensors lie on."""
+
+    name: str = "?"
+
+    def accumulate(self, x, w, centers, m):
+        """Raw (v_num, w_i, q) accumulators for one record chunk."""
+        raise NotImplementedError
+
+    def sweep(self, x, w, centers, m):
+        """(v_new, w_i, q): accumulate + the one deferred normalization."""
+        return normalize_accumulators(*self.accumulate(x, w, centers, m))
+
+    def soft_assign(self, x, centers, m=2.0):
+        return soft_assign(x, centers, m)
+
+    def hard_assign(self, x, centers):
+        return hard_assign(x, centers)
+
+    def __repr__(self):
+        return f"<SweepBackend {self.name}>"
+
+
+class TorchBackend(SweepBackend):
+    """f32 eager PyTorch — the CPU default and the oracle."""
+
+    name = "torch"
+
+    def accumulate(self, x, w, centers, m):
+        torch.backends.cuda.matmul.allow_tf32 = False   # IEEE fp32 matmuls
+        return fcm_accumulate(x, w, centers, m)
+
+
+_REGISTRY: Dict[str, SweepBackend] = {}
+
+BackendLike = Union[None, str, SweepBackend]
+
+
+def register_backend(backend: SweepBackend) -> SweepBackend:
+    """Register (or replace) a backend under ``backend.name``."""
+    _REGISTRY[backend.name] = backend
+    return backend
+
+
+def available_backends() -> list:
+    return sorted(_REGISTRY)
+
+
+def get_backend(name: str) -> SweepBackend:
+    try:
+        return _REGISTRY[name]
+    except KeyError:
+        raise KeyError(
+            f"unknown sweep backend {name!r}; registered: "
+            f"{sorted(_REGISTRY)}") from None
+
+
+def default_backend_name(device: Union[str, torch.device]) -> str:
+    """The device rule behind "auto": CUDA → ``hopper``, CPU → ``torch``."""
+    return "hopper" if torch.device(device).type == "cuda" else "torch"
+
+
+def resolve_backend(spec: BackendLike = None, *,
+                    device: Optional[Union[str, torch.device]] = None
+                    ) -> SweepBackend:
+    """None/"auto" → the device rule for ``device``; str → registry;
+    object → itself."""
+    if isinstance(spec, SweepBackend):
+        return spec
+    if spec is None or spec == "auto":
+        if device is None:
+            raise ValueError("resolve_backend('auto') needs the device "
+                             "the sweep runs on")
+        return get_backend(default_backend_name(device))
+    return get_backend(spec)
+
+
+register_backend(TorchBackend())

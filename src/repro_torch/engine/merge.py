@@ -1,0 +1,144 @@
+"""Merge plans — the weighted summary-reduce, and the convergence loop.
+
+Counterpart of `repro.engine.merge`.  BigFCM's reducer and WFCMPB's
+progression both run a weighted FCM over a stack of (centers, masses)
+summaries.  This slice ports the ``flat`` topology — one WFCM over all
+S·C sketch points; ``pairwise``, ``windowed`` and the tenant-batched
+convergence come with later slices.
+
+`_converge` is the reference's ``lax.while_loop`` as a host loop with the
+same stopping rule.  It reads ``delta`` on the host once per iteration,
+one device→host sync each.
+
+**Mass is NOT conserved by WFCM** (Σ_i u_ik^m < 1 for m > 1): compare
+merged centers and objectives, never total mass.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Optional, Sequence, Union
+
+import torch
+
+from ..device import as_f32, resolve_device
+from .backend import BackendLike, resolve_backend
+from .summary import Summary, slot_masses
+from .summary import concat as concat_summaries
+
+TOPOLOGIES = ("flat",)
+_LATER_TOPOLOGIES = ("pairwise", "windowed")
+
+
+@dataclasses.dataclass(frozen=True)
+class MergePlan:
+    """How (and how hard) to collapse a summary stack into one summary."""
+    topology: str = "flat"     # one of TOPOLOGIES
+    seed: str = "heaviest"     # "heaviest" | "first" — reducer WFCM seeds
+    m: float = 2.0
+    eps: float = 5e-11         # paper reducer ε
+    max_iter: int = 200
+
+    def __post_init__(self):
+        if self.topology in _LATER_TOPOLOGIES:
+            raise NotImplementedError(
+                f"merge topology {self.topology!r} is not ported yet; "
+                "this slice of repro_torch has only 'flat'")
+        if self.topology not in TOPOLOGIES:
+            raise ValueError(f"unknown merge topology {self.topology!r}; "
+                             f"one of {TOPOLOGIES}")
+        if self.seed not in ("heaviest", "first"):
+            raise ValueError(f"unknown seed rule {self.seed!r}")
+
+
+class MergeResult(NamedTuple):
+    summary: Summary          # merged (C, d) centers + (C,) masses
+    n_iter: int               # WFCM sweeps run
+    objective: torch.Tensor   # () f32 — Eq. (2) of the final sweep
+
+
+def _converge(sweep, v0: torch.Tensor, *, eps: float,
+              max_iter: int) -> MergeResult:
+    """The paper's stopping rule: iterate ``sweep: centers → (v_new, w_i,
+    q)`` until max_i ‖ΔV_i‖² ≤ ε (the first sweep always runs; capped at
+    ``max_iter``), then one more sweep for the final masses (Eq. 6)."""
+    v = v0.float()
+    n_iter = 0
+    while n_iter < max_iter:
+        v_new, _, _ = sweep(v)
+        n_iter += 1
+        delta = torch.max(torch.sum((v_new - v) ** 2, dim=-1))
+        v = v_new
+        if not bool(delta > eps):
+            break
+    _, w_final, q = sweep(v)
+    return MergeResult(Summary(v, w_final), n_iter, q)
+
+
+def fcm_converge(
+    x,
+    init_centers,
+    *,
+    m: float = 2.0,
+    eps: float = 1e-6,
+    max_iter: int = 1000,
+    point_weights=None,
+    backend: BackendLike = None,
+    device: Union[str, torch.device] = "cuda",
+) -> MergeResult:
+    """Run (weighted) FCM over records to convergence through the
+    resolved backend's sweep.  The core of `repro_torch.core.fcm`."""
+    dev = resolve_device(device)
+    be = resolve_backend(backend, device=dev)
+    x = as_f32(x, dev)
+    w = (torch.ones((x.shape[0],), dtype=torch.float32, device=dev)
+         if point_weights is None else as_f32(point_weights, dev))
+    return _converge(lambda v: be.sweep(x, w, v, m),
+                     as_f32(init_centers, dev), eps=eps, max_iter=max_iter)
+
+
+def _seed_centers(s: Summary, rule: str) -> torch.Tensor:
+    if rule == "first":
+        # Paper line 13: seed the reducer WFCM with V_1, the first
+        # combiner's centers.
+        return s.centers[0]
+    return s.centers[torch.argmax(slot_masses(s))]
+
+
+def _merge_flat(s: Summary, plan: MergePlan, be, init) -> MergeResult:
+    pts = s.centers.reshape(-1, s.centers.shape[-1])
+    wts = s.masses.reshape(-1)
+    v0 = _seed_centers(s, plan.seed) if init is None else init
+    return _converge(lambda v: be.sweep(pts, wts, v, plan.m), v0,
+                     eps=plan.eps, max_iter=plan.max_iter)
+
+
+def merge_summaries(
+    summaries: Union[Summary, Sequence[Summary]],
+    plan: Optional[MergePlan] = None,
+    *,
+    backend: BackendLike = None,
+    init: Optional[torch.Tensor] = None,
+) -> MergeResult:
+    """Collapse a stack of (centers, masses) summaries into one, on the
+    device the summaries lie on.
+
+    ``summaries`` is a `Summary` with a leading slot axis — (S, C, d)
+    centers, (S, C) masses — or a sequence of summaries, each a single
+    (C, d) sketch or an (S_i, C, d) stack, concatenated along the slot
+    axis.  ``init`` overrides the plan's seed rule with explicit reducer
+    seed centers.  Phantom (zero-mass) slots vanish by construction.
+    """
+    if not isinstance(summaries, Summary):
+        summaries = concat_summaries(list(summaries))
+    if summaries.centers.dim() != 3:
+        raise ValueError("merge_summaries expects stacked (S, C, d) "
+                         f"summaries, got centers "
+                         f"{tuple(summaries.centers.shape)}")
+    plan = plan or MergePlan()
+    be = resolve_backend(backend, device=summaries.centers.device)
+    if summaries.centers.shape[0] == 1 and init is None:
+        # A lone slot with no explicit seed merges to itself.
+        return MergeResult(Summary(summaries.centers[0],
+                                   summaries.masses[0]), 0,
+                           torch.zeros((), device=summaries.centers.device))
+    return _merge_flat(summaries, plan, be, init)

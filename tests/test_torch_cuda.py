@@ -1,0 +1,145 @@
+"""The Hopper FCM kernel on a card, against its plain PyTorch version on
+the same card.  Every test carries the ``cuda`` marker and skips on a
+host without a card.  The file imports no jax, so it runs where only
+PyTorch is installed:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Tolerances are those of tests/test_kernels.py."""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import BigFCMConfig, bigfcm_fit
+from repro_torch.data import make_blobs
+from repro_torch.kernels import ops
+from repro_torch.kernels.fcm_update import (fcm_accumulate_cuda,
+                                            fcm_accumulate_ref,
+                                            fcm_sweep_cuda, fcm_sweep_ref)
+
+pytestmark = pytest.mark.cuda
+
+SHAPES = [
+    (64, 2, 2), (100, 130, 7), (257, 4, 3), (1000, 18, 10),
+    (2048, 28, 50), (31, 41, 23), (512, 8, 129),
+]
+OFF_LANE_SHAPES = [
+    (300, 130, 131), (200, 129, 140), (96, 257, 129), (513, 131, 200),
+]
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the Hopper kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+def _inputs(n, d, c, seed, device):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(a).to(device) for a in (
+        rng.normal(size=(n, d)).astype(np.float32),
+        rng.uniform(0.1, 3.0, size=(n,)).astype(np.float32),
+        rng.normal(size=(c, d)).astype(np.float32))]
+
+
+def _close(got, want, rtol, atol):
+    for g, e in zip(got, want):
+        torch.testing.assert_close(g, e, rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("m", [1.05, 1.2, 2.0, 3.0])
+@pytest.mark.parametrize("n,d,c", SHAPES + OFF_LANE_SHAPES)
+def test_kernel_matches_plain(card, n, d, c, m):
+    x, w, v = _inputs(n, d, c, n + d + c, card)
+    before = fcm_sweep_cuda.launches
+    _close(fcm_sweep_cuda(x, w, v, m), fcm_sweep_ref(x, w, v, m),
+           3e-4, 3e-5 if (n, d, c) in SHAPES else 3e-4)
+    _close(fcm_accumulate_cuda(x, w, v, m), fcm_accumulate_ref(x, w, v, m),
+           3e-4, 3e-3)
+    assert fcm_sweep_cuda.launches == before + 1
+
+
+def _driver_case(case, d, c, card):
+    """The kernel's inputs on the driver race (N(0, 1) records): the
+    3184-row sample seeded with C of its rows; WFCMPB's last 2048-row
+    block, its tail zero-weight phantoms; WFCMPB's first 2·C-point merge,
+    its running half of zero mass, seeded with the block's centers."""
+    rng = np.random.default_rng(7)
+    x = rng.normal(size=(3184, d))
+    if case == "sample":
+        arrs = x, np.ones(3184), x[:c]
+    elif case == "last_block":
+        xb, wb = np.zeros((2048, d)), np.zeros(2048)
+        xb[:1136], wb[:1136] = x[2048:], 1.0
+        arrs = xb, wb, rng.normal(size=(c, d))
+    else:
+        vb = rng.normal(size=(c, d))
+        arrs = (np.concatenate([x[:c], vb]),
+                np.concatenate([np.zeros(c), rng.uniform(1, 2048, c)]), vb)
+    return [torch.as_tensor(np.asarray(a, np.float32), device=card)
+            for a in arrs]
+
+
+@pytest.mark.parametrize("case", ["sample", "last_block", "first_merge"])
+@pytest.mark.parametrize("d,c,m", [(28, 2, 2.0), (41, 23, 1.2)])
+def test_kernel_matches_plain_at_driver_inputs(card, case, d, c, m):
+    """Centers and masses at the sweep tolerances.  In the merge, C records
+    lie on centers, where the kernel's d² = ‖x‖² + ‖v‖² − 2x·v (the TPU
+    kernel's formula) is rounding noise and the plain ‖x − v‖² is 0: q
+    is held there to that expansion's f32 rounding bound."""
+    x, w, v = _driver_case(case, d, c, card)
+    q_atol = 0.0
+    if case == "first_merge":
+        q_atol = 2 * (d + 2) * 2.0 ** -24 * float(
+            (w * ((x * x).sum(1) + (v * v).sum(1).max())).sum())
+    for kern, plain, atol in ((fcm_sweep_cuda, fcm_sweep_ref, 3e-5),
+                              (fcm_accumulate_cuda, fcm_accumulate_ref, 3e-3)):
+        got, want = kern(x, w, v, m), plain(x, w, v, m)
+        _close(got[:2], want[:2], 3e-4, atol)
+        torch.testing.assert_close(got[2], want[2], rtol=3e-4,
+                                   atol=atol + q_atol)
+
+
+def test_kernel_bitwise_deterministic_and_chunk_additive(card):
+    x, w, v = _inputs(50_000, 41, 23, 5, card)
+    a = fcm_accumulate_cuda(x, w, v, 1.2)
+    b = fcm_accumulate_cuda(x, w, v, 1.2)
+    assert all(torch.equal(p, q) for p, q in zip(a, b))
+    cuts = [0, 12_345, 30_000, 50_000]
+    got = ops.accumulate_chunks([x[i:j] for i, j in zip(cuts, cuts[1:])],
+                                [w[i:j] for i, j in zip(cuts, cuts[1:])],
+                                v, 1.2)
+    _close(got, fcm_sweep_cuda(x, w, v, 1.2), 1e-5, 1e-5)
+
+
+def test_kernel_rejects_bad_inputs(card):
+    x, w, v = _inputs(10, 3, 2, 0, card)
+    with pytest.raises(ValueError, match="do not form"):
+        fcm_sweep_cuda(x, w[:5], v)
+    with pytest.raises(ValueError, match="x on"):
+        fcm_sweep_cuda(x, w.cpu(), v)
+    with pytest.raises(TypeError, match="floating"):
+        fcm_sweep_cuda(x.to(torch.int32), w, v)
+    with pytest.raises(ValueError, match="C-tiled"):
+        fcm_sweep_cuda(*_inputs(10, 4000, 64, 0, card)[:2],
+                       _inputs(1, 4000, 64, 0, card)[2])
+
+
+def test_bigfcm_fit_through_kernel(card):
+    """"auto" runs the fit through the Hopper kernel and lands where the
+    plain torch backend does from the same seeds."""
+    x, _ = make_blobs(4000, 8, 4, seed=0)
+    kw = dict(n_clusters=4, sample_size=512, use_driver=False)
+    rng = np.random.default_rng(0)
+    sample_idx = rng.choice(4000, 512, replace=False)
+    seed_idx = rng.choice(512, 4, replace=False)
+    before = fcm_sweep_cuda.launches
+    fits = [bigfcm_fit(x, BigFCMConfig(backend=b, **kw),
+                       sample_idx=sample_idx, seed_idx=seed_idx,
+                       device=card) for b in ("auto", "torch")]
+    assert fcm_sweep_cuda.launches > before
+    torch.testing.assert_close(fits[0].centers, fits[1].centers,
+                               rtol=2e-3, atol=2e-4)
+    assert fits[0].diagnostics.combiner_iters == \
+        fits[1].diagnostics.combiner_iters
