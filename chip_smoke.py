@@ -7,8 +7,8 @@ card and check it.  Run from the root of a checkout:
 Phases, each printed as JSON lines; any failure raises and exits non-zero:
 
 1. device  — the card (``nvidia-smi`` name and power limit), torch and
-   CUDA versions, and the ``nvcc`` build of every kernel from the
-   checkout's sources, timed.
+   CUDA versions, and the ``nvcc`` build of every kernel source in the
+   checkout (one ``nvcc`` each, all started together), timed.
 2. kernels — the Hopper FCM kernel against its plain PyTorch version on
    the card: every shape of tests/test_kernels.py for m in
    {1.05, 1.2, 2.0, 3.0} at that file's tolerances, chunk additivity,
@@ -16,6 +16,11 @@ Phases, each printed as JSON lines; any failure raises and exits non-zero:
    race gives it at each run's d, C and m: the 3184-row sample, WFCMPB's
    last 2048-row block with zero-weight phantom rows, and WFCMPB's first
    2·C-point merge, whose running half has zero mass.
+   Then it holds the tenant-stacked kernel (K3) against its plain
+   version: T ∈ {1, 5, 64} ragged tenants plus two all-zero phantom
+   tenants, d ∈ {4, 41}, C ∈ {3, 23}, per-tenant m from {1.05, 1.2, 2.0,
+   3.0} and a scalar m, with bit-identical reruns, exact zeros on the
+   phantoms, and one tenant against K1/K2.
 3. main path — `bigfcm_fit` on backend "auto" at the paper's dataset
    sizes (HIGGS-like 11,000,000 × 28, C=2, m=2; KDD99-like
    4,898,431 × 41, C=23, m=1.2; ε=5e-7 as in benchmarks/t6_datasets.py),
@@ -27,8 +32,19 @@ Phases, each printed as JSON lines; any failure raises and exits non-zero:
    and WFCMPB on the full-size sample) run through ``hopper``, every
    sweep over records held against the plain version on the same
    inputs, and their centers against the ``torch`` backend's.
-4. the kernels line, the ``nvidia-smi`` line, and the final
-   ``{"ok": true, ...}`` line.
+4. tenant path — `fit_tenants` on backend "auto" at two cohorts made
+   from ``--seed``: ``tenants_t16``, benchmarks/t16_tenant.py's own
+   (1024 tenants of 8–30 rows, d=4, C=3, m=2, ε=1e-3, 12 sweeps at
+   most), and ``tenants_65k`` (65,536 tenants of 64–512 rows, per-tenant
+   m ~ U(1.5, 3), ε=1e-6, 300 sweeps at most).  The K3 launch count is
+   zeroed right before each fit and read right after.  Each fit is held
+   tenant by tenant against the same fit through the ``torch`` backend
+   (`hold_tenant_fits`), ``tenants_t16``'s first 16 tenants also
+   against `fit_tenants_looped`; a burst of 4 rows per tenant goes
+   through `TenantScorer` on the card and on the CPU; and K3 is held
+   against its plain version at the packed shape, and timed.
+5. the kernels line (one entry per kernel), the ``nvidia-smi`` line,
+   and the final ``{"ok": true, ...}`` line.
 
 Bounds use an H100 SXM's published peaks at 700 W: 3.35 TB/s of device
 memory and 67 TFLOP/s of f32 outside the tensor cores.
@@ -47,9 +63,14 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
-SOURCE = "src/repro_torch/kernels/csrc/fcm_accumulate.cu"
+SOURCES = ("fcm_accumulate", "fcm_batched")     # csrc/<name>.cu
+CSRC = "src/repro_torch/kernels/csrc"
+KERNEL_SOURCE = {"fcm_sweep": "fcm_accumulate",
+                 "fcm_accumulate": "fcm_accumulate",
+                 "fcm_sweep_batched": "fcm_batched"}
 REPLACES = {"fcm_sweep": "src/repro/kernels/fcm_update.py:152",
-            "fcm_accumulate": "src/repro/kernels/fcm_update.py:40"}
+            "fcm_accumulate": "src/repro/kernels/fcm_update.py:40",
+            "fcm_sweep_batched": "src/repro/engine/backend.py:216"}
 
 # tests/test_kernels.py: SHAPES (sweep atol 3e-5) and OFF_LANE_SHAPES
 # (atol 3e-4); the raw accumulators at atol 3e-3; rtol 3e-4 throughout.
@@ -75,6 +96,31 @@ class Run:
 
 RUNS = (Run("higgs_like", "make_higgs_like", 11_000_000, 28, 2, 2.0, 5e-7),
         Run("kdd99_like", "make_kdd_like", 4_898_431, 41, 23, 1.2, 5e-7))
+
+
+@dataclasses.dataclass(frozen=True)
+class TenantRun:
+    name: str
+    tenants: int
+    rows: tuple        # [lo, hi) records per tenant
+    m: tuple           # per-tenant m ~ U(lo, hi), or () for the scalar 2.0
+    eps: float
+    max_iter: int
+    row_base: int
+    obj_rtol: float    # float64 objective bar against the exact trajectory
+
+
+# benchmarks/t16_tenant.py:47-53,66-70 (d = 4, C = 3, blobs at 4.0·(i % 5)),
+# at its cohort and at the per-user scale the tenant plane is built for.
+# tests/test_tenant.py holds converged fits' objectives to 1e-5; t16's
+# fits stop after at most 12 sweeps at ε = 1e-3, far from convergence,
+# where the objective moves to first order with the centers, so there it
+# gets the 1e-4 bar that file gives fits one sweep apart.
+TENANT_D, TENANT_C = 4, 3
+TENANT_RUNS = (TenantRun("tenants_t16", 1024, (8, 30), (), 1e-3, 12, 16,
+                         1e-4),
+               TenantRun("tenants_65k", 65_536, (64, 513), (1.5, 3.0), 1e-6,
+                         300, 64, 1e-5))
 
 
 def emit(obj) -> None:
@@ -440,12 +486,485 @@ def run_main_path(run: Run, n: int, seed: int, device, reps: int):
         if device.type == "cuda":
             torch.cuda.empty_cache()
         entries.append({
-            "name": f"{kname}@{run.name}", "route": "cuda", "source": SOURCE,
-            "replaces": REPLACES[kname], "launches": launches[kname],
+            "name": kname, "run": run.name, "launches": launches[kname],
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-            "shape": [n, d, run.c], "m": run.m})
+            "bound_ms": b_ms, "bound_by": b_by, "shape": [n, d, run.c]})
     return entries
+
+
+def tenant_stack(t, n, d, c, seed, device, phantoms=2):
+    """K3's inputs: t tenants of ragged rows (at least n/3 of the n-row
+    bucket, the rest zero-weight phantom rows), then ``phantoms``
+    all-zero phantom tenants, and per-tenant m drawn from M_SWEEP."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    x = np.zeros((t + phantoms, n, d), np.float32)
+    w = np.zeros((t + phantoms, n), np.float32)
+    v = np.zeros((t + phantoms, c, d), np.float32)
+    for i in range(t):
+        rows = int(rng.integers(max(1, n // 3), n + 1))
+        x[i, :rows] = rng.normal(size=(rows, d))
+        w[i, :rows] = rng.uniform(0.1, 3.0, size=rows)
+        v[i] = rng.normal(size=(c, d))
+    m = rng.choice(M_SWEEP, size=t + phantoms).astype(np.float32)
+    return [torch.from_numpy(a).to(device) for a in (x, w, v, m)]
+
+
+def check_tenant_kernels(device) -> dict:
+    """Phase 2b: the tenant-stacked kernel (K3) against its plain version
+    at the test_kernels tolerances, per-tenant and scalar m, two
+    phantom tenants; bit-identical reruns, exact zeros on phantoms, and
+    one tenant against the single-model kernel (K1/K2)."""
+    import torch
+    from repro_torch.kernels.fcm_update import (
+        fcm_accumulate_batched_cuda, fcm_accumulate_batched_ref,
+        fcm_accumulate_cuda, fcm_sweep_batched_cuda, fcm_sweep_batched_ref,
+        fcm_sweep_cuda)
+    worst = {"fcm_sweep_batched": 0.0, "fcm_accumulate_batched": 0.0}
+    cases = 0
+    for t in (1, 5, 64):
+        for d in (4, 41):
+            for c in (3, 23):
+                x, w, v, m_t = tenant_stack(t, 300, d, c, t + d + c, device)
+                for m in (m_t, 1.2):
+                    what = (f"T={t}+2 phantoms N=300 d={d} C={c} "
+                            f"m={'per-tenant' if m is m_t else m}")
+                    got = fcm_sweep_batched_cuda(x, w, v, m)
+                    acc = fcm_accumulate_batched_cuda(x, w, v, m)
+                    worst["fcm_sweep_batched"] = max(
+                        worst["fcm_sweep_batched"], max_err(
+                            got, fcm_sweep_batched_ref(x, w, v, m), RTOL,
+                            SWEEP_ATOL, "batched sweep " + what))
+                    worst["fcm_accumulate_batched"] = max(
+                        worst["fcm_accumulate_batched"], max_err(
+                            acc, fcm_accumulate_batched_ref(x, w, v, m),
+                            RTOL, ACC_ATOL, "batched accumulate " + what))
+                    again = (fcm_sweep_batched_cuda(x, w, v, m)
+                             + fcm_accumulate_batched_cuda(x, w, v, m))
+                    if not all(torch.equal(a, b)
+                               for a, b in zip(got + acc, again)):
+                        raise AssertionError(f"two K3 launches differ: {what}")
+                    if any(bool(o[t:].abs().any()) for o in got + acc):
+                        raise AssertionError(f"phantom tenants not 0: {what}")
+                    cases += 1
+    one = {}
+    for d, c, m in ((4, 3, 2.0), (41, 23, 1.2)):
+        x, w, v = _inputs(20_000, d, c, d + c, device)
+        for kb, k1, atol in ((fcm_sweep_batched_cuda, fcm_sweep_cuda,
+                              SWEEP_ATOL),
+                             (fcm_accumulate_batched_cuda,
+                              fcm_accumulate_cuda, ACC_ATOL)):
+            got = [o[0] for o in kb(x[None], w[None], v[None], m)]
+            one[f"{kb.__name__}/d{d}c{c}"] = max_err(
+                got, k1(x, w, v, m), RTOL, atol,
+                f"{kb.__name__} T=1 vs {k1.__name__} d={d} C={c}")
+    return {"phase": "tenant_kernels", "cases": cases,
+            "max_abs_err": worst, "one_tenant_vs_k1_max_abs_err": one,
+            "bitwise_deterministic": True, "phantom_tenants_exact_zero": True}
+
+
+def tenant_cohort(run: TenantRun, seed: int):
+    """``run``'s cohort, as benchmarks/t16_tenant.py makes it: tenant i
+    holds U[lo, hi) records of N(0, 1) in d = 4 around 4.0·(i % 5); and
+    its per-tenant fuzzifiers (None: the config's scalar m)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    data = [(rng.normal(size=(int(rng.integers(*run.rows)), TENANT_D))
+             + 4.0 * (i % 5)).astype(np.float32)
+            for i in range(run.tenants)]
+    m_t = (rng.uniform(*run.m, size=run.tenants).astype(np.float32)
+           if run.m else None)
+    return data, m_t
+
+
+def sweep64(X, W, V, m):
+    """One tenant-stacked sweep in float64 with the direct ‖x − v‖²:
+    (new centers, each tenant's Eq.-(2) objective at V, masses w_i)."""
+    import torch
+    x, mm = X.double(), m.double()[:, None, None]
+    v = V.double()
+    d2 = ((x[:, :, None, :] - v[:, None, :, :]) ** 2).sum(-1).clamp_min(
+        1e-12)
+    lg = d2.log()
+    r = torch.exp(-(lg - lg.min(-1, keepdim=True).values) / (mm - 1.0))
+    wum = (r / r.sum(-1, keepdim=True)) ** mm * W.double()[..., None]
+    w_i = wum.sum(1)
+    v_new = (wum.transpose(1, 2) @ x) / w_i.clamp_min(1e-12)[..., None]
+    return v_new, (wum * d2).sum((1, 2)), w_i
+
+
+def exact_trajectory(X, W, V0, m, counts, chunk=8192):
+    """The exact trajectory: each tenant's float64 centers after
+    ``counts[t]`` sweeps from its seeds V0, and max_i ‖ΔV_i‖² of its
+    sweeps number counts[t] and counts[t] − 1."""
+    import torch
+    out = ([], [], [])
+    for s in range(0, X.shape[0], chunk):
+        sl = slice(s, s + chunk)
+        v = V0[sl].double()
+        c = torch.as_tensor(counts[sl], device=X.device)
+        snap = v.clone()
+        last = torch.zeros(v.shape[0], dtype=torch.float64, device=X.device)
+        prev = last.clone()
+        for k in range(1, int(c.max()) + 1):
+            v_new = sweep64(X[sl], W[sl], v, m[sl])[0]
+            dv2 = ((v_new - v) ** 2).sum(-1).amax(-1)
+            v = v_new
+            snap = torch.where((c == k)[:, None, None], v, snap)
+            last = torch.where(c == k, dv2, last)
+            prev = torch.where(c == k + 1, dv2, prev)
+        for o, a in zip(out, (snap, last, prev)):
+            o.append(a)
+    return [torch.cat(o) for o in out]
+
+
+def exact_sweep(X, W, V, m, chunk=8192):
+    """`sweep64` over all tenants, a chunk at a time."""
+    import torch
+    parts = [sweep64(X[s:s + chunk], W[s:s + chunk], V[s:s + chunk],
+                     m[s:s + chunk]) for s in range(0, X.shape[0], chunk)]
+    return [torch.cat(p) for p in zip(*parts)]
+
+
+def objective64(X, W, V, m):
+    """Each tenant's float64 objective at centers V."""
+    return exact_sweep(X, W, V, m)[1]
+
+
+def q_bound(X, W, V):
+    """How far two f32 evaluations of a tenant's q through the d²
+    expansion may part: each within 2·γ_{d+2}·Σ_k w_k (‖x_k‖² +
+    max_i ‖v_i‖²) of the exact value."""
+    gamma = (X.shape[2] + 2) * 2.0 ** -24
+    x2 = (X.double() ** 2).sum(-1)
+    v2 = (V.double() ** 2).sum(-1).max(-1).values[:, None]
+    return 4 * gamma * (W.double() * (x2 + v2)).sum(1)
+
+
+def exactness(fit, X, W, V0, m):
+    """How far fit's tenants lie from the exact trajectory at their own
+    sweep counts: per tenant, the excess of |v − v_exact| over
+    1e-4 + 1e-4·|v_exact| (≤ 0 passes, as `np.allclose` at rtol = atol
+    = 1e-4, tests/test_tenant.py's center bar), the float64 objective's
+    relative gap, and the exact trajectory's ΔV² at the fit's last two
+    sweeps."""
+    import numpy as np
+    import torch
+    t = fit.n_tenants
+    X, W, V0, m = X[:t], W[:t], V0[:t], m[:t]
+    exact, last, prev = exact_trajectory(X, W, V0, m, fit.n_iter)
+    v = torch.from_numpy(fit.centers).to(X.device).double()
+    excess = ((v - exact).abs() - 1e-4 - 1e-4 * exact.abs()).amax((1, 2))
+    ja, je = objective64(X, W, v, m), objective64(X, W, exact, m)
+    rel = (ja - je).abs() / je.abs().clamp_min(1e-12)
+    return (excess.cpu().numpy(), rel.cpu().numpy().astype(np.float64),
+            last.cpu().numpy(), prev.cpu().numpy())
+
+
+def hold_tenant_fits(a, b, X, W, V0, m, fixed, allowed_gap, obj_rtol,
+                     what) -> dict:
+    """Fit ``a`` (through a kernel) against fit ``b`` (the plain ``torch``
+    backend) and against the exact float64 trajectory, tenant by tenant.
+
+    Held on the tenants ``fixed`` at f32 precision (`fixed_at_f32`):
+    ``a`` lies on the exact trajectory at its own sweep count within
+    tests/test_tenant.py's bars (centers 1e-4, float64 objective
+    ``obj_rtol`` relative); its sweep count is within ``allowed_gap`` of
+    ``b``'s; where the counts are equal, the f32 q each reports is within
+    the expansion's rounding bound (`q_bound`) plus 1e-5 relative.  The
+    direct comparison with ``b`` (centers, objective) is printed, not
+    held: where the sweeps amplify rounding (few records, far from
+    convergence) or ε is crossed slowly, two f32 fits part by more than
+    those bars while both follow the exact trajectory (PERF.md, section 6)."""
+    import numpy as np
+    import torch
+    t = a.n_tenants
+    fixed, allowed_gap = fixed[:t], allowed_gap[:t]
+    exc, rel, _, _ = exactness(a, X, W, V0, m)
+    gap = np.abs(a.n_iter.astype(np.int64) - b.n_iter)
+    same = (gap == 0) & fixed
+    va, vb = (torch.from_numpy(s.centers).to(X.device) for s in (a, b))
+    ja = objective64(X[:t], W[:t], va, m[:t])
+    jb = objective64(X[:t], W[:t], vb, m[:t])
+    rel_ab = ((ja - jb).abs() / jb.abs().clamp_min(1e-12)).cpu().numpy()
+    qdiff = np.abs(a.objective.astype(np.float64) - b.objective)
+    qlim = (1e-5 * np.abs(b.objective)
+            + q_bound(X[:t], W[:t], vb).cpu().numpy())
+    cab = np.abs(a.centers - b.centers).max(axis=(1, 2))
+    rec = {"tenants": t, "fixed_at_f32": int(fixed.sum()),
+           "n_iter_differ": int((gap > 0).sum()),
+           "n_iter_differ_by_2_or_more": int((gap > 1).sum()),
+           "max_n_iter_gap_fixed": int(gap[fixed].max(initial=0)),
+           "max_n_iter_gap_not_fixed": int(gap[~fixed].max(initial=0)),
+           "gap_over_allowed_fixed": int((gap > allowed_gap)[fixed].sum()),
+           "vs_exact_center_excess_max_fixed": float(
+               exc[fixed].max(initial=-1)),
+           "vs_exact_obj64_rel_max_fixed": float(rel[fixed].max(initial=0)),
+           "vs_exact_failing_not_fixed": int(
+               ((exc > 0) | (rel > obj_rtol))[~fixed].sum()),
+           "vs_b_center_err_max_equal_iters": float(
+               cab[gap == 0].max(initial=0)),
+           "vs_b_obj64_rel_max_equal_iters": float(
+               rel_ab[gap == 0].max(initial=0)),
+           "vs_b_obj64_rel_max": float(rel_ab.max()),
+           "vs_b_q_rel_max": float((qdiff / np.abs(b.objective)).max()),
+           "vs_b_q_over_bound_max_fixed_equal_iters": float(
+               (qdiff / qlim)[same].max(initial=0))}
+    if (2 * fixed.sum() < t or rec["gap_over_allowed_fixed"]
+            or rec["vs_exact_center_excess_max_fixed"] > 0
+            or rec["vs_exact_obj64_rel_max_fixed"] > obj_rtol
+            or rec["vs_b_q_over_bound_max_fixed_equal_iters"] > 1):
+        raise AssertionError(f"{what}: {rec}")
+    return rec
+
+
+def fixed_at_f32(ref, nudged, X, W, V0, m, obj_rtol):
+    """(fixed, allowed_gap) per tenant, from the plain ``torch`` backend's
+    fit ``ref``.  A tenant is fixed at f32 precision where ``ref`` lies
+    on the exact float64 trajectory within tests/test_tenant.py's bars
+    (`exactness`) and its fits of the records scaled by 1 ± 2⁻²²
+    (``nudged``) stop at the same sweep with centers within 1e-4.
+
+    ``allowed_gap`` is how far another f32 fit's stop may lie from
+    ``ref``'s: a rounding error of less than a factor 2 in ΔV² moves the
+    crossing of ε by at most ⌈ln 2 / ln(1/ρ²)⌉ sweeps, where ρ² is the
+    exact trajectory's ΔV² ratio over ``ref``'s last sweep (at least 1;
+    unbounded where ΔV² does not fall there)."""
+    import numpy as np
+    exc, rel, last, prev = exactness(ref, X, W, V0, m)
+    fixed = (exc <= 0) & (rel <= obj_rtol)
+    for n in nudged:
+        fixed &= n.n_iter == ref.n_iter
+        fixed &= np.all(np.abs(n.centers - ref.centers)
+                        <= 1e-4 + 1e-4 * np.abs(ref.centers), axis=(1, 2))
+    with np.errstate(divide="ignore", invalid="ignore"):
+        rho2 = np.where(prev > 0, last / prev, 0.0)
+        allowed = np.where(rho2 < 1, np.ceil(np.log(2) / -np.log(rho2)),
+                           np.inf)
+    return fixed, np.maximum(allowed, 1)
+
+
+def check_scorer(ts, run: TenantRun, seed: int, device) -> dict:
+    """A burst of 4 rows per tenant through `TenantScorer` on the card,
+    hard and soft, against the same scorer on the CPU: equal
+    assignments (a differing row must be a tie within f32 rounding),
+    soft memberships within rtol 1e-5."""
+    import numpy as np
+    import torch
+    from repro_torch.serve import TenantScorer
+    rng = np.random.default_rng(seed + 1)
+    tidx = np.repeat(np.arange(ts.n_tenants), 4)
+    x = (rng.normal(size=(tidx.size, TENANT_D))
+         + 4.0 * (tidx % 5)[:, None]).astype(np.float32)
+    rec = {"rows": int(tidx.size)}
+    for soft in (False, True):
+        t0 = time.perf_counter()
+        gpu = TenantScorer(ts, soft=soft, device=device).score(x, tidx)
+        torch.cuda.synchronize(device)
+        rec[f"{'soft' if soft else 'hard'}_s"] = time.perf_counter() - t0
+        cpu = TenantScorer(ts, soft=soft, device="cpu").score(x, tidx)
+        gpu = gpu.cpu()
+        if soft:
+            rec["soft_max_abs_err"] = max_err([gpu], [cpu], 1e-5, 0.0,
+                                              f"soft scorer at {run.name}")
+            continue
+        bad = np.flatnonzero((gpu != cpu).numpy())
+        d2 = ((x[bad, None, :] - ts.centers[tidx[bad]]) ** 2).sum(-1)
+        rows = np.arange(bad.size)
+        ga, ca = d2[rows, gpu.numpy()[bad]], d2[rows, cpu.numpy()[bad]]
+        if np.any(np.abs(ga - ca) > 1e-6 * np.maximum(ga, ca)):
+            raise AssertionError(f"hard scorer at {run.name}: {bad.size} "
+                                 "rows differ beyond a tie")
+        rec["hard_ties_differing"] = int(bad.size)
+    return rec
+
+
+def run_tenant_path(run: TenantRun, seed: int, device, reps: int):
+    """Phase 4 for one cohort: `fit_tenants` on "auto" with the K3 launch
+    count zeroed just before it and read just after; the same fit on the
+    ``torch`` backend, held tenant by tenant; the looped fit of 16
+    tenants (``tenants_t16``); the scorer; and K3 against its plain
+    version at the cohort's packed shape, timed.  Returns (phase record,
+    kernel entry)."""
+    import numpy as np
+    import torch
+    from repro_torch.device import synchronize
+    from repro_torch.engine import get_backend, resolve_backend
+    from repro_torch.kernels.fcm_update import (fcm_sweep_batched_cuda,
+                                                fcm_sweep_batched_ref)
+    from repro_torch.tenant import (TenantFitConfig, fit_tenants,
+                                    fit_tenants_looped, pack_tenants,
+                                    seed_centers)
+    from repro_torch.tenant.fit import _per_tenant_m
+
+    t0 = time.perf_counter()
+    data, m_t = tenant_cohort(run, seed)
+    setup_s = time.perf_counter() - t0
+    cfg = TenantFitConfig(n_clusters=TENANT_C, eps=run.eps,
+                          max_iter=run.max_iter, seed=seed,
+                          row_base=run.row_base)
+    backend = resolve_backend(cfg.backend, device=device).name
+    if backend != "hopper":
+        raise AssertionError(f"'auto' resolved to {backend!r} on the card")
+
+    # -- the main path, with the K3 launch count zeroed just before it
+    fcm_sweep_batched_cuda.launches = 0
+    synchronize(device)
+    t0 = time.perf_counter()
+    ts = fit_tenants(data, cfg, m_t=m_t, device=device)
+    synchronize(device)
+    wall = time.perf_counter() - t0
+    launches = fcm_sweep_batched_cuda.launches
+    if launches == 0:
+        raise AssertionError(f"K3 was not launched at {run.name}")
+    if not (np.isfinite(ts.centers).all() and np.isfinite(ts.objective).all()
+            and ts.centers.shape == (run.tenants, TENANT_C, TENANT_D)):
+        raise AssertionError(f"{run.name}: non-finite or mis-shaped fit")
+
+    # -- the host's share of the fit: packing and seeding alone
+    t0 = time.perf_counter()
+    X, W = pack_tenants(data, cfg)
+    seeds = seed_centers(data, cfg)
+    host_s = time.perf_counter() - t0
+    V0 = np.zeros((X.shape[0], TENANT_C, TENANT_D), np.float32)
+    V0[:run.tenants] = seeds
+    m_all = _per_tenant_m(cfg, m_t, X.shape[0], run.tenants)
+    X, W, V0, m_dev = (torch.from_numpy(a).to(device)
+                       for a in (X, W, V0, m_all))
+    record = {"phase": "tenant_path", "run": run.name,
+              "tenants": run.tenants, "bucket": list(X.shape),
+              "c": TENANT_C, "m": list(run.m) or 2.0, "eps": run.eps,
+              "max_iter": run.max_iter, "backend": backend,
+              "setup_s": setup_s, "wall_s": wall, "host_pack_seed_s": host_s,
+              "batched_sweeps": launches,
+              "n_iter_max": int(ts.n_iter.max()),
+              "n_iter_mean": float(ts.n_iter.mean()),
+              "at_max_iter": int((ts.n_iter == run.max_iter).sum())}
+
+    # -- the same fit through the torch backend, same seeds, and with
+    #    the records scaled by 1 ± 2⁻²² to find the tenants it fixes
+    torch_cfg = dataclasses.replace(cfg, backend="torch")
+    t0 = time.perf_counter()
+    tor = fit_tenants(data, torch_cfg, m_t=m_t, device=device)
+    synchronize(device)
+    record["torch_wall_s"] = time.perf_counter() - t0
+    fixed, allowed = fixed_at_f32(tor, [
+        fit_tenants([x * np.float32(1 + sign * 2.0 ** -22) for x in data],
+                    torch_cfg, m_t=m_t, device=device) for sign in (1, -1)],
+        X, W, V0, m_dev, run.obj_rtol)
+    record["vs_torch"] = hold_tenant_fits(
+        ts, tor, X, W, V0, m_dev, fixed, allowed, run.obj_rtol,
+        f"hopper vs torch at {run.name}")
+    if run.name == "tenants_t16":
+        looped = fit_tenants_looped(
+            data[:16], cfg, m_t=None if m_t is None else m_t[:16],
+            device=device)
+        record["looped_vs_batched"] = hold_tenant_fits(
+            looped, ts.select(ts.ids[:16]), X, W, V0, m_dev, fixed,
+            allowed, run.obj_rtol, f"looped vs batched at {run.name}")
+    del tor
+    record["scorer"] = check_scorer(ts, run, seed, device)
+
+    # -- K3 against its plain version at the packed shape, at the seeds
+    #    (the fit's first launch) and at the fitted centers (its last).
+    #    v_new, and q to its rounding bound, are held at the sweep
+    #    tolerances.  Off the origin the d² expansion that K3 shares with
+    #    the TPU kernel and the torch backend rounds by up to
+    #    2·γ_{d+2}·(‖x‖² + ‖v‖²), which moves the memberships of records
+    #    near a center, and so w_i, by more than rtol 3e-4 (the blobs
+    #    here sit up to 16 from the origin).  So every output is also held
+    #    no farther from the exact float64 sweep than twice the torch
+    #    backend's own distance from it on the same inputs.
+    V = torch.zeros((X.shape[0], TENANT_C, TENANT_D), device=device)
+    V[:run.tenants] = torch.from_numpy(ts.centers).to(device)
+    torch_be = get_backend("torch")
+    held = {}
+    for label, centers in (("seeds", V0), ("fitted", V)):
+        got = fcm_sweep_batched_cuda(X, W, centers, m_dev)
+        if not all(torch.equal(a, b) for a, b in zip(
+                got, fcm_sweep_batched_cuda(X, W, centers, m_dev))):
+            raise AssertionError(f"two K3 launches differ at {run.name}")
+        want = fcm_sweep_batched_ref(X, W, centers, m_dev)
+        what = f"fcm_sweep_batched at {run.name}, {label} centers"
+        held[label] = max_err(
+            (got[0], got[2]), (want[0], want[2]), RTOL,
+            (SWEEP_ATOL, SWEEP_ATOL + q_bound(X, W, centers).float()), what)
+        held[label + "_w_i_vs_plain"] = float((got[1] - want[1]).abs().max())
+        del want
+        v64, q64, w64 = exact_sweep(X, W, centers, m_dev)
+        tor = torch_be.batched_sweep(X, W, centers, m_dev)
+        for name, k3, tb, ex in zip(("v_new", "w_i", "q"), got, tor,
+                                    (v64, w64, q64)):
+            ek = float((k3.double() - ex).abs().max())
+            et = float((tb.double() - ex).abs().max())
+            held[f"{label}_{name}_vs_exact"] = [ek, et]
+            if ek > 2 * et + SWEEP_ATOL:
+                raise AssertionError(f"{what}: {name} {ek:.3e} from the "
+                                     f"exact sweep, torch backend {et:.3e}")
+        del got, tor, v64, q64, w64
+    record["k3_vs_plain"] = held
+    emit(record)
+    err = max(held["seeds"], held["fitted"])
+    ms = time_ms(lambda: fcm_sweep_batched_cuda(X, W, V, m_dev), reps)
+    plain_ms = time_ms(lambda: fcm_sweep_batched_ref(X, W, V, m_dev), 3)
+    torch.cuda.empty_cache()
+    tb, n, d = X.shape
+    b_ms, b_by = bound_batched(tb, n, d, TENANT_C)
+    return {"name": "fcm_sweep_batched", "run": run.name,
+            "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "shape": [tb, n, d, TENANT_C]}
+
+
+def bound_batched(t: int, n: int, d: int, c: int):
+    """(ms, what sets it) for one tenant-stacked sweep: the (T, N, d)
+    block, its (T, N) weights, V and m read once, the outputs written
+    once, against 4·T·N·C·d f32 flops."""
+    nbytes = 4 * (t * n * (d + 1) + 2 * t * c * d + t * c + 2 * t)
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = 4 * t * n * c * d / PEAK_F32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def kernel_line(per_run) -> list:
+    """One entry per kernel: its launches summed over the main-path
+    runs, its worst error, and the numbers of the run with the most work
+    (the largest bound) on top; every run's numbers under ``runs``."""
+    entries = {}
+    for e in per_run:
+        entries.setdefault(e["name"], []).append(e)
+    out = []
+    for name, runs in entries.items():
+        top = max(runs, key=lambda e: e["bound_ms"])
+        out.append({
+            "name": name, "route": "cuda",
+            "source": f"{CSRC}/{KERNEL_SOURCE[name]}.cu",
+            "replaces": REPLACES[name],
+            "launches": sum(e["launches"] for e in runs),
+            "max_abs_err": max(e["max_abs_err"] for e in runs),
+            "ms": top["ms"], "plain_ms": top["plain_ms"],
+            "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
+            "library_ms": None, "at": top["run"],
+            "runs": {e["run"]: {k: e[k] for k in (
+                "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                "bound_by", "shape")} for e in runs}})
+    return out
+
+
+def build_all() -> dict:
+    """Build every kernel source at once (one ``nvcc`` each, in
+    parallel), timed; returns each one's ptxas register/smem lines."""
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.kernels import build
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        logs = dict(zip(SOURCES, pool.map(
+            lambda name: build.compile_source(name, verbose=True), SOURCES)))
+    return {"phase": "build", "seconds": time.perf_counter() - t0,
+            "ptxas": {name: [ln.strip() for ln in log.splitlines()
+                             if "registers" in ln or "smem" in ln]
+                      for name, log in logs.items()}}
 
 
 def main(argv=None) -> int:
@@ -459,28 +978,28 @@ def main(argv=None) -> int:
               "runs on an NVIDIA card only", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.kernels import build
 
     device = torch.device("cuda", 0)
     emit({"phase": "device", "nvidia_smi": nvidia_smi(),
           "name": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "python": sys.version.split()[0],
           "torch": torch.__version__, "cuda": torch.version.cuda})
-    t0 = time.perf_counter()
-    log = build.compile_source("fcm_accumulate", verbose=True)
-    emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "ptxas": [ln.strip() for ln in log.splitlines()
-                    if "registers" in ln or "smem" in ln]})
+    emit(build_all())
 
     emit(check_kernels(device))
+    emit(check_tenant_kernels(device))
 
     entries = []
     for run in RUNS:
         entries += run_main_path(run, run.n, args.seed, device, reps=20)
         torch.cuda.empty_cache()
+    for run in TENANT_RUNS:
+        entries.append(run_tenant_path(run, args.seed, device, reps=20))
+        torch.cuda.empty_cache()
 
-    emit({"kernels": entries,
-          "library_note": "no single PyTorch call computes the FCM sweep"})
+    emit({"kernels": kernel_line(entries),
+          "library_note": "no single PyTorch call computes the FCM sweep, "
+                          "single-model or tenant-stacked"})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -16,10 +16,11 @@ import torch
 from ..engine.backend import (_D2_FLOOR, BackendLike, fcm_sweep,
                               hard_assign, membership_terms,
                               pairwise_sqdist, soft_assign)
-from ..engine.merge import fcm_converge
+from ..engine.merge import fcm_converge, fcm_converge_batched
 
 __all__ = [
-    "FCMResult", "fcm", "wfcm", "fcm_sweep", "membership_terms",
+    "FCMResult", "fcm", "wfcm", "fcm_batched", "fcm_sweep",
+    "membership_terms",
     "pairwise_sqdist", "soft_assign", "hard_assign", "_D2_FLOOR",
 ]
 
@@ -57,3 +58,32 @@ def fcm(
 
 
 wfcm = fcm  # WFCM == FCM with point_weights (paper Eq. 2)
+
+
+def fcm_batched(
+    x,
+    init_centers,
+    *,
+    m=2.0,
+    eps: float = 1e-6,
+    max_iter: int = 1000,
+    point_weights=None,
+    backend: BackendLike = None,
+    device: Union[str, torch.device] = "cuda",
+) -> FCMResult:
+    """T independent (weighted) FCM fits run together on ``device``.
+
+    ``x`` is a tenant-stacked (T, N, d) block (ragged per-tenant row
+    counts ride in as zero-weight phantom padding via
+    ``point_weights``), ``init_centers`` (T, C, d), ``m`` a scalar or a
+    (T,) per-tenant array.  Every field of the returned `FCMResult`
+    carries the leading T axis, ``n_iter`` included; each tenant's
+    trajectory matches its own `fcm` run (see
+    `repro_torch.engine.merge.fcm_converge_batched`)."""
+    x = torch.as_tensor(x, dtype=torch.float32)
+    w = (torch.ones(x.shape[:2], dtype=torch.float32, device=x.device)
+         if point_weights is None else point_weights)
+    v, masses, q, n_iter = fcm_converge_batched(
+        x, w, init_centers, m=m, eps=eps, max_iter=max_iter,
+        backend=backend, device=device)
+    return FCMResult(v, masses, n_iter, q)

@@ -18,10 +18,14 @@ selected once by name:
   ``hopper_accumulate`` — the kernel's raw-accumulator entry plus an
                           out-of-kernel normalization.
 
+Every backend also has the tenant-stacked entries ``batched_accumulate``
+/ ``batched_sweep``: T independent models, x (T, N, d), w (T, N),
+centers (T, C, d), m a scalar or (T,), in one call.
+
 ``resolve_backend(None | "auto", device=...)`` picks by device: a CUDA
 device gets ``hopper``, a CPU device ``torch``.  The reference's
 measured calibration race (`repro.perf.calibrate`) is not ported yet,
-nor are its obs events, the bf16 backend or the tenant-batched entries.
+nor are its obs events or the bf16 backend.
 The kernel backends register from `repro_torch.kernels.ops`, which
 `repro_torch.engine` imports outright: a kernel that cannot be built
 on a CUDA host makes the fit raise, never degrade.
@@ -38,12 +42,13 @@ _D2_FLOOR = 1e-12  # distance floor: a record sitting exactly on a center
 # ------------------------------------------------------------ sweep math ---
 
 def pairwise_sqdist(x: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
-    """‖x−v‖² via the matmul expansion x² + v² − 2·x·vᵀ."""
+    """‖x−v‖² via the matmul expansion x² + v² − 2·x·vᵀ.  x (…, N, d),
+    centers (…, C, d) → (…, N, C); leading axes (tenants) batch."""
     x = x.float()
     centers = centers.float()
-    x2 = torch.sum(x * x, dim=-1, keepdim=True)          # (N, 1)
-    v2 = torch.sum(centers * centers, dim=-1)            # (C,)
-    cross = x @ centers.T                                # (N, C)
+    x2 = torch.sum(x * x, dim=-1, keepdim=True)          # (…, N, 1)
+    v2 = torch.sum(centers * centers, dim=-1)[..., None, :]  # (…, 1, C)
+    cross = x @ centers.transpose(-1, -2)                # (…, N, C)
     return torch.clamp(x2 + v2 - 2.0 * cross, min=_D2_FLOOR)
 
 
@@ -80,6 +85,33 @@ def fcm_accumulate(x, weights, centers, m):
     w_i = torch.sum(wum, dim=0)                          # (C,)
     v_num = wum.T @ x.float()                            # (C, d)
     q = torch.sum(wum * d2)                              # objective, Eq. (2)
+    return v_num, w_i, q
+
+
+def _batched_m(m, x: torch.Tensor):
+    """``m`` for the tenant-stacked math: a number stays a number; one
+    fuzzifier per tenant becomes an f32 (T, 1, 1) column that broadcasts
+    through `_u_from_d2` / `_um_from_d2`."""
+    if isinstance(m, (int, float)):
+        return float(m)
+    m = torch.as_tensor(m, dtype=torch.float32, device=x.device)
+    return m if m.dim() == 0 else m.reshape(-1, 1, 1)
+
+
+def fcm_accumulate_batched(x, weights, centers, m):
+    """Alg.-1 accumulators over a leading tenant axis.
+
+    ``x`` (T, N, d), ``weights`` (T, N), ``centers`` (T, C, d), ``m``
+    scalar or (T,) → per-tenant (v_num (T, C, d), w_i (T, C), q (T,)).
+    The N axis is a shared shape bucket: per-tenant row counts n_t ≤ N
+    ride in as zero-weight phantom padding (`data.plane.pad_rows`), so
+    padding is a no-op in every accumulator."""
+    x = x.float()
+    d2 = pairwise_sqdist(x, centers)                     # (T, N, C)
+    wum = _um_from_d2(d2, _batched_m(m, x)) * weights.float()[..., None]
+    w_i = torch.sum(wum, dim=1)                          # (T, C)
+    v_num = wum.transpose(1, 2) @ x                      # (T, C, d)
+    q = torch.sum(wum * d2, dim=(1, 2))                  # (T,)
     return v_num, w_i, q
 
 
@@ -122,6 +154,22 @@ class SweepBackend:
         """(v_new, w_i, q): accumulate + the one deferred normalization."""
         return normalize_accumulators(*self.accumulate(x, w, centers, m))
 
+    def batched_accumulate(self, x, w, centers, m):
+        """Raw accumulators for a tenant-stacked batch: ``x`` (T, N, d),
+        ``w`` (T, N), ``centers`` (T, C, d), ``m`` scalar or (T,) →
+        per-tenant (v_num, w_i, q) with leading T.  Default:
+        `torch.func.vmap` of ``accumulate``, as the reference vmaps its
+        backends; a backend with a batched kernel overrides this."""
+        in_m = 0 if torch.as_tensor(m).dim() else None
+        return torch.func.vmap(self.accumulate, in_dims=(0, 0, 0, in_m))(
+            x, w, centers, m)
+
+    def batched_sweep(self, x, w, centers, m):
+        """Tenant-stacked sweep: batched accumulate + the per-tenant
+        deferred normalization."""
+        return normalize_accumulators(*self.batched_accumulate(
+            x, w, centers, m))
+
     def soft_assign(self, x, centers, m=2.0):
         return soft_assign(x, centers, m)
 
@@ -140,6 +188,10 @@ class TorchBackend(SweepBackend):
     def accumulate(self, x, w, centers, m):
         torch.backends.cuda.matmul.allow_tf32 = False   # IEEE fp32 matmuls
         return fcm_accumulate(x, w, centers, m)
+
+    def batched_accumulate(self, x, w, centers, m):
+        torch.backends.cuda.matmul.allow_tf32 = False
+        return fcm_accumulate_batched(x, w, centers, m)
 
 
 _REGISTRY: Dict[str, SweepBackend] = {}

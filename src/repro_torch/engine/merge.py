@@ -2,13 +2,15 @@
 
 Counterpart of `repro.engine.merge`.  BigFCM's reducer and WFCMPB's
 progression both run a weighted FCM over a stack of (centers, masses)
-summaries.  This slice ports the ``flat`` topology — one WFCM over all
-S·C sketch points; ``pairwise``, ``windowed`` and the tenant-batched
-convergence come with later slices.
+summaries.  This module ports the ``flat`` topology — one WFCM over all
+S·C sketch points; ``pairwise`` and ``windowed`` come with later slices.
+`fcm_converge_batched` runs T independent fits at once, the tenant
+plane's loop.
 
-`_converge` is the reference's ``lax.while_loop`` as a host loop with the
-same stopping rule.  It reads ``delta`` on the host once per iteration,
-one device→host sync each.
+`_converge` and `fcm_converge_batched` are the reference's
+``lax.while_loop`` programs as host loops with the same stopping rules.
+Each reads its stopping test on the host once per iteration, one
+device→host sync each.
 
 **Mass is NOT conserved by WFCM** (Σ_i u_ik^m < 1 for m > 1): compare
 merged centers and objectives, never total mass.
@@ -94,6 +96,59 @@ def fcm_converge(
          if point_weights is None else as_f32(point_weights, dev))
     return _converge(lambda v: be.sweep(x, w, v, m),
                      as_f32(init_centers, dev), eps=eps, max_iter=max_iter)
+
+
+def fcm_converge_batched(
+    X,
+    W,
+    init_centers,
+    *,
+    m=2.0,
+    eps: float = 1e-6,
+    max_iter: int = 1000,
+    backend: BackendLike = None,
+    device: Union[str, torch.device] = "cuda",
+):
+    """Run T independent (weighted) FCM fits to convergence together —
+    the tenant axis of `repro_torch.tenant`.
+
+    ``X`` (T, N, d) phantom-padded record blocks, ``W`` (T, N) weights
+    (0 on padding rows), ``init_centers`` (T, C, d), ``m`` scalar or a
+    (T,) per-tenant array.  Returns ``(centers (T, C, d), masses
+    (T, C), objective (T,), n_iter (T,))``.
+
+    Every iteration runs one ``batched_sweep`` over all T tenants.  A
+    per-tenant done-mask keeps each tenant on the trajectory
+    `fcm_converge` would give it alone: tenant t is active while
+    ``n_iter < max_iter`` and (``n_iter == 0`` or max_i ‖ΔV_i‖² > ε);
+    only active tenants take the new centers, frozen ones keep
+    (v, v_prev, n_iter).  The loop ends when no tenant is active, and
+    one more batched sweep gives the masses and per-tenant objectives
+    (Eq. 6).  Frozen tenants are swept along with the rest, as in the
+    reference.  The reference's ``batched_trace_counts`` guards XLA
+    retraces of its jitted program; this loop compiles nothing, so it
+    has no counterpart."""
+    dev = resolve_device(device)
+    be = resolve_backend(backend, device=dev)
+    X = as_f32(X, dev)
+    W = as_f32(W, dev)
+    v = as_f32(init_centers, dev)
+    m = as_f32(m, dev)
+    if m.dim() == 0:
+        m = m.expand(X.shape[0])
+    v_prev = v
+    n_iter = torch.zeros((X.shape[0],), dtype=torch.int32, device=dev)
+    while True:
+        delta = torch.max(torch.sum((v - v_prev) ** 2, dim=-1), dim=-1).values
+        act = (n_iter < max_iter) & ((n_iter == 0) | (delta > eps))
+        if not bool(act.any()):
+            break
+        v_new, _, _ = be.batched_sweep(X, W, v, m)
+        a3 = act[:, None, None]
+        v, v_prev = torch.where(a3, v_new, v), torch.where(a3, v, v_prev)
+        n_iter = torch.where(act, n_iter + 1, n_iter)
+    _, w_final, q = be.batched_sweep(X, W, v, m)
+    return v, w_final, q, n_iter
 
 
 def _seed_centers(s: Summary, rule: str) -> torch.Tensor:

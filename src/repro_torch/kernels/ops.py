@@ -3,11 +3,13 @@
 Counterpart of `repro.kernels.ops`.  Importing it registers two
 backends with `repro_torch.engine`:
 
-  ``hopper``            — the fused sweep (`fcm_sweep_cuda`);
-  ``hopper_accumulate`` — the raw-accumulator entry plus an out-of-kernel
-                          normalization, so a whole-sweep consumer and a
-                          chunked-accumulate consumer see the same
-                          per-chunk sums.
+  ``hopper``            — the fused sweep (`fcm_sweep_cuda`), and for a
+                          tenant-stacked batch the fused batched sweep
+                          (`fcm_sweep_batched_cuda`);
+  ``hopper_accumulate`` — the raw-accumulator entries plus an
+                          out-of-kernel normalization, so a whole-sweep
+                          consumer and a chunked-accumulate consumer see
+                          the same per-chunk sums.
 
 The kernel picks its own tile from the shape (`fcm_update._plan`); the
 reference's autotuned block sizes come with the perf slice.  On a CUDA
@@ -20,7 +22,9 @@ import torch
 
 from ..engine.backend import (SweepBackend, normalize_accumulators,
                               register_backend)
-from .fcm_update import _D2_FLOOR, fcm_accumulate_cuda, fcm_sweep_cuda
+from .fcm_update import (_D2_FLOOR, fcm_accumulate_batched_cuda,
+                         fcm_accumulate_cuda, fcm_sweep_batched_cuda,
+                         fcm_sweep_cuda)
 
 fcm_sweep_kernel = fcm_sweep_cuda
 fcm_accumulate_kernel = fcm_accumulate_cuda
@@ -46,7 +50,7 @@ def accumulate_chunks(chunks, weights, centers, m: float = 2.0):
 
 
 class HopperBackend(SweepBackend):
-    """The Hopper kernel's fused sweep."""
+    """The Hopper kernels' fused sweeps."""
 
     name = "hopper"
 
@@ -56,10 +60,16 @@ class HopperBackend(SweepBackend):
     def sweep(self, x, w, centers, m):
         return fcm_sweep_kernel(x, w, centers, m)
 
+    def batched_accumulate(self, x, w, centers, m):
+        return fcm_accumulate_batched_cuda(x, w, centers, m)
+
+    def batched_sweep(self, x, w, centers, m):
+        return fcm_sweep_batched_cuda(x, w, centers, m)
+
 
 class HopperAccumulateBackend(SweepBackend):
-    """The kernel's raw-accumulator entry; its sweep normalizes outside
-    the kernel."""
+    """The kernels' raw-accumulator entries; its sweeps normalize outside
+    the kernels."""
 
     name = "hopper_accumulate"
 
@@ -69,6 +79,9 @@ class HopperAccumulateBackend(SweepBackend):
     def sweep(self, x, w, centers, m):
         return normalize_accumulators(
             *fcm_accumulate_kernel(x, w, centers, m))
+
+    def batched_accumulate(self, x, w, centers, m):
+        return fcm_accumulate_batched_cuda(x, w, centers, m)
 
 
 register_backend(HopperBackend())

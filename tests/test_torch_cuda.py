@@ -1,5 +1,5 @@
-"""The Hopper FCM kernel on a card, against its plain PyTorch version on
-the same card.  Every test carries the ``cuda`` marker and skips on a
+"""The Hopper FCM kernels (single-model and tenant-stacked) on a card,
+against their plain PyTorch versions on the same card.  Every test carries the ``cuda`` marker and skips on a
 host without a card.  The file imports no jax, so it runs where only
 PyTorch is installed:
 
@@ -13,9 +13,14 @@ import torch
 from repro_torch.core import BigFCMConfig, bigfcm_fit
 from repro_torch.data import make_blobs
 from repro_torch.kernels import ops
-from repro_torch.kernels.fcm_update import (fcm_accumulate_cuda,
+from repro_torch.kernels.fcm_update import (fcm_accumulate_batched_cuda,
+                                            fcm_accumulate_batched_ref,
+                                            fcm_accumulate_cuda,
                                             fcm_accumulate_ref,
+                                            fcm_sweep_batched_cuda,
+                                            fcm_sweep_batched_ref,
                                             fcm_sweep_cuda, fcm_sweep_ref)
+from repro_torch.tenant import TenantFitConfig, fit_tenants
 
 pytestmark = pytest.mark.cuda
 
@@ -143,3 +148,85 @@ def test_bigfcm_fit_through_kernel(card):
                                rtol=2e-3, atol=2e-4)
     assert fits[0].diagnostics.combiner_iters == \
         fits[1].diagnostics.combiner_iters
+
+
+def _stack(t, n, d, c, seed, device, phantoms=2):
+    """Tenant-stacked inputs: ragged rows padded by zero-weight phantom
+    rows, then ``phantoms`` all-zero phantom tenants."""
+    rng = np.random.default_rng(seed)
+    x = np.zeros((t + phantoms, n, d), np.float32)
+    w = np.zeros((t + phantoms, n), np.float32)
+    v = np.zeros((t + phantoms, c, d), np.float32)
+    for i in range(t):
+        rows = int(rng.integers(max(1, n // 3), n + 1))
+        x[i, :rows] = rng.normal(size=(rows, d))
+        w[i, :rows] = rng.uniform(0.1, 3.0, size=rows)
+        v[i] = rng.normal(size=(c, d))
+    m = rng.choice([1.05, 1.2, 2.0, 3.0], size=t + phantoms).astype(
+        np.float32)
+    return [torch.from_numpy(a).to(device) for a in (x, w, v, m)]
+
+
+@pytest.mark.parametrize("scalar_m", [False, True])
+@pytest.mark.parametrize("d,c", [(4, 3), (41, 23)])
+@pytest.mark.parametrize("t", [1, 5, 64])
+def test_batched_kernel_matches_plain(card, t, d, c, scalar_m):
+    x, w, v, m = _stack(t, 300, d, c, t + d + c, card)
+    m = 1.2 if scalar_m else m
+    before = fcm_sweep_batched_cuda.launches
+    got = fcm_sweep_batched_cuda(x, w, v, m)
+    assert fcm_sweep_batched_cuda.launches == before + 1
+    _close(got, fcm_sweep_batched_ref(x, w, v, m), 3e-4, 3e-5)
+    acc = fcm_accumulate_batched_cuda(x, w, v, m)
+    _close(acc, fcm_accumulate_batched_ref(x, w, v, m), 3e-4, 3e-3)
+    for a, b in zip(acc, fcm_accumulate_batched_cuda(x, w, v, m)):
+        assert torch.equal(a, b)                     # bit-identical rerun
+    for out in got + acc:                            # phantom tenants
+        assert not bool(out[t:].abs().any())
+
+
+def test_batched_kernel_one_tenant_matches_single_model_kernel(card):
+    x, w, v = _inputs(20_000, 41, 23, 3, card)
+    for kb, k1, atol in ((fcm_sweep_batched_cuda, fcm_sweep_cuda, 3e-5),
+                         (fcm_accumulate_batched_cuda, fcm_accumulate_cuda,
+                          3e-3)):
+        got = kb(x[None], w[None], v[None], 1.2)
+        _close([g[0] for g in got], k1(x, w, v, 1.2), 3e-4, atol)
+
+
+def test_batched_kernel_rejects_bad_inputs(card):
+    x, w, v, m = _stack(3, 20, 4, 3, 0, card)
+    with pytest.raises(ValueError, match="do not form"):
+        fcm_sweep_batched_cuda(x, w[:, :5], v, m)
+    with pytest.raises(ValueError, match="one fuzzifier per tenant"):
+        fcm_sweep_batched_cuda(x, w, v, m[:2])
+    with pytest.raises(ValueError, match="C-tiled"):
+        big = _stack(1, 10, 4000, 64, 0, card)
+        fcm_sweep_batched_cuda(*big)
+
+
+def test_fit_tenants_through_kernel(card):
+    """"auto" fits a cohort through the tenant-stacked kernel and lands
+    where the plain torch backend does from the same seeds.  Iteration
+    counts and centers are held on the tenants whose torch fit does not
+    move when their records are scaled by 1 ± 2⁻²²: elsewhere the slow
+    crossing of ε is set by rounding (PERF.md, section 6)."""
+    rng = np.random.default_rng(1)
+    data = [(rng.normal(size=(int(rng.integers(8, 60)), 4)) + 4.0 * (i % 5))
+            .astype(np.float32) for i in range(200)]
+    cfg = TenantFitConfig(n_clusters=3, row_base=16)
+    torch_cfg = TenantFitConfig(n_clusters=3, row_base=16, backend="torch")
+    before = fcm_sweep_batched_cuda.launches
+    hop = fit_tenants(data, cfg, device=card)
+    assert fcm_sweep_batched_cuda.launches > before
+    tor = fit_tenants(data, torch_cfg, device=card)
+    fixed = np.ones(200, bool)
+    for sign in (1, -1):
+        nudged = fit_tenants([x * np.float32(1 + sign * 2.0 ** -22)
+                              for x in data], torch_cfg, device=card)
+        fixed &= nudged.n_iter == tor.n_iter
+    gap = np.abs(hop.n_iter.astype(int) - tor.n_iter)
+    assert fixed.sum() >= 150 and np.all(gap[fixed] <= 1)
+    same = fixed & (gap == 0)
+    np.testing.assert_allclose(hop.centers[same], tor.centers[same],
+                               rtol=1e-4, atol=1e-4)

@@ -34,6 +34,18 @@ else:
 """
 
 
+_NO_CARD_TENANT = """
+import numpy as np
+from repro_torch.tenant import TenantFitConfig, fit_tenants
+try:
+    fit_tenants([np.zeros((8, 2), np.float32)], TenantFitConfig(n_clusters=2))
+except RuntimeError as e:
+    print("raised:", e)
+else:
+    print("ran")
+"""
+
+
 def _run(code, **env):
     return subprocess.run(
         [sys.executable, "-c", code], capture_output=True, text=True,
@@ -45,10 +57,18 @@ def test_import_loads_no_jax_and_no_reference_module():
     out = json.loads(_run(_IMPORT_ALL).strip().splitlines()[-1])
     assert {"repro_torch.engine.backend", "repro_torch.kernels.fcm_update",
             "repro_torch.kernels.build", "repro_torch.core.bigfcm",
-            "repro_torch.data.synth"} <= set(out["modules"])
+            "repro_torch.data.synth", "repro_torch.data.plane",
+            "repro_torch.tenant", "repro_torch.tenant.core",
+            "repro_torch.tenant.fit", "repro_torch.serve",
+            "repro_torch.serve.tenant"} <= set(out["modules"])
     assert out["leaked"] == []
 
 
 def test_entry_point_raises_without_a_card():
     out = _run(_NO_CARD, CUDA_VISIBLE_DEVICES="")
+    assert out.startswith("raised:") and "device='cpu'" in out
+
+
+def test_tenant_fit_raises_without_a_card():
+    out = _run(_NO_CARD_TENANT, CUDA_VISIBLE_DEVICES="")
     assert out.startswith("raised:") and "device='cpu'" in out
