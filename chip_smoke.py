@@ -46,6 +46,19 @@ Phases, each printed as JSON lines; any failure raises and exits non-zero:
 5. the kernels line (one entry per kernel), the ``nvidia-smi`` line,
    and the final ``{"ok": true, ...}`` line.
 
+Launches are priced at their own shapes.  Each wrapper counts its
+launches per (path, N) (K3: per (path, T, N)); each main-path record
+prints that split (``launches_by_shape``) and fails unless every launch
+took the path the launch plan gives that run (``EXPECTED_PATH``).  Every
+shape a run launches at (the full size, the driver's 3184-row sample and
+2048-row blocks, the 2·C-point merges, any other size as "n=N"; K3's
+packed cohort) is held against the plain version and timed two
+ways: ``ms``, CUDA events around a run of back-to-back launches divided
+by their count, the run captured in a CUDA graph and replayed so that the
+host's enqueue drops out (the card's time), and ``ms_per_call``, the
+median of events around single launches (which also counts the host's
+enqueue at small shapes, as PR 11/12's times did).
+
 Bounds use an H100 SXM's published peaks at 700 W: 3.35 TB/s of device
 memory and 67 TFLOP/s of f32 outside the tensor cores.
 """
@@ -65,10 +78,17 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
 SOURCES = ("fcm_accumulate", "fcm_batched")     # csrc/<name>.cu
 CSRC = "src/repro_torch/kernels/csrc"
-KERNEL_SOURCE = {"fcm_sweep": "fcm_accumulate",
-                 "fcm_accumulate": "fcm_accumulate",
-                 "fcm_sweep_batched": "fcm_batched"}
-REPLACES = {"fcm_sweep": "src/repro/kernels/fcm_update.py:152",
+# The source of each launch plan path: the rows kernel (which the
+# single-model sweep runs at T = 1) is the tenant-stacked source's.
+PATH_SOURCE = {("fcm_sweep", "rows"): "fcm_batched",
+               ("fcm_accumulate", "rows"): "fcm_batched",
+               ("fcm_sweep", "tile"): "fcm_accumulate",
+               ("fcm_accumulate", "tile"): "fcm_accumulate",
+               ("fcm_sweep", "first"): "fcm_accumulate",
+               ("fcm_accumulate", "first"): "fcm_accumulate",
+               ("fcm_sweep_batched", "rows"): "fcm_batched",
+               ("fcm_sweep_batched", "first"): "fcm_batched"}
+REPLACES = {"fcm_sweep": "src/repro/kernels/fcm_update.py:154",
             "fcm_accumulate": "src/repro/kernels/fcm_update.py:40",
             "fcm_sweep_batched": "src/repro/engine/backend.py:216"}
 
@@ -81,6 +101,13 @@ OFF_LANE_SHAPES = [(300, 130, 131), (200, 129, 140), (96, 257, 129),
 M_SWEEP = (1.05, 1.2, 2.0, 3.0)
 RTOL, SWEEP_ATOL, OFF_LANE_ATOL, ACC_ATOL = 3e-4, 3e-5, 3e-4, 3e-3
 SAMPLE_SIZE, BLOCK_SIZE = 3184, 2048    # the driver's λ; WFCMPB's block
+DRIVER_LABEL = {"sample": "sample", "last_block": "block",
+                "first_merge": "merge"}
+# The path the launch plan (repro_torch.kernels.fcm_update.plan_sweep /
+# plan_batched) gives each run's d and C on an H100; every main-path
+# launch must take it.
+EXPECTED_PATH = {"higgs_like": "rows", "kdd99_like": "tile",
+                 "tenants_t16": "rows", "tenants_65k": "rows"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -156,7 +183,7 @@ def max_err(got, want, rtol, atol, what):
 
 def time_ms(fn, reps: int) -> float:
     """Median milliseconds per call, CUDA events around each call after
-    two warm-up calls."""
+    two warm-up calls (at small shapes this counts the host's enqueue)."""
     import torch
     for _ in range(2):
         fn()
@@ -170,6 +197,48 @@ def time_ms(fn, reps: int) -> float:
     torch.cuda.synchronize()
     times = sorted(s.elapsed_time(e) for s, e in events)
     return times[len(times) // 2]
+
+
+def time_loop_ms(fn, reps: int) -> float:
+    """Milliseconds per launch on the card: ``reps`` back-to-back calls
+    captured in one CUDA graph (after two warm-up calls on its stream),
+    one pair of CUDA events around its replay, divided by ``reps``.  The
+    replay takes the host's per-call enqueue out, so at small shapes this
+    is the card's time: the kernels and the gaps between them."""
+    import torch
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream, capture_error_mode="relaxed"):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    s.record()
+    graph.replay()
+    e.record()
+    torch.cuda.synchronize()
+    del graph
+    return s.elapsed_time(e) / reps
+
+
+def shape_counts(fn) -> dict:
+    """A wrapper's launches per shape, as {"path n" or "path TxN": count}."""
+    return {" ".join([k[0], "x".join(map(str, k[1:]))]): v
+            for k, v in sorted(fn.shapes.items(), key=str)}
+
+
+def check_paths(run: str, *fns) -> None:
+    """Every launch of ``fns`` took ``EXPECTED_PATH[run]``."""
+    other = {k: v for fn in fns for k, v in fn.shapes.items()
+             if k[0] != EXPECTED_PATH[run]}
+    if other:
+        raise AssertionError(f"{run}: launches off the expected "
+                             f"{EXPECTED_PATH[run]!r} path: {other}")
 
 
 def bound(n: int, d: int, c: int):
@@ -388,9 +457,10 @@ def run_main_path(run: Run, n: int, seed: int, device, reps: int):
     from repro_torch.data import synth
     from repro_torch.device import synchronize
     from repro_torch.engine import get_backend, resolve_backend
-    from repro_torch.kernels.fcm_update import (fcm_accumulate_cuda,
+    from repro_torch.kernels.fcm_update import (_plan, fcm_accumulate_cuda,
                                                 fcm_accumulate_ref,
-                                                fcm_sweep_cuda, fcm_sweep_ref)
+                                                fcm_sweep_cuda, fcm_sweep_ref,
+                                                reset_counts)
 
     t0 = time.perf_counter()
     x_np, _ = getattr(synth, run.maker)(n, seed=seed)
@@ -411,7 +481,7 @@ def run_main_path(run: Run, n: int, seed: int, device, reps: int):
         raise AssertionError(f"'auto' resolved to {backend!r} on the card")
 
     # -- the main path, with launch counts zeroed just before it
-    fcm_sweep_cuda.launches = fcm_accumulate_cuda.launches = 0
+    reset_counts()
     synchronize(device)
     t0 = time.perf_counter()
     res = bigfcm_fit(x, cfg, device=device)
@@ -421,8 +491,11 @@ def run_main_path(run: Run, n: int, seed: int, device, reps: int):
     wall = time.perf_counter() - t0
     launches = {"fcm_sweep": fcm_sweep_cuda.launches,
                 "fcm_accumulate": fcm_accumulate_cuda.launches}
+    by_shape = {"fcm_sweep": dict(fcm_sweep_cuda.shapes),
+                "fcm_accumulate": dict(fcm_accumulate_cuda.shapes)}
     if device.type == "cuda" and min(launches.values()) == 0:
         raise AssertionError(f"a kernel was not launched: {launches}")
+    check_paths(run.name, fcm_sweep_cuda, fcm_accumulate_cuda)
     if res.centers.shape != (run.c, d) or not (
             bool(torch.isfinite(res.centers).all()) and math.isfinite(float(q))):
         raise AssertionError("main path gave non-finite or mis-shaped output")
@@ -434,7 +507,10 @@ def run_main_path(run: Run, n: int, seed: int, device, reps: int):
               "t_wfcmpb_driver_s": diag.t_wfcmpb_driver,
               "combiner_iters": list(diag.combiner_iters),
               "reducer_iters": diag.reducer_iters, "global_q": float(q),
-              "launches": launches}
+              "launches": launches,
+              "launches_by_shape": {
+                  "fcm_sweep": shape_counts(fcm_sweep_cuda),
+                  "fcm_accumulate": shape_counts(fcm_accumulate_cuda)}}
 
     # -- hopper vs the torch backend, same injected seeds, full size
     rng = np.random.default_rng(seed)
@@ -466,29 +542,51 @@ def run_main_path(run: Run, n: int, seed: int, device, reps: int):
                                              device)
     emit(record)
 
-    # -- each kernel entry vs its plain version at this shape, and timed
-    v = res.centers
-    b_ms, b_by = bound(n, d, run.c)
+    # -- each kernel entry vs its plain version at every shape the main
+    #    path launched it at, and timed there
+    cases = {"full": (x, ones, res.centers, 0.0)}
+    for label, xs, ws, vs, q_atol in driver_cases(run, 7, device):
+        cases[DRIVER_LABEL[label]] = (xs, ws, vs, q_atol)
+    # Any other size the main path launched at (C-point merges, the
+    # objective over a run of blocks): its first records, unit weights.
+    for ns in sorted({k for shapes in by_shape.values() for _, k in shapes}
+                     - {xs.shape[0] for xs, *_ in cases.values()}):
+        xs = x[:ns]
+        cases[f"n={ns}"] = (xs, ones[:ns], res.centers,
+                            q_rounding_bound(xs, ones[:ns], res.centers))
     entries = []
     for kname, kern, plain, atol in (
             ("fcm_sweep", fcm_sweep_cuda, fcm_sweep_ref, SWEEP_ATOL),
             ("fcm_accumulate", fcm_accumulate_cuda, fcm_accumulate_ref,
              ACC_ATOL)):
-        got = kern(x, ones, v, run.m)
-        if not all(torch.equal(a, b) for a, b in zip(
-                got, kern(x, ones, v, run.m))):
-            raise AssertionError(f"{kname}: two launches differ at {run.name}")
-        want = plain(x, ones, v, run.m)
-        err = max_err(got, want, RTOL, atol, f"{kname} at {run.name}")
-        del want
-        ms = time_ms(lambda: kern(x, ones, v, run.m), reps)
-        plain_ms = time_ms(lambda: plain(x, ones, v, run.m), 3)
-        if device.type == "cuda":
-            torch.cuda.empty_cache()
-        entries.append({
-            "name": kname, "run": run.name, "launches": launches[kname],
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "shape": [n, d, run.c]})
+        for label, (xs, ws, vs, q_atol) in cases.items():
+            ns = xs.shape[0]
+            count = sum(v for (_, k), v in by_shape[kname].items() if k == ns)
+            if label != "full" and count == 0:
+                continue
+            got = kern(xs, ws, vs, run.m)
+            if not all(torch.equal(a, b) for a, b in zip(
+                    got, kern(xs, ws, vs, run.m))):
+                raise AssertionError(f"{kname}: two launches differ at "
+                                     f"{run.name}/{label}")
+            want = plain(xs, ws, vs, run.m)
+            err = max_err(got, want, RTOL, (atol, atol, atol + q_atol),
+                          f"{kname} at {run.name}/{label}")
+            del want
+            n_rep = reps if label == "full" else 500
+            ms = time_loop_ms(lambda: kern(xs, ws, vs, run.m), n_rep)
+            per_call = time_ms(lambda: kern(xs, ws, vs, run.m), n_rep)
+            plain_ms = time_ms(lambda: plain(xs, ws, vs, run.m),
+                               3 if label == "full" else 50)
+            if device.type == "cuda":
+                torch.cuda.empty_cache()
+            b_ms, b_by = bound(ns, d, run.c)
+            entries.append({
+                "name": kname, "run": f"{run.name}/{label}",
+                "launches": count, "max_abs_err": err, "ms": ms,
+                "ms_per_call": per_call, "plain_ms": plain_ms,
+                "bound_ms": b_ms, "bound_by": b_by, "shape": [ns, d, run.c],
+                "path": _plan(device.index, ns, d, run.c).path})
     return entries
 
 
@@ -791,8 +889,10 @@ def run_tenant_path(run: TenantRun, seed: int, device, reps: int):
     import torch
     from repro_torch.device import synchronize
     from repro_torch.engine import get_backend, resolve_backend
-    from repro_torch.kernels.fcm_update import (fcm_sweep_batched_cuda,
-                                                fcm_sweep_batched_ref)
+    from repro_torch.kernels.fcm_update import (_batched_plan,
+                                                fcm_sweep_batched_cuda,
+                                                fcm_sweep_batched_ref,
+                                                reset_counts)
     from repro_torch.tenant import (TenantFitConfig, fit_tenants,
                                     fit_tenants_looped, pack_tenants,
                                     seed_centers)
@@ -809,15 +909,17 @@ def run_tenant_path(run: TenantRun, seed: int, device, reps: int):
         raise AssertionError(f"'auto' resolved to {backend!r} on the card")
 
     # -- the main path, with the K3 launch count zeroed just before it
-    fcm_sweep_batched_cuda.launches = 0
+    reset_counts()
     synchronize(device)
     t0 = time.perf_counter()
     ts = fit_tenants(data, cfg, m_t=m_t, device=device)
     synchronize(device)
     wall = time.perf_counter() - t0
     launches = fcm_sweep_batched_cuda.launches
+    by_shape = shape_counts(fcm_sweep_batched_cuda)
     if launches == 0:
         raise AssertionError(f"K3 was not launched at {run.name}")
+    check_paths(run.name, fcm_sweep_batched_cuda)
     if not (np.isfinite(ts.centers).all() and np.isfinite(ts.objective).all()
             and ts.centers.shape == (run.tenants, TENANT_C, TENANT_D)):
         raise AssertionError(f"{run.name}: non-finite or mis-shaped fit")
@@ -837,7 +939,7 @@ def run_tenant_path(run: TenantRun, seed: int, device, reps: int):
               "c": TENANT_C, "m": list(run.m) or 2.0, "eps": run.eps,
               "max_iter": run.max_iter, "backend": backend,
               "setup_s": setup_s, "wall_s": wall, "host_pack_seed_s": host_s,
-              "batched_sweeps": launches,
+              "batched_sweeps": launches, "launches_by_shape": by_shape,
               "n_iter_max": int(ts.n_iter.max()),
               "n_iter_mean": float(ts.n_iter.mean()),
               "at_max_iter": int((ts.n_iter == run.max_iter).sum())}
@@ -906,15 +1008,18 @@ def run_tenant_path(run: TenantRun, seed: int, device, reps: int):
     record["k3_vs_plain"] = held
     emit(record)
     err = max(held["seeds"], held["fitted"])
-    ms = time_ms(lambda: fcm_sweep_batched_cuda(X, W, V, m_dev), reps)
+    tb, n, d = X.shape
+    n_rep = reps if tb * n > 1 << 20 else 500
+    ms = time_loop_ms(lambda: fcm_sweep_batched_cuda(X, W, V, m_dev), n_rep)
+    per_call = time_ms(lambda: fcm_sweep_batched_cuda(X, W, V, m_dev), n_rep)
     plain_ms = time_ms(lambda: fcm_sweep_batched_ref(X, W, V, m_dev), 3)
     torch.cuda.empty_cache()
-    tb, n, d = X.shape
     b_ms, b_by = bound_batched(tb, n, d, TENANT_C)
     return {"name": "fcm_sweep_batched", "run": run.name,
             "launches": launches, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "shape": [tb, n, d, TENANT_C]}
+            "ms_per_call": per_call, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "shape": [tb, n, d, TENANT_C],
+            "path": _batched_plan(device.index, tb, n, d, TENANT_C).path}
 
 
 def bound_batched(t: int, n: int, d: int, c: int):
@@ -929,17 +1034,19 @@ def bound_batched(t: int, n: int, d: int, c: int):
 
 def kernel_line(per_run) -> list:
     """One entry per kernel: its launches summed over the main-path
-    runs, its worst error, and the numbers of the run with the most work
-    (the largest bound) on top; every run's numbers under ``runs``."""
+    runs, its worst error, and the numbers (and source file) of the shape
+    with the most work (the largest bound) on top; every (run, shape)'s
+    numbers, path and source under ``runs``."""
     entries = {}
     for e in per_run:
         entries.setdefault(e["name"], []).append(e)
     out = []
     for name, runs in entries.items():
         top = max(runs, key=lambda e: e["bound_ms"])
+        for e in runs:
+            e["source"] = f"{CSRC}/{PATH_SOURCE[name, e['path']]}.cu"
         out.append({
-            "name": name, "route": "cuda",
-            "source": f"{CSRC}/{KERNEL_SOURCE[name]}.cu",
+            "name": name, "route": "cuda", "source": top["source"],
             "replaces": REPLACES[name],
             "launches": sum(e["launches"] for e in runs),
             "max_abs_err": max(e["max_abs_err"] for e in runs),
@@ -947,8 +1054,9 @@ def kernel_line(per_run) -> list:
             "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
             "library_ms": None, "at": top["run"],
             "runs": {e["run"]: {k: e[k] for k in (
-                "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
-                "bound_by", "shape")} for e in runs}})
+                "launches", "max_abs_err", "ms", "ms_per_call", "plain_ms",
+                "bound_ms", "bound_by", "shape", "path", "source")}
+                for e in runs}})
     return out
 
 

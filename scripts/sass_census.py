@@ -1,0 +1,84 @@
+#!/usr/bin/env python3
+"""Count the SASS instructions of the port's FCM kernels, on a machine
+with the CUDA toolkit:
+
+    python3 scripts/sass_census.py
+
+Builds both kernel sources (`repro_torch.kernels.build`), disassembles
+them with ``cuobjdump -sass`` and prints one JSON line per kernel
+function: its instruction count, and for its largest loop (the span of
+its longest backward branch) the instruction count and the count by
+opcode (``MUFU`` is the special-function unit: one ``MUFU.LG2`` per
+``logf``, one ``MUFU.EX2`` per ``expf``).  The counts are static: an
+instruction under a predicate or a branch counts once, whether it runs
+or not.
+"""
+from __future__ import annotations
+
+import collections
+import json
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+_FUNC = re.compile(r"^\s*Function : (.+?)\s*$")
+_INSN = re.compile(
+    r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)")
+_BRA = re.compile(r"\bBRA\b.*?(0x[0-9a-f]+)")
+
+
+def census(sass: str) -> list:
+    out, name, insns = [], None, []
+
+    def flush():
+        if name is None:
+            return
+        loop = (0, 0)
+        for i, (addr, _, text) in enumerate(insns):
+            m = _BRA.search(text)
+            if m and int(m.group(1), 16) < addr:
+                target = int(m.group(1), 16)
+                j = next(k for k, (a, _, _) in enumerate(insns) if a >= target)
+                if i - j > loop[1] - loop[0]:
+                    loop = (j, i)
+        body = insns[loop[0]:loop[1] + 1] if loop[1] else []
+        ops = collections.Counter(op.split(".")[0] if not op.startswith(
+            "MUFU") else op for _, op, _ in body)
+        out.append({"function": name, "instructions": len(insns),
+                    "loop_instructions": len(body),
+                    "loop_ops": dict(ops.most_common())})
+
+    for line in sass.splitlines():
+        f = _FUNC.match(line)
+        if f:
+            flush()
+            name, insns = f.group(1), []
+            continue
+        m = _INSN.search(line)
+        if m and name is not None:
+            insns.append((int(m.group(1), 16), m.group(2), line))
+    flush()
+    return out
+
+
+def main() -> int:
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import build
+    cuobjdump = Path(build.nvcc_path()).with_name("cuobjdump")
+    for name in ("fcm_accumulate", "fcm_batched"):
+        build.compile_source(name)
+        sass = subprocess.run(
+            [str(cuobjdump), "-sass", os.fspath(build.library_path(name))],
+            capture_output=True, text=True, check=True).stdout
+        demangled = subprocess.run(["c++filt"], input=sass, text=True,
+                                   capture_output=True).stdout or sass
+        for rec in census(demangled):
+            print(json.dumps({"source": f"{name}.cu", **rec}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

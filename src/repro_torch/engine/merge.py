@@ -135,7 +135,8 @@ def fcm_converge_batched(
     v = as_f32(init_centers, dev)
     m = as_f32(m, dev)
     if m.dim() == 0:
-        m = m.expand(X.shape[0])
+        # Materialized once per fit: the kernel reads a contiguous (T,).
+        m = m.expand(X.shape[0]).contiguous()
     v_prev = v
     n_iter = torch.zeros((X.shape[0],), dtype=torch.int32, device=dev)
     while True:

@@ -3,9 +3,10 @@
 Each source under ``csrc/`` compiles into a shared library with a plain C
 interface (no PyTorch headers, so a build takes seconds), loaded
 with `ctypes`.  Builds go to ``build/repro_torch_kernels/`` at the root of
-the checkout, named by a hash of the source and the flags, so an edited
-source never loads a stale library.  Nothing builds at import time: the
-first CUDA launch of a kernel builds it.
+the checkout, named by a hash of the source, of every ``csrc/`` header it
+includes (``#include "..."``, followed through headers) and of the flags,
+so an edited source or header never loads a stale library.  Nothing
+builds at import time: the first CUDA launch of a kernel builds it.
 """
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -38,10 +40,28 @@ def nvcc_path() -> str:
     return found
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def sources(name: str) -> list:
+    """``csrc/<name>.cu`` and the ``csrc/`` files it includes with quotes,
+    transitively, in the order first met."""
+    seen, todo = [], [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        todo += [path.parent / inc.decode()
+                 for inc in _INCLUDE.findall(path.read_bytes())]
+    return seen
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sources(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def compile_source(name: str, *, verbose: bool = False) -> str:

@@ -1,11 +1,15 @@
-"""The Hopper FCM accumulation kernels' wrappers and their plain versions.
+"""The Hopper FCM accumulation kernels' wrappers, their launch plan and
+their plain versions.
 
 Counterpart of `repro.kernels.fcm_update` (the Pallas TPU kernel) and
 `repro.kernels.ref` (its oracles).  The kernels are CUDA C++ for
-``sm_90a``: the single-model sweep in ``csrc/fcm_accumulate.cu`` and the
-tenant-stacked sweep (the reference's ``jax.vmap`` of the Pallas kernel)
-in ``csrc/fcm_batched.cu``; each source note says what it replaces, what
-bounds it and how it is laid out.
+``sm_90a`` in ``csrc/``: the single-model sweep's register-blocked tile
+kernel and first version in ``fcm_accumulate.cu``, the tenant-stacked
+sweep (the reference's ``jax.vmap`` of the Pallas kernel) in
+``fcm_batched.cu`` with its register-resident rows kernel (which the
+single-model sweep also runs, at T = 1, for small C·d) and first version;
+each source note says what it replaces, what bounds it and how it is laid
+out.
 
 * ``fcm_accumulate_cuda`` / ``fcm_sweep_cuda`` — the single-model
   wrappers, x (N, d), w (N,), centers (C, d).
@@ -13,24 +17,33 @@ bounds it and how it is laid out.
   tenant-stacked wrappers, x (T, N, d), w (T, N), centers (T, C, d), m
   a scalar or one fuzzifier per tenant (T,).
 
+Which kernel runs, with what tile, splits and grid, is `plan_sweep` /
+`plan_batched`: pure functions of the shape and of three numbers the card
+supplies (SM count, resident CTAs per SM, shared memory per block).
+
 A CUDA tensor launches the kernel (or raises); a CPU tensor takes the
 plain version.  Each wrapper counts its kernel launches in its
-``launches`` attribute.  ``fcm_accumulate_ref`` / ``fcm_sweep_ref`` and
+``launches`` attribute, and in ``shapes`` per (path, N) (single-model)
+or (path, T, N) (tenant-stacked); `reset_counts` zeroes both.
+``fcm_accumulate_ref`` / ``fcm_sweep_ref`` and
 ``fcm_accumulate_batched_ref`` / ``fcm_sweep_batched_ref`` are the plain
 PyTorch versions, written as `repro.kernels.ref` writes its oracles (the
 direct ‖x−v‖², not the kernels' expansion).
 """
 from __future__ import annotations
 
+import collections
 import ctypes
+import dataclasses
 import functools
+from typing import Callable, Optional, Union
 
 import torch
 
 from . import build
 
 _D2_FLOOR = 1e-12
-BLOCK = 256          # threads per CTA; the kernel's q reduction needs a power of 2
+BLOCK = 256          # threads per CTA of the first versions (a power of 2)
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
@@ -96,16 +109,254 @@ def fcm_sweep_batched_ref(x, w, centers, m=2.0):
     return v_num / torch.clamp(w_i, min=_D2_FLOOR)[..., None], w_i, q
 
 
+
+# ------------------------------------------------------------ launch plan --
+
+# fcm_rows_kernel's (d, C) instantiations, and its records per thread
+ROWS_VARIANTS = ((4, 3), (4, 4), (8, 8), (16, 4), (32, 2))
+ROWS_PER_THREAD = 8
+WARP_TEAM_ROWS = 1024  # most records per tenant that one warp walks alone
+WARP_TEAM_BLOCK = 128  # threads per CTA of one-warp teams
+MIN_ROWS = 8  # fewest records per CTA when a small N is spread over the SMs
+# fcm_tile_kernel's threads and micro-tiles (d2: TILE_RM records; v_num:
+# TILE_AC centers x TILE_AD dims)
+TILE_BLOCK, TILE_RM, TILE_AC, TILE_AD = 256, 4, 4, 8
+# The ticketed final reduce: partial floats one of its CTAs reads at most,
+# and how many CTAs may share it (far below the card's resident CTAs)
+SLICE_FLOATS = 1024
+MAX_SLICES = 64
+_MAX_TILE_ROWS = 128  # the first versions' tile
+_MAX_SPLITS = 65535   # the first tenant-stacked version's gridDim.y
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchPlan:
+    """One launch: ``path`` is "rows" (register-resident records), "tile"
+    (register-blocked tiles) or "first" (the first version); ``grid``
+    CTAs of ``block`` threads; ``rows`` records per split (rows) or per
+    tile (tile, first); ``splits`` row splits per tenant; ``smem`` bytes
+    of dynamic shared memory; ``slices`` CTAs that share the ticketed
+    final reduce (0: the CTAs write the outputs themselves, or the first
+    version's second launch sums).  ``dm``/``cm`` name the rows kernel's
+    instantiation and ``team_warps`` the warps that own one (tenant,
+    split); ``cg``, ``rc``, ``ag``, ``dg``, ``rs`` the tile kernel's
+    micro-tiles."""
+    path: str
+    block: int
+    grid: int
+    rows: int
+    splits: int = 1
+    smem: int = 0
+    slices: int = 0
+    dm: int = 0
+    cm: int = 0
+    team_warps: int = 0
+    cg: int = 0
+    rc: int = 0
+    ag: int = 0
+    dg: int = 0
+    rs: int = 0
+
+
+CtasPerSm = Union[int, Callable[[LaunchPlan], int]]
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _pow2ceil(a: int) -> int:
+    return 1 << max(0, a - 1).bit_length()
+
+
+def _per_sm(ctas_per_sm: CtasPerSm, plan: LaunchPlan) -> int:
+    k = ctas_per_sm(plan) if callable(ctas_per_sm) else ctas_per_sm
+    return max(1, int(k))
+
+
+def rows_variant(d: int, c: int) -> Optional[tuple]:
+    """The rows kernel's (DM, CM) instantiation for (d, C), or None when
+    C·d is too large for its registers."""
+    for dm, cm in ROWS_VARIANTS:
+        if d <= dm and c <= cm:
+            return dm, cm
+    return None
+
+
+def _split_rows(t: int, n: int, cap: int, sms: int) -> int:
+    """Records per split for t tenants of n records on a card holding
+    ``cap`` resident CTAs: enough splits to fill the card, no split below
+    a full block's worth of records unless it takes that to give every SM
+    a CTA (at least ``MIN_ROWS`` records each), and never more splits in
+    all than the card holds at once (no tail wave)."""
+    if t >= cap:
+        return n
+    fill = min(_cdiv(cap, t), _cdiv(n, 256 * ROWS_PER_THREAD))
+    floor_total = min(sms, _cdiv(t * n, MIN_ROWS))
+    want = max(1, fill, _cdiv(floor_total, t))
+    chunk = _cdiv(n, want)
+    if t * _cdiv(n, chunk) < floor_total:
+        chunk = max(1, n // want)
+    return chunk
+
+
+def _slices(grid: int, p_len: int) -> int:
+    return max(1, min(grid, MAX_SLICES, _cdiv(grid * p_len, SLICE_FLOATS)))
+
+
+def _rows_plan(t, n, d, c, sms, ctas_per_sm, tenant_slices: bool):
+    dm, cm = rows_variant(d, c)
+    draft = LaunchPlan("rows", 256, 0, n, dm=dm, cm=cm, team_warps=8)
+    chunk = _split_rows(t, n, sms * _per_sm(ctas_per_sm, draft), sms)
+    splits = _cdiv(n, chunk)
+    if splits == 1 and n <= WARP_TEAM_ROWS:
+        # One warp per tenant, several tenants per CTA.
+        per_cta = WARP_TEAM_BLOCK // 32
+        return LaunchPlan("rows", WARP_TEAM_BLOCK, _cdiv(t, per_cta), n,
+                          dm=dm, cm=cm, team_warps=1)
+    # One CTA per (tenant, split); with splits, at least four warps to sum
+    # the partials at the end.
+    block = min(256, max(128 if splits > 1 else 32,
+                         _pow2ceil(_cdiv(chunk, ROWS_PER_THREAD))))
+    slices = 0
+    if splits > 1:
+        # Several tenants: the last split of each sums alone (no CTA waits).
+        slices = 1 if tenant_slices else _slices(splits, c * d + c + 1)
+    return LaunchPlan("rows", block, t * splits, chunk, splits, 0, slices,
+                      dm=dm, cm=cm, team_warps=block // 32)
+
+
+def _round4(a: int) -> int:
+    return (a + 3) & ~3
+
+
+def tile_layout_floats(d, c, tr, rs, ag, dg) -> int:
+    """fcm_tile_kernel's shared memory in floats (csrc/fcm_accumulate.cu,
+    `tile_layout`)."""
+    ldv, ldx, ldc = d | 1, _round4(d) | 4, _round4(c)
+    tiles = 2 * (tr * ldx + 8 + _round4(tr))
+    scratch = rs * ag * dg * TILE_AC * TILE_AD + rs * ag * TILE_AC
+    head = _round4(c * ldv + c)
+    return _round4(head + max(tiles, scratch)) + tr * ldc + TILE_BLOCK // 32
+
+
+def _tile_plan(n, d, c, sms, ctas_per_sm, smem_limit):
+    cg = _pow2ceil(_cdiv(c, TILE_AC))
+    ag, dg = _cdiv(c, TILE_AC), _cdiv(d, TILE_AD)
+    if cg > 32 or ag * dg > TILE_BLOCK:
+        return None
+    rc, rs = _cdiv(c, cg), TILE_BLOCK // (ag * dg)
+    # Full tiles give each thread TILE_RM records of the d² micro-tile; a
+    # small N gets tiles of N // SMs records (at least MIN_ROWS), so that
+    # every SM has one.
+    tr = max(1, min(TILE_RM * (TILE_BLOCK // cg), max(MIN_ROWS, n // sms), n))
+    # Two CTAs per SM where the tile allows, else one.
+    for budget in (smem_limit // 2, smem_limit):
+        fit = tr
+        while fit > 0 and (4 * tile_layout_floats(d, c, fit, rs, ag, dg)
+                           > budget):
+            fit -= 1
+        if fit >= min(tr, 32):
+            break
+    if fit == 0:
+        return None
+    tr = fit
+    smem = 4 * tile_layout_floats(d, c, tr, rs, ag, dg)
+    draft = LaunchPlan("tile", TILE_BLOCK, 0, tr, smem=smem, cg=cg, rc=rc,
+                       ag=ag, dg=dg, rs=rs)
+    grid = min(_cdiv(n, tr), sms * _per_sm(ctas_per_sm, draft))
+    return dataclasses.replace(draft, grid=grid,
+                               slices=_slices(grid, c * d + c + 1))
+
+
+def first_layout_floats(d, c, t, block=BLOCK) -> int:
+    """The first single-model version's shared memory in floats
+    (csrc/fcm_accumulate.cu, `make_layout`)."""
+    ldv = ldx = d | 1
+    ldc = c | 1
+    return c * ldv + c + t * ldx + 2 * t + 2 * t * ldc + block
+
+
+def first_batched_layout_floats(d, c, t, block=BLOCK) -> int:
+    """The first tenant-stacked version's shared memory in floats
+    (csrc/fcm_batched.cu, `make_layout`: its row groups' accumulator on
+    top of the single-model layout)."""
+    groups = max(1, min(block // (c * d + c), t))
+    return first_layout_floats(d, c, t, block) + groups * (c * d + c)
+
+
+def _first_tile(layout, limit_rows, smem_limit, d, c, kernel):
+    for t in range(limit_rows, 0, -1):
+        if 4 * layout(d, c, t) <= smem_limit:
+            return t
+    raise ValueError(
+        f"{kernel} kernel: C*d = {c}*{d} centers do not fit in shared "
+        "memory; a C-tiled variant is on the roadmap")
+
+
+def plan_sweep(n: int, d: int, c: int, *, sms: int, ctas_per_sm: CtasPerSm,
+               smem_limit: int) -> LaunchPlan:
+    """The single-model sweep's launch for x (n, d) and C centers on a card
+    with ``sms`` SMs, ``smem_limit`` bytes of shared memory per block and
+    ``ctas_per_sm`` resident CTAs per SM (a number, or a function of the
+    draft plan, as the card's occupancy query is).
+
+    * "rows" — small C·d (`rows_variant`): the rows kernel at T = 1, the
+      records split so that the card fills (`_split_rows`);
+    * "tile" — C ≤ 128 and ⌈C/4⌉·⌈d/8⌉ ≤ 256 with a tile that fits shared
+      memory: the register-blocked tile kernel;
+    * "first" — the rest, while V and one record fit shared memory (the
+      first version's `make_layout` at one row); beyond that it raises.
+    """
+    if n > 0 and rows_variant(d, c) is not None:
+        return _rows_plan(1, n, d, c, sms, ctas_per_sm, False)
+    plan = _tile_plan(n, d, c, sms, ctas_per_sm, smem_limit) if n > 0 else None
+    if plan is not None:
+        return plan
+    t = _first_tile(first_layout_floats, _MAX_TILE_ROWS, smem_limit, d, c,
+                    "fcm_accumulate")
+    draft = LaunchPlan("first", BLOCK, 0, t,
+                       smem=4 * first_layout_floats(d, c, t))
+    grid = max(1, min(_cdiv(n, t), sms * _per_sm(ctas_per_sm, draft)))
+    return dataclasses.replace(draft, grid=grid)
+
+
+def plan_batched(tenants: int, n: int, d: int, c: int, *, sms: int,
+                 ctas_per_sm: CtasPerSm, smem_limit: int) -> LaunchPlan:
+    """The tenant-stacked sweep's launch for x (T, n, d) and C centers (see
+    `plan_sweep` for the card's three numbers).
+
+    * "rows" — small C·d (`rows_variant`): one CTA per (tenant, split),
+      one split per tenant once the tenants alone fill the card;
+    * "first" — the rest (such as d = 41, C = 23), while V_t and one
+      record fit shared memory; beyond that it raises.
+    """
+    if rows_variant(d, c) is not None:
+        return _rows_plan(tenants, n, d, c, sms, ctas_per_sm, True)
+    t = _first_tile(first_batched_layout_floats, min(_MAX_TILE_ROWS, n),
+                    smem_limit, d, c, "fcm_batched")
+    smem = 4 * first_batched_layout_floats(d, c, t)
+    draft = LaunchPlan("first", BLOCK, 0, t, smem=smem)
+    target = sms * _per_sm(ctas_per_sm, draft)
+    splits = max(1, min(_cdiv(target, tenants), _cdiv(n, t), _MAX_SPLITS))
+    return dataclasses.replace(draft, grid=tenants * splits, splits=splits)
+
+
+# --------------------------------------------------------- the libraries --
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = build.load("fcm_accumulate")
     lib.fcm_error_string.argtypes = [_I]
     lib.fcm_error_string.restype = ctypes.c_char_p
-    lib.fcm_tile_rows.argtypes = [_I, _I, _I, ctypes.POINTER(_I)]
-    lib.fcm_tile_rows.restype = _I
-    lib.fcm_grid_size.argtypes = [ctypes.c_longlong, _I, _I, _I, _I,
-                                  ctypes.POINTER(_I)]
-    lib.fcm_grid_size.restype = _I
+    lib.fcm_device.argtypes = [ctypes.POINTER(_I), ctypes.POINTER(_I)]
+    lib.fcm_device.restype = _I
+    lib.fcm_occupancy.argtypes = [_I, _I, _I, _I, ctypes.POINTER(_I)]
+    lib.fcm_occupancy.restype = _I
+    lib.fcm_tile_sweep.argtypes = [
+        _P, _P, _P, ctypes.c_longlong, _I, _I, ctypes.c_float, ctypes.c_float,
+        _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P]
+    lib.fcm_tile_sweep.restype = _I
     lib.fcm_accumulate.argtypes = [
         _P, _P, _P, ctypes.c_longlong, _I, _I, ctypes.c_float,
         ctypes.c_float, _I, _I, _I, _P, _P, _P, _P, _I, _P]
@@ -118,10 +369,14 @@ def _batched_lib() -> ctypes.CDLL:
     lib = build.load("fcm_batched")
     lib.fcm_batched_error_string.argtypes = [_I]
     lib.fcm_batched_error_string.restype = ctypes.c_char_p
-    lib.fcm_batched_plan.argtypes = [
-        ctypes.c_longlong, ctypes.c_longlong, _I, _I, _I, ctypes.POINTER(_I),
-        ctypes.POINTER(_I), ctypes.POINTER(_I)]
-    lib.fcm_batched_plan.restype = _I
+    lib.fcm_batched_occupancy.argtypes = [_I, _I, _I, _I, _I,
+                                          ctypes.POINTER(_I)]
+    lib.fcm_batched_occupancy.restype = _I
+    lib.fcm_rows_sweep.argtypes = [
+        _P, _P, _P, _P, ctypes.c_float, ctypes.c_longlong, ctypes.c_longlong,
+        _I, _I, _I, _I, ctypes.c_longlong, _I, _I, _I, _I, _I, _P, _P, _P,
+        _P, _P, _I, _P]
+    lib.fcm_rows_sweep.restype = _I
     lib.fcm_batched_accumulate.argtypes = [
         _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_longlong, _I, _I, _I, _I,
         _I, _I, _P, _P, _P, _P, _I, _P]
@@ -137,21 +392,63 @@ def _check(err: int, what: str, kernel: str = "fcm_accumulate") -> None:
                            f"error {err} ({msg})")
 
 
+@functools.cache
+def _card(device_index: int):
+    """(SM count, shared memory per block) of the current card."""
+    sms, smem = _I(0), _I(0)
+    _check(_lib().fcm_device(ctypes.byref(sms), ctypes.byref(smem)),
+           "fcm_device")
+    return sms.value, smem.value
+
+
+def _occupancy(plan: LaunchPlan, kernel: str) -> int:
+    """Resident CTAs per SM of the kernel ``plan`` launches (``kernel``
+    names the source of the first version)."""
+    k = _I(0)
+    if plan.path == "rows":
+        _check(_batched_lib().fcm_batched_occupancy(
+            1, plan.dm, plan.cm, plan.block, 0, ctypes.byref(k)),
+            "fcm_batched_occupancy", "fcm_batched")
+    elif plan.path == "tile" or kernel == "fcm_accumulate":
+        _check(_lib().fcm_occupancy(2 if plan.path == "tile" else 0, plan.rc,
+                                    plan.block, plan.smem, ctypes.byref(k)),
+               "fcm_occupancy")
+    else:
+        _check(_batched_lib().fcm_batched_occupancy(
+            0, 0, 0, plan.block, plan.smem, ctypes.byref(k)),
+            "fcm_batched_occupancy", "fcm_batched")
+    return k.value
+
+
 @functools.lru_cache(maxsize=256)
-def _plan(device_index: int, n: int, d: int, c: int):
-    """(tile rows T, grid) for one shape on one card: the largest tile
-    whose V, x tile and d²/wum tiles fit in shared memory, and a
-    persistent grid of as many CTAs as the card holds at once."""
-    lib = _lib()
-    t, g = _I(0), _I(0)
-    _check(lib.fcm_tile_rows(d, c, BLOCK, ctypes.byref(t)), "fcm_tile_rows")
-    if t.value == 0:
-        raise ValueError(
-            f"fcm_accumulate kernel: C*d = {c}*{d} centers do not fit in "
-            "shared memory; a C-tiled variant is on the roadmap")
-    _check(lib.fcm_grid_size(n, d, c, t.value, BLOCK, ctypes.byref(g)),
-           "fcm_grid_size")
-    return t.value, g.value
+def _plan(device_index: int, n: int, d: int, c: int) -> LaunchPlan:
+    sms, smem = _card(device_index)
+    return plan_sweep(n, d, c, sms=sms, smem_limit=smem,
+                      ctas_per_sm=functools.partial(_occupancy,
+                                                    kernel="fcm_accumulate"))
+
+
+@functools.lru_cache(maxsize=256)
+def _batched_plan(device_index: int, tenants: int, n: int, d: int,
+                  c: int) -> LaunchPlan:
+    sms, smem = _card(device_index)
+    return plan_batched(tenants, n, d, c, sms=sms, smem_limit=smem,
+                        ctas_per_sm=functools.partial(_occupancy,
+                                                      kernel="fcm_batched"))
+
+
+_TICKETS: dict = {}
+
+
+def _tickets(dev: torch.device, stream: int, groups: int) -> torch.Tensor:
+    """The ticketed final reduce's counters (2 int32 per group) for one
+    stream: zeroed once, left zero by every launch.  One array per stream,
+    since launches on a stream run in order."""
+    t = _TICKETS.get((dev.index, stream))
+    if t is None or t.numel() < 2 * groups:
+        t = torch.zeros(2 * max(groups, 64), dtype=torch.int32, device=dev)
+        _TICKETS[(dev.index, stream)] = t
+    return t
 
 
 def _check_inputs(kernel: str, x, w, centers, dims) -> None:
@@ -170,7 +467,27 @@ def _check_inputs(kernel: str, x, w, centers, dims) -> None:
                              f"{tuple(a.shape)}, expected {dim} dims")
 
 
+def _rows_launch(plan, x, w, v, m_ptr, m, tenants, n, d, c, normalize, dev,
+                 stream, out):
+    """fcm_rows_kernel on ``plan`` (the single-model sweep's small-C·d path
+    too, at T = 1)."""
+    out_v, out_w, out_q = out
+    part = tickets = None
+    if plan.splits > 1:
+        part = torch.empty((plan.grid, c * d + c + 1), dtype=torch.float32,
+                           device=dev)
+        tickets = _tickets(dev, stream, tenants)
+    return _batched_lib().fcm_rows_sweep(
+        x.data_ptr(), w.data_ptr(), v.data_ptr(), m_ptr, m, tenants, n, d, c,
+        plan.dm, plan.cm, plan.rows, plan.splits, plan.team_warps,
+        plan.slices, plan.block, plan.grid,
+        None if part is None else part.data_ptr(),
+        None if tickets is None else tickets.data_ptr(), out_v.data_ptr(),
+        out_w.data_ptr(), out_q.data_ptr(), int(normalize), stream)
+
+
 def _launch(x, w, centers, m: float, normalize: bool):
+    """Launch the single-model sweep; returns ((v, w_i, q), path)."""
     _check_inputs("fcm_accumulate", x, w, centers, (2, 1, 2))
     n, d = x.shape
     c = centers.shape[0]
@@ -183,21 +500,42 @@ def _launch(x, w, centers, m: float, normalize: bool):
     w = w.to(torch.float32).contiguous()
     v = centers.to(torch.float32).contiguous()
     dev = x.device
+    m = float(m)
     with torch.cuda.device(dev):
-        t, grid = _plan(dev.index, n, d, c)
-        part = torch.empty((grid, c * d + c + 1), dtype=torch.float32,
-                           device=dev)
-        out_v = torch.empty((c, d), dtype=torch.float32, device=dev)
-        out_w = torch.empty((c,), dtype=torch.float32, device=dev)
-        out_q = torch.empty((), dtype=torch.float32, device=dev)
+        plan = _plan(dev.index, n, d, c)
+        out = (torch.empty((c, d), dtype=torch.float32, device=dev),
+               torch.empty((c,), dtype=torch.float32, device=dev),
+               torch.empty((), dtype=torch.float32, device=dev))
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _lib().fcm_accumulate(
-            x.data_ptr(), w.data_ptr(), v.data_ptr(), n, d, c, float(m),
-            1.0 / (m - 1.0), t, grid, BLOCK, part.data_ptr(),
-            out_v.data_ptr(), out_w.data_ptr(), out_q.data_ptr(),
-            int(normalize), stream)
-    _check(err, "launch")
-    return out_v, out_w, out_q
+        kernel = "fcm_accumulate"
+        if plan.path == "rows":
+            kernel = "fcm_batched"
+            err = _rows_launch(plan, x, w, v, None, m, 1, n, d, c, normalize,
+                               dev, stream, out)
+        elif plan.path == "tile":
+            part = torch.empty((plan.grid, c * d + c + 1),
+                               dtype=torch.float32, device=dev)
+            err = _lib().fcm_tile_sweep(
+                x.data_ptr(), w.data_ptr(), v.data_ptr(), n, d, c, m,
+                1.0 / (m - 1.0), plan.rows, plan.cg, plan.rc, plan.ag,
+                plan.dg, plan.rs, plan.grid, plan.slices, plan.smem,
+                part.data_ptr(), _tickets(dev, stream, 1).data_ptr(),
+                *(o.data_ptr() for o in out), int(normalize), stream)
+        else:
+            part = torch.empty((plan.grid, c * d + c + 1),
+                               dtype=torch.float32, device=dev)
+            err = _lib().fcm_accumulate(
+                x.data_ptr(), w.data_ptr(), v.data_ptr(), n, d, c, m,
+                1.0 / (m - 1.0), plan.rows, plan.grid, plan.block,
+                part.data_ptr(), *(o.data_ptr() for o in out),
+                int(normalize), stream)
+    _check(err, "launch", kernel)
+    return out, plan.path
+
+
+def _count(fn, key) -> None:
+    fn.launches += 1
+    fn.shapes[key] += 1
 
 
 def fcm_accumulate_cuda(x, w, centers, m: float = 2.0):
@@ -207,8 +545,8 @@ def fcm_accumulate_cuda(x, w, centers, m: float = 2.0):
     x: (N, d), w: (N,), centers: (C, d), any float type (cast to f32)."""
     if x.device.type == "cpu":
         return fcm_accumulate_ref(x, w, centers, m)
-    out = _launch(x, w, centers, m, normalize=False)
-    fcm_accumulate_cuda.launches += 1
+    out, path = _launch(x, w, centers, m, normalize=False)
+    _count(fcm_accumulate_cuda, (path, x.shape[0]))
     return out
 
 
@@ -217,27 +555,13 @@ def fcm_sweep_cuda(x, w, centers, m: float = 2.0):
     normalization v_num / max(w_i, 1e-12) fused into its final reduce."""
     if x.device.type == "cpu":
         return fcm_sweep_ref(x, w, centers, m)
-    out = _launch(x, w, centers, m, normalize=True)
-    fcm_sweep_cuda.launches += 1
+    out, path = _launch(x, w, centers, m, normalize=True)
+    _count(fcm_sweep_cuda, (path, x.shape[0]))
     return out
 
 
-@functools.lru_cache(maxsize=256)
-def _batched_plan(device_index: int, tenants: int, n: int, d: int, c: int):
-    """(tile rows, row splits per tenant, shared-memory bytes) for one
-    tenant-stacked shape on one card."""
-    t, splits, smem = _I(0), _I(0), _I(0)
-    _check(_batched_lib().fcm_batched_plan(
-        tenants, n, d, c, BLOCK, ctypes.byref(t), ctypes.byref(splits),
-        ctypes.byref(smem)), "fcm_batched_plan", "fcm_batched")
-    if t.value == 0:
-        raise ValueError(
-            f"fcm_batched kernel: C*d = {c}*{d} centers do not fit in "
-            "shared memory; a C-tiled variant is on the roadmap")
-    return t.value, splits.value, smem.value
-
-
 def _launch_batched(x, w, centers, m, normalize: bool):
+    """Launch the tenant-stacked sweep; returns ((v, w_i, q), path)."""
     _check_inputs("fcm_batched", x, w, centers, (3, 2, 3))
     tenants, n, d = x.shape
     c = centers.shape[1]
@@ -248,29 +572,38 @@ def _launch_batched(x, w, centers, m, normalize: bool):
             f"{tuple(x.shape)}, w {tuple(w.shape)}, centers "
             f"{tuple(centers.shape)} do not form (T, N, d), (T, N), "
             "(T, C, d) with T, N, C, d >= 1")
-    if tenants >= 2 ** 31:
-        raise ValueError(f"fcm_batched kernel: {tenants} tenants exceed the "
-                         "grid's 2^31 - 1")
     dev = x.device
+    scalar_m = isinstance(m, (int, float))
+    mt = None if scalar_m else _fuzzifiers(m, tenants, dev).contiguous()
     x = x.to(torch.float32).contiguous()
     w = w.to(torch.float32).contiguous()
     v = centers.to(torch.float32).contiguous()
-    mt = _fuzzifiers(m, tenants, dev).contiguous()
     with torch.cuda.device(dev):
-        t, splits, smem = _batched_plan(dev.index, tenants, n, d, c)
-        part = torch.empty((tenants * splits, c * d + c + 1),
-                           dtype=torch.float32, device=dev)
-        out_v = torch.empty((tenants, c, d), dtype=torch.float32, device=dev)
-        out_w = torch.empty((tenants, c), dtype=torch.float32, device=dev)
-        out_q = torch.empty((tenants,), dtype=torch.float32, device=dev)
+        plan = _batched_plan(dev.index, tenants, n, d, c)
+        if plan.grid >= 2 ** 31:
+            raise ValueError(f"fcm_batched kernel: {plan.grid} CTAs exceed "
+                             "the grid's 2^31 - 1")
+        out = (torch.empty((tenants, c, d), dtype=torch.float32, device=dev),
+               torch.empty((tenants, c), dtype=torch.float32, device=dev),
+               torch.empty((tenants,), dtype=torch.float32, device=dev))
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _batched_lib().fcm_batched_accumulate(
-            x.data_ptr(), w.data_ptr(), v.data_ptr(), mt.data_ptr(), tenants,
-            n, d, c, t, splits, smem, BLOCK, part.data_ptr(),
-            out_v.data_ptr(), out_w.data_ptr(), out_q.data_ptr(),
-            int(normalize), stream)
+        if plan.path == "rows":
+            err = _rows_launch(plan, x, w, v,
+                               None if mt is None else mt.data_ptr(),
+                               float(m) if scalar_m else 0.0, tenants, n, d,
+                               c, normalize, dev, stream, out)
+        else:
+            if mt is None:
+                mt = _fuzzifiers(m, tenants, dev).contiguous()
+            part = torch.empty((tenants * plan.splits, c * d + c + 1),
+                               dtype=torch.float32, device=dev)
+            err = _batched_lib().fcm_batched_accumulate(
+                x.data_ptr(), w.data_ptr(), v.data_ptr(), mt.data_ptr(),
+                tenants, n, d, c, plan.rows, plan.splits, plan.smem,
+                plan.block, part.data_ptr(), *(o.data_ptr() for o in out),
+                int(normalize), stream)
     _check(err, "launch", "fcm_batched")
-    return out_v, out_w, out_q
+    return out, plan.path
 
 
 def fcm_accumulate_batched_cuda(x, w, centers, m=2.0):
@@ -279,22 +612,30 @@ def fcm_accumulate_batched_cuda(x, w, centers, m=2.0):
     centers: (T, C, d), m: a scalar or (T,)."""
     if x.device.type == "cpu":
         return fcm_accumulate_batched_ref(x, w, centers, m)
-    out = _launch_batched(x, w, centers, m, normalize=False)
-    fcm_accumulate_batched_cuda.launches += 1
+    out, path = _launch_batched(x, w, centers, m, normalize=False)
+    _count(fcm_accumulate_batched_cuda, (path,) + tuple(x.shape[:2]))
     return out
 
 
 def fcm_sweep_batched_cuda(x, w, centers, m=2.0):
     """Tenant-stacked sweep (v_new, w_i, q) in one launch, the per-tenant
-    normalization fused into the kernel's final reduce."""
+    normalization fused into the kernel."""
     if x.device.type == "cpu":
         return fcm_sweep_batched_ref(x, w, centers, m)
-    out = _launch_batched(x, w, centers, m, normalize=True)
-    fcm_sweep_batched_cuda.launches += 1
+    out, path = _launch_batched(x, w, centers, m, normalize=True)
+    _count(fcm_sweep_batched_cuda, (path,) + tuple(x.shape[:2]))
     return out
 
 
-fcm_accumulate_cuda.launches = 0
-fcm_sweep_cuda.launches = 0
-fcm_accumulate_batched_cuda.launches = 0
-fcm_sweep_batched_cuda.launches = 0
+WRAPPERS = (fcm_accumulate_cuda, fcm_sweep_cuda, fcm_accumulate_batched_cuda,
+            fcm_sweep_batched_cuda)
+
+
+def reset_counts() -> None:
+    """Zero every wrapper's ``launches`` and ``shapes``."""
+    for fn in WRAPPERS:
+        fn.launches = 0
+        fn.shapes = collections.Counter()
+
+
+reset_counts()

@@ -13,7 +13,8 @@ import torch
 from repro_torch.core import BigFCMConfig, bigfcm_fit
 from repro_torch.data import make_blobs
 from repro_torch.kernels import ops
-from repro_torch.kernels.fcm_update import (fcm_accumulate_batched_cuda,
+from repro_torch.kernels.fcm_update import (_batched_plan, _plan,
+                                            fcm_accumulate_batched_cuda,
                                             fcm_accumulate_batched_ref,
                                             fcm_accumulate_cuda,
                                             fcm_accumulate_ref,
@@ -230,3 +231,64 @@ def test_fit_tenants_through_kernel(card):
     same = fixed & (gap == 0)
     np.testing.assert_allclose(hop.centers[same], tor.centers[same],
                                rtol=1e-4, atol=1e-4)
+
+
+def _launched_path(kern, before):
+    """The one path ``kern`` launched since its ``shapes`` were ``before``."""
+    new = kern.shapes - before
+    assert len(new) == 1, new
+    return next(iter(new))[0]
+
+
+# Both sides of each dispatch boundary of the single-model sweep: rows
+# (d <= 32 at C = 2, d <= 4 at C <= 4) | tile (C <= 128) | first version.
+@pytest.mark.parametrize("n,d,c,path", [
+    (3000, 32, 2, "rows"), (3000, 33, 2, "tile"),
+    (3000, 4, 4, "rows"), (3000, 4, 9, "tile"),
+    (3000, 41, 128, "tile"), (3000, 41, 129, "first"),
+    (2048, 41, 23, "tile"), (3184, 41, 23, "tile"),
+    (2048, 28, 2, "rows"), (3184, 28, 2, "rows"),
+    (200_000, 28, 2, "rows"), (200_000, 41, 23, "tile")])
+@pytest.mark.parametrize("m", [1.2, 2.0])
+def test_each_path_matches_plain_and_reruns_bit_identically(card, n, d, c,
+                                                            path, m):
+    x, w, v = _inputs(n, d, c, n + d + c, card)
+    assert _plan(card.index or 0, n, d, c).path == path
+    for kern, plain, atol in ((fcm_sweep_cuda, fcm_sweep_ref, 3e-5),
+                              (fcm_accumulate_cuda, fcm_accumulate_ref,
+                               3e-3)):
+        before = kern.shapes.copy()
+        got = kern(x, w, v, m)
+        assert _launched_path(kern, before) == path
+        _close(got, plain(x, w, v, m), 3e-4, atol)
+        for a, b in zip(got, kern(x, w, v, m)):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("t,n,d,c,path", [
+    (700, 32, 4, 3, "rows"), (700, 512, 4, 3, "rows"),
+    (700, 4096, 4, 3, "rows"), (5, 512, 4, 3, "rows"),
+    (5, 300, 4, 8, "rows"), (5, 300, 4, 9, "first")])
+@pytest.mark.parametrize("scalar_m", [False, True])
+def test_batched_paths_match_plain_with_phantoms(card, t, n, d, c, path,
+                                                 scalar_m):
+    """K3 at N_b in {32, 512, 4096}: one-warp teams (many tenants of at
+    most 1024 records), whole-CTA teams, row splits (few tenants), and
+    both sides of the rows path's C limit; per-tenant or scalar m; two
+    all-zero phantom tenants stay exactly 0; reruns are bit-identical."""
+    x, w, v, m = _stack(t, n, d, c, t + n + d + c, card)
+    m = 1.2 if scalar_m else m
+    plan = _batched_plan(card.index or 0, t + 2, n, d, c)
+    assert plan.path == path
+    for kern, plain, atol in ((fcm_sweep_batched_cuda, fcm_sweep_batched_ref,
+                               3e-5),
+                              (fcm_accumulate_batched_cuda,
+                               fcm_accumulate_batched_ref, 3e-3)):
+        before = kern.shapes.copy()
+        got = kern(x, w, v, m)
+        assert _launched_path(kern, before) == path
+        _close(got, plain(x, w, v, m), 3e-4, atol)
+        for a, b in zip(got, kern(x, w, v, m)):
+            assert torch.equal(a, b)
+        for out in got:
+            assert not bool(out[t:].abs().any())

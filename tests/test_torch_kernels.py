@@ -1,9 +1,13 @@
 """`repro_torch.kernels` against `repro.kernels`: the plain versions of the
 Hopper FCM kernel, and the wrappers on CPU tensors.  The kernel itself is
-tested on a card by tests/test_torch_cuda.py.
+tested on a card by tests/test_torch_cuda.py.  Also the kernels' launch
+plan (a pure function of the shape and the card's SM count, resident
+CTAs per SM and shared memory) and the build's source hash.
 
 Inputs come from numpy seeds and go to both packages.  Tolerances are
 those of tests/test_kernels.py."""
+import shutil
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -13,10 +17,13 @@ from repro.kernels.fcm_update import fcm_sweep_pallas
 from repro.kernels.ops import accumulate_chunks as ref_accumulate_chunks
 from repro.kernels.ref import fcm_accumulate_ref as jnp_accumulate_ref
 from repro.kernels.ref import fcm_sweep_ref as jnp_sweep_ref
-from repro_torch.kernels import ops
-from repro_torch.kernels.fcm_update import (fcm_accumulate_cuda,
+from repro_torch.kernels import build, ops
+from repro_torch.kernels.fcm_update import (first_batched_layout_floats,
+                                            first_layout_floats,
+                                            fcm_accumulate_cuda,
                                             fcm_accumulate_ref,
-                                            fcm_sweep_cuda, fcm_sweep_ref)
+                                            fcm_sweep_cuda, fcm_sweep_ref,
+                                            plan_batched, plan_sweep)
 
 SHAPES = [
     (64, 2, 2), (100, 130, 7), (257, 4, 3), (1000, 18, 10),
@@ -116,3 +123,112 @@ def test_wrappers_on_cpu_take_plain_path_and_launch_nothing():
             assert torch.equal(g, e)
     assert fcm_accumulate_cuda.launches == 0
     assert fcm_sweep_cuda.launches == 0
+    assert not fcm_accumulate_cuda.shapes and not fcm_sweep_cuda.shapes
+
+
+# ------------------------------------------------------------ launch plan --
+
+# an H100 SXM's SM count and shared memory per block
+H100 = dict(sms=132, ctas_per_sm=2, smem_limit=232448)
+PLAN_SHAPES = [(11_000_000, 28, 2), (4_898_431, 41, 23), (3184, 41, 23),
+               (2048, 41, 23), (3184, 28, 2), (2048, 28, 2), (46, 41, 23),
+               (4, 28, 2), (1, 5, 3), (50_000, 41, 23)] + SHAPES + \
+    OFF_LANE_SHAPES
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def _covers(plan, n, tenants=1):
+    assert plan.block % 32 == 0 and 32 <= plan.block <= 256
+    assert plan.smem <= H100["smem_limit"]
+    if plan.path == "rows":
+        # every record in exactly one split, no split empty
+        assert plan.splits * plan.rows >= n > (plan.splits - 1) * plan.rows
+        teams = plan.block // (32 * plan.team_warps)
+        assert plan.grid * teams >= tenants * plan.splits
+        assert plan.splits == 1 or teams == 1
+    else:
+        # a persistent walk over tiles b, b + walkers, ...: all of them
+        tiles = _cdiv(n, plan.rows)
+        walkers = plan.splits if tenants > 1 or plan.splits > 1 else plan.grid
+        assert plan.grid == tenants * plan.splits or tenants == 1
+        assert 1 <= walkers <= max(tiles, 1)
+    assert 0 <= plan.slices <= plan.grid
+
+
+@pytest.mark.parametrize("n,d,c", PLAN_SHAPES)
+def test_plan_sweep_covers_every_record(n, d, c):
+    plan = plan_sweep(n, d, c, **H100)
+    _covers(plan, n)
+    if plan.path == "tile":
+        assert plan.rc * plan.cg >= c and 32 % plan.cg == 0
+        assert plan.ag * plan.dg * plan.rs <= 256
+
+
+@pytest.mark.parametrize("t,n,d,c", [(65_536, 512, 4, 3), (1024, 32, 4, 3),
+                                     (66, 300, 4, 3), (3, 300, 4, 3),
+                                     (1, 20_000, 4, 3), (700, 4096, 4, 3),
+                                     (66, 300, 41, 23), (3, 300, 41, 23)])
+def test_plan_batched_covers_every_record(t, n, d, c):
+    _covers(plan_batched(t, n, d, c, **H100), n, t)
+
+
+@pytest.mark.parametrize("n", [2048, 3184])
+@pytest.mark.parametrize("d,c", [(41, 23), (28, 2)])
+def test_plan_fills_the_card_at_the_driver_shapes(n, d, c):
+    assert plan_sweep(n, d, c, **H100).grid >= 132
+
+
+def test_plan_takes_the_fast_paths():
+    for n in (11_000_000, 3184, 2048, 4):
+        assert plan_sweep(n, 28, 2, **H100).path == "rows"
+    for n in (4_898_431, 3184, 2048, 46):
+        assert plan_sweep(n, 41, 23, **H100).path == "tile"
+    for t, n in ((65_536, 512), (1024, 32)):
+        plan = plan_batched(t, n, 4, 3, **H100)
+        assert (plan.path, plan.dm, plan.cm, plan.team_warps) == \
+            ("rows", 4, 3, 1)
+    assert plan_batched(66, 300, 41, 23, **H100).path == "first"
+    assert plan_sweep(512, 8, 129, **H100).path == "first"
+    # both sides of each boundary
+    assert plan_sweep(1000, 32, 2, **H100).path == "rows"
+    assert plan_sweep(1000, 33, 2, **H100).path == "tile"
+    assert plan_sweep(1000, 41, 128, **H100).path == "tile"
+    assert plan_sweep(1000, 41, 129, **H100).path == "first"
+    assert plan_batched(5, 300, 4, 8, **H100).path == "rows"
+    assert plan_batched(5, 300, 4, 9, **H100).path == "first"
+
+
+@pytest.mark.parametrize("plan,layout,kernel", [
+    (plan_sweep, first_layout_floats, "fcm_accumulate"),
+    (plan_batched, first_batched_layout_floats, "fcm_batched")])
+def test_plan_raises_exactly_where_shared_memory_runs_out(plan, layout,
+                                                          kernel):
+    """With C = 64 the micro-tiles do not apply past d = 64; the first
+    version takes d while V and one record fit shared memory."""
+    c = 64
+    d_max = max(d for d in range(64, 4000)
+                if 4 * layout(d, c, 1) <= H100["smem_limit"])
+    args = (3, 100, d_max, c) if kernel == "fcm_batched" else (100, d_max, c)
+    assert plan(*args, **H100).path == "first"
+    with pytest.raises(ValueError, match="C-tiled"):
+        plan(*args[:-2], d_max + 1, c, **H100)
+
+
+def test_library_path_hashes_included_headers(tmp_path, monkeypatch):
+    """An edited header changes the library's name, so a stale build is
+    never loaded; the sources list follows the includes."""
+    shutil.copytree(build.CSRC, tmp_path / "csrc")
+    monkeypatch.setattr(build, "CSRC", tmp_path / "csrc")
+    names = ("fcm_accumulate", "fcm_batched")
+    for name in names:
+        assert [p.name for p in build.sources(name)] == [
+            f"{name}.cu", "fcm_common.cuh"]
+    before = {name: build.library_path(name) for name in names}
+    assert before == {name: build.library_path(name) for name in names}
+    header = tmp_path / "csrc" / "fcm_common.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {name: build.library_path(name) for name in names}
+    assert all(after[name] != before[name] for name in names)
