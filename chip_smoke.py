@@ -68,8 +68,10 @@ import argparse
 import dataclasses
 import json
 import math
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -465,7 +467,6 @@ def run_main_path(run: Run, n: int, seed: int, device, reps: int):
     t0 = time.perf_counter()
     x_np, _ = getattr(synth, run.maker)(n, seed=seed)
     x = torch.from_numpy(x_np).to(device)
-    del x_np
     n, d = x.shape
     if d != run.d:
         raise AssertionError(f"{run.maker} gave d={d}, expected {run.d}")
@@ -530,6 +531,11 @@ def run_main_path(run: Run, n: int, seed: int, device, reps: int):
     q_rel = abs(qs["hopper"] - qs["torch"]) / abs(qs["torch"])
     it = {k: (f.diagnostics.combiner_iters[0], f.diagnostics.reducer_iters)
           for k, f in fits.items()}
+    # What the store phase holds its fits against: the in-memory fits of
+    # the same array from the same injected draws.
+    held = {"x": x_np, "cfg": cfg, "sample_idx": sample_idx,
+            "seed_idx": seed_idx, "q": qs, "iters": it,
+            "centers": {k: f.centers.cpu() for k, f in fits.items()}}
     record["vs_torch"] = {"center_err_rel_rms": center_err, "q_rel": q_rel,
                           "iters_hopper": it["hopper"],
                           "iters_torch": it["torch"]}
@@ -587,7 +593,7 @@ def run_main_path(run: Run, n: int, seed: int, device, reps: int):
                 "ms_per_call": per_call, "plain_ms": plain_ms,
                 "bound_ms": b_ms, "bound_by": b_by, "shape": [ns, d, run.c],
                 "path": _plan(device.index, ns, d, run.c).path})
-    return entries
+    return entries, held
 
 
 def tenant_stack(t, n, d, c, seed, device, phantoms=2):
@@ -1022,6 +1028,381 @@ def run_tenant_path(run: TenantRun, seed: int, device, reps: int):
             "path": _batched_plan(device.index, tb, n, d, TENANT_C).path}
 
 
+# The store phase: 1,048,576-row chunks (117 MB at d = 28, 172 MB at
+# d = 41, near Hadoop 2's 128 MB block), one batch per chunk; peak device
+# memory of a store fit held to PEAK_BATCHES batches of x and w.
+STORE_CHUNK_ROWS = 1 << 20
+STORE_SHARDS = 4
+PEAK_BATCHES = 4
+
+
+def pinned_h2d_bytes_per_s(rows: int, cols: int, device, reps: int = 9):
+    """Host→device rate of one plain pinned copy of a (rows, cols) f32
+    batch: the median of ``reps`` copies, each between CUDA events."""
+    import torch
+    host = torch.ones((rows, cols), dtype=torch.float32).pin_memory()
+    dev = torch.empty((rows, cols), dtype=torch.float32, device=device)
+    times = []
+    for _ in range(reps + 1):
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s.record()
+        dev.copy_(host, non_blocking=True)
+        e.record()
+        e.synchronize()
+        times.append(s.elapsed_time(e) / 1e3)
+    return host.numel() * 4 / sorted(times[1:])[reps // 2]
+
+
+def timed_store_pass(store, centers, m, device):
+    """One out-of-core pass (`ooc_accumulate` through ``hopper_accumulate``)
+    at ``centers``, through its own `StagingRing` with copy timing on:
+    (accumulators, where the pass's time went)."""
+    import torch
+    from repro_torch.core import StagingRing, ooc_accumulate
+    from repro_torch.data import batched
+    ring = StagingRing(device, timing=True)
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    out = ooc_accumulate(batched(store.iter_chunks(), store.chunk_rows),
+                         centers, m, backend="hopper_accumulate", ring=ring,
+                         device=device)
+    torch.cuda.synchronize(device)
+    wall = time.perf_counter() - t0
+    return out, {"wall_s": wall, "batches": ring.batches,
+                 "host_batch_iter_s": ring.iter_s,
+                 "host_read_stage_s": ring.host_s, "slot_wait_s": ring.wait_s,
+                 "h2d_s": ring.h2d_seconds(), "h2d_bytes": ring.h2d_bytes}
+
+
+def fit_iters(fit) -> tuple:
+    """(combiner sweeps summed over shards, reducer sweeps) of a fit."""
+    return (sum(fit.diagnostics.combiner_iters), fit.diagnostics.reducer_iters)
+
+
+def hold_fit(a, b, scale, what) -> dict:
+    """The main path's bars for two fits, each (centers, global q, sweep
+    counts): centers within 1e-3 of the data's RMS, q within 1e-4
+    relative, combiner and reducer sweep counts within ±2 (summation
+    order differs, and ε bounds only ΔV²)."""
+    (va, qa, ia), (vb, qb, ib) = a, b
+    rec = {"center_err_rel_rms": float((va.cpu() - vb.cpu()).abs().max())
+           / scale, "q_rel": abs(qa - qb) / abs(qb), "iters": [ia, ib]}
+    if rec["center_err_rel_rms"] > 1e-3 or rec["q_rel"] > 1e-4 or any(
+            abs(u - v) > 2 for u, v in zip(ia, ib)):
+        raise AssertionError(f"{what}: {rec}")
+    return rec
+
+
+def run_store_path(run: Run, held: dict, store_dir: Path, device) -> dict:
+    """Phase 5 for one dataset: the array the main path fit, ingested into
+    an on-disk `ChunkStore` under ``store_dir``; `bigfcm_fit_store` on
+    backend "auto" with launch counts zeroed just before it and read just
+    after, and its peak device memory; the store fits from the main
+    path's injected draws through ``hopper`` and ``torch``, held against
+    the in-memory fit and each other; where a pass's time goes; one pass
+    against one K1 launch over the whole array; K1 at the batch shape
+    (and the padded tail batch) against its plain version, timed; and at
+    ``kdd99_like`` `store_extras`.  Returns K1's kernel entry at the
+    batch shape."""
+    import numpy as np
+    import torch
+    from repro_torch.core import bigfcm_fit_store
+    from repro_torch.data import ChunkStore, batched
+    from repro_torch.engine import get_backend
+    from repro_torch.kernels.fcm_update import (_plan, fcm_accumulate_cuda,
+                                                fcm_accumulate_ref,
+                                                fcm_sweep_cuda, reset_counts)
+
+    x_np, cfg = held["x"], held["cfg"]
+    n, d = x_np.shape
+    rows = STORE_CHUNK_ROWS
+    batch_bytes = 4 * rows * (d + 1)
+    free = shutil.disk_usage(store_dir).free
+    if free < x_np.nbytes + (256 << 20):
+        raise AssertionError(f"{run.name}: {free} bytes free under "
+                             f"{store_dir}, the store needs {x_np.nbytes}")
+    t0 = time.perf_counter()
+    store = ChunkStore.ingest(x_np, chunk_rows=rows,
+                              cache_dir=str(store_dir / run.name))
+    setup_s = time.perf_counter() - t0
+    per_pass = -(-n // rows)
+    if store.n_rows != n or store.n_chunks != per_pass:
+        raise AssertionError(f"{run.name}: store {store!r}")
+
+    # -- the store path, the main path's config, launch counts zeroed
+    #    just before it and peak device memory measured over it
+    reset_counts()
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    res = bigfcm_fit_store(store, cfg, device=device)
+    torch.cuda.synchronize(device)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(device)
+    launches = {"fcm_sweep": fcm_sweep_cuda.launches,
+                "fcm_accumulate": fcm_accumulate_cuda.launches}
+    if min(launches.values()) == 0:
+        raise AssertionError(f"store path {run.name}: a kernel was not "
+                             f"launched: {launches}")
+    check_paths(run.name, fcm_sweep_cuda, fcm_accumulate_cuda)
+    k1_batch = fcm_accumulate_cuda.shapes[EXPECTED_PATH[run.name], rows]
+    if k1_batch == 0 or k1_batch % per_pass:
+        raise AssertionError(f"store path {run.name}: {k1_batch} K1 launches "
+                             f"at {rows} rows, {per_pass} batches a pass")
+    if res.centers.shape != (run.c, d) or not bool(
+            torch.isfinite(res.centers).all()):
+        raise AssertionError(f"store path {run.name}: bad centers")
+    if peak > PEAK_BATCHES * batch_bytes:
+        raise AssertionError(f"store path {run.name}: peak device memory "
+                             f"{peak} B > {PEAK_BATCHES} batches "
+                             f"({PEAK_BATCHES * batch_bytes} B)")
+    diag = res.diagnostics
+    record = {"phase": "store_path", "run": run.name, "n": n, "d": d,
+              "c": run.c, "m": run.m, "chunk_rows": rows,
+              "chunks": store.n_chunks, "batches_per_pass": per_pass,
+              "store_bytes": store.nbytes, "setup_s": setup_s,
+              "wall_s": wall, "flag": diag.flag,
+              "passes": k1_batch // per_pass,
+              "combiner_iters": list(diag.combiner_iters),
+              "reducer_iters": diag.reducer_iters, "launches": launches,
+              "launches_by_shape": {
+                  "fcm_sweep": shape_counts(fcm_sweep_cuda),
+                  "fcm_accumulate": shape_counts(fcm_accumulate_cuda)},
+              "peak_device_bytes": peak, "batch_bytes": batch_bytes,
+              "peak_bound_bytes": PEAK_BATCHES * batch_bytes}
+
+    # -- the store fit from the main path's injected draws, through
+    #    hopper and torch
+    inject = dataclasses.replace(cfg, use_driver=False)
+    fits = {name: bigfcm_fit_store(
+                store, dataclasses.replace(inject, backend=name),
+                sample_idx=held["sample_idx"], seed_idx=held["seed_idx"],
+                device=device) for name in ("hopper", "torch")}
+
+    # -- where a pass's time goes: two passes at the fitted centers (the
+    #    second timed), a pinned copy's rate, K1 at the batch shape
+    one, _ = timed_store_pass(store, res.centers, run.m, device)
+    again, split = timed_store_pass(store, res.centers, run.m, device)
+    if not all(torch.equal(a, b) for a, b in zip(one, again)):
+        raise AssertionError(f"{run.name}: two store passes differ")
+    rate = pinned_h2d_bytes_per_s(rows, d + 1, device)
+    xb = torch.from_numpy(np.array(store.chunk(0))).to(device)
+    wb = torch.ones((rows,), dtype=torch.float32, device=device)
+    for tail in batched(store.iter_chunks(), rows):
+        pass
+    tx, tw = (torch.from_numpy(np.array(a)).to(device) for a in tail)
+    k1_ms = time_loop_ms(lambda: fcm_accumulate_cuda(xb, wb, res.centers,
+                                                     run.m), 20)
+    split.update({"pinned_h2d_bytes_per_s": rate,
+                  "h2d_bound_s": split["h2d_bytes"] / rate,
+                  "k1_card_s": k1_ms * per_pass / 1e3})
+    record["per_pass"] = split
+
+    # -- the gates that need the whole array on the card
+    xd = torch.from_numpy(x_np).to(device)
+    ones = torch.ones((n,), dtype=torch.float32, device=device)
+    scale = float(torch.sqrt(torch.mean(xd * xd)))
+    acc = get_backend("hopper_accumulate").accumulate
+    qs = {k: float(acc(xd, ones, f.centers, run.m)[2])
+          for k, f in fits.items()}
+    ours = {k: (f.centers, qs[k], fit_iters(f)) for k, f in fits.items()}
+    record["vs_memory"] = hold_fit(
+        ours["hopper"], (held["centers"]["hopper"], held["q"]["hopper"],
+                         held["iters"]["hopper"]), scale,
+        f"store vs in-memory fit at {run.name}")
+    record["vs_torch"] = hold_fit(ours["hopper"], ours["torch"], scale,
+                                  f"store fit hopper vs torch at {run.name}")
+    # One pass sums 11 or 5 launches' accumulators where one launch sums
+    # its CTAs' partials: f32 summation order, 1e-5 of each output's scale
+    # (v_num's: max w_i times the data's RMS).
+    whole = fcm_accumulate_cuda(xd, ones, res.centers, run.m)
+    w_max = float(whole[1].max())
+    record["pass_vs_one_launch"] = max_err(
+        one, whole, 1e-5, (1e-5 * w_max * scale, 1e-5 * w_max, 0.0),
+        f"one store pass vs one K1 launch at {run.name}")
+    err = 0.0
+    for label, (bx, bw) in (("batch", (xb, wb)), ("tail", (tx, tw))):
+        err = max(err, max_err(
+            fcm_accumulate_cuda(bx, bw, res.centers, run.m),
+            fcm_accumulate_ref(bx, bw, res.centers, run.m), RTOL, ACC_ATOL,
+            f"K1 at the {label} batch of {run.name}"))
+    plain_ms = time_ms(lambda: fcm_accumulate_ref(xb, wb, res.centers,
+                                                  run.m), 3)
+    per_call = time_ms(lambda: fcm_accumulate_cuda(xb, wb, res.centers,
+                                                   run.m), 20)
+    del tx, tw, whole
+    if run.name == "kdd99_like":
+        record.update(store_extras(run, store, x_np, xd, held, qs["hopper"],
+                                   fits["hopper"].centers, scale, device))
+    emit(record)
+    b_ms, b_by = bound(rows, d, run.c)
+    return {"name": "fcm_accumulate", "run": f"{run.name}/store_batch",
+            "launches": k1_batch, "max_abs_err": err, "ms": k1_ms,
+            "ms_per_call": per_call, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "shape": [rows, d, run.c],
+            "path": _plan(device.index, rows, d, run.c).path}
+
+
+def soft_exact_gap(u, x, v, m, chunk=1 << 18) -> float:
+    """max |u − u_exact|: ``u`` (N, C) memberships of ``x`` against ``v``,
+    the exact ones in float64 with the direct ‖x − v‖², a chunk of rows
+    at a time."""
+    import torch
+    worst = 0.0
+    v64 = v.double()
+    for s in range(0, x.shape[0], chunk):
+        d2 = ((x[s:s + chunk, None, :].double() - v64[None]) ** 2).sum(-1)
+        lg = d2.clamp_min(1e-12).log()
+        r = torch.exp(-(lg - lg.min(-1, keepdim=True).values) / (m - 1.0))
+        exact = r / r.sum(-1, keepdim=True)
+        worst = max(worst, float((u[s:s + chunk].to(x.device).double()
+                                  - exact).abs().max()))
+    return worst
+
+
+def hold_wfcmpb_store(run: Run, store, centers, cfg, scale, device) -> dict:
+    """`wfcmpb_store` over shard 0 of a 4-shard plan (its chunks are the
+    blocks), from ``centers``.  Through ``hopper`` it must equal the
+    in-memory `wfcmpb` of the same rows with one block per chunk (the same
+    blocks, the tail padded alike: equal sweeps, centers within 1e-6 of
+    the data's RMS, q within 1e-5).  Against the ``torch`` backend it is
+    held to the main path's bars only where the ``torch`` progression is
+    fixed by its data at f32 precision — its centers move by at most 1e-4
+    of the RMS when the records are scaled by 1 + 2⁻²² (`check_driver`'s
+    rule); otherwise the gap is printed, not held."""
+    import numpy as np
+    import torch
+    from repro_torch.core import wfcmpb, wfcmpb_batches, wfcmpb_store
+    from repro_torch.data import plan_partitions, shard_batches
+    rows = store.chunk_rows
+    plan = plan_partitions(store, STORE_SHARDS)
+    kw = dict(m=run.m, eps=cfg.combiner_eps, max_iter=cfg.max_iter,
+              device=device)
+    fits = {name: wfcmpb_store(store, centers, backend=name, plan=plan,
+                               shard=0, **kw) for name in ("hopper", "torch")}
+    nudge = float(1 + 2.0 ** -22)
+    fits["torch_nudged"] = wfcmpb_batches(
+        lambda: ((bx * nudge, bw)
+                 for bx, bw in shard_batches(store, plan, 0, rows)),
+        centers, backend="torch", **kw)
+    x0 = torch.cat([torch.from_numpy(np.array(store.chunk(i))).to(device)
+                    for i in plan.chunks_of(0)])
+    mem = wfcmpb(x0, centers, block_size=rows, backend="hopper", **kw)
+    del x0
+
+    def gap(a, b):
+        return float((a.centers - b.centers).abs().max()) / scale
+
+    def q_rel(a, b):
+        return abs(float(a.objective) - float(b.objective)) / abs(
+            float(b.objective))
+
+    hop, tor = fits["hopper"], fits["torch"]
+    blocks = len(plan.chunks_of(0))
+    rec = {"blocks": blocks,
+           "vs_memory": {"center_err_rel_rms": gap(hop, mem),
+                         "q_rel": q_rel(hop, mem),
+                         "iters": [hop.n_iter, mem.n_iter]},
+           "vs_torch": {"center_err_rel_rms": gap(hop, tor),
+                        "q_rel": q_rel(hop, tor),
+                        "iters": [hop.n_iter, tor.n_iter],
+                        "torch_nudged_rel_rms": gap(fits["torch_nudged"],
+                                                    tor)}}
+    rec["vs_torch"]["held"] = rec["vs_torch"]["torch_nudged_rel_rms"] <= 1e-4
+    vm, vt = rec["vs_memory"], rec["vs_torch"]
+    if (hop.n_iter != mem.n_iter or vm["center_err_rel_rms"] > 1e-6
+            or vm["q_rel"] > 1e-5 or not bool(torch.isfinite(
+                hop.centers).all())):
+        raise AssertionError(f"wfcmpb_store vs in-memory wfcmpb: {rec}")
+    if vt["held"] and (vt["center_err_rel_rms"] > 1e-3 or vt["q_rel"] > 1e-4
+                       or abs(hop.n_iter - tor.n_iter) > 2 * blocks):
+        raise AssertionError(f"wfcmpb_store hopper vs torch: {rec}")
+    return rec
+
+
+def store_extras(run: Run, store, x_np, xd, held, q_one, centers, scale,
+                 device) -> dict:
+    """``kdd99_like`` only: the multi-shard store fit (global q within
+    tests/test_plane.py's 5 % of the one-shard fit's ``q_one``, its
+    returned objective the global one), `hold_wfcmpb_store`, the MR-FKM
+    baseline over the store against the in-memory
+    baseline from the same seeds (equal jobs, both converged, centers
+    within 1e-4 of the data's RMS), and `assign_store` against scoring
+    the whole array at once (hard labels equal but for ties within f32
+    rounding; soft memberships no farther from the exact float64 ones
+    than twice the whole-array scoring's distance, plus 1e-6)."""
+    import numpy as np
+    import torch
+    from repro_torch.baselines import mr_fuzzy_kmeans, mr_fuzzy_kmeans_store
+    from repro_torch.core import bigfcm_fit_store
+    from repro_torch.engine import get_backend
+    from repro_torch.serve import assign_store, make_assigner
+    cfg = dataclasses.replace(held["cfg"], use_driver=False)
+    ones = torch.ones((xd.shape[0],), dtype=torch.float32, device=device)
+    out = {}
+
+    t0 = time.perf_counter()
+    multi = bigfcm_fit_store(store, cfg, n_shards=STORE_SHARDS,
+                             sample_idx=held["sample_idx"],
+                             seed_idx=held["seed_idx"], device=device)
+    wall = time.perf_counter() - t0
+    q = float(get_backend("hopper_accumulate").accumulate(
+        xd, ones, multi.centers, run.m)[2])
+    rec = out["multi_shard"] = {
+        "shards": STORE_SHARDS, "wall_s": wall,
+        "combiner_iters": list(multi.diagnostics.combiner_iters),
+        "reducer_iters": multi.diagnostics.reducer_iters, "q": q,
+        "objective": float(multi.objective),
+        "q_rel_vs_one_shard": abs(q - q_one) / q_one}
+    if rec["q_rel_vs_one_shard"] > 0.05 or abs(rec["objective"] - q) > \
+            1e-4 * q:
+        raise AssertionError(f"multi-shard store fit: {rec}")
+
+    out["wfcmpb_store_shard0"] = hold_wfcmpb_store(run, store, centers,
+                                                   cfg, scale, device)
+
+    v0 = x_np[held["sample_idx"][held["seed_idx"]]]
+    kw = dict(m=run.m, eps=run.eps, max_iter=cfg.max_iter, device=device)
+    ooc, jobs_ooc, t_ooc = mr_fuzzy_kmeans_store(store, v0, **kw)
+    mem, jobs_mem, t_mem = mr_fuzzy_kmeans(xd, v0, **kw)
+    rec = out["mr_fkm"] = {
+        "jobs": [jobs_ooc, jobs_mem], "elapsed_s": [t_ooc, t_mem],
+        "center_err_rel_rms": float((ooc.centers - mem.centers).abs().max())
+        / scale}
+    if jobs_ooc != jobs_mem or jobs_ooc >= cfg.max_iter or \
+            rec["center_err_rel_rms"] > 1e-4:
+        raise AssertionError(f"mr_fuzzy_kmeans_store vs in memory: {rec}")
+
+    rec = out["assign_store"] = {}
+    for soft in (False, True):
+        t0 = time.perf_counter()
+        got = torch.from_numpy(np.concatenate(list(assign_store(
+            store, centers, m=run.m, soft=soft, device=device))))
+        rec["soft_s" if soft else "hard_s"] = time.perf_counter() - t0
+        want = make_assigner(centers, m=run.m, soft=soft,
+                             device=device)(xd).cpu()
+        if soft:
+            # Chunk and whole-array GEMMs round the d² expansion's cross
+            # term apart (its f32 cancellation; the data lie far from the
+            # origin), so both are held to the exact memberships.
+            rec["soft_max_abs_err"] = float((got - want).abs().max())
+            rec["soft_vs_exact"] = [soft_exact_gap(got, xd, centers, run.m),
+                                    soft_exact_gap(want, xd, centers, run.m)]
+            if rec["soft_vs_exact"][0] > 2 * rec["soft_vs_exact"][1] + 1e-6:
+                raise AssertionError(f"soft assign_store: {rec}")
+            continue
+        bad = torch.nonzero(got != want).flatten()
+        d2 = ((xd[bad.to(device), None, :] - centers[None]) ** 2).sum(-1)
+        rows = torch.arange(bad.numel(), device=device)
+        ga = d2[rows, got[bad].to(device)]
+        wa = d2[rows, want[bad].to(device)]
+        if bool(((ga - wa).abs() > 1e-6 * torch.maximum(ga, wa)).any()):
+            raise AssertionError(f"hard assign_store: {bad.numel()} rows "
+                                 "differ beyond a tie")
+        rec["hard_ties_differing"] = int(bad.numel())
+    return out
+
+
 def bound_batched(t: int, n: int, d: int, c: int):
     """(ms, what sets it) for one tenant-stacked sweep: the (T, N, d)
     block, its (T, N) weights, V and m read once, the outputs written
@@ -1097,13 +1478,26 @@ def main(argv=None) -> int:
     emit(check_kernels(device))
     emit(check_tenant_kernels(device))
 
-    entries = []
+    entries, held = [], {}
     for run in RUNS:
-        entries += run_main_path(run, run.n, args.seed, device, reps=20)
+        got, held[run.name] = run_main_path(run, run.n, args.seed, device,
+                                            reps=20)
+        entries += got
         torch.cuda.empty_cache()
     for run in TENANT_RUNS:
         entries.append(run_tenant_path(run, args.seed, device, reps=20))
         torch.cuda.empty_cache()
+    stores = ROOT / "build"
+    stores.mkdir(exist_ok=True)
+    store_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_stores_",
+                                      dir=stores))
+    try:
+        for run in RUNS:
+            entries.append(run_store_path(run, held.pop(run.name),
+                                          store_dir, device))
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(store_dir, ignore_errors=True)
 
     emit({"kernels": kernel_line(entries),
           "library_note": "no single PyTorch call computes the FCM sweep, "

@@ -9,14 +9,16 @@ per-cohort, per-region) as one stacked object (`TenantSet`):
   * `repro_torch.serve.TenantScorer` — cross-tenant traffic scored in
     one gather-scored call.
 
-`fit_tenants_looped` is the per-tenant baseline (same math, T fits).
-The stacked checkpoint (`save_tenants` / `load_tenants`) comes with the
-port of `ft.CheckpointManager`.
+`fit_tenants_looped` is the per-tenant baseline (same math, T fits);
+`save_tenants` / `load_tenants` checkpoint the stack as one
+`repro_torch.ft.CheckpointManager` step.
 """
-from .core import TenantSet, normalize_tenant_data, tenant_set
+from .core import (TenantSet, load_tenants, normalize_tenant_data,
+                   save_tenants, tenant_set)
 from .fit import (TenantFitConfig, fit_tenants, fit_tenants_looped,
                   pack_tenants, seed_centers)
 
-__all__ = ["TenantSet", "normalize_tenant_data", "tenant_set",
+__all__ = ["TenantSet", "load_tenants", "normalize_tenant_data",
+           "save_tenants", "tenant_set",
            "TenantFitConfig", "fit_tenants", "fit_tenants_looped",
            "pack_tenants", "seed_centers"]

@@ -13,8 +13,9 @@ per-region segments) are fit and served as one stack:
   * ``versions`` (T,) — the per-tenant snapshot version a serving plane
     reports per response.
 
-The stacked checkpoint (`save_tenants` / `load_tenants`) needs the
-port of `ft.CheckpointManager` and comes with it.
+The stacked checkpoint (`save_tenants` / `load_tenants`) stores the
+whole stack as one checkpoint of `repro_torch.ft.CheckpointManager`, in
+the reference's leaf names, so either package restores the other's.
 """
 from __future__ import annotations
 
@@ -23,7 +24,8 @@ from typing import Dict, Iterable, List, NamedTuple, Optional, Sequence, \
 
 import numpy as np
 
-__all__ = ["TenantData", "TenantSet", "normalize_tenant_data", "tenant_set"]
+__all__ = ["TenantData", "TenantSet", "load_tenants",
+           "normalize_tenant_data", "save_tenants", "tenant_set"]
 
 
 class TenantSet(NamedTuple):
@@ -91,6 +93,48 @@ def tenant_set(ids: Sequence, centers, weights,
         else np.asarray(objective, np.float32),
         np.zeros(t, np.int32) if n_iter is None
         else np.asarray(n_iter, np.int32))
+
+
+# ---------------------------------------------------------- checkpointing ---
+
+_LEAVES = ("tenant_ids", "tenant_centers", "tenant_weights",
+           "tenant_versions", "tenant_objective", "tenant_n_iter")
+
+
+def save_tenants(ckpt, step: int, ts: TenantSet) -> None:
+    """Persist the whole tenant stack as ONE checkpoint — stacked leaves
+    in the self-describing manifest (`ft.CheckpointManager.save`), so a
+    1000-tenant fleet costs one manifest + six arrays, not 1000 files.
+    Durable on return: the manager's async writer (if any) is drained so
+    a `load_tenants` straight after cannot race the publish rename."""
+    ckpt.save(step, dict(zip(_LEAVES, (
+        np.asarray(ts.ids), ts.centers, ts.weights, ts.versions,
+        ts.objective, ts.n_iter))))
+    wait = getattr(ckpt, "wait", None)
+    if wait is not None:
+        wait()
+
+
+def load_tenants(ckpt, step: Optional[int] = None,
+                 tenants: Optional[Iterable] = None) -> TenantSet:
+    """Template-free stacked restore: shapes come off the manifest, so
+    ANY tenant count round-trips.  ``tenants`` restores just that subset
+    (by id, in the requested order) — boot a shard of the fleet without
+    materializing the rest."""
+    step = step if step is not None else ckpt.latest_step()
+    if step is None:
+        raise FileNotFoundError(f"no tenant checkpoints in {ckpt.dir}")
+    arrs = ckpt.restore_arrays(step, keys=_LEAVES)
+    if "tenant_centers" not in arrs:
+        raise KeyError(f"checkpoint step {step} holds no tenant stack "
+                       f"(leaves: {sorted(arrs)})")
+    ts = TenantSet(tuple(str(i) for i in arrs["tenant_ids"]),
+                   np.asarray(arrs["tenant_centers"], np.float32),
+                   np.asarray(arrs["tenant_weights"], np.float32),
+                   np.asarray(arrs["tenant_versions"], np.int64),
+                   np.asarray(arrs["tenant_objective"], np.float32),
+                   np.asarray(arrs["tenant_n_iter"], np.int32))
+    return ts if tenants is None else ts.select(tenants)
 
 
 TenantData = Union[Dict, Sequence]

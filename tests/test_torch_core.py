@@ -129,13 +129,18 @@ def test_bigfcm_fit_default_draws_and_driver_recover_blobs():
 
 
 def test_bigfcm_fit_rejects_paths_not_in_slice():
-    from repro.data.cache import ChunkStore
+    """The mesh is not in the port yet; a `ChunkStore` input runs the
+    out-of-core fit (`bigfcm_fit_store`, one shard)."""
+    from repro_torch.data import ChunkStore
     x, _ = RD.make_blobs(100, 3, 2, seed=0)
-    cfg = T.BigFCMConfig(n_clusters=2)
+    cfg = T.BigFCMConfig(n_clusters=2, sample_size=64, backend="torch")
     with pytest.raises(NotImplementedError, match="mesh"):
         T.bigfcm_fit(x, cfg, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ChunkStore"):
-        T.bigfcm_fit(ChunkStore.ingest(x, chunk_rows=64), cfg, device="cpu")
+    store = ChunkStore.ingest(x, chunk_rows=64)
+    got = T.bigfcm_fit(store, cfg, device="cpu")
+    want = T.bigfcm_fit_store(store, cfg, device="cpu")
+    assert torch.equal(got.centers, want.centers)
+    assert got.diagnostics.combiner_iters == want.diagnostics.combiner_iters
 
 
 # ------------------------------------------------ own copies of helpers ---

@@ -10,8 +10,9 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import BigFCMConfig, bigfcm_fit
-from repro_torch.data import make_blobs
+from repro_torch.core import (BigFCMConfig, StagingRing, bigfcm_fit,
+                              ooc_accumulate)
+from repro_torch.data import ChunkStore, batched, make_blobs
 from repro_torch.kernels import ops
 from repro_torch.kernels.fcm_update import (_batched_plan, _plan,
                                             fcm_accumulate_batched_cuda,
@@ -292,3 +293,45 @@ def test_batched_paths_match_plain_with_phantoms(card, t, n, d, c, path,
             assert torch.equal(a, b)
         for out in got:
             assert not bool(out[t:].abs().any())
+
+
+@pytest.mark.parametrize("d,c,m", [(28, 2, 2.0), (41, 23, 1.2)])
+def test_kernel_at_a_padded_batch(card, d, c, m):
+    """K1 at an out-of-core tail batch: 40,000 records and 25,536
+    zero-weight phantom rows of zeros, against the plain version and
+    against K1 on the 40,000 records alone (phantoms add nothing)."""
+    x, w, v = _inputs(65_536, d, c, d + c, card)
+    x[40_000:] = 0.0
+    w[40_000:] = 0.0
+    got = fcm_accumulate_cuda(x, w, v, m)
+    _close(got, fcm_accumulate_ref(x, w, v, m), 3e-4, 3e-3)
+    _close(got, fcm_accumulate_cuda(x[:40_000], w[:40_000], v, m), 1e-5,
+           1e-3)
+
+
+def test_staging_ring_pass_equals_one_launch(card, tmp_path):
+    """`ooc_accumulate` over an on-disk store (memmap batches through the
+    pinned two-slot ring, the tail batch padded) equals one K1 launch
+    over the whole array within f32 summation order, is bit-identical on
+    a rerun and through a shared ring, and counts its staging."""
+    rng = np.random.default_rng(4)
+    x = rng.normal(size=(200_000, 41)).astype(np.float32)
+    store = ChunkStore.ingest(x, chunk_rows=65_536, cache_dir=str(tmp_path))
+    v = torch.from_numpy(x[:23]).to(card)
+    ring = StagingRing(card, timing=True)
+
+    def one_pass(r=None):
+        return ooc_accumulate(batched(store.iter_chunks(), 65_536), v, 1.2,
+                              backend="hopper_accumulate", ring=r,
+                              device=card)
+
+    before = fcm_accumulate_cuda.launches
+    got = one_pass(ring)
+    assert fcm_accumulate_cuda.launches == before + 4
+    xd = torch.from_numpy(x).to(card)
+    want = fcm_accumulate_cuda(xd, torch.ones(200_000, device=card), v, 1.2)
+    _close(got, want, 1e-5, 1e-2)
+    for again in (one_pass(), one_pass(ring)):
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert ring.batches == 8 and ring.h2d_bytes == 8 * 65_536 * 42 * 4
+    assert ring.h2d_seconds() > 0

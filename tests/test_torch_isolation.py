@@ -46,6 +46,28 @@ else:
 """
 
 
+_NO_CARD_STORE = """
+import numpy as np
+from repro_torch.baselines import mr_fuzzy_kmeans_store
+from repro_torch.core import BigFCMConfig, bigfcm_fit_store, ooc_fcm
+from repro_torch.data import ChunkStore, batched
+from repro_torch.serve import assign_store
+x = np.zeros((16, 2), np.float32)
+store = ChunkStore.ingest(x, chunk_rows=8)
+calls = (lambda: bigfcm_fit_store(store, BigFCMConfig(n_clusters=2)),
+         lambda: ooc_fcm(lambda: batched(store.iter_chunks(), 8), x[:2]),
+         lambda: mr_fuzzy_kmeans_store(store, x[:2]),
+         lambda: list(assign_store(store, x[:2])))
+for call in calls:
+    try:
+        call()
+    except RuntimeError as e:
+        print("raised:", e)
+    else:
+        print("ran")
+"""
+
+
 def _run(code, **env):
     return subprocess.run(
         [sys.executable, "-c", code], capture_output=True, text=True,
@@ -60,13 +82,24 @@ def test_import_loads_no_jax_and_no_reference_module():
             "repro_torch.data.synth", "repro_torch.data.plane",
             "repro_torch.tenant", "repro_torch.tenant.core",
             "repro_torch.tenant.fit", "repro_torch.serve",
-            "repro_torch.serve.tenant"} <= set(out["modules"])
+            "repro_torch.serve.tenant", "repro_torch.data.cache",
+            "repro_torch.core.outofcore", "repro_torch.serve.cluster",
+            "repro_torch.baselines", "repro_torch.baselines.mr_fkm",
+            "repro_torch.ft", "repro_torch.ft.checkpoint"} \
+        <= set(out["modules"])
     assert out["leaked"] == []
 
 
 def test_entry_point_raises_without_a_card():
     out = _run(_NO_CARD, CUDA_VISIBLE_DEVICES="")
     assert out.startswith("raised:") and "device='cpu'" in out
+
+
+def test_store_entry_points_raise_without_a_card():
+    out = _run(_NO_CARD_STORE, CUDA_VISIBLE_DEVICES="").splitlines()
+    assert len(out) == 4
+    assert all(ln.startswith("raised:") and "device='cpu'" in ln
+               for ln in out)
 
 
 def test_tenant_fit_raises_without_a_card():
