@@ -23,7 +23,7 @@ from ..core.fcm import FCMResult
 from ..core.outofcore import StagingRing, make_accumulator, \
     ooc_accumulate, ooc_sweep
 from ..data.plane import batched
-from ..device import as_f32, resolve_device, synchronize
+from ..device import as_real, resolve_device, synchronize
 from ..engine import resolve_backend
 from ..engine.backend import BackendLike
 
@@ -53,9 +53,9 @@ def mr_fuzzy_kmeans(
             "with the multi-GPU slice")
     dev = resolve_device(device)
     be = resolve_backend(backend, device=dev)
-    x = as_f32(x, dev)
+    x = as_real(x, dev)
     w = torch.ones((x.shape[0],), dtype=torch.float32, device=dev)
-    centers = as_f32(init_centers, dev)
+    centers = as_real(init_centers, dev)
     # Warm-up launch (excluded from timing, like a warm JVM): the kernel
     # is built at its first launch.
     _one_sweep(be, x, w, centers, m)
@@ -97,7 +97,7 @@ def mr_fuzzy_kmeans_store(
     rows = int(batch_rows or store.chunk_rows)
     acc = make_accumulator(backend, m, device=dev)
     ring = StagingRing(dev) if dev.type == "cuda" else None
-    centers = as_f32(init_centers, dev)
+    centers = as_real(init_centers, dev)
     # Warm-up on one batch (excluded from timing, warm JVM).
     ooc_accumulate(itertools.islice(batched(store.iter_chunks(), rows), 1),
                    centers, m, acc=acc, ring=ring, device=dev)

@@ -49,7 +49,7 @@ import torch
 from ..data.cache import ChunkStore
 from ..data.plane import PartitionPlan, batched, plan_partitions, \
     shard_batches
-from ..device import as_f32, resolve_device, synchronize
+from ..device import as_real, resolve_device, synchronize
 from ..engine import MergePlan, Summary, merge_summaries, resolve_backend
 from .fcm import fcm
 from .outofcore import StagingRing, make_accumulator, ooc_accumulate, \
@@ -121,7 +121,7 @@ def run_driver(x_sample, cfg: BigFCMConfig, *, seed_idx=None,
     are drawn from ``np.random.default_rng(cfg.seed)``.  Returns
     ``(v_init, flag, t_fcm, t_wfcmpb)``."""
     dev = resolve_device(device)
-    x_sample = as_f32(x_sample, dev)
+    x_sample = as_real(x_sample, dev)
     c = cfg.n_clusters
     if seed_idx is None:
         seed_idx = np.random.default_rng(cfg.seed).choice(
@@ -190,7 +190,7 @@ def driver_seeds(store: ChunkStore, cfg: BigFCMConfig, *, sample_idx=None,
     dev = resolve_device(device)
     _, sample_idx, seed_idx = _draws(cfg, store.n_rows, sample_idx,
                                      seed_idx)
-    x_sample = as_f32(store.take(sample_idx), dev)
+    x_sample = as_real(store.take(sample_idx), dev)
     seeds = _rows(x_sample, seed_idx)
     if not cfg.use_driver:
         return seeds.cpu().numpy()
@@ -233,7 +233,7 @@ def bigfcm_fit(
             "bigfcm_fit on a device mesh (multi-GPU combiners) is not "
             "ported yet; it comes with the multi-GPU slice")
     dev = resolve_device(device)
-    x = as_f32(x, dev)
+    x = as_real(x, dev)
     n = x.shape[0]
     be = resolve_backend(cfg.backend, device=dev)
 
@@ -241,8 +241,8 @@ def bigfcm_fit(
     x_sample = _rows(x, sample_idx)
     v_init, flag, t_s, t_f = _initial_centers(x_sample, cfg, seed_idx, dev)
 
-    w = (torch.ones((n,), dtype=torch.float32, device=dev)
-         if point_weights is None else as_f32(point_weights, dev))
+    w = (torch.ones((n,), dtype=x.dtype, device=dev)
+         if point_weights is None else as_real(point_weights, dev))
     local = fcm(x, v_init, m=cfg.m, eps=cfg.combiner_eps,
                 max_iter=cfg.max_iter, point_weights=w, backend=be,
                 device=dev)
@@ -300,7 +300,7 @@ def bigfcm_fit_store(
     n = store.n_rows
     be = resolve_backend(cfg.backend, device=dev)
     lam, sample_idx, seed_idx = _draws(cfg, n, sample_idx, seed_idx)
-    x_sample = as_f32(store.take(sample_idx), dev)
+    x_sample = as_real(store.take(sample_idx), dev)
     v_init, flag, t_s, t_f = _initial_centers(x_sample, cfg, seed_idx, dev)
 
     if plan is None:

@@ -13,6 +13,7 @@ from typing import NamedTuple, Union
 
 import torch
 
+from ..device import real_dtype
 from ..engine.backend import (_D2_FLOOR, BackendLike, fcm_sweep,
                               hard_assign, membership_terms,
                               pairwise_sqdist, soft_assign)
@@ -80,8 +81,8 @@ def fcm_batched(
     carries the leading T axis, ``n_iter`` included; each tenant's
     trajectory matches its own `fcm` run (see
     `repro_torch.engine.merge.fcm_converge_batched`)."""
-    x = torch.as_tensor(x, dtype=torch.float32)
-    w = (torch.ones(x.shape[:2], dtype=torch.float32, device=x.device)
+    x = torch.as_tensor(x, dtype=real_dtype())
+    w = (torch.ones(x.shape[:2], dtype=x.dtype, device=x.device)
          if point_weights is None else point_weights)
     v, masses, q, n_iter = fcm_converge_batched(
         x, w, init_centers, m=m, eps=eps, max_iter=max_iter,

@@ -7,13 +7,13 @@ from typing import Union
 import numpy as np
 import torch
 
-from ..device import as_f32, resolve_device
+from ..device import as_real, resolve_device
 from .fcm import hard_assign, membership_terms, pairwise_sqdist
 
 
 def fuzzy_objective(x, centers, m=2.0, point_weights=None) -> torch.Tensor:
     """Paper Eq. (2) on the device the tensors lie on."""
-    w = (torch.ones(x.shape[0], dtype=torch.float32, device=x.device)
+    w = (torch.ones(x.shape[0], dtype=x.dtype, device=x.device)
          if point_weights is None else point_weights)
     um = membership_terms(x, centers, m) * w[:, None]
     return torch.sum(um * pairwise_sqdist(x, centers))
@@ -23,7 +23,7 @@ def assign(x, centers, *,
            device: Union[str, torch.device] = "cuda") -> np.ndarray:
     """Nearest-center index of every record, as a numpy array."""
     dev = resolve_device(device)
-    return hard_assign(as_f32(x, dev), as_f32(centers, dev)).cpu().numpy()
+    return hard_assign(as_real(x, dev), as_real(centers, dev)).cpu().numpy()
 
 
 def match_centers(found: np.ndarray, truth: np.ndarray) -> float:

@@ -37,7 +37,7 @@ from typing import Callable, Iterable, Iterator, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from ..device import as_f32, resolve_device
+from ..device import as_real, resolve_device
 from ..engine import resolve_backend
 from ..engine.backend import _D2_FLOOR, BackendLike
 from .fcm import FCMResult
@@ -216,7 +216,7 @@ def ooc_accumulate(batches: BatchIterable, centers, m: float = 2.0, *,
     dev = resolve_device(device)
     acc = acc if acc is not None else make_accumulator(backend, m,
                                                        device=dev)
-    v = as_f32(centers, dev)
+    v = as_real(centers, dev)
     v_num = w_i = q = None
     for x, w in device_batches(batches, dev, ring):
         vn, wi, qi = acc(x, w, v)
@@ -270,7 +270,7 @@ def ooc_fcm(
     acc = acc if acc is not None else make_accumulator(be, m)
     if ring is None and dev.type == "cuda":
         ring = StagingRing(dev)
-    v0 = as_f32(init_centers, dev)
+    v0 = as_real(init_centers, dev)
     v = v_prev = v0
     n_iter = 0
     while True:

@@ -18,7 +18,7 @@ from typing import Optional, Union
 
 import torch
 
-from ..device import as_f32, resolve_device
+from ..device import as_real, resolve_device
 from ..engine import MergePlan, Summary, merge_summaries, resolve_backend
 from .fcm import FCMResult, fcm
 from .outofcore import BatchFactory, device_batches, ooc_accumulate
@@ -44,11 +44,11 @@ def wfcmpb(
     """
     dev = resolve_device(device)
     be = resolve_backend(backend, device=dev)
-    x = as_f32(x, dev)
+    x = as_real(x, dev)
     n, d = x.shape
-    v0 = as_f32(init_centers, dev)
-    w = (torch.ones((n,), dtype=torch.float32, device=dev)
-         if point_weights is None else as_f32(point_weights, dev))
+    v0 = as_real(init_centers, dev)
+    w = (torch.ones((n,), dtype=x.dtype, device=dev)
+         if point_weights is None else as_real(point_weights, dev))
 
     n_blocks = max(1, -(-n // block_size))
     pad = n_blocks * block_size - n
@@ -114,7 +114,7 @@ def wfcmpb_batches(
     be = resolve_backend(backend, device=dev)
     running, iters = _progress(
         device_batches(batches_factory(), dev, ring),
-        as_f32(init_centers, dev), m, eps, max_iter, merge_max_iter, be, dev)
+        as_real(init_centers, dev), m, eps, max_iter, merge_max_iter, be, dev)
     if with_objective:
         _, _, q = ooc_accumulate(batches_factory(), running.centers, m,
                                  backend=be, ring=ring, device=dev)

@@ -3,7 +3,8 @@
 The port's own copy of the generators in `repro.data.synth` that its
 main path and its checks use: SUSY / HIGGS / KDD99 emulated by
 Gaussian-mixture generators with the matching dimensionality and class
-structure.  Same seeds, same arrays as the reference.
+structure, and the drifting stream `make_moving_blobs`.  Same seeds,
+same arrays as the reference.
 """
 from __future__ import annotations
 
@@ -59,3 +60,36 @@ def make_kdd_like(n: int, *, seed: int = 0):
     weights = np.maximum(hist, 1).astype(np.float64)
     return make_blobs(n, 41, 23, spread=0.7, sep=4.0, seed=seed,
                       weights=weights)
+
+
+def make_moving_blobs(n_chunks: int, chunk: int, d: int, c: int, *,
+                      drift_at: int, shift: float = 8.0,
+                      spread: float = 1.0, sep: float = 6.0, seed: int = 0,
+                      drift_clusters=None):
+    """Drifting stream: yields ``(x, labels)`` chunks from a Gaussian
+    mixture whose component means jump by ``shift`` (L2, random
+    directions) starting at chunk index ``drift_at`` — the synthetic
+    regime-change workload for `repro_torch.stream` drift detection.
+
+    ``drift_clusters`` selects WHICH components jump (default: all —
+    global regime change, the full re-seed workload).  A partial list
+    like ``(0,)`` is the *cluster-birth/death* workload: the moved
+    component's records reappear far away (a new mode is born) while
+    its old center starves and should be retired, with the rest of the
+    mixture untouched.
+    """
+    rng = np.random.default_rng(seed)
+    centers = rng.normal(0.0, sep, size=(c, d)).astype(np.float32)
+    delta = rng.normal(size=(c, d))
+    delta = (delta / np.linalg.norm(delta, axis=1, keepdims=True)
+             * shift).astype(np.float32)
+    if drift_clusters is not None:
+        mask = np.zeros((c, 1), np.float32)
+        mask[np.asarray(drift_clusters, int)] = 1.0
+        delta = delta * mask
+    for t in range(n_chunks):
+        ctr = centers + delta if t >= drift_at else centers
+        labels = rng.integers(0, c, size=(chunk,)).astype(np.int32)
+        x = ctr[labels] + rng.normal(0.0, spread,
+                                     size=(chunk, d)).astype(np.float32)
+        yield x.astype(np.float32), labels

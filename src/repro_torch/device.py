@@ -24,9 +24,18 @@ def resolve_device(device: DeviceLike = "cuda") -> torch.device:
     return dev
 
 
-def as_f32(a, device: torch.device) -> torch.Tensor:
-    """``a`` (numpy array or tensor) as a float32 tensor on ``device``."""
-    return torch.as_tensor(a, dtype=torch.float32, device=device)
+def real_dtype() -> torch.dtype:
+    """The plain path's working float type: torch's default, float32
+    unless a caller sets float64 (`torch.set_default_dtype`) for an
+    exact reference run on the ``torch`` backend.  The kernels take
+    float32 only."""
+    return torch.get_default_dtype()
+
+
+def as_real(a, device: torch.device) -> torch.Tensor:
+    """``a`` (numpy array or tensor) as a `real_dtype` tensor on
+    ``device``."""
+    return torch.as_tensor(a, dtype=real_dtype(), device=device)
 
 
 def synchronize(device: torch.device) -> None:

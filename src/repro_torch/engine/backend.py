@@ -36,6 +36,8 @@ from typing import Dict, Optional, Union
 
 import torch
 
+from ..device import real_dtype
+
 _D2_FLOOR = 1e-12  # distance floor: a record sitting exactly on a center
 
 
@@ -44,8 +46,8 @@ _D2_FLOOR = 1e-12  # distance floor: a record sitting exactly on a center
 def pairwise_sqdist(x: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
     """‖x−v‖² via the matmul expansion x² + v² − 2·x·vᵀ.  x (…, N, d),
     centers (…, C, d) → (…, N, C); leading axes (tenants) batch."""
-    x = x.float()
-    centers = centers.float()
+    x = x.to(real_dtype())
+    centers = centers.to(real_dtype())
     x2 = torch.sum(x * x, dim=-1, keepdim=True)          # (…, N, 1)
     v2 = torch.sum(centers * centers, dim=-1)[..., None, :]  # (…, 1, C)
     cross = x @ centers.transpose(-1, -2)                # (…, N, C)
@@ -81,9 +83,9 @@ def fcm_accumulate(x, weights, centers, m):
     All three outputs are plain sums over records, so partial results
     from chunks add elementwise before a single normalization."""
     d2 = pairwise_sqdist(x, centers)
-    wum = _um_from_d2(d2, m) * weights.float()[:, None]   # w_k · u_ik^m
+    wum = _um_from_d2(d2, m) * weights.to(d2.dtype)[:, None]  # w_k·u_ik^m
     w_i = torch.sum(wum, dim=0)                          # (C,)
-    v_num = wum.T @ x.float()                            # (C, d)
+    v_num = wum.T @ x.to(d2.dtype)                       # (C, d)
     q = torch.sum(wum * d2)                              # objective, Eq. (2)
     return v_num, w_i, q
 
@@ -94,7 +96,7 @@ def _batched_m(m, x: torch.Tensor):
     through `_u_from_d2` / `_um_from_d2`."""
     if isinstance(m, (int, float)):
         return float(m)
-    m = torch.as_tensor(m, dtype=torch.float32, device=x.device)
+    m = torch.as_tensor(m, dtype=x.dtype, device=x.device)
     return m if m.dim() == 0 else m.reshape(-1, 1, 1)
 
 
@@ -106,9 +108,9 @@ def fcm_accumulate_batched(x, weights, centers, m):
     The N axis is a shared shape bucket: per-tenant row counts n_t ≤ N
     ride in as zero-weight phantom padding (`data.plane.pad_rows`), so
     padding is a no-op in every accumulator."""
-    x = x.float()
+    x = x.to(real_dtype())
     d2 = pairwise_sqdist(x, centers)                     # (T, N, C)
-    wum = _um_from_d2(d2, _batched_m(m, x)) * weights.float()[..., None]
+    wum = _um_from_d2(d2, _batched_m(m, x)) * weights.to(x.dtype)[..., None]
     w_i = torch.sum(wum, dim=1)                          # (T, C)
     v_num = wum.transpose(1, 2) @ x                      # (T, C, d)
     q = torch.sum(wum * d2, dim=(1, 2))                  # (T,)
@@ -181,7 +183,8 @@ class SweepBackend:
 
 
 class TorchBackend(SweepBackend):
-    """f32 eager PyTorch — the CPU default and the oracle."""
+    """Eager PyTorch in `real_dtype` (f32 unless raised to f64) — the CPU
+    default and the oracle."""
 
     name = "torch"
 

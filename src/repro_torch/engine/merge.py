@@ -1,9 +1,19 @@
 """Merge plans — the weighted summary-reduce, and the convergence loop.
 
-Counterpart of `repro.engine.merge`.  BigFCM's reducer and WFCMPB's
-progression both run a weighted FCM over a stack of (centers, masses)
-summaries.  This module ports the ``flat`` topology — one WFCM over all
-S·C sketch points; ``pairwise`` and ``windowed`` come with later slices.
+Counterpart of `repro.engine.merge`.  BigFCM's reducer, WFCMPB's
+progression and the streaming window all run a weighted FCM over a
+stack of (centers, masses) summaries, with a *topology* choice:
+
+  ``flat``      — one WFCM over all S·C sketch points (the paper's
+                  single reduce job; also each WFCMPB scan step).
+  ``pairwise``  — balanced tree of 2-slot flat merges (log₂ S WFCM
+                  rounds), each pair seeded with its heavier slot.
+  ``windowed``  — ONE WFCM whose every iteration accumulates the raw
+                  per-slot (v_num, w_i, q) sums through the backend's
+                  ``accumulate`` entry, one call per slot in slot order
+                  (K1 at C points per slot under ``hopper``), and
+                  normalizes once.
+
 `fcm_converge_batched` runs T independent fits at once, the tenant
 plane's loop.
 
@@ -22,13 +32,13 @@ from typing import NamedTuple, Optional, Sequence, Union
 
 import torch
 
-from ..device import as_f32, resolve_device
-from .backend import BackendLike, resolve_backend
+from ..device import as_real, real_dtype, resolve_device
+from .backend import BackendLike, normalize_accumulators, resolve_backend
 from .summary import Summary, slot_masses
 from .summary import concat as concat_summaries
+from .summary import stack as stack_summaries
 
-TOPOLOGIES = ("flat",)
-_LATER_TOPOLOGIES = ("pairwise", "windowed")
+TOPOLOGIES = ("flat", "pairwise", "windowed")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,10 +51,6 @@ class MergePlan:
     max_iter: int = 200
 
     def __post_init__(self):
-        if self.topology in _LATER_TOPOLOGIES:
-            raise NotImplementedError(
-                f"merge topology {self.topology!r} is not ported yet; "
-                "this slice of repro_torch has only 'flat'")
         if self.topology not in TOPOLOGIES:
             raise ValueError(f"unknown merge topology {self.topology!r}; "
                              f"one of {TOPOLOGIES}")
@@ -54,7 +60,7 @@ class MergePlan:
 
 class MergeResult(NamedTuple):
     summary: Summary          # merged (C, d) centers + (C,) masses
-    n_iter: int               # WFCM sweeps run
+    n_iter: int               # WFCM sweeps run, summed over rounds
     objective: torch.Tensor   # () f32 — Eq. (2) of the final sweep
 
 
@@ -63,7 +69,7 @@ def _converge(sweep, v0: torch.Tensor, *, eps: float,
     """The paper's stopping rule: iterate ``sweep: centers → (v_new, w_i,
     q)`` until max_i ‖ΔV_i‖² ≤ ε (the first sweep always runs; capped at
     ``max_iter``), then one more sweep for the final masses (Eq. 6)."""
-    v = v0.float()
+    v = v0.to(real_dtype())
     n_iter = 0
     while n_iter < max_iter:
         v_new, _, _ = sweep(v)
@@ -91,11 +97,11 @@ def fcm_converge(
     resolved backend's sweep.  The core of `repro_torch.core.fcm`."""
     dev = resolve_device(device)
     be = resolve_backend(backend, device=dev)
-    x = as_f32(x, dev)
-    w = (torch.ones((x.shape[0],), dtype=torch.float32, device=dev)
-         if point_weights is None else as_f32(point_weights, dev))
+    x = as_real(x, dev)
+    w = (torch.ones((x.shape[0],), dtype=x.dtype, device=dev)
+         if point_weights is None else as_real(point_weights, dev))
     return _converge(lambda v: be.sweep(x, w, v, m),
-                     as_f32(init_centers, dev), eps=eps, max_iter=max_iter)
+                     as_real(init_centers, dev), eps=eps, max_iter=max_iter)
 
 
 def fcm_converge_batched(
@@ -130,10 +136,10 @@ def fcm_converge_batched(
     has no counterpart."""
     dev = resolve_device(device)
     be = resolve_backend(backend, device=dev)
-    X = as_f32(X, dev)
-    W = as_f32(W, dev)
-    v = as_f32(init_centers, dev)
-    m = as_f32(m, dev)
+    X = as_real(X, dev)
+    W = as_real(W, dev)
+    v = as_real(init_centers, dev)
+    m = as_real(m, dev)
     if m.dim() == 0:
         # Materialized once per fit: the kernel reads a contiguous (T,).
         m = m.expand(X.shape[0]).contiguous()
@@ -168,6 +174,42 @@ def _merge_flat(s: Summary, plan: MergePlan, be, init) -> MergeResult:
                      eps=plan.eps, max_iter=plan.max_iter)
 
 
+def _merge_windowed(s: Summary, plan: MergePlan, be, init) -> MergeResult:
+    n_slots = s.centers.shape[0]
+
+    def sweep(v):
+        v_num, w_i, q = be.accumulate(s.centers[0], s.masses[0], v, plan.m)
+        for i in range(1, n_slots):    # one accumulate per slot, in order
+            vn, wi, qi = be.accumulate(s.centers[i], s.masses[i], v, plan.m)
+            v_num, w_i, q = v_num + vn, w_i + wi, q + qi
+        return normalize_accumulators(v_num, w_i, q)
+
+    v0 = _seed_centers(s, plan.seed) if init is None else init
+    return _converge(sweep, v0, eps=plan.eps, max_iter=plan.max_iter)
+
+
+def _merge_pairwise(s: Summary, plan: MergePlan, be) -> MergeResult:
+    level = [Summary(s.centers[i], s.masses[i])
+             for i in range(s.centers.shape[0])]
+    n_iter = 0
+    q = torch.zeros((), device=s.centers.device)
+    while len(level) > 1:
+        nxt = []
+        for i in range(0, len(level) - 1, 2):
+            a, b = level[i], level[i + 1]
+            # seed each pair with the heavier slot's centers
+            v0 = torch.where(torch.sum(a.masses) >= torch.sum(b.masses),
+                             a.centers, b.centers)
+            res = _merge_flat(stack_summaries([a, b]), plan, be, v0)
+            n_iter += res.n_iter
+            q = res.objective
+            nxt.append(res.summary)
+        if len(level) % 2:
+            nxt.append(level[-1])
+        level = nxt
+    return MergeResult(level[0], n_iter, q)
+
+
 def merge_summaries(
     summaries: Union[Summary, Sequence[Summary]],
     plan: Optional[MergePlan] = None,
@@ -182,7 +224,13 @@ def merge_summaries(
     centers, (S, C) masses — or a sequence of summaries, each a single
     (C, d) sketch or an (S_i, C, d) stack, concatenated along the slot
     axis.  ``init`` overrides the plan's seed rule with explicit reducer
-    seed centers.  Phantom (zero-mass) slots vanish by construction.
+    seed centers; it applies to the single-WFCM topologies only —
+    ``pairwise`` seeds every pair with the heavier slot's centers, so
+    passing ``init`` with it is an error rather than a silent no-op.
+    Phantom (zero-mass) slots vanish by construction in every topology.
+
+    Merged *masses* depend on the topology (WFCM does not conserve mass;
+    see the module note).
     """
     if not isinstance(summaries, Summary):
         summaries = concat_summaries(list(summaries))
@@ -193,8 +241,18 @@ def merge_summaries(
     plan = plan or MergePlan()
     be = resolve_backend(backend, device=summaries.centers.device)
     if summaries.centers.shape[0] == 1 and init is None:
-        # A lone slot with no explicit seed merges to itself.
+        # A lone slot with no explicit seed merges to itself.  With
+        # ``init`` given, the reducer WFCM still runs as a polish of the
+        # single summary from the supplied seed.
         return MergeResult(Summary(summaries.centers[0],
                                    summaries.masses[0]), 0,
                            torch.zeros((), device=summaries.centers.device))
-    return _merge_flat(summaries, plan, be, init)
+    if plan.topology == "flat":
+        return _merge_flat(summaries, plan, be, init)
+    if plan.topology == "windowed":
+        return _merge_windowed(summaries, plan, be, init)
+    if init is not None:
+        raise ValueError("init= does not apply to the pairwise topology "
+                         "(each pair seeds with its heavier slot); use a "
+                         "flat/windowed plan for an explicit seed")
+    return _merge_pairwise(summaries, plan, be)

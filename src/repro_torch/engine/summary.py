@@ -14,20 +14,20 @@ from typing import NamedTuple, Sequence, Union
 
 import torch
 
-from ..device import as_f32, resolve_device
+from ..device import as_real, resolve_device
 
 
 class Summary(NamedTuple):
     """A weighted center sketch (or a stack of them on a leading axis)."""
-    centers: torch.Tensor   # (..., C, d) float32
-    masses: torch.Tensor    # (..., C)    float32 — Σ_k w_k·u_ik^m per center
+    centers: torch.Tensor   # (..., C, d) real_dtype (float32)
+    masses: torch.Tensor    # (..., C)    Σ_k w_k·u_ik^m per center
 
 
 def summary(centers, masses, *,
             device: Union[str, torch.device] = "cuda") -> Summary:
-    """Build a Summary of float32 tensors on ``device``."""
+    """Build a Summary of `real_dtype` tensors on ``device``."""
     dev = resolve_device(device)
-    return Summary(as_f32(centers, dev), as_f32(masses, dev))
+    return Summary(as_real(centers, dev), as_real(masses, dev))
 
 
 def stack(summaries: Sequence[Summary]) -> Summary:

@@ -23,7 +23,7 @@ supplies (SM count, resident CTAs per SM, shared memory per block).
 
 A CUDA tensor launches the kernel (or raises); a CPU tensor takes the
 plain version.  Each wrapper counts its kernel launches in its
-``launches`` attribute, and in ``shapes`` per (path, N) (single-model)
+``launches`` attribute, and in ``shapes`` per (path, N, C) (single-model)
 or (path, T, N) (tenant-stacked); `reset_counts` zeroes both.
 ``fcm_accumulate_ref`` / ``fcm_sweep_ref`` and
 ``fcm_accumulate_batched_ref`` / ``fcm_sweep_batched_ref`` are the plain
@@ -546,7 +546,7 @@ def fcm_accumulate_cuda(x, w, centers, m: float = 2.0):
     if x.device.type == "cpu":
         return fcm_accumulate_ref(x, w, centers, m)
     out, path = _launch(x, w, centers, m, normalize=False)
-    _count(fcm_accumulate_cuda, (path, x.shape[0]))
+    _count(fcm_accumulate_cuda, (path, x.shape[0], centers.shape[0]))
     return out
 
 
@@ -556,7 +556,7 @@ def fcm_sweep_cuda(x, w, centers, m: float = 2.0):
     if x.device.type == "cpu":
         return fcm_sweep_ref(x, w, centers, m)
     out, path = _launch(x, w, centers, m, normalize=True)
-    _count(fcm_sweep_cuda, (path, x.shape[0]))
+    _count(fcm_sweep_cuda, (path, x.shape[0], centers.shape[0]))
     return out
 
 

@@ -1,14 +1,14 @@
-"""`repro_torch.serve` — scoring against fitted models.
+"""`repro_torch.serve` — scoring against fitted and live models.
 
 Counterpart of `repro.serve`.  This slice holds the frozen-snapshot
-scorer (`make_assigner`) and out-of-core store scoring (`assign_store`),
-and the tenant plane's gather-scored `TenantScorer`; streaming
-assignment (`assign_stream`), the single-model `Scorer`, the coalescing
-`ScoringService` and its tenant-routed front end come with later
-slices.
+scorer (`make_assigner`), out-of-core store scoring (`assign_store`),
+scoring against a live streaming model (`assign_stream`), and the tenant
+plane's gather-scored `TenantScorer`; the single-model `Scorer` and
+`SnapshotPublisher`, the coalescing `ScoringService` and its
+tenant-routed front end come with later slices.
 """
-from .cluster import assign_store, make_assigner
+from .cluster import assign_store, assign_stream, make_assigner
 from .tenant import TenantScorer, TenantSnapshot, tenant_snapshot
 
-__all__ = ["assign_store", "make_assigner", "TenantScorer",
+__all__ = ["assign_store", "assign_stream", "make_assigner", "TenantScorer",
            "TenantSnapshot", "tenant_snapshot"]

@@ -9,19 +9,23 @@ entire cached dataset (`repro_torch.data.cache.ChunkStore`) chunk by
 chunk off the mmap — out-of-core batch scoring against a frozen
 snapshot, the "label the whole archive with tonight's model" job.
 
-`assign_stream` (scoring against a live streaming model) comes with the
-port of the streaming plane.
+`assign_stream` is the online shape: each incoming chunk is (optionally)
+folded into a `repro_torch.stream.StreamingBigFCM` and scored at once
+against its freshest windowed centers — the serve path and the learn
+path share one model, so a drift re-seed shows in the very next
+response.
 """
 from __future__ import annotations
 
-from typing import Iterator, Union
+from typing import Iterator, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from ..data.plane import pad_rows
-from ..device import as_f32, resolve_device
+from ..device import as_real, resolve_device
 from ..engine import resolve_backend
+from ..stream.streaming import split_item
 
 
 class _Assigner:
@@ -65,10 +69,41 @@ def make_assigner(centers, *, m: float = 2.0, soft: bool = False,
     shapes it has seen."""
     dev = resolve_device(device)
     be = resolve_backend(backend, device=dev)
-    v = as_f32(centers, dev)
+    v = as_real(centers, dev)
     if soft:
         return _Assigner(lambda x: be.soft_assign(x, v, m), dev)
     return _Assigner(lambda x: be.hard_assign(x, v), dev)
+
+
+def assign_stream(model, source, *, soft: bool = False,
+                  update: bool = True
+                  ) -> Iterator[Tuple[np.ndarray, Optional[object]]]:
+    """Serve assignments over a chunk stream.
+
+    ``model`` is a `StreamingBigFCM`; ``source`` yields what its `run`
+    takes (`repro_torch.stream.split_item`): (n_i, d) arrays,
+    timestamped ``(x, ts)`` pairs under ``event_time`` (any
+    `repro_torch.data.stream` source — event times are forwarded so an
+    event-time model keeps its watermark while serving), or ``(x, w)``
+    batches from `repro_torch.data.stream.stream_loader`.  Per chunk,
+    yields ``(assignments, report)`` as host arrays: ``report`` is the
+    `IngestReport` when ``update=True`` (online learning while serving)
+    and ``None`` when the model is frozen (scoring-only replica).
+    Scoring runs through the model's own resolved backend.
+
+    Deliberate divergence: the reference reads every tuple as ``(x,
+    ts)``, so a loader's phantom-padded tail batch reaches its model as
+    real all-zero records and is labelled in full.  Here the weights go
+    to `ingest`, and rows of zero weight (the loader's phantom padding)
+    get no label — the padded tail batch ingests and scores as its real
+    rows alone."""
+    for chunk in source:
+        x, w, ts = split_item(chunk, event_time=model.cfg.event_time)
+        report = model.ingest(x, w, ts=ts) if update else None
+        out = model.assign(x, soft=soft)
+        if w is not None:
+            out = out[torch.as_tensor(w, device=out.device) > 0]
+        yield out.cpu().numpy(), report
 
 
 def assign_store(store, centers, *, m: float = 2.0, soft: bool = False,

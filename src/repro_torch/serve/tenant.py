@@ -27,7 +27,7 @@ from typing import NamedTuple, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from ..device import as_f32, resolve_device
+from ..device import as_real, resolve_device
 from ..engine.backend import _u_from_d2
 from ..tenant.core import TenantSet
 
@@ -60,7 +60,7 @@ def tenant_snapshot(ts: TenantSet, device: DeviceLike = "cuda"
     """Publishable snapshot of a fitted `TenantSet`: its centers land on
     ``device`` once, here; swaps and calls only pass the reference."""
     return TenantSnapshot(ts.ids, np.asarray(ts.versions, np.int64),
-                          as_f32(ts.centers, resolve_device(device)),
+                          as_real(ts.centers, resolve_device(device)),
                           {t: i for i, t in enumerate(ts.ids)})
 
 
@@ -100,7 +100,7 @@ class TenantScorer:
         or (B, C) membership degrees when ``soft``."""
         snap = snap if snap is not None else self._snap
         dev = snap.centers.device
-        x = as_f32(x, dev)
+        x = as_real(x, dev)
         v = snap.centers[torch.as_tensor(tidx, dtype=torch.long,
                                          device=dev)]        # (B, C, d)
         d2 = torch.sum((x[:, None, :] - v) ** 2, dim=-1)     # (B, C)

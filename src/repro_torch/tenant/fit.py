@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from ..data.plane import geom_bucket, pad_rows
-from ..device import as_f32, resolve_device
+from ..device import as_real, resolve_device
 from ..engine import fcm_converge_batched, resolve_backend
 from ..engine.merge import _converge
 from .core import TenantData, TenantSet, normalize_tenant_data, tenant_set
@@ -157,10 +157,10 @@ def fit_tenants_looped(data: TenantData, cfg: TenantFitConfig, *,
                           factor=cfg.row_factor)
         w = np.zeros((n_b,), np.float32)
         w[:x.shape[0]] = 1.0
-        xt, wt = as_f32(pad_rows(x, n_b), dev), as_f32(w, dev)
+        xt, wt = as_real(pad_rows(x, n_b), dev), as_real(w, dev)
         m = float(m_all[i])
         res = _converge(lambda v: be.sweep(xt, wt, v, m),
-                        as_f32(seeds[i], dev), eps=cfg.eps,
+                        as_real(seeds[i], dev), eps=cfg.eps,
                         max_iter=cfg.max_iter)
         fit_tenants_looped.launches += 1
         centers.append(res.summary.centers.cpu().numpy())

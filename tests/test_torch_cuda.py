@@ -6,13 +6,18 @@ PyTorch is installed:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Tolerances are those of tests/test_kernels.py."""
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core import (BigFCMConfig, StagingRing, bigfcm_fit,
                               ooc_accumulate)
-from repro_torch.data import ChunkStore, batched, make_blobs
+from repro_torch.data import (ChunkStore, batched, make_blobs,
+                              make_moving_blobs, replay_source,
+                              stream_loader)
+from repro_torch.engine import MergePlan, merge_summaries, summary
 from repro_torch.kernels import ops
 from repro_torch.kernels.fcm_update import (_batched_plan, _plan,
                                             fcm_accumulate_batched_cuda,
@@ -22,6 +27,8 @@ from repro_torch.kernels.fcm_update import (_batched_plan, _plan,
                                             fcm_sweep_batched_cuda,
                                             fcm_sweep_batched_ref,
                                             fcm_sweep_cuda, fcm_sweep_ref)
+from repro_torch.serve import assign_stream
+from repro_torch.stream import StreamConfig, StreamingBigFCM
 from repro_torch.tenant import TenantFitConfig, fit_tenants
 
 pytestmark = pytest.mark.cuda
@@ -335,3 +342,78 @@ def test_staging_ring_pass_equals_one_launch(card, tmp_path):
         assert all(torch.equal(a, b) for a, b in zip(got, again))
     assert ring.batches == 8 and ring.h2d_bytes == 8 * 65_536 * 42 * 4
     assert ring.h2d_seconds() > 0
+
+
+@pytest.mark.parametrize("topology", ["windowed", "pairwise"])
+@pytest.mark.parametrize("d,c,m", [(28, 8, 2.0), (41, 23, 1.2)])
+def test_merge_topologies_through_kernel(card, topology, d, c, m):
+    """The window merges through ``hopper`` (K1 at C points per slot, or
+    K2 at 2·C per pair) land where the ``torch`` backend does, phantom
+    slot included; windowed launches K1 once per slot per sweep."""
+    rng = np.random.default_rng(d + c)
+    truth = rng.normal(0, 5, size=(c, d))
+    cent = (truth[None] + rng.normal(0, 0.3, size=(8, c, d))).astype(
+        np.float32)
+    mass = rng.uniform(1, 20, size=(8, c)).astype(np.float32)
+    mass[3] = 0.0
+    s = summary(cent, mass, device=card)
+    plan = MergePlan(topology, m=m, eps=1e-9, max_iter=200)
+    before = fcm_accumulate_cuda.launches
+    got = merge_summaries(s, plan, backend="hopper")
+    if topology == "windowed":
+        assert fcm_accumulate_cuda.launches - before == 8 * (got.n_iter + 1)
+    want = merge_summaries(s, plan, backend="torch")
+    scale = float(np.abs(cent).max())
+    torch.testing.assert_close(got.summary.centers, want.summary.centers,
+                               rtol=0, atol=1e-4 * scale)
+    assert abs(got.n_iter - want.n_iter) <= 2
+
+
+def test_stream_through_kernels_matches_torch_twin(card, monkeypatch):
+    """A short drifting stream through ``hopper`` (K2 in the combiner, K1
+    in the window merge) fed by `stream_loader` (pinned staging, a
+    phantom-padded tail batch): step-locked against a ``torch`` twin on
+    the card started from each pre-ingest state — the same decisions,
+    centers within 1e-4 of the data's RMS, combiner sweeps ±2 — with the
+    driver race pinned to its FCM branch; then `assign_stream` scores the
+    stream's real rows alone."""
+    from repro_torch.core import fcm
+    from repro_torch.stream import streaming
+
+    def fcm_branch(x_sample, cfg, *, seed_idx, device):
+        seeds = x_sample[torch.as_tensor(seed_idx, device=x_sample.device)]
+        return fcm(x_sample, seeds, m=cfg.m, eps=cfg.driver_eps,
+                   max_iter=cfg.max_iter, backend=cfg.backend,
+                   device=device).centers, True, 0.0, 0.0
+
+    monkeypatch.setattr(streaming, "run_driver", fcm_branch)
+    chunks = [x for x, _ in make_moving_blobs(6, 3000, 8, 4, drift_at=3,
+                                              shift=10.0, seed=5)]
+    x = np.concatenate(chunks)[:17_000]
+    scale = float(np.sqrt(np.mean(x * x)))
+    cfg = StreamConfig(n_clusters=4, window=3, decay=0.8, driver_sample=256)
+    model = StreamingBigFCM(cfg, device=card)
+    assert model.backend.name == "hopper"
+    k1, k2 = fcm_accumulate_cuda.launches, fcm_sweep_cuda.launches
+    reseeds = 0
+    for bx, bw in stream_loader(replay_source(x, 3000), 3000, device=card):
+        pre = None if model.state is None else model.state_dict()
+        rep = model.ingest(bx, bw)
+        twin = StreamingBigFCM(dataclasses.replace(cfg, backend="torch"),
+                               device=card)
+        if pre is not None:
+            twin.load_state_arrays(pre)
+        trep = twin.ingest(bx, bw)
+        for f in ("drifted", "reason", "born", "died", "n_centers"):
+            assert getattr(rep, f) == getattr(trep, f), (f, rep, trep)
+        torch.testing.assert_close(model.state.centers, twin.state.centers,
+                                   rtol=0, atol=1e-4 * scale)
+        assert abs(int(rep.combiner_iters[0])
+                   - int(trep.combiner_iters[0])) <= 2
+        reseeds += rep.reseeded
+    assert reseeds == 1 and float(bw.sum()) == 2000
+    assert fcm_accumulate_cuda.launches > k1
+    assert fcm_sweep_cuda.launches > k2
+    outs = list(assign_stream(model, stream_loader(
+        replay_source(x, 3000), 3000, device=card), update=False))
+    assert [o.shape[0] for o, _ in outs] == [3000] * 5 + [2000]

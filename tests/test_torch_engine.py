@@ -1,5 +1,6 @@
 """`repro_torch.engine` against `repro.engine`: sweep math, the backend
-registry, summaries and the flat merge, on identical numpy inputs.
+registry, summaries and the flat merge, on identical numpy inputs (the
+windowed and pairwise topologies: tests/test_torch_stream.py).
 Tolerances are those of tests/test_kernels.py."""
 import jax.numpy as jnp
 import numpy as np
@@ -167,9 +168,9 @@ def test_merge_init_and_lone_slot_match_reference():
 
 
 def test_merge_plan_rejects_topologies_not_in_slice():
-    for topo in ("pairwise", "windowed"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            T.MergePlan(topo)
+    assert T.TOPOLOGIES == R.TOPOLOGIES
+    for topo in T.TOPOLOGIES:
+        assert T.MergePlan(topo).topology == topo
     with pytest.raises(ValueError, match="unknown merge topology"):
         T.MergePlan("ring")
     with pytest.raises(ValueError, match="seed rule"):

@@ -68,6 +68,33 @@ for call in calls:
 """
 
 
+_ALONE = """
+import json, sys
+import {module}
+print(json.dumps(sorted(m for m in sys.modules
+                        if m == "jax" or m.startswith(("jax.", "jaxlib"))
+                        or m == "repro" or m.startswith("repro."))))
+"""
+
+
+_NO_CARD_STREAM = """
+import numpy as np
+from repro_torch.data import ShardedLoader, stream_loader
+from repro_torch.stream import StreamConfig, StreamingBigFCM
+x = np.zeros((16, 2), np.float32)
+calls = (lambda: StreamingBigFCM(StreamConfig(n_clusters=2)),
+         lambda: stream_loader(iter([x]), 8),
+         lambda: ShardedLoader(x, 8))
+for call in calls:
+    try:
+        call()
+    except RuntimeError as e:
+        print("raised:", e)
+    else:
+        print("ran")
+"""
+
+
 def _run(code, **env):
     return subprocess.run(
         [sys.executable, "-c", code], capture_output=True, text=True,
@@ -85,7 +112,10 @@ def test_import_loads_no_jax_and_no_reference_module():
             "repro_torch.serve.tenant", "repro_torch.data.cache",
             "repro_torch.core.outofcore", "repro_torch.serve.cluster",
             "repro_torch.baselines", "repro_torch.baselines.mr_fkm",
-            "repro_torch.ft", "repro_torch.ft.checkpoint"} \
+            "repro_torch.ft", "repro_torch.ft.checkpoint",
+            "repro_torch.stream", "repro_torch.stream.streaming",
+            "repro_torch.stream.window", "repro_torch.stream.drift",
+            "repro_torch.data.stream", "repro_torch.data.loader"} \
         <= set(out["modules"])
     assert out["leaked"] == []
 
@@ -105,3 +135,17 @@ def test_store_entry_points_raise_without_a_card():
 def test_tenant_fit_raises_without_a_card():
     out = _run(_NO_CARD_TENANT, CUDA_VISIBLE_DEVICES="")
     assert out.startswith("raised:") and "device='cpu'" in out
+
+
+def test_stream_modules_alone_load_no_jax_and_no_reference_module():
+    for module in ("repro_torch.stream", "repro_torch.data.stream",
+                   "repro_torch.data.loader"):
+        out = _run(_ALONE.format(module=module)).strip().splitlines()[-1]
+        assert json.loads(out) == [], module
+
+
+def test_stream_entry_points_raise_without_a_card():
+    out = _run(_NO_CARD_STREAM, CUDA_VISIBLE_DEVICES="").splitlines()
+    assert len(out) == 3
+    assert all(ln.startswith("raised:") and "device='cpu'" in ln
+               for ln in out)
