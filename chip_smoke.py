@@ -20,7 +20,13 @@ Phases, each printed as JSON lines; any failure raises and exits non-zero:
    version: T ∈ {1, 5, 64} ragged tenants plus two all-zero phantom
    tenants, d ∈ {4, 41}, C ∈ {3, 23}, per-tenant m from {1.05, 1.2, 2.0,
    3.0} and a scalar m, with bit-identical reruns, exact zeros on the
-   phantoms, and one tenant against K1/K2.
+   phantoms, and one tenant against K1/K2.  Then the C-tiled kernel
+   (``csrc/fcm_ctiled.cu``, where V does not fit shared memory) against
+   its plain version computed in row chunks: K1/K2 at (N, d, C) =
+   (4096, 900, 64), (4096, 2048, 64), (1024, 7168, 384), m = 2 and 1.2,
+   with phantom rows and with records on centers; K3 at (3, 1000, 2048,
+   64) with one all-phantom tenant; and with its scratch cut so that its
+   sums add over tenant groups and row chunks.
 3. main path — `bigfcm_fit` on backend "auto" at the paper's dataset
    sizes (HIGGS-like 11,000,000 × 28, C=2, m=2; KDD99-like
    4,898,431 × 41, C=23, m=1.2; ε=5e-7 as in benchmarks/t6_datasets.py),
@@ -32,6 +38,13 @@ Phases, each printed as JSON lines; any failure raises and exits non-zero:
    and WFCMPB on the full-size sample) run through ``hopper``, every
    sweep over records held against the plain version on the same
    inputs, and their centers against the ``torch`` backend's.
+   Then ``router_fit``: `bigfcm_fit` with src/repro/integration/
+   router_init.py:40-42's config (C = 64, m = 2, ε 1e-6 / 1e-8, 200
+   sweeps) at OLMoE-1B-7B's d_model (262,144 × 2048 token-embedding-like
+   rows from 64 Gaussian components of unequal mass), every launch on
+   the C-tiled path, held against the ``torch`` backend from the same
+   draws (`hold_router_fits`); each shape held and timed, the
+   contraction's ``torch.matmul`` timed as its yardstick.
 4. tenant path — `fit_tenants` on backend "auto" at two cohorts made
    from ``--seed``: ``tenants_t16``, benchmarks/t16_tenant.py's own
    (1024 tenants of 8–30 rows, d=4, C=3, m=2, ε=1e-3, 12 sweeps at
@@ -47,7 +60,9 @@ Phases, each printed as JSON lines; any failure raises and exits non-zero:
    `ChunkStore`s of 1,048,576-row chunks: `bigfcm_fit_store` with
    counted launches and peak device memory, held against the in-memory
    fits; a pass's time split; at KDD99 size the 4-shard fit,
-   `wfcmpb_store`, MR-FKM and `assign_store`.
+   `wfcmpb_store`, MR-FKM and `assign_store`.  The KDD99-like fit also
+   prints `repro_torch.obs`'s phase breakdown, its ``data.cache``
+   counters held to the chunks the fit reads.
 6. stream path — `StreamingBigFCM` on backend "auto", launch counts
    zeroed before each run and read after it:
    ``kdd99_stream``, the KDD99-like array replayed through
@@ -69,7 +84,12 @@ Phases, each printed as JSON lines; any failure raises and exits non-zero:
    race pinned to the branch the model kept, `DriverPin`); each ingest's
    wall time is split into drift probe, combiner, window merge and
    driver.  K1 and K2 at every shape the streams launched them at are
-   held against their plain versions and timed.
+   held against their plain versions and timed.  ``kdd99_stream`` also
+   prints the obs phase breakdown, its counters held against the run
+   (records, births, deaths, re-seeds, labels), and obs's cost share of
+   a steady ingest from a host microbenchmark, held to 5 %.  Obs stays
+   on for the whole script (checks beside the main path record
+   nothing).
 7. the kernels line (one entry per kernel), the ``nvidia-smi`` line,
    and the final ``{"ok": true, ...}`` line.
 
@@ -106,7 +126,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
-SOURCES = ("fcm_accumulate", "fcm_batched")     # csrc/<name>.cu
+SOURCES = ("fcm_accumulate", "fcm_batched", "fcm_ctiled")  # csrc/<name>.cu
 CSRC = "src/repro_torch/kernels/csrc"
 # The source of each launch plan path: the rows kernel (which the
 # single-model sweep runs at T = 1) is the tenant-stacked source's.
@@ -117,7 +137,10 @@ PATH_SOURCE = {("fcm_sweep", "rows"): "fcm_batched",
                ("fcm_sweep", "first"): "fcm_accumulate",
                ("fcm_accumulate", "first"): "fcm_accumulate",
                ("fcm_sweep_batched", "rows"): "fcm_batched",
-               ("fcm_sweep_batched", "first"): "fcm_batched"}
+               ("fcm_sweep_batched", "first"): "fcm_batched",
+               ("fcm_sweep", "ctiled"): "fcm_ctiled",
+               ("fcm_accumulate", "ctiled"): "fcm_ctiled",
+               ("fcm_sweep_batched", "ctiled"): "fcm_ctiled"}
 REPLACES = {"fcm_sweep": "src/repro/kernels/fcm_update.py:154",
             "fcm_accumulate": "src/repro/kernels/fcm_update.py:40",
             "fcm_sweep_batched": "src/repro/engine/backend.py:216"}
@@ -139,7 +162,8 @@ DRIVER_LABEL = {"sample": "sample", "last_block": "block",
 EXPECTED_PATH = {"higgs_like": "rows", "kdd99_like": "tile",
                  "tenants_t16": "rows", "tenants_65k": "rows",
                  "kdd99_stream": "tile", "drift_global": "tile",
-                 "drift_split": "tile", "drift_event": "tile"}
+                 "drift_split": "tile", "drift_event": "tile",
+                 "router_fit": "ctiled"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -493,7 +517,7 @@ def shape_entries(run_name, cases, by_shape, d, m, device, reps,
                                                 fcm_accumulate_ref,
                                                 fcm_sweep_cuda, fcm_sweep_ref)
     entries = []
-    for kname, kern, plain, atol in (
+    for kname, kern, plain_fn, atol in (
             ("fcm_sweep", fcm_sweep_cuda, fcm_sweep_ref, SWEEP_ATOL),
             ("fcm_accumulate", fcm_accumulate_cuda, fcm_accumulate_ref,
              ACC_ATOL)):
@@ -505,6 +529,11 @@ def shape_entries(run_name, cases, by_shape, d, m, device, reps,
                         if k[1:] == (ns, c))
             if label != full and count == 0:
                 continue
+            path = _plan(device.index, ns, d, c).path
+            plain = plain_fn
+            if path == "ctiled":    # its broadcast takes N·C·d floats
+                plain = plain_in_rows(fcm_accumulate_ref,
+                                      kname == "fcm_sweep")
             got = kern(xs, ws, vs, m)
             if not all(torch.equal(a, b) for a, b in zip(
                     got, kern(xs, ws, vs, m))):
@@ -526,8 +555,22 @@ def shape_entries(run_name, cases, by_shape, d, m, device, reps,
                 "launches": count, "max_abs_err": err, "ms": ms,
                 "ms_per_call": per_call, "plain_ms": plain_ms,
                 "bound_ms": b_ms, "bound_by": b_by, "shape": [ns, d, c],
-                "path": _plan(device.index, ns, d, c).path})
+                "path": path})
+            if path == "ctiled" and label == full:
+                entries[-1]["library_ms"] = contraction_library_ms(
+                    xs, c, n_rep)
     return entries
+
+
+def contraction_library_ms(x, c, reps) -> float:
+    """The C-tiled kernel's contraction half, v_num = wumᵀx, is one matrix
+    product: ``torch.matmul`` of an (N, C) f32 block with x (IEEE f32, no
+    TF32), timed as the kernel is.  A yardstick only: the port never
+    calls it."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    wum = torch.rand((x.shape[0], c), dtype=torch.float32, device=x.device)
+    return time_loop_ms(lambda: torch.matmul(wum.T, x), reps)
 
 
 def run_main_path(run: Run, n: int, seed: int, device, reps: int):
@@ -644,6 +687,176 @@ def run_main_path(run: Run, n: int, seed: int, device, reps: int):
     return entries, held
 
 
+# router_fit: the fit src/repro/integration/router_init.py:40-47 runs
+# through bigfcm_fit, at OLMoE-1B-7B's d_model x n_experts
+# (src/repro/configs/olmoe_1b_7b.py:6,8), with router_init.py:40-42's own
+# config; the driver's sample is Parker-Hall's (521,663 rows at C = 64:
+# every row).
+ROUTER_N, ROUTER_D, ROUTER_C, ROUTER_M = 262_144, 2048, 64, 2.0
+ROUTER_SEP = 2.0        # spread of the component means, per dim
+
+
+def make_router_like(n, d, c, seed):
+    """Token-embedding-like rows: c Gaussian components of unequal mass
+    (p_k ∝ (k + 1)^-0.8, as token frequencies fall off), means N(0,
+    ROUTER_SEP²) per dim, unit spread; f32, made with numpy from
+    ``seed``."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    means = rng.normal(0.0, ROUTER_SEP, size=(c, d)).astype(np.float32)
+    p = (np.arange(1, c + 1) ** -0.8)
+    labels = rng.choice(c, size=n, p=p / p.sum())
+    x = rng.standard_normal((n, d), dtype=np.float32)
+    for r0 in range(0, n, 1 << 15):
+        x[r0:r0 + (1 << 15)] += means[labels[r0:r0 + (1 << 15)]]
+    return x
+
+
+def router_config(seed):
+    from repro_torch.core import BigFCMConfig
+    return BigFCMConfig(n_clusters=ROUTER_C, m=ROUTER_M, combiner_eps=1e-6,
+                        reducer_eps=1e-8, max_iter=200, seed=seed)
+
+
+def hold_router_fits(x, ones, cfg, draws, device) -> dict:
+    """``hold_fit``'s gates on the fit through ``hopper`` against the
+    ``torch`` backend from the same injected draws (driver off, as
+    `run_main_path` holds its fits).  What a ``torch`` fit of the data
+    scaled by 1 + 2⁻²² moves is not fixed by the data at f32: a sweep
+    count that misses its ±2 must move so there (the reducer polishes C
+    points on their own centers, where the d² expansion is rounding
+    noise, and can wander to ``max_iter``); centers or q that miss their
+    bars must have moved by more than 1e-4 of the RMS there, and are
+    then held against a float64 ``torch`` twin as PR 15's steps are: the
+    hopper fit as near it as the ``torch`` one (2×)."""
+    import torch
+    from repro_torch.core import bigfcm_fit
+    from repro_torch.engine import get_backend
+
+    def fit(xs, backend):
+        f = bigfcm_fit(xs, dataclasses.replace(cfg, use_driver=False,
+                                               backend=backend),
+                       sample_idx=draws[0], seed_idx=draws[1], device=device)
+        acc = "hopper_accumulate" if backend == "hopper" else "torch"
+        q = float(get_backend(acc).accumulate(
+            xs, ones.to(xs.dtype), f.centers, cfg.m)[2])
+        return f.centers, q, fit_iters(f)
+
+    scale = float(torch.sqrt(torch.mean(x * x)))
+    hop, tor = fit(x, "hopper"), fit(x, "torch")
+    rec = {"center_err_rel_rms": float((hop[0] - tor[0]).abs().max())
+           / scale, "q_rel": abs(hop[1] - tor[1]) / abs(tor[1]),
+           "iters": [hop[2], tor[2]]}
+    bars = rec["center_err_rel_rms"] <= 1e-3 and rec["q_rel"] <= 1e-4
+    if bars and all(abs(a - b) <= 2 for a, b in zip(hop[2], tor[2])):
+        return rec
+    nudged = fit(x * (1 + 2.0 ** -22), "torch")
+    rec["torch_nudged_iters"] = nudged[2]
+    rec["torch_nudged_rel_rms"] = float(
+        (nudged[0] - tor[0]).abs().max()) / scale
+    if bars:
+        if all(abs(a - b) <= 2 or abs(u - b) > 2
+               for a, b, u in zip(hop[2], tor[2], nudged[2])):
+            return rec
+        raise AssertionError(f"router_fit sweeps: {rec}")
+    with float64():
+        exact = fit(x.double(), "torch")
+
+    def gap(a):
+        return (float((a[0].double() - exact[0]).abs().max()) / scale,
+                abs(a[1] - exact[1]) / abs(exact[1]))
+    rec.update(hopper_vs_float64=gap(hop), torch_vs_float64=gap(tor),
+               float64_iters=exact[2])
+    if rec["torch_nudged_rel_rms"] <= 1e-4 or any(
+            h > 2 * t for h, t in zip(rec["hopper_vs_float64"],
+                                      rec["torch_vs_float64"])):
+        raise AssertionError(f"router_fit: {rec}")
+    return rec
+
+
+def run_router_fit(seed: int, device, reps: int):
+    """Phase 3b: `bigfcm_fit` on backend "auto" at router_fit's full width
+    (the C-tiled kernel's main path), launch counts zeroed just before it
+    and read after the global objective pass; the fit held against the
+    ``torch`` backend (`hold_router_fits`); each kernel entry against its
+    plain version (in row chunks) at every shape the fit launched it at,
+    and timed.  Returns (phase record, kernel entries)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import bigfcm_fit
+    from repro_torch.device import synchronize
+    from repro_torch.engine import get_backend, resolve_backend
+    from repro_torch.kernels.fcm_update import (fcm_accumulate_cuda,
+                                                fcm_sweep_cuda, reset_counts)
+
+    t0 = time.perf_counter()
+    x_np = make_router_like(ROUTER_N, ROUTER_D, ROUTER_C, seed)
+    x = torch.from_numpy(x_np).to(device)
+    del x_np
+    ones = torch.ones((ROUTER_N,), dtype=torch.float32, device=device)
+    synchronize(device)
+    setup_s = time.perf_counter() - t0
+    cfg = router_config(seed)
+    backend = resolve_backend(cfg.backend, device=device).name
+    if backend != "hopper":
+        raise AssertionError(f"'auto' resolved to {backend!r} on the card")
+
+    reset_counts()
+    synchronize(device)
+    t0 = time.perf_counter()
+    res = bigfcm_fit(x, cfg, device=device)
+    _, _, q = get_backend("hopper_accumulate").accumulate(
+        x, ones, res.centers, cfg.m)
+    synchronize(device)
+    wall = time.perf_counter() - t0
+    launches = {"fcm_sweep": fcm_sweep_cuda.launches,
+                "fcm_accumulate": fcm_accumulate_cuda.launches}
+    by_shape = {"fcm_sweep": dict(fcm_sweep_cuda.shapes),
+                "fcm_accumulate": dict(fcm_accumulate_cuda.shapes)}
+    if min(launches.values()) == 0:
+        raise AssertionError(f"router_fit: a kernel was not launched: "
+                             f"{launches}")
+    check_paths("router_fit", fcm_sweep_cuda, fcm_accumulate_cuda)
+    if res.centers.shape != (ROUTER_C, ROUTER_D) or not (
+            bool(torch.isfinite(res.centers).all())
+            and math.isfinite(float(q))):
+        raise AssertionError("router_fit gave non-finite or mis-shaped "
+                             "output")
+    diag = res.diagnostics
+    record = {"phase": "main_path", "run": "router_fit", "n": ROUTER_N,
+              "d": ROUTER_D, "c": ROUTER_C, "m": cfg.m,
+              "combiner_eps": cfg.combiner_eps,
+              "reducer_eps": cfg.reducer_eps, "max_iter": cfg.max_iter,
+              "sample_size": diag.sample_size, "backend": backend,
+              "setup_s": setup_s, "wall_s": wall, "flag": diag.flag,
+              "t_fcm_driver_s": diag.t_fcm_driver,
+              "t_wfcmpb_driver_s": diag.t_wfcmpb_driver,
+              "combiner_iters": list(diag.combiner_iters),
+              "reducer_iters": diag.reducer_iters, "global_q": float(q),
+              "launches": launches,
+              "launches_by_shape": {
+                  "fcm_sweep": shape_counts(fcm_sweep_cuda),
+                  "fcm_accumulate": shape_counts(fcm_accumulate_cuda)}}
+    rng = np.random.default_rng(seed)
+    lam = diag.sample_size
+    draws = (rng.choice(ROUTER_N, lam, replace=False),
+             rng.choice(lam, ROUTER_C, replace=False))
+    record["hold"] = hold_router_fits(x, ones, cfg, draws, device)
+    emit(record)
+
+    cases = {"full": (x, ones, res.centers, 0.0)}
+    for ns in sorted({k[1] for shapes in by_shape.values() for k in shapes}
+                     - {ROUTER_N}):
+        xs = x[:ns]
+        cases[f"n={ns}"] = (xs, ones[:ns], res.centers,
+                            q_rounding_bound(xs, ones[:ns], res.centers))
+    entries = shape_entries("router_fit", cases, by_shape, ROUTER_D,
+                            cfg.m, device, reps)
+    del x
+    torch.cuda.empty_cache()
+    return entries
+
+
 def tenant_stack(t, n, d, c, seed, device, phantoms=2):
     """K3's inputs: t tenants of ragged rows (at least n/3 of the n-row
     bucket, the rest zero-weight phantom rows), then ``phantoms``
@@ -714,6 +927,154 @@ def check_tenant_kernels(device) -> dict:
     return {"phase": "tenant_kernels", "cases": cases,
             "max_abs_err": worst, "one_tenant_vs_k1_max_abs_err": one,
             "bitwise_deterministic": True, "phantom_tenants_exact_zero": True}
+
+
+# The C-tiled kernel's checks (phase 2c): K1/K2 at router-fit widths
+# (d = 900; OLMoE's 2048 × 64; Kimi-K2's 7168 × 384), K3 at 2048 × 64.
+CTILED_SHAPES = ((4096, 900, 64), (4096, 2048, 64), (1024, 7168, 384))
+CTILED_TENANTS = (3, 1000, 2048, 64)     # T with one all-phantom tenant
+CTILED_CHUNKED_BUDGET = 1_200_000        # bytes: 2 tenant groups x 4 chunks
+PLAIN_CHUNK_BYTES = 1 << 30
+
+
+def plain_in_rows(acc_ref, normalize: bool):
+    """A plain version over row chunks whose (rows, C, d) broadcast takes
+    at most about PLAIN_CHUNK_BYTES (it takes N·C·d floats in one call:
+    11 GB at (1024, 7168, 384)), raw sums added in row order, then the
+    sweep's normalization: one call when one chunk holds every row.
+    ``acc_ref`` is fcm_accumulate_ref or fcm_accumulate_batched_ref."""
+    def plain(x, w, v, m):
+        import torch
+        axis = x.dim() - 2
+        n = x.shape[axis]
+        lead = x.shape[0] if x.dim() == 3 else 1
+        rows = max(1, PLAIN_CHUNK_BYTES // (4 * lead * v.shape[-2]
+                                            * x.shape[-1]))
+        out = None
+        for r0 in range(0, n, rows):
+            part = acc_ref(x.narrow(axis, r0, min(rows, n - r0)),
+                           w.narrow(axis, r0, min(rows, n - r0)), v, m)
+            out = part if out is None else tuple(
+                a + b for a, b in zip(out, part))
+        if normalize:
+            v_num, w_i, q = out
+            out = (v_num / torch.clamp(w_i, min=1e-12)[..., None], w_i, q)
+        return out
+    return plain
+
+
+def launched_path(fn, before) -> str:
+    """The one path ``fn`` launched since its ``shapes`` were ``before``."""
+    new = fn.shapes - before
+    if len(new) != 1:
+        raise AssertionError(f"{fn.__name__}: launched {dict(new)}")
+    return next(iter(new))[0]
+
+
+def hold_ctiled(kern, plain, args, atols, what) -> float:
+    """One C-tiled launch against its plain version (``atols`` per
+    output), counted on path "ctiled", and a bit-identical rerun."""
+    import torch
+    before = kern.shapes.copy()
+    got = kern(*args)
+    if launched_path(kern, before) != "ctiled":
+        raise AssertionError(f"{what}: not on the C-tiled path")
+    err = max_err(got, plain(*args), RTOL, atols, what)
+    if not all(torch.equal(a, b) for a, b in zip(got, kern(*args))):
+        raise AssertionError(f"{what}: two launches differ")
+    return err
+
+
+def check_ctiled_kernels(device) -> dict:
+    """Phase 2c: the C-tiled kernel (csrc/fcm_ctiled.cu) against its plain
+    version (computed in row chunks) at test_kernels.py's tolerances:
+    K1/K2 at CTILED_SHAPES for m = 2 and 1.2, with zero-weight phantom
+    rows, and with C records on the centers (q held to the expansion's
+    rounding bound); K3 at CTILED_TENANTS with per-tenant and scalar m,
+    the phantom tenant exactly 0; and K3/K1 with the scratch cut to
+    CTILED_CHUNKED_BUDGET, so that raw sums add over tenant groups and
+    row chunks.  Every launch is counted on path "ctiled"; each shape's
+    kernel and plain times are printed."""
+    import torch
+    from repro_torch.kernels import fcm_update as fu
+    sweep = plain_in_rows(fu.fcm_accumulate_ref, True)
+    acc = plain_in_rows(fu.fcm_accumulate_ref, False)
+    bsweep = plain_in_rows(fu.fcm_accumulate_batched_ref, True)
+    bacc = plain_in_rows(fu.fcm_accumulate_batched_ref, False)
+    errs, times = {}, {}
+    for n, d, c in CTILED_SHAPES:
+        x, w, v = _inputs(n, d, c, n + d + c, device)
+        phantom_w = w.clone()
+        phantom_w[n // 2:] = 0.0
+        on_centers = x[:c]
+        cases = [("m=2", (x, w, v, 2.0), 0.0), ("m=1.2", (x, w, v, 1.2), 0.0),
+                 ("phantom rows", (x, phantom_w, v, 2.0), 0.0),
+                 ("records on centers", (x, w, on_centers, 1.2),
+                  q_rounding_bound(x, w, on_centers))]
+        for label, args, q_atol in cases:
+            what = f"ctiled ({n}, {d}, {c}) {label}"
+            errs[what] = max(
+                hold_ctiled(fu.fcm_sweep_cuda, sweep, args,
+                            (SWEEP_ATOL, SWEEP_ATOL, SWEEP_ATOL + q_atol),
+                            "sweep " + what),
+                hold_ctiled(fu.fcm_accumulate_cuda, acc, args,
+                            (ACC_ATOL, ACC_ATOL, ACC_ATOL + q_atol),
+                            "accumulate " + what))
+        times[f"{n}x{d}x{c}"] = {
+            "sweep_ms": time_loop_ms(lambda: fu.fcm_sweep_cuda(x, w, v, 2.0),
+                                     10),
+            "plain_ms": time_ms(lambda: sweep(x, w, v, 2.0), 3),
+            "bound_ms": bound(n, d, c)[0]}
+        del x, w, v, phantom_w
+        torch.cuda.empty_cache()
+    t, n, d, c = CTILED_TENANTS
+    x, w, v, m_t = tenant_stack(t - 1, n, d, c, t + n + d + c, device,
+                                phantoms=1)
+    for label, m in (("per-tenant m", m_t), ("m=1.2", 1.2)):
+        what = f"ctiled K3 {CTILED_TENANTS} {label}"
+        for kern, plain, atol in ((fu.fcm_sweep_batched_cuda, bsweep,
+                                   SWEEP_ATOL),
+                                  (fu.fcm_accumulate_batched_cuda, bacc,
+                                   ACC_ATOL)):
+            errs[f"{kern.__name__} {what}"] = hold_ctiled(
+                kern, plain, (x, w, v, m), atol, what)
+            if any(bool(o[t - 1:].abs().any()) for o in kern(x, w, v, m)):
+                raise AssertionError(f"{what}: phantom tenant not 0")
+    times["K3 " + "x".join(map(str, CTILED_TENANTS))] = {
+        "sweep_ms": time_loop_ms(
+            lambda: fu.fcm_sweep_batched_cuda(x, w, v, m_t), 10),
+        "plain_ms": time_ms(lambda: bsweep(x, w, v, m_t), 3),
+        "bound_ms": bound_batched(t, n, d, c)[0]}
+    # The scratch cut: several tenant groups and row chunks per launch.
+    old = fu.CTILED_SCRATCH_BYTES
+    fu.CTILED_SCRATCH_BYTES = CTILED_CHUNKED_BUDGET
+    fu._plan.cache_clear()
+    fu._batched_plan.cache_clear()
+    try:
+        plan = fu._batched_plan(device.index, t, n, d, c)
+        chunks = len(fu.ctiled_chunks(plan, t, n))
+        for kern, plain, atol in ((fu.fcm_sweep_batched_cuda, bsweep,
+                                   SWEEP_ATOL),
+                                  (fu.fcm_accumulate_batched_cuda, bacc,
+                                   ACC_ATOL)):
+            errs[f"{kern.__name__} chunked"] = hold_ctiled(
+                kern, plain, (x, w, v, m_t), atol,
+                f"{kern.__name__} in {chunks} chunks")
+        errs["fcm_sweep_cuda chunked"] = hold_ctiled(
+            fu.fcm_sweep_cuda, sweep, (x[0], w[0], v[0], float(m_t[0])),
+            SWEEP_ATOL, "fcm_sweep_cuda in chunks")
+    finally:
+        fu.CTILED_SCRATCH_BYTES = old
+        fu._plan.cache_clear()
+        fu._batched_plan.cache_clear()
+    if chunks < 3 or plan.scratch > CTILED_CHUNKED_BUDGET:
+        raise AssertionError(f"chunked case: {chunks} chunks, scratch "
+                             f"{plan.scratch}")
+    return {"phase": "ctiled_kernels", "max_abs_err": errs,
+            "chunked": {"chunks": chunks, "group": plan.group,
+                        "rows": plan.rows, "scratch": plan.scratch},
+            "times": times, "bitwise_deterministic": True,
+            "phantom_tenant_exact_zero": True}
 
 
 def tenant_cohort(run: TenantRun, seed: int):
@@ -1161,6 +1522,7 @@ def run_store_path(run: Run, held: dict, store_dir: Path, device) -> dict:
                                                 fcm_accumulate_ref,
                                                 fcm_sweep_cuda, reset_counts)
 
+    from repro_torch import obs
     x_np, cfg = held["x"], held["cfg"]
     n, d = x_np.shape
     rows = STORE_CHUNK_ROWS
@@ -1177,8 +1539,10 @@ def run_store_path(run: Run, held: dict, store_dir: Path, device) -> dict:
     if store.n_rows != n or store.n_chunks != per_pass:
         raise AssertionError(f"{run.name}: store {store!r}")
 
-    # -- the store path, the main path's config, launch counts zeroed
-    #    just before it and peak device memory measured over it
+    # -- the store path, the main path's config, launch counts (and the
+    #    obs registry) zeroed just before it and peak device memory
+    #    measured over it
+    obs.reset_all()
     reset_counts()
     torch.cuda.synchronize(device)
     torch.cuda.reset_peak_memory_stats(device)
@@ -1219,6 +1583,8 @@ def run_store_path(run: Run, held: dict, store_dir: Path, device) -> dict:
                   "fcm_accumulate": shape_counts(fcm_accumulate_cuda)},
               "peak_device_bytes": peak, "batch_bytes": batch_bytes,
               "peak_bound_bytes": PEAK_BATCHES * batch_bytes}
+    if run.name == "kdd99_like":
+        record["obs"] = store_obs(store, cfg, k1_batch // per_pass, per_pass)
 
     # -- the store fit from the main path's injected draws, through
     #    hopper and torch
@@ -1290,6 +1656,28 @@ def run_store_path(run: Run, held: dict, store_dir: Path, device) -> dict:
             "ms_per_call": per_call, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "shape": [rows, d, run.c],
             "path": _plan(device.index, rows, d, run.c).path}
+
+
+def store_obs(store, cfg, passes, per_pass) -> dict:
+    """The obs record of one store fit (the registry reset just before
+    it): its phase breakdown and counters, ``data.cache.chunk_reads``
+    held to what the fit reads — the chunks the driver's sample touches
+    (`ChunkStore.take`) and each pass's batches."""
+    import numpy as np
+    from repro_torch import obs
+    from repro_torch.core.bigfcm import _draws
+    _, sample_idx, _ = _draws(cfg, store.n_rows, None, None)
+    sample_chunks = np.unique(np.searchsorted(
+        store.offsets, sample_idx, side="right") - 1).size
+    counters = obs.metrics_snapshot()["counters"]
+    want = sample_chunks + passes * per_pass
+    if counters.get("data.cache.chunk_reads") != want:
+        raise AssertionError(f"store fit: {counters} for {sample_chunks} "
+                             f"sample chunks + {passes} passes x "
+                             f"{per_pass} batches")
+    return {"phase_breakdown": obs.phase_breakdown(), "counters": counters,
+            "sample_chunk_reads": int(sample_chunks), "passes": passes,
+            "batches_per_pass": per_pass}
 
 
 def soft_exact_gap(u, x, v, m, chunk=1 << 18) -> float:
@@ -1536,15 +1924,79 @@ def float64():
 
 class uncounted:
     """Launches inside the block leave every wrapper's counts as they
-    were (checks beside the main path are not the main path)."""
+    were, and `repro_torch.obs` records nothing there (checks beside the
+    main path are not the main path)."""
 
     def __enter__(self):
+        from repro_torch import obs
         from repro_torch.kernels.fcm_update import WRAPPERS
         self.saved = [(fn, fn.launches, fn.shapes.copy()) for fn in WRAPPERS]
+        self.obs_on = obs.enabled()
+        obs.set_enabled(False)
 
     def __exit__(self, *exc):
+        from repro_torch import obs
         for fn, launches, shapes in self.saved:
             fn.launches, fn.shapes = launches, shapes
+        obs.set_enabled(self.obs_on)
+
+
+class ObsCalls:
+    """Counts the calls the port's modules make into `repro_torch.obs`
+    (its package-level ``span``, ``counter``, ``gauge``, ``histogram``
+    and ``event``, through which every instrumented module goes) while
+    obs is enabled, inside the block."""
+
+    NAMES = ("span", "counter", "gauge", "histogram", "event")
+
+    def __enter__(self):
+        from repro_torch import obs
+        self.calls, self.saved = 0, {n: getattr(obs, n) for n in self.NAMES}
+        for name, fn in self.saved.items():
+            setattr(obs, name, self._counted(fn))
+        return self
+
+    def _counted(self, fn):
+        from repro_torch import obs
+
+        def counted(*args, **kw):
+            if obs.enabled():
+                self.calls += 1
+            return fn(*args, **kw)
+        return counted
+
+    def __exit__(self, *exc):
+        from repro_torch import obs
+        for name, fn in self.saved.items():
+            setattr(obs, name, fn)
+
+
+OBS_BUDGET = 0.05    # the reference's ingest overhead budget (test_obs.py)
+
+
+def obs_call_costs(n: int = 20_000, reps: int = 9) -> dict:
+    """Seconds per call of one `obs.span` (enter and exit) and of one
+    ``obs.counter(name).add``, each the minimum over ``reps`` runs of
+    ``n`` calls (the host's clock; the minimum is robust to a loaded
+    host where an on-vs-off race of whole ingests is not)."""
+    from repro_torch import obs
+
+    def span():
+        with obs.span("chip_smoke.bench"):
+            pass
+
+    def add():
+        obs.counter("chip_smoke.bench").add(1)
+    out = {}
+    for name, fn in (("span", span), ("counter_add", add)):
+        best = math.inf
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            best = min(best, (time.perf_counter() - t0) / n)
+        out[name] = best
+    return out
 
 
 class StreamRun:
@@ -1928,6 +2380,7 @@ def run_kdd99_stream(x_np, seed, device, ckpt_dir, pin):
     `make_assigner` of the final centers.  Returns the kernel entries."""
     import numpy as np
     import torch
+    from repro_torch import obs
     from repro_torch.data import replay_source, stream_loader
     from repro_torch.kernels.fcm_update import reset_counts
     from repro_torch.serve import assign_stream, make_assigner
@@ -1941,12 +2394,15 @@ def run_kdd99_stream(x_np, seed, device, ckpt_dir, pin):
                                             dtype=np.float64))))
     run = StreamRun("kdd99_stream", model, pin, twin=True, scale=scale,
                     ckpt_dir=ckpt_dir)
+    obs.reset_all()
     reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for labels, rep in assign_stream(model, stream_loader(
-            replay_source(x_np, STREAM_ROWS), STREAM_ROWS, device=device)):
-        pass
+    with ObsCalls() as calls:
+        for labels, rep in assign_stream(model, stream_loader(
+                replay_source(x_np, STREAM_ROWS), STREAM_ROWS,
+                device=device)):
+            pass
     torch.cuda.synchronize()
     loop_s = time.perf_counter() - t0
     launches, by_shape, printed = stream_launches("kdd99_stream",
@@ -1963,12 +2419,55 @@ def run_kdd99_stream(x_np, seed, device, ckpt_dir, pin):
     record = stream_record("kdd99_stream", run, cfg, n, d, loop_s, launches,
                            printed)
     record.update({"last_batch_rows": last, "assign_ties_differing": ties,
-                   "checkpoint": run.ckpt})
+                   "checkpoint": run.ckpt,
+                   "obs": stream_obs(run, n, calls.calls)})
     emit(record)
     xd = torch.from_numpy(x_np[:STREAM_ROWS]).to(device)
     return shape_entries("kdd99_stream",
                          stream_cases("kdd99_stream", xd, model, by_shape),
                          by_shape, d, cfg.m, device, 20, full=None)
+
+
+def stream_obs(run, n, calls) -> dict:
+    """The obs record of ``kdd99_stream``: its phase breakdown, the
+    counters held against what the run did (``stream.records`` against
+    the array's rows, births, deaths and re-seeds against the ingest
+    reports, ``serve.records`` against the labels), and obs's cost share
+    of a steady ingest: ``calls`` (every obs call of the run, `ObsCalls`)
+    per ingest times the dearer of one span and one counter add
+    (`obs_call_costs`), over the median ingest wall past the first;
+    held to OBS_BUDGET."""
+    from repro_torch import obs
+    snap = obs.metrics_snapshot()
+    counters = snap["counters"]
+    steps = run.steps
+    want = {"stream.records": n, "serve.records": n,
+            "stream.births": sum(s["born"] for s in steps),
+            "stream.deaths": sum(s["died"] for s in steps),
+            "stream.reseeds": sum(s["drifted"] for s in steps)}
+    got = {k: counters.get(k, 0.0) for k in want}
+    if got != want:
+        raise AssertionError(f"kdd99_stream obs counters {got}, the run "
+                             f"did {want}")
+    spans = {k: h["count"] for k, h in snap["histograms"].items()
+             if k.startswith("span.")}
+    if spans.get("span.stream.ingest") != len(steps):
+        raise AssertionError(f"kdd99_stream: {spans} for {len(steps)} "
+                             "ingests")
+    breakdown = obs.phase_breakdown()
+    costs = obs_call_costs()
+    walls = sorted(s["wall_s"] for s in steps[1:])
+    steady = walls[len(walls) // 2]
+    per_ingest = calls / len(steps)
+    share = per_ingest * max(costs.values()) / steady
+    if share > OBS_BUDGET:
+        raise AssertionError(f"obs costs {share:.2%} of a steady ingest")
+    obs.reset_all()
+    return {"phase_breakdown": breakdown, "counters": counters,
+            "gauges": snap["gauges"], "spans": spans, "calls": calls,
+            "calls_per_ingest": per_ingest, "call_cost_s": costs,
+            "steady_ingest_wall_s": steady, "cost_share": share,
+            "budget": OBS_BUDGET}
 
 
 def label_ties(got, want, x, centers) -> int:
@@ -2172,20 +2671,21 @@ def kernel_line(per_run) -> list:
     numbers, path and source under ``runs``."""
     entries = {}
     for e in per_run:
-        entries.setdefault(e["name"], []).append(e)
+        name = e["name"] + ("_ctiled" if e["path"] == "ctiled" else "")
+        entries.setdefault(name, []).append(e)
     out = []
     for name, runs in entries.items():
         top = max(runs, key=lambda e: e["bound_ms"])
         for e in runs:
-            e["source"] = f"{CSRC}/{PATH_SOURCE[name, e['path']]}.cu"
+            e["source"] = f"{CSRC}/{PATH_SOURCE[e['name'], e['path']]}.cu"
         out.append({
             "name": name, "route": "cuda", "source": top["source"],
-            "replaces": REPLACES[name],
+            "replaces": REPLACES[top["name"]],
             "launches": sum(e["launches"] for e in runs),
             "max_abs_err": max(e["max_abs_err"] for e in runs),
             "ms": top["ms"], "plain_ms": top["plain_ms"],
             "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
-            "library_ms": None, "at": top["run"],
+            "library_ms": top.get("library_ms"), "at": top["run"],
             "runs": {e["run"]: {k: e[k] for k in (
                 "launches", "max_abs_err", "ms", "ms_per_call", "plain_ms",
                 "bound_ms", "bound_by", "shape", "path", "source")}
@@ -2229,6 +2729,8 @@ def main(argv=None) -> int:
 
     emit(check_kernels(device))
     emit(check_tenant_kernels(device))
+    emit(check_ctiled_kernels(device))
+    torch.cuda.empty_cache()
 
     entries, held = [], {}
     for run in RUNS:
@@ -2236,6 +2738,7 @@ def main(argv=None) -> int:
                                             reps=20)
         entries += got
         torch.cuda.empty_cache()
+    entries += run_router_fit(args.seed, device, reps=20)
     for run in TENANT_RUNS:
         entries.append(run_tenant_path(run, args.seed, device, reps=20))
         torch.cuda.empty_cache()

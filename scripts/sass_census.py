@@ -4,7 +4,7 @@ with the CUDA toolkit:
 
     python3 scripts/sass_census.py
 
-Builds both kernel sources (`repro_torch.kernels.build`), disassembles
+Builds every kernel source (`repro_torch.kernels.build`), disassembles
 them with ``cuobjdump -sass`` and prints one JSON line per kernel
 function: its instruction count, and for its largest loop (the span of
 its longest backward branch) the instruction count and the count by
@@ -68,7 +68,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import build
     cuobjdump = Path(build.nvcc_path()).with_name("cuobjdump")
-    for name in ("fcm_accumulate", "fcm_batched"):
+    for name in ("fcm_accumulate", "fcm_batched", "fcm_ctiled"):
         build.compile_source(name)
         sass = subprocess.run(
             [str(cuobjdump), "-sass", os.fspath(build.library_path(name))],

@@ -34,6 +34,13 @@ unless the caller injects them (``sample_idx=``, ``seed_idx=``), which is
 how the tests hand both packages the same draws; the in-memory and the
 store fit of the same data draw the same rows.
 
+Instrumentation (`repro_torch.obs`, the reference's names): an
+``engine.fit`` span over the in-memory fit or ``engine.fit_store`` over
+the store fit (never both), ``engine.combiner`` and ``engine.merge``
+spans inside the latter, and ``engine.driver_race`` /
+``engine.fit.done`` events.  The spans read the host clock only; each
+ends after its fit's sweeps have read ΔV² back from the card.
+
 Not in this slice: the device mesh (multi-GPU combiners), which raises
 `NotImplementedError`.
 """
@@ -46,6 +53,7 @@ from typing import NamedTuple, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from .. import obs
 from ..data.cache import ChunkStore
 from ..data.plane import PartitionPlan, batched, plan_partitions, \
     shard_batches
@@ -145,6 +153,9 @@ def run_driver(x_sample, cfg: BigFCMConfig, *, seed_idx=None,
     res_pb, t_f = _timed(dev, f_pb)
 
     flag = t_f - t_s > 0         # paper line 6: Flag=1 ⇒ FCM to the cache
+    obs.event("engine.driver_race", flag=bool(flag), t_fcm=t_s,
+              t_wfcmpb=t_f, backend=be.name,
+              sample_rows=int(x_sample.shape[0]))
     v_init = res_fcm.centers if flag else res_pb.centers
     return v_init, flag, t_s, t_f
 
@@ -232,6 +243,15 @@ def bigfcm_fit(
         raise NotImplementedError(
             "bigfcm_fit on a device mesh (multi-GPU combiners) is not "
             "ported yet; it comes with the multi-GPU slice")
+    # The whole in-memory fit is one `engine.fit` span (the store
+    # delegation above gets its own `engine.fit_store`: never both).
+    with obs.span("engine.fit", rows=int(x.shape[0])):
+        return _fit_array(x, cfg, point_weights, sample_idx, seed_idx,
+                          device)
+
+
+def _fit_array(x, cfg: BigFCMConfig, point_weights, sample_idx, seed_idx,
+               device) -> BigFCMResult:
     dev = resolve_device(device)
     x = as_real(x, dev)
     n = x.shape[0]
@@ -253,6 +273,11 @@ def bigfcm_fit(
               backend=be, device=dev)
     diag = BigFCMDiagnostics(bool(flag), t_s, t_f, lam, (local.n_iter,),
                              red.n_iter)
+    if obs.enabled():
+        obs.event("engine.fit.done", backend=be.name, path="memory",
+                  flag=bool(flag), objective=float(red.objective),
+                  combiner_iters=int(local.n_iter),
+                  reducer_iters=int(red.n_iter))
     return BigFCMResult(red.centers, red.center_weights, red.objective, diag)
 
 
@@ -296,6 +321,13 @@ def bigfcm_fit_store(
     materialized array to float32 summation order; the WFCMPB combiner
     applies on multi-shard plans, which return the global objective.
     """
+    with obs.span("engine.fit_store", rows=int(store.n_rows)):
+        return _fit_store(store, cfg, n_shards, plan, batch_rows,
+                          sample_idx, seed_idx, device)
+
+
+def _fit_store(store: ChunkStore, cfg: BigFCMConfig, n_shards, plan,
+               batch_rows, sample_idx, seed_idx, device) -> BigFCMResult:
     dev = resolve_device(device)
     n = store.n_rows
     be = resolve_backend(cfg.backend, device=dev)
@@ -315,16 +347,20 @@ def bigfcm_fit_store(
     ring = StagingRing(dev) if dev.type == "cuda" else None
     locals_ = []
     for s in shards:                   # empty shards contribute nothing
-        if flag or len(shards) == 1:   # 1 shard ≡ single-device branch
-            loc = ooc_fcm(lambda s=s: shard_batches(store, plan, s, rows),
-                          v_init, m=cfg.m, eps=cfg.combiner_eps,
-                          max_iter=cfg.max_iter, backend=be, acc=acc,
-                          ring=ring, device=dev)
-        else:
-            loc = wfcmpb_store(store, v_init, m=cfg.m, eps=cfg.combiner_eps,
-                               max_iter=cfg.max_iter, batch_rows=rows,
-                               backend=be, plan=plan, shard=s,
-                               with_objective=False, ring=ring, device=dev)
+        with obs.span("engine.combiner", shard=s):
+            if flag or len(shards) == 1:  # 1 shard ≡ single-device branch
+                loc = ooc_fcm(
+                    lambda s=s: shard_batches(store, plan, s, rows),
+                    v_init, m=cfg.m, eps=cfg.combiner_eps,
+                    max_iter=cfg.max_iter, backend=be, acc=acc, ring=ring,
+                    device=dev)
+            else:
+                loc = wfcmpb_store(store, v_init, m=cfg.m,
+                                   eps=cfg.combiner_eps,
+                                   max_iter=cfg.max_iter, batch_rows=rows,
+                                   backend=be, plan=plan, shard=s,
+                                   with_objective=False, ring=ring,
+                                   device=dev)
         locals_.append(loc)
     iters = tuple(loc.n_iter for loc in locals_)
 
@@ -333,9 +369,15 @@ def bigfcm_fit_store(
         # polish of the local sketch against itself — identical to the
         # in-memory single-device branch.
         local = locals_[0]
-        red = fcm(local.centers, local.centers, m=cfg.m, eps=cfg.reducer_eps,
-                  max_iter=cfg.max_iter, point_weights=local.center_weights,
-                  backend=be, device=dev)
+        with obs.span("engine.merge", shards=1):
+            red = fcm(local.centers, local.centers, m=cfg.m,
+                      eps=cfg.reducer_eps, max_iter=cfg.max_iter,
+                      point_weights=local.center_weights, backend=be,
+                      device=dev)
+        if obs.enabled():
+            obs.event("engine.fit.done", backend=be.name, path="store",
+                      flag=bool(flag), objective=float(red.objective),
+                      reducer_iters=int(red.n_iter))
         diag = BigFCMDiagnostics(bool(flag), t_s, t_f, lam, iters,
                                  red.n_iter)
         return BigFCMResult(red.centers, red.center_weights, red.objective,
@@ -343,11 +385,16 @@ def bigfcm_fit_store(
 
     stacked = Summary(torch.stack([loc.centers for loc in locals_]),
                       torch.stack([loc.center_weights for loc in locals_]))
-    red = merge_summaries(stacked, cfg.reducer_plan(), backend=be)
+    with obs.span("engine.merge", shards=len(locals_)):
+        red = merge_summaries(stacked, cfg.reducer_plan(), backend=be)
     # Global objective of the merged centers over the full store — one
     # more chunk pass through the raw accumulate entry (the q output).
     _, _, q = ooc_accumulate(batched(store.iter_chunks(), rows),
                              red.summary.centers, cfg.m, acc=acc, ring=ring,
                              device=dev)
+    if obs.enabled():
+        obs.event("engine.fit.done", backend=be.name, path="store",
+                  flag=bool(flag), objective=float(q),
+                  reducer_iters=int(red.n_iter))
     diag = BigFCMDiagnostics(bool(flag), t_s, t_f, lam, iters, red.n_iter)
     return BigFCMResult(red.summary.centers, red.summary.masses, q, diag)

@@ -27,6 +27,13 @@ a copy stream, two slots in turn, so the host's read of batch k+1 and
 its copy overlap the kernel on batch k.  On a CPU device the batches go
 through plainly, one host copy each (a read-only memmap is never handed
 to `torch.from_numpy`).
+
+Instrumentation (`repro_torch.obs`, the reference's names): an
+``engine.sweep`` span around each batch's accumulate call (on the card
+it times the launch: no span synchronizes), and under `obs.enabled()`
+one ``engine.fit.iter`` event per pass of `ooc_fcm` with the pass's
+objective and center shift, read back in the one device→host copy per
+pass that the stopping test already makes.
 """
 from __future__ import annotations
 
@@ -37,6 +44,7 @@ from typing import Callable, Iterable, Iterator, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from .. import obs
 from ..device import as_real, resolve_device
 from ..engine import resolve_backend
 from ..engine.backend import _D2_FLOOR, BackendLike
@@ -219,7 +227,8 @@ def ooc_accumulate(batches: BatchIterable, centers, m: float = 2.0, *,
     v = as_real(centers, dev)
     v_num = w_i = q = None
     for x, w in device_batches(batches, dev, ring):
-        vn, wi, qi = acc(x, w, v)
+        with obs.span("engine.sweep"):
+            vn, wi, qi = acc(x, w, v)
         if v_num is None:
             v_num, w_i, q = vn, wi, qi
         else:
@@ -273,12 +282,22 @@ def ooc_fcm(
     v0 = as_real(init_centers, dev)
     v = v_prev = v0
     n_iter = 0
+    q_pass = None
     while True:
-        delta = float(torch.max(torch.sum((v - v_prev) ** 2, dim=-1)))
+        shift = torch.max(torch.sum((v - v_prev) ** 2, dim=-1))
+        if q_pass is not None and obs.enabled():
+            # the per-pass objective/center-shift series, read back with
+            # the stopping test's ΔV² (the previous pass's shift)
+            delta, objective = torch.stack(
+                [shift, q_pass.to(shift.dtype)]).tolist()
+            obs.event("engine.fit.iter", i=n_iter - 1, backend=be.name,
+                      objective=objective, shift=delta)
+        else:
+            delta = float(shift)
         if not (n_iter < max_iter and (n_iter == 0 or delta > eps)):
             break
-        v_new, _, _ = ooc_sweep(batches_factory(), v, m, acc=acc, ring=ring,
-                                device=dev)
+        v_new, _, q_pass = ooc_sweep(batches_factory(), v, m, acc=acc,
+                                     ring=ring, device=dev)
         v_prev, v = v, v_new
         n_iter += 1
     _, w_final, q = ooc_sweep(batches_factory(), v, m, acc=acc, ring=ring,

@@ -32,9 +32,8 @@ two stores hold the same data iff their hashes match, regardless of
 ``chunk_rows``.  `verify()` re-hashes the chunks against the manifest
 to detect on-disk corruption.
 
-The reference counts chunk reads, bytes and cache hits through
-`repro.obs`; the port has no metrics plane yet, so this copy counts
-nothing.
+Chunk reads, bytes and cache hits are counted through
+`repro_torch.obs` under the reference's names (``data.cache.*``).
 """
 from __future__ import annotations
 
@@ -47,6 +46,7 @@ from typing import (Callable, Iterator, Iterable, List, NamedTuple,
 
 import numpy as np
 
+from .. import obs
 
 MANIFEST_NAME = "manifest.json"
 FORMAT_VERSION = 1
@@ -182,6 +182,8 @@ class StoreWriter:
             self._stat_sumsq += (a64 * a64).sum(axis=0)
         i = len(self._rows)
         self._rows.append(int(arr.shape[0]))
+        obs.counter("data.cache.chunks_written").add(1)
+        obs.counter("data.cache.cold_parse_bytes").add(arr.nbytes)
         if self.cache_dir is None:
             self._mem_bytes += arr.nbytes
             if (self.mem_limit_bytes is not None
@@ -268,11 +270,12 @@ class ChunkStore:
         once; every replay skips it."""
         if isinstance(source, np.ndarray):
             source = [source]
-        w = StoreWriter(chunk_rows, cache_dir)
-        for chunk in source:
-            w.append(np.asarray(transform(chunk)
-                                if transform is not None else chunk))
-        return w.finish()
+        with obs.span("data.ingest"):
+            w = StoreWriter(chunk_rows, cache_dir)
+            for chunk in source:
+                w.append(np.asarray(transform(chunk)
+                                    if transform is not None else chunk))
+            return w.finish()
 
     @classmethod
     def open(cls, cache_dir: str) -> "ChunkStore":
@@ -326,9 +329,11 @@ class ChunkStore:
             if store.chunk_rows == chunk_rows and (
                     expected_hash is None
                     or store.content_hash == expected_hash):
+                obs.counter("data.cache.open_hits").add(1)
                 return store
         except CacheInvalid:
             pass
+        obs.counter("data.cache.open_misses").add(1)
         src = source() if callable(source) and not isinstance(
             source, np.ndarray) else source
         return cls.ingest(src, chunk_rows=chunk_rows,
@@ -349,8 +354,12 @@ class ChunkStore:
 
     def chunk(self, i: int) -> np.ndarray:
         """Chunk ``i`` — an array (in-memory) or a read-only memmap."""
+        obs.counter("data.cache.chunk_reads").add(1)
+        nbytes = self.rows[i] * self.dim * 4
         if self._chunks is not None:
+            obs.counter("data.cache.warm_mem_bytes").add(nbytes)
             return self._chunks[i]
+        obs.counter("data.cache.warm_mmap_bytes").add(nbytes)
         return np.load(os.path.join(self.cache_dir, _CHUNK_FMT.format(i)),
                        mmap_mode="r")
 

@@ -34,19 +34,25 @@ What happens where:
 
 One device only: ``mesh=`` and `reshard` (the reference's data-sharded
 placement and its elastic re-mesh) come with the multi-GPU slice (M6)
-and raise `NotImplementedError`.  The reference's `repro.obs` counters
-and gauges (producer stall, queue depth, batches) wait for the obs
-slice.
+and raise `NotImplementedError`.
+
+Instrumentation (`repro_torch.obs`, the reference's names): the
+producer's time blocked on a full queue (``data.loader.producer_stall_s``),
+the queue depth the consumer finds (``data.loader.queue_depth``), and the
+batches it takes from the queue or replays from the resident cache
+(``data.loader.batches``, ``data.loader.resident_batches``).
 """
 from __future__ import annotations
 
 import queue
 import threading
+import time
 from typing import Callable, Iterator, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
+from .. import obs
 from ..core.outofcore import StagingRing, device_batches
 from ..device import resolve_device
 from .cache import ChunkStore, StoreWriter
@@ -222,9 +228,14 @@ class ShardedLoader:
         abandoned epoch sets ``stop`` so the thread retires instead of
         blocking on a full queue forever."""
         def put(item) -> bool:
+            t0 = time.perf_counter()
             while not stop.is_set():
                 try:
                     q.put(item, timeout=0.1)
+                    # time the producer spent blocked on a full queue:
+                    # nonzero means the consumer is the bottleneck
+                    obs.counter("data.loader.producer_stall_s").add(
+                        time.perf_counter() - t0)
                     return True
                 except queue.Full:
                     continue
@@ -253,6 +264,7 @@ class ShardedLoader:
         """The queue's (x, w) numpy batches until end of stream; sets
         ``status["done"]`` there, re-raises a forwarded failure."""
         while True:
+            obs.gauge("data.loader.queue_depth").set(q.qsize())
             try:
                 kind, payload = q.get(timeout=1.0)
             except queue.Empty:
@@ -270,6 +282,7 @@ class ShardedLoader:
             if kind == "eos":
                 status["done"] = True
                 return
+            obs.counter("data.loader.batches").add(1)
             yield payload
 
     # -- device side ---------------------------------------------------------
@@ -314,9 +327,15 @@ class ShardedLoader:
                 and self._store is not None:
             self._device_cache = collect
 
+    def _resident_epoch(self):
+        """Replay the device-resident batch cache."""
+        for x, w in self._device_cache:
+            obs.counter("data.loader.resident_batches").add(1)
+            yield x, w
+
     def __iter__(self):
         if self._device_cache is not None:
-            return iter(self._device_cache)       # concurrent-safe replay
+            return self._resident_epoch()         # concurrent-safe replay
         if self._epoch_active:
             raise RuntimeError("ShardedLoader: an epoch is already in "
                                "flight; finish or abandon it first")

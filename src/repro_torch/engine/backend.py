@@ -25,7 +25,10 @@ centers (T, C, d), m a scalar or (T,), in one call.
 ``resolve_backend(None | "auto", device=...)`` picks by device: a CUDA
 device gets ``hopper``, a CPU device ``torch``.  The reference's
 measured calibration race (`repro.perf.calibrate`) is not ported yet,
-nor are its obs events or the bf16 backend.
+nor is the bf16 backend.  Of the reference's two ``obs.warn_once``
+calls here, the one announcing a fallback to ``jnp`` has no counterpart
+(the port never falls back: a kernel that cannot run raises), and the
+calibration one comes with the race.
 The kernel backends register from `repro_torch.kernels.ops`, which
 `repro_torch.engine` imports outright: a kernel that cannot be built
 on a CUDA host makes the fit raise, never degrade.

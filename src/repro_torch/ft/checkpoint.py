@@ -24,6 +24,11 @@ path is its keys joined by ``/`` (``{'b': NT(centers, weights), 'a': [x,
 ``b/weights``).  Restoring onto a device mesh (``shardings=``) comes with
 the multi-GPU slice; the elastic-restart helpers (`repro.ft.elastic`)
 with a later one.
+
+Each write is an ``ft.checkpoint.save`` span (on the writer thread) and
+one ``ft.checkpoint.saves``; each restore an ``ft.checkpoint.restore``
+span and one ``ft.checkpoint.restores`` (`repro_torch.obs`, the
+reference's names).
 """
 from __future__ import annotations
 
@@ -36,6 +41,8 @@ from typing import Any, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from .. import obs
 
 
 def _is_namedtuple(x) -> bool:
@@ -148,6 +155,12 @@ class CheckpointManager:
             self._error = e
 
     def _write(self, step: int, host):
+        # runs on the async save thread: span and counter are thread-safe
+        with obs.span("ft.checkpoint.save", step=step):
+            self._write_inner(step, host)
+        obs.counter("ft.checkpoint.saves").add(1)
+
+    def _write_inner(self, step: int, host):
         tmp = os.path.join(self.dir, f"step_{step:010d}.tmp")
         final = os.path.join(self.dir, f"step_{step:010d}")
         os.makedirs(tmp, exist_ok=True)
@@ -188,10 +201,13 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def _manifest(self, step: Optional[int]):
+    def _step(self, step: Optional[int]) -> int:
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
+        return step
+
+    def _manifest(self, step: int):
         d = os.path.join(self.dir, f"step_{step:010d}")
         with open(os.path.join(d, "manifest.json")) as f:
             return d, json.load(f)["leaves"]
@@ -205,12 +221,16 @@ class CheckpointManager:
         are simply absent from the result) — the tenant plane pulls its
         six stacked leaves out of a manifest that may also hold
         unrelated state."""
-        d, manifest = self._manifest(step)
-        if keys is not None:
-            want = set(keys)
-            manifest = {k: v for k, v in manifest.items() if k in want}
-        return {key: np.load(os.path.join(d, spec["file"]))
-                for key, spec in manifest.items()}
+        step = self._step(step)
+        with obs.span("ft.checkpoint.restore", step=step):
+            d, manifest = self._manifest(step)
+            if keys is not None:
+                want = set(keys)
+                manifest = {k: v for k, v in manifest.items() if k in want}
+            out = {key: np.load(os.path.join(d, spec["file"]))
+                   for key, spec in manifest.items()}
+        obs.counter("ft.checkpoint.restores").add(1)
+        return out
 
     def restore(self, tree_like: Any, step: Optional[int] = None,
                 shardings: Any = None) -> Any:
@@ -220,7 +240,12 @@ class CheckpointManager:
             raise NotImplementedError(
                 "restore(shardings=...) places leaves on a device mesh; it "
                 "comes with the multi-GPU slice")
-        d, manifest = self._manifest(step)
-        out = [_like(np.load(os.path.join(d, manifest[key]["file"])), like)
-               for key, like in _flatten_with_paths(tree_like)]
+        step = self._step(step)
+        with obs.span("ft.checkpoint.restore", step=step):
+            d, manifest = self._manifest(step)
+            out = [_like(np.load(os.path.join(d, manifest[key]["file"])),
+                         like)
+                   for key, like in _flatten_with_paths(tree_like)]
+        # every restore is a restart in the fault-tolerance story
+        obs.counter("ft.checkpoint.restores").add(1)
         return _rebuild(tree_like, iter(out))

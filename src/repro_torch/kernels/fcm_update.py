@@ -7,9 +7,10 @@ Counterpart of `repro.kernels.fcm_update` (the Pallas TPU kernel) and
 kernel and first version in ``fcm_accumulate.cu``, the tenant-stacked
 sweep (the reference's ``jax.vmap`` of the Pallas kernel) in
 ``fcm_batched.cu`` with its register-resident rows kernel (which the
-single-model sweep also runs, at T = 1, for small C·d) and first version;
-each source note says what it replaces, what bounds it and how it is laid
-out.
+single-model sweep also runs, at T = 1, for small C·d) and first version,
+and the C-tiled sweep of both (any C·d, V streamed through shared memory)
+in ``fcm_ctiled.cu``; each source note says what it replaces, what bounds
+it and how it is laid out.
 
 * ``fcm_accumulate_cuda`` / ``fcm_sweep_cuda`` — the single-model
   wrappers, x (N, d), w (N,), centers (C, d).
@@ -22,7 +23,9 @@ Which kernel runs, with what tile, splits and grid, is `plan_sweep` /
 supplies (SM count, resident CTAs per SM, shared memory per block).
 
 A CUDA tensor launches the kernel (or raises); a CPU tensor takes the
-plain version.  Each wrapper counts its kernel launches in its
+plain version.  The plan covers every (d, C): past the first versions'
+shared memory the C-tiled path walks the rows in chunks whose scratch
+stays within ``CTILED_SCRATCH_BYTES`` (`plan_ctiled`, `ctiled_chunks`).  Each wrapper counts its kernel launches in its
 ``launches`` attribute, and in ``shapes`` per (path, N, C) (single-model)
 or (path, T, N) (tenant-stacked); `reset_counts` zeroes both.
 ``fcm_accumulate_ref`` / ``fcm_sweep_ref`` and
@@ -127,6 +130,12 @@ SLICE_FLOATS = 1024
 MAX_SLICES = 64
 _MAX_TILE_ROWS = 128  # the first versions' tile
 _MAX_SPLITS = 65535   # the first tenant-stacked version's gridDim.y
+# fcm_ctiled_kernel's tiles (csrc/fcm_ctiled.cu): CT_ROWS records x
+# CT_CENTERS centers x CT_DIMS dims per membership tile, CT_OUT centers x
+# CT_OUT dims per contraction block; its scratch bound
+CT_ROWS, CT_CENTERS, CT_DIMS, CT_LD, CT_OUT = 64, 64, 32, 68, 64
+CTILED_SCRATCH_BYTES = 256 << 20
+MIN_SPLIT_ROWS = 256  # fewest records per contraction split
 
 
 @dataclasses.dataclass(frozen=True)
@@ -156,6 +165,9 @@ class LaunchPlan:
     ag: int = 0
     dg: int = 0
     rs: int = 0
+    group: int = 0
+    resident: bool = False
+    scratch: int = 0
 
 
 CtasPerSm = Union[int, Callable[[LaunchPlan], int]]
@@ -285,13 +297,63 @@ def first_batched_layout_floats(d, c, t, block=BLOCK) -> int:
     return first_layout_floats(d, c, t, block) + groups * (c * d + c)
 
 
-def _first_tile(layout, limit_rows, smem_limit, d, c, kernel):
+def _first_tile(layout, limit_rows, smem_limit, d, c) -> int:
+    """The first version's rows per tile, or 0 where V and one record do
+    not fit shared memory (the C-tiled path's domain)."""
     for t in range(limit_rows, 0, -1):
         if 4 * layout(d, c, t) <= smem_limit:
             return t
-    raise ValueError(
-        f"{kernel} kernel: C*d = {c}*{d} centers do not fit in shared "
-        "memory; a C-tiled variant is on the roadmap")
+    return 0
+
+
+def ctiled_member_floats(c: int, resident: bool) -> int:
+    """The C-tiled membership kernel's shared memory in floats
+    (csrc/fcm_ctiled.cu, `member_floats`): the x and V tiles, |x|², w,
+    |v|², and the tile's d² block when it is resident."""
+    base = 2 * CT_DIMS * CT_LD + 2 * CT_ROWS + CT_CENTERS
+    return base + (CT_ROWS * _round4(c) if resident else 0)
+
+
+def plan_ctiled(tenants: int, n: int, d: int, c: int, *, sms: int,
+                smem_limit: int) -> LaunchPlan:
+    """The C-tiled sweep's launch for x (T, n, d) and C centers (T = 1 for
+    the single-model sweep).
+
+    Its scratch (the chunk's wum block and per-record q terms, and the
+    contraction's split partials) stays within ``CTILED_SCRATCH_BYTES``
+    whenever one tenant's partial (C·d + C + 1 floats) and one tile of
+    wum fit in it: ``group`` tenants per launch, then enough splits to
+    give the card two contraction CTAs per SM (each at least
+    ``MIN_SPLIT_ROWS`` records, the partials within half the budget),
+    then as many records per chunk as the rest holds (whole tiles)."""
+    budget = CTILED_SCRATCH_BYTES
+    out = c * d + c + 1
+    group = max(1, min(tenants, 65535,
+                       budget // (4 * (out + CT_ROWS * (c + 1)))))
+    blocks = _cdiv(c, CT_OUT) * _cdiv(d, CT_OUT)
+    splits = max(1, min(_cdiv(2 * sms, blocks * group),
+                        _cdiv(max(n, 1), MIN_SPLIT_ROWS),
+                        budget // 2 // (4 * out * group), 65535))
+    rows = (budget - 4 * out * group * splits) // (4 * (c + 1) * group)
+    rows = max(1, min(n, rows))
+    if CT_ROWS <= rows < n:
+        rows -= rows % CT_ROWS
+    resident = 4 * ctiled_member_floats(c, True) <= smem_limit
+    return LaunchPlan(
+        "ctiled", 256, _cdiv(min(rows, n), CT_ROWS) * group, rows, splits,
+        4 * ctiled_member_floats(c, resident), group=group,
+        resident=resident,
+        scratch=4 * group * (rows * (c + 1) + splits * out))
+
+
+def ctiled_chunks(plan: LaunchPlan, tenants: int, n: int) -> list:
+    """The C-tiled wrapper's launches: (t0, t1, r0, r1) for tenants
+    [t0, t1) and records [r0, r1), tenant groups outer, row chunks inner
+    (in order, so raw sums add chunk after chunk); n = 0 gives one empty
+    chunk per group, which writes zeros."""
+    return [(t0, min(tenants, t0 + plan.group), r0, min(n, r0 + plan.rows))
+            for t0 in range(0, tenants, plan.group)
+            for r0 in (range(0, n, plan.rows) if n else (0,))]
 
 
 def plan_sweep(n: int, d: int, c: int, *, sms: int, ctas_per_sm: CtasPerSm,
@@ -306,15 +368,17 @@ def plan_sweep(n: int, d: int, c: int, *, sms: int, ctas_per_sm: CtasPerSm,
     * "tile" — C ≤ 128 and ⌈C/4⌉·⌈d/8⌉ ≤ 256 with a tile that fits shared
       memory: the register-blocked tile kernel;
     * "first" — the rest, while V and one record fit shared memory (the
-      first version's `make_layout` at one row); beyond that it raises.
+      first version's `make_layout` at one row);
+    * "ctiled" — beyond that: the C-tiled kernel (`plan_ctiled`).
     """
     if n > 0 and rows_variant(d, c) is not None:
         return _rows_plan(1, n, d, c, sms, ctas_per_sm, False)
     plan = _tile_plan(n, d, c, sms, ctas_per_sm, smem_limit) if n > 0 else None
     if plan is not None:
         return plan
-    t = _first_tile(first_layout_floats, _MAX_TILE_ROWS, smem_limit, d, c,
-                    "fcm_accumulate")
+    t = _first_tile(first_layout_floats, _MAX_TILE_ROWS, smem_limit, d, c)
+    if t == 0:
+        return plan_ctiled(1, n, d, c, sms=sms, smem_limit=smem_limit)
     draft = LaunchPlan("first", BLOCK, 0, t,
                        smem=4 * first_layout_floats(d, c, t))
     grid = max(1, min(_cdiv(n, t), sms * _per_sm(ctas_per_sm, draft)))
@@ -329,12 +393,15 @@ def plan_batched(tenants: int, n: int, d: int, c: int, *, sms: int,
     * "rows" — small C·d (`rows_variant`): one CTA per (tenant, split),
       one split per tenant once the tenants alone fill the card;
     * "first" — the rest (such as d = 41, C = 23), while V_t and one
-      record fit shared memory; beyond that it raises.
+      record fit shared memory;
+    * "ctiled" — beyond that: the C-tiled kernel (`plan_ctiled`).
     """
     if rows_variant(d, c) is not None:
         return _rows_plan(tenants, n, d, c, sms, ctas_per_sm, True)
     t = _first_tile(first_batched_layout_floats, min(_MAX_TILE_ROWS, n),
-                    smem_limit, d, c, "fcm_batched")
+                    smem_limit, d, c)
+    if t == 0:
+        return plan_ctiled(tenants, n, d, c, sms=sms, smem_limit=smem_limit)
     smem = 4 * first_batched_layout_floats(d, c, t)
     draft = LaunchPlan("first", BLOCK, 0, t, smem=smem)
     target = sms * _per_sm(ctas_per_sm, draft)
@@ -384,9 +451,26 @@ def _batched_lib() -> ctypes.CDLL:
     return lib
 
 
+@functools.cache
+def _ctiled_lib() -> ctypes.CDLL:
+    lib = build.load("fcm_ctiled")
+    lib.fcm_ctiled_error_string.argtypes = [_I]
+    lib.fcm_ctiled_error_string.restype = ctypes.c_char_p
+    lib.fcm_ctiled_chunk.argtypes = [
+        _P, _P, _P, _P, ctypes.c_float, ctypes.c_longlong, _I, _I, _I, _I,
+        ctypes.c_longlong, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I,
+        _P]
+    lib.fcm_ctiled_chunk.restype = _I
+    return lib
+
+
+_LIBS = {"fcm_accumulate": _lib, "fcm_batched": _batched_lib,
+         "fcm_ctiled": _ctiled_lib}
+
+
 def _check(err: int, what: str, kernel: str = "fcm_accumulate") -> None:
     if err:
-        lib = _lib() if kernel == "fcm_accumulate" else _batched_lib()
+        lib = _LIBS[kernel]()
         msg = getattr(lib, f"{kernel}_error_string")(err).decode()
         raise RuntimeError(f"{kernel} kernel: {what} failed with CUDA "
                            f"error {err} ({msg})")
@@ -486,6 +570,31 @@ def _rows_launch(plan, x, w, v, m_ptr, m, tenants, n, d, c, normalize, dev,
         out_w.data_ptr(), out_q.data_ptr(), int(normalize), stream)
 
 
+def _ctiled_launch(plan, x, w, v, m_ptr, m, tenants, n, d, c, normalize,
+                   dev, stream, out):
+    """The C-tiled kernel over `ctiled_chunks` (x (T, n, d) contiguous, T
+    = 1 for the single-model sweep); the scratch comes from `torch.empty`
+    and is at most ``plan.scratch`` bytes.  Returns the first failed
+    launch's error, else 0."""
+    lib = _ctiled_lib()
+    g, rows = plan.group, plan.rows
+    wum = torch.empty((g * rows * c,), dtype=torch.float32, device=dev)
+    qrow = torch.empty((g * rows,), dtype=torch.float32, device=dev)
+    part = torch.empty((g * plan.splits * (c * d + c + 1),),
+                       dtype=torch.float32, device=dev)
+    out_v, out_w, out_q = out
+    for t0, t1, r0, r1 in ctiled_chunks(plan, tenants, n):
+        err = lib.fcm_ctiled_chunk(
+            x.data_ptr(), w.data_ptr(), v.data_ptr(), m_ptr, m, n, d, c, t0,
+            t1 - t0, r0, r1 - r0, rows, plan.splits, int(plan.resident),
+            wum.data_ptr(), qrow.data_ptr(), part.data_ptr(),
+            out_v.data_ptr(), out_w.data_ptr(), out_q.data_ptr(),
+            int(r0 == 0), int(normalize and r1 == n), stream)
+        if err:
+            return err
+    return 0
+
+
 def _launch(x, w, centers, m: float, normalize: bool):
     """Launch the single-model sweep; returns ((v, w_i, q), path)."""
     _check_inputs("fcm_accumulate", x, w, centers, (2, 1, 2))
@@ -512,6 +621,10 @@ def _launch(x, w, centers, m: float, normalize: bool):
             kernel = "fcm_batched"
             err = _rows_launch(plan, x, w, v, None, m, 1, n, d, c, normalize,
                                dev, stream, out)
+        elif plan.path == "ctiled":
+            kernel = "fcm_ctiled"
+            err = _ctiled_launch(plan, x, w, v, None, m, 1, n, d, c,
+                                 normalize, dev, stream, out)
         elif plan.path == "tile":
             part = torch.empty((plan.grid, c * d + c + 1),
                                dtype=torch.float32, device=dev)
@@ -587,11 +700,18 @@ def _launch_batched(x, w, centers, m, normalize: bool):
                torch.empty((tenants, c), dtype=torch.float32, device=dev),
                torch.empty((tenants,), dtype=torch.float32, device=dev))
         stream = torch.cuda.current_stream(dev).cuda_stream
+        kernel = "fcm_batched"
         if plan.path == "rows":
             err = _rows_launch(plan, x, w, v,
                                None if mt is None else mt.data_ptr(),
                                float(m) if scalar_m else 0.0, tenants, n, d,
                                c, normalize, dev, stream, out)
+        elif plan.path == "ctiled":
+            kernel = "fcm_ctiled"
+            err = _ctiled_launch(plan, x, w, v,
+                                 None if mt is None else mt.data_ptr(),
+                                 float(m) if scalar_m else 0.0, tenants, n,
+                                 d, c, normalize, dev, stream, out)
         else:
             if mt is None:
                 mt = _fuzzifiers(m, tenants, dev).contiguous()
@@ -602,7 +722,7 @@ def _launch_batched(x, w, centers, m, normalize: bool):
                 tenants, n, d, c, plan.rows, plan.splits, plan.smem,
                 plan.block, part.data_ptr(), *(o.data_ptr() for o in out),
                 int(normalize), stream)
-    _check(err, "launch", "fcm_batched")
+    _check(err, "launch", kernel)
     return out, plan.path
 
 

@@ -14,6 +14,10 @@ folded into a `repro_torch.stream.StreamingBigFCM` and scored at once
 against its freshest windowed centers — the serve path and the learn
 path share one model, so a drift re-seed shows in the very next
 response.
+
+Both scoring loops time each chunk in a ``serve.assign`` span and count
+its scored records in ``serve.records`` (`repro_torch.obs`, the
+reference's names); each span ends at the host copy of its labels.
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ from typing import Iterator, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from .. import obs
 from ..data.plane import pad_rows
 from ..device import as_real, resolve_device
 from ..engine import resolve_backend
@@ -100,10 +105,14 @@ def assign_stream(model, source, *, soft: bool = False,
     for chunk in source:
         x, w, ts = split_item(chunk, event_time=model.cfg.event_time)
         report = model.ingest(x, w, ts=ts) if update else None
-        out = model.assign(x, soft=soft)
-        if w is not None:
-            out = out[torch.as_tensor(w, device=out.device) > 0]
-        yield out.cpu().numpy(), report
+        # per-chunk scoring latency, the span.serve.assign histogram
+        with obs.span("serve.assign", rows=int(x.shape[0])):
+            out = model.assign(x, soft=soft)
+            if w is not None:
+                out = out[torch.as_tensor(w, device=out.device) > 0]
+            out = out.cpu().numpy()
+        obs.counter("serve.records").add(int(out.shape[0]))
+        yield out, report
 
 
 def assign_store(store, centers, *, m: float = 2.0, soft: bool = False,
@@ -129,4 +138,7 @@ def assign_store(store, centers, *, m: float = 2.0, soft: bool = False,
         # pad the ragged tail chunk to the full chunk shape (phantom zero
         # rows, sliced back off below) so the whole store scores at one
         # input shape
-        yield fn(pad_rows(chunk, rows))[:n].cpu().numpy()
+        with obs.span("serve.assign", rows=n):
+            out = fn(pad_rows(chunk, rows))[:n].cpu().numpy()
+        obs.counter("serve.records").add(n)
+        yield out

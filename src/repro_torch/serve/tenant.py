@@ -27,6 +27,7 @@ from typing import NamedTuple, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from .. import obs
 from ..device import as_real, resolve_device
 from ..engine.backend import _u_from_d2
 from ..tenant.core import TenantSet
@@ -113,8 +114,11 @@ class TenantScorer:
         snap = self._snap
         row = snap.row_of(tenant)
         x = np.atleast_2d(np.asarray(x, np.float32))
-        out = self.score(x, np.full((x.shape[0],), row, np.int64), snap)
-        return out.cpu().numpy(), int(snap.versions[row])
+        with obs.span("tenant.assign", labels={"tenants": "1"},
+                      rows=int(x.shape[0])):
+            out = self.score(x, np.full((x.shape[0],), row, np.int64),
+                             snap).cpu().numpy()
+        return out, int(snap.versions[row])
 
     def __repr__(self):
         return (f"<TenantScorer {self.replica} T={self._snap.n_tenants} "

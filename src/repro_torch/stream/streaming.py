@@ -51,10 +51,16 @@ is never drawn), unless ``draws=`` injects them:
 reference's form (``[0, seed]`` at the start) and is carried unchanged
 across a re-seed: the port's draws do not read it.
 
+Instrumentation (`repro_torch.obs`, the reference's names): each ingest
+is a ``stream.ingest`` span feeding the ``stream.*`` counters (records,
+late drops, births, deaths, reseeds) and the ``stream.n_centers`` gauge
+from its report, and each window merge a ``stream.window_merge`` span.
+The spans read the host clock only: an ingest ends on the host reads its
+state machine makes, a merge on its last convergence test.
+
 Not in this slice: the device mesh (the per-shard combiner with its
 in-program reduce) raises `NotImplementedError` until the multi-GPU
-slice (M6); the reference's ``stream.*`` spans, counters and gauge wait
-for the obs slice.
+slice (M6).
 """
 from __future__ import annotations
 
@@ -66,6 +72,7 @@ from typing import (Callable, Iterable, NamedTuple, Optional, Sequence,
 import numpy as np
 import torch
 
+from .. import obs
 from ..core.bigfcm import BigFCMConfig, run_driver
 from ..core.fcm import fcm
 from ..core.metrics import fuzzy_objective
@@ -425,8 +432,22 @@ class StreamingBigFCM:
         device batch is used in place); ``ts`` ((n,) per-record event
         times) is consulted only under ``cfg.event_time``; without it
         each batch is stamped with its arrival step (event order ==
-        arrival order)."""
-        rep = self._ingest(x, w, ts=ts)
+        arrival order).  Each call is a ``stream.ingest`` span, and the
+        returned report feeds the ``stream.*`` counters; ``stream.records``
+        counts the batch's records, its rows of nonzero weight (a
+        loader's phantom padding is none)."""
+        with obs.span("stream.ingest", rows=len(x)):
+            rep, records = self._ingest(x, w, ts=ts)
+        obs.counter("stream.records").add(records)
+        if rep.late_dropped:
+            obs.counter("stream.late_dropped").add(rep.late_dropped)
+        if rep.born:
+            obs.counter("stream.births").add(rep.born)
+        if rep.died:
+            obs.counter("stream.deaths").add(rep.died)
+        if rep.reseeded:
+            obs.counter("stream.reseeds").add(1)
+        obs.gauge("stream.n_centers").set(rep.n_centers)
         if self._snapshot_listeners:
             self._publish_snapshot()
         return rep
@@ -448,10 +469,14 @@ class StreamingBigFCM:
         for fn in self._snapshot_listeners:
             fn(version, centers, weights)
 
-    def _ingest(self, x, w=None, *, ts=None) -> IngestReport:
+    def _ingest(self, x, w=None, *, ts=None):
+        """One ingest; returns (report, the batch's rows of nonzero
+        weight)."""
         x = self._to_device(x)
         w = (x.new_ones((x.shape[0],)) if w is None
              else self._to_device(w))
+        w_np = _host(w)
+        records = int(np.count_nonzero(w_np))
         if self.state is None:
             self.state = self._fresh_state(x, w, reseeds=0, step=0)
         st = self.state
@@ -467,7 +492,7 @@ class StreamingBigFCM:
             if ts_np.shape[0] != x.shape[0]:
                 raise ValueError(f"ts length {ts_np.shape[0]} != batch "
                                  f"rows {x.shape[0]}")
-            real = _host(w) > 0
+            real = w_np > 0
             # gate against the watermark as of BEFORE this batch — a
             # record is late only if the clock had already passed it
             # when it arrived, never relative to its own batch-mates
@@ -483,6 +508,7 @@ class StreamingBigFCM:
             if n_late:
                 w = torch.where(torch.from_numpy(late).to(self.device),
                                 0.0, w)
+                w_np = np.where(late, w_np.dtype.type(0), w_np)
                 real = real & ~late
             max_event = torch.tensor(new_max, dtype=torch.float32)
             if not real.any():
@@ -499,12 +525,11 @@ class StreamingBigFCM:
                     combiner_iters=np.zeros((1,), np.int32),
                     mass=float(window_mass(st.win_weights)),
                     watermark=wm, late_dropped=n_late,
-                    n_centers=int(st.centers.shape[0]))
+                    n_centers=int(st.centers.shape[0])), records
             t_batch = float(np.median(ts_np[real]))
 
         # ---- drift probe: objective + residual profile ----
         q_pre, resid = self._probe(x, w, st.centers)
-        w_np = _host(w)
         real = w_np > 0
         resid_med = float(np.median(resid[real]))
         thr = self.detector.outlier_threshold()
@@ -542,7 +567,8 @@ class StreamingBigFCM:
                                            st_in.win_weights, st_in.cursor,
                                            sc, sw, decay=cfg.decay)
                 sb, placed = st_in.slot_buckets, True
-            mc, mw = self._window_merge(wc, ww)
+            with obs.span("stream.window_merge"):
+                mc, mw = self._window_merge(wc, ww)
             sh = float(torch.max(torch.linalg.vector_norm(
                 mc - st_in.centers, dim=-1)))
             return wc, ww, cur, sb, mc, mw, sh, iters, placed
@@ -561,7 +587,7 @@ class StreamingBigFCM:
             # the summary's slot was recycled before it could land (a
             # batch straddling more than the ring span): its records
             # were discarded — count them with the late drops
-            n_late += int(np.count_nonzero(_host(w) > 0))
+            n_late += int(np.count_nonzero(w_np > 0))
 
         # ---- cluster death: retire one starved center per batch ----
         ages = st.ages + 1
@@ -602,7 +628,7 @@ class StreamingBigFCM:
             shift=shift, combiner_iters=np.array([iters], np.int32),
             mass=float(window_mass(win_w)), watermark=wm,
             late_dropped=n_late, born=born, died=died,
-            n_centers=int(merged_c.shape[0]))
+            n_centers=int(merged_c.shape[0])), records
 
     def run(self, batches: Iterable, *, on_report=None):
         """Drive ingest over a loader/source.  Items are ``x`` arrays or

@@ -16,10 +16,11 @@ hold the batched path to.  Both paths share seeding (`seed_centers`:
 numpy draws keyed by ``(cfg.seed, t)``, bit-equal to the reference's),
 so their trajectories are comparable tenant by tenant.
 
-Launch accounting: each entry counts its fits' device dispatches in its
-``launches`` attribute (`fit_tenants`: 1 per fit; `fit_tenants_looped`:
-1 per tenant), where the reference counts them in
-``obs.counter("tenant.fit.launches")``.
+Instrumentation (`repro_torch.obs`, the reference's names): each fit is
+a ``tenant.fit`` span labelled with its cohort size, ending at the host
+copy of its centers, and ``tenant.fit.launches`` counts device
+dispatches (`fit_tenants`: 1 per fit; `fit_tenants_looped`: 1 per
+tenant).
 """
 from __future__ import annotations
 
@@ -29,6 +30,7 @@ from typing import Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from .. import obs
 from ..data.plane import geom_bucket, pad_rows
 from ..device import as_real, resolve_device
 from ..engine import fcm_converge_batched, resolve_backend
@@ -131,11 +133,15 @@ def fit_tenants(data: TenantData, cfg: TenantFitConfig, *, m_t=None,
     V0 = np.zeros((X.shape[0], cfg.n_clusters, X.shape[2]), np.float32)
     V0[:t] = seed_centers(xs, cfg)
     m_all = _per_tenant_m(cfg, m_t, X.shape[0], t)
-    v, masses, q, n_iter = fcm_converge_batched(
-        X, W, V0, m=m_all, eps=cfg.eps, max_iter=cfg.max_iter,
-        backend=cfg.backend, device=device)
-    fit_tenants.launches += 1
-    return tenant_set(ids, v[:t].cpu().numpy(), masses[:t].cpu().numpy(),
+    with obs.span("tenant.fit", labels={"tenants": str(t)},
+                  bucket_rows=X.shape[1], bucket_tenants=X.shape[0],
+                  rows=int(sum(x.shape[0] for x in xs))):
+        v, masses, q, n_iter = fcm_converge_batched(
+            X, W, V0, m=m_all, eps=cfg.eps, max_iter=cfg.max_iter,
+            backend=cfg.backend, device=device)
+        obs.counter("tenant.fit.launches").add(1)
+        v = v[:t].cpu().numpy()    # the span ends at the host copy
+    return tenant_set(ids, v, masses[:t].cpu().numpy(),
                       objective=q[:t].cpu().numpy(),
                       n_iter=n_iter[:t].cpu().numpy())
 
@@ -152,25 +158,24 @@ def fit_tenants_looped(data: TenantData, cfg: TenantFitConfig, *,
     dev = resolve_device(device)
     be = resolve_backend(cfg.backend, device=dev)
     centers, masses, qs, iters = [], [], [], []
-    for i, x in enumerate(xs):
-        n_b = geom_bucket(x.shape[0], base=cfg.row_base,
-                          factor=cfg.row_factor)
-        w = np.zeros((n_b,), np.float32)
-        w[:x.shape[0]] = 1.0
-        xt, wt = as_real(pad_rows(x, n_b), dev), as_real(w, dev)
-        m = float(m_all[i])
-        res = _converge(lambda v: be.sweep(xt, wt, v, m),
-                        as_real(seeds[i], dev), eps=cfg.eps,
-                        max_iter=cfg.max_iter)
-        fit_tenants_looped.launches += 1
-        centers.append(res.summary.centers.cpu().numpy())
-        masses.append(res.summary.masses.cpu().numpy())
-        qs.append(float(res.objective))
-        iters.append(res.n_iter)
+    with obs.span("tenant.fit", labels={"tenants": str(t)},
+                  mode="looped"):
+        for i, x in enumerate(xs):
+            n_b = geom_bucket(x.shape[0], base=cfg.row_base,
+                              factor=cfg.row_factor)
+            w = np.zeros((n_b,), np.float32)
+            w[:x.shape[0]] = 1.0
+            xt, wt = as_real(pad_rows(x, n_b), dev), as_real(w, dev)
+            m = float(m_all[i])
+            res = _converge(lambda v: be.sweep(xt, wt, v, m),
+                            as_real(seeds[i], dev), eps=cfg.eps,
+                            max_iter=cfg.max_iter)
+            obs.counter("tenant.fit.launches").add(1)
+            centers.append(res.summary.centers.cpu().numpy())
+            masses.append(res.summary.masses.cpu().numpy())
+            qs.append(float(res.objective))
+            iters.append(res.n_iter)
     return tenant_set(ids, np.stack(centers), np.stack(masses),
                       objective=np.asarray(qs, np.float32),
                       n_iter=np.asarray(iters, np.int32))
 
-
-fit_tenants.launches = 0
-fit_tenants_looped.launches = 0

@@ -18,7 +18,7 @@ from repro_torch.data import (ChunkStore, batched, make_blobs,
                               make_moving_blobs, replay_source,
                               stream_loader)
 from repro_torch.engine import MergePlan, merge_summaries, summary
-from repro_torch.kernels import ops
+from repro_torch.kernels import fcm_update, ops
 from repro_torch.kernels.fcm_update import (_batched_plan, _plan,
                                             fcm_accumulate_batched_cuda,
                                             fcm_accumulate_batched_ref,
@@ -135,9 +135,14 @@ def test_kernel_rejects_bad_inputs(card):
         fcm_sweep_cuda(x, w.cpu(), v)
     with pytest.raises(TypeError, match="floating"):
         fcm_sweep_cuda(x.to(torch.int32), w, v)
-    with pytest.raises(ValueError, match="C-tiled"):
-        fcm_sweep_cuda(*_inputs(10, 4000, 64, 0, card)[:2],
-                       _inputs(1, 4000, 64, 0, card)[2])
+    # V (64 x 4000) fits no shared memory: the C-tiled kernel takes it.
+    x, w = _inputs(10, 4000, 64, 0, card)[:2]
+    v = _inputs(1, 4000, 64, 0, card)[2]
+    before = fcm_sweep_cuda.shapes.copy()
+    _close(fcm_sweep_cuda(x, w, v), fcm_sweep_ref(x, w, v), 3e-4, 3e-5)
+    assert _launched_path(fcm_sweep_cuda, before) == "ctiled"
+    _close(fcm_accumulate_cuda(x, w, v), fcm_accumulate_ref(x, w, v), 3e-4,
+           3e-3)
 
 
 def test_bigfcm_fit_through_kernel(card):
@@ -209,9 +214,14 @@ def test_batched_kernel_rejects_bad_inputs(card):
         fcm_sweep_batched_cuda(x, w[:, :5], v, m)
     with pytest.raises(ValueError, match="one fuzzifier per tenant"):
         fcm_sweep_batched_cuda(x, w, v, m[:2])
-    with pytest.raises(ValueError, match="C-tiled"):
-        big = _stack(1, 10, 4000, 64, 0, card)
-        fcm_sweep_batched_cuda(*big)
+    # V_t (64 x 4000) fits no shared memory: the C-tiled kernel takes it.
+    big = _stack(1, 10, 4000, 64, 0, card)
+    before = fcm_sweep_batched_cuda.shapes.copy()
+    _close(fcm_sweep_batched_cuda(*big), fcm_sweep_batched_ref(*big), 3e-4,
+           3e-5)
+    assert _launched_path(fcm_sweep_batched_cuda, before) == "ctiled"
+    _close(fcm_accumulate_batched_cuda(*big),
+           fcm_accumulate_batched_ref(*big), 3e-4, 3e-3)
 
 
 def test_fit_tenants_through_kernel(card):
@@ -249,11 +259,14 @@ def _launched_path(kern, before):
 
 
 # Both sides of each dispatch boundary of the single-model sweep: rows
-# (d <= 32 at C = 2, d <= 4 at C <= 4) | tile (C <= 128) | first version.
+# (d <= 32 at C = 2, d <= 4 at C <= 4) | tile (C <= 128) | first version
+# (V and one record in shared memory: d <= 887 at C = 64) | C-tiled.
 @pytest.mark.parametrize("n,d,c,path", [
     (3000, 32, 2, "rows"), (3000, 33, 2, "tile"),
     (3000, 4, 4, "rows"), (3000, 4, 9, "tile"),
     (3000, 41, 128, "tile"), (3000, 41, 129, "first"),
+    (3000, 887, 64, "first"), (3000, 888, 64, "ctiled"),
+    (3184, 2048, 64, "ctiled"), (2048, 2048, 64, "ctiled"),
     (2048, 41, 23, "tile"), (3184, 41, 23, "tile"),
     (2048, 28, 2, "rows"), (3184, 28, 2, "rows"),
     (200_000, 28, 2, "rows"), (200_000, 41, 23, "tile")])
@@ -273,10 +286,47 @@ def test_each_path_matches_plain_and_reruns_bit_identically(card, n, d, c,
             assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("scalar_m", [False, True])
+def test_ctiled_row_chunks_and_tenant_groups_add_up(card, monkeypatch,
+                                                     scalar_m):
+    """A scratch budget of 1.2 MB makes the C-tiled wrapper walk two
+    tenant groups and four row chunks at (T, N, d, C) = (3 + 2 phantoms,
+    1000, 2048, 64): raw sums add across chunks, the sweep normalizes
+    once at the last, phantoms stay 0, reruns are bit-identical, and one
+    tenant agrees with the single-model wrapper on the same budget."""
+    monkeypatch.setattr(fcm_update, "CTILED_SCRATCH_BYTES", 1_200_000)
+    fcm_update._plan.cache_clear()
+    fcm_update._batched_plan.cache_clear()
+    try:
+        x, w, v, m = _stack(3, 1000, 2048, 64, 11, card)
+        m = 1.2 if scalar_m else m
+        plan = _batched_plan(card.index or 0, 5, 1000, 2048, 64)
+        assert plan.path == "ctiled" and plan.scratch <= 1_200_000
+        assert len(fcm_update.ctiled_chunks(plan, 5, 1000)) > 2
+        for kern, plain, atol in ((fcm_sweep_batched_cuda,
+                                   fcm_sweep_batched_ref, 3e-5),
+                                  (fcm_accumulate_batched_cuda,
+                                   fcm_accumulate_batched_ref, 3e-3)):
+            got = kern(x, w, v, m)
+            _close(got, plain(x, w, v, m), 3e-4, atol)
+            for a, b in zip(got, kern(x, w, v, m)):
+                assert torch.equal(a, b)
+            for out in got:
+                assert not bool(out[3:].abs().any())
+        mt = 1.2 if scalar_m else float(m[0])
+        _close(fcm_sweep_cuda(x[0], w[0], v[0], mt),
+               fcm_sweep_ref(x[0], w[0], v[0], mt), 3e-4, 3e-5)
+    finally:
+        fcm_update._plan.cache_clear()
+        fcm_update._batched_plan.cache_clear()
+
+
 @pytest.mark.parametrize("t,n,d,c,path", [
     (700, 32, 4, 3, "rows"), (700, 512, 4, 3, "rows"),
     (700, 4096, 4, 3, "rows"), (5, 512, 4, 3, "rows"),
-    (5, 300, 4, 8, "rows"), (5, 300, 4, 9, "first")])
+    (5, 300, 4, 8, "rows"), (5, 300, 4, 9, "first"),
+    (5, 300, 445, 64, "first"), (5, 300, 446, 64, "ctiled"),
+    (3, 1000, 2048, 64, "ctiled")])
 @pytest.mark.parametrize("scalar_m", [False, True])
 def test_batched_paths_match_plain_with_phantoms(card, t, n, d, c, path,
                                                  scalar_m):

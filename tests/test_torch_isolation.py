@@ -115,7 +115,9 @@ def test_import_loads_no_jax_and_no_reference_module():
             "repro_torch.ft", "repro_torch.ft.checkpoint",
             "repro_torch.stream", "repro_torch.stream.streaming",
             "repro_torch.stream.window", "repro_torch.stream.drift",
-            "repro_torch.data.stream", "repro_torch.data.loader"} \
+            "repro_torch.data.stream", "repro_torch.data.loader",
+            "repro_torch.obs", "repro_torch.obs.metrics",
+            "repro_torch.obs.trace", "repro_torch.obs.report"} \
         <= set(out["modules"])
     assert out["leaked"] == []
 
@@ -142,6 +144,20 @@ def test_stream_modules_alone_load_no_jax_and_no_reference_module():
                    "repro_torch.data.loader"):
         out = _run(_ALONE.format(module=module)).strip().splitlines()[-1]
         assert json.loads(out) == [], module
+
+
+def test_obs_alone_loads_no_jax_and_no_reference_module():
+    """The obs plane is an own copy: it and its report entry point load
+    nothing of `repro` (nor jax), and ``python -m`` runs the report."""
+    for module in ("repro_torch.obs", "repro_torch.obs.report"):
+        out = _run(_ALONE.format(module=module)).strip().splitlines()[-1]
+        assert json.loads(out) == [], module
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.obs.report"],
+        capture_output=True, text=True, timeout=300, check=True,
+        env={**{k: v for k, v in os.environ.items()
+                if k != "REPRO_OBS_DIR"}, "PYTHONPATH": SRC}).stdout
+    assert "phase breakdown" in out
 
 
 def test_stream_entry_points_raise_without_a_card():

@@ -17,7 +17,7 @@ from repro.kernels.fcm_update import fcm_sweep_pallas
 from repro.kernels.ops import accumulate_chunks as ref_accumulate_chunks
 from repro.kernels.ref import fcm_accumulate_ref as jnp_accumulate_ref
 from repro.kernels.ref import fcm_sweep_ref as jnp_sweep_ref
-from repro_torch.kernels import build, ops
+from repro_torch.kernels import build, fcm_update, ops
 from repro_torch.kernels.fcm_update import (first_batched_layout_floats,
                                             first_layout_floats,
                                             fcm_accumulate_cuda,
@@ -87,6 +87,18 @@ def test_plain_accumulate_matches_ref(n, d, c):
            jnp_accumulate_ref(*_j(x, w, v), 2.0), 3e-4, 3e-3)
 
 
+@pytest.mark.parametrize("n,d,c", [(64, 900, 64), (64, 2048, 64),
+                                   (16, 7168, 384)])
+def test_plain_matches_ref_at_router_widths(n, d, c):
+    """The widths the C-tiled kernel serves, at test_kernels.py's
+    tolerances (the sweep's and the raw accumulators')."""
+    x, w, v = _inputs(n, d, c, n + d + c)
+    _close(fcm_sweep_ref(*_t(x, w, v), 2.0), jnp_sweep_ref(*_j(x, w, v), 2.0),
+           3e-4, 3e-5)
+    _close(fcm_accumulate_ref(*_t(x, w, v), 1.2),
+           jnp_accumulate_ref(*_j(x, w, v), 1.2), 3e-4, 3e-3)
+
+
 @pytest.mark.parametrize("m", M_SWEEP)
 def test_plain_sweep_matches_ref_m(m):
     x, w, v = _inputs(500, 12, 6, 7)
@@ -143,6 +155,13 @@ def _cdiv(a, b):
 def _covers(plan, n, tenants=1):
     assert plan.block % 32 == 0 and 32 <= plan.block <= 256
     assert plan.smem <= H100["smem_limit"]
+    if plan.path == "ctiled":
+        # row chunks and tenant groups within the launch limits
+        assert 1 <= plan.group <= min(tenants, 65_535)
+        assert 1 <= plan.rows and (plan.rows >= min(n, 64))
+        assert 1 <= plan.splits <= 65_535
+        assert plan.grid == _cdiv(min(plan.rows, n), 64) * plan.group
+        return
     if plan.path == "rows":
         # every record in exactly one split, no split empty
         assert plan.splits * plan.rows >= n > (plan.splits - 1) * plan.rows
@@ -207,14 +226,58 @@ def test_plan_takes_the_fast_paths():
 def test_plan_raises_exactly_where_shared_memory_runs_out(plan, layout,
                                                           kernel):
     """With C = 64 the micro-tiles do not apply past d = 64; the first
-    version takes d while V and one record fit shared memory."""
+    version takes d while V and one record fit shared memory, and the
+    C-tiled kernel exactly past that (the plan raises nowhere)."""
     c = 64
-    d_max = max(d for d in range(64, 4000)
+    d_max = max(d for d in range(1, 4000)
                 if 4 * layout(d, c, 1) <= H100["smem_limit"])
     args = (3, 100, d_max, c) if kernel == "fcm_batched" else (100, d_max, c)
     assert plan(*args, **H100).path == "first"
-    with pytest.raises(ValueError, match="C-tiled"):
-        plan(*args[:-2], d_max + 1, c, **H100)
+    wider = plan(*args[:-2], d_max + 1, c, **H100)
+    assert wider.path == "ctiled"
+    _covers(wider, 100, 3 if kernel == "fcm_batched" else 1)
+
+
+ROUTER_WIDTHS = [(900, 64), (2048, 64), (7168, 384)]
+
+
+@pytest.mark.parametrize("d,c", ROUTER_WIDTHS)
+@pytest.mark.parametrize("tenants,n", [(1, 262_144), (1, 3184), (1, 1),
+                                       (3, 1000), (65_536, 512)])
+def test_plan_covers_router_widths_within_the_scratch_bound(tenants, n, d,
+                                                            c):
+    """OLMoE's and Kimi-K2's d_model × n_experts (and d = 900): both plans
+    take the C-tiled kernel, its scratch within CTILED_SCRATCH_BYTES."""
+    plan = (plan_sweep(n, d, c, **H100) if tenants == 1
+            else plan_batched(tenants, n, d, c, **H100))
+    assert plan.path == "ctiled"
+    assert plan.scratch <= fcm_update.CTILED_SCRATCH_BYTES
+    _covers(plan, n, tenants)
+
+
+@pytest.mark.parametrize("budget", [None, 1_200_000, 600_000])
+@pytest.mark.parametrize("tenants,n,d,c", [(1, 262_144, 2048, 64),
+                                           (5, 1000, 2048, 64),
+                                           (3, 1, 7168, 384),
+                                           (1, 0, 4000, 64),
+                                           (700, 300, 900, 64)])
+def test_ctiled_chunks_cover_every_row_once(monkeypatch, budget, tenants, n,
+                                            d, c):
+    if budget is not None:
+        monkeypatch.setattr(fcm_update, "CTILED_SCRATCH_BYTES", budget)
+    plan = fcm_update.plan_ctiled(tenants, n, d, c, sms=132,
+                                  smem_limit=H100["smem_limit"])
+    chunks = fcm_update.ctiled_chunks(plan, tenants, n)
+    seen = np.zeros((tenants, max(n, 1)), np.int64)
+    for t0, t1, r0, r1 in chunks:
+        assert 0 < t1 - t0 <= plan.group and 0 <= r1 - r0 <= plan.rows
+        seen[t0:t1, r0:r1] += 1
+    assert (seen == (1 if n else 0)).all()
+    # each tenant group starts its sums once and finishes once
+    firsts = [(t0, r0) for t0, _, r0, _ in chunks if r0 == 0]
+    assert len(firsts) == _cdiv(tenants, plan.group)
+    if budget is not None and 4 * (c * d + c + 1 + 64 * (c + 1)) <= budget:
+        assert plan.scratch <= budget
 
 
 def test_library_path_hashes_included_headers(tmp_path, monkeypatch):
@@ -222,7 +285,7 @@ def test_library_path_hashes_included_headers(tmp_path, monkeypatch):
     never loaded; the sources list follows the includes."""
     shutil.copytree(build.CSRC, tmp_path / "csrc")
     monkeypatch.setattr(build, "CSRC", tmp_path / "csrc")
-    names = ("fcm_accumulate", "fcm_batched")
+    names = ("fcm_accumulate", "fcm_batched", "fcm_ctiled")
     for name in names:
         assert [p.name for p in build.sources(name)] == [
             f"{name}.cu", "fcm_common.cuh"]

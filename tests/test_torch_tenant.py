@@ -20,11 +20,13 @@ import pytest
 import torch
 
 import repro.core as RC
+import repro.obs as ref_obs
 import repro.data.plane as RP
 import repro.engine as RE
 import repro.serve as RS
 import repro.tenant as R
 import repro_torch.core as TC
+import repro_torch.obs as port_obs
 import repro_torch.data.plane as TP
 import repro_torch.engine as TE
 import repro_torch.serve as TS
@@ -317,15 +319,19 @@ def test_fit_tenants_matches_reference(case, looped):
     kw = dict(n_clusters=3, seed=11)
     port = T.fit_tenants_looped if looped else T.fit_tenants
     ref = R.fit_tenants_looped if looped else R.fit_tenants
-    before = (T.fit_tenants.launches, T.fit_tenants_looped.launches)
+    port_launches = port_obs.counter("tenant.fit.launches")
+    ref_launches = ref_obs.counter("tenant.fit.launches")
+    before = (port_launches.value, ref_launches.value)
     got = port(data, T.TenantFitConfig(**kw), m_t=m_t, device="cpu")
     want = ref(data, R.TenantFitConfig(backend="jnp", **kw), m_t=m_t)
     assert got.ids == want.ids
     assert got.centers.dtype == np.float32 and got.n_iter.dtype == np.int32
     _, xs = normalize_tenant_data(data)
     _hold_fits(got, want, xs, _ms(2.0 if m_t is None else m_t, t))
-    assert (T.fit_tenants.launches, T.fit_tenants_looped.launches) == (
-        (before[0], before[1] + t) if looped else (before[0] + 1, before[1]))
+    # device dispatches: one per batched fit, one per tenant looped
+    launched = (port_launches.value - before[0],
+                ref_launches.value - before[1])
+    assert launched == ((t, t) if looped else (1, 1))
 
 
 def test_port_batched_matches_port_looped():
