@@ -112,8 +112,10 @@ memory and 67 TFLOP/s of f32 outside the tensor cores.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import dataclasses
+import functools
 import json
 import math
 import shutil
@@ -255,6 +257,15 @@ def time_ms(fn, reps: int) -> float:
     return times[len(times) // 2]
 
 
+@functools.cache
+def graph_stream():
+    """The one side stream every CUDA graph here is captured on: a library
+    call keeps a workspace per stream it ran on (cuBLAS's is tens of MB),
+    so a fresh stream per timing would leave a new one behind each time."""
+    import torch
+    return torch.cuda.Stream()
+
+
 def time_loop_ms(fn, reps: int) -> float:
     """Milliseconds per launch on the card: ``reps`` back-to-back calls
     captured in one CUDA graph (after two warm-up calls on its stream),
@@ -262,7 +273,7 @@ def time_loop_ms(fn, reps: int) -> float:
     replay takes the host's per-call enqueue out, so at small shapes this
     is the card's time: the kernels and the gaps between them."""
     import torch
-    stream = torch.cuda.Stream()
+    stream = graph_stream()
     stream.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(stream):
         for _ in range(2):
@@ -554,11 +565,20 @@ def shape_entries(run_name, cases, by_shape, d, m, device, reps,
                 "name": kname, "run": f"{run_name}/{label}",
                 "launches": count, "max_abs_err": err, "ms": ms,
                 "ms_per_call": per_call, "plain_ms": plain_ms,
-                "bound_ms": b_ms, "bound_by": b_by, "shape": [ns, d, c],
-                "path": path})
-            if path == "ctiled" and label == full:
-                entries[-1]["library_ms"] = contraction_library_ms(
-                    xs, c, n_rep)
+                "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / ms,
+                "shape": [ns, d, c], "path": path})
+            if path == "ctiled":
+                plan = _plan(device.index, ns, d, c)
+                entries[-1]["launch_ms"] = ctiled_launch_ms(
+                    kern, (xs, ws, vs, m), n_rep, plan.dsplits > 1)
+                entries[-1]["dsplits"] = plan.dsplits
+                entries[-1]["member_library_ms"] = membership_library_ms(
+                    xs, vs, n_rep)
+                entries[-1]["contraction_library_ms"] = (
+                    contraction_library_ms(xs, c, n_rep))
+                if label == full:
+                    entries[-1]["library_ms"] = entries[-1][
+                        "contraction_library_ms"]
     return entries
 
 
@@ -571,6 +591,60 @@ def contraction_library_ms(x, c, reps) -> float:
     torch.backends.cuda.matmul.allow_tf32 = False
     wum = torch.rand((x.shape[0], c), dtype=torch.float32, device=x.device)
     return time_loop_ms(lambda: torch.matmul(wum.T, x), reps)
+
+
+def membership_library_ms(x, v, reps) -> float:
+    """The membership half's product x·vᵀ, the (N, C) block the C-tiled
+    kernel forms d² from: ``torch.matmul`` in IEEE f32, timed as the
+    kernel is.  A yardstick only: the port never calls it."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return time_loop_ms(lambda: torch.matmul(x, v.T), reps)
+
+
+# One chunk's launches: the membership (with d-splits, their partials and
+# then their sum), the contraction, the finish.
+CTILED_STAGES = ("member", "member_finish", "contract", "finish")
+
+
+class _StageLib:
+    """The C-tiled library with its chunk call cut to one launch:
+    ``fcm_ctiled_chunk(*args)`` runs ``stage_fn(stage, *args)``."""
+
+    def __init__(self, lib, stage_fn, stage):
+        self._lib, self._stage_fn, self._stage = lib, stage_fn, stage
+
+    def fcm_ctiled_chunk(self, *args):
+        return self._stage_fn(self._stage, *args)
+
+    def __getattr__(self, name):
+        return getattr(self._lib, name)
+
+
+def ctiled_launch_ms(kern, args, reps, dsplit, stage_fn=None) -> dict:
+    """The C-tiled sweep's launches timed apart: ``kern(*args)`` with each
+    row chunk cut to one of its launches (CTILED_STAGES), each timed as
+    `time_loop_ms` times the whole; "member_finish" is 0.0 unless
+    ``dsplit`` (the plan splits d, so that it launches).  ``stage_fn``
+    (stage, *chunk args) launches one of them; by default the library's
+    own ``fcm_ctiled_stage``.  Alone, a launch reads scratch that the one
+    before it did not write: its time, not its values, is what this
+    measures."""
+    from repro_torch.kernels import fcm_update as fu
+    real = fu._ctiled_lib
+    lib = real()
+    stage_fn = stage_fn or lib.fcm_ctiled_stage
+    out = {}
+    try:
+        for stage, name in enumerate(CTILED_STAGES):
+            if name == "member_finish" and not dsplit:
+                out[name] = 0.0
+                continue
+            fu._ctiled_lib = lambda s=stage: _StageLib(lib, stage_fn, s)
+            out[name] = time_loop_ms(lambda: kern(*args), reps)
+    finally:
+        fu._ctiled_lib = real
+    return out
 
 
 def run_main_path(run: Run, n: int, seed: int, device, reps: int):
@@ -837,6 +911,7 @@ def run_router_fit(seed: int, device, reps: int):
               "launches_by_shape": {
                   "fcm_sweep": shape_counts(fcm_sweep_cuda),
                   "fcm_accumulate": shape_counts(fcm_accumulate_cuda)}}
+    record["ctiled_plans"] = router_plans(by_shape, device)
     rng = np.random.default_rng(seed)
     lam = diag.sample_size
     draws = (rng.choice(ROUTER_N, lam, replace=False),
@@ -855,6 +930,34 @@ def run_router_fit(seed: int, device, reps: int):
     del x
     torch.cuda.empty_cache()
     return entries
+
+
+ROUTER_DSPLIT_N = (2 * ROUTER_C, BLOCK_SIZE)   # WFCMPB's merges and blocks
+
+
+def router_plans(by_shape, device) -> dict:
+    """The C-tiled plan of every (N, C) router_fit launched at, with its
+    launches (`_ctiled_launch` runs the plan's d-splits at every
+    launch); fails unless the 2·C-point merges and the 2048-row blocks
+    were launched with d split across CTAs."""
+    from repro_torch.kernels.fcm_update import _plan
+    launched = collections.Counter()
+    for shapes in by_shape.values():
+        for (_, ns, c), count in shapes.items():
+            launched[ns, c] += count
+    plans = {}
+    for (ns, c), count in sorted(launched.items()):
+        plan = _plan(device.index, ns, ROUTER_D, c)
+        plans[f"{ns}x{c}"] = {"launches": count, "tile": plan.tile,
+                              "dsplits": plan.dsplits,
+                              "member_ctas": plan.grid,
+                              "contract_splits": plan.splits}
+    for ns in ROUTER_DSPLIT_N:
+        got = plans.get(f"{ns}x{ROUTER_C}")
+        if got is None or got["dsplits"] < 2:
+            raise AssertionError(f"router_fit: no d-split launch at N = {ns}: "
+                                 f"{plans}")
+    return plans
 
 
 def tenant_stack(t, n, d, c, seed, device, phantoms=2):
@@ -1023,6 +1126,9 @@ def check_ctiled_kernels(device) -> dict:
         times[f"{n}x{d}x{c}"] = {
             "sweep_ms": time_loop_ms(lambda: fu.fcm_sweep_cuda(x, w, v, 2.0),
                                      10),
+            "launch_ms": ctiled_launch_ms(
+                fu.fcm_sweep_cuda, (x, w, v, 2.0), 10,
+                fu._plan(device.index, n, d, c).dsplits > 1),
             "plain_ms": time_ms(lambda: sweep(x, w, v, 2.0), 3),
             "bound_ms": bound(n, d, c)[0]}
         del x, w, v, phantom_w
@@ -1043,6 +1149,9 @@ def check_ctiled_kernels(device) -> dict:
     times["K3 " + "x".join(map(str, CTILED_TENANTS))] = {
         "sweep_ms": time_loop_ms(
             lambda: fu.fcm_sweep_batched_cuda(x, w, v, m_t), 10),
+        "launch_ms": ctiled_launch_ms(
+            fu.fcm_sweep_batched_cuda, (x, w, v, m_t), 10,
+            fu._batched_plan(device.index, t, n, d, c).dsplits > 1),
         "plain_ms": time_ms(lambda: bsweep(x, w, v, m_t), 3),
         "bound_ms": bound_batched(t, n, d, c)[0]}
     # The scratch cut: several tenant groups and row chunks per launch.
@@ -2688,7 +2797,9 @@ def kernel_line(per_run) -> list:
             "library_ms": top.get("library_ms"), "at": top["run"],
             "runs": {e["run"]: {k: e[k] for k in (
                 "launches", "max_abs_err", "ms", "ms_per_call", "plain_ms",
-                "bound_ms", "bound_by", "shape", "path", "source")}
+                "bound_ms", "bound_by", "bound_share", "shape", "path",
+                "source", "dsplits", "launch_ms", "member_library_ms",
+                "contraction_library_ms") if k in e}
                 for e in runs}})
     return out
 

@@ -1,7 +1,7 @@
-// Device code shared by the two FCM sweep sources (fcm_accumulate.cu and
-// fcm_batched.cu): the membership of one record without powf, warp sums,
-// 4-byte cp.async, and the ticketed final reduce that replaces a second
-// launch.
+// Device code shared by the three FCM sweep sources (fcm_accumulate.cu,
+// fcm_batched.cu and fcm_ctiled.cu): the membership of one record
+// without powf, warp sums, 4- and 16-byte cp.async, and the ticketed
+// final reduce that replaces a second launch.
 //
 // Determinism.  Every sum below runs in an order fixed by the launch
 // shape alone: xor-shuffle trees have a fixed pattern (and give the same
@@ -58,6 +58,21 @@ __device__ __forceinline__ float warp_sum(float v) {
 __device__ __forceinline__ void cp_async4(float* smem, const float* gmem) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem));
+}
+// 16 bytes (4 floats, both addresses 16-byte aligned), cached in L2 only;
+// with ok false nothing is read and the 16 bytes are zeroed.
+__device__ __forceinline__ void cp_async16(float* smem, const float* gmem, bool ok) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(ok ? 16 : 0)
+               : "memory");
+}
+// 4 bytes, zeroed where ok is false.
+__device__ __forceinline__ void cp_async4z(float* smem, const float* gmem, bool ok) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(ok ? 4 : 0)
+               : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);

@@ -130,18 +130,31 @@ SLICE_FLOATS = 1024
 MAX_SLICES = 64
 _MAX_TILE_ROWS = 128  # the first versions' tile
 _MAX_SPLITS = 65535   # the first tenant-stacked version's gridDim.y
-# fcm_ctiled_kernel's tiles (csrc/fcm_ctiled.cu): CT_ROWS records x
-# CT_CENTERS centers x CT_DIMS dims per membership tile, CT_OUT centers x
-# CT_OUT dims per contraction block; its scratch bound
-CT_ROWS, CT_CENTERS, CT_DIMS, CT_LD, CT_OUT = 64, 64, 32, 68, 64
+# The C-tiled kernels (csrc/fcm_ctiled.cu): CT_THREADS threads a CTA;
+# the membership's ring of CT_STAGES stages of CT_BK dims ([row][dim]
+# tiles CT_LDK floats a row); membership tiles of CT_TILES records x
+# CT_CENTERS centers, d split across CTAs in whole CT_CHUNK-dim chunks,
+# at least CT_MIN_CHUNKS a split; contraction blocks of CT_OUT_C centers
+# x CT_OUT_D dims; the CTAs per SM the plan aims the membership
+# (CT_CTAS_PER_SM) and the contraction (CT_CONTRACT_CTAS_PER_SM) at; the
+# scratch bound
+CT_THREADS, CT_STAGES, CT_BK, CT_LDK = 128, 3, 32, 36
+CT_TILES, CT_CENTERS, CT_CHUNK, CT_MIN_CHUNKS = (64, 128), 64, 32, 4
+CT_OUT_C, CT_OUT_D = 64, 128
+CT_CTAS_PER_SM = 2
+CT_CONTRACT_CTAS_PER_SM = 4
 CTILED_SCRATCH_BYTES = 256 << 20
-MIN_SPLIT_ROWS = 256  # fewest records per contraction split
+# Records per contraction split: at least MIN_SPLIT_ROWS, except that a
+# small N takes up to SMALL_SPLITS splits of at least SMALL_SPLIT_ROWS (its
+# 16-record stages wait on memory more than they compute)
+MIN_SPLIT_ROWS, SMALL_SPLITS, SMALL_SPLIT_ROWS = 128, 4, 32
 
 
 @dataclasses.dataclass(frozen=True)
 class LaunchPlan:
     """One launch: ``path`` is "rows" (register-resident records), "tile"
-    (register-blocked tiles) or "first" (the first version); ``grid``
+    (register-blocked tiles), "first" (the first version) or "ctiled"
+    (V streamed through shared memory); ``grid``
     CTAs of ``block`` threads; ``rows`` records per split (rows) or per
     tile (tile, first); ``splits`` row splits per tenant; ``smem`` bytes
     of dynamic shared memory; ``slices`` CTAs that share the ticketed
@@ -149,7 +162,10 @@ class LaunchPlan:
     version's second launch sums).  ``dm``/``cm`` name the rows kernel's
     instantiation and ``team_warps`` the warps that own one (tenant,
     split); ``cg``, ``rc``, ``ag``, ``dg``, ``rs`` the tile kernel's
-    micro-tiles."""
+    micro-tiles; ``group``, ``resident``, ``scratch``, ``tile``,
+    ``dsplits`` and ``kper`` the C-tiled kernel's tenants per launch, d²
+    block in shared memory, scratch bytes, records per membership tile,
+    d-splits and 32-dim chunks per d-split."""
     path: str
     block: int
     grid: int
@@ -168,6 +184,9 @@ class LaunchPlan:
     group: int = 0
     resident: bool = False
     scratch: int = 0
+    tile: int = 0
+    dsplits: int = 1
+    kper: int = 0
 
 
 CtasPerSm = Union[int, Callable[[LaunchPlan], int]]
@@ -306,12 +325,29 @@ def _first_tile(layout, limit_rows, smem_limit, d, c) -> int:
     return 0
 
 
-def ctiled_member_floats(c: int, resident: bool) -> int:
+def _d2_ld(c: int) -> int:
+    return (c + 22) // 32 * 32 + 9
+
+
+def ctiled_member_floats(c: int, tile: int, resident: bool) -> int:
     """The C-tiled membership kernel's shared memory in floats
-    (csrc/fcm_ctiled.cu, `member_floats`): the x and V tiles, |x|², w,
-    |v|², and the tile's d² block when it is resident."""
-    base = 2 * CT_DIMS * CT_LD + 2 * CT_ROWS + CT_CENTERS
-    return base + (CT_ROWS * _round4(c) if resident else 0)
+    (csrc/fcm_ctiled.cu, `member_layout`): the ring, |x|² and w of the
+    tile's records, |v|² of a center tile, and the tile's d² block when it
+    is resident (over the ring when C ≤ 64 and it fits there)."""
+    ring = CT_STAGES * (tile + CT_CENTERS) * CT_LDK
+    total = ring + 2 * tile + CT_CENTERS
+    if resident and (c > CT_CENTERS or tile * _d2_ld(c) > ring):
+        total += tile * _d2_ld(c)
+    return total
+
+
+def _dsplit_floats(rows: int, c: int, tile: int, dsplits: int) -> int:
+    """Floats per tenant of the d-split partials: x·vᵀ and |x|² per
+    (split, row), |v|² per (split, row tile)."""
+    if dsplits == 1:
+        return 0
+    ldc = _round4(c)
+    return dsplits * (rows * (ldc + 1) + _cdiv(rows, tile) * ldc)
 
 
 def plan_ctiled(tenants: int, n: int, d: int, c: int, *, sms: int,
@@ -319,31 +355,61 @@ def plan_ctiled(tenants: int, n: int, d: int, c: int, *, sms: int,
     """The C-tiled sweep's launch for x (T, n, d) and C centers (T = 1 for
     the single-model sweep).
 
-    Its scratch (the chunk's wum block and per-record q terms, and the
-    contraction's split partials) stays within ``CTILED_SCRATCH_BYTES``
-    whenever one tenant's partial (C·d + C + 1 floats) and one tile of
-    wum fit in it: ``group`` tenants per launch, then enough splits to
-    give the card two contraction CTAs per SM (each at least
-    ``MIN_SPLIT_ROWS`` records, the partials within half the budget),
-    then as many records per chunk as the rest holds (whole tiles)."""
+    Its scratch (the chunk's wum block and per-record q terms, the
+    contraction's split partials and the membership's d-split partials)
+    stays within ``CTILED_SCRATCH_BYTES`` whenever one tenant's partial
+    (C·d + C + 1 floats) and one 64-row tile of wum fit in it: ``group``
+    tenants per launch, then enough row splits for the contraction's
+    blocks to fill the card once at ``CT_CONTRACT_CTAS_PER_SM`` CTAs per
+    SM (each split at least ``MIN_SPLIT_ROWS`` records, or up to
+    ``SMALL_SPLITS`` of ``SMALL_SPLIT_ROWS``; the partials within half
+    the budget), then as many records per chunk as the rest holds (whole
+    tiles).  The membership takes 128-record tiles where they alone fill
+    the card (and a chunk holds one), else 64-record tiles and
+    ``dsplits`` d-splits of ``kper`` whole 32-dim chunks (at least
+    ``CT_MIN_CHUNKS``), enough for tiles × splits × tenants to reach
+    ``CT_CTAS_PER_SM`` CTAs per SM; fewer where their partials do not fit
+    the rest of the budget.  Its d² block is resident in shared memory
+    where that keeps the membership within half the card's shared memory
+    per block (two CTAs per SM)."""
     budget = CTILED_SCRATCH_BYTES
     out = c * d + c + 1
+    ldc = _round4(c)
     group = max(1, min(tenants, 65535,
-                       budget // (4 * (out + CT_ROWS * (c + 1)))))
-    blocks = _cdiv(c, CT_OUT) * _cdiv(d, CT_OUT)
-    splits = max(1, min(_cdiv(2 * sms, blocks * group),
-                        _cdiv(max(n, 1), MIN_SPLIT_ROWS),
+                       budget // (4 * (out + CT_TILES[0] * (ldc + 1)))))
+    slots = CT_CTAS_PER_SM * sms
+    blocks = _cdiv(c, CT_OUT_C) * _cdiv(d, CT_OUT_D)
+    splits = max(1, min(CT_CONTRACT_CTAS_PER_SM * sms // (blocks * group),
+                        max(_cdiv(n, MIN_SPLIT_ROWS),
+                            min(SMALL_SPLITS, _cdiv(n, SMALL_SPLIT_ROWS))),
                         budget // 2 // (4 * out * group), 65535))
-    rows = (budget - 4 * out * group * splits) // (4 * (c + 1) * group)
+    rows = (budget - 4 * out * group * splits) // (4 * (ldc + 1) * group)
     rows = max(1, min(n, rows))
-    if CT_ROWS <= rows < n:
-        rows -= rows % CT_ROWS
-    resident = 4 * ctiled_member_floats(c, True) <= smem_limit
+    if CT_TILES[0] <= rows < n:
+        rows -= rows % CT_TILES[0]
+    chunks = _cdiv(d, CT_CHUNK)
+    kper = chunks
+    tile = CT_TILES[1]
+    if min(rows, n) < tile or _cdiv(min(rows, n), tile) * group < slots:
+        tile = CT_TILES[0]
+        tiles = _cdiv(min(rows, n), tile) * group
+        if 0 < tiles < slots:
+            kper = max(CT_MIN_CHUNKS, _cdiv(chunks, _cdiv(slots, tiles)))
+    avail = (budget - 4 * out * group * splits
+             - 4 * (ldc + 1) * group * rows)
+    while kper < chunks and 4 * group * _dsplit_floats(
+            rows, c, tile, _cdiv(chunks, kper)) > avail:
+        kper *= 2
+    kper = min(kper, chunks)
+    dsplits = _cdiv(chunks, kper)
+    resident = 4 * ctiled_member_floats(c, tile, True) <= smem_limit // 2
     return LaunchPlan(
-        "ctiled", 256, _cdiv(min(rows, n), CT_ROWS) * group, rows, splits,
-        4 * ctiled_member_floats(c, resident), group=group,
-        resident=resident,
-        scratch=4 * group * (rows * (c + 1) + splits * out))
+        "ctiled", CT_THREADS, _cdiv(min(rows, n), tile) * dsplits * group,
+        rows, splits, 4 * ctiled_member_floats(c, tile, resident),
+        group=group, resident=resident,
+        scratch=4 * group * (rows * (ldc + 1) + splits * out
+                             + _dsplit_floats(rows, c, tile, dsplits)),
+        tile=tile, dsplits=dsplits, kper=kper)
 
 
 def ctiled_chunks(plan: LaunchPlan, tenants: int, n: int) -> list:
@@ -458,9 +524,11 @@ def _ctiled_lib() -> ctypes.CDLL:
     lib.fcm_ctiled_error_string.restype = ctypes.c_char_p
     lib.fcm_ctiled_chunk.argtypes = [
         _P, _P, _P, _P, ctypes.c_float, ctypes.c_longlong, _I, _I, _I, _I,
-        ctypes.c_longlong, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I,
-        _P]
+        ctypes.c_longlong, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
+        _P, _I, _I, _P]
     lib.fcm_ctiled_chunk.restype = _I
+    lib.fcm_ctiled_stage.argtypes = [_I, *lib.fcm_ctiled_chunk.argtypes]
+    lib.fcm_ctiled_stage.restype = _I
     return lib
 
 
@@ -578,16 +646,21 @@ def _ctiled_launch(plan, x, w, v, m_ptr, m, tenants, n, d, c, normalize,
     launch's error, else 0."""
     lib = _ctiled_lib()
     g, rows = plan.group, plan.rows
-    wum = torch.empty((g * rows * c,), dtype=torch.float32, device=dev)
-    qrow = torch.empty((g * rows,), dtype=torch.float32, device=dev)
-    part = torch.empty((g * plan.splits * (c * d + c + 1),),
-                       dtype=torch.float32, device=dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    wum = torch.empty((g * rows * _round4(c),), **f32)
+    qrow = torch.empty((g * rows,), **f32)
+    part = torch.empty((g * plan.splits * (c * d + c + 1),), **f32)
+    dpart = None
+    if plan.dsplits > 1:
+        dpart = torch.empty(
+            (g * _dsplit_floats(rows, c, plan.tile, plan.dsplits),), **f32)
     out_v, out_w, out_q = out
     for t0, t1, r0, r1 in ctiled_chunks(plan, tenants, n):
         err = lib.fcm_ctiled_chunk(
             x.data_ptr(), w.data_ptr(), v.data_ptr(), m_ptr, m, n, d, c, t0,
-            t1 - t0, r0, r1 - r0, rows, plan.splits, int(plan.resident),
-            wum.data_ptr(), qrow.data_ptr(), part.data_ptr(),
+            t1 - t0, r0, r1 - r0, rows, plan.splits, plan.tile, plan.kper,
+            int(plan.resident), wum.data_ptr(), qrow.data_ptr(),
+            None if dpart is None else dpart.data_ptr(), part.data_ptr(),
             out_v.data_ptr(), out_w.data_ptr(), out_q.data_ptr(),
             int(r0 == 0), int(normalize and r1 == n), stream)
         if err:

@@ -286,23 +286,26 @@ def test_each_path_matches_plain_and_reruns_bit_identically(card, n, d, c,
             assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("n", [1000, 63])
 @pytest.mark.parametrize("scalar_m", [False, True])
 def test_ctiled_row_chunks_and_tenant_groups_add_up(card, monkeypatch,
-                                                     scalar_m):
+                                                     scalar_m, n):
     """A scratch budget of 1.2 MB makes the C-tiled wrapper walk two
     tenant groups and four row chunks at (T, N, d, C) = (3 + 2 phantoms,
-    1000, 2048, 64): raw sums add across chunks, the sweep normalizes
-    once at the last, phantoms stay 0, reruns are bit-identical, and one
-    tenant agrees with the single-model wrapper on the same budget."""
+    1000, 2048, 64), and three tenant groups with d split in two at
+    N = 63: raw sums add across chunks, the sweep normalizes once at the
+    last, phantoms stay 0, reruns are bit-identical, and one tenant
+    agrees with the single-model wrapper on the same budget."""
     monkeypatch.setattr(fcm_update, "CTILED_SCRATCH_BYTES", 1_200_000)
     fcm_update._plan.cache_clear()
     fcm_update._batched_plan.cache_clear()
     try:
-        x, w, v, m = _stack(3, 1000, 2048, 64, 11, card)
+        x, w, v, m = _stack(3, n, 2048, 64, 11, card)
         m = 1.2 if scalar_m else m
-        plan = _batched_plan(card.index or 0, 5, 1000, 2048, 64)
+        plan = _batched_plan(card.index or 0, 5, n, 2048, 64)
         assert plan.path == "ctiled" and plan.scratch <= 1_200_000
-        assert len(fcm_update.ctiled_chunks(plan, 5, 1000)) > 2
+        assert len(fcm_update.ctiled_chunks(plan, 5, n)) > 2
+        assert (plan.dsplits > 1) == (n == 63)
         for kern, plain, atol in ((fcm_sweep_batched_cuda,
                                    fcm_sweep_batched_ref, 3e-5),
                                   (fcm_accumulate_batched_cuda,
@@ -319,6 +322,50 @@ def test_ctiled_row_chunks_and_tenant_groups_add_up(card, monkeypatch,
     finally:
         fcm_update._plan.cache_clear()
         fcm_update._batched_plan.cache_clear()
+
+
+# The C-tiled kernel at router_fit's small shapes, where the plan splits
+# d across CTAs (N = 1, 63, 128, 2048 at d = 2048, C = 64), and at an odd
+# width (d = 2047, C = 65: 4-byte copies, a ragged center tile).
+@pytest.mark.parametrize("phantoms", [False, True])
+@pytest.mark.parametrize("n,d,c", [(1, 2048, 64), (63, 2048, 64),
+                                   (128, 2048, 64), (2048, 2048, 64),
+                                   (2048, 2047, 65)])
+def test_ctiled_dsplit_matches_plain(card, n, d, c, phantoms):
+    """K1, K2 and K3 on the C-tiled path against their plain versions at
+    the test_kernels.py tolerances (with half the rows zero-weight
+    phantoms, or none), reruns bit-identical, K3's all-zero phantom
+    tenant exactly 0."""
+    x, w, v = _inputs(n, d, c, n + d + c, card)
+    if phantoms:
+        w[n // 2:] = 0.0
+    plan = _plan(card.index or 0, n, d, c)
+    assert plan.path == "ctiled"
+    assert plan.dsplits > 1 or n == 2048 and d == 2047
+    for kern, plain, atol in ((fcm_sweep_cuda, fcm_sweep_ref, 3e-5),
+                              (fcm_accumulate_cuda, fcm_accumulate_ref,
+                               3e-3)):
+        before = kern.shapes.copy()
+        got = kern(x, w, v, 1.2)
+        assert _launched_path(kern, before) == "ctiled"
+        _close(got, plain(x, w, v, 1.2), 3e-4, atol)
+        for a, b in zip(got, kern(x, w, v, 1.2)):
+            assert torch.equal(a, b)
+    xs, ws, vs, m = _stack(2, n, d, c, n + d + c + 1, card, phantoms=1)
+    if phantoms:
+        ws[:, n // 2:] = 0.0
+    for kern, plain, atol in ((fcm_sweep_batched_cuda, fcm_sweep_batched_ref,
+                               3e-5),
+                              (fcm_accumulate_batched_cuda,
+                               fcm_accumulate_batched_ref, 3e-3)):
+        before = kern.shapes.copy()
+        got = kern(xs, ws, vs, m)
+        assert _launched_path(kern, before) == "ctiled"
+        _close(got, plain(xs, ws, vs, m), 3e-4, atol)
+        for a, b in zip(got, kern(xs, ws, vs, m)):
+            assert torch.equal(a, b)
+        for out in got:
+            assert not bool(out[2:].abs().any())
 
 
 @pytest.mark.parametrize("t,n,d,c,path", [

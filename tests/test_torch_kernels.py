@@ -160,7 +160,9 @@ def _covers(plan, n, tenants=1):
         assert 1 <= plan.group <= min(tenants, 65_535)
         assert 1 <= plan.rows and (plan.rows >= min(n, 64))
         assert 1 <= plan.splits <= 65_535
-        assert plan.grid == _cdiv(min(plan.rows, n), 64) * plan.group
+        assert plan.tile in fcm_update.CT_TILES and plan.dsplits >= 1
+        assert plan.grid == (_cdiv(min(plan.rows, n), plan.tile)
+                             * plan.dsplits * plan.group)
         return
     if plan.path == "rows":
         # every record in exactly one split, no split empty
@@ -255,14 +257,34 @@ def test_plan_covers_router_widths_within_the_scratch_bound(tenants, n, d,
     _covers(plan, n, tenants)
 
 
+def _ctiled_scratch(plan, d, c):
+    """The C-tiled wrapper's scratch in bytes for ``plan``, counted from
+    its buffers: wum (round4(C) floats a row) and q per row, the
+    contraction's split partials and, with d-splits, the membership's
+    partial x·vᵀ and |x|² per (split, row) and |v|² per (split, tile)."""
+    ldc = (c + 3) & ~3
+    floats = plan.rows * (ldc + 1) + plan.splits * (c * d + c + 1)
+    if plan.dsplits > 1:
+        floats += plan.dsplits * (plan.rows * (ldc + 1)
+                                  + _cdiv(plan.rows, plan.tile) * ldc)
+    return 4 * plan.group * floats
+
+
 @pytest.mark.parametrize("budget", [None, 1_200_000, 600_000])
 @pytest.mark.parametrize("tenants,n,d,c", [(1, 262_144, 2048, 64),
                                            (5, 1000, 2048, 64),
                                            (3, 1, 7168, 384),
                                            (1, 0, 4000, 64),
-                                           (700, 300, 900, 64)])
+                                           (700, 300, 900, 64),
+                                           (1, 128, 2048, 64),
+                                           (1, 2048, 2047, 65),
+                                           (5, 63, 2048, 64)])
 def test_ctiled_chunks_cover_every_row_once(monkeypatch, budget, tenants, n,
                                             d, c):
+    """Every (tenant, row) falls in one chunk and, within it, in one
+    contraction split; every 32-dim chunk of d in one d-split; the plan's
+    scratch counts every buffer, the d-split partials too, and stays
+    within a cut budget wherever one partial and one 64-row tile fit."""
     if budget is not None:
         monkeypatch.setattr(fcm_update, "CTILED_SCRATCH_BYTES", budget)
     plan = fcm_update.plan_ctiled(tenants, n, d, c, sms=132,
@@ -272,12 +294,79 @@ def test_ctiled_chunks_cover_every_row_once(monkeypatch, budget, tenants, n,
     for t0, t1, r0, r1 in chunks:
         assert 0 < t1 - t0 <= plan.group and 0 <= r1 - r0 <= plan.rows
         seen[t0:t1, r0:r1] += 1
+        # the contraction kernel's row splits of this chunk
+        rows, per = r1 - r0, _cdiv(r1 - r0, plan.splits)
+        split_of = np.zeros(rows, np.int64)
+        for sp in range(plan.splits):
+            ra = min(rows, sp * per)
+            split_of[ra:min(rows, ra + per)] += 1
+        assert (split_of == 1).all()
     assert (seen == (1 if n else 0)).all()
     # each tenant group starts its sums once and finishes once
     firsts = [(t0, r0) for t0, _, r0, _ in chunks if r0 == 0]
     assert len(firsts) == _cdiv(tenants, plan.group)
+    # the membership's d-splits: whole 32-dim chunks, none empty
+    n_chunks = _cdiv(d, fcm_update.CT_CHUNK)
+    owner = [k // plan.kper for k in range(n_chunks)]
+    assert owner == sorted(owner)
+    assert sorted(set(owner)) == list(range(plan.dsplits))
+    assert plan.dsplits == 1 or plan.kper >= fcm_update.CT_MIN_CHUNKS
+    assert plan.scratch == _ctiled_scratch(plan, d, c)
     if budget is not None and 4 * (c * d + c + 1 + 64 * (c + 1)) <= budget:
         assert plan.scratch <= budget
+
+
+# router_fit's shapes (its reducer, merges, blocks and full size) and
+# Kimi-K2's width.
+CTILED_CARD_SHAPES = [(64, 2048, 64), (128, 2048, 64), (2048, 2048, 64),
+                      (262_144, 2048, 64), (1024, 7168, 384)]
+
+
+@pytest.mark.parametrize("n,d,c", CTILED_CARD_SHAPES)
+def test_ctiled_splits_fill_the_card(n, d, c):
+    """The membership splits d until row tiles × d-splits reach about
+    CT_CTAS_PER_SM CTAs per SM (no split under CT_MIN_CHUNKS chunks), and
+    the contraction's row splits fill the card once at
+    CT_CONTRACT_CTAS_PER_SM CTAs per SM; the full size keeps
+    one d-split, its 128-record tiles filling the card alone."""
+    sms = H100["sms"]
+    slots = fcm_update.CT_CTAS_PER_SM * sms
+    plan = plan_sweep(n, d, c, **H100)
+    assert plan.path == "ctiled"
+    tiles = _cdiv(min(plan.rows, n), plan.tile)
+    most = tiles * _cdiv(_cdiv(d, fcm_update.CT_CHUNK),
+                         fcm_update.CT_MIN_CHUNKS)
+    assert plan.grid == tiles * plan.dsplits
+    assert plan.grid >= min(sms, most)
+    assert plan.dsplits == 1 or plan.grid < 2 * slots
+    assert (plan.dsplits == 1) == (tiles >= slots)
+    blocks = (_cdiv(c, fcm_update.CT_OUT_C)
+              * _cdiv(d, fcm_update.CT_OUT_D))
+    assert blocks * plan.splits >= min(
+        sms, blocks * _cdiv(n, fcm_update.MIN_SPLIT_ROWS))
+    assert plan.splits == 1 or n // plan.splits >= min(
+        fcm_update.MIN_SPLIT_ROWS, fcm_update.SMALL_SPLIT_ROWS)
+    assert plan.splits == 1 or blocks * plan.splits <= (
+        fcm_update.CT_CONTRACT_CTAS_PER_SM * sms)
+    if n == 262_144:
+        assert (plan.tile, plan.dsplits, plan.grid) == (128, 1, 2048)
+    if n <= 2048 and d == 2048:
+        assert plan.tile == 64 and plan.dsplits > 1
+
+
+def test_ctiled_plan_is_a_pure_function_of_shape_and_card():
+    """The same shape and card give the same plan whatever was planned
+    before; a card with half the SMs splits d less."""
+    shapes = [(1, n, d, c) for n, d, c in CTILED_CARD_SHAPES]
+    shapes += [(3, 1000, 2048, 64), (5, 1000, 2047, 65)]
+    card = dict(sms=132, smem_limit=H100["smem_limit"])
+    first = [fcm_update.plan_ctiled(*s, **card) for s in shapes]
+    for s in reversed(shapes):
+        fcm_update.plan_ctiled(*s, sms=66, smem_limit=101_376)
+    assert [fcm_update.plan_ctiled(*s, **card) for s in shapes] == first
+    half = fcm_update.plan_ctiled(1, 2048, 2048, 64, sms=66,
+                                  smem_limit=H100["smem_limit"])
+    assert 1 < half.dsplits < first[2].dsplits
 
 
 def test_library_path_hashes_included_headers(tmp_path, monkeypatch):
