@@ -27,7 +27,19 @@ Phases, each printed as JSON lines; any failure raises and exits non-zero:
    with phantom rows and with records on centers; K3 at (3, 1000, 2048,
    64) with one all-phantom tenant; and with its scratch cut so that its
    sums add over tenant groups and row chunks.
-3. main path — `bigfcm_fit` on backend "auto" at the paper's dataset
+   Then the perf plane (``calibrate``), in a calibration sandbox (a fresh
+   ``build/chip_smoke_calib_*/`` as ``REPRO_CALIB_DIR``, deleted at the
+   end, so no earlier run's winners or tuned plans change a plan): the
+   card's probed peaks beside the datasheet's; at the default bucket and
+   each run's driver-sample bucket the backend race ("auto"'s winner,
+   each backend's µs and parity; the winner must be ``hopper`` or
+   ``hopper_accumulate``, both in parity with ``torch``); and at those
+   buckets and the tenant cohorts' the launch-plan search (a host-bound
+   bucket keeps its untuned plan; elsewhere a choice must beat the
+   untuned plan's card time by more than 5 %), every plan of the grid
+   held against the plain version.  Every later
+   phase runs on the plans it chose.
+3. main path — `bigfcm_fit` on backend ``hopper`` at the paper's dataset
    sizes (HIGGS-like 11,000,000 × 28, C=2, m=2; KDD99-like
    4,898,431 × 41, C=23, m=1.2; ε=5e-7 as in benchmarks/t6_datasets.py),
    data made from ``--seed``.  Launch counts are zeroed right before the
@@ -44,8 +56,10 @@ Phases, each printed as JSON lines; any failure raises and exits non-zero:
    rows from 64 Gaussian components of unequal mass), every launch on
    the C-tiled path, held against the ``torch`` backend from the same
    draws (`hold_router_fits`); each shape held and timed, the
-   contraction's ``torch.matmul`` timed as its yardstick.
-4. tenant path — `fit_tenants` on backend "auto" at two cohorts made
+   contraction's ``torch.matmul`` timed as its yardstick.  The HIGGS- and
+   KDD99-like records print `kernel_roofline` of ``hopper`` at full size,
+   its `sweep_bytes` held equal to `bound_bytes`.
+4. tenant path — `fit_tenants` on backend ``hopper`` at two cohorts made
    from ``--seed``: ``tenants_t16``, benchmarks/t16_tenant.py's own
    (1024 tenants of 8–30 rows, d=4, C=3, m=2, ε=1e-3, 12 sweeps at
    most), and ``tenants_65k`` (65,536 tenants of 64–512 rows, per-tenant
@@ -55,7 +69,11 @@ Phases, each printed as JSON lines; any failure raises and exits non-zero:
    (`hold_tenant_fits`), ``tenants_t16``'s first 16 tenants also
    against `fit_tenants_looped`; a burst of 4 rows per tenant goes
    through `TenantScorer` on the card and on the CPU; and K3 is held
-   against its plain version at the packed shape, and timed.
+   against its plain version at the packed shape, and timed.  At
+   ``tenants_65k`` a `TenantScoringService` serves requests of 8–64 rows
+   from 4096 random tenants and one firehose tenant (half the rows,
+   ``max_group_rows`` 512), swapping to the ``torch`` refit mid-traffic:
+   each response's version and labels are one fleet's.
 5. store path — the two arrays ingested into on-disk
    `ChunkStore`s of 1,048,576-row chunks: `bigfcm_fit_store` with
    counted launches and peak device memory, held against the in-memory
@@ -63,7 +81,16 @@ Phases, each printed as JSON lines; any failure raises and exits non-zero:
    `wfcmpb_store`, MR-FKM and `assign_store`.  The KDD99-like fit also
    prints `repro_torch.obs`'s phase breakdown, its ``data.cache``
    counters held to the chunks the fit reads.
-6. stream path — `StreamingBigFCM` on backend "auto", launch counts
+   Then ``serve``: `ScoringService` over `Scorer` replicas at the
+   KDD99-like fit's centers with benchmarks/t14_serve.py's traffic
+   (1200 requests over 40 sizes in 16–1024 rows, 4096-row batches on a
+   64-base bucket ladder): closed-loop runs at 1, 4 and 16 clients with
+   1 then 2 replicas (p50/p99 of ``span.serve.assign`` per bucket and of
+   ``serve.request``, records/s, each replica's shape count equal to the
+   buckets it used), the ``coalesce=False`` ablation and the shed policy
+   (every rejection typed, the queue-rows gauge within 4096); every
+   response held against `make_assigner` (`label_ties`).
+6. stream path — `StreamingBigFCM` on backend ``hopper``, launch counts
    zeroed before each run and read after it:
    ``kdd99_stream``, the KDD99-like array replayed through
    `assign_stream(model, stream_loader(replay_source(x, 262144),
@@ -71,6 +98,9 @@ Phases, each printed as JSON lines; any failure raises and exits non-zero:
    ingests, the last batch phantom-padded), its last labels held against
    `make_assigner`, the model checkpointed and restored at step
    STREAM_CKPT_STEP and both fed the next batch (bit-identical); and
+   the live path (`run_live_serve`): a second ``kdd99_stream`` model
+   publishing each ingest through `SnapshotPublisher` to a
+   `ScoringService` that scores each batch while the next one ingests;
    ``drift_streams`` at d = 28, C = 8, m = 2 from `make_moving_blobs`:
    (a) global drift, re-seeding once within the cooldown and ending
    within 5 % of a fresh `bigfcm_fit` of its last window; (b) one
@@ -118,6 +148,7 @@ import dataclasses
 import functools
 import json
 import math
+import os
 import shutil
 import subprocess
 import sys
@@ -309,10 +340,17 @@ def check_paths(run: str, *fns) -> None:
                              f"{EXPECTED_PATH[run]!r} path: {other}")
 
 
+def bound_bytes(n: int, d: int, c: int) -> int:
+    """Bytes one sweep must move: x, w and V read once, v_num, w_i and q
+    written once."""
+    return 4 * (n * (d + 1) + c * d + c * d + c + 1)
+
+
 def bound(n: int, d: int, c: int):
     """(ms, what sets it): each input read once, each output written
-    once, against 4·N·C·d f32 flops (the two contractions)."""
-    nbytes = 4 * (n * (d + 1) + c * d + c * d + c + 1)
+    once (`bound_bytes`), against 4·N·C·d f32 flops (the two
+    contractions)."""
+    nbytes = bound_bytes(n, d, c)
     flops = 4 * n * c * d
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_F32_FLOP_PER_S * 1e3
@@ -524,9 +562,10 @@ def shape_entries(run_name, cases, by_shape, d, m, device, reps,
     launches}); the ``full`` case always.  Two launches must agree bit
     for bit.  Returns one kernel-line entry per (kernel, case)."""
     import torch
-    from repro_torch.kernels.fcm_update import (_plan, fcm_accumulate_cuda,
+    from repro_torch.kernels.fcm_update import (fcm_accumulate_cuda,
                                                 fcm_accumulate_ref,
-                                                fcm_sweep_cuda, fcm_sweep_ref)
+                                                fcm_sweep_cuda, fcm_sweep_ref,
+                                                launch_plan)
     entries = []
     for kname, kern, plain_fn, atol in (
             ("fcm_sweep", fcm_sweep_cuda, fcm_sweep_ref, SWEEP_ATOL),
@@ -540,7 +579,7 @@ def shape_entries(run_name, cases, by_shape, d, m, device, reps,
                         if k[1:] == (ns, c))
             if label != full and count == 0:
                 continue
-            path = _plan(device.index, ns, d, c).path
+            path = launch_plan(device, ns, d, c).path
             plain = plain_fn
             if path == "ctiled":    # its broadcast takes N·C·d floats
                 plain = plain_in_rows(fcm_accumulate_ref,
@@ -568,7 +607,7 @@ def shape_entries(run_name, cases, by_shape, d, m, device, reps,
                 "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / ms,
                 "shape": [ns, d, c], "path": path})
             if path == "ctiled":
-                plan = _plan(device.index, ns, d, c)
+                plan = launch_plan(device, ns, d, c)
                 entries[-1]["launch_ms"] = ctiled_launch_ms(
                     kern, (xs, ws, vs, m), n_rep, plan.dsplits > 1)
                 entries[-1]["dsplits"] = plan.dsplits
@@ -656,7 +695,7 @@ def run_main_path(run: Run, n: int, seed: int, device, reps: int):
     from repro_torch.core import BigFCMConfig, bigfcm_fit
     from repro_torch.data import synth
     from repro_torch.device import synchronize
-    from repro_torch.engine import get_backend, resolve_backend
+    from repro_torch.engine import get_backend
     from repro_torch.kernels.fcm_update import (fcm_accumulate_cuda,
                                                 fcm_sweep_cuda, reset_counts)
 
@@ -672,10 +711,8 @@ def run_main_path(run: Run, n: int, seed: int, device, reps: int):
     cfg = BigFCMConfig(n_clusters=run.c, m=run.m, combiner_eps=run.eps,
                        reducer_eps=run.eps, max_iter=1000,
                        sample_size=min(SAMPLE_SIZE, n),
-                       block_size=BLOCK_SIZE, seed=seed)
-    backend = resolve_backend(cfg.backend, device=device).name
-    if device.type == "cuda" and backend != "hopper":
-        raise AssertionError(f"'auto' resolved to {backend!r} on the card")
+                       block_size=BLOCK_SIZE, seed=seed, backend="hopper")
+    backend = cfg.backend
 
     # -- the main path, with launch counts zeroed just before it
     reset_counts()
@@ -697,6 +734,7 @@ def run_main_path(run: Run, n: int, seed: int, device, reps: int):
             bool(torch.isfinite(res.centers).all()) and math.isfinite(float(q))):
         raise AssertionError("main path gave non-finite or mis-shaped output")
     diag = res.diagnostics
+    roof = roofline_record(n, run.c, d, x, ones, res.centers, run.m, device)
     record = {"phase": "main_path", "run": run.name, "n": n, "d": d,
               "c": run.c, "m": run.m, "eps": run.eps, "backend": backend,
               "setup_s": setup_s, "wall_s": wall, "flag": diag.flag,
@@ -707,7 +745,8 @@ def run_main_path(run: Run, n: int, seed: int, device, reps: int):
               "launches": launches,
               "launches_by_shape": {
                   "fcm_sweep": shape_counts(fcm_sweep_cuda),
-                  "fcm_accumulate": shape_counts(fcm_accumulate_cuda)}}
+                  "fcm_accumulate": shape_counts(fcm_accumulate_cuda)},
+              "roofline": roof}
 
     # -- hopper vs the torch backend, same injected seeds, full size
     rng = np.random.default_rng(seed)
@@ -789,7 +828,8 @@ def make_router_like(n, d, c, seed):
 def router_config(seed):
     from repro_torch.core import BigFCMConfig
     return BigFCMConfig(n_clusters=ROUTER_C, m=ROUTER_M, combiner_eps=1e-6,
-                        reducer_eps=1e-8, max_iter=200, seed=seed)
+                        reducer_eps=1e-8, max_iter=200, seed=seed,
+                        backend="hopper")
 
 
 def hold_router_fits(x, ones, cfg, draws, device) -> dict:
@@ -849,7 +889,7 @@ def hold_router_fits(x, ones, cfg, draws, device) -> dict:
 
 
 def run_router_fit(seed: int, device, reps: int):
-    """Phase 3b: `bigfcm_fit` on backend "auto" at router_fit's full width
+    """Phase 3b: `bigfcm_fit` on backend ``hopper`` at router_fit's full width
     (the C-tiled kernel's main path), launch counts zeroed just before it
     and read after the global objective pass; the fit held against the
     ``torch`` backend (`hold_router_fits`); each kernel entry against its
@@ -859,7 +899,7 @@ def run_router_fit(seed: int, device, reps: int):
     import torch
     from repro_torch.core import bigfcm_fit
     from repro_torch.device import synchronize
-    from repro_torch.engine import get_backend, resolve_backend
+    from repro_torch.engine import get_backend
     from repro_torch.kernels.fcm_update import (fcm_accumulate_cuda,
                                                 fcm_sweep_cuda, reset_counts)
 
@@ -871,9 +911,7 @@ def run_router_fit(seed: int, device, reps: int):
     synchronize(device)
     setup_s = time.perf_counter() - t0
     cfg = router_config(seed)
-    backend = resolve_backend(cfg.backend, device=device).name
-    if backend != "hopper":
-        raise AssertionError(f"'auto' resolved to {backend!r} on the card")
+    backend = cfg.backend
 
     reset_counts()
     synchronize(device)
@@ -940,14 +978,14 @@ def router_plans(by_shape, device) -> dict:
     launches (`_ctiled_launch` runs the plan's d-splits at every
     launch); fails unless the 2·C-point merges and the 2048-row blocks
     were launched with d split across CTAs."""
-    from repro_torch.kernels.fcm_update import _plan
+    from repro_torch.kernels.fcm_update import launch_plan
     launched = collections.Counter()
     for shapes in by_shape.values():
         for (_, ns, c), count in shapes.items():
             launched[ns, c] += count
     plans = {}
     for (ns, c), count in sorted(launched.items()):
-        plan = _plan(device.index, ns, ROUTER_D, c)
+        plan = launch_plan(device, ns, ROUTER_D, c)
         plans[f"{ns}x{c}"] = {"launches": count, "tile": plan.tile,
                               "dsplits": plan.dsplits,
                               "member_ctas": plan.grid,
@@ -1403,7 +1441,7 @@ def check_scorer(ts, run: TenantRun, seed: int, device) -> dict:
 
 
 def run_tenant_path(run: TenantRun, seed: int, device, reps: int):
-    """Phase 4 for one cohort: `fit_tenants` on "auto" with the K3 launch
+    """Phase 4 for one cohort: `fit_tenants` on ``hopper`` with the K3 launch
     count zeroed just before it and read just after; the same fit on the
     ``torch`` backend, held tenant by tenant; the looped fit of 16
     tenants (``tenants_t16``); the scorer; and K3 against its plain
@@ -1412,11 +1450,10 @@ def run_tenant_path(run: TenantRun, seed: int, device, reps: int):
     import numpy as np
     import torch
     from repro_torch.device import synchronize
-    from repro_torch.engine import get_backend, resolve_backend
-    from repro_torch.kernels.fcm_update import (_batched_plan,
-                                                fcm_sweep_batched_cuda,
+    from repro_torch.engine import get_backend
+    from repro_torch.kernels.fcm_update import (fcm_sweep_batched_cuda,
                                                 fcm_sweep_batched_ref,
-                                                reset_counts)
+                                                launch_plan, reset_counts)
     from repro_torch.tenant import (TenantFitConfig, fit_tenants,
                                     fit_tenants_looped, pack_tenants,
                                     seed_centers)
@@ -1427,10 +1464,8 @@ def run_tenant_path(run: TenantRun, seed: int, device, reps: int):
     setup_s = time.perf_counter() - t0
     cfg = TenantFitConfig(n_clusters=TENANT_C, eps=run.eps,
                           max_iter=run.max_iter, seed=seed,
-                          row_base=run.row_base)
-    backend = resolve_backend(cfg.backend, device=device).name
-    if backend != "hopper":
-        raise AssertionError(f"'auto' resolved to {backend!r} on the card")
+                          row_base=run.row_base, backend="hopper")
+    backend = cfg.backend
 
     # -- the main path, with the K3 launch count zeroed just before it
     reset_counts()
@@ -1489,6 +1524,8 @@ def run_tenant_path(run: TenantRun, seed: int, device, reps: int):
         record["looped_vs_batched"] = hold_tenant_fits(
             looped, ts.select(ts.ids[:16]), X, W, V0, m_dev, fixed,
             allowed, run.obj_rtol, f"looped vs batched at {run.name}")
+    if run.name == "tenants_65k":
+        record["service"] = run_tenant_service(ts, tor, seed, device)
     del tor
     record["scorer"] = check_scorer(ts, run, seed, device)
 
@@ -1543,7 +1580,7 @@ def run_tenant_path(run: TenantRun, seed: int, device, reps: int):
             "launches": launches, "max_abs_err": err, "ms": ms,
             "ms_per_call": per_call, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "shape": [tb, n, d, TENANT_C],
-            "path": _batched_plan(device.index, tb, n, d, TENANT_C).path}
+            "path": launch_plan(device, n, d, TENANT_C, tb).path}
 
 
 # The store phase: 1,048,576-row chunks (117 MB at d = 28, 172 MB at
@@ -1614,7 +1651,7 @@ def hold_fit(a, b, scale, what) -> dict:
 def run_store_path(run: Run, held: dict, store_dir: Path, device) -> dict:
     """Phase 5 for one dataset: the array the main path fit, ingested into
     an on-disk `ChunkStore` under ``store_dir``; `bigfcm_fit_store` on
-    backend "auto" with launch counts zeroed just before it and read just
+    backend ``hopper`` with launch counts zeroed just before it and read just
     after, and its peak device memory; the store fits from the main
     path's injected draws through ``hopper`` and ``torch``, held against
     the in-memory fit and each other; where a pass's time goes; one pass
@@ -1627,9 +1664,10 @@ def run_store_path(run: Run, held: dict, store_dir: Path, device) -> dict:
     from repro_torch.core import bigfcm_fit_store
     from repro_torch.data import ChunkStore, batched
     from repro_torch.engine import get_backend
-    from repro_torch.kernels.fcm_update import (_plan, fcm_accumulate_cuda,
+    from repro_torch.kernels.fcm_update import (fcm_accumulate_cuda,
                                                 fcm_accumulate_ref,
-                                                fcm_sweep_cuda, reset_counts)
+                                                fcm_sweep_cuda, launch_plan,
+                                                reset_counts)
 
     from repro_torch import obs
     x_np, cfg = held["x"], held["cfg"]
@@ -1764,7 +1802,7 @@ def run_store_path(run: Run, held: dict, store_dir: Path, device) -> dict:
             "launches": k1_batch, "max_abs_err": err, "ms": k1_ms,
             "ms_per_call": per_call, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "shape": [rows, d, run.c],
-            "path": _plan(device.index, rows, d, run.c).path}
+            "path": launch_plan(device, rows, d, run.c).path}
 
 
 def store_obs(store, cfg, passes, per_pass) -> dict:
@@ -1908,7 +1946,8 @@ def store_extras(run: Run, store, x_np, xd, held, q_one, centers, scale,
                                                    cfg, scale, device)
 
     v0 = x_np[held["sample_idx"][held["seed_idx"]]]
-    kw = dict(m=run.m, eps=run.eps, max_iter=cfg.max_iter, device=device)
+    kw = dict(m=run.m, eps=run.eps, max_iter=cfg.max_iter, backend="hopper",
+              device=device)
     ooc, jobs_ooc, t_ooc = mr_fuzzy_kmeans_store(store, v0, **kw)
     mem, jobs_mem, t_mem = mr_fuzzy_kmeans(xd, v0, **kw)
     rec = out["mr_fkm"] = {
@@ -1923,9 +1962,10 @@ def store_extras(run: Run, store, x_np, xd, held, q_one, centers, scale,
     for soft in (False, True):
         t0 = time.perf_counter()
         got = torch.from_numpy(np.concatenate(list(assign_store(
-            store, centers, m=run.m, soft=soft, device=device))))
+            store, centers, m=run.m, soft=soft, backend="hopper",
+            device=device))))
         rec["soft_s" if soft else "hard_s"] = time.perf_counter() - t0
-        want = make_assigner(centers, m=run.m, soft=soft,
+        want = make_assigner(centers, m=run.m, soft=soft, backend="hopper",
                              device=device)(xd).cpu()
         if soft:
             # Chunk and whole-array GEMMs round the d² expansion's cross
@@ -2481,7 +2521,7 @@ def stream_cases(name, x_rows, model, by_shape):
 def run_kdd99_stream(x_np, seed, device, ckpt_dir, pin):
     """``kdd99_stream``: the KDD99-like array replayed through
     `assign_stream(model, stream_loader(replay_source(x, 262144),
-    262144))` on backend "auto", C = 23, m = 1.2 (the paper's), the
+    262144))` on backend ``hopper``, C = 23, m = 1.2 (the paper's), the
     `StreamConfig` defaults otherwise; launch counts zeroed just before
     the loop and read just after.  Every ingest is step-locked against a
     ``torch`` twin, the model is checkpointed and restored at step
@@ -2495,10 +2535,8 @@ def run_kdd99_stream(x_np, seed, device, ckpt_dir, pin):
     from repro_torch.serve import assign_stream, make_assigner
     from repro_torch.stream import StreamConfig, StreamingBigFCM
     n, d = x_np.shape
-    cfg = StreamConfig(n_clusters=23, m=1.2, seed=seed)
+    cfg = StreamConfig(n_clusters=23, m=1.2, seed=seed, backend="hopper")
     model = StreamingBigFCM(cfg, device=device)
-    if model.backend.name != "hopper" and device.type == "cuda":
-        raise AssertionError(f"'auto' resolved to {model.backend.name!r}")
     scale = float(np.sqrt(np.mean(np.square(x_np[:STREAM_ROWS],
                                             dtype=np.float64))))
     run = StreamRun("kdd99_stream", model, pin, twin=True, scale=scale,
@@ -2519,7 +2557,7 @@ def run_kdd99_stream(x_np, seed, device, ckpt_dir, pin):
     run.close()
     last = n - (n - 1) // STREAM_ROWS * STREAM_ROWS
     x_last = torch.from_numpy(x_np[n - last:]).to(device)
-    want = make_assigner(model.state.centers, m=cfg.m,
+    want = make_assigner(model.state.centers, m=cfg.m, backend="hopper",
                          device=device)(x_last).cpu().numpy()
     ties = label_ties(labels, want, x_last, model.state.centers)
     if run.ckpt is None or len(run.steps) != -(-n // STREAM_ROWS):
@@ -2633,7 +2671,8 @@ def run_drift_stream(run: DriftRun, chunks, seed, device, pin):
     from repro_torch.core.metrics import fuzzy_objective
     from repro_torch.kernels.fcm_update import reset_counts
     from repro_torch.stream import StreamConfig, StreamingBigFCM
-    cfg = StreamConfig(n_clusters=DRIFT_C, m=2.0, seed=seed, **dict(run.cfg))
+    cfg = StreamConfig(n_clusters=DRIFT_C, m=2.0, seed=seed, backend="hopper",
+                       **dict(run.cfg))
     model = StreamingBigFCM(cfg, device=device)
     scale = float(np.sqrt(np.mean(np.square(chunks[0], dtype=np.float64))))
     srun = StreamRun(run.name, model, pin, twin=True, scale=scale)
@@ -2670,8 +2709,8 @@ def run_drift_stream(run: DriftRun, chunks, seed, device, pin):
         x_win = torch.from_numpy(np.concatenate(
             chunks[-cfg.window:])).to(device)
         batch = bigfcm_fit(x_win, BigFCMConfig(
-            n_clusters=DRIFT_C, sample_size=cfg.driver_sample, seed=1),
-            device=device)
+            n_clusters=DRIFT_C, sample_size=cfg.driver_sample, seed=1,
+            backend="hopper"), device=device)
         q_stream = float(fuzzy_objective(x_win, st.centers, cfg.m))
         q_batch = float(fuzzy_objective(x_win, batch.centers, cfg.m))
         record["q_last_window"] = {"stream": q_stream, "batch": q_batch}
@@ -2698,7 +2737,7 @@ def run_event_stream(chunks, seed, device, pin):
     from repro_torch.kernels.fcm_update import reset_counts
     from repro_torch.stream import StreamConfig, StreamingBigFCM
     cfg = StreamConfig(n_clusters=DRIFT_C, m=2.0, seed=seed,
-                       **dict(EVENT_CFG))
+                       backend="hopper", **dict(EVENT_CFG))
     dt = cfg.slot_span / 2 / STREAM_ROWS
     record, q, entries = {"phase": "stream", "run": "drift_event"}, {}, []
     for order in ("in_order", "out_of_order"):
@@ -2751,6 +2790,8 @@ def run_stream_path(kdd_x, seed, device, ckpt_dir) -> list:
         entries = run_kdd99_stream(kdd_x, seed, device, ckpt_dir, pin)
         import torch
         torch.cuda.empty_cache()
+        emit(run_live_serve(kdd_x, seed, device))
+        torch.cuda.empty_cache()
         for run in DRIFT_RUNS:
             chunks = drift_chunks(run, seed)
             entries += run_drift_stream(run, chunks, seed, device, pin)
@@ -2761,6 +2802,564 @@ def run_stream_path(kdd_x, seed, device, ckpt_dir) -> list:
     finally:
         pin.close()
     return entries
+
+
+# The calibrate phase: the perf plane on the card (module note, phase
+# 2d).  Probe ladders big enough to reach an H100's roofs.
+CALIB_STREAM_FLOATS = (1 << 24, 1 << 26)
+CALIB_MATMUL_NS = (4096, 8192)
+HOPPER_BACKENDS = ("hopper", "hopper_accumulate")
+
+
+def calibrate_buckets() -> dict:
+    """The (n, C, d) shapes whose buckets the main path resolves: the
+    default bucket and each run's driver sample (router_fit's Parker–Hall
+    sample is every row), single-model; the tenant cohorts' packed
+    (T, N, C, d), tenant-stacked."""
+    from repro_torch.core.sampling import parker_hall_sample_size
+    from repro_torch.perf.calibrate import DEFAULT_SHAPE
+    rc = router_config(0)
+    router_n = min(ROUTER_N, parker_hall_sample_size(rc.n_clusters, rc.r,
+                                                     rc.alpha))
+    shapes = {"default": (DEFAULT_SHAPE, None)}
+    for run in RUNS:
+        shapes[f"{run.name} driver"] = ((min(SAMPLE_SIZE, run.n), run.c,
+                                         run.d), None)
+    shapes["router_fit driver"] = ((router_n, ROUTER_C, ROUTER_D), None)
+    for run in TENANT_RUNS:
+        shapes[run.name] = ((run.rows[1] - 1, TENANT_C, TENANT_D),
+                            run.tenants)
+    return shapes
+
+
+def hold_tuned(cfg, shape, tenants, device) -> float:
+    """Every plan of the search's grid at its tuned shape, launched and
+    held against the plain version (rows in 1 GB chunks) at the sweep
+    tolerances, whether it was timed or won or not; the chosen one rerun
+    bit for bit."""
+    import torch
+    from repro_torch.kernels import fcm_update as fu
+    from repro_torch.kernels.fcm_update import PlanChoice
+    from repro_torch.perf import autotune
+    tshape = tuple(cfg["tuned_shape"])
+    x, w, v = autotune._tune_data(tshape, device, seed=1)
+    if tenants is None:
+        launch, plain = fu._launch, plain_in_rows(fu.fcm_accumulate_ref, True)
+    else:
+        launch = fu._launch_batched
+        plain = plain_in_rows(fu.fcm_accumulate_batched_ref, True)
+    want = plain(x, w, v, 2.0)
+    err = 0.0
+    for choice in autotune.choice_grid(cfg["plan"]["path"]):
+        what = f"plan {choice} at {tshape}"
+        got = launch(x, w, v, 2.0, True, choice)[0]
+        err = max(err, max_err(got, want, RTOL, SWEEP_ATOL, what))
+    choice = PlanChoice(**cfg["choice"])
+    got = launch(x, w, v, 2.0, True, choice)[0]
+    if not all(torch.equal(a, b) for a, b in zip(
+            got, launch(x, w, v, 2.0, True, choice)[0])):
+        raise AssertionError(f"tuned plan {choice}: two launches differ")
+    del x, w, v, got, want
+    torch.cuda.empty_cache()
+    return err
+
+
+def run_calibrate(device) -> dict:
+    """Phase 2d: the perf plane on the card, in the calibration sandbox
+    (``REPRO_CALIB_DIR``): the probed peaks beside the datasheet's; at
+    each bucket of `calibrate_buckets` the backend race ("auto"'s
+    winner, a kernel backend, each backend's µs and parity) and the
+    launch-plan search (the untuned plan's card and synchronized-launch
+    times, the chosen plan against it, every plan of the grid held
+    against the plain version).
+    The main path runs after it, on the chosen plans."""
+    import os
+    from repro_torch.perf import autotune, calibrate
+    t0 = time.perf_counter()
+    peaks = calibrate.cached_peaks(device=device,
+                                   stream_floats=CALIB_STREAM_FLOATS,
+                                   matmul_ns=CALIB_MATMUL_NS, iters=5)
+    rec = {"phase": "calibrate", "dir": os.environ.get(calibrate.ENV_DIR),
+           "peaks": peaks,
+           "datasheet": {"stream_bytes_per_s": PEAK_BYTES_PER_S,
+                         "matmul_f32_flops_per_s": PEAK_F32_FLOP_PER_S},
+           "probed_over_datasheet": {
+               "bytes": peaks["stream_bytes_per_s"] / PEAK_BYTES_PER_S,
+               "f32": peaks["matmul_f32_flops_per_s"]
+               / PEAK_F32_FLOP_PER_S},
+           "probe_s": time.perf_counter() - t0, "races": {}, "tuned": {}}
+    for label, (shape, tenants) in calibrate_buckets().items():
+        if tenants is None:
+            winner = calibrate.calibrated_backend_name(shape, device=device)
+            key = calibrate.bucket_key(calibrate.shape_bucket(*shape))
+            entry = calibrate.load_calibration(device=device)["winners"][key]
+            # On the card "auto" must land on a hand-written kernel that
+            # agrees with the oracle, at every bucket.
+            if entry["errors"] or winner not in HOPPER_BACKENDS or not all(
+                    entry["parity"][k] for k in HOPPER_BACKENDS + ("torch",)):
+                raise AssertionError(f"race at {label}: {entry}")
+            rec["races"][label] = {"shape": list(shape), "bucket": key,
+                                   "winner": winner, **entry}
+        t1 = time.perf_counter()
+        cfg = autotune.tune_sweep_blocks(shape, tenants=tenants,
+                                         device=device)
+        rec["tuned"][label] = {
+            "shape": list(shape), "tenants": tenants,
+            "key": autotune.tile_key(shape, tenants), **cfg,
+            "search_s": time.perf_counter() - t1,
+            "max_abs_err": hold_tuned(cfg, shape, tenants, device)}
+    rec["wall_s"] = time.perf_counter() - t0
+    return rec
+
+
+def roofline_record(n, c, d, x, w, v, m, device) -> dict:
+    """`kernel_roofline` of ``hopper`` at a run's full shape on its own
+    records (the probed peaks of the calibrate phase), with the analytic
+    model held to `bound`: `sweep_bytes` is the same count of bytes;
+    `sweep_flops` adds 2·N·d + 2·C·d + 14·N·C (norms, d² assembly,
+    membership, reductions) to the bound's 4·N·C·d contractions."""
+    from repro_torch.perf import calibrate, roofline
+    row = roofline.kernel_roofline(
+        "hopper", (n, c, d), peaks=calibrate.cached_peaks(device=device),
+        m=m, iters=5, device=device, data=(x, w, v))
+    model_bytes = roofline.sweep_bytes(n, c, d)
+    if model_bytes != bound_bytes(n, d, c):
+        raise AssertionError(f"sweep_bytes {model_bytes} != bound's "
+                             f"{bound_bytes(n, d, c)}")
+    flops = roofline.sweep_flops(n, c, d)
+    return {**row, "sweep_bytes": model_bytes,
+            "bound_bytes": bound_bytes(n, d, c), "sweep_flops": flops,
+            "bound_flops": 4 * n * c * d,
+            "flops_over_bound": flops / (4 * n * c * d),
+            "flops_difference": "2Nd + 2Cd + 14NC: norms, d² assembly, "
+                                "membership and reductions, which the "
+                                "bound leaves out"}
+
+
+# The serve phase: benchmarks/t14_serve.py's traffic (its request pool,
+# :59-67: 40 distinct sizes, lognormal over 16-1024 rows; 1200 requests;
+# 4096-row batches on a 64-base bucket ladder) at the KDD99-like fit's
+# width (C = 23, d = 41, m = 1.2), its rows drawn from that array.
+SERVE_SIZES, SERVE_REQS, SERVE_PER_REQ = 40, 1200, 240
+SERVE_CLIENTS = (1, 4, 16)
+SERVE_MAX_BATCH, SERVE_BASE = 4096, 64
+SHED_QUEUE_ROWS, SHED_BURST, SHED_ROWS, SHED_CLIENTS = 4096, 8, 256, 32
+
+
+def serve_pool(x_np, k, seed):
+    """t14_serve.py's `_request_pool` sizes (k requests over 40 distinct
+    row counts in [16, 1024], lognormal-ish), rows taken from ``x_np`` at
+    random offsets."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    sizes = np.unique(np.clip(np.round(np.exp(rng.uniform(
+        np.log(16), np.log(1024), SERVE_SIZES))), 16, 1024).astype(int))
+    picks = rng.choice(sizes, size=k)
+    starts = rng.integers(0, x_np.shape[0] - 1024, size=k)
+    return [np.ascontiguousarray(x_np[s:s + int(n)])
+            for s, n in zip(starts, picks)]
+
+
+def quantiles_ms(values) -> dict:
+    import numpy as np
+    v = np.asarray(values, np.float64) * 1e3
+    return {"n": int(v.size), "p50_ms": float(np.percentile(v, 50)),
+            "p99_ms": float(np.percentile(v, 99))}
+
+
+def span_buckets(name) -> dict:
+    """p50/p99 of the ring's ``name`` spans per ``bucket`` field."""
+    from repro_torch import obs
+    by = collections.defaultdict(list)
+    for ev in obs.ring_events():
+        if ev.get("kind") == "span" and ev.get("name") == name:
+            by[int(ev.get("bucket", ev.get("rows", 0)))].append(ev["dur_s"])
+    return {str(b): quantiles_ms(v) for b, v in sorted(by.items())}
+
+
+def replica_buckets(name) -> dict:
+    from repro_torch import obs
+    by = collections.defaultdict(set)
+    for ev in obs.ring_events():
+        if ev.get("kind") == "span" and ev.get("name") == name:
+            by[ev.get("replica")].add(int(ev.get("bucket", ev["rows"])))
+    return by
+
+
+def closed_loop(svc, reqs, clients, score=None):
+    """``clients`` threads each submitting and waiting for their slice of
+    ``reqs`` in turn; returns (wall s, {index: result}, per-request e2e
+    seconds, errors)."""
+    import threading
+    score = score or (lambda i: svc.score(reqs[i], timeout=300))
+    results, e2e, errors = {}, {}, []
+
+    def client(k):
+        for i in range(k, len(reqs), clients):
+            t0 = time.perf_counter()
+            try:
+                results[i] = score(i)
+            except Exception as e:      # counted and raised below
+                errors.append(e)
+            e2e[i] = time.perf_counter() - t0
+
+    threads = [threading.Thread(target=client, args=(k,))
+               for k in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return time.perf_counter() - t0, results, list(e2e.values()), errors
+
+
+def run_serve(x_np, centers, m, seed, device) -> dict:
+    """Phase 5b: `ScoringService` over `Scorer` replicas on the card,
+    at the KDD99-like fit's centers: closed-loop runs at 1, 4 and 16
+    clients with 1 then 2 replicas (p50/p99 of ``span.serve.assign`` per
+    bucket, of ``serve.request`` and of the clients' own submit-to-result
+    times; records/s; each replica's shape count equal to the buckets it
+    used), the ``coalesce=False`` ablation (240 requests at 16 clients),
+    and the shed policy under bursts; every response held against
+    `make_assigner` at its version (`label_ties`)."""
+    import numpy as np
+    import torch
+    from repro_torch import obs
+    from repro_torch.serve import (CenterSnapshot, Rejected, Scorer,
+                                   ScoringService, ServiceConfig,
+                                   make_assigner)
+    reqs = serve_pool(x_np, SERVE_REQS, seed + 14)
+    ref = make_assigner(centers, m=m, backend="hopper", device=device)
+    cdev = torch.as_tensor(centers, device=device)
+    want = [ref(r).cpu().numpy() for r in reqs]
+
+    def fresh(n_rep, **kw):
+        cfg = dict(max_batch_rows=SERVE_MAX_BATCH, bucket_base=SERVE_BASE)
+        cfg.update(kw)
+        return ScoringService(
+            [Scorer(CenterSnapshot(0, centers), m=m, backend="hopper",
+                    replica=f"r{i}", device=device) for i in range(n_rep)],
+            ServiceConfig(**cfg))
+
+    def hold(results, idx, what):
+        ties = 0
+        for i in idx:
+            res = results[i]
+            if res.version != 0:
+                raise AssertionError(f"{what}: version {res.version}")
+            ties += label_ties(res.assignments, want[i],
+                               torch.from_numpy(reqs[i]).to(device), cdev)
+        return ties
+
+    obs.set_ring_size(1 << 16)
+    rec = {"phase": "serve", "run": "kdd99_like", "c": int(centers.shape[0]),
+           "d": int(centers.shape[1]), "m": m, "requests": SERVE_REQS,
+           "sizes": sorted({int(r.shape[0]) for r in reqs}),
+           "max_batch_rows": SERVE_MAX_BATCH, "bucket_base": SERVE_BASE,
+           "runs": []}
+    with fresh(1) as warm:                 # every bucket once
+        for b in warm.buckets:
+            warm.score(np.asarray(x_np[:b]), timeout=300)
+    for n_rep in (1, 2):
+        for clients in SERVE_CLIENTS:
+            svc = fresh(n_rep)
+            obs.reset_all()
+            wall, results, e2e, errors = closed_loop(svc, reqs, clients)
+            svc.close()
+            if errors or len(results) != len(reqs):
+                raise AssertionError(f"serve: {errors[:3]}")
+            snap = obs.metrics_snapshot()
+            req_h = snap["histograms"]["serve.request"]
+            used = replica_buckets("serve.assign")
+            counts = svc.compile_counts()
+            if any(counts[r] != len(used.get(r, ())) for r in counts):
+                raise AssertionError(f"serve: shapes {counts} for buckets "
+                                     f"{dict(used)}")
+            rows = sum(int(r.shape[0]) for r in reqs)
+            rec["runs"].append({
+                "replicas": n_rep, "clients": clients, "wall_s": wall,
+                "records_per_s": rows / wall,
+                "requests_per_s": len(reqs) / wall,
+                "assign_by_bucket": span_buckets("serve.assign"),
+                "serve_request": {"p50_ms": req_h["p50"] * 1e3,
+                                  "p99_ms": req_h["p99"] * 1e3,
+                                  "count": req_h["count"]},
+                "client_e2e": quantiles_ms(e2e),
+                "dispatches": int(sum(
+                    v for k, v in snap["counters"].items()
+                    if k.startswith("serve.batches"))),
+                "shape_counts": counts,
+                "buckets_used": {k: sorted(v) for k, v in used.items()},
+                "ties_differing": hold(results, range(len(reqs)),
+                                       f"{n_rep} replicas, {clients} "
+                                       "clients")})
+    # -- the coalesce=False ablation: one request, one dispatch
+    svc = fresh(1, coalesce=False)
+    obs.reset_all()
+    sub = list(range(SERVE_PER_REQ))
+    wall, results, e2e, errors = closed_loop(
+        svc, reqs[:SERVE_PER_REQ], SERVE_CLIENTS[-1])
+    svc.close()
+    if errors:
+        raise AssertionError(f"serve ablation: {errors[:3]}")
+    rows = sum(int(reqs[i].shape[0]) for i in sub)
+    rec["per_request"] = {
+        "requests": SERVE_PER_REQ, "clients": SERVE_CLIENTS[-1],
+        "wall_s": wall, "records_per_s": rows / wall,
+        "assign_by_rows": span_buckets("serve.assign"),
+        "client_e2e": quantiles_ms(e2e),
+        "shape_counts": svc.compile_counts(),
+        "ties_differing": hold(results, sub, "coalesce=False")}
+    same = [r for r in rec["runs"] if r["replicas"] == 1
+            and r["clients"] == SERVE_CLIENTS[-1]][0]
+    rec["coalesced_over_per_request"] = (same["records_per_s"]
+                                         / rec["per_request"]["records_per_s"])
+    # -- the shed policy: bursts of 8 x 256 rows from 32 clients against
+    #    a 4096-row queue; every rejection typed, the queue bounded
+    svc = fresh(1, queue_rows=SHED_QUEUE_ROWS, policy="shed")
+    obs.reset_all()
+    burst = np.ascontiguousarray(x_np[:SHED_ROWS])
+    outcomes = collections.Counter()
+
+    def burst_client(i):
+        futs = []
+        for _ in range(SHED_BURST):
+            try:
+                futs.append(svc.submit(burst))
+            except Rejected as e:
+                if e.limit_rows != SHED_QUEUE_ROWS:
+                    raise
+                outcomes["shed"] += 1
+        for f in futs:
+            f.result(300)
+            outcomes["served"] += 1
+        return len(futs)
+
+    wall, _, _, errors = closed_loop(svc, list(range(SHED_CLIENTS * 4)),
+                                     SHED_CLIENTS, score=burst_client)
+    svc.close()
+    if errors:
+        raise AssertionError(f"shed: untyped failures {errors[:3]}")
+    q_max = obs.gauge("serve.queue_rows").max
+    if q_max > SHED_QUEUE_ROWS or obs.counter("serve.shed").value != \
+            outcomes["shed"]:
+        raise AssertionError(f"shed: queue rows reached {q_max}, "
+                             f"{dict(outcomes)}")
+    rec["shed"] = {"queue_rows": SHED_QUEUE_ROWS, "burst": SHED_BURST,
+                   "rows": SHED_ROWS, "clients": SHED_CLIENTS,
+                   "submitted": SHED_CLIENTS * 4 * SHED_BURST,
+                   **dict(outcomes), "queue_rows_max": q_max,
+                   "wall_s": wall,
+                   "assign_by_bucket": span_buckets("serve.assign")}
+    obs.reset_all()
+    obs.set_ring_size(obs.trace._ring_size())
+    return rec
+
+
+def run_live_serve(x_np, seed, device) -> dict:
+    """The live path of the stream phase: a fresh ``kdd99_stream`` model
+    (`StreamConfig` as `run_kdd99_stream`'s) wired through
+    ``add_snapshot_listener(publisher.publish)`` to a `SnapshotPublisher`
+    whose replicas serve a `ScoringService` (two replicas).  Each batch
+    is submitted in 4096-row requests, then the next batch is ingested
+    while they are scored (a publish mid-traffic); every response's
+    version must be a published one and its labels that version's
+    `make_assigner` labels, up to ties."""
+    import numpy as np
+    import torch
+    from repro_torch import obs
+    from repro_torch.data import replay_source
+    from repro_torch.serve import (CenterSnapshot, Scorer, ScoringService,
+                                   ServiceConfig, SnapshotPublisher,
+                                   make_assigner)
+    from repro_torch.stream import StreamConfig, StreamingBigFCM
+    n, d = x_np.shape
+    cfg = StreamConfig(n_clusters=23, m=1.2, seed=seed, backend="hopper")
+    model = StreamingBigFCM(cfg, device=device)
+    svc = ScoringService(
+        [Scorer(CenterSnapshot(-1, np.zeros((1, d), np.float32)), m=cfg.m,
+                backend="hopper", replica=f"live{i}", device=device)
+         for i in range(2)],
+        ServiceConfig(max_batch_rows=SERVE_MAX_BATCH, bucket_base=SERVE_BASE))
+    published = {}
+    model.add_snapshot_listener(
+        lambda v, c, w: published.__setitem__(int(v), c.copy()))
+    pub = SnapshotPublisher(svc.scorers)
+    model.add_snapshot_listener(pub.publish)
+    obs.reset_all()
+    obs.set_ring_size(1 << 16)
+    pending, versions, ties, rows = [], collections.Counter(), 0, 0
+    t0 = time.perf_counter()
+
+    def drain(batch):
+        nonlocal ties, rows
+        for x, fut in batch:
+            res = fut.result(300)
+            if res.version not in published:
+                raise AssertionError(f"live: version {res.version} was "
+                                     "never published")
+            versions[res.version] += 1
+            c = torch.as_tensor(published[res.version], device=device)
+            want = make_assigner(c, m=cfg.m, backend="hopper",
+                                 device=device)(x).cpu().numpy()
+            ties += label_ties(res.assignments, want,
+                               torch.from_numpy(x).to(device), c)
+            rows += x.shape[0]
+
+    for chunk in replay_source(x_np, STREAM_ROWS):
+        model.ingest(chunk)                # publishes while `pending` runs
+        drain(pending)
+        pending = [(r, svc.submit(r)) for r in
+                   (np.ascontiguousarray(chunk[i:i + SERVE_MAX_BATCH])
+                    for i in range(0, chunk.shape[0], SERVE_MAX_BATCH))]
+    drain(pending)
+    wall = time.perf_counter() - t0
+    svc.close()
+    steps = int(model.state.step)
+    if rows != n or len(published) != steps:
+        raise AssertionError(f"live: {rows} rows scored, {len(published)} "
+                             f"versions for {steps} ingests")
+    rec = {"phase": "stream", "run": "kdd99_live", "ingests": steps,
+           "rows_scored": rows, "wall_s": wall,
+           "versions_answered": len(versions),
+           "responses_on_older_version": sum(
+               v for k, v in versions.items() if k < max(versions)),
+           "ties_differing": ties,
+           "assign_by_bucket": span_buckets("serve.assign"),
+           "snapshots": obs.counter("serve.snapshots").value}
+    obs.reset_all()
+    obs.set_ring_size(obs.trace._ring_size())
+    return rec
+
+
+# The tenant service: benchmarks/t16_tenant.py's widths over
+# tenants_65k's fitted fleet; requests of 8-64 rows from 4096 random
+# tenants, one firehose tenant sending half of all rows.
+TENANT_SVC_TENANTS, TENANT_SVC_ROWS, TENANT_SVC_CAP = 4096, (8, 65), 512
+TENANT_SVC_CLIENTS, TENANT_FIREHOSE_ROWS = 16, 64
+
+
+class FirehoseCounter:
+    """Wraps a `TenantScorer`'s ``score`` to count, per dispatch, the
+    real rows (phantom padding rows are exact zeros) and the firehose
+    tenant's."""
+
+    def __init__(self, scorer, fire_row):
+        self.fire_row, self.shares = fire_row, []
+        inner = scorer.score
+
+        def score(x, tidx, snap=None):
+            import numpy as np
+            real = np.asarray(x).any(1)
+            self.shares.append((int(real.sum()),
+                                int((real & (np.asarray(tidx)
+                                             == fire_row)).sum())))
+            return inner(x, tidx, snap)
+        scorer.score = score
+
+
+def run_tenant_service(ts, refit, seed, device) -> dict:
+    """`TenantScoringService` over the fitted fleet (version 1) with a
+    swap to the refit fleet (version 2) when half the requests are
+    answered: each response's version must be its tenant's in one of the
+    two fleets and its labels that fleet's, up to ties; p50/p99 of
+    ``span.tenant.assign`` per bucket, and the firehose tenant's rows
+    per dispatch (capped at ``max_group_rows``)."""
+    import threading
+    import numpy as np
+    import torch
+    from repro_torch import obs
+    from repro_torch.serve import (ServiceConfig, TenantScorer,
+                                   TenantScoringService, tenant_snapshot)
+    rng = np.random.default_rng(seed + 16)
+    fleets = {1: ts._replace(versions=np.full(ts.n_tenants, 1, np.int64)),
+              2: refit._replace(versions=np.full(ts.n_tenants, 2, np.int64))}
+    snaps = {v: tenant_snapshot(f, device) for v, f in fleets.items()}
+    quiet = rng.choice(np.arange(1, ts.n_tenants), TENANT_SVC_TENANTS,
+                       replace=False)
+    fire = int(rng.integers(1, ts.n_tenants))
+    reqs = [(int(t), int(rng.integers(*TENANT_SVC_ROWS))) for t in quiet]
+    quiet_rows = sum(k for _, k in reqs)
+    reqs += [(fire, TENANT_FIREHOSE_ROWS)] * (quiet_rows
+                                              // TENANT_FIREHOSE_ROWS)
+    order = rng.permutation(len(reqs))
+    reqs = [reqs[i] for i in order]
+    xs = [(rng.normal(size=(k, TENANT_D)) + 4.0 * (t % 5)).astype(np.float32)
+          for t, k in reqs]
+    tidx = np.concatenate([np.full(k, t) for t, k in reqs])
+    x_all = torch.from_numpy(np.concatenate(xs)).to(device)
+    want = {v: TenantScorer(s, device=device).score(x_all, tidx).cpu().numpy()
+            for v, s in snaps.items()}
+    offs = np.concatenate([[0], np.cumsum([k for _, k in reqs])])
+    scorer = TenantScorer(snaps[1], device=device)
+    counter = FirehoseCounter(scorer, fire)
+    svc = TenantScoringService(scorer, ServiceConfig(
+        max_batch_rows=SERVE_MAX_BATCH, bucket_base=SERVE_BASE,
+        max_group_rows=TENANT_SVC_CAP))
+    obs.reset_all()
+    obs.set_ring_size(1 << 16)
+    answered, half = [0], threading.Event()
+
+    def score(i):
+        res = svc.score(str(fleets[1].ids[reqs[i][0]]), xs[i], timeout=300)
+        answered[0] += 1
+        if answered[0] >= len(reqs) // 2:
+            half.set()
+        return res
+
+    def swapper():
+        half.wait(300)
+        svc.swap(snaps[2])
+
+    th = threading.Thread(target=swapper)
+    th.start()
+    wall, results, e2e, errors = closed_loop(svc, reqs, TENANT_SVC_CLIENTS,
+                                             score=score)
+    th.join()
+    svc.close()
+    if errors or len(results) != len(reqs):
+        raise AssertionError(f"tenant service: {errors[:3]}")
+    versions, ties = collections.Counter(), 0
+    for i, res in results.items():
+        if res.version not in want:
+            raise AssertionError(f"tenant service: version {res.version}")
+        versions[res.version] += 1
+        sl = slice(offs[i], offs[i + 1])
+        got, exp = res.assignments, want[res.version][sl]
+        bad = np.flatnonzero(got != exp)
+        if bad.size:
+            c = fleets[res.version].centers[reqs[i][0]]
+            d2 = ((xs[i][bad, None, :] - c[None]) ** 2).sum(-1)
+            r = np.arange(bad.size)
+            ga, wa = d2[r, got[bad]], d2[r, exp[bad]]
+            if np.any(np.abs(ga - wa) > 1e-6 * np.maximum(ga, wa)):
+                raise AssertionError("tenant service: labels differ beyond "
+                                     "a tie")
+            ties += int(bad.size)
+    shares = [(r, f) for r, f in counter.shares if r]
+    fire_rows = [f for _, f in shares]
+    if max(fire_rows) > TENANT_SVC_CAP or versions[2] == 0:
+        raise AssertionError(f"tenant service: firehose rows {max(fire_rows)}"
+                             f" in a dispatch, versions {dict(versions)}")
+    frac = [f / r for r, f in shares]
+    rec = {"tenants": ts.n_tenants, "quiet_tenants": TENANT_SVC_TENANTS,
+           "requests": len(reqs), "rows": int(offs[-1]),
+           "firehose_rows": int(sum(k for t, k in reqs if t == fire)),
+           "max_group_rows": TENANT_SVC_CAP, "clients": TENANT_SVC_CLIENTS,
+           "wall_s": wall, "records_per_s": int(offs[-1]) / wall,
+           "responses_by_version": dict(versions),
+           "labels_differing_between_fleets": int(
+               (want[1] != want[2]).sum()),
+           "ties_differing": ties, "dispatches": len(shares),
+           "firehose_share_per_dispatch": {
+               "min": float(min(frac)), "p50": float(np.median(frac)),
+               "max": float(max(frac)), "max_rows": int(max(fire_rows))},
+           "assign_by_bucket": span_buckets("tenant.assign"),
+           "client_e2e": quantiles_ms(e2e),
+           "shape_count": scorer.traces}
+    obs.reset_all()
+    obs.set_ring_size(obs.trace._ring_size())
+    return rec
 
 
 def bound_batched(t: int, n: int, d: int, c: int):
@@ -2836,11 +3435,29 @@ def main(argv=None) -> int:
           "name": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "python": sys.version.split()[0],
           "torch": torch.__version__, "cuda": torch.version.cuda})
+    stores = ROOT / "build"
+    stores.mkdir(exist_ok=True)
+    # The calibration sandbox: no earlier run's winners or tuned plans
+    # change a plan here.
+    calib_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_calib_",
+                                      dir=stores))
+    os.environ["REPRO_CALIB_DIR"] = str(calib_dir)
+    try:
+        return run_all(args, device)
+    finally:
+        shutil.rmtree(calib_dir, ignore_errors=True)
+
+
+def run_all(args, device) -> int:
+    """Phases 1 (the build) to 7, in the calibration sandbox."""
+    import torch
     emit(build_all())
 
     emit(check_kernels(device))
     emit(check_tenant_kernels(device))
     emit(check_ctiled_kernels(device))
+    torch.cuda.empty_cache()
+    emit(run_calibrate(device))
     torch.cuda.empty_cache()
 
     entries, held = [], {}
@@ -2854,10 +3471,11 @@ def main(argv=None) -> int:
         entries.append(run_tenant_path(run, args.seed, device, reps=20))
         torch.cuda.empty_cache()
     stores = ROOT / "build"
-    stores.mkdir(exist_ok=True)
     store_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_stores_",
                                       dir=stores))
     kdd_x = held["kdd99_like"]["x"]
+    kdd_centers = held["kdd99_like"]["centers"]["hopper"].numpy()
+    kdd_m = held["kdd99_like"]["cfg"].m
     try:
         for run in RUNS:
             entries.append(run_store_path(run, held.pop(run.name),
@@ -2865,6 +3483,8 @@ def main(argv=None) -> int:
             torch.cuda.empty_cache()
     finally:
         shutil.rmtree(store_dir, ignore_errors=True)
+    emit(run_serve(kdd_x, kdd_centers, kdd_m, args.seed, device))
+    torch.cuda.empty_cache()
     ckpt_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_stream_", dir=stores))
     try:
         entries += run_stream_path(kdd_x, args.seed, device, ckpt_dir)

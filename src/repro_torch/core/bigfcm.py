@@ -135,7 +135,8 @@ def run_driver(x_sample, cfg: BigFCMConfig, *, seed_idx=None,
         seed_idx = np.random.default_rng(cfg.seed).choice(
             x_sample.shape[0], c, replace=False)
     seeds = _rows(x_sample, seed_idx)
-    be = resolve_backend(cfg.backend, device=dev)
+    be = resolve_backend(cfg.backend, device=dev,
+                         shape=(x_sample.shape[0], c, x_sample.shape[1]))
 
     def f_fcm():
         return fcm(x_sample, seeds, m=cfg.m, eps=cfg.driver_eps,
@@ -205,8 +206,11 @@ def driver_seeds(store: ChunkStore, cfg: BigFCMConfig, *, sample_idx=None,
     seeds = _rows(x_sample, seed_idx)
     if not cfg.use_driver:
         return seeds.cpu().numpy()
+    be = resolve_backend(cfg.backend, device=dev,
+                         shape=(x_sample.shape[0], cfg.n_clusters,
+                                store.dim))
     res = fcm(x_sample, seeds, m=cfg.m, eps=cfg.driver_eps,
-              max_iter=cfg.max_iter, backend=cfg.backend, device=dev)
+              max_iter=cfg.max_iter, backend=be, device=dev)
     return res.centers.cpu().numpy()
 
 
@@ -255,7 +259,8 @@ def _fit_array(x, cfg: BigFCMConfig, point_weights, sample_idx, seed_idx,
     dev = resolve_device(device)
     x = as_real(x, dev)
     n = x.shape[0]
-    be = resolve_backend(cfg.backend, device=dev)
+    be = resolve_backend(cfg.backend, device=dev,
+                         shape=(n, cfg.n_clusters, x.shape[1]))
 
     lam, sample_idx, seed_idx = _draws(cfg, n, sample_idx, seed_idx)
     x_sample = _rows(x, sample_idx)
@@ -330,7 +335,8 @@ def _fit_store(store: ChunkStore, cfg: BigFCMConfig, n_shards, plan,
                batch_rows, sample_idx, seed_idx, device) -> BigFCMResult:
     dev = resolve_device(device)
     n = store.n_rows
-    be = resolve_backend(cfg.backend, device=dev)
+    be = resolve_backend(cfg.backend, device=dev,
+                         shape=(n, cfg.n_clusters, store.dim))
     lam, sample_idx, seed_idx = _draws(cfg, n, sample_idx, seed_idx)
     x_sample = as_real(store.take(sample_idx), dev)
     v_init, flag, t_s, t_f = _initial_centers(x_sample, cfg, seed_idx, dev)

@@ -53,6 +53,10 @@ from .fcm import FCMResult
 BatchIterable = Iterable[Tuple[np.ndarray, np.ndarray]]
 BatchFactory = Callable[[], BatchIterable]
 
+# out-of-core fits are large by definition: when resolving "auto" the
+# row count is unknowable up front, so race in a big-n shape bucket
+_N_LO_HINT = 1 << 17
+
 
 @functools.lru_cache(maxsize=64)
 def _accumulator(be, m: float):
@@ -275,11 +279,12 @@ def ooc_fcm(
     `StagingRing` across calls (every shard of a fit); by default the
     fit makes its own ring, reused by all of its passes."""
     dev = resolve_device(device)
-    be = resolve_backend(backend, device=dev)
+    v0 = as_real(init_centers, dev)
+    be = resolve_backend(backend, device=dev,
+                         shape=(_N_LO_HINT, v0.shape[0], v0.shape[1]))
     acc = acc if acc is not None else make_accumulator(be, m)
     if ring is None and dev.type == "cuda":
         ring = StagingRing(dev)
-    v0 = as_real(init_centers, dev)
     v = v_prev = v0
     n_iter = 0
     q_pass = None

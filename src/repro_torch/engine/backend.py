@@ -13,6 +13,12 @@ selected once by name:
                           cancellation cannot afford TF32, so the
                           backend sets ``torch.backends.cuda.matmul.
                           allow_tf32 = False`` before it runs.
+  ``torch_bf16``        — mixed precision (the reference's
+                          ``jnp_bf16``): the two (N,C,d) contractions
+                          take bf16 inputs with f32 outputs; norms,
+                          membership and accumulators stay f32.  It
+                          enters the calibration race like every other
+                          backend and is never the device default.
   ``hopper``            — the hand-written Hopper kernel's fused sweep
                           (`repro_torch.kernels.ops`).
   ``hopper_accumulate`` — the kernel's raw-accumulator entry plus an
@@ -22,23 +28,30 @@ Every backend also has the tenant-stacked entries ``batched_accumulate``
 / ``batched_sweep``: T independent models, x (T, N, d), w (T, N),
 centers (T, C, d), m a scalar or (T,), in one call.
 
-``resolve_backend(None | "auto", device=...)`` picks by device: a CUDA
-device gets ``hopper``, a CPU device ``torch``.  The reference's
-measured calibration race (`repro.perf.calibrate`) is not ported yet,
-nor is the bf16 backend.  Of the reference's two ``obs.warn_once``
-calls here, the one announcing a fallback to ``jnp`` has no counterpart
-(the port never falls back: a kernel that cannot run raises), and the
-calibration one comes with the race.
-The kernel backends register from `repro_torch.kernels.ops`, which
-`repro_torch.engine` imports outright: a kernel that cannot be built
-on a CUDA host makes the fit raise, never degrade.
+``resolve_backend(None | "auto", device=..., shape=...)`` selects by
+measurement: the first "auto" per (device, shape bucket) runs a one-shot
+timed race of the registered backends through
+`repro_torch.perf.calibrate`, gated on parity against the ``torch``
+oracle, and caches the winner on disk; later resolutions are a cache
+hit.  On a CUDA device only the kernel backends (``kernel = True``) may
+win, and one that fails parity raises: "auto" on the card always runs a
+hand-written kernel.  The device rule (CUDA → ``hopper``, CPU → ``torch``,
+`default_backend_name`) is the fallback when calibration is disabled
+(``REPRO_AUTO_CALIBRATE=0``) or the perf layer fails, which warns once
+(``obs.warn_once``, as the reference does).  The fallback only changes
+which backend is chosen: the reference's other ``warn_once`` (a fallback
+from its kernels to ``jnp``) has no counterpart, since the port never
+swaps a kernel for its plain version.  The kernel backends register from
+`repro_torch.kernels.ops`, which `repro_torch.engine` imports outright:
+a kernel that cannot be built on a CUDA host makes the fit raise.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Union
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
+from .. import obs
 from ..device import real_dtype
 
 _D2_FLOOR = 1e-12  # distance floor: a record sitting exactly on a center
@@ -46,11 +59,14 @@ _D2_FLOOR = 1e-12  # distance floor: a record sitting exactly on a center
 
 # ------------------------------------------------------------ sweep math ---
 
-def pairwise_sqdist(x: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
-    """‖x−v‖² via the matmul expansion x² + v² − 2·x·vᵀ.  x (…, N, d),
-    centers (…, C, d) → (…, N, C); leading axes (tenants) batch."""
-    x = x.to(real_dtype())
-    centers = centers.to(real_dtype())
+def pairwise_sqdist(x: torch.Tensor, centers: torch.Tensor,
+                    dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """‖x−v‖² via the matmul expansion x² + v² − 2·x·vᵀ in ``dtype``
+    (default `real_dtype`).  x (…, N, d), centers (…, C, d) → (…, N, C);
+    leading axes (tenants) batch."""
+    dtype = dtype or real_dtype()
+    x = x.to(dtype)
+    centers = centers.to(dtype)
     x2 = torch.sum(x * x, dim=-1, keepdim=True)          # (…, N, 1)
     v2 = torch.sum(centers * centers, dim=-1)[..., None, :]  # (…, 1, C)
     cross = x @ centers.transpose(-1, -2)                # (…, N, C)
@@ -93,6 +109,46 @@ def fcm_accumulate(x, weights, centers, m):
     return v_num, w_i, q
 
 
+def mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` with bf16 inputs and an f32 result (the reference's
+    ``dot_general(..., preferred_element_type=f32)``), batched over
+    leading axes.  On the card one bf16 tensor-core product with f32
+    output (``out_dtype``); a plain ``@`` of two bf16 tensors would round
+    its result to bf16 a second time.  On the CPU, which has no such
+    kernel, the f32 product of the bf16-rounded inputs: each product of
+    two bf16 values is exact in f32, the sums are f32."""
+    a, b = a.to(torch.bfloat16), b.to(torch.bfloat16)
+    if a.device.type == "cuda":
+        op = torch.mm if a.dim() == 2 else torch.bmm
+        return op(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()
+
+
+def fcm_accumulate_mixed(x, weights, centers, m):
+    """Mixed-precision Alg.-1 accumulators: bf16 contractions, f32
+    everything else (the reference's `fcm_accumulate_mixed`).
+
+    The distance cross term x·vᵀ and the center numerators wumᵀ·x take
+    bf16 inputs with f32 outputs (`mm_f32`); the squared norms, the
+    membership and the three accumulators stay f32, so partials add like
+    the f32 backend's.  d² = x² + v² − 2·x·vᵀ keeps f32 norms (bf16 ones
+    would poison small distances); the cross term carries the precision
+    loss, which the calibration race's parity gate bounds.  Leading axes
+    of x (…, N, d), weights (…, N) and centers (…, C, d) batch
+    (tenants), with ``m`` a number or a (T, 1, 1) column."""
+    xf = x.to(torch.float32)
+    vf = centers.to(torch.float32)
+    x2 = torch.sum(xf * xf, dim=-1, keepdim=True)            # (…, N, 1)
+    v2 = torch.sum(vf * vf, dim=-1)[..., None, :]            # (…, 1, C)
+    cross = mm_f32(xf, vf.transpose(-1, -2))                 # (…, N, C)
+    d2 = torch.clamp(x2 + v2 - 2.0 * cross, min=_D2_FLOOR)
+    wum = _um_from_d2(d2, m) * weights.to(torch.float32)[..., None]
+    w_i = torch.sum(wum, dim=-2)                             # (…, C)
+    v_num = mm_f32(wum.transpose(-1, -2), xf)                # (…, C, d)
+    q = torch.sum(wum * d2, dim=(-2, -1))                    # (…,)
+    return v_num, w_i, q
+
+
 def _batched_m(m, x: torch.Tensor):
     """``m`` for the tenant-stacked math: a number stays a number; one
     fuzzifier per tenant becomes an f32 (T, 1, 1) column that broadcasts
@@ -130,14 +186,29 @@ def fcm_sweep(x, weights, centers, m):
     return normalize_accumulators(*fcm_accumulate(x, weights, centers, m))
 
 
+def _scoring_dtype(x: torch.Tensor) -> torch.dtype:
+    """The float type scoring forms d² in: float64 on the card, the
+    working type elsewhere.  cuBLAS picks its f32 GEMM by the batch's row
+    count, and the expansion's cancellation (‖x‖² ≫ d² for records far
+    from the origin) turns those roundings into labels that change with
+    the batch a record is scored in — a coalesced, padded service batch
+    against the same record alone.  In float64 the two roundings sit
+    about 1e-16 of ‖x‖² apart, so labels agree up to exact ties.  The
+    CPU keeps the reference's f32 arithmetic."""
+    return torch.float64 if x.device.type == "cuda" else real_dtype()
+
+
 def soft_assign(x, centers, m: float = 2.0) -> torch.Tensor:
     """Membership degrees u_ik (not raised to m), in the log-space form
-    the sweep itself accumulates."""
-    return _u_from_d2(pairwise_sqdist(x, centers), m)
+    the sweep itself accumulates, returned in `real_dtype`."""
+    d2 = pairwise_sqdist(x, centers, _scoring_dtype(x))
+    return _u_from_d2(d2, m).to(real_dtype())
 
 
 def hard_assign(x, centers) -> torch.Tensor:
-    return torch.argmin(pairwise_sqdist(x, centers), dim=-1)
+    """Argmin labels (`_scoring_dtype` says in which float type)."""
+    return torch.argmin(pairwise_sqdist(x, centers, _scoring_dtype(x)),
+                        dim=-1)
 
 
 # -------------------------------------------------------------- backends ---
@@ -147,9 +218,12 @@ class SweepBackend:
 
     Subclasses provide ``accumulate`` (raw sums) and may override
     ``sweep`` with a fused version.  Every method computes on the device
-    its tensors lie on."""
+    its tensors lie on.  ``kernel`` marks a backend that launches a
+    hand-written kernel on the card: only those may win the calibration
+    race on a CUDA device."""
 
     name: str = "?"
+    kernel: bool = False
 
     def accumulate(self, x, w, centers, m):
         """Raw (v_num, w_i, q) accumulators for one record chunk."""
@@ -200,6 +274,21 @@ class TorchBackend(SweepBackend):
         return fcm_accumulate_batched(x, w, centers, m)
 
 
+class Bf16Backend(SweepBackend):
+    """Mixed-precision sweep: bf16 contraction inputs, f32 accumulators
+    (`fcm_accumulate_mixed`).  Enters the calibration race like every
+    other backend and wins only where the card's bf16 path is faster AND
+    the race's parity gate passes; it is never the device default."""
+
+    name = "torch_bf16"
+
+    def accumulate(self, x, w, centers, m):
+        return fcm_accumulate_mixed(x, w, centers, m)
+
+    def batched_accumulate(self, x, w, centers, m):
+        return fcm_accumulate_mixed(x, w, centers, _batched_m(m, x))
+
+
 _REGISTRY: Dict[str, SweepBackend] = {}
 
 BackendLike = Union[None, str, SweepBackend]
@@ -225,23 +314,63 @@ def get_backend(name: str) -> SweepBackend:
 
 
 def default_backend_name(device: Union[str, torch.device]) -> str:
-    """The device rule behind "auto": CUDA → ``hopper``, CPU → ``torch``."""
+    """The device rule: CUDA → ``hopper``, CPU → ``torch``.  A fallback
+    only: "auto" picks by measured race (`repro_torch.perf.calibrate`)
+    and lands here when calibration is disabled or the perf layer
+    fails."""
     return "hopper" if torch.device(device).type == "cuda" else "torch"
 
 
+def _calibrated_name(device, shape: Optional[Tuple[int, int, int]]
+                     ) -> Optional[str]:
+    """Measured winner via `repro_torch.perf.calibrate`, or None to fall
+    back to the device rule (calibration disabled, or the perf layer
+    failed — the latter warns once)."""
+    from ..perf.calibrate import KernelParityError
+    try:
+        from ..perf.calibrate import calibrated_backend_name
+        name = calibrated_backend_name(shape, device=device)
+    except KernelParityError:
+        raise
+    except Exception as e:
+        obs.warn_once(
+            "perf_calibration_failed",
+            "repro_torch.perf calibration failed — backend auto-selection "
+            f"falling back to the device rule: {e!r}",
+            stacklevel=3, error=repr(e))
+        return None
+    return name if name in _REGISTRY else None
+
+
 def resolve_backend(spec: BackendLike = None, *,
-                    device: Optional[Union[str, torch.device]] = None
+                    device: Optional[Union[str, torch.device]] = None,
+                    shape: Optional[Tuple[int, int, int]] = None
                     ) -> SweepBackend:
-    """None/"auto" → the device rule for ``device``; str → registry;
-    object → itself."""
+    """None/"auto" → the measured winner for ``device`` and ``shape``'s
+    bucket (the device rule as fallback); str → registry; object →
+    itself.  ``shape`` is ``(n_records, n_clusters, dim)``: pass it when
+    known so the race runs in the caller's own bucket."""
     if isinstance(spec, SweepBackend):
         return spec
     if spec is None or spec == "auto":
         if device is None:
             raise ValueError("resolve_backend('auto') needs the device "
                              "the sweep runs on")
-        return get_backend(default_backend_name(device))
+        name = _calibrated_name(device, shape)
+        return get_backend(name or default_backend_name(device))
     return get_backend(spec)
 
 
+def scoring_backend(spec: BackendLike = None, *,
+                    device: Union[str, torch.device]) -> SweepBackend:
+    """The backend a scorer calls ``hard_assign`` / ``soft_assign`` on:
+    None/"auto" → the device rule, never the race (every registered
+    backend scores with the same `hard_assign` / `soft_assign`, so a race
+    would choose nothing); anything else as `resolve_backend`."""
+    if spec is None or spec == "auto":
+        return get_backend(default_backend_name(device))
+    return resolve_backend(spec, device=device)
+
+
 register_backend(TorchBackend())
+register_backend(Bf16Backend())

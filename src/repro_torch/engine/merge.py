@@ -135,7 +135,9 @@ def fcm_converge_batched(
     retraces of its jitted program; this loop compiles nothing, so it
     has no counterpart."""
     dev = resolve_device(device)
-    be = resolve_backend(backend, device=dev)
+    be = resolve_backend(backend, device=dev,
+                         shape=(X.shape[1], init_centers.shape[1],
+                                X.shape[2]))
     X = as_real(X, dev)
     W = as_real(W, dev)
     v = as_real(init_centers, dev)

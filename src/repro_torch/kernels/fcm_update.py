@@ -19,8 +19,13 @@ it and how it is laid out.
   a scalar or one fuzzifier per tenant (T,).
 
 Which kernel runs, with what tile, splits and grid, is `plan_sweep` /
-`plan_batched`: pure functions of the shape and of three numbers the card
-supplies (SM count, resident CTAs per SM, shared memory per block).
+`plan_batched`: pure functions of the shape, of three numbers the card
+supplies (SM count, resident CTAs per SM, shared memory per block) and
+of an optional `PlanChoice`, the free choices autotuning may set
+(`repro_torch.perf.autotune`).  A wrapper looks the choice for its
+shape's bucket up with the cached-only ``tuned_blocks`` (never a search)
+and passes it in; a bucket never tuned runs the untuned plan.  A choice
+never changes the path: the path decides which kernel can hold V.
 
 A CUDA tensor launches the kernel (or raises); a CPU tensor takes the
 plain version.  The plan covers every (d, C): past the first versions'
@@ -151,6 +156,23 @@ MIN_SPLIT_ROWS, SMALL_SPLITS, SMALL_SPLIT_ROWS = 128, 4, 32
 
 
 @dataclasses.dataclass(frozen=True)
+class PlanChoice:
+    """The free choices of a launch plan, each a scale of the plan's own
+    pick (1.0 everywhere: the untuned plan).  ``split`` scales the rows
+    path's records per split; ``tile`` the tile path's records per tile,
+    and on the C-tiled path moves the membership's record tile up (> 1)
+    or down (< 1) between ``CT_TILES``; ``dsplit`` scales the C-tiled
+    membership's d-splits.  Scales, not counts, so that one choice
+    serves every shape of a bucket."""
+    split: float = 1.0
+    tile: float = 1.0
+    dsplit: float = 1.0
+
+
+UNTUNED = PlanChoice()
+
+
+@dataclasses.dataclass(frozen=True)
 class LaunchPlan:
     """One launch: ``path`` is "rows" (register-resident records), "tile"
     (register-blocked tiles), "first" (the first version) or "ctiled"
@@ -235,10 +257,13 @@ def _slices(grid: int, p_len: int) -> int:
     return max(1, min(grid, MAX_SLICES, _cdiv(grid * p_len, SLICE_FLOATS)))
 
 
-def _rows_plan(t, n, d, c, sms, ctas_per_sm, tenant_slices: bool):
+def _rows_plan(t, n, d, c, sms, ctas_per_sm, tenant_slices: bool,
+               choice: PlanChoice = UNTUNED):
     dm, cm = rows_variant(d, c)
     draft = LaunchPlan("rows", 256, 0, n, dm=dm, cm=cm, team_warps=8)
     chunk = _split_rows(t, n, sms * _per_sm(ctas_per_sm, draft), sms)
+    if choice.split != 1.0:
+        chunk = max(min(MIN_ROWS, n), min(n, round(chunk * choice.split)))
     splits = _cdiv(n, chunk)
     if splits == 1 and n <= WARP_TEAM_ROWS:
         # One warp per tenant, several tenants per CTA.
@@ -271,7 +296,8 @@ def tile_layout_floats(d, c, tr, rs, ag, dg) -> int:
     return _round4(head + max(tiles, scratch)) + tr * ldc + TILE_BLOCK // 32
 
 
-def _tile_plan(n, d, c, sms, ctas_per_sm, smem_limit):
+def _tile_plan(n, d, c, sms, ctas_per_sm, smem_limit,
+               choice: PlanChoice = UNTUNED):
     cg = _pow2ceil(_cdiv(c, TILE_AC))
     ag, dg = _cdiv(c, TILE_AC), _cdiv(d, TILE_AD)
     if cg > 32 or ag * dg > TILE_BLOCK:
@@ -280,7 +306,10 @@ def _tile_plan(n, d, c, sms, ctas_per_sm, smem_limit):
     # Full tiles give each thread TILE_RM records of the d² micro-tile; a
     # small N gets tiles of N // SMs records (at least MIN_ROWS), so that
     # every SM has one.
-    tr = max(1, min(TILE_RM * (TILE_BLOCK // cg), max(MIN_ROWS, n // sms), n))
+    cap = TILE_RM * (TILE_BLOCK // cg)
+    tr = max(1, min(cap, max(MIN_ROWS, n // sms), n))
+    if choice.tile != 1.0:
+        tr = max(1, min(cap, n, round(tr * choice.tile)))
     # Two CTAs per SM where the tile allows, else one.
     for budget in (smem_limit // 2, smem_limit):
         fit = tr
@@ -350,8 +379,24 @@ def _dsplit_floats(rows: int, c: int, tile: int, dsplits: int) -> int:
     return dsplits * (rows * (ldc + 1) + _cdiv(rows, tile) * ldc)
 
 
+def _ctiled_choice(choice: PlanChoice, tile: int, kper: int, chunks: int,
+                   rows: int):
+    """(tile, kper) of the C-tiled membership under ``choice``: the
+    record tile moved between ``CT_TILES`` (the larger one only where a
+    chunk holds it), the d-splits scaled, each split at least
+    ``CT_MIN_CHUNKS`` chunks where d has that many."""
+    if choice.tile > 1.0 and rows >= CT_TILES[1]:
+        tile = CT_TILES[1]
+    elif choice.tile < 1.0:
+        tile = CT_TILES[0]
+    splits = _cdiv(chunks, min(kper, chunks))
+    splits = max(1, min(chunks, round(splits * choice.dsplit)))
+    return tile, max(min(CT_MIN_CHUNKS, chunks), _cdiv(chunks, splits))
+
+
 def plan_ctiled(tenants: int, n: int, d: int, c: int, *, sms: int,
-                smem_limit: int) -> LaunchPlan:
+                smem_limit: int, choice: PlanChoice = UNTUNED
+                ) -> LaunchPlan:
     """The C-tiled sweep's launch for x (T, n, d) and C centers (T = 1 for
     the single-model sweep).
 
@@ -371,7 +416,8 @@ def plan_ctiled(tenants: int, n: int, d: int, c: int, *, sms: int,
     ``CT_CTAS_PER_SM`` CTAs per SM; fewer where their partials do not fit
     the rest of the budget.  Its d² block is resident in shared memory
     where that keeps the membership within half the card's shared memory
-    per block (two CTAs per SM)."""
+    per block (two CTAs per SM).  ``choice`` may move the record tile and
+    scale the d-splits (`_ctiled_choice`) before the budget check."""
     budget = CTILED_SCRATCH_BYTES
     out = c * d + c + 1
     ldc = _round4(c)
@@ -395,6 +441,8 @@ def plan_ctiled(tenants: int, n: int, d: int, c: int, *, sms: int,
         tiles = _cdiv(min(rows, n), tile) * group
         if 0 < tiles < slots:
             kper = max(CT_MIN_CHUNKS, _cdiv(chunks, _cdiv(slots, tiles)))
+    if choice != UNTUNED:
+        tile, kper = _ctiled_choice(choice, tile, kper, chunks, min(rows, n))
     avail = (budget - 4 * out * group * splits
              - 4 * (ldc + 1) * group * rows)
     while kper < chunks and 4 * group * _dsplit_floats(
@@ -423,7 +471,8 @@ def ctiled_chunks(plan: LaunchPlan, tenants: int, n: int) -> list:
 
 
 def plan_sweep(n: int, d: int, c: int, *, sms: int, ctas_per_sm: CtasPerSm,
-               smem_limit: int) -> LaunchPlan:
+               smem_limit: int, choice: Optional[PlanChoice] = None
+               ) -> LaunchPlan:
     """The single-model sweep's launch for x (n, d) and C centers on a card
     with ``sms`` SMs, ``smem_limit`` bytes of shared memory per block and
     ``ctas_per_sm`` resident CTAs per SM (a number, or a function of the
@@ -436,15 +485,21 @@ def plan_sweep(n: int, d: int, c: int, *, sms: int, ctas_per_sm: CtasPerSm,
     * "first" — the rest, while V and one record fit shared memory (the
       first version's `make_layout` at one row);
     * "ctiled" — beyond that: the C-tiled kernel (`plan_ctiled`).
+
+    ``choice`` (`PlanChoice`) sets the path's free choices; the first
+    version has none.
     """
+    choice = choice or UNTUNED
     if n > 0 and rows_variant(d, c) is not None:
-        return _rows_plan(1, n, d, c, sms, ctas_per_sm, False)
-    plan = _tile_plan(n, d, c, sms, ctas_per_sm, smem_limit) if n > 0 else None
+        return _rows_plan(1, n, d, c, sms, ctas_per_sm, False, choice)
+    plan = (_tile_plan(n, d, c, sms, ctas_per_sm, smem_limit, choice)
+            if n > 0 else None)
     if plan is not None:
         return plan
     t = _first_tile(first_layout_floats, _MAX_TILE_ROWS, smem_limit, d, c)
     if t == 0:
-        return plan_ctiled(1, n, d, c, sms=sms, smem_limit=smem_limit)
+        return plan_ctiled(1, n, d, c, sms=sms, smem_limit=smem_limit,
+                           choice=choice)
     draft = LaunchPlan("first", BLOCK, 0, t,
                        smem=4 * first_layout_floats(d, c, t))
     grid = max(1, min(_cdiv(n, t), sms * _per_sm(ctas_per_sm, draft)))
@@ -452,7 +507,8 @@ def plan_sweep(n: int, d: int, c: int, *, sms: int, ctas_per_sm: CtasPerSm,
 
 
 def plan_batched(tenants: int, n: int, d: int, c: int, *, sms: int,
-                 ctas_per_sm: CtasPerSm, smem_limit: int) -> LaunchPlan:
+                 ctas_per_sm: CtasPerSm, smem_limit: int,
+                 choice: Optional[PlanChoice] = None) -> LaunchPlan:
     """The tenant-stacked sweep's launch for x (T, n, d) and C centers (see
     `plan_sweep` for the card's three numbers).
 
@@ -461,13 +517,17 @@ def plan_batched(tenants: int, n: int, d: int, c: int, *, sms: int,
     * "first" — the rest (such as d = 41, C = 23), while V_t and one
       record fit shared memory;
     * "ctiled" — beyond that: the C-tiled kernel (`plan_ctiled`).
+
+    ``choice`` as in `plan_sweep`.
     """
+    choice = choice or UNTUNED
     if rows_variant(d, c) is not None:
-        return _rows_plan(tenants, n, d, c, sms, ctas_per_sm, True)
+        return _rows_plan(tenants, n, d, c, sms, ctas_per_sm, True, choice)
     t = _first_tile(first_batched_layout_floats, min(_MAX_TILE_ROWS, n),
                     smem_limit, d, c)
     if t == 0:
-        return plan_ctiled(tenants, n, d, c, sms=sms, smem_limit=smem_limit)
+        return plan_ctiled(tenants, n, d, c, sms=sms, smem_limit=smem_limit,
+                           choice=choice)
     smem = 4 * first_batched_layout_floats(d, c, t)
     draft = LaunchPlan("first", BLOCK, 0, t, smem=smem)
     target = sms * _per_sm(ctas_per_sm, draft)
@@ -573,20 +633,61 @@ def _occupancy(plan: LaunchPlan, kernel: str) -> int:
 
 
 @functools.lru_cache(maxsize=256)
-def _plan(device_index: int, n: int, d: int, c: int) -> LaunchPlan:
+def _plan(device_index: int, n: int, d: int, c: int,
+          choice: Optional[PlanChoice] = None) -> LaunchPlan:
     sms, smem = _card(device_index)
-    return plan_sweep(n, d, c, sms=sms, smem_limit=smem,
+    return plan_sweep(n, d, c, sms=sms, smem_limit=smem, choice=choice,
                       ctas_per_sm=functools.partial(_occupancy,
                                                     kernel="fcm_accumulate"))
 
 
 @functools.lru_cache(maxsize=256)
 def _batched_plan(device_index: int, tenants: int, n: int, d: int,
-                  c: int) -> LaunchPlan:
+                  c: int, choice: Optional[PlanChoice] = None) -> LaunchPlan:
     sms, smem = _card(device_index)
     return plan_batched(tenants, n, d, c, sms=sms, smem_limit=smem,
+                        choice=choice,
                         ctas_per_sm=functools.partial(_occupancy,
                                                       kernel="fcm_batched"))
+
+
+_TUNED: dict = {}   # (device, n, d, c, tenants) -> (generation, choice)
+
+
+@functools.cache
+def _autotune():
+    from ..perf import autotune     # not at import: perf imports this module
+    return autotune
+
+
+def tuned_choice(device: torch.device, n: int, d: int, c: int,
+                 tenants: Optional[int] = None) -> Optional[PlanChoice]:
+    """The autotuned `PlanChoice` of this shape's bucket on ``device``,
+    or None where the bucket was never tuned: a cached lookup
+    (`repro_torch.perf.autotune.tuned_blocks`), never a search.  Kept
+    per shape until the tuning memo changes (its ``generation``), so a
+    launch pays one dictionary lookup."""
+    autotune = _autotune()
+    key = (device.type, device.index, n, d, c, tenants)
+    hit = _TUNED.get(key)
+    if hit is not None and hit[0] == autotune.generation:
+        return hit[1]
+    gen = autotune.generation
+    cfg = autotune.tuned_blocks((n, c, d), tenants=tenants, device=device)
+    choice = None if cfg is None else PlanChoice(**cfg["choice"])
+    _TUNED[key] = (gen, choice)
+    return choice
+
+
+def launch_plan(device: torch.device, n: int, d: int, c: int,
+                tenants: Optional[int] = None) -> LaunchPlan:
+    """The plan a launch at this shape takes on ``device`` now: the
+    single-model plan (``tenants`` None) or the tenant-stacked one, on
+    its bucket's tuned choice where there is one."""
+    choice = tuned_choice(device, n, d, c, tenants)
+    if tenants is None:
+        return _plan(device.index, n, d, c, choice)
+    return _batched_plan(device.index, tenants, n, d, c, choice)
 
 
 _TICKETS: dict = {}
@@ -668,8 +769,11 @@ def _ctiled_launch(plan, x, w, v, m_ptr, m, tenants, n, d, c, normalize,
     return 0
 
 
-def _launch(x, w, centers, m: float, normalize: bool):
-    """Launch the single-model sweep; returns ((v, w_i, q), path)."""
+def _launch(x, w, centers, m: float, normalize: bool,
+            choice: Optional[PlanChoice] = None):
+    """Launch the single-model sweep on ``choice`` (None: the tuned one
+    of its bucket, if any; autotuning times its candidates through it);
+    returns ((v, w_i, q), path).  Counts nothing: the wrappers count."""
     _check_inputs("fcm_accumulate", x, w, centers, (2, 1, 2))
     n, d = x.shape
     c = centers.shape[0]
@@ -684,7 +788,9 @@ def _launch(x, w, centers, m: float, normalize: bool):
     dev = x.device
     m = float(m)
     with torch.cuda.device(dev):
-        plan = _plan(dev.index, n, d, c)
+        if choice is None:
+            choice = tuned_choice(dev, n, d, c)
+        plan = _plan(dev.index, n, d, c, choice)
         out = (torch.empty((c, d), dtype=torch.float32, device=dev),
                torch.empty((c,), dtype=torch.float32, device=dev),
                torch.empty((), dtype=torch.float32, device=dev))
@@ -731,7 +837,7 @@ def fcm_accumulate_cuda(x, w, centers, m: float = 2.0):
     x: (N, d), w: (N,), centers: (C, d), any float type (cast to f32)."""
     if x.device.type == "cpu":
         return fcm_accumulate_ref(x, w, centers, m)
-    out, path = _launch(x, w, centers, m, normalize=False)
+    out, path = _launch(x, w, centers, m, False)
     _count(fcm_accumulate_cuda, (path, x.shape[0], centers.shape[0]))
     return out
 
@@ -741,13 +847,15 @@ def fcm_sweep_cuda(x, w, centers, m: float = 2.0):
     normalization v_num / max(w_i, 1e-12) fused into its final reduce."""
     if x.device.type == "cpu":
         return fcm_sweep_ref(x, w, centers, m)
-    out, path = _launch(x, w, centers, m, normalize=True)
+    out, path = _launch(x, w, centers, m, True)
     _count(fcm_sweep_cuda, (path, x.shape[0], centers.shape[0]))
     return out
 
 
-def _launch_batched(x, w, centers, m, normalize: bool):
-    """Launch the tenant-stacked sweep; returns ((v, w_i, q), path)."""
+def _launch_batched(x, w, centers, m, normalize: bool,
+                    choice: Optional[PlanChoice] = None):
+    """Launch the tenant-stacked sweep on ``choice`` (as `_launch`);
+    returns ((v, w_i, q), path)."""
     _check_inputs("fcm_batched", x, w, centers, (3, 2, 3))
     tenants, n, d = x.shape
     c = centers.shape[1]
@@ -765,7 +873,9 @@ def _launch_batched(x, w, centers, m, normalize: bool):
     w = w.to(torch.float32).contiguous()
     v = centers.to(torch.float32).contiguous()
     with torch.cuda.device(dev):
-        plan = _batched_plan(dev.index, tenants, n, d, c)
+        if choice is None:
+            choice = tuned_choice(dev, n, d, c, tenants)
+        plan = _batched_plan(dev.index, tenants, n, d, c, choice)
         if plan.grid >= 2 ** 31:
             raise ValueError(f"fcm_batched kernel: {plan.grid} CTAs exceed "
                              "the grid's 2^31 - 1")
@@ -805,7 +915,7 @@ def fcm_accumulate_batched_cuda(x, w, centers, m=2.0):
     centers: (T, C, d), m: a scalar or (T,)."""
     if x.device.type == "cpu":
         return fcm_accumulate_batched_ref(x, w, centers, m)
-    out, path = _launch_batched(x, w, centers, m, normalize=False)
+    out, path = _launch_batched(x, w, centers, m, False)
     _count(fcm_accumulate_batched_cuda, (path,) + tuple(x.shape[:2]))
     return out
 
@@ -815,7 +925,7 @@ def fcm_sweep_batched_cuda(x, w, centers, m=2.0):
     normalization fused into the kernel."""
     if x.device.type == "cpu":
         return fcm_sweep_batched_ref(x, w, centers, m)
-    out, path = _launch_batched(x, w, centers, m, normalize=True)
+    out, path = _launch_batched(x, w, centers, m, True)
     _count(fcm_sweep_batched_cuda, (path,) + tuple(x.shape[:2]))
     return out
 

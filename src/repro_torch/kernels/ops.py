@@ -53,6 +53,7 @@ class HopperBackend(SweepBackend):
     """The Hopper kernels' fused sweeps."""
 
     name = "hopper"
+    kernel = True
 
     def accumulate(self, x, w, centers, m):
         return fcm_accumulate_kernel(x, w, centers, m)
@@ -72,6 +73,7 @@ class HopperAccumulateBackend(SweepBackend):
     the kernels."""
 
     name = "hopper_accumulate"
+    kernel = True
 
     def accumulate(self, x, w, centers, m):
         return fcm_accumulate_kernel(x, w, centers, m)

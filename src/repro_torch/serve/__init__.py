@@ -1,14 +1,26 @@
 """`repro_torch.serve` — scoring against fitted and live models.
 
-Counterpart of `repro.serve`.  This slice holds the frozen-snapshot
-scorer (`make_assigner`), out-of-core store scoring (`assign_store`),
-scoring against a live streaming model (`assign_stream`), and the tenant
-plane's gather-scored `TenantScorer`; the single-model `Scorer` and
-`SnapshotPublisher`, the coalescing `ScoringService` and its
-tenant-routed front end come with later slices.
+Counterpart of `repro.serve`: the frozen-snapshot scorer
+(`make_assigner`), out-of-core store scoring (`assign_store`), scoring
+against a live streaming model (`assign_stream`), hot-swappable replicas
+and their publisher (`Scorer`, `SnapshotPublisher`,
+`snapshot_from_checkpoint`), the coalescing `ScoringService`, and the
+tenant plane's gather-scored `TenantScorer` with its tenant-routed
+`TenantScoringService`.  The LM decode helpers (`decode.py`) come with
+the LM stack.
 """
 from .cluster import assign_store, assign_stream, make_assigner
-from .tenant import TenantScorer, TenantSnapshot, tenant_snapshot
+from .scorer import (CenterSnapshot, Scorer, SnapshotPublisher,
+                     snapshot_from_checkpoint)
+from .service import (DeadlineExceeded, Rejected, ScoreResult,
+                      ScoringService, ServiceClosed, ServiceConfig)
+from .tenant import (TenantScorer, TenantScoringService, TenantSnapshot,
+                     tenant_snapshot)
 
-__all__ = ["assign_store", "assign_stream", "make_assigner", "TenantScorer",
-           "TenantSnapshot", "tenant_snapshot"]
+__all__ = ["assign_store", "assign_stream", "make_assigner",
+           "CenterSnapshot", "Scorer", "SnapshotPublisher",
+           "snapshot_from_checkpoint",
+           "DeadlineExceeded", "Rejected", "ScoreResult",
+           "ScoringService", "ServiceClosed", "ServiceConfig",
+           "TenantScorer", "TenantScoringService", "TenantSnapshot",
+           "tenant_snapshot"]

@@ -29,7 +29,7 @@ import torch
 from .. import obs
 from ..data.plane import pad_rows
 from ..device import as_real, resolve_device
-from ..engine import resolve_backend
+from ..engine import scoring_backend
 from ..stream.streaming import split_item
 
 
@@ -68,12 +68,11 @@ def make_assigner(centers, *, m: float = 2.0, soft: bool = False,
     """Scorer against a FROZEN center snapshot (read replicas).
 
     ``backend`` names the engine sweep backend to score through
-    (None/"auto" = the device's default — the same resolution rule the
-    learner uses).  The scorer returns hard labels (N,) or soft
-    memberships (N, C) on ``device``; its ``.traces`` counts the input
-    shapes it has seen."""
+    (None/"auto" = the device's default, `scoring_backend`).  The scorer
+    returns hard labels (N,) or soft memberships (N, C) on ``device``;
+    its ``.traces`` counts the input shapes it has seen."""
     dev = resolve_device(device)
-    be = resolve_backend(backend, device=dev)
+    be = scoring_backend(backend, device=dev)
     v = as_real(centers, dev)
     if soft:
         return _Assigner(lambda x: be.soft_assign(x, v, m), dev)

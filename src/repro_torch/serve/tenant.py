@@ -1,8 +1,7 @@
 """Tenant-routed scoring — one gather-scored call for cross-tenant
 traffic.
 
-Counterpart of `repro.serve.tenant` (`TenantSnapshot`, `tenant_snapshot`,
-`TenantScorer`):
+Counterpart of `repro.serve.tenant`:
 
   * `TenantSnapshot` — the immutable published fleet: stacked (T, C, d)
     centers on the device, per-tenant ``versions``, and the id→row
@@ -13,26 +12,36 @@ Counterpart of `repro.serve.tenant` (`TenantSnapshot`, `tenant_snapshot`,
     come as one (B, d) batch with a (B,) tenant-row vector; each row is
     scored against its own tenant's centers (``centers[tidx]``), the
     direct ‖x − v‖², then argmin (or the membership degrees when
-    ``soft``).
+    ``soft``).  ``traces`` counts the distinct (rows, T, C) shapes
+    scored, the reference's compile count.
+  * `TenantScoringService` — `ScoringService` with tenant routing:
+    ``submit(tenant, x)`` tags the request with its tenant id (also the
+    fairness group — set ``ServiceConfig.max_group_rows`` so a hot
+    tenant cannot starve a quiet one), and the dispatch pads
+    cross-tenant batches onto the same bucket ladder.
 
-The reference's ``TenantScorer.traces`` counts XLA compiles of its
-jitted program; the port runs eagerly and compiles nothing, so it keeps
-no such count.  `TenantScoringService` (the coalescing front end) is
-built on the scoring service and comes with its port.
+Observability: dispatches run under ``span.tenant.assign`` with a
+``tenants=<distinct-in-batch>`` label next to the base service's
+counters.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple, Union
+import threading
+import time
+from typing import NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from .. import obs
+from ..data.plane import bucket_for, pad_rows
 from ..device import as_real, resolve_device
 from ..engine.backend import _u_from_d2
 from ..tenant.core import TenantSet
+from .service import ScoreResult, ScoringService, ServiceConfig
 
-__all__ = ["TenantSnapshot", "tenant_snapshot", "TenantScorer"]
+__all__ = ["TenantSnapshot", "tenant_snapshot", "TenantScorer",
+           "TenantScoringService"]
 
 DeviceLike = Union[str, torch.device]
 
@@ -78,6 +87,8 @@ class TenantScorer:
         self.m = float(m)
         self.soft = bool(soft)
         self.device = resolve_device(device)
+        self._lock = threading.Lock()
+        self._shapes = set()
         self._snap: Optional[TenantSnapshot] = None
         self.swap(tenants)
 
@@ -95,6 +106,12 @@ class TenantScorer:
     def dim(self) -> int:
         return int(self._snap.centers.shape[2])
 
+    @property
+    def traces(self) -> int:
+        """Distinct (rows, T, C) shapes scored — the reference's count of
+        (re)compiles of its jitted gather-score."""
+        return len(self._shapes)
+
     def score(self, x, tidx, snap: Optional[TenantSnapshot] = None
               ) -> torch.Tensor:
         """Gather-scored call on the snapshot's device: (B,) assignments,
@@ -102,6 +119,10 @@ class TenantScorer:
         snap = snap if snap is not None else self._snap
         dev = snap.centers.device
         x = as_real(x, dev)
+        shape = (int(x.shape[0]),) + tuple(snap.centers.shape[:2])
+        if shape not in self._shapes:
+            with self._lock:
+                self._shapes.add(shape)
         v = snap.centers[torch.as_tensor(tidx, dtype=torch.long,
                                          device=dev)]        # (B, C, d)
         d2 = torch.sum((x[:, None, :] - v) ** 2, dim=-1)     # (B, C)
@@ -123,3 +144,86 @@ class TenantScorer:
     def __repr__(self):
         return (f"<TenantScorer {self.replica} T={self._snap.n_tenants} "
                 f"soft={self.soft}>")
+
+
+class TenantScoringService(ScoringService):
+    """The coalescing front end with tenant routing.
+
+    ``submit(tenant, x)`` / ``score(tenant, x)`` — requests across
+    tenants land on ONE queue and coalesce into ONE gather-scored call
+    per batch bucket; each response reports its own tenant's snapshot
+    version (never torn).  The tenant id doubles as the fairness group:
+    with ``cfg.max_group_rows`` set, `_take` caps any one tenant's rows
+    per dispatch so FIFO coalescing cannot let a firehose tenant starve a
+    quiet one."""
+
+    def __init__(self, scorers: Union[TenantScorer, Sequence[TenantScorer]],
+                 cfg: ServiceConfig = ServiceConfig()):
+        scorers = ([scorers] if isinstance(scorers, TenantScorer)
+                   else list(scorers))
+        super().__init__(scorers, cfg)
+
+    # -- client side -------------------------------------------------------
+
+    def submit(self, tenant, x):
+        """Enqueue one request for ``tenant``; resolves to a
+        `ScoreResult` whose ``version`` is that tenant's snapshot
+        version.  Unknown tenants fail fast here (against the current
+        snapshot — a concurrent swap that removes the tenant before
+        dispatch fails the future instead)."""
+        self.scorers[0].read().row_of(tenant)     # fail-fast validation
+        return super().submit(x, group=str(tenant))
+
+    def score(self, tenant, x, timeout: Optional[float] = None
+              ) -> ScoreResult:
+        return self.submit(tenant, x).result(timeout)
+
+    def swap(self, tenants) -> None:
+        """Hot-swap every replica to a new fleet (TenantSet or ready
+        TenantSnapshot) — one snapshot build, N atomic stores."""
+        snap = (tenants if isinstance(tenants, TenantSnapshot)
+                else tenant_snapshot(tenants, self.scorers[0].device))
+        for s in self.scorers:
+            s.swap(snap)
+
+    # -- dispatch ----------------------------------------------------------
+
+    def _dispatch(self, scorer, reqs) -> None:
+        snap = scorer.read()          # ONE read: every row of every
+        #                               bucket slice scores against this
+        #                               fleet version
+        rows = [snap.row_of(r.group) for r in reqs]
+        x = (reqs[0].x if len(reqs) == 1
+             else np.concatenate([r.x for r in reqs]))
+        tidx = np.concatenate([np.full((r.n,), row, np.int64)
+                               for r, row in zip(reqs, rows)])
+        total = int(x.shape[0])
+        distinct = len(set(rows))
+        maxb = self.cfg.max_batch_rows
+        outs = []
+        for start in range(0, total, maxb):
+            piece, tpiece = x[start:start + maxb], tidx[start:start + maxb]
+            n = int(piece.shape[0])
+            b = bucket_for(n, self._buckets) if self.cfg.coalesce else n
+            xp = pad_rows(piece, b)
+            # phantom rows score against row 0 and are sliced off
+            tp = np.zeros((b,), np.int64)
+            tp[:n] = tpiece
+            with obs.span("tenant.assign",
+                          labels={"tenants": str(distinct)},
+                          rows=n, bucket=b, coalesced=len(reqs),
+                          replica=scorer.replica):
+                out = scorer.score(xp, tp, snap).cpu().numpy()
+            outs.append(out[:n])
+        out = outs[0] if len(outs) == 1 else np.concatenate(outs)
+        obs.counter("serve.records", replica=scorer.replica).add(total)
+        obs.counter("serve.batches", replica=scorer.replica).add(1)
+        off = 0
+        done = time.perf_counter()
+        for r, row in zip(reqs, rows):
+            res = ScoreResult(out[off:off + r.n],
+                              int(snap.versions[row]), scorer.replica)
+            off += r.n
+            obs.histogram("serve.request").observe(done - r.t_submit)
+            obs.counter("serve.served", replica=scorer.replica).add(1)
+            r.future.set_result(res)

@@ -86,7 +86,8 @@ def test_bigfcm_fit_matches_reference():
     kw = dict(n_clusters=4, sample_size=512, use_driver=False)
     want = R.bigfcm_fit(jnp.asarray(x), R.BigFCMConfig(backend="jnp", **kw))
     sample_idx, seed_idx = _reference_draws(R.BigFCMConfig(**kw), 4000)
-    got = T.bigfcm_fit(x, T.BigFCMConfig(**kw), sample_idx=sample_idx,
+    got = T.bigfcm_fit(x, T.BigFCMConfig(backend="torch", **kw),
+                       sample_idx=sample_idx,
                        seed_idx=seed_idx, device="cpu")
     _close_centers(got.centers, want.centers)
     assert got.diagnostics.combiner_iters == tuple(
@@ -104,7 +105,7 @@ def test_run_driver_matches_reference_branch():
     cfg_kw = dict(n_clusters=3, sample_size=256, block_size=128)
     sample_idx, seed_idx = _reference_draws(R.BigFCMConfig(**cfg_kw), 2000)
     xs = x[sample_idx]
-    cfg = T.BigFCMConfig(**cfg_kw)
+    cfg = T.BigFCMConfig(backend="torch", **cfg_kw)
     v_init, flag, t_fcm, t_pb = T.run_driver(xs, cfg, seed_idx=seed_idx,
                                              device="cpu")
     assert t_fcm > 0 and t_pb > 0 and flag == (t_pb > t_fcm)
@@ -119,8 +120,8 @@ def test_run_driver_matches_reference_branch():
 
 def test_bigfcm_fit_default_draws_and_driver_recover_blobs():
     x, y = RD.make_blobs(4000, 8, 4, seed=0)
-    res = T.bigfcm_fit(x, T.BigFCMConfig(n_clusters=4, sample_size=512),
-                       device="cpu")
+    res = T.bigfcm_fit(x, T.BigFCMConfig(n_clusters=4, sample_size=512,
+                                         backend="torch"), device="cpu")
     pred = TM.assign(x, res.centers, device="cpu")
     agree = sum(np.bincount(y[pred == c]).max() for c in range(4)
                 if (pred == c).any())

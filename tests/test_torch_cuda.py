@@ -145,19 +145,30 @@ def test_kernel_rejects_bad_inputs(card):
            3e-3)
 
 
-def test_bigfcm_fit_through_kernel(card):
-    """"auto" runs the fit through the Hopper kernel and lands where the
-    plain torch backend does from the same seeds."""
+def test_bigfcm_fit_through_kernel(card, monkeypatch, tmp_path):
+    """"auto", the card default, runs the fit through a Hopper kernel
+    (the race crowns only kernel backends on the card) and lands where
+    the plain torch backend does from the same seeds."""
+    from repro_torch.engine import resolve_backend
+    from repro_torch.perf import calibrate
+    monkeypatch.setenv(calibrate.ENV_DIR, str(tmp_path))
+    calibrate.clear_memory_cache()
     x, _ = make_blobs(4000, 8, 4, seed=0)
     kw = dict(n_clusters=4, sample_size=512, use_driver=False)
     rng = np.random.default_rng(0)
     sample_idx = rng.choice(4000, 512, replace=False)
     seed_idx = rng.choice(512, 4, replace=False)
-    before = fcm_sweep_cuda.launches
-    fits = [bigfcm_fit(x, BigFCMConfig(backend=b, **kw),
-                       sample_idx=sample_idx, seed_idx=seed_idx,
-                       device=card) for b in ("auto", "torch")]
-    assert fcm_sweep_cuda.launches > before
+    try:
+        assert resolve_backend("auto", device=card,
+                               shape=(512, 4, 8)).kernel
+        before = fcm_sweep_cuda.launches + fcm_accumulate_cuda.launches
+        fits = [bigfcm_fit(x, BigFCMConfig(backend=b, **kw),
+                           sample_idx=sample_idx, seed_idx=seed_idx,
+                           device=card) for b in ("auto", "torch")]
+        after = fcm_sweep_cuda.launches + fcm_accumulate_cuda.launches
+    finally:
+        calibrate.clear_memory_cache()
+    assert after > before
     torch.testing.assert_close(fits[0].centers, fits[1].centers,
                                rtol=2e-3, atol=2e-4)
     assert fits[0].diagnostics.combiner_iters == \
@@ -225,7 +236,7 @@ def test_batched_kernel_rejects_bad_inputs(card):
 
 
 def test_fit_tenants_through_kernel(card):
-    """"auto" fits a cohort through the tenant-stacked kernel and lands
+    """``hopper`` fits a cohort through the tenant-stacked kernel and lands
     where the plain torch backend does from the same seeds.  Iteration
     counts and centers are held on the tenants whose torch fit does not
     move when their records are scaled by 1 ± 2⁻²²: elsewhere the slow
@@ -233,7 +244,7 @@ def test_fit_tenants_through_kernel(card):
     rng = np.random.default_rng(1)
     data = [(rng.normal(size=(int(rng.integers(8, 60)), 4)) + 4.0 * (i % 5))
             .astype(np.float32) for i in range(200)]
-    cfg = TenantFitConfig(n_clusters=3, row_base=16)
+    cfg = TenantFitConfig(n_clusters=3, row_base=16, backend="hopper")
     torch_cfg = TenantFitConfig(n_clusters=3, row_base=16, backend="torch")
     before = fcm_sweep_batched_cuda.launches
     hop = fit_tenants(data, cfg, device=card)
@@ -488,7 +499,8 @@ def test_stream_through_kernels_matches_torch_twin(card, monkeypatch):
                                               shift=10.0, seed=5)]
     x = np.concatenate(chunks)[:17_000]
     scale = float(np.sqrt(np.mean(x * x)))
-    cfg = StreamConfig(n_clusters=4, window=3, decay=0.8, driver_sample=256)
+    cfg = StreamConfig(n_clusters=4, window=3, decay=0.8, driver_sample=256,
+                       backend="hopper")
     model = StreamingBigFCM(cfg, device=card)
     assert model.backend.name == "hopper"
     k1, k2 = fcm_accumulate_cuda.launches, fcm_sweep_cuda.launches
@@ -514,3 +526,142 @@ def test_stream_through_kernels_matches_torch_twin(card, monkeypatch):
     outs = list(assign_stream(model, stream_loader(
         replay_source(x, 3000), 3000, device=card), update=False))
     assert [o.shape[0] for o, _ in outs] == [3000] * 5 + [2000]
+
+
+# ---------------------------------------- torch_bf16, tuned plans, serve --
+
+@pytest.mark.parametrize("n,d,c", [(4096, 28, 2), (4096, 41, 23),
+                                   (2048, 2048, 64)])
+def test_torch_bf16_on_the_card(card, n, d, c):
+    """bf16 tensor-core contractions with f32 outputs: every accumulator
+    f32 and within 2e-2 of the f32 sweep (the race's parity gate), the
+    tenant-stacked entry equal to the single-model one per tenant."""
+    from repro_torch.engine import get_backend
+    x, w, v = _inputs(n, d, c, 7, card)
+    bf16, f32 = get_backend("torch_bf16"), get_backend("torch")
+    got, want = bf16.sweep(x, w, v, 2.0), f32.sweep(x, w, v, 2.0)
+    for g, e in zip(got, want):
+        assert g.dtype == torch.float32
+        scale = float(e.abs().max()) or 1.0
+        assert float((g - e).abs().max()) <= 2e-2 * scale
+    xb, wb, vb = (torch.stack([a, a.flip(0)]) for a in (x, w, v))
+    batched = bf16.batched_accumulate(xb, wb, vb, 2.0)
+    for t in range(2):
+        one = bf16.accumulate(xb[t], wb[t], vb[t], 2.0)
+        for g, e in zip(batched, one):
+            torch.testing.assert_close(g[t], e, rtol=1e-5, atol=1e-4)
+
+
+def test_calibrated_auto_on_the_card(card, monkeypatch, tmp_path):
+    """"auto" on the card races every backend at the caller's bucket,
+    records each one's time and parity, crowns a kernel backend, and
+    answers from the memo after."""
+    from repro_torch.engine import available_backends, resolve_backend
+    from repro_torch.perf import calibrate
+    monkeypatch.setenv(calibrate.ENV_DIR, str(tmp_path))
+    calibrate.clear_memory_cache()
+    try:
+        be = resolve_backend("auto", device=card, shape=(4096, 23, 41))
+        entry = calibrate.load_calibration(device=card)["winners"][
+            "n4096_c32_d64"]
+        assert entry["winner"] == be.name and be.kernel
+        assert set(entry["times_us"]) == set(available_backends())
+        assert all(entry["parity"][k] for k in
+                   ("torch", "hopper", "hopper_accumulate"))
+        assert resolve_backend(None, device=card,
+                               shape=(3000, 20, 40)) is be
+    finally:
+        calibrate.clear_memory_cache()
+
+
+@pytest.mark.parametrize("shape,tenants", [((4096, 2, 28), None),
+                                           ((4096, 23, 41), None),
+                                           ((4096, 64, 2048), None),
+                                           ((512, 3, 4), 64)])
+def test_tuned_plans_match_plain(card, monkeypatch, tmp_path, shape,
+                                 tenants):
+    """Every plan the autotuner tries at a bucket launches and agrees with
+    the plain version at tests/test_kernels.py's tolerances (a tuned plan
+    changes the order of the sums, not the math); after tuning, a launch
+    in the bucket takes the tuned plan."""
+    from repro_torch.perf import autotune, calibrate
+    monkeypatch.setenv(calibrate.ENV_DIR, str(tmp_path))
+    calibrate.clear_memory_cache()
+    try:
+        cfg = autotune.tune_sweep_blocks(shape, tenants=tenants, device=card,
+                                         iters=1)
+        n, c, d = shape
+        if tenants is None:
+            x, w, v = _inputs(n, d, c, 3, card)
+            sweep, ref = fcm_sweep_cuda, fcm_sweep_ref
+            plan = fcm_update.launch_plan(card, n, d, c)
+        else:
+            x, w, v, _ = _stack(tenants, n, d, c, 3, card)
+            sweep, ref = fcm_sweep_batched_cuda, fcm_sweep_batched_ref
+            plan = fcm_update.launch_plan(card, n, d, c, x.shape[0])
+        assert plan.path == cfg["plan"]["path"]
+        want = ref(x, w, v, 2.0)
+        launch = (fcm_update._launch if tenants is None
+                  else fcm_update._launch_batched)
+        for choice in autotune.choice_grid(plan.path):
+            _close(launch(x, w, v, 2.0, True, choice)[0], want, 3e-4, 3e-5)
+        _close(sweep(x, w, v, 2.0), want, 3e-4, 3e-5)
+    finally:
+        calibrate.clear_memory_cache()
+
+
+def test_swap_during_dispatch_on_the_card(card):
+    """Replicas on the card scoring while another thread swaps the
+    snapshot: every response is one version's labels (against
+    `make_assigner` at that version on the card, up to rows whose two
+    centers' d² differ by less than the f32 rounding of the expansion
+    x² + v² − 2x·vᵀ, 1e-5 of x² + v²), and the next dispatch after the
+    last swap sees it."""
+    import threading
+    import time as _time
+    from repro_torch.serve import (CenterSnapshot, Scorer, ScoringService,
+                                   ServiceConfig, make_assigner)
+    rng = np.random.default_rng(0)
+    base = (rng.normal(size=(6, 8)) * 4).astype(np.float32)
+    versions = {v: np.roll(base, v, axis=0) for v in range(4)}
+    reqs = [rng.normal(size=(int(k), 8)).astype(np.float32) * 4
+            for k in rng.integers(4, 600, size=150)]
+    svc = ScoringService(
+        [Scorer(CenterSnapshot(0, base), backend="hopper", replica=f"r{i}",
+                device=card) for i in range(2)],
+        ServiceConfig(max_batch_rows=1024, bucket_base=64))
+    stop = threading.Event()
+
+    def swapper():
+        v = 0
+        while not stop.is_set():
+            v = (v + 1) % 4
+            svc.swap(v, versions[v])
+            _time.sleep(0.0005)
+
+    th = threading.Thread(target=swapper)
+    th.start()
+    try:
+        results = [f.result(60) for f in [svc.submit(r) for r in reqs]]
+    finally:
+        stop.set()
+        th.join()
+    seen = set()
+    for r, res in zip(reqs, results):
+        seen.add(res.version)
+        want = make_assigner(versions[res.version], backend="hopper",
+                             device=card)(r).cpu().numpy()
+        bad = np.flatnonzero(res.assignments != want)
+        if bad.size:
+            xs = r[bad].astype(np.float64)
+            v = versions[res.version].astype(np.float64)
+            d2 = ((xs[:, None, :] - v[None]) ** 2).sum(-1)
+            rows = np.arange(bad.size)
+            gap = np.abs(d2[rows, res.assignments[bad]] - d2[rows, want[bad]])
+            scale = (xs * xs).sum(1) + (v * v).sum(1).max()
+            assert np.all(gap <= 1e-5 * scale)
+    assert len(seen) > 1
+    svc.swap(99, versions[1])
+    assert svc.score(reqs[0], timeout=60).version == 99
+    assert svc.compile_counts()["r0"] <= len(svc.buckets) * 1
+    svc.close()

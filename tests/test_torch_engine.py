@@ -80,9 +80,21 @@ def test_normalize_accumulators_matches_reference():
 
 # ------------------------------------------------------------- registry --
 
-def test_registry_names_and_device_rule():
-    assert {"torch", "hopper", "hopper_accumulate"} <= set(
+def test_registry_names_and_device_rule(monkeypatch, tmp_path):
+    """The registry, and "auto": the calibrated winner of its (device,
+    bucket), the device rule (CUDA → hopper, CPU → torch) with
+    calibration off."""
+    assert {"torch", "torch_bf16", "hopper", "hopper_accumulate"} <= set(
         T.available_backends())
+    monkeypatch.setenv("REPRO_CALIB_DIR", str(tmp_path))
+    from repro_torch.perf import calibrate
+    calibrate.clear_memory_cache()
+    try:
+        assert T.resolve_backend("auto", device="cpu").name == \
+            calibrate.calibrated_backend_name(device="cpu")
+    finally:
+        calibrate.clear_memory_cache()
+    monkeypatch.setenv("REPRO_AUTO_CALIBRATE", "0")
     assert T.resolve_backend("auto", device="cpu").name == "torch"
     assert T.resolve_backend(None, device="cuda").name == "hopper"
     assert T.default_backend_name(torch.device("cuda", 0)) == "hopper"
@@ -153,7 +165,8 @@ def test_merge_init_and_lone_slot_match_reference():
     rng = np.random.default_rng(2)
     cent = rng.normal(size=(1, 3, 2)).astype(np.float32)
     mass = rng.uniform(1, 2, size=(1, 3)).astype(np.float32)
-    lone = T.merge_summaries(T.summary(cent, mass, device="cpu"))
+    lone = T.merge_summaries(T.summary(cent, mass, device="cpu"),
+                             backend="torch")
     assert lone.n_iter == 0
     _close(lone.summary.centers, cent[0], 0, 0)
     init = cent[0] + 0.1

@@ -117,7 +117,11 @@ def test_import_loads_no_jax_and_no_reference_module():
             "repro_torch.stream.window", "repro_torch.stream.drift",
             "repro_torch.data.stream", "repro_torch.data.loader",
             "repro_torch.obs", "repro_torch.obs.metrics",
-            "repro_torch.obs.trace", "repro_torch.obs.report"} \
+            "repro_torch.obs.trace", "repro_torch.obs.report",
+            "repro_torch.serve.scorer", "repro_torch.serve.service",
+            "repro_torch.perf", "repro_torch.perf.microbench",
+            "repro_torch.perf.roofline", "repro_torch.perf.calibrate",
+            "repro_torch.perf.autotune"} \
         <= set(out["modules"])
     assert out["leaked"] == []
 
@@ -162,6 +166,41 @@ def test_obs_alone_loads_no_jax_and_no_reference_module():
 
 def test_stream_entry_points_raise_without_a_card():
     out = _run(_NO_CARD_STREAM, CUDA_VISIBLE_DEVICES="").splitlines()
+    assert len(out) == 3
+    assert all(ln.startswith("raised:") and "device='cpu'" in ln
+               for ln in out)
+
+
+def test_serve_and_perf_alone_load_no_jax_and_no_reference_module():
+    """The serving front end (`ScoringService` is an own copy of the
+    reference's numpy-and-threads module) and the perf plane load
+    nothing of `repro` (nor jax)."""
+    for module in ("repro_torch.serve", "repro_torch.serve.service",
+                   "repro_torch.perf"):
+        out = _run(_ALONE.format(module=module)).strip().splitlines()[-1]
+        assert json.loads(out) == [], module
+
+
+_NO_CARD_SERVE = """
+import numpy as np
+from repro_torch.perf import probe_peaks, tune_sweep_blocks
+from repro_torch.serve import CenterSnapshot, Scorer
+calls = (lambda: Scorer(CenterSnapshot(0, np.zeros((2, 3), np.float32)),
+                        backend="torch"),
+         lambda: probe_peaks(),
+         lambda: tune_sweep_blocks((256, 2, 3)))
+for call in calls:
+    try:
+        call()
+    except RuntimeError as e:
+        print("raised:", e)
+    else:
+        print("ran")
+"""
+
+
+def test_serve_and_perf_entry_points_raise_without_a_card():
+    out = _run(_NO_CARD_SERVE, CUDA_VISIBLE_DEVICES="").splitlines()
     assert len(out) == 3
     assert all(ln.startswith("raised:") and "device='cpu'" in ln
                for ln in out)

@@ -329,7 +329,8 @@ def test_store_fit_and_scoring_counters_match_reference(tmp_path,
     np.testing.assert_allclose(_np(port.centers), np.asarray(ref.centers),
                                rtol=0, atol=1e-4)
     r_out = list(RSV.assign_store(stores["ref"], ref.centers, backend="jnp"))
-    p_out = list(TSV.assign_store(stores["port"], port.centers, **CPU))
+    p_out = list(TSV.assign_store(stores["port"], port.centers,
+                                  backend="torch", **CPU))
     assert len(p_out) == len(r_out) == 4
     assert ref_calls["n"] == port_calls["n"] > 0
     got, want = _counters(obs, ""), _counters(ref_obs, "")
@@ -433,7 +434,7 @@ def test_tenant_fit_and_assign_counters_match_reference(looped):
     (RT.fit_tenants_looped if looped else RT.fit_tenants)(
         data, RT.TenantFitConfig(backend="jnp", **kw))
     ts = (TT.fit_tenants_looped if looped else TT.fit_tenants)(
-        data, TT.TenantFitConfig(**kw), **CPU)
+        data, TT.TenantFitConfig(backend="torch", **kw), **CPU)
     assert obs.counter("tenant.fit.launches").value == \
         ref_obs.counter("tenant.fit.launches").value == (7 if looped else 1)
     assert _span_counts(obs) == _span_counts(ref_obs) == {
@@ -575,7 +576,8 @@ def test_stream_records_count_a_loaders_real_rows_only():
     batch adds its real rows to ``stream.records``."""
     x, _ = TD.make_blobs(1000, 3, 2, seed=1)
     model = TS.StreamingBigFCM(TS.StreamConfig(n_clusters=2, window=2,
-                                               driver_sample=64), **CPU)
+                                               driver_sample=64,
+                                               backend="torch"), **CPU)
     list(TSV.assign_stream(model, TD.stream_loader(
         TD.replay_source(x, 300), 300, **CPU)))
     assert obs.counter("stream.records").value == 1000
@@ -606,7 +608,8 @@ class _CountCalls:
 def _stationary_model():
     x, _ = TD.make_blobs(6000, 5, 3, seed=2)
     model = TS.StreamingBigFCM(TS.StreamConfig(n_clusters=3, window=3,
-                                               driver_sample=256), **CPU)
+                                               driver_sample=256,
+                                               backend="torch"), **CPU)
     return model, [x[i:i + 1000] for i in range(0, 6000, 1000)]
 
 

@@ -560,7 +560,8 @@ def test_initial_key_is_the_references(pin_driver):
     x, _ = TD.make_blobs(300, 3, 2, seed=1)
     for seed in (0, 5, 2 ** 31 - 1):
         port = TS.StreamingBigFCM(TS.StreamConfig(
-            n_clusters=2, driver_sample=64, seed=seed), **CPU)
+            n_clusters=2, driver_sample=64, seed=seed, backend="torch"),
+            **CPU)
         port.ingest(x)
         np.testing.assert_array_equal(
             _np(port.state.key), np.asarray(jax.random.PRNGKey(seed)))
@@ -661,7 +662,8 @@ def test_default_draws_never_pick_phantom_rows():
     w = np.zeros(400, np.float32)
     w[:100] = 1.0
     model = TS.StreamingBigFCM(TS.StreamConfig(n_clusters=2,
-                                               driver_sample=512), **CPU)
+                                               driver_sample=512,
+                                               backend="torch"), **CPU)
     seen = []
     TSS_run = TSS.run_driver
 
@@ -677,7 +679,8 @@ def test_default_draws_never_pick_phantom_rows():
         TSS.run_driver = TSS_run
     assert seen == [100]
     with pytest.raises(ValueError, match="zero-mass"):
-        TS.StreamingBigFCM(TS.StreamConfig(n_clusters=2), **CPU).ingest(
+        TS.StreamingBigFCM(TS.StreamConfig(n_clusters=2, backend="torch"),
+                           **CPU).ingest(
             x, np.zeros(400, np.float32))
 
 
@@ -733,14 +736,15 @@ def test_run_rejects_mismatched_tuple_channels_as_reference():
     x, y = TD.make_blobs(600, 3, 2, seed=0)
     ts = np.arange(600, dtype=np.float64)
     proc = TS.StreamingBigFCM(TS.StreamConfig(n_clusters=2, window=2,
-                                              driver_sample=128), **CPU)
+                                              driver_sample=128,
+                                              backend="torch"), **CPU)
     with pytest.raises(ValueError, match="event_time"):
         proc.run(TD.replay_source(x, 300, timestamps=ts))
     with pytest.raises(ValueError, match="labels"):
         proc.run([(x[:300], y[:300])])
     ev = TS.StreamingBigFCM(TS.StreamConfig(
         n_clusters=2, window=8, event_time=True, slot_span=10.0,
-        allowed_lateness=20.0, driver_sample=128), **CPU)
+        allowed_lateness=20.0, driver_sample=128, backend="torch"), **CPU)
     with pytest.raises(ValueError, match="labels"):
         ev.run([(x[:300], y[:300])])
     with pytest.raises(ValueError, match="labels"):
@@ -762,7 +766,7 @@ def test_assign_stream_matches_make_assigner_and_reference(pin_driver):
     assert len(outs) == 3
     labels, rep = outs[-1]
     assert labels.shape == (1000,) and rep.step == 3
-    frozen = TSV.make_assigner(port.state.centers, **CPU)
+    frozen = TSV.make_assigner(port.state.centers, backend="torch", **CPU)
     np.testing.assert_array_equal(_np(frozen(x[-1000:])), labels)
     for (a, _), (b, _) in zip(outs, want):
         np.testing.assert_array_equal(a, np.asarray(b))
@@ -780,14 +784,16 @@ def test_assign_stream_matches_make_assigner_and_reference(pin_driver):
 def test_snapshot_listener_sees_every_step():
     x, _ = TD.make_blobs(900, 3, 2, seed=6)
     model = TS.StreamingBigFCM(TS.StreamConfig(n_clusters=2, window=2,
-                                               driver_sample=64), **CPU)
+                                               driver_sample=64,
+                                               backend="torch"), **CPU)
     seen = []
     model.add_snapshot_listener(lambda v, c, w: seen.append((v, c.shape,
                                                              type(c))))
     model.run(TD.replay_source(x, 300))
     assert seen == [(i, (2, 3), np.ndarray) for i in (1, 2, 3)]
     with pytest.raises(RuntimeError, match="no data"):
-        TS.StreamingBigFCM(TS.StreamConfig(n_clusters=2), **CPU).assign(x)
+        TS.StreamingBigFCM(TS.StreamConfig(n_clusters=2, backend="torch"),
+                           **CPU).assign(x)
 
 
 # ------------------------------------------------------------ checkpoint --

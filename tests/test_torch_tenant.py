@@ -211,7 +211,8 @@ def test_batched_wrappers_on_cpu_take_plain_path_and_launch_nothing():
                  x, w, v, m)))):
         for g, e in zip(got, want):
             assert torch.equal(g, e)
-    T.fit_tenants(_cohort(4, seed=5), T.TenantFitConfig(n_clusters=3),
+    T.fit_tenants(_cohort(4, seed=5),
+                  T.TenantFitConfig(n_clusters=3, backend="torch"),
                   device="cpu")
     assert fcm_accumulate_batched_cuda.launches == 0
     assert fcm_sweep_batched_cuda.launches == 0
@@ -322,7 +323,8 @@ def test_fit_tenants_matches_reference(case, looped):
     port_launches = port_obs.counter("tenant.fit.launches")
     ref_launches = ref_obs.counter("tenant.fit.launches")
     before = (port_launches.value, ref_launches.value)
-    got = port(data, T.TenantFitConfig(**kw), m_t=m_t, device="cpu")
+    got = port(data, T.TenantFitConfig(backend="torch", **kw), m_t=m_t,
+               device="cpu")
     want = ref(data, R.TenantFitConfig(backend="jnp", **kw), m_t=m_t)
     assert got.ids == want.ids
     assert got.centers.dtype == np.float32 and got.n_iter.dtype == np.int32
@@ -338,7 +340,7 @@ def test_port_batched_matches_port_looped():
     """tests/test_tenant.py:58 within the port: the batched fit against
     one fit per tenant through the single-model sweep."""
     data = _cohort(9, seed=1)
-    cfg = T.TenantFitConfig(n_clusters=3, seed=11)
+    cfg = T.TenantFitConfig(n_clusters=3, seed=11, backend="torch")
     b = T.fit_tenants(data, cfg, device="cpu")
     lp = T.fit_tenants_looped(data, cfg, device="cpu")
     _, xs = normalize_tenant_data(data)
