@@ -81,6 +81,20 @@ Phases, each printed as JSON lines; any failure raises and exits non-zero:
    `wfcmpb_store`, MR-FKM and `assign_store`.  The KDD99-like fit also
    prints `repro_torch.obs`'s phase breakdown, its ``data.cache``
    counters held to the chunks the fit reads.
+   Then ``fleet`` (`run_fleet_path`) over the HIGGS-like store, from
+   `driver_seeds` at the main path's draws: (a) `fleet_fit`, 4 host
+   threads x 2 shards on ``hopper``, counts zeroed just before it: no
+   host lost, K1 launches at the batch shape equal to the obs plane's
+   ``engine.sweep`` spans, K2 launches at the 2·C-point merge shape
+   equal to the hosts' pairwise merge recomputed over the gathered
+   frames, held against the ``torch`` backend's fleet and the 1-shard
+   store fit's global q (1e-5); (b) the bf16 wire (every frame element
+   within ``BF16_REL_BOUND``); (c) a straggler evicted and replanned; (d)
+   `spawn_fleet`, 3 host processes on the card, host 1 stopped after
+   the others posted, the survivors bit-equal to a fleet born at 2
+   hosts; (e) `mr_kmeans` on the KDD99-like array, its inertia held to
+   a float64 recompute.  K1 and K2 are held and timed at the fleet's own
+   inputs; their launches join the entries of the same shape.
    Then ``serve``: `ScoringService` over `Scorer` replicas at the
    KDD99-like fit's centers with benchmarks/t14_serve.py's traffic
    (1200 requests over 40 sizes in 16–1024 rows, 4096-row batches on a
@@ -1774,6 +1788,8 @@ def run_store_path(run: Run, held: dict, store_dir: Path, device) -> dict:
         f"store vs in-memory fit at {run.name}")
     record["vs_torch"] = hold_fit(ours["hopper"], ours["torch"], scale,
                                   f"store fit hopper vs torch at {run.name}")
+    # what the fleet phase holds its objective against
+    held["store_q"], held["scale"] = qs["hopper"], scale
     # One pass sums 11 or 5 launches' accumulators where one launch sums
     # its CTAs' partials: f32 summation order, 1e-5 of each output's scale
     # (v_num's: max w_i times the data's RMS).
@@ -1980,6 +1996,371 @@ def store_extras(run: Run, store, x_np, xd, held, q_one, centers, scale,
         rec["hard_ties_differing"] = label_ties(got.numpy(), want.numpy(),
                                                 xd, centers)
     return out
+
+
+# The fleet phase: benchmarks/t15_fleet.py's protocol (H simulated hosts,
+# each fitting its shards of one on-disk store, exchanging summary frames
+# and merging them identically, no reducer) at the HIGGS-like store of the
+# store phase, on the main path's config (C = 2, m = 2, hopper).
+FLEET_RUN = "higgs_like"
+FLEET_HOSTS, FLEET_SHARDS = 4, 2        # hosts x shards per host: 8 shards
+# per-shard pin budget: two 1,048,576 x 28 chunks, so every shard's chunks
+# load on the prefetch thread while the previous shard fits
+FLEET_PREFETCH_BYTES = 2 * STORE_CHUNK_ROWS * 28 * 4
+FLEET_STRAGGLER_FACTOR = 2.0            # tests/test_fleet.py's straggler
+FLEET_DELAY_S = 4000.0                  # a delayed host outsleeps the script
+
+
+def fleet_frames(transport, live) -> dict:
+    """The summary frames the ``live`` hosts posted at epoch 0."""
+    return transport.gather(0, live[0], live, "sum", 1.0)
+
+
+def fleet_shard_seconds() -> dict:
+    """Each host's per-shard fit seconds, from the ring's
+    ``fleet.shard_fit`` spans: {host: {shard: seconds}}."""
+    from repro_torch import obs
+    out = {}
+    for ev in obs.ring_events():
+        if ev.get("kind") == "span" and ev["name"] == "fleet.shard_fit":
+            out.setdefault(str(ev["host"]), {})[str(ev["shard"])] = \
+                ev["dur_s"]
+    return out
+
+
+def fleet_p50_ms() -> dict:
+    """p50 (ms) of the fleet's spans, from the ring's events."""
+    from repro_torch import obs
+    return {r["phase"]: r["p50_ms"]
+            for r in obs.phase_breakdown(obs.ring_events())
+            if r["phase"] in ("fleet.local_fit", "fleet.exchange",
+                              "fleet.objective", "fleet.shard_fit")}
+
+
+def hold_fleet_result(res, live, epoch, n, what) -> None:
+    import numpy as np
+    if res.live != live or res.epoch != epoch or res.n_rows != n or not (
+            np.isfinite(res.centers).all() and math.isfinite(res.objective)):
+        raise AssertionError(f"{what}: live {res.live}, epoch {res.epoch}, "
+                             f"rows {res.n_rows}, objective {res.objective}")
+
+
+def rel(a: float, b: float) -> float:
+    return abs(a - b) / abs(b)
+
+
+def sweep_expansion_atol(x, w, v, m) -> tuple:
+    """`expansion_atol` carried through K2's normalization v_new = v_num /
+    w_i: |v_num/w − (v_num + a)/(w + b)| ≤ (a + |v_num/w|·b) / (w − b)."""
+    from repro_torch.kernels.fcm_update import fcm_accumulate_ref
+    t_vn, t_w, t_q = expansion_atol(x, w, v, m)
+    vn, wi, _ = fcm_accumulate_ref(x, w, v, m)
+    v_new = vn / wi.clamp_min(1e-12)[:, None]
+    lo = (wi - t_w).clamp_min(1e-12)[:, None]
+    return (t_vn + v_new.abs() * t_w[:, None]) / lo, t_w, t_q
+
+
+def run_fleet_path(run: Run, held: dict, kdd: dict, store_dir: Path,
+                   entries: list, device) -> list:
+    """The fleet phase over ``run``'s store (phase 5's, still on disk):
+
+    (a) `fleet_fit`, FLEET_HOSTS threads x FLEET_SHARDS shards on the
+        card, f32 wire, launch counts and the obs registry zeroed just
+        before it: no host lost, K1 launches at the batch shape equal to
+        the obs plane's ``engine.sweep`` spans, K2 launches at the merge
+        shape equal to the hosts' pairwise merge recomputed over the
+        gathered frames, every launch on the plan's path; held against
+        the same fleet on the ``torch`` backend (centers 1e-3 of the RMS,
+        q 1e-4) and against the 1-shard store fit's global q (1e-5);
+    (b) the same fleet with the bf16 wire: every frame element within
+        ``BF16_REL_BOUND`` of (a)'s, the objective within 1e-3 of (a)'s;
+    (c) a straggler: 3 hosts x 2 shards, host 1 delayed, evicted and its
+        shards replanned onto the survivors;
+    (d) kill one host: `spawn_fleet` with 3 processes on the card over
+        the store's directory, host 1 stopped once hosts 0 and 2 have
+        posted their epoch-0 summaries; the survivors agree bit for bit
+        with each other and with a threaded fleet born at 2 hosts;
+    (e) `mr_kmeans` on the KDD99-like array from its main path's seeds.
+
+    Seeds are `driver_seeds` at the main path's injected draws.  Returns
+    the kernel entries of shapes no earlier entry has; the fleet's
+    launches at an earlier entry's shape are added to that entry."""
+    import numpy as np
+    import torch
+    from repro_torch import obs
+    from repro_torch.baselines import mr_kmeans
+    from repro_torch.core import driver_seeds
+    from repro_torch.data import ChunkStore, plan_partitions, replan
+    from repro_torch.engine import (MergePlan, Summary, concat,
+                                    merge_summaries)
+    from repro_torch.fleet import (BF16_REL_BOUND, FleetConfig,
+                                   MailboxTransport, collect_results,
+                                   decode_summary, fleet_fit, spawn_fleet,
+                                   watch_fleet)
+    from repro_torch.fleet.proc import MAIL_DIR
+    from repro_torch.kernels.fcm_update import (fcm_accumulate_cuda,
+                                                fcm_sweep_cuda, reset_counts)
+
+    cfg = held["cfg"]
+    store_path = store_dir / run.name
+    store = ChunkStore.open(str(store_path))
+    n, d, rows = store.n_rows, store.dim, store.chunk_rows
+    path = EXPECTED_PATH[run.name]
+    v_init = driver_seeds(store, cfg, sample_idx=held["sample_idx"],
+                          seed_idx=held["seed_idx"], device=device)
+    # The main path drew from default_rng(seed) as `driver_seeds` does, so
+    # a host given only the config (a spawned one) derives these seeds.
+    if not np.array_equal(driver_seeds(store, cfg, device=device), v_init):
+        raise AssertionError("fleet: default seeds differ from the main "
+                             "path's injected draws")
+    fleet = FleetConfig(n_hosts=FLEET_HOSTS, shards_per_host=FLEET_SHARDS,
+                        prefetch_bytes=FLEET_PREFETCH_BYTES)
+    rec = {"phase": "fleet", "run": run.name, "n": n, "d": d, "c": run.c,
+           "m": run.m, "chunks": store.n_chunks, "chunk_rows": rows,
+           "backend": cfg.backend, "reduced": []}
+
+    # -- (a): the main path of this phase, counts and obs zeroed before it
+    obs.reset_all()
+    obs.set_ring_size(1 << 16)
+    reset_counts()
+    tr = MailboxTransport()
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    res = fleet_fit(store, cfg, fleet, transport=tr, v_init=v_init,
+                    device=device)
+    torch.cuda.synchronize(device)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(device)
+    k1 = dict(fcm_accumulate_cuda.shapes)
+    k2 = dict(fcm_sweep_cuda.shapes)
+    by_shape = {"fcm_sweep": k2, "fcm_accumulate": k1}
+    sweeps = obs.metrics_snapshot()["histograms"]["span.engine.sweep"][
+        "count"]
+    counters = obs.metrics_snapshot()["counters"]
+    shard_s, p50 = fleet_shard_seconds(), fleet_p50_ms()
+    obs.reset_all()
+    obs.set_ring_size(obs.trace._ring_size())
+    hold_fleet_result(res, tuple(range(FLEET_HOSTS)), 0, n, "fleet (a)")
+    check_paths(run.name, fcm_sweep_cuda, fcm_accumulate_cuda)
+    batch_key = (path, rows, run.c)
+    if set(k1) != {batch_key} or k1[batch_key] != sweeps:
+        raise AssertionError(f"fleet (a): K1 launches {k1}, {sweeps} "
+                             "engine.sweep spans")
+    frames = fleet_frames(tr, res.live)
+    gathered = concat([decode_summary(frames[h])[0] for h in sorted(frames)])
+    gathered = Summary(gathered.centers.to(device),
+                       gathered.masses.to(device))
+    with uncounted():
+        again = merge_summaries(gathered, MergePlan(
+            "pairwise", m=cfg.m, eps=cfg.reducer_eps,
+            max_iter=cfg.max_iter), backend=cfg.backend)
+    if not np.array_equal(again.summary.centers.cpu().numpy(), res.centers):
+        raise AssertionError("fleet (a): the merge recomputed over the "
+                             "gathered frames differs from the fleet's")
+    merge_key = (path, 2 * run.c, run.c)
+    slots = gathered.centers.shape[0]
+    want_k2 = FLEET_HOSTS * (again.n_iter + slots - 1)
+    if set(k2) != {merge_key} or k2[merge_key] != want_k2:
+        raise AssertionError(f"fleet (a): K2 launches {k2}, expected "
+                             f"{want_k2} at {merge_key}")
+    rec["a_threads"] = {"hosts": FLEET_HOSTS, "shards_per_host": FLEET_SHARDS,
+                "wall_s": wall, "objective": res.objective,
+                "shard_seconds": shard_s, "p50_ms": p50,
+                "merge_sweeps_per_host": again.n_iter + slots - 1,
+                "exchange_bytes": sum(map(len, frames.values())),
+                "obs_exchange_bytes": counters.get(
+                    "fleet.exchange.bytes{wire=f32}"),
+                "prefetch_bytes": counters.get("fleet.prefetch.bytes", 0),
+                "peak_device_bytes": peak,
+                "launches": {"fcm_sweep": fcm_sweep_cuda.launches,
+                             "fcm_accumulate": fcm_accumulate_cuda.launches},
+                "launches_by_shape": {
+                    "fcm_sweep": shape_counts(fcm_sweep_cuda),
+                    "fcm_accumulate": shape_counts(fcm_accumulate_cuda)}}
+    if not rec["a_threads"]["prefetch_bytes"]:
+        raise AssertionError("fleet (a): no shard was prefetched")
+
+    # the same fleet on the torch backend, and the 1-shard store fit
+    twin = fleet_fit(store, dataclasses.replace(cfg, backend="torch"), fleet,
+                     v_init=v_init, device=device)
+    hold_fleet_result(twin, res.live, 0, n, "fleet (a) on torch")
+    rec["a_threads"]["vs_torch"] = {
+        "center_err_rel_rms": float(np.abs(res.centers - twin.centers).max())
+        / held["scale"], "q_rel": rel(res.objective, twin.objective)}
+    rec["a_threads"]["vs_store_fit"] = {"store_q": held["store_q"],
+                                "q_rel": rel(res.objective, held["store_q"])}
+    if rec["a_threads"]["vs_torch"]["center_err_rel_rms"] > 1e-3 or \
+            rec["a_threads"]["vs_torch"]["q_rel"] > 1e-4 or \
+            rec["a_threads"]["vs_store_fit"]["q_rel"] > 1e-5:
+        raise AssertionError(f"fleet (a): {rec['a_threads']}")
+
+    # -- (b): the bf16 wire
+    tr_b = MailboxTransport()
+    t0 = time.perf_counter()
+    res_b = fleet_fit(store, cfg, dataclasses.replace(fleet, wire="bf16"),
+                      transport=tr_b, v_init=v_init, device=device)
+    wall_b = time.perf_counter() - t0
+    hold_fleet_result(res_b, res.live, 0, n, "fleet (b)")
+    frames_b = fleet_frames(tr_b, res_b.live)
+    worst = 0.0
+    for h in sorted(frames):
+        exact, _ = decode_summary(frames[h])
+        quant, _ = decode_summary(frames_b[h])
+        for e, q in zip(exact, quant):
+            gap = (q - e).abs()
+            if bool((gap > BF16_REL_BOUND * e.abs()).any()):
+                raise AssertionError(f"fleet (b): host {h}'s bf16 frame "
+                                     "is off its f32 frame past the bound")
+            worst = max(worst, float((gap / e.abs().clamp_min(1e-30))
+                                     .max()))
+    rec["b_bf16"] = {"wall_s": wall_b, "objective": res_b.objective,
+                "q_rel_vs_a": rel(res_b.objective, res.objective),
+                "exchange_bytes": sum(map(len, frames_b.values())),
+                "frame_rel_err_max": worst,
+                "center_err_rel_rms": float(np.abs(
+                    res_b.centers - res.centers).max()) / held["scale"]}
+    if rec["b_bf16"]["q_rel_vs_a"] > 1e-3:
+        raise AssertionError(f"fleet (b): {rec['b_bf16']}")
+
+    # -- (c): a straggler evicted, its shards replanned onto the others
+    fleet_c = FleetConfig(n_hosts=3, shards_per_host=FLEET_SHARDS,
+                          prefetch_bytes=FLEET_PREFETCH_BYTES,
+                          debug_delay_s={1: FLEET_DELAY_S},
+                          straggler_factor=FLEET_STRAGGLER_FACTOR,
+                          straggler_min_s=0.4)
+    _, moved = replan(store, plan_partitions(store, 3 * FLEET_SHARDS),
+                      2 * FLEET_SHARDS)
+    obs.reset_all()
+    t0 = time.perf_counter()
+    res_c = fleet_fit(store, cfg, fleet_c, v_init=v_init, device=device)
+    wall_c = time.perf_counter() - t0
+    detected = obs.counter("fleet.straggler.detected").value
+    obs.reset_all()
+    hold_fleet_result(res_c, (0, 2), 1, n, "fleet (c)")
+    rec["c_straggler"] = {"wall_s": wall_c, "objective": res_c.objective,
+                "q_rel_vs_a": rel(res_c.objective, res.objective),
+                "moved_chunks": res_c.moved_chunks, "replan_moved": moved,
+                "straggler_detected": detected,
+                "shard_seconds": res_c.shard_seconds}
+    if res_c.moved_chunks != moved or moved == 0 or detected != 1 or \
+            rec["c_straggler"]["q_rel_vs_a"] > 1e-5:
+        raise AssertionError(f"fleet (c): {rec['c_straggler']}")
+
+    # -- (d): kill one host of a 3-process fleet; against a threaded fleet
+    #    born at 2 hosts (both derive their seeds from the config)
+    fleet_kw = dict(shards_per_host=FLEET_SHARDS,
+                    prefetch_bytes=FLEET_PREFETCH_BYTES,
+                    debug_delay_s={1: FLEET_DELAY_S}, gather_timeout_s=600.0)
+    born2 = fleet_fit(store, cfg, FleetConfig(
+        n_hosts=2, shards_per_host=FLEET_SHARDS,
+        prefetch_bytes=FLEET_PREFETCH_BYTES), device=device)
+    fleet_dir = store_dir / "fleet_kill"
+    mail = fleet_dir / MAIL_DIR
+    t0 = time.perf_counter()
+    procs = spawn_fleet(3, str(store_path), str(fleet_dir),
+                        dataclasses.asdict(cfg), fleet_kw,
+                        device=str(device))
+    try:
+        deadline = time.monotonic() + 600
+        while not all((mail / f"e0000.sum.h{h:04d}.bin").exists()
+                      for h in (0, 2)):
+            if time.monotonic() > deadline or not (
+                    procs[0].is_alive() and procs[2].is_alive()):
+                raise AssertionError(
+                    "fleet (d): hosts 0 and 2 never posted (exit codes "
+                    f"{[p.exitcode for p in procs.values()]})")
+            time.sleep(0.1)
+        posted_s = time.perf_counter() - t0
+        procs[1].terminate()
+        watch_fleet(procs, str(fleet_dir), timeout_s=600)
+    finally:
+        for p in procs.values():
+            if p.is_alive():
+                p.terminate()
+            p.join(timeout=60)
+    wall_d = time.perf_counter() - t0
+    codes = {h: p.exitcode for h, p in procs.items()}
+    results = collect_results(str(fleet_dir), 3)
+    if codes[0] != 0 or codes[2] != 0 or sorted(results) != [0, 2]:
+        raise AssertionError(f"fleet (d): exit codes {codes}, results from "
+                             f"{sorted(results)}")
+    r0, r2 = results[0], results[2]
+    rec["d_kill"] = {"wall_s": wall_d, "posted_s": posted_s, "exit_codes": codes,
+                "objective": float(r0["objective"]),
+                "moved_chunks": int(r0["moved_chunks"]),
+                "obs_moved": [float(r0["obs_moved"]), float(r2["obs_moved"])],
+                "born2_objective": born2.objective,
+                "center_err_vs_born2": float(np.abs(
+                    r0["centers"] - born2.centers).max()),
+                "q_rel_vs_born2": rel(float(r0["objective"]),
+                                      born2.objective),
+                "bit_equal_born2": bool(
+                    np.array_equal(r0["centers"], born2.centers)
+                    and float(r0["objective"]) == born2.objective)}
+    if not (list(r0["live"]) == list(r2["live"]) == [0, 2]
+            and int(r0["epoch"]) == 1 and int(r0["n_rows"]) == n
+            and int(r0["moved_chunks"]) == moved
+            and rec["d_kill"]["obs_moved"] == [moved, moved]
+            and np.array_equal(r0["centers"], r2["centers"])
+            and float(r0["objective"]) == float(r2["objective"])
+            and rec["d_kill"]["center_err_vs_born2"] <= 1e-5
+            and rec["d_kill"]["q_rel_vs_born2"] < 1e-5
+            and rec["d_kill"]["bit_equal_born2"]):
+        raise AssertionError(f"fleet (d): {rec['d_kill']}")
+
+    # -- (e): Mahout-KM on the KDD99-like array from its main path's seeds
+    xk = torch.from_numpy(kdd["x"]).to(device)
+    seeds = kdd["x"][kdd["sample_idx"]][kdd["seed_idx"]]
+    v_k, counts, inertia, n_jobs, elapsed = mr_kmeans(xk, seeds,
+                                                      device=device)
+    exact = 0.0
+    vk64 = v_k.double()
+    for i in range(0, xk.shape[0], 1 << 16):
+        xb = xk[i:i + (1 << 16)].double()
+        exact += float(((xb[:, None] - vk64[None]) ** 2).sum(-1)
+                       .min(-1).values.sum())
+    rec["e_kmeans"] = {"n": int(xk.shape[0]), "c": int(v_k.shape[0]),
+                "n_jobs": n_jobs, "elapsed_s": elapsed,
+                "inertia": float(inertia), "inertia_float64": exact,
+                "inertia_rel": rel(float(inertia), exact),
+                "counts_sum": float(counts.sum())}
+    if rec["e_kmeans"]["counts_sum"] != xk.shape[0] or rec["e_kmeans"]["inertia_rel"] > 1e-4:
+        raise AssertionError(f"fleet (e): {rec['e_kmeans']}")
+    del xk
+
+    # -- K1 at the batch shape and K2 at the merge shape against their
+    #    plain versions, on the fleet's own inputs: the store's first
+    #    batch at the fleet's centers, the first pair a host merges
+    centers = torch.from_numpy(res.centers).to(device)
+    xb = torch.from_numpy(np.array(store.chunk(0))).to(device)
+    pts = gathered.centers[:2].reshape(-1, d).contiguous()
+    wts = gathered.masses[:2].reshape(-1).contiguous()
+    heavier = bool(gathered.masses[0].sum() >= gathered.masses[1].sum())
+    v_pair = gathered.centers[0 if heavier else 1].contiguous()
+    cases = {"fleet_batch": (xb, torch.ones((rows,), dtype=torch.float32,
+                                            device=device), centers, 0.0),
+             "fleet_merge": (pts, wts, v_pair,
+                             sweep_expansion_atol(pts, wts, v_pair, run.m))}
+    new = []
+    with uncounted():
+        got = shape_entries(run.name, cases, by_shape, d, run.m, device,
+                            20, full=None)
+    for e in got:
+        twin = next((o for o in entries if o["name"] == e["name"]
+                     and o["shape"] == e["shape"]), None)
+        if twin is None:
+            new.append(e)
+            continue
+        twin["fleet_launches"] = e["launches"]
+        twin["launches"] += e["launches"]
+        twin["max_abs_err"] = max(twin["max_abs_err"], e["max_abs_err"])
+    rec["kernel_holds"] = [{k: e[k] for k in (
+        "name", "run", "shape", "launches", "max_abs_err", "ms", "plain_ms")}
+        for e in got]
+    obs.reset_all()
+    emit(rec)
+    return new
 
 
 # The stream phase.  Micro-batches of 262,144 rows (43 MB at d = 41);
@@ -3398,7 +3779,7 @@ def kernel_line(per_run) -> list:
                 "launches", "max_abs_err", "ms", "ms_per_call", "plain_ms",
                 "bound_ms", "bound_by", "bound_share", "shape", "path",
                 "source", "dsplits", "launch_ms", "member_library_ms",
-                "contraction_library_ms") if k in e}
+                "contraction_library_ms", "fleet_launches") if k in e}
                 for e in runs}})
     return out
 
@@ -3478,9 +3859,13 @@ def run_all(args, device) -> int:
     kdd_m = held["kdd99_like"]["cfg"].m
     try:
         for run in RUNS:
-            entries.append(run_store_path(run, held.pop(run.name),
-                                          store_dir, device))
+            run_held = held.pop(run.name)
+            entries.append(run_store_path(run, run_held, store_dir, device))
             torch.cuda.empty_cache()
+            if run.name == FLEET_RUN:
+                entries += run_fleet_path(run, run_held, held["kdd99_like"],
+                                          store_dir, entries, device)
+                torch.cuda.empty_cache()
     finally:
         shutil.rmtree(store_dir, ignore_errors=True)
     emit(run_serve(kdd_x, kdd_centers, kdd_m, args.seed, device))

@@ -17,6 +17,7 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().with_name("csrc")
@@ -83,10 +84,16 @@ def compile_source(name: str, *, verbose: bool = False) -> str:
     return proc.stdout + proc.stderr
 
 
+_LOAD_LOCK = threading.Lock()
+
+
 @functools.cache
 def load(name: str) -> ctypes.CDLL:
-    """The built library of ``csrc/<name>.cu``, compiled on first use."""
-    path = library_path(name)
-    if not path.exists():
-        compile_source(name)
-    return ctypes.CDLL(str(path))
+    """The built library of ``csrc/<name>.cu``, compiled on first use
+    (one build per process however many threads launch at once: the
+    temporary file is named by the process)."""
+    with _LOAD_LOCK:
+        path = library_path(name)
+        if not path.exists():
+            compile_source(name)
+        return ctypes.CDLL(str(path))

@@ -32,7 +32,8 @@ plain version.  The plan covers every (d, C): past the first versions'
 shared memory the C-tiled path walks the rows in chunks whose scratch
 stays within ``CTILED_SCRATCH_BYTES`` (`plan_ctiled`, `ctiled_chunks`).  Each wrapper counts its kernel launches in its
 ``launches`` attribute, and in ``shapes`` per (path, N, C) (single-model)
-or (path, T, N) (tenant-stacked); `reset_counts` zeroes both.
+or (path, T, N) (tenant-stacked), under one lock (host threads launch
+at once in a threaded fleet); `reset_counts` zeroes both.
 ``fcm_accumulate_ref`` / ``fcm_sweep_ref`` and
 ``fcm_accumulate_batched_ref`` / ``fcm_sweep_batched_ref`` are the plain
 PyTorch versions, written as `repro.kernels.ref` writes its oracles (the
@@ -44,6 +45,7 @@ import collections
 import ctypes
 import dataclasses
 import functools
+import threading
 from typing import Callable, Optional, Union
 
 import torch
@@ -825,9 +827,15 @@ def _launch(x, w, centers, m: float, normalize: bool,
     return out, plan.path
 
 
+_COUNT_LOCK = threading.Lock()
+
+
 def _count(fn, key) -> None:
-    fn.launches += 1
-    fn.shapes[key] += 1
+    """One launch of ``fn`` at ``key``: under a lock, so the counts stay
+    exact when host threads (a threaded fleet) launch at once."""
+    with _COUNT_LOCK:
+        fn.launches += 1
+        fn.shapes[key] += 1
 
 
 def fcm_accumulate_cuda(x, w, centers, m: float = 2.0):
@@ -936,9 +944,10 @@ WRAPPERS = (fcm_accumulate_cuda, fcm_sweep_cuda, fcm_accumulate_batched_cuda,
 
 def reset_counts() -> None:
     """Zero every wrapper's ``launches`` and ``shapes``."""
-    for fn in WRAPPERS:
-        fn.launches = 0
-        fn.shapes = collections.Counter()
+    with _COUNT_LOCK:
+        for fn in WRAPPERS:
+            fn.launches = 0
+            fn.shapes = collections.Counter()
 
 
 reset_counts()

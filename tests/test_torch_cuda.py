@@ -665,3 +665,43 @@ def test_swap_during_dispatch_on_the_card(card):
     assert svc.score(reqs[0], timeout=60).version == 99
     assert svc.compile_counts()["r0"] <= len(svc.buckets) * 1
     svc.close()
+
+
+# ------------------------------------------------------------- the fleet --
+
+def test_fleet_on_the_card(card, tmp_path):
+    """A 2-host threaded fleet through ``hopper`` on the card: every host's
+    batches launch K1 (its count exact across the two threads: one per
+    ``engine.sweep`` span), the gathered stack merges on the card (K2 at
+    the 2·C-point merge shape), and the fit agrees with the ``torch``
+    backend's from the same seeds."""
+    from repro_torch import obs
+    from repro_torch.fleet import FleetConfig, MailboxTransport, fleet_fit
+    x, _ = make_blobs(40_000, 6, 5, seed=3)
+    store = ChunkStore.ingest(x, chunk_rows=4096, cache_dir=str(tmp_path))
+    cfg = BigFCMConfig(n_clusters=5, use_driver=False, sample_size=512,
+                       seed=0, backend="hopper")
+    seeds = x[np.random.default_rng(0).choice(len(x), 5, replace=False)]
+    fleet = FleetConfig(n_hosts=2, shards_per_host=2)
+    obs.set_enabled(True)
+    obs.reset_all()
+    fcm_update.reset_counts()
+    try:
+        res = fleet_fit(store, cfg, fleet, transport=MailboxTransport(),
+                        v_init=seeds, device=card)
+        sweeps = obs.metrics_snapshot()["histograms"]["span.engine.sweep"][
+            "count"]
+    finally:
+        obs.reset_all()
+        obs.set_enabled(None)
+    assert res.live == (0, 1) and res.n_rows == 40_000
+    assert set(fcm_accumulate_cuda.shapes) == {("rows", 4096, 5)}
+    assert fcm_accumulate_cuda.launches == sweeps > 0
+    assert set(fcm_sweep_cuda.shapes) == {("rows", 10, 5)}
+    assert fcm_sweep_cuda.launches > 0 and fcm_sweep_cuda.launches % 2 == 0
+    twin = fleet_fit(store, dataclasses.replace(cfg, backend="torch"), fleet,
+                     v_init=seeds, device=card)
+    scale = float(np.sqrt(np.mean(x * x)))
+    np.testing.assert_allclose(res.centers, twin.centers, rtol=0,
+                               atol=1e-4 * scale)
+    assert abs(res.objective - twin.objective) / twin.objective < 1e-5

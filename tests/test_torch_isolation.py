@@ -121,7 +121,11 @@ def test_import_loads_no_jax_and_no_reference_module():
             "repro_torch.serve.scorer", "repro_torch.serve.service",
             "repro_torch.perf", "repro_torch.perf.microbench",
             "repro_torch.perf.roofline", "repro_torch.perf.calibrate",
-            "repro_torch.perf.autotune"} \
+            "repro_torch.perf.autotune", "repro_torch.fleet",
+            "repro_torch.fleet.host", "repro_torch.fleet.wire",
+            "repro_torch.fleet.transport", "repro_torch.fleet.sim",
+            "repro_torch.fleet.proc", "repro_torch.ft.elastic",
+            "repro_torch.baselines.kmeans"} \
         <= set(out["modules"])
     assert out["leaked"] == []
 
@@ -204,3 +208,63 @@ def test_serve_and_perf_entry_points_raise_without_a_card():
     assert len(out) == 3
     assert all(ln.startswith("raised:") and "device='cpu'" in ln
                for ln in out)
+
+
+_ALONE_NO_ML_DTYPES = """
+import json, sys
+import {module}
+print(json.dumps(sorted(m for m in sys.modules
+                        if m == "jax" or m.startswith(("jax.", "jaxlib"))
+                        or m == "ml_dtypes" or m.startswith("ml_dtypes.")
+                        or m == "repro" or m.startswith("repro."))))
+"""
+
+
+def test_fleet_ft_and_baselines_alone_load_no_jax_ml_dtypes_or_reference():
+    """The fleet (its wire codec rounds to bf16 itself), the straggler
+    helpers and the baselines load no jax, no ``ml_dtypes`` (the card's
+    machine has none) and nothing of `repro`."""
+    for module in ("repro_torch.fleet", "repro_torch.fleet.wire",
+                   "repro_torch.fleet.proc", "repro_torch.ft",
+                   "repro_torch.ft.elastic", "repro_torch.baselines",
+                   "repro_torch.baselines.kmeans"):
+        out = _run(_ALONE_NO_ML_DTYPES.format(module=module))
+        assert json.loads(out.strip().splitlines()[-1]) == [], module
+
+
+_NO_CARD_FLEET = """
+import tempfile
+import numpy as np
+from repro_torch.baselines import mr_kmeans
+from repro_torch.core import BigFCMConfig
+from repro_torch.data import ChunkStore
+from repro_torch.fleet import (FleetConfig, FleetHost, MailboxTransport,
+                               fleet_fit, run_fleet)
+x = np.zeros((16, 2), np.float32)
+root = tempfile.mkdtemp()
+store = ChunkStore.ingest(x, chunk_rows=8, cache_dir=root + "/store")
+cfg = BigFCMConfig(n_clusters=2, backend="torch")
+fleet = FleetConfig(n_hosts=2)
+calls = (lambda: fleet_fit(store, cfg, fleet),
+         lambda: FleetHost(0, store, cfg, fleet, MailboxTransport()),
+         lambda: run_fleet(2, root + "/store", root + "/run",
+                           cfg_kw=dict(n_clusters=2, backend="torch")),
+         lambda: mr_kmeans(x, x[:2]))
+for call in calls:
+    try:
+        call()
+    except RuntimeError as e:
+        print("raised:", e)
+    else:
+        print("ran")
+host = FleetHost(0, store, cfg, fleet, MailboxTransport(), device="cpu")
+print("cpu:", host.device, mr_kmeans(x, x[:2], device="cpu")[3])
+"""
+
+
+def test_fleet_and_kmeans_entry_points_raise_without_a_card():
+    out = _run(_NO_CARD_FLEET, CUDA_VISIBLE_DEVICES="").splitlines()
+    assert len(out) == 5
+    assert all(ln.startswith("raised:") and "device='cpu'" in ln
+               for ln in out[:4])
+    assert out[4] == "cpu: cpu 1"
