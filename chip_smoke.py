@@ -95,6 +95,29 @@ Phases, each printed as JSON lines; any failure raises and exits non-zero:
    hosts; (e) `mr_kmeans` on the KDD99-like array, its inertia held to
    a float64 recompute.  K1 and K2 are held and timed at the fleet's own
    inputs; their launches join the entries of the same shape.
+   Then ``mesh`` (`run_mesh_path`, after ``fleet``): `bigfcm_fit` on a
+   `repro_torch.mesh` device mesh of spawned ranks, the arrays saved
+   once under a temporary ``build/chip_smoke_mesh_*/`` and memory-mapped
+   by the ranks: (i) the HIGGS-like fit on a (4,) ("data",) mesh of 4
+   gloo ranks sharing the card (2,750,000 rows each), (ii) the
+   KDD99-like fit padded with one zero-weight phantom row to 4,898,432
+   rows on a (2, 2) ("pod", "data") mesh with the hierarchical reducer;
+   each bit-identical to the same fit composed here on one card from the
+   port's single-device functions (one combiner per block from the
+   broadcast seeds, the stacked summaries through `merge_summaries`, q
+   summed in rank order), every rank holding the same answer, and held
+   against the same mesh fit through the ``torch`` backend (from the
+   race's centers and branch) at the main path's bars; each rank prints
+   its wall, sweeps, K1/K2 launches by shape, host seconds in
+   collectives, bytes gathered and peak device memory; (iii) MR-FKM and
+   Mahout-KM over (i)'s mesh (20 jobs at most) against the single-card
+   baselines at atol 1e-4 with equal job counts; (iv) `mesh_exchange`
+   at 4 ranks, f32 and bf16, against the pairwise merge of the stack;
+   (v) NCCL at `torch.cuda.device_count()` ranks: the exchange, MR-FKM
+   and the sharded loader, and the HIGGS-like fit (at 1 rank the
+   single-device branch, bit-equal to `bigfcm_fit` without a mesh from
+   the same race; at 2 or more, at up to 4 ranks, bit-equal to the
+   composition).  The mesh runs' launches join the kernels line.
    Then ``serve``: `ScoringService` over `Scorer` replicas at the
    KDD99-like fit's centers with benchmarks/t14_serve.py's traffic
    (1200 requests over 40 sizes in 16–1024 rows, 4096-row batches on a
@@ -3743,6 +3766,552 @@ def run_tenant_service(ts, refit, seed, device) -> dict:
     return rec
 
 
+# --------------------------------------------------------------- mesh ---
+
+# The mesh phase: `bigfcm_fit` on a `repro_torch.mesh` device mesh of
+# spawned ranks.  (i) the HIGGS-like fit on a flat (4,) ("data",) mesh,
+# (ii) the KDD99-like fit, padded with one zero-weight phantom row to
+# 4,898,432 rows, on a (2, 2) ("pod", "data") mesh with the hierarchical
+# reducer: 4 gloo ranks sharing the card (NCCL refuses two ranks on one
+# GPU).  Then NCCL at `torch.cuda.device_count()` ranks.
+MESH_RUNS = {"higgs_like": ((4,), ("data",), False),
+             "kdd99_like": ((2, 2), ("pod", "data"), True)}
+MESH_JOBS = 20                     # MR-FKM / Mahout-KM job cap
+MESH_DEADLINE_S = 600.0
+MESH_LOADER_ROWS, MESH_LOADER_BATCH = 100_000, 32_768
+EXPECTED_PATH.update({"mesh_higgs_like": "rows", "mesh_kdd99_like": "tile"})
+
+
+class DriverTap:
+    """Wraps `repro_torch.core.bigfcm.run_driver`: the race runs (on the
+    mesh's rank 0) and its centers and flag are kept; `pin` then hands a
+    later fit those centers and that flag without a race."""
+
+    def __init__(self):
+        from repro_torch.core import bigfcm
+        self.module, self.real = bigfcm, bigfcm.run_driver
+        self.out = None
+        bigfcm.run_driver = self
+
+    def __call__(self, x_sample, cfg, *, seed_idx, device):
+        if self.out is not None:
+            return self.out
+        out = self.real(x_sample, cfg, seed_idx=seed_idx, device=device)
+        self.out = (out[0].clone(), bool(out[1]), 0.0, 0.0)
+        return out
+
+    def close(self):
+        self.module.run_driver = self.real
+
+
+def mesh_fit(x, w, cfg, mesh, axes, device):
+    """One mesh fit on this rank, launch counts and the obs counters
+    zeroed just before it and read just after: its result and what this
+    rank spent."""
+    import torch
+    from repro_torch import obs
+    from repro_torch.core import bigfcm_fit
+    from repro_torch.device import synchronize
+    from repro_torch.kernels.fcm_update import (fcm_accumulate_cuda,
+                                                fcm_sweep_cuda, reset_counts)
+    obs.reset_metrics()
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats(device)
+    synchronize(device)
+    t0 = time.perf_counter()
+    res = bigfcm_fit(x, cfg, mesh=mesh, data_axes=axes, point_weights=w)
+    q = float(res.objective)
+    synchronize(device)
+    wall = time.perf_counter() - t0
+    return res, {
+        "wall_s": wall, "q": q, "flag": res.diagnostics.flag,
+        "combiner_iters": list(res.diagnostics.combiner_iters),
+        "reducer_iters": res.diagnostics.reducer_iters,
+        "launches": {"fcm_sweep": fcm_sweep_cuda.launches,
+                     "fcm_accumulate": fcm_accumulate_cuda.launches},
+        "shapes": {"fcm_sweep": dict(fcm_sweep_cuda.shapes),
+                   "fcm_accumulate": dict(fcm_accumulate_cuda.shapes)},
+        "collective_s": obs.counter("mesh.collective_s").value,
+        "gathered_bytes": obs.counter("mesh.gathered_bytes").value,
+        "peak_bytes": torch.cuda.max_memory_allocated(device)}
+
+
+def mesh_load(paths):
+    """A run's saved array and weights, memory-mapped."""
+    import numpy as np
+    x_path, w_path = paths
+    return (np.load(x_path, mmap_mode="r"),
+            None if w_path is None else np.load(w_path, mmap_mode="r"))
+
+
+def mesh_rank_job(mesh, arrays, cfgs, stack):
+    """Phase (i)–(iv) on one of the 4 gloo ranks (module-level: spawned
+    ranks import it)."""
+    import dataclasses as dc
+    import torch
+    from repro_torch.baselines import mr_fuzzy_kmeans, mr_kmeans
+    from repro_torch.core import bigfcm_fit
+    from repro_torch.engine import Summary
+    from repro_torch.fleet import mesh_exchange
+    from repro_torch.mesh import make_mesh, rank_device
+    dev = rank_device(mesh)
+    out = {"runs": {}}
+    for name, (shape, names, hier) in MESH_RUNS.items():
+        x, w = mesh_load(arrays[name])
+        m = mesh if shape == (4,) else make_mesh(shape, names)
+        cfg = dc.replace(cfgs[name], hierarchical=hier)
+        # a warm-up fit (the process's first launches, library loads),
+        # as the main path's fits run in a warm process
+        bigfcm_fit(x, cfg, mesh=m, data_axes=names, point_weights=w)
+        tap = DriverTap()
+        try:
+            res, rec = mesh_fit(x, w, cfg, m, names, dev)
+            # the same mesh fit through the torch backend, from the
+            # centers and branch the race kept (rank 0 ran it)
+            t_res, t_rec = mesh_fit(x, w, dc.replace(cfg, backend="torch"),
+                                    m, names, dev)
+        finally:
+            tap.close()
+        rec.update(centers=res.centers.cpu(), masses=res.center_weights.cpu(),
+                   v_init=None if tap.out is None else tap.out[0].cpu(),
+                   torch={"centers": t_res.centers.cpu(), "q": t_rec["q"],
+                          "combiner_iters": t_rec["combiner_iters"],
+                          "reducer_iters": t_rec["reducer_iters"],
+                          "wall_s": t_rec["wall_s"]})
+        out["runs"][name] = rec
+        del res, t_res
+        torch.cuda.empty_cache()
+    # (iii) the per-iteration-job baselines over (i)'s mesh
+    x, _ = mesh_load(arrays["higgs_like"])
+    init = torch.from_numpy(x[:cfgs["higgs_like"].n_clusters].copy())
+    fkm, jobs, fkm_s = mr_fuzzy_kmeans(x, init, m=cfgs["higgs_like"].m,
+                                       eps=cfgs["higgs_like"].combiner_eps,
+                                       max_iter=MESH_JOBS, mesh=mesh,
+                                       backend="hopper")
+    km = mr_kmeans(x, init, max_iter=MESH_JOBS, mesh=mesh)
+    out["fkm"] = {"centers": fkm.centers.cpu(), "jobs": jobs, "s": fkm_s}
+    out["km"] = {"centers": km[0].cpu(), "counts": km[1].cpu(),
+                 "jobs": km[3], "s": km[4]}
+    # (iv) the stack through the exchange, each rank casting its own slot
+    stacked = Summary(*(torch.from_numpy(a) for a in stack))
+    out["exchange"] = {wire: mesh_exchange(stacked, mesh, backend="hopper",
+                                           wire_dtype=wire).centers.cpu()
+                       for wire in ("f32", "bf16")}
+    return out
+
+
+def mesh_nccl_job(mesh, arrays, cfgs, stack, fit_only):
+    """Phase (v) on one NCCL rank: the exchange, MR-FKM and the loader
+    over NCCL, and the HIGGS-like fit on the (P,) mesh."""
+    import torch
+    from repro_torch.baselines import mr_fuzzy_kmeans
+    from repro_torch.data import ShardedLoader
+    from repro_torch.engine import Summary
+    from repro_torch.fleet import mesh_exchange
+    from repro_torch.mesh import mesh_size, rank_device
+    dev = rank_device(mesh)
+    x, w = mesh_load(arrays["higgs_like"])
+    cfg = cfgs["higgs_like"]
+    tap = DriverTap()
+    try:
+        res, rec = mesh_fit(x, w, cfg, mesh, ("data",), dev)
+    finally:
+        tap.close()
+    rec.update(centers=res.centers.cpu(), masses=res.center_weights.cpu(),
+               v_init=None if tap.out is None else tap.out[0].cpu())
+    out = {"fit": rec}
+    if fit_only:
+        return out
+    p = mesh_size(mesh)
+    stacked = Summary(*(torch.from_numpy(a[:p]) for a in stack))
+    out["exchange"] = mesh_exchange(stacked, mesh,
+                                    backend="hopper").centers.cpu()
+    init = torch.from_numpy(x[:cfg.n_clusters].copy())
+    fkm, jobs, _ = mr_fuzzy_kmeans(x, init, m=cfg.m, eps=cfg.combiner_eps,
+                                   max_iter=MESH_JOBS, mesh=mesh,
+                                   backend="hopper")
+    out["fkm"] = {"centers": fkm.centers.cpu(), "jobs": jobs}
+    rows = MESH_LOADER_ROWS - MESH_LOADER_ROWS % p
+    out["loader"] = [(bx.cpu(), bw.cpu()) for bx, bw in ShardedLoader(
+        x[:rows], MESH_LOADER_BATCH, mesh=mesh, cache=False)]
+    return out
+
+
+def mesh_blocks(x, w, p, device) -> list:
+    """The ``P(("data",))`` row blocks of a host array (and its weights)
+    on the card, in rank order."""
+    import numpy as np
+    import torch
+    per = x.shape[0] // p
+    out = []
+    for r in range(p):
+        xb = torch.tensor(np.asarray(x[r * per:(r + 1) * per]),
+                          device=device)
+        wb = (torch.ones((per,), dtype=xb.dtype, device=device) if w is None
+              else torch.tensor(np.asarray(w[r * per:(r + 1) * per]),
+                                device=device))
+        out.append((xb, wb))
+    return out
+
+
+def combine_blocks(blocks, v_init, flag, cfg, backend, device) -> list:
+    """One combiner per block from the broadcast seeds (FCM if the race
+    kept FCM, else WFCMPB), through ``backend``."""
+    from repro_torch.core import fcm, wfcmpb
+    kw = dict(m=cfg.m, eps=cfg.combiner_eps, max_iter=cfg.max_iter,
+              backend=backend, device=device)
+    return [fcm(xb, v_init, point_weights=wb, **kw) if flag else
+            wfcmpb(xb, v_init, block_size=cfg.block_size, point_weights=wb,
+                   **kw) for xb, wb in blocks]
+
+
+def reduce_blocks(sums, cfg, shape, names, backend):
+    """The reducer plan over the combiners' summaries as rank 0 runs it:
+    once over the stack, or per hierarchy level (its pod's merge seeded
+    with its own centers, each pod's data-0 rank likewise, then across
+    pods seeded with its own mid-level centers)."""
+    import torch
+    from repro_torch.engine import Summary, merge_summaries
+    plan = cfg.reducer_plan()
+
+    def merge(part, init):
+        return merge_summaries(
+            Summary(torch.stack([s.centers for s in part]),
+                    torch.stack([s.masses for s in part])),
+            plan, backend=backend, init=init)
+
+    if not (cfg.hierarchical and "pod" in names):
+        return merge(sums, None)
+    n_data = shape[names.index("data")]
+    mids = [merge(sums[pd * n_data:(pd + 1) * n_data],
+                  sums[pd * n_data].centers).summary
+            for pd in range(shape[names.index("pod")])]
+    return merge(mids, mids[0].centers)
+
+
+def global_q(blocks, centers, m, backend) -> float:
+    """K1's q of ``centers`` on each block, added in rank order."""
+    from repro_torch.engine import get_backend
+    from repro_torch.mesh import sum_in_order
+    be = get_backend(backend)
+    return float(sum_in_order([be.accumulate(xb, wb, centers, m)[2]
+                               for xb, wb in blocks]))
+
+
+def summaries(fits) -> list:
+    from repro_torch.engine import Summary
+    return [Summary(f.centers, f.center_weights) for f in fits]
+
+
+def compose_fit(blocks, cfg, shape, names, v_init, flag, device):
+    """The mesh fit composed in this process on one card from the port's
+    single-device functions on the same blocks, from the broadcast seeds:
+    one combiner per block, the stacked summaries through
+    `merge_summaries` (per hierarchy level as rank 0 runs them), q summed
+    in rank order.  Returns ((centers, masses, q, combiner sweeps,
+    reducer sweeps), the combiners)."""
+    locs = combine_blocks(blocks, v_init, flag, cfg, cfg.backend, device)
+    red = reduce_blocks(summaries(locs), cfg, shape, names, cfg.backend)
+    centers = red.summary.centers
+    return ((centers, red.summary.masses,
+             global_q(blocks, centers, cfg.m, cfg.backend),
+             [lo.n_iter for lo in locs], red.n_iter), locs)
+
+
+def hold_stages(blocks, locs, want, cfg, shape, names, v_init, flag, scale,
+                device) -> dict:
+    """The mesh fit against the ``torch`` backend stage by stage, each
+    stage from the same inputs: the combiners from the broadcast seeds,
+    the reducer over the kernel combiners' summaries, the global q of the
+    kernel fit's centers; at the main path's bars (centers 1e-3 of the
+    data's RMS, q 1e-4, sweeps ±2).  The reducer is held only where it is
+    fixed at f32: where the same reducer over the summaries scaled by
+    1 + 2⁻²² (K2 again) lands within those bars of the unscaled one;
+    otherwise its gap to ``torch`` is printed beside the nudge's."""
+    centers, _, q, iters, r_it = want
+    t_locs = combine_blocks(blocks, v_init, flag, cfg, "torch", device)
+    comb = {"center_err_rel_rms": max(
+        float((a.centers - b.centers).abs().max())
+        for a, b in zip(locs, t_locs)) / scale,
+        "iters": [iters, [lo.n_iter for lo in t_locs]]}
+    sums = summaries(locs)
+    t_red = reduce_blocks(sums, cfg, shape, names, "torch")
+    nudge = 1 + 2.0 ** -22
+    n_red = reduce_blocks([s._replace(centers=s.centers * nudge)
+                           for s in sums], cfg, shape, names, cfg.backend)
+    red = {"center_err_rel_rms": float(
+        (t_red.summary.centers - centers).abs().max()) / scale,
+        "iters": [r_it, t_red.n_iter],
+        "nudged_center_err_rel_rms": float(
+            (n_red.summary.centers / nudge - centers).abs().max()) / scale,
+        "nudged_iters": n_red.n_iter}
+    red["fixed_at_f32"] = (red["nudged_center_err_rel_rms"] <= 1e-3
+                           and abs(n_red.n_iter - r_it) <= 2)
+    q_t = global_q(blocks, centers, cfg.m, "torch")
+    rec = {"combiners": comb, "reducer": red, "q_rel": abs(q - q_t) / abs(q_t)}
+    if (comb["center_err_rel_rms"] > 1e-3 or any(
+            abs(a - b) > 2 for a, b in zip(*comb["iters"]))
+            or rec["q_rel"] > 1e-4 or (red["fixed_at_f32"] and (
+                red["center_err_rel_rms"] > 1e-3
+                or abs(t_red.n_iter - r_it) > 2))):
+        raise AssertionError(f"mesh stages vs torch: {rec}")
+    return rec
+
+
+def hold_bits(got, want, what) -> None:
+    """A mesh fit's result equal bit for bit to the composition's."""
+    import torch
+    centers, masses, q, iters, r_it = want
+    same = {"centers": torch.equal(got["centers"], centers.cpu()),
+            "masses": torch.equal(got["masses"], masses.cpu()),
+            "q": got["q"] == q, "combiner_iters": got["combiner_iters"] == iters,
+            "reducer_iters": got["reducer_iters"] == r_it}
+    if not all(same.values()):
+        raise AssertionError(f"{what}: not bit-identical to the composition "
+                             f"in one process: {same}")
+
+
+def mesh_rank_lines(phase, ranks, key) -> list:
+    """What each rank spent on one run (one printed line each)."""
+    return [{"phase": phase, "rank": rank, "run": key,
+             **{k: r[k] for k in ("wall_s", "combiner_iters", "launches",
+                                  "collective_s", "gathered_bytes",
+                                  "peak_bytes")},
+             "launches_by_shape": {k: {" ".join([s[0], "x".join(
+                 map(str, s[1:]))]): v for s, v in sorted(
+                     shapes.items(), key=str)}
+                 for k, shapes in r["shapes"].items()}}
+            for rank, r in enumerate(ranks)]
+
+
+def mesh_entries(run, name, x, w, centers, ranks, device) -> list:
+    """The mesh run's kernel entries: launches summed over the ranks (each
+    checked against the run's expected path), each kernel held against
+    its plain version and timed at the block shape and at every other
+    size the ranks launched it at (their first records)."""
+    import numpy as np
+    import torch
+    by_shape = {k: collections.Counter() for k in ("fcm_sweep",
+                                                   "fcm_accumulate")}
+    for r in ranks:
+        for k, shapes in r["shapes"].items():
+            by_shape[k].update(shapes)
+    off = {k: v for shapes in by_shape.values() for k, v in shapes.items()
+           if k[0] != EXPECTED_PATH[name]}
+    if off:
+        raise AssertionError(f"{name}: launches off the expected "
+                             f"{EXPECTED_PATH[name]!r} path: {off}")
+    per = x.shape[0] // len(ranks)
+    xb = torch.tensor(np.asarray(x[:per]), device=device)
+    wb = (torch.ones((per,), device=device) if w is None
+          else torch.tensor(np.asarray(w[:per]), device=device))
+    v = centers.to(device)
+    cases = {"full": (xb, wb, v, 0.0)}
+    for ns in sorted({k[1] for shapes in by_shape.values() for k in shapes}
+                     - {per}):
+        cases[f"n={ns}"] = (xb[:ns], wb[:ns], v,
+                            q_rounding_bound(xb[:ns], wb[:ns], v))
+    return shape_entries(name, cases, by_shape, x.shape[1], run.m, device,
+                         reps=10)
+
+
+def run_mesh_path(held_x: dict, cfgs: dict, seed: int, mesh_dir: Path,
+                  device) -> list:
+    """The mesh phase (module note, 7): returns its kernel entries."""
+    import dataclasses as dc
+    import numpy as np
+    import torch
+    from repro_torch.baselines import mr_fuzzy_kmeans, mr_kmeans
+    from repro_torch.core import bigfcm_fit
+    from repro_torch.data.plane import batched
+    from repro_torch.engine import MergePlan, Summary, merge_summaries
+    from repro_torch.fleet import BF16_REL_BOUND
+    from repro_torch.mesh import spawn_mesh
+    t_phase = time.perf_counter()
+    arrays = {}
+    for name, x in held_x.items():
+        w = None
+        if x.shape[0] % 4:              # pad with zero-weight phantom rows
+            pad = 4 - x.shape[0] % 4
+            x = np.concatenate([x, np.zeros((pad, x.shape[1]), x.dtype)])
+            w = np.ones((x.shape[0],), np.float32)
+            w[-pad:] = 0.0
+            np.save(mesh_dir / f"{name}_w.npy", w)
+        np.save(mesh_dir / f"{name}.npy", x)
+        arrays[name] = (str(mesh_dir / f"{name}.npy"),
+                        None if w is None else str(mesh_dir / f"{name}_w.npy"))
+    rng = np.random.default_rng(seed)
+    stack = (rng.normal(scale=5.0, size=(4, 23, 41)).astype(np.float32),
+             rng.uniform(0.5, 2.0, size=(4, 23)).astype(np.float32))
+    setup_s = time.perf_counter() - t_phase
+
+    t0 = time.perf_counter()
+    ranks = spawn_mesh(mesh_rank_job, (4,), ("data",), backend="gloo",
+                       timeout_s=MESH_DEADLINE_S,
+                       args=(arrays, cfgs, stack))
+    gloo_s = time.perf_counter() - t0
+    entries, records = [], []
+    for name, (shape, names, hier) in MESH_RUNS.items():
+        x, w = mesh_load(arrays[name])
+        got = [r["runs"][name] for r in ranks]
+        cfg = dc.replace(cfgs[name], hierarchical=hier)
+        for r in got[1:]:
+            for k in ("centers", "masses"):
+                if not torch.equal(r[k], got[0][k]):
+                    raise AssertionError(f"mesh {name}: ranks differ ({k})")
+        v_init, flag = got[0]["v_init"].to(device), got[0]["flag"]
+        blocks = mesh_blocks(x, w, 4, device)
+        want, locs = compose_fit(blocks, cfg, shape, names, v_init, flag,
+                                 device)
+        hold_bits(got[0], want, f"mesh {name}")
+        scale = float(np.sqrt(np.mean(np.square(
+            x[:1_000_000].astype(np.float64)))))
+        stages = hold_stages(blocks, locs, want, cfg, shape, names, v_init,
+                             flag, scale, device)
+        del blocks, locs
+        # the whole mesh fit through `torch` (the ranks' second fit, from
+        # the race's centers and branch): held where the reducer is fixed
+        # at f32, printed where a 1 + 2^-22 nudge moves it past the bars
+        t = got[0]["torch"]
+        free = ((got[0]["centers"], got[0]["q"],
+                 (*got[0]["combiner_iters"], got[0]["reducer_iters"])),
+                (t["centers"], t["q"], (*t["combiner_iters"],
+                                        t["reducer_iters"])))
+        if stages["reducer"]["fixed_at_f32"]:
+            vs_torch = hold_fit(*free, scale, f"mesh {name} hopper vs torch")
+        else:
+            (va, qa, ia), (vb, qb, ib) = free
+            vs_torch = {"center_err_rel_rms": float((va - vb).abs().max())
+                        / scale, "q_rel": abs(qa - qb) / abs(qb),
+                        "iters": [ia, ib], "held": False}
+        if not (bool(torch.isfinite(got[0]["centers"]).all())
+                and math.isfinite(got[0]["q"])):
+            raise AssertionError(f"mesh {name}: non-finite output")
+        run = next(r for r in RUNS if r.name == name)
+        records.append({
+            "phase": "mesh", "run": name, "mesh": list(shape),
+            "axes": list(names), "hierarchical": hier, "backend": "gloo",
+            "rows": int(x.shape[0]), "rows_per_rank": int(x.shape[0]) // 4,
+            "flag": got[0]["flag"], "q": got[0]["q"],
+            "combiner_iters": got[0]["combiner_iters"],
+            "reducer_iters": got[0]["reducer_iters"],
+            "wall_s": [r["wall_s"] for r in got],
+            "bit_identical_to_composition": True, "stages_vs_torch": stages,
+            "vs_torch": vs_torch,
+            "torch_wall_s": t["wall_s"]})
+        records += mesh_rank_lines("mesh_rank", got, name)
+        entries += mesh_entries(run, f"mesh_{name}", x, w, got[0]["centers"],
+                                got, device)
+        torch.cuda.empty_cache()
+
+    # (iii) against the single-device baselines on the card
+    x, _ = mesh_load(arrays["higgs_like"])
+    hcfg = cfgs["higgs_like"]
+    xd = torch.from_numpy(np.asarray(x)).to(device)
+    init = xd[:hcfg.n_clusters].clone()
+    fkm1, fkm1_jobs, _ = mr_fuzzy_kmeans(xd, init, m=hcfg.m,
+                                         eps=hcfg.combiner_eps,
+                                         max_iter=MESH_JOBS,
+                                         backend="hopper", device=device)
+    km1 = mr_kmeans(xd, init, max_iter=MESH_JOBS, device=device)
+    del xd
+    torch.cuda.empty_cache()
+    fkm1_c = fkm1.centers.cpu()
+    base = {"fkm_jobs": [r["fkm"]["jobs"] for r in ranks] + [fkm1_jobs],
+            "km_jobs": [r["km"]["jobs"] for r in ranks] + [km1[3]],
+            "fkm_err": max(float((r["fkm"]["centers"] - fkm1_c).abs().max())
+                           for r in ranks),
+            "km_err": max(float((r["km"]["centers"] - km1[0].cpu())
+                                .abs().max()) for r in ranks),
+            "fkm_s": [r["fkm"]["s"] for r in ranks],
+            "km_s": [r["km"]["s"] for r in ranks]}
+    if (len(set(base["fkm_jobs"])) != 1 or len(set(base["km_jobs"])) != 1
+            or base["fkm_err"] > 1e-4 or base["km_err"] > 1e-4):
+        raise AssertionError(f"mesh baselines vs one card: {base}")
+    # (iv) the exchange against the pairwise merge of the stack here
+    def pairwise(p):
+        return merge_summaries(
+            Summary(torch.from_numpy(stack[0][:p]).to(device),
+                    torch.from_numpy(stack[1][:p]).to(device)),
+            MergePlan("pairwise"), backend="hopper").summary.centers.cpu()
+    merged = pairwise(4)
+    ex_scale = float(merged.abs().max())
+    exchange = {w: max(float((r["exchange"][w] - merged).abs().max())
+                       for r in ranks) for w in ("f32", "bf16")}
+    exchange["f32_bit_identical"] = all(
+        torch.equal(r["exchange"]["f32"], merged) for r in ranks)
+    if exchange["f32"] > 1e-5 * ex_scale or \
+            exchange["bf16"] > 16 * BF16_REL_BOUND * ex_scale:
+        raise AssertionError(f"mesh_exchange vs the pairwise merge: "
+                             f"{exchange}")
+    records.append({"phase": "mesh_baselines", "gloo_ranks": 4, **base,
+                    "exchange_max_abs_err": exchange,
+                    "exchange_scale": ex_scale})
+
+    # (v) NCCL at the card count (with 2-4 cards its HIGGS-like fit is
+    # (i) again over NCCL; past 4 cards, (i) runs again at 4 ranks)
+    count = torch.cuda.device_count()
+    t0 = time.perf_counter()
+    worlds = [(count, False)] + ([(4, True)] if count > 4 else [])
+    for p, fit_only in worlds:
+        nccl = spawn_mesh(mesh_nccl_job, (p,), ("data",), backend="nccl",
+                          timeout_s=MESH_DEADLINE_S,
+                          args=(arrays, cfgs, stack, fit_only))
+        got = nccl[0]["fit"]
+        if p == 1:
+            # the single-device branch: bigfcm_fit without a mesh, from
+            # the race's own centers and branch
+            tap = DriverTap()
+            tap.out = (got["v_init"].to(device), got["flag"], 0.0, 0.0)
+            try:
+                one = bigfcm_fit(x, hcfg, device=device)
+            finally:
+                tap.close()
+            want = (one.centers, one.center_weights, float(one.objective),
+                    list(one.diagnostics.combiner_iters),
+                    one.diagnostics.reducer_iters)
+        else:
+            want, _ = compose_fit(mesh_blocks(x, None, p, device), hcfg,
+                                  (p,), ("data",), got["v_init"].to(device),
+                                  got["flag"], device)
+        hold_bits(got, want, f"nccl mesh fit at {p} ranks")
+        rec = {"phase": "mesh_nccl", "ranks": p, "flag": got["flag"],
+               "q": got["q"], "combiner_iters": got["combiner_iters"],
+               "wall_s": [r["fit"]["wall_s"] for r in nccl],
+               "bit_identical": True}
+        if not fit_only:
+            rows = MESH_LOADER_ROWS - MESH_LOADER_ROWS % p
+            host = list(batched(iter([np.asarray(x[:rows])]),
+                                MESH_LOADER_BATCH))
+            loader_ok = all(len(r["loader"]) == len(host) for r in nccl) \
+                and all(
+                    torch.equal(torch.cat([r["loader"][i][0] for r in nccl]),
+                                torch.from_numpy(bx))
+                    and torch.equal(torch.cat([r["loader"][i][1]
+                                               for r in nccl]),
+                                    torch.from_numpy(bw))
+                    for i, (bx, bw) in enumerate(host))
+            rec.update(
+                exchange_max_abs_err=max(float((r["exchange"] - pairwise(p))
+                                               .abs().max()) for r in nccl),
+                fkm_jobs=[r["fkm"]["jobs"] for r in nccl],
+                fkm_err=max(float((r["fkm"]["centers"] - fkm1_c).abs().max())
+                            for r in nccl),
+                loader_batches=len(host), loader_ok=loader_ok)
+            if (not loader_ok or rec["exchange_max_abs_err"] > 1e-5 * ex_scale
+                    or set(rec["fkm_jobs"]) != {fkm1_jobs}
+                    or rec["fkm_err"] > 1e-4):
+                raise AssertionError(f"nccl mesh at {p} ranks: {rec}")
+        records.append(rec)
+    nccl_s = time.perf_counter() - t0
+    records.append({"phase": "mesh_done", "setup_s": setup_s,
+                    "gloo_spawn_s": gloo_s, "nccl_s": nccl_s,
+                    "seconds": time.perf_counter() - t_phase})
+    for rec in records:
+        emit(rec)
+    return entries
+
+
 def bound_batched(t: int, n: int, d: int, c: int):
     """(ms, what sets it) for one tenant-stacked sweep: the (T, N, d)
     block, its (T, N) weights, V and m read once, the outputs written
@@ -3857,6 +4426,8 @@ def run_all(args, device) -> int:
     kdd_x = held["kdd99_like"]["x"]
     kdd_centers = held["kdd99_like"]["centers"]["hopper"].numpy()
     kdd_m = held["kdd99_like"]["cfg"].m
+    mesh_x = {run.name: held[run.name]["x"] for run in RUNS}
+    mesh_cfgs = {run.name: held[run.name]["cfg"] for run in RUNS}
     try:
         for run in RUNS:
             run_held = held.pop(run.name)
@@ -3868,6 +4439,14 @@ def run_all(args, device) -> int:
                 torch.cuda.empty_cache()
     finally:
         shutil.rmtree(store_dir, ignore_errors=True)
+    mesh_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_mesh_", dir=stores))
+    try:
+        entries += run_mesh_path(mesh_x, mesh_cfgs, args.seed, mesh_dir,
+                                 device)
+    finally:
+        shutil.rmtree(mesh_dir, ignore_errors=True)
+    del mesh_x
+    torch.cuda.empty_cache()
     emit(run_serve(kdd_x, kdd_centers, kdd_m, args.seed, device))
     torch.cuda.empty_cache()
     ckpt_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_stream_", dir=stores))

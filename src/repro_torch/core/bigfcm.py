@@ -1,7 +1,8 @@
-"""BigFCM (paper Algorithm 3), single device — the port's main path.
+"""BigFCM (paper Algorithm 3) on one device or a device mesh — the
+port's main path.
 
-Counterpart of `repro.core.bigfcm`, in-memory single-device branch and
-out-of-core path:
+Counterpart of `repro.core.bigfcm`: the in-memory fit on one device or on
+a `repro_torch.mesh` device mesh, and the out-of-core path:
 
   Driver   — sample λ records (Parker–Hall), run plain FCM *and* WFCMPB
              on the sample, time both, keep the faster one's centers
@@ -41,14 +42,27 @@ spans inside the latter, and ``engine.driver_race`` /
 ``engine.fit.done`` events.  The spans read the host clock only; each
 ends after its fit's sweeps have read ΔV² back from the card.
 
-Not in this slice: the device mesh (multi-GPU combiners), which raises
-`NotImplementedError`.
+**On a mesh** (``mesh=``, a `repro_torch.mesh.make_mesh` mesh of more
+than one rank; every rank calls `bigfcm_fit` with the same arguments):
+each rank holds the global ``x`` in host memory, as the reference's
+``device_put`` receives it, and moves only its ``P(data_axes)`` row block
+(and its ``point_weights`` block) to its device.  The decisions that pick
+a branch are rank 0's, broadcast: "auto"'s backend and the driver race
+(timed on the wall clock, it could go either way on two ranks).  Each
+rank's combiner converges with no collective inside its loop; then the
+(P·C) centers and masses are gathered and every rank runs the reducer
+plan over them (``cfg.hierarchical`` with a ``"pod"`` axis: within each
+pod first, seeded with the rank's own local centers, then across pods —
+ranks then hold different answers, and rank 0's, the one the reference
+returns from its first device, is broadcast).  The global objective is
+K1's q on each block, the partials added in rank order.  A 1-rank mesh
+takes the single-device branch, as the reference does.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import NamedTuple, Optional, Tuple, Union
+from typing import NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -57,8 +71,11 @@ from .. import obs
 from ..data.cache import ChunkStore
 from ..data.plane import PartitionPlan, batched, plan_partitions, \
     shard_batches
-from ..device import as_real, resolve_device, synchronize
+from ..device import (as_real, copy_real, real_dtype, resolve_device,
+                      synchronize)
 from ..engine import MergePlan, Summary, merge_summaries, resolve_backend
+from ..mesh import (agreed_backend, all_gather, broadcast_first, is_first,
+                    mesh_size, psum, rank_device, shard_rows)
 from .fcm import fcm
 from .outofcore import StagingRing, make_accumulator, ooc_accumulate, \
     ooc_fcm
@@ -78,6 +95,7 @@ class BigFCMConfig:
     r: float = 0.10                # Parker–Hall relative class difference
     sample_size: Optional[int] = None   # override Eq. (4) if set
     block_size: int = 2048         # WFCMPB block size
+    hierarchical: bool = False     # two-level reduce over ('data') then ('pod')
     backend: str = "auto"          # engine sweep backend (torch/hopper/...)
     use_driver: bool = True        # False = random seeds (Table 2 baseline)
     seed: int = 0
@@ -94,6 +112,7 @@ class BigFCMDiagnostics(NamedTuple):
     t_wfcmpb_driver: float     # seconds — driver WFCMPB on the sample
     sample_size: int
     combiner_iters: Tuple[int, ...]  # per-combiner local iteration counts
+                                     # (on a mesh: gathered, block order)
     reducer_iters: int
 
 
@@ -101,15 +120,19 @@ class BigFCMResult(NamedTuple):
     centers: torch.Tensor         # (C, d) — V_final
     center_weights: torch.Tensor  # (C,)
     objective: torch.Tensor       # () one shard: the reducer's objective;
-                                  # several: the global one (module doc)
+                                  # several, or a mesh: the global one
     diagnostics: BigFCMDiagnostics
 
 
 # ---------------------------------------------------------------- driver ---
 
-def _rows(x: torch.Tensor, idx) -> torch.Tensor:
-    """Rows ``idx`` (any integer array-like, host or numpy) of ``x``."""
-    return x[torch.as_tensor(np.array(idx, dtype=np.int64), device=x.device)]
+def _rows(x, idx):
+    """Rows ``idx`` (any integer array-like) of a tensor, or of a host
+    array (a memmap reads only those rows)."""
+    idx = np.asarray(idx, dtype=np.int64)
+    if isinstance(x, torch.Tensor):
+        return x[torch.as_tensor(idx, device=x.device)]
+    return x[idx]
 
 
 def _timed(device, f):
@@ -221,16 +244,22 @@ def bigfcm_fit(
     cfg: BigFCMConfig,
     *,
     mesh=None,
+    data_axes: Sequence[str] = ("data",),
     point_weights=None,
     sample_idx=None,
     seed_idx=None,
     device: Union[str, torch.device] = "cuda",
 ) -> BigFCMResult:
-    """Cluster ``x`` (N, d) with BigFCM on one device.
+    """Cluster ``x`` (N, d) with BigFCM on one device or on ``mesh``.
 
     ``sample_idx`` (λ,) and ``seed_idx`` (C,) inject the driver sample's
     row indices and the seed rows within the sample; by default both are
     drawn from ``np.random.default_rng(cfg.seed)``.
+
+    On a mesh of several ranks (module note) ``x`` and ``point_weights``
+    are the global arrays, split into ``P(data_axes)`` row blocks (N must
+    divide), and the fit runs on each rank's device (`rank_device`);
+    ``device`` is not read.
 
     ``x`` may also be a `ChunkStore`, in which case the fit runs the
     out-of-core path (`bigfcm_fit_store`, one shard)."""
@@ -243,13 +272,14 @@ def bigfcm_fit(
                 "for shard-planned control")
         return bigfcm_fit_store(x, cfg, sample_idx=sample_idx,
                                 seed_idx=seed_idx, device=device)
-    if mesh is not None:
-        raise NotImplementedError(
-            "bigfcm_fit on a device mesh (multi-GPU combiners) is not "
-            "ported yet; it comes with the multi-GPU slice")
     # The whole in-memory fit is one `engine.fit` span (the store
     # delegation above gets its own `engine.fit_store`: never both).
     with obs.span("engine.fit", rows=int(x.shape[0])):
+        if mesh is not None and mesh_size(mesh) > 1:
+            return _fit_mesh(x, cfg, mesh, tuple(data_axes), point_weights,
+                             sample_idx, seed_idx)
+        if mesh is not None:            # 1 rank ≡ the single-device branch
+            device = rank_device(mesh)
         return _fit_array(x, cfg, point_weights, sample_idx, seed_idx,
                           device)
 
@@ -284,6 +314,81 @@ def _fit_array(x, cfg: BigFCMConfig, point_weights, sample_idx, seed_idx,
                   combiner_iters=int(local.n_iter),
                   reducer_iters=int(red.n_iter))
     return BigFCMResult(red.centers, red.center_weights, red.objective, diag)
+
+
+def _combine_reduce(x_l, w_l, v_init, *, cfg: BigFCMConfig, flag: bool, be,
+                    mesh, data_axes, dev):
+    """One rank's share of the job: its combiner, then the gathered
+    summaries through the reducer plan (once, or per hierarchy level);
+    returns (centers, masses, the local combiner's sweeps, reducer
+    sweeps).  Under the hierarchy the result is rank 0's, broadcast."""
+    if flag:
+        local = fcm(x_l, v_init, m=cfg.m, eps=cfg.combiner_eps,
+                    max_iter=cfg.max_iter, point_weights=w_l, backend=be,
+                    device=dev)
+    else:
+        local = wfcmpb(x_l, v_init, m=cfg.m, eps=cfg.combiner_eps,
+                       max_iter=cfg.max_iter, block_size=cfg.block_size,
+                       point_weights=w_l, backend=be, device=dev)
+    plan = cfg.reducer_plan()
+
+    def gather_merge(summary: Summary, axes, init):
+        gathered = Summary(all_gather(summary.centers, mesh, axes),
+                           all_gather(summary.masses, mesh, axes))
+        # ``init`` carries the hierarchy level's explicit seed; the flat
+        # plan's seed="first" (V_1, paper line 13) applies when None.
+        return merge_summaries(gathered, plan, backend=be, init=init)
+
+    local_sum = Summary(local.centers, local.center_weights)
+    pod_axis = "pod" if "pod" in mesh.mesh_dim_names else None
+    if cfg.hierarchical and pod_axis is not None:
+        inner_axes = tuple(a for a in data_axes if a != pod_axis)
+        mid = gather_merge(local_sum, inner_axes, local.centers)
+        red = gather_merge(mid.summary, (pod_axis,), mid.summary.centers)
+        return (broadcast_first(red.summary.centers, mesh),
+                broadcast_first(red.summary.masses, mesh), local.n_iter,
+                broadcast_first(int(red.n_iter), mesh))
+    red = gather_merge(local_sum, data_axes, None)
+    return red.summary.centers, red.summary.masses, local.n_iter, red.n_iter
+
+
+def _fit_mesh(x, cfg: BigFCMConfig, mesh, data_axes, point_weights,
+              sample_idx, seed_idx) -> BigFCMResult:
+    dev = rank_device(mesh)
+    n, d, c = int(x.shape[0]), int(x.shape[1]), cfg.n_clusters
+    x_l = copy_real(shard_rows(x, mesh, data_axes), dev)
+    w_l = (torch.ones((x_l.shape[0],), dtype=x_l.dtype, device=dev)
+           if point_weights is None
+           else copy_real(shard_rows(point_weights, mesh, data_axes), dev))
+    lam, sample_idx, seed_idx = _draws(cfg, n, sample_idx, seed_idx)
+    # The decisions that pick a branch are rank 0's, broadcast: "auto"'s
+    # backend and the driver's wall-clock race.
+    be = agreed_backend(cfg.backend, mesh, shape=(n, c, d))
+    v_init = torch.empty((c, d), dtype=real_dtype(), device=dev)
+    race = None
+    if is_first(mesh):
+        x_sample = copy_real(_rows(x, sample_idx), dev)
+        v_init, flag, t_s, t_f = _initial_centers(x_sample, cfg, seed_idx,
+                                                  dev)
+        race = (bool(flag), float(t_s), float(t_f))
+    v_init = broadcast_first(v_init.contiguous(), mesh)
+    flag, t_s, t_f = broadcast_first(race, mesh)
+
+    centers, masses, it, r_it = _combine_reduce(
+        x_l, w_l, v_init, cfg=cfg, flag=flag, be=be, mesh=mesh,
+        data_axes=data_axes, dev=dev)
+    # Global objective of the final centers over the full dataset — the
+    # accumulate entry's q output (Σ w·u^m·d²), added in rank order.
+    _, _, q_l = be.accumulate(x_l, w_l, centers, cfg.m)
+    q = psum(q_l, mesh, data_axes)
+    iters = tuple(int(i) for i in all_gather(
+        torch.tensor(it, device=dev), mesh, data_axes).tolist())
+    if obs.enabled():
+        obs.event("engine.fit.done", backend=be.name, path="mesh",
+                  flag=bool(flag), objective=float(q),
+                  reducer_iters=int(r_it))
+    diag = BigFCMDiagnostics(bool(flag), t_s, t_f, lam, iters, int(r_it))
+    return BigFCMResult(centers, masses, q, diag)
 
 
 # ------------------------------------------------------- out-of-core fit ---

@@ -1,4 +1,4 @@
-"""Host→device data pipeline on one card (the Hadoop "mapper" input side).
+"""Host→device data pipeline (the Hadoop "mapper" input side).
 
 Counterpart of `repro.data.loader`.  Mirrored from the paper's mapper
 (Alg. 3 lines 7–9): read records, strip separators and normalize on the
@@ -32,9 +32,16 @@ What happens where:
   * a failure in the source re-raises in the consumer, and a producer
     that dies without forwarding anything raises instead of hanging it.
 
-One device only: ``mesh=`` and `reshard` (the reference's data-sharded
-placement and its elastic re-mesh) come with the multi-GPU slice (M6)
-and raise `NotImplementedError`.
+**On a device mesh** (``mesh=``, a `repro_torch.mesh.make_mesh` mesh;
+every rank iterates its own loader over the same source): each rank
+receives its ``P(data_axes)`` row block of every padded global batch and
+of its weights, phantom rows included, on its own device — the
+reference's sharded placement, SPMD.  The (mesh, axes) pair is read once
+per batch, so a batch and its weights never straddle two meshes.
+`reshard` (the elastic re-mesh) retargets later batches, drops the
+device-resident cache (it holds the old mesh's blocks; the chunk store
+survives) and bumps the generation; a reshard landing mid-replay serves
+the rest of that epoch from the store, placed for the new mesh.
 
 Instrumentation (`repro_torch.obs`, the reference's names): the
 producer's time blocked on a full queue (``data.loader.producer_stall_s``),
@@ -44,6 +51,7 @@ batches it takes from the queue or replays from the resident cache
 """
 from __future__ import annotations
 
+import itertools
 import queue
 import threading
 import time
@@ -55,6 +63,7 @@ import torch
 from .. import obs
 from ..core.outofcore import StagingRing, device_batches
 from ..device import resolve_device
+from ..mesh import rank_device, shard_rows
 from .cache import ChunkStore, StoreWriter
 from .plane import batched
 
@@ -98,12 +107,6 @@ def normalize(x: np.ndarray) -> np.ndarray:
     return (x - lo) / np.maximum(hi - lo, 1e-12)
 
 
-def _no_mesh(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"ShardedLoader {what}: data-sharded placement over a device mesh "
-        "comes with the multi-GPU slice (M6); this loader feeds one device")
-
-
 class _EpochIterator:
     """Wraps an epoch generator so the loader's epoch claim is released
     even when the iterator is discarded before its first ``next()`` (a
@@ -142,7 +145,8 @@ class _EpochIterator:
 
 class ShardedLoader:
     """Feeds fixed-size batches ``(x (batch_rows, d), w (batch_rows,))``
-    to one device (see the module note).
+    to one device, or each rank's block of them on a mesh (see the
+    module note).
 
     ``source`` is a raw chunk iterator (numpy arrays of shape (n_i, d)),
     a materialized array, or an existing `ChunkStore`.  With
@@ -157,7 +161,8 @@ class ShardedLoader:
     loudly past ``ingest_limit_bytes`` (default 1 GiB) — pass
     ``cache_dir=`` to spill to disk, or ``cache=False`` to stream
     without retaining.  ``device`` is where batches land (default
-    ``"cuda"``)."""
+    ``"cuda"``); on a mesh it is the rank's device (`rank_device`) and
+    ``device`` is not read."""
 
     def __init__(self, source: Union[Iterator[np.ndarray], np.ndarray,
                                      ChunkStore],
@@ -173,9 +178,10 @@ class ShardedLoader:
                  resident_bytes: int = _RESIDENT_BYTES_DEFAULT,
                  ingest_limit_bytes: int = _INGEST_LIMIT_DEFAULT,
                  device: Union[str, torch.device] = "cuda"):
-        if mesh is not None:
-            raise _no_mesh("mesh=")
-        self.device = resolve_device(device)
+        self.device = (rank_device(mesh) if mesh is not None
+                       else resolve_device(device))
+        self.mesh = mesh
+        self.data_axes = tuple(data_axes)
         self.batch_rows = int(batch_rows)
         self.transform = transform
         self.prefetch = int(prefetch)
@@ -190,6 +196,7 @@ class ShardedLoader:
         self._store_is_raw = False     # apply transform per epoch?
         self._epoch_active = False
         self._device_cache: Optional[list] = None
+        self._generation = 0           # bumped by reshard()
         self._ring: Optional[StagingRing] = None
         self._pump_thread: Optional[threading.Thread] = None
         if isinstance(source, ChunkStore):
@@ -214,8 +221,14 @@ class ShardedLoader:
         return self._device_cache is not None
 
     def reshard(self, mesh, data_axes: Sequence[str]):
-        """The reference's elastic re-mesh; one device here."""
-        raise _no_mesh("reshard")
+        """Elastic re-mesh: later batches are this rank's blocks under the
+        new mesh (the rank keeps its device).  The device-resident cache
+        is dropped (it holds the old mesh's blocks); the chunk store
+        survives untouched."""
+        self.mesh = mesh
+        self.data_axes = tuple(data_axes)
+        self._device_cache = None
+        self._generation += 1
 
     # -- host side -----------------------------------------------------------
 
@@ -283,7 +296,17 @@ class ShardedLoader:
                 status["done"] = True
                 return
             obs.counter("data.loader.batches").add(1)
-            yield payload
+            yield self._block(*payload)
+
+    def _block(self, batch: np.ndarray, w: np.ndarray):
+        """This rank's block of a host batch and its weights, under one
+        snapshot of (mesh, axes): a concurrent reshard() from an elastic
+        watcher thread must never split a batch and its weights across
+        two meshes."""
+        mesh, axes = self.mesh, self.data_axes
+        if mesh is None:
+            return batch, w
+        return shard_rows(batch, mesh, axes), shard_rows(w, mesh, axes)
 
     # -- device side ---------------------------------------------------------
 
@@ -301,6 +324,7 @@ class ShardedLoader:
         if self.device.type == "cuda" and self._ring is None:
             self._ring = StagingRing(self.device)
         status = {"done": False}
+        generation = self._generation
         staged = device_batches(self._host_batches(q, pump, status),
                                 self.device, self._ring)
         # only collect device batches when a store can back them —
@@ -313,8 +337,9 @@ class ShardedLoader:
             for x, w in staged:
                 if collect is not None:
                     nbytes += 4 * (x.numel() + w.numel())
-                    if nbytes > self.resident_bytes:
-                        collect = None     # too big to keep resident
+                    if (nbytes > self.resident_bytes
+                            or self._generation != generation):
+                        collect = None     # too big / remeshed mid-epoch
                     else:
                         # ring slots are reused: the cache keeps copies
                         collect.append((x.clone(), w.clone()))
@@ -324,12 +349,22 @@ class ShardedLoader:
             stop.set()           # retire the producer if we leave early
             self._epoch_active = False
         if status["done"] and collect is not None \
-                and self._store is not None:
+                and self._store is not None \
+                and self._generation == generation:
             self._device_cache = collect
 
     def _resident_epoch(self):
-        """Replay the device-resident batch cache."""
-        for x, w in self._device_cache:
+        """Replay the device-resident batch cache.  A `reshard` landing
+        mid-replay serves the remainder from the store, placed for the
+        new mesh (the cached blocks are the old mesh's; the contract is
+        that every batch after a reshard targets the new one)."""
+        generation = self._generation
+        for k, (x, w) in enumerate(self._device_cache):
+            if self._generation != generation:
+                rest = self._epoch(self._store.iter_chunks(), writer=None,
+                                   apply_transform=self._store_is_raw)
+                yield from itertools.islice(rest, k, None)
+                return
             obs.counter("data.loader.resident_batches").add(1)
             yield x, w
 

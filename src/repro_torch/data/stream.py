@@ -336,7 +336,8 @@ def stream_loader(source: Iterator[np.ndarray], batch_rows: int, *,
     unbounded, so the loader runs in ``cache=False`` pass-through mode —
     nothing accretes into a chunk store (cache a stream explicitly with
     `ChunkStore.ingest` over a bounded slice if replay is wanted).
-    ``mesh=`` raises until the multi-GPU slice (M6)."""
+    On a device mesh each rank receives its ``P(data_axes)`` block of
+    every batch (`ShardedLoader`)."""
     return ShardedLoader(source, batch_rows, mesh=mesh,
                          data_axes=data_axes, prefetch=prefetch,
                          transform=transform, cache=False, device=device)

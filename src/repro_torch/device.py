@@ -3,6 +3,7 @@ from __future__ import annotations
 
 from typing import Union
 
+import numpy as np
 import torch
 
 DeviceLike = Union[str, torch.device]
@@ -36,6 +37,14 @@ def as_real(a, device: torch.device) -> torch.Tensor:
     """``a`` (numpy array or tensor) as a `real_dtype` tensor on
     ``device``."""
     return torch.as_tensor(a, dtype=real_dtype(), device=device)
+
+
+def copy_real(a, device: torch.device) -> torch.Tensor:
+    """``a`` (numpy array, a read-only memmap included, or tensor) copied
+    into a `real_dtype` tensor on ``device``."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device, real_dtype())
+    return torch.tensor(np.asarray(a), dtype=real_dtype(), device=device)
 
 
 def synchronize(device: torch.device) -> None:

@@ -12,10 +12,9 @@ Counterpart of `repro.fleet`.  BigFCM's cluster as a mesh of peer hosts:
   * `sim`       — `fleet_fit`: N hosts as threads + the straggler
                   watcher;
   * `proc`      — `run_fleet`: N hosts as spawned processes, parent as
-                  death-watch (the real-host article).
-
-The reference's `mesh_exchange` (one ``shard_map`` all-gather) comes
-with the multi-GPU slice.
+                  death-watch (the real-host article);
+  * `spmd`      — `mesh_exchange`: the hosts as ranks of one device mesh,
+                  the exchange one all-gather (`repro_torch.mesh`).
 
 Everything rides the zero-coordination invariant: plans, seeds, shard
 ownership, and the merge are pure functions of (store chunking, live
@@ -38,6 +37,7 @@ from .host import FleetConfig, FleetHost, FleetResult
 from .proc import (collect_results, host_main, run_fleet, spawn_fleet,
                    watch_fleet)
 from .sim import fleet_fit
+from .spmd import mesh_exchange
 from .transport import (DirTransport, Evicted, HostLost,
                         MailboxTransport)
 from .wire import (BF16_REL_BOUND, WIRE_DTYPES, decode_summary,
@@ -46,7 +46,7 @@ from .wire import (BF16_REL_BOUND, WIRE_DTYPES, decode_summary,
 __all__ = [
     "FleetConfig", "FleetHost", "FleetResult",
     "collect_results", "host_main", "run_fleet", "spawn_fleet",
-    "watch_fleet", "fleet_fit",
+    "watch_fleet", "fleet_fit", "mesh_exchange",
     "DirTransport", "Evicted", "HostLost", "MailboxTransport",
     "BF16_REL_BOUND", "WIRE_DTYPES", "decode_summary", "encode_summary",
 ]

@@ -21,9 +21,10 @@ flattens it — dict keys in **sorted** order, namedtuple fields by name,
 list and tuple items by index, ``None`` holding no leaf — and a leaf's
 path is its keys joined by ``/`` (``{'b': NT(centers, weights), 'a': [x,
 {'z': …, 'y': …}]}`` gives ``a/0``, ``a/1/y``, ``a/1/z``, ``b/centers``,
-``b/weights``).  Restoring onto a device mesh (``shardings=``) comes with
-the multi-GPU slice; the elastic-restart helpers (`repro.ft.elastic`)
-with a later one.
+``b/weights``).  Restoring onto a device mesh (``shardings=``) serves the
+LM trainer's sharded state and comes with it (M13); a replicated stream
+state restores onto a `repro_torch.mesh` mesh through
+`StreamingBigFCM.restore(mesh=)`.
 
 Each write is an ``ft.checkpoint.save`` span (on the writer thread) and
 one ``ft.checkpoint.saves``; each restore an ``ft.checkpoint.restore``
@@ -238,8 +239,8 @@ class CheckpointManager:
         its template leaf's kind and dtype (a tensor's device too)."""
         if shardings is not None:
             raise NotImplementedError(
-                "restore(shardings=...) places leaves on a device mesh; it "
-                "comes with the multi-GPU slice")
+                "restore(shardings=...) places the LM trainer's sharded "
+                "leaves on a device mesh; it comes with the LM stack (M13)")
         step = self._step(step)
         with obs.span("ft.checkpoint.restore", step=step):
             d, manifest = self._manifest(step)

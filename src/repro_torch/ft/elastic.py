@@ -2,8 +2,8 @@
 
 Counterpart of `repro.ft.elastic`'s `detect_stragglers` and
 `StragglerMonitor`, an own copy (stdlib and `repro_torch.obs` only).  The
-mesh half (`make_mesh_for`, `elastic_remesh`) comes with the multi-GPU
-slice.
+mesh half (`make_mesh_for`, `elastic_remesh`) serves the LM trainer's
+elastic restart only, and comes with it (M13): both raise until then.
 
 `StragglerMonitor` implements the speculative-execution analogue: SPMD
 steps are synchronous, so a straggling host shows up as a slow global
@@ -23,6 +23,24 @@ import time
 from typing import Callable, List, Mapping, Optional, Tuple
 
 from .. import obs
+
+
+def _lm_stack(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} reshards the LM trainer's (pod, data, model) state; it "
+        "comes with the LM stack (M13).  BigFCM's own mesh is "
+        "repro_torch.mesh")
+
+
+def make_mesh_for(devices, *, model_parallel: int, pods: int = 1):
+    """The reference's best-effort (pod, data, model) mesh; raises until
+    M13."""
+    raise _lm_stack("make_mesh_for")
+
+
+def elastic_remesh(state, old_shardings, new_mesh):
+    """The reference's live-pytree reshard; raises until M13."""
+    raise _lm_stack("elastic_remesh")
 
 
 def detect_stragglers(

@@ -1,0 +1,365 @@
+"""The device mesh over `torch.distributed` — the port's counterpart of
+`jax.sharding.Mesh` and of the collectives the reference calls inside
+``shard_map`` (`jax.lax.all_gather`, `jax.lax.psum`).
+
+The reference is one controller driving every device of a mesh.  The
+port is SPMD: one process per rank, each calling the same entry point
+with the same arguments; what the reference computes once and hands
+every device, every rank computes (or receives) here.  The mesh is a
+`torch.distributed.device_mesh.DeviceMesh` with named dims — e.g.
+``("pod", "data")`` — over the default process group, ranks laid out
+row-major over its shape; every collective below runs over the default
+group and picks its axes' members out of it (the payloads are a few KB
+of summaries, so gathering from every rank and keeping the axes' ranks
+costs nothing and keeps one code path).
+
+  * `make_mesh` / `rank_device` — the mesh and this rank's device
+    (``cuda:{local rank % device count}``; the CPU for a CPU mesh).
+  * `shard_rows` — this rank's contiguous row block under the
+    reference's ``P(data_axes)`` placement: blocks ordered row-major over
+    the axes *as given*, a row count that does not divide raising as
+    `jax.device_put` does.
+  * `all_gather` — the (P, …) stack, in the order
+    `jax.lax.all_gather(t, axes)` gives (that same row-major order).
+  * `psum` — the gathered partials added in rank order, so every rank
+    holds the same bits and a rerun repeats them whatever ring order the
+    backend uses.
+  * `broadcast_first` — rank 0's tensor or picklable object on every
+    rank (decisions that pick a branch must be identical everywhere).
+  * `spawn_mesh` — start ``fn`` on every rank of a fresh process group
+    (a ``file://`` rendezvous in a temporary directory), with a deadline;
+    how the tests and `chip_smoke.py` run a mesh on one host.
+
+Backends: NCCL across cards, gloo for the CPU tests and for several
+ranks on one card (NCCL refuses two ranks on one GPU).  Under gloo a
+collective's payload is staged through host memory here, explicitly —
+that is the transport; the kernels still run on each rank's device.
+
+Users launch ranks with ``torchrun`` (which sets ``RANK``,
+``WORLD_SIZE``, ``LOCAL_RANK`` and the rendezvous), then::
+
+    torch.distributed.init_process_group("nccl")
+    mesh = make_mesh((torch.distributed.get_world_size(),), ("data",))
+    res = bigfcm_fit(x, cfg, mesh=mesh, data_axes=("data",))
+
+Instrumentation: each collective adds its host seconds to
+``mesh.collective_s`` and the bytes it receives to ``mesh.gathered_bytes``
+(`repro_torch.obs` counters; the process's own, like every counter).
+"""
+from __future__ import annotations
+
+import datetime
+import math
+import multiprocessing as mp
+import os
+import tempfile
+import time
+import traceback
+from typing import Callable, List, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from . import obs
+from .device import resolve_device
+
+Axes = Union[str, Sequence[str]]
+
+
+def _axes(axes: Axes) -> Tuple[str, ...]:
+    return (axes,) if isinstance(axes, str) else tuple(axes)
+
+
+def make_mesh(shape: Sequence[int], axis_names: Sequence[str], *,
+              device_type: str = "cuda"):
+    """A `DeviceMesh` of ``shape`` with dims ``axis_names`` over the
+    initialised default process group, ranks row-major over ``shape``
+    (their product must be the world size).  On ``"cuda"`` this rank's
+    card becomes the current device."""
+    from torch.distributed.device_mesh import DeviceMesh
+    if not dist.is_initialized():
+        raise RuntimeError("make_mesh needs an initialised default process "
+                           "group (torchrun + init_process_group, or "
+                           "spawn_mesh)")
+    shape, names = tuple(int(s) for s in shape), tuple(axis_names)
+    if len(shape) != len(names):
+        raise ValueError(f"mesh shape {shape} and axis names {names} "
+                         "differ in length")
+    world = dist.get_world_size()
+    if math.prod(shape) != world:
+        raise ValueError(f"mesh shape {shape} holds {math.prod(shape)} "
+                         f"ranks; the process group has {world}")
+    if device_type == "cuda":
+        torch.cuda.set_device(_local_device(torch.device("cuda")))
+    elif device_type != "cpu":
+        raise ValueError(f"unsupported mesh device type {device_type!r}: "
+                         "cuda or cpu")
+    return DeviceMesh(device_type, torch.arange(world).reshape(shape),
+                      mesh_dim_names=names)
+
+
+def _local_device(dev: torch.device) -> torch.device:
+    if dev.type != "cuda":
+        return dev
+    resolve_device(dev)                 # raises without a card
+    local = int(os.environ.get("LOCAL_RANK", dist.get_rank()))
+    return torch.device("cuda", local % torch.cuda.device_count())
+
+
+def rank_device(mesh) -> torch.device:
+    """This rank's device: ``cuda:{local rank % device count}`` on a CUDA
+    mesh (raising when there is no card), the CPU on a CPU mesh."""
+    return _local_device(torch.device(mesh.device_type))
+
+
+def mesh_size(mesh) -> int:
+    return int(mesh.mesh.numel())
+
+
+def _coords(mesh, rank: int) -> dict:
+    """Dim name → coordinate of ``rank`` in ``mesh``."""
+    where = (mesh.mesh == rank).nonzero()
+    if where.shape[0] != 1:
+        raise ValueError(f"rank {rank} is not in the mesh")
+    return dict(zip(mesh.mesh_dim_names, where[0].tolist()))
+
+
+def _block(mesh, rank: int, axes: Tuple[str, ...]) -> Tuple[int, int]:
+    """(block index, block count) of ``rank`` over ``axes``, row-major
+    over the axes as given — `jax.sharding.PartitionSpec((axes,))`'s
+    order, and `jax.lax.all_gather(t, axes)`'s."""
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+    unknown = [a for a in axes if a not in sizes]
+    if unknown:
+        raise ValueError(f"axes {unknown} are not dims of the mesh "
+                         f"{tuple(mesh.mesh_dim_names)}")
+    coord = _coords(mesh, rank)
+    idx = 0
+    for a in axes:
+        idx = idx * sizes[a] + coord[a]
+    return idx, math.prod(sizes[a] for a in axes)
+
+
+def _group(mesh, axes: Tuple[str, ...]) -> List[int]:
+    """The ranks this rank gathers from over ``axes`` (those sharing its
+    coordinates on every other dim), in block order."""
+    me = _coords(mesh, dist.get_rank())
+    others = [a for a in mesh.mesh_dim_names if a not in axes]
+    members = [r for r in mesh.mesh.flatten().tolist()
+               if all(_coords(mesh, r)[a] == me[a] for a in others)]
+    return sorted(members, key=lambda r: _block(mesh, r, axes)[0])
+
+
+def shard_rows(x, mesh, axes: Axes = ("data",)):
+    """This rank's contiguous row block of ``x`` (numpy, a memmap or a
+    tensor; sliced, not copied) under the reference's ``P(axes)``
+    placement.  A row count the block count does not divide raises."""
+    axes = _axes(axes)
+    idx, count = _block(mesh, dist.get_rank(), axes)
+    n = int(x.shape[0])
+    if n % count:
+        raise ValueError(f"{n} rows do not split into {count} equal blocks "
+                         f"over the mesh axes {axes}; pad with zero-weight "
+                         "phantom rows")
+    per = n // count
+    return x[idx * per:(idx + 1) * per]
+
+
+def block_index(mesh, axes: Axes = ("data",)) -> Tuple[int, int]:
+    """(this rank's block, the block count) under ``P(axes)``."""
+    return _block(mesh, dist.get_rank(), _axes(axes))
+
+
+def _wire_device() -> torch.device:
+    """Where a collective's payload travels: this rank's card under NCCL,
+    host memory under gloo."""
+    if dist.get_backend() == "nccl":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")
+
+
+def _gather_all(t: torch.Tensor) -> List[torch.Tensor]:
+    """Every rank's ``t`` (equal shapes), by rank, on ``t``'s device."""
+    t0 = time.perf_counter()
+    wire = t.detach().to(_wire_device()).reshape(-1).contiguous()
+    out = [torch.empty_like(wire) for _ in range(dist.get_world_size())]
+    dist.all_gather(out, wire)
+    out = [o.to(t.device).reshape(t.shape) for o in out]
+    obs.counter("mesh.collective_s").add(time.perf_counter() - t0)
+    obs.counter("mesh.gathered_bytes").add(
+        wire.numel() * wire.element_size() * len(out))
+    return out
+
+
+def all_gather(t: torch.Tensor, mesh, axes: Axes = ("data",)
+               ) -> torch.Tensor:
+    """The (P, …) stack of ``t`` over ``axes`` — the members sharing
+    this rank's coordinates on the other dims — in the order
+    `jax.lax.all_gather(t, axes)` stacks it."""
+    parts = _gather_all(t)
+    return torch.stack([parts[r] for r in _group(mesh, _axes(axes))])
+
+
+def gather_rows(x_l: torch.Tensor, idx, mesh, axes: Axes = ("data",)
+                ) -> torch.Tensor:
+    """Rows ``idx`` (global row numbers) of the array whose ``P(axes)``
+    blocks the ranks hold — ``x_l`` is this rank's — on every rank, in
+    ``idx``'s order: each rank fills the rows it owns into zeros and the
+    stacks are added (x + 0 is x exactly)."""
+    idx = np.asarray(idx, np.int64)
+    b, _ = block_index(mesh, axes)
+    lo, n_l = b * x_l.shape[0], x_l.shape[0]
+    mine = np.flatnonzero((idx >= lo) & (idx < lo + n_l))
+    out = x_l.new_zeros((idx.shape[0],) + tuple(x_l.shape[1:]))
+    out[torch.as_tensor(mine, device=x_l.device)] = x_l[
+        torch.as_tensor(idx[mine] - lo, device=x_l.device)]
+    return psum(out, mesh, axes)
+
+
+def sum_in_order(parts) -> torch.Tensor:
+    """``parts[0] + parts[1] + …``, left to right: the one summation
+    order of a cross-rank sum."""
+    acc = parts[0]
+    for p in parts[1:]:
+        acc = acc + p
+    return acc
+
+
+def psum(t: torch.Tensor, mesh, axes: Axes = ("data",)) -> torch.Tensor:
+    """The sum of ``t`` over ``axes``: the gathered partials added in
+    rank order, so every rank holds the same bits."""
+    return sum_in_order(all_gather(t, mesh, axes))
+
+
+def broadcast_first(value, mesh):
+    """Rank 0's ``value`` on every rank: a tensor keeps its device (and
+    every rank must pass one of the same shape and dtype), anything else
+    travels pickled."""
+    t0 = time.perf_counter()
+    if isinstance(value, torch.Tensor):
+        wire = value.detach().to(_wire_device()).contiguous()
+        dist.broadcast(wire, src=int(mesh.mesh.flatten()[0]))
+        out = wire.to(value.device)
+    else:
+        box = [value]
+        dist.broadcast_object_list(box, src=int(mesh.mesh.flatten()[0]))
+        out = box[0]
+    obs.counter("mesh.collective_s").add(time.perf_counter() - t0)
+    return out
+
+
+def is_first(mesh) -> bool:
+    """True on the rank whose answers `broadcast_first` hands out."""
+    return dist.get_rank() == int(mesh.mesh.flatten()[0])
+
+
+def agreed_backend(spec, mesh, *, shape=None):
+    """The sweep backend ``spec`` names, resolved on rank 0 (where
+    "auto" runs its calibration race) and the same on every rank."""
+    from .engine import resolve_backend
+    dev = rank_device(mesh)
+    name = (resolve_backend(spec, device=dev, shape=shape).name
+            if is_first(mesh) else None)
+    return resolve_backend(broadcast_first(name, mesh), device=dev)
+
+
+# ------------------------------------------------------------- spawning --
+
+def _rank_main(fn, rank: int, world: int, rdv: str, out_dir: str,
+               backend: str, device_type: str, shape, axis_names,
+               timeout_s: float, args, kwargs) -> None:
+    """One spawned rank: join the group, build the mesh, run ``fn(mesh,
+    *args, **kwargs)`` and publish its result (or its traceback)."""
+    os.environ["LOCAL_RANK"] = str(rank)
+    result_path = os.path.join(out_dir, f"result.{rank}.pt")
+    try:
+        dist.init_process_group(
+            backend, init_method=f"file://{rdv}", rank=rank,
+            world_size=world, timeout=datetime.timedelta(seconds=timeout_s))
+        try:
+            mesh = make_mesh(shape, axis_names, device_type=device_type)
+            res = fn(mesh, *args, **kwargs)
+        finally:
+            dist.destroy_process_group()
+        torch.save(res, result_path + ".tmp")
+        os.replace(result_path + ".tmp", result_path)
+    except BaseException:
+        with open(os.path.join(out_dir, f"error.{rank}.txt"), "w") as f:
+            f.write(traceback.format_exc())
+        raise SystemExit(1)
+
+
+class RankError(RuntimeError):
+    """A spawned rank failed; the message carries its traceback."""
+
+
+def spawn_mesh(fn: Callable, shape: Sequence[int],
+               axis_names: Sequence[str], *, backend: str = "nccl",
+               device_type: str = "cuda", timeout_s: float = 300.0,
+               args: tuple = (), kwargs: Optional[dict] = None) -> list:
+    """Run ``fn(mesh, *args, **kwargs)`` on ``prod(shape)`` spawned ranks
+    of a fresh process group and return each rank's result, by rank.
+
+    ``fn`` must be importable (a module-level function) and its result
+    picklable.  The ranks meet through a ``file://`` rendezvous in a
+    temporary directory; ``timeout_s`` bounds both the group's
+    collectives and the whole run: past it every rank still alive is
+    killed and `TimeoutError` is raised, so a hang fails instead of
+    stalling.  A rank that raises fails the run with its traceback
+    (`RankError`), the others killed at once."""
+    world = math.prod(int(s) for s in shape)
+    if device_type == "cuda":
+        resolve_device("cuda")          # no card: raise before spawning
+    ctx = mp.get_context("spawn")
+    deadline = time.monotonic() + timeout_s
+    with tempfile.TemporaryDirectory(prefix="repro_mesh_") as tmp:
+        rdv = os.path.join(tmp, "rendezvous")
+        procs = [ctx.Process(
+            target=_rank_main, daemon=True,
+            args=(fn, r, world, rdv, tmp, backend, device_type,
+                  tuple(shape), tuple(axis_names), timeout_s, args,
+                  kwargs or {}))
+            for r in range(world)]
+        for p in procs:
+            p.start()
+        try:
+            while True:
+                if any(p.exitcode not in (None, 0) for p in procs):
+                    # a rank's failure fails its peers' collectives: give
+                    # them a moment to report, so the first cause shows
+                    grace = time.monotonic() + 2.0
+                    while time.monotonic() < grace and any(
+                            p.is_alive() for p in procs):
+                        time.sleep(0.02)
+                    failed = [r for r, p in enumerate(procs)
+                              if p.exitcode not in (None, 0)]
+                    raise RankError(_failure(tmp, procs, failed))
+                if all(p.exitcode == 0 for p in procs):
+                    break
+                if time.monotonic() > deadline:
+                    alive = [r for r, p in enumerate(procs) if p.is_alive()]
+                    raise TimeoutError(
+                        f"spawn_mesh: ranks {alive} still running after "
+                        f"{timeout_s} s; killed")
+                time.sleep(0.02)
+            return [torch.load(os.path.join(tmp, f"result.{r}.pt"),
+                               weights_only=False) for r in range(world)]
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+            for p in procs:
+                p.join(5.0)
+
+
+def _failure(tmp: str, procs, failed) -> str:
+    lines = []
+    for r in failed:
+        path = os.path.join(tmp, f"error.{r}.txt")
+        if os.path.exists(path):
+            with open(path) as f:
+                lines.append(f"rank {r} raised:\n{f.read()}")
+        else:
+            lines.append(f"rank {r} exited with code {procs[r].exitcode}")
+    return "spawn_mesh: " + "\n".join(lines)

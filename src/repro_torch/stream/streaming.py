@@ -25,7 +25,10 @@ state machine over an unbounded stream:
        had a full window to accumulate.
     3. **combiner** — per-batch (weighted) FCM from the current centers
        (`core.fcm.fcm`: K2 at the batch shape under ``hopper``), or one
-       sweep (``combiner_mode="sweep"``).
+       sweep (``combiner_mode="sweep"``); on a device mesh each rank
+       converges on its block and the flat plan merges the gathered
+       per-rank summaries, seeded with the current centers (the paper's
+       reducer = hierarchy level 1: across devices).
     4. **window** — the batch summary lands in a decayed sliding window
        (arrival cursor or event-time bucket) and the window collapses
        through the merge plan named by ``cfg.merge_plan`` (``windowed``
@@ -58,9 +61,20 @@ from its report, and each window merge a ``stream.window_merge`` span.
 The spans read the host clock only: an ingest ends on the host reads its
 state machine makes, a merge on its last convergence test.
 
-Not in this slice: the device mesh (the per-shard combiner with its
-in-program reduce) raises `NotImplementedError` until the multi-GPU
-slice (M6).
+**On a device mesh** (``mesh=``, `repro_torch.mesh`; one model per
+rank, every rank ingesting the same stream) ``ingest`` takes this rank's
+``P(data_axes)`` block of each batch, as `stream_loader(mesh=)` yields
+it, and every rank ends each ingest holding the same state.  The device
+work is split — the probe's objective is added across ranks in rank
+order, each rank's combiner runs on its block — while every decision is
+taken on gathered values, so that no two ranks take different branches
+(and deadlock at the next collective): the residuals, weights and event
+times are gathered in row order (the medians, outlier fractions,
+watermark and late drops are the global batch's), a birth's candidate
+rows and a re-seed's sample rows are gathered (`mesh.gather_rows`), the
+draws come from those global weights, and the driver race runs on rank 0
+and its centers are broadcast.  ``draws`` then receives a meta tensor of
+the global batch's shape in place of ``x``.
 """
 from __future__ import annotations
 
@@ -76,9 +90,11 @@ from .. import obs
 from ..core.bigfcm import BigFCMConfig, run_driver
 from ..core.fcm import fcm
 from ..core.metrics import fuzzy_objective
-from ..device import real_dtype, resolve_device
-from ..engine import MergePlan, merge_summaries, resolve_backend
+from ..device import copy_real, real_dtype, resolve_device
+from ..engine import MergePlan, Summary, merge_summaries, resolve_backend
 from ..engine.backend import pairwise_sqdist
+from ..mesh import (agreed_backend, all_gather, block_index, broadcast_first,
+                    gather_rows, is_first, mesh_size, psum, rank_device)
 from .drift import DriftConfig, DriftDetector
 from .window import (advance_window, assign_slot, init_slot_buckets,
                      init_window, place_summary, push_summary, window_mass,
@@ -201,11 +217,17 @@ def _residuals(x, centers):
     return torch.min(pairwise_sqdist(x, centers), dim=-1).values
 
 
-def _no_mesh() -> NotImplementedError:
-    return NotImplementedError(
-        "StreamingBigFCM on a device mesh (the per-shard combiner and its "
-        "in-program reduce) comes with the multi-GPU slice (M6); pass "
-        "mesh=None")
+class _Batch(NamedTuple):
+    """One ingest's batch as this rank holds it: ``x`` (n_l, d) and ``w``
+    (n_l,) on the device — the whole batch on one device, the rank's
+    block on a mesh — and what the decisions read, for the global batch:
+    the weights on the host, the global row of ``x``'s first row, and the
+    global row count."""
+    x: torch.Tensor
+    w: torch.Tensor
+    w_np: np.ndarray
+    lo: int
+    n: int
 
 
 def _np_dtype(a) -> np.dtype:
@@ -252,21 +274,28 @@ def split_item(item, *, event_time: bool):
 
 class StreamingBigFCM:
     """Online/windowed BigFCM over an unbounded chunk stream, on one
-    device (default ``"cuda"``)."""
+    device (default ``"cuda"``) or on a device mesh (module note; the
+    rank's device, ``device`` not read)."""
 
     def __init__(self, cfg: StreamConfig, *, mesh=None,
                  data_axes: Sequence[str] = ("data",),
                  draws: Optional[Draws] = None,
                  device: Union[str, torch.device] = "cuda"):
-        if mesh is not None:
-            raise _no_mesh()
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.data_axes = tuple(data_axes)
+        # the collectives run on a mesh of several ranks only
+        self._mesh = mesh if mesh is not None and mesh_size(mesh) > 1 \
+            else None
+        self.device = (rank_device(mesh) if mesh is not None
+                       else resolve_device(device))
         self.draws = draws
         self.state: Optional[StreamState] = None
         self.detector = DriftDetector(cfg.drift)
         self._snapshot_listeners: list = []
-        self.backend = resolve_backend(cfg.backend, device=self.device)
+        self.backend = (
+            agreed_backend(cfg.backend, self._mesh) if self._mesh is not None
+            else resolve_backend(cfg.backend, device=self.device))
         # Driver config for (re)seeding: the paper's FCM-vs-WFCMPB race.
         self._bcfg = BigFCMConfig(
             n_clusters=cfg.n_clusters, m=cfg.m, driver_eps=cfg.reducer_eps,
@@ -276,41 +305,54 @@ class StreamingBigFCM:
         self._plan = cfg.window_plan()
 
     # ------------------------------------------------------------- seed --
-    def _driver_seed(self, x: torch.Tensor, w: torch.Tensor,
-                     reseeds: int) -> torch.Tensor:
-        """Run the paper's driver race on a sample of ``x`` → C seeds.
+    def _rows(self, b: _Batch, idx) -> torch.Tensor:
+        """Global rows ``idx`` of the batch, on the device (gathered from
+        the ranks that hold them, on a mesh)."""
+        if self._mesh is not None:
+            return gather_rows(b.x, idx, self._mesh, self.data_axes)
+        return b.x[torch.as_tensor(np.asarray(idx, np.int64),
+                                   device=b.x.device)]
+
+    def _driver_seed(self, b: _Batch, reseeds: int) -> torch.Tensor:
+        """Run the paper's driver race on a sample of the batch → C seeds.
 
         The sample is drawn by mass, without replacement, so zero-weight
         phantom rows (loader tail padding) can never become seeds; its
-        size is capped by the number of real rows."""
-        w_np = _host(w)
-        n = x.shape[0]
-        n_real = int(np.count_nonzero(w_np > 0))
+        size is capped by the number of real rows.  On a mesh the race
+        runs on rank 0 and its centers are broadcast."""
+        n_real = int(np.count_nonzero(b.w_np > 0))
         if n_real == 0:
             raise ValueError("cannot seed StreamingBigFCM from a "
                              "zero-mass (all-phantom) batch")
         if self.draws is not None:
-            sample_idx, seed_idx = self.draws(x, w, reseeds)
+            x_arg, w_arg = b.x, b.w
+            if self._mesh is not None:
+                x_arg = torch.empty((b.n, b.x.shape[1]), device="meta")
+                w_arg = torch.from_numpy(b.w_np)
+            sample_idx, seed_idx = self.draws(x_arg, w_arg, reseeds)
         else:
             lam = min(self.cfg.driver_sample, n_real)
             rng = np.random.default_rng((self.cfg.seed, reseeds))
-            p = w_np.astype(np.float64)
-            sample_idx = rng.choice(n, lam, replace=False, p=p / p.sum())
+            p = b.w_np.astype(np.float64)
+            sample_idx = rng.choice(b.n, lam, replace=False, p=p / p.sum())
             seed_idx = rng.choice(lam, self.cfg.n_clusters, replace=False)
-        idx = torch.as_tensor(np.asarray(sample_idx, np.int64),
-                              device=x.device)
-        v, _flag, _ts, _tf = run_driver(x[idx], self._bcfg,
-                                        seed_idx=seed_idx,
-                                        device=self.device)
-        return v
+        x_sample = self._rows(b, sample_idx)
+        if self._mesh is None:
+            return run_driver(x_sample, self._bcfg, seed_idx=seed_idx,
+                              device=self.device)[0]
+        v = x_sample.new_empty((self.cfg.n_clusters, x_sample.shape[1]))
+        if is_first(self._mesh):
+            v = run_driver(x_sample, self._bcfg, seed_idx=seed_idx,
+                           device=self.device)[0].contiguous()
+        return broadcast_first(v, self._mesh)
 
-    def _fresh_state(self, x, w, reseeds: int, step: int,
+    def _fresh_state(self, b: _Batch, reseeds: int, step: int,
                      carry: Optional[StreamState] = None) -> StreamState:
         """(Re)seeded state.  ``carry`` preserves the monotone stream
         metrics (event clock, late/birth/death counters) and the key
         across a re-seed — the stale regime's *window* is forgotten,
         time is not."""
-        centers = self._driver_seed(x, w, reseeds)
+        centers = self._driver_seed(b, reseeds)
         c, d = centers.shape
         win_c, win_w = init_window(self.cfg.window, c, d,
                                    device=self.device)
@@ -334,19 +376,18 @@ class StreamingBigFCM:
             deaths=_i32(0) if carry is None else carry.deaths)
 
     # ------------------------------------------------------ birth/death --
-    def _spawn_center(self, st: StreamState, x, w, resid: np.ndarray
+    def _spawn_center(self, st: StreamState, b: _Batch, resid: np.ndarray
                       ) -> StreamState:
         """Cluster birth: one new center at the weighted centroid of the
         batch's highest-residual records (above
         ``birth_residual_quantile``); its window rows start phantom and
         fill as batches arrive."""
-        w_np = _host(w)
-        real = w_np > 0
+        real = b.w_np > 0
         k = float(np.quantile(resid[real], self.cfg.birth_residual_quantile))
         cand = np.flatnonzero((resid >= k) & real)
-        x_cand = _host(x[torch.as_tensor(cand, device=x.device)])
+        x_cand = _host(self._rows(b, cand))
         new_c = torch.from_numpy(np.average(
-            x_cand, axis=0, weights=w_np[cand]).astype(x_cand.dtype)).to(
+            x_cand, axis=0, weights=b.w_np[cand]).astype(x_cand.dtype)).to(
                 self.device)
         wnd = st.win_centers.shape[0]
         zero = new_c.new_zeros((1,))
@@ -393,23 +434,52 @@ class StreamingBigFCM:
         return win_c, win_w, sb, True
 
     # ------------------------------------------------- the three stages --
-    def _probe(self, x, w, centers) -> Tuple[float, np.ndarray]:
-        """The drift probe: the stale centers' objective per unit mass on
-        the batch, and the per-record residual profile (on the host)."""
-        return (float(_q_norm(x, w, centers, m=self.cfg.m)),
-                _host(_residuals(x, centers)))
+    def _q(self, b: _Batch, centers) -> float:
+        """The centers' objective per unit mass on the batch (the drift
+        statistic); on a mesh the numerator and the mass are each added
+        across ranks in rank order."""
+        if self._mesh is None:
+            return float(_q_norm(b.x, b.w, centers, m=self.cfg.m))
+        parts = torch.stack([
+            fuzzy_objective(b.x, centers, self.cfg.m, point_weights=b.w),
+            torch.sum(b.w)])
+        q, mass = psum(parts, self._mesh, self.data_axes)
+        return float(q / torch.clamp(mass, min=1e-12))
 
-    def _combine(self, x, w, centers):
+    def _probe(self, b: _Batch, centers) -> Tuple[float, np.ndarray]:
+        """The drift probe: the stale centers' objective per unit mass on
+        the batch, and the per-record residual profile (on the host; the
+        global batch's, in row order, on a mesh)."""
+        resid = _residuals(b.x, centers)
+        if self._mesh is not None:
+            resid = all_gather(resid, self._mesh, self.data_axes).flatten()
+        return self._q(b, centers), _host(resid)
+
+    def _combine(self, b: _Batch, centers):
         """One batch summary: local FCM to convergence, or a single
         accumulate sweep (``combiner_mode="sweep"`` — the cheapest online
-        mode, one pass per batch).  Returns (centers, masses, sweeps)."""
+        mode, one pass per batch); on a mesh, each rank's summary of its
+        block, gathered and merged by the flat plan seeded with
+        ``centers``.  Returns (centers, masses, sweeps per combiner)."""
         if self.cfg.combiner_mode == "sweep":
-            v, wi, _ = self.backend.sweep(x, w, centers, self.cfg.m)
-            return v, wi, 1
-        res = fcm(x, centers, m=self.cfg.m, eps=self.cfg.combiner_eps,
-                  max_iter=self.cfg.max_iter, point_weights=w,
-                  backend=self.backend, device=self.device)
-        return res.centers, res.center_weights, res.n_iter
+            v, wi, _ = self.backend.sweep(b.x, b.w, centers, self.cfg.m)
+            it = 1
+        else:
+            res = fcm(b.x, centers, m=self.cfg.m, eps=self.cfg.combiner_eps,
+                      max_iter=self.cfg.max_iter, point_weights=b.w,
+                      backend=self.backend, device=self.device)
+            v, wi, it = res.centers, res.center_weights, res.n_iter
+        if self._mesh is None:
+            return v, wi, [it]
+        mesh, axes = self._mesh, self.data_axes
+        gathered = Summary(all_gather(v, mesh, axes),
+                           all_gather(wi, mesh, axes))
+        plan = MergePlan("flat", m=self.cfg.m, eps=self.cfg.reducer_eps,
+                         max_iter=self.cfg.merge_max_iter)
+        red = merge_summaries(gathered, plan, backend=self.backend,
+                              init=centers)
+        its = all_gather(torch.tensor(it, device=self.device), mesh, axes)
+        return red.summary.centers, red.summary.masses, its.tolist()
 
     def _window_merge(self, win_c, win_w):
         """Collapse the window through ``cfg.merge_plan``."""
@@ -418,12 +488,13 @@ class StreamingBigFCM:
         return res.summary.centers, res.summary.masses
 
     # ----------------------------------------------------------- ingest --
-    def _to_device(self, a) -> torch.Tensor:
-        if isinstance(a, torch.Tensor):
-            return a.to(self.device, real_dtype())
-        # A copy: a replayed store chunk is a read-only memmap.
-        return torch.tensor(np.asarray(a), dtype=real_dtype(),
-                            device=self.device)
+    def _global(self, a: np.ndarray) -> np.ndarray:
+        """The global batch's values of a per-row host array (this rank's
+        rows on a mesh: gathered in row order)."""
+        if self._mesh is None:
+            return a
+        return _host(all_gather(torch.from_numpy(np.ascontiguousarray(a)),
+                                self._mesh, self.data_axes).flatten())
 
     def ingest(self, x, w=None, *, ts=None) -> IngestReport:
         """Fold one mini-batch into the windowed model.
@@ -472,13 +543,16 @@ class StreamingBigFCM:
     def _ingest(self, x, w=None, *, ts=None):
         """One ingest; returns (report, the batch's rows of nonzero
         weight)."""
-        x = self._to_device(x)
+        x = copy_real(x, self.device)
         w = (x.new_ones((x.shape[0],)) if w is None
-             else self._to_device(w))
-        w_np = _host(w)
+             else copy_real(w, self.device))
+        lo = (0 if self._mesh is None else
+              block_index(self._mesh, self.data_axes)[0] * x.shape[0])
+        w_np = self._global(_host(w))
+        b = _Batch(x, w, w_np, lo, w_np.shape[0])
         records = int(np.count_nonzero(w_np))
         if self.state is None:
-            self.state = self._fresh_state(x, w, reseeds=0, step=0)
+            self.state = self._fresh_state(b, reseeds=0, step=0)
         st = self.state
         cfg = self.cfg
 
@@ -492,6 +566,7 @@ class StreamingBigFCM:
             if ts_np.shape[0] != x.shape[0]:
                 raise ValueError(f"ts length {ts_np.shape[0]} != batch "
                                  f"rows {x.shape[0]}")
+            ts_np = self._global(ts_np)
             real = w_np > 0
             # gate against the watermark as of BEFORE this batch — a
             # record is late only if the clock had already passed it
@@ -506,9 +581,11 @@ class StreamingBigFCM:
             late = (ts_np < wm_gate) & real
             n_late = int(late.sum())
             if n_late:
-                w = torch.where(torch.from_numpy(late).to(self.device),
+                mine = late[lo:lo + x.shape[0]]
+                w = torch.where(torch.from_numpy(mine).to(self.device),
                                 0.0, w)
                 w_np = np.where(late, w_np.dtype.type(0), w_np)
+                b = b._replace(w=w, w_np=w_np)
                 real = real & ~late
             max_event = torch.tensor(new_max, dtype=torch.float32)
             if not real.any():
@@ -529,7 +606,7 @@ class StreamingBigFCM:
             t_batch = float(np.median(ts_np[real]))
 
         # ---- drift probe: objective + residual profile ----
-        q_pre, resid = self._probe(x, w, st.centers)
+        q_pre, resid = self._probe(b, st.centers)
         real = w_np > 0
         resid_med = float(np.median(resid[real]))
         thr = self.detector.outlier_threshold()
@@ -546,7 +623,7 @@ class StreamingBigFCM:
                 and (thr is None or out_frac > dcfg.reseed_frac)):
             # global regime change: the paper's driver re-seed
             drifted, reason = True, "objective"
-            st = self._fresh_state(x, w, int(st.reseeds) + 1,
+            st = self._fresh_state(b, int(st.reseeds) + 1,
                                    int(st.step), carry=st)
             self.detector.reset()
         elif (can_event and thr is not None
@@ -554,10 +631,10 @@ class StreamingBigFCM:
                 and st.centers.shape[0] < cfg.center_cap()):
             # partial regime change: spawn a center, forget nothing
             born = 1
-            st = self._spawn_center(st, x, w, resid)
+            st = self._spawn_center(st, b, resid)
 
         def fold(st_in):
-            sc, sw, iters = self._combine(x, w, st_in.centers)
+            sc, sw, iters = self._combine(b, st_in.centers)
             if cfg.event_time:
                 wc, ww, sb, placed = self._event_place(
                     st_in, sc, sw, t_batch, wm_gate, float(max_event))
@@ -578,7 +655,7 @@ class StreamingBigFCM:
         if (not drifted and not born and can_event
                 and self.detector.shift_drifted(shift)):
             drifted, reason = True, "shift"
-            st = self._fresh_state(x, w, int(st.reseeds) + 1,
+            st = self._fresh_state(b, int(st.reseeds) + 1,
                                    int(st.step), carry=st)
             self.detector.reset()
             (win_c, win_w, cursor, slot_b,
@@ -609,7 +686,7 @@ class StreamingBigFCM:
                 win_w = win_w[:, keep_dev]
                 ages = ages[keep]
 
-        q_post = float(_q_norm(x, w, merged_c, m=cfg.m))
+        q_post = self._q(b, merged_c)
         self.detector.observe(q_pre, shift, drifted or bool(born),
                               resid_med)
         self.state = StreamState(
@@ -625,7 +702,7 @@ class StreamingBigFCM:
         return IngestReport(
             step=int(self.state.step), drifted=drifted, reseeded=drifted,
             reason=reason, objective_pre=q_pre, objective_post=q_post,
-            shift=shift, combiner_iters=np.array([iters], np.int32),
+            shift=shift, combiner_iters=np.array(iters, np.int32),
             mass=float(window_mass(win_w)), watermark=wm,
             late_dropped=n_late, born=born, died=died,
             n_centers=int(merged_c.shape[0])), records
@@ -650,7 +727,7 @@ class StreamingBigFCM:
         model's device: hard labels (n,) or soft memberships (n, C)."""
         if self.state is None:
             raise RuntimeError("StreamingBigFCM has ingested no data yet")
-        x = self._to_device(x)
+        x = copy_real(x, self.device)
         if soft:
             return self.backend.soft_assign(x, self.state.centers,
                                             self.cfg.m)
@@ -689,15 +766,17 @@ class StreamingBigFCM:
         self.state = StreamState(**leaves)
 
     @classmethod
-    def from_state_arrays(cls, cfg: StreamConfig, tree: dict, *,
+    def from_state_arrays(cls, cfg: StreamConfig, tree: dict, *, mesh=None,
+                          data_axes: Sequence[str] = ("data",),
                           draws: Optional[Draws] = None,
                           device: Union[str, torch.device] = "cuda"
                           ) -> "StreamingBigFCM":
-        """A model on ``device`` holding the state of ``tree`` (a
-        `state_dict`, e.g. `repro.stream.StreamingBigFCM.state_dict()`
-        as numpy arrays) — how the parity tests start both packages from
-        one state."""
-        model = cls(cfg, draws=draws, device=device)
+        """A model on ``device`` (or ``mesh``) holding the state of
+        ``tree`` (a `state_dict`, e.g.
+        `repro.stream.StreamingBigFCM.state_dict()` as numpy arrays) —
+        how the parity tests start both packages from one state."""
+        model = cls(cfg, mesh=mesh, data_axes=data_axes, draws=draws,
+                    device=device)
         model.load_state_arrays(tree)
         return model
 
@@ -714,13 +793,14 @@ class StreamingBigFCM:
                 device: Union[str, torch.device] = "cuda"
                 ) -> "StreamingBigFCM":
         """Rebuild a live stream from a checkpoint (d = feature count) —
-        one written by either package.  The center count is read off the
-        manifest (birth and death change it)."""
-        if mesh is not None:
-            raise _no_mesh()
+        one written by either package, onto one device or ``mesh`` (every
+        rank restores the same replicated state).  The center count is
+        read off the manifest (birth and death change it)."""
         tree = ckpt.restore_arrays(step)
         got = tuple(tree["centers"].shape)
         if len(got) != 2 or got[1] != d:
             raise ValueError(f"checkpoint centers have shape {got}, "
                              f"expected (C, {d})")
-        return cls.from_state_arrays(cfg, tree, draws=draws, device=device)
+        return cls.from_state_arrays(cfg, tree, mesh=mesh,
+                                     data_axes=data_axes, draws=draws,
+                                     device=device)

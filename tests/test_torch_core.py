@@ -130,14 +130,24 @@ def test_bigfcm_fit_default_draws_and_driver_recover_blobs():
 
 
 def test_bigfcm_fit_rejects_paths_not_in_slice():
-    """The mesh is not in the port yet; a `ChunkStore` input runs the
-    out-of-core fit (`bigfcm_fit_store`, one shard)."""
+    """The mesh path runs (here on a 1-rank gloo mesh, which takes the
+    single-device branch, as the reference's 1-device mesh does; the
+    multi-rank mesh is tests/test_torch_mesh.py's); a `ChunkStore` input
+    runs the out-of-core fit (`bigfcm_fit_store`, one shard) and refuses
+    a mesh."""
     from repro_torch.data import ChunkStore
+    from torch_mesh_jobs import one_rank_mesh
     x, _ = RD.make_blobs(100, 3, 2, seed=0)
     cfg = T.BigFCMConfig(n_clusters=2, sample_size=64, backend="torch")
-    with pytest.raises(NotImplementedError, match="mesh"):
-        T.bigfcm_fit(x, cfg, mesh=object(), device="cpu")
+    with one_rank_mesh() as mesh:
+        on_mesh = T.bigfcm_fit(x, cfg, mesh=mesh, data_axes=("data",))
+    plain = T.bigfcm_fit(x, cfg, device="cpu")
+    assert torch.equal(on_mesh.centers, plain.centers)
+    assert on_mesh.diagnostics.combiner_iters == \
+        plain.diagnostics.combiner_iters
     store = ChunkStore.ingest(x, chunk_rows=64)
+    with pytest.raises(ValueError, match="mesh"):
+        T.bigfcm_fit(store, cfg, mesh=object(), device="cpu")
     got = T.bigfcm_fit(store, cfg, device="cpu")
     want = T.bigfcm_fit_store(store, cfg, device="cpu")
     assert torch.equal(got.centers, want.centers)

@@ -676,8 +676,12 @@ def test_mr_kmeans_empty_cluster_keeps_its_center():
     np.testing.assert_array_equal(p_c[2].numpy(), init[2])
     np.testing.assert_allclose(p_c.numpy(), np.asarray(r_c), rtol=0,
                                atol=1e-5)
-    with pytest.raises(NotImplementedError):
-        TB.mr_kmeans(x, init, mesh=object(), **CPU)
+    # a 1-rank mesh runs the single-device jobs (the 4-rank mesh is
+    # tests/test_torch_mesh.py's)
+    from torch_mesh_jobs import one_rank_mesh
+    with one_rank_mesh() as mesh:
+        m_c, m_n, *_ = TB.mr_kmeans(x, init, max_iter=5, mesh=mesh)
+    assert torch.equal(m_c, p_c) and torch.equal(m_n, p_n)
 
 
 # ------------------------------------------ the wrappers' launch counts --

@@ -125,7 +125,8 @@ def test_import_loads_no_jax_and_no_reference_module():
             "repro_torch.fleet.host", "repro_torch.fleet.wire",
             "repro_torch.fleet.transport", "repro_torch.fleet.sim",
             "repro_torch.fleet.proc", "repro_torch.ft.elastic",
-            "repro_torch.baselines.kmeans"} \
+            "repro_torch.baselines.kmeans", "repro_torch.mesh",
+            "repro_torch.fleet.spmd"} \
         <= set(out["modules"])
     assert out["leaked"] == []
 
@@ -227,7 +228,8 @@ def test_fleet_ft_and_baselines_alone_load_no_jax_ml_dtypes_or_reference():
     for module in ("repro_torch.fleet", "repro_torch.fleet.wire",
                    "repro_torch.fleet.proc", "repro_torch.ft",
                    "repro_torch.ft.elastic", "repro_torch.baselines",
-                   "repro_torch.baselines.kmeans"):
+                   "repro_torch.baselines.kmeans", "repro_torch.mesh",
+                   "repro_torch.fleet.spmd"):
         out = _run(_ALONE_NO_ML_DTYPES.format(module=module))
         assert json.loads(out.strip().splitlines()[-1]) == [], module
 
@@ -268,3 +270,39 @@ def test_fleet_and_kmeans_entry_points_raise_without_a_card():
     assert all(ln.startswith("raised:") and "device='cpu'" in ln
                for ln in out[:4])
     assert out[4] == "cpu: cpu 1"
+
+
+def test_mesh_on_cuda_raises_without_a_card():
+    """A CUDA mesh (the default) whose card is missing raises, and so
+    does spawning CUDA ranks — nothing is spawned; a CPU mesh is asked
+    for by name.  The LM trainer's elastic remesh raises naming M13."""
+    code = """
+import tempfile
+import torch.distributed as dist
+from repro_torch import mesh as M
+from repro_torch.ft import elastic_remesh, make_mesh_for
+dist.init_process_group("gloo", init_method="file://" + tempfile.mkdtemp()
+                        + "/rdv", rank=0, world_size=1)
+for call in (lambda: M.make_mesh((1,), ("data",)),
+             lambda: M.spawn_mesh(print, (2,), ("data",), backend="gloo")):
+    try:
+        call()
+    except RuntimeError as e:
+        print("raised:", e)
+    else:
+        print("ran")
+print("cpu:", M.rank_device(M.make_mesh((1,), ("data",), device_type="cpu")))
+for call in (lambda: make_mesh_for([0], model_parallel=1),
+             lambda: elastic_remesh({}, {}, None)):
+    try:
+        call()
+    except NotImplementedError as e:
+        print("deferred:", e)
+dist.destroy_process_group()
+"""
+    out = _run(code, CUDA_VISIBLE_DEVICES="").splitlines()
+    assert len(out) == 5, out
+    assert all(ln.startswith("raised:") and "device='cpu'" in ln
+               for ln in out[:2]), out
+    assert out[2] == "cpu: cpu"
+    assert all(ln.startswith("deferred:") and "M13" in ln for ln in out[3:])

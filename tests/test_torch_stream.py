@@ -517,14 +517,19 @@ def test_loader_single_use_stream_errors_and_mesh():
 
     with pytest.raises(RuntimeError, match="upstream parse failure"):
         list(TD.ShardedLoader(poisoned(), batch_rows=4, **CPU))
-    with pytest.raises(NotImplementedError, match="M6"):
-        TD.ShardedLoader(np.ones((4, 2), np.float32), 2, mesh=object(),
-                         **CPU)
-    with pytest.raises(NotImplementedError, match="M6"):
-        TD.stream_loader(iter([]), 2, mesh=object(), **CPU)
-    with pytest.raises(NotImplementedError, match="M6"):
-        TD.ShardedLoader(np.ones((4, 2), np.float32), 2,
-                         **CPU).reshard(object(), ("data",))
+    # on a 1-rank mesh every batch is this rank's whole block (the 4-rank
+    # mesh is tests/test_torch_mesh.py's)
+    from torch_mesh_jobs import one_rank_mesh
+    x = np.arange(8, dtype=np.float32).reshape(4, 2)
+    with one_rank_mesh() as mesh:
+        got = [(_np(a).copy(), _np(w).copy())
+               for a, w in TD.stream_loader(iter([x]), 2, mesh=mesh)]
+        loader = TD.ShardedLoader(x, 2, **CPU)
+        loader.reshard(mesh, ("data",))
+        assert [_np(a).tolist() for a, _ in loader] == [x[:2].tolist(),
+                                                        x[2:].tolist()]
+    assert [a.tolist() for a, _ in got] == [x[:2].tolist(), x[2:].tolist()]
+    assert all(w.tolist() == [1.0, 1.0] for _, w in got)
 
 
 def test_loader_abandoned_epoch_retires_producer_and_dead_one_raises():
@@ -724,10 +729,28 @@ def test_plain_path_follows_torch_default_dtype_to_float64(pin_driver):
     assert events == 1
 
 
-def test_mesh_waits_for_the_multi_gpu_slice():
-    with pytest.raises(NotImplementedError, match="M6"):
-        TS.StreamingBigFCM(TS.StreamConfig(n_clusters=2), mesh=object(),
-                           **CPU)
+def test_mesh_waits_for_the_multi_gpu_slice(tmp_path, pin_driver):
+    """The mesh stream runs: on a 1-rank mesh (the 4-rank mesh is
+    tests/test_torch_mesh.py's) it ingests as the plain model does, bit
+    for bit, and `restore(mesh=)` puts a checkpoint back onto the mesh."""
+    from torch_mesh_jobs import one_rank_mesh
+    x, _ = RD.make_blobs(2000, 4, 3, seed=6)
+    cfg = TS.StreamConfig(n_clusters=3, window=3, driver_sample=128,
+                          backend="torch")
+    draws = (lambda x, w, r: (np.arange(0, 256, 2), np.array([0, 40, 80])))
+    plain = TS.StreamingBigFCM(cfg, draws=draws, **CPU)
+    with one_rank_mesh() as mesh:
+        on_mesh = TS.StreamingBigFCM(cfg, mesh=mesh, draws=draws)
+        for chunk in RD.replay_source(x, 500):
+            a, b = on_mesh.ingest(chunk), plain.ingest(chunk)
+            assert a == b
+        ckpt = PortCkpt(str(tmp_path), async_save=False)
+        on_mesh.save(ckpt)
+        back = TS.StreamingBigFCM.restore(ckpt, cfg, d=4, mesh=mesh)
+        assert back.mesh is mesh
+    for f in TS.StreamState._fields:
+        assert torch.equal(getattr(back.state, f),
+                           getattr(plain.state, f)), f
 
 
 # -------------------------------------------------------- run + serving --
