@@ -50,12 +50,19 @@ Phases, each printed as JSON lines; any failure raises and exits non-zero:
    and WFCMPB on the full-size sample) run through ``hopper``, every
    sweep over records held against the plain version on the same
    inputs, and their centers against the ``torch`` backend's.
-   Then ``router_fit``: `bigfcm_fit` with src/repro/integration/
+   Then ``router_fit``: `fcm_router_init` over OLMoE-1B-7B's routers in
+   the reference's layout (``stages[0]["moe"]["w_router"]``, (16, 2048,
+   64) bf16), its `bigfcm_fit` with src/repro/integration/
    router_init.py:40-42's config (C = 64, m = 2, ε 1e-6 / 1e-8, 200
    sweeps) at OLMoE-1B-7B's d_model (262,144 × 2048 token-embedding-like
    rows from 64 Gaussian components of unequal mass), every launch on
    the C-tiled path, held against the ``torch`` backend from the same
-   draws (`hold_router_fits`); each shape held and timed, the
+   draws (`hold_router_fits`); the ``router_init`` record holds every
+   layer's router equal to (v/‖v‖)ᵀ of the fit and prints x·w's top-1
+   agreement with `hard_assign` (m = 2 flattens the centers at d =
+   2048); then seeds the routers from tests/test_integration.py:23's
+   embedding table at OLMoE's full width (50,304 × 2048 blobs, spread
+   0.1, sep 2.0) and holds that agreement above 0.9; each shape held and timed, the
    contraction's ``torch.matmul`` timed as its yardstick.  The HIGGS- and
    KDD99-like records print `kernel_roofline` of ``hopper`` at full size,
    its `sweep_bytes` held equal to `bound_bytes`.
@@ -157,7 +164,34 @@ Phases, each printed as JSON lines; any failure raises and exits non-zero:
    a steady ingest from a host microbenchmark, held to 5 %.  Obs stays
    on for the whole script (checks beside the main path record
    nothing).
-7. the kernels line (one entry per kernel), the ``nvidia-smi`` line,
+7. LM path — ``lm_serve``: Qwen2-1.5B at its full published config
+   (28 layers, d_model 1536, 12 Q heads padded to 16 with the 4 padded
+   masked dead, 2 KV heads, d_ff 8960, vocab 151,936, tied, θ = 1e6),
+   weights from `tree_init` on the card from ``--seed``, in bf16:
+   `greedy_generate` for 8 prompts of 2048 tokens, 64 new tokens, a
+   4096-slot cache (KV blocks of 1024: the online softmax in prefill
+   and decode); the same loop timed call by call (prefill ms, decode ms
+   per token, tokens/s, peak device memory, the decode step's bytes
+   bound — weights plus the whole cache over the probed HBM peak — and
+   its share).  Held: the same weights in f32 with TF32 off, decode with
+   the cache against one forward over the 2048 + 64 tokens (rtol 5e-3,
+   atol 5e-4, tests/test_models.py:47), the card's forward against
+   the CPU's for a reduced qwen2 (f32: 1e-4 / 1e-5; bf16: 2⁻⁴ of the
+   largest value), and attention's f32-accumulating bf16 product
+   (`_bmm_f32`) against its CPU branch at the path's shapes (1e-5 of the
+   largest); printed only: the bf16 logits' gap to f32 and their greedy
+   agreement.  Then ``curriculum``:
+   `curriculum_buckets` on backend ``hopper`` over `sequence_embeddings`
+   of that model's table (65,536 sequences of 256 tokens, each drawn
+   from one of 16 topics of 64 token ids: 65,536 × 1536 f32), launch
+   counts zeroed before it; its launch plan printed; held: accuracy
+   against the topics above 0.95, the ambiguity in [0, 1 + 1e-6], the
+   buckets against a ``torch`` fit from the same injected draws except
+   at ties, full `CurriculumSampler` batches; printed only: the same
+   fit at `curriculum_buckets`' default m = 2 (the phase runs m = 1.2);
+   K1/K2 at each of its shapes held against their plain versions and
+   timed.
+8. the kernels line (one entry per kernel), the ``nvidia-smi`` line,
    and the final ``{"ok": true, ...}`` line.
 
 Launches are priced at their own shapes.  Each wrapper counts its
@@ -233,7 +267,7 @@ EXPECTED_PATH = {"higgs_like": "rows", "kdd99_like": "tile",
                  "tenants_t16": "rows", "tenants_65k": "rows",
                  "kdd99_stream": "tile", "drift_global": "tile",
                  "drift_split": "tile", "drift_event": "tile",
-                 "router_fit": "ctiled"}
+                 "router_fit": "ctiled", "curriculum": "first"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -926,17 +960,19 @@ def hold_router_fits(x, ones, cfg, draws, device) -> dict:
 
 
 def run_router_fit(seed: int, device, reps: int):
-    """Phase 3b: `bigfcm_fit` on backend ``hopper`` at router_fit's full width
-    (the C-tiled kernel's main path), launch counts zeroed just before it
-    and read after the global objective pass; the fit held against the
-    ``torch`` backend (`hold_router_fits`); each kernel entry against its
+    """Phase 3b: `fcm_router_init` over OLMoE's router tree, its
+    `bigfcm_fit` on backend ``hopper`` at router_fit's full width (the
+    C-tiled kernel's main path), launch counts zeroed just before it and
+    read after the global objective pass; the fit held against the
+    ``torch`` backend (`hold_router_fits`); the routers held
+    (`hold_router_init`); each kernel entry against its
     plain version (in row chunks) at every shape the fit launched it at,
     and timed.  Returns (phase record, kernel entries)."""
     import numpy as np
     import torch
-    from repro_torch.core import bigfcm_fit
     from repro_torch.device import synchronize
     from repro_torch.engine import get_backend
+    from repro_torch.integration import fcm_router_init
     from repro_torch.kernels.fcm_update import (fcm_accumulate_cuda,
                                                 fcm_sweep_cuda, reset_counts)
 
@@ -945,6 +981,7 @@ def run_router_fit(seed: int, device, reps: int):
     x = torch.from_numpy(x_np).to(device)
     del x_np
     ones = torch.ones((ROUTER_N,), dtype=torch.float32, device=device)
+    moe_cfg, tree = olmoe_router_tree(seed, device)
     synchronize(device)
     setup_s = time.perf_counter() - t0
     cfg = router_config(seed)
@@ -953,7 +990,8 @@ def run_router_fit(seed: int, device, reps: int):
     reset_counts()
     synchronize(device)
     t0 = time.perf_counter()
-    res = bigfcm_fit(x, cfg, device=device)
+    seeded, res = fcm_router_init(tree, moe_cfg, x, fcm_cfg=cfg,
+                                  device=device)
     _, _, q = get_backend("hopper_accumulate").accumulate(
         x, ones, res.centers, cfg.m)
     synchronize(device)
@@ -993,6 +1031,29 @@ def run_router_fit(seed: int, device, reps: int):
              rng.choice(lam, ROUTER_C, replace=False))
     record["hold"] = hold_router_fits(x, ones, cfg, draws, device)
     emit(record)
+    from repro_torch.data.synth import make_blobs
+    tab, _ = make_blobs(moe_cfg.vocab_padded, moe_cfg.d_model,
+                        moe_cfg.n_experts, spread=ROUTER_TABLE_SPREAD,
+                        sep=ROUTER_TABLE_SEP, seed=seed + 3)
+    tab = torch.from_numpy(tab).to(device)
+    synchronize(device)
+    t0 = time.perf_counter()
+    from_table, tab_res = fcm_router_init(tree, moe_cfg, tab, fcm_cfg=cfg,
+                                          device=device)
+    synchronize(device)
+    tab_s = time.perf_counter() - t0
+    tdiag = tab_res.diagnostics
+    emit({"phase": "router_init", "arch": "olmoe-1b-7b",
+          "agreement_bar": ROUTER_AGREE,
+          "router_fit": hold_router_init(tree, seeded, res.centers, x,
+                                         False),
+          "embed_table": {
+              **hold_router_init(tree, from_table, tab_res.centers, tab,
+                                 True),
+              "rows": int(tab.shape[0]), "spread": ROUTER_TABLE_SPREAD,
+              "sep": ROUTER_TABLE_SEP, "wall_s": tab_s, "flag": tdiag.flag,
+              "iters": list(tdiag.combiner_iters) + [tdiag.reducer_iters]}})
+    del tree, seeded, from_table, tab
 
     cases = {"full": (x, ones, res.centers, 0.0)}
     for ns in sorted({k[1] for shapes in by_shape.values() for k in shapes}
@@ -1008,6 +1069,71 @@ def run_router_fit(seed: int, device, reps: int):
 
 
 ROUTER_DSPLIT_N = (2 * ROUTER_C, BLOCK_SIZE)   # WFCMPB's merges and blocks
+ROUTER_AGREE = 0.9      # top-1 routing vs hard_assign (tests/test_integration.py:44)
+# On router_fit's rows the m = 2 fit's centers at d = 2048 sit near the
+# data's mean (FCM's high-dimensional flattening), so routing by the
+# unit centers and hard assignment to them part ways: that agreement is
+# printed.  It is held where tests/test_integration.py:23 holds it, on
+# that test's embedding table (make_blobs(vocab_padded, d_model,
+# n_experts, spread 0.1, sep 2.0)) made at OLMoE's full width.
+ROUTER_TABLE_SPREAD, ROUTER_TABLE_SEP = 0.1, 2.0
+
+
+def olmoe_router_tree(seed, device):
+    """OLMoE-1B-7B's routers in the reference's layout: a tree holding
+    ``stages[0]["moe"]["w_router"]``, (n_layers − first_dense, d_model,
+    n_experts) = (16, 2048, 64) stacked as src/repro/models/moe.py:36
+    declares it, in the config's bf16, random from ``seed`` (the
+    experts' FFN weights play no part and are left out)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.moe import moe_decl
+    from repro_torch.models.params import stack_layers, tree_init
+    from repro_torch.models.transformer import torch_dtype
+    cfg = get_config("olmoe-1b-7b")
+    if (cfg.d_model, cfg.n_experts) != (ROUTER_D, ROUTER_C):
+        raise AssertionError(f"olmoe-1b-7b is {cfg.d_model} x "
+                             f"{cfg.n_experts}, router_fit {ROUTER_D} x "
+                             f"{ROUTER_C}")
+    decl = {"stages": [stack_layers(
+        lambda: {"moe": {"w_router": moe_decl(cfg)["w_router"]}},
+        cfg.n_layers - cfg.first_dense)]}
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return cfg, tree_init(gen, decl, torch_dtype(cfg.param_dtype), device)
+
+
+def hold_router_init(tree, seeded, centers, x, hold_agreement) -> dict:
+    """Every layer's router of `fcm_router_init`'s tree equals (v/‖v‖)ᵀ of
+    the fit in the leaf's own dtype, shape and device, the input tree
+    untouched; and the share of rows where the top-1 choice of x·w is
+    `hard_assign`'s, held above ROUTER_AGREE if ``hold_agreement``."""
+    import torch
+    from repro_torch.core import hard_assign
+    before = tree["stages"][0]["moe"]["w_router"]
+    w = seeded["stages"][0]["moe"]["w_router"]
+    v = centers / (torch.linalg.norm(centers, dim=-1, keepdim=True) + 1e-8)
+    want = v.T.to(before.dtype)
+    if w.shape != before.shape or w.dtype != before.dtype or \
+            w.device != before.device or w is before:
+        raise AssertionError(f"router_init: w_router {tuple(w.shape)} "
+                             f"{w.dtype} on {w.device}")
+    if not all(torch.equal(w[l], want) for l in range(w.shape[0])):
+        raise AssertionError("router_init: a layer's router is not "
+                             "(v/|v|)^T of the fit")
+    agree = 0
+    for r0 in range(0, x.shape[0], 1 << 16):
+        xs = x[r0:r0 + (1 << 16)]
+        agree += int(((xs @ w[0].float()).argmax(1)
+                      == hard_assign(xs, centers)).sum())
+    agree /= x.shape[0]
+    if hold_agreement and agree <= ROUTER_AGREE:
+        raise AssertionError(f"router_init: top-1 agreement {agree} <= "
+                             f"{ROUTER_AGREE}")
+    norms = torch.linalg.norm(centers, dim=-1)
+    return {"w_router": list(w.shape), "dtype": str(w.dtype).split(".")[-1],
+            "layers_equal_unit_centers": w.shape[0],
+            "top1_agreement": agree, "agreement_held": hold_agreement,
+            "center_norms": [float(norms.min()), float(norms.max())]}
 
 
 def router_plans(by_shape, device) -> dict:
@@ -4312,6 +4438,479 @@ def run_mesh_path(held_x: dict, cfgs: dict, seed: int, mesh_dir: Path,
     return entries
 
 
+# lm_serve: Qwen2-1.5B at its published config (src/repro_torch/configs/
+# qwen2_1_5b.py), random weights from --seed, greedy serving in bf16.
+LM_ARCH = "qwen2-1.5b"
+LM_BATCH, LM_PROMPT, LM_NEW, LM_MAX_LEN = 8, 2048, 64, 4096
+LM_RTOL, LM_ATOL = 5e-3, 5e-4       # decode vs forward, tests/test_models.py:47
+LM_CPU_RTOL, LM_CPU_ATOL = 1e-4, 1e-5   # card vs CPU forward, f32
+# card vs CPU forward in bf16: of the largest |h|, as tests/
+# test_torch_models.py holds the port against the compiled reference (one-
+# ulp flips where the GEMMs' f32 sums run in another order, carried on)
+LM_CPU_BF16_REL = 2.0 ** -4
+# `_bmm_f32` on bf16 operands, card vs CPU: f32 sums in two orders, of the
+# largest |result|; a result rounded to bf16 parts by 2^-9 of each value
+LM_BMM_REL = 1e-5
+HBM_PEAK_BYTES_PER_S = (2.80e12, 2.93e12)   # `calibrate`'s probe, H100 80GB HBM3
+LM_PUBLISHED = dict(n_layers=28, d_model=1536, n_heads=12, n_heads_padded=16,
+                    n_kv_heads=2, d_ff=8960, vocab=151936, qkv_bias=True,
+                    tie_embeddings=True, rope_theta=1e6)
+
+
+def lm_step_bytes(model, cfg) -> int:
+    """Bytes one decode step must move at least: every weight once, and
+    the whole KV cache, which the step reads over all ``max_len`` slots
+    (the reference's decode does)."""
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    cache = (2 * cfg.n_layers * LM_BATCH * LM_MAX_LEN * cfg.n_kv_heads
+             * cfg.hd * 2)
+    return weights + cache
+
+
+def timed_generate(cfg, model, batch, device):
+    """`greedy_generate`'s loop with each call timed to a synchronize:
+    (tokens, prefill logits, prefill ms, per-step ms)."""
+    import torch
+    from repro_torch.serve import make_prefill, make_serve_step
+    prefill, step = make_prefill(cfg, LM_MAX_LEN), make_serve_step(cfg)
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    logits, caches = prefill(model, batch)
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    torch.cuda.synchronize(device)
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    out, steps = [tok], []
+    for _ in range(LM_NEW - 1):
+        t0 = time.perf_counter()
+        tok, caches = step(model, caches, tok)
+        torch.cuda.synchronize(device)
+        steps.append((time.perf_counter() - t0) * 1e3)
+        out.append(tok)
+    return torch.cat(out, dim=1), logits, prefill_ms, steps
+
+
+def hold_lm_f32(model, cfg, prompt, toks, lg_bf16, device) -> dict:
+    """The same weights cast to f32, IEEE f32 products (TF32 off): decode
+    with the cache (prefill of the prompt, then the bf16 run's 64 tokens
+    one at a time) against one forward over all 2048 + 64 tokens, on the
+    hidden states of positions 2047–2111 at LM_RTOL / LM_ATOL.  Printed,
+    not held: the f32 prefill logits against the bf16 ones, and the f32
+    greedy choice at each of the 64 steps against the bf16 run's."""
+    import torch
+    from repro_torch.models import DecoderLM
+    from repro_torch.models.transformer import init_caches, logits_fn
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                compute_dtype="float32")
+    m32 = DecoderLM(cfg32, device=device)
+    m32.load_state_dict({k: v.float() for k, v in model.state_dict().items()},
+                        assign=True)
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        h_full = m32(torch.cat([prompt, toks], dim=1))[:, LM_PROMPT - 1:]
+        caches = init_caches(cfg32, LM_BATCH, LM_MAX_LEN, torch.float32,
+                             device)
+        h_pre, caches = m32(prompt, caches=caches)
+        outs = [h_pre[:, -1]]
+        lg_pre = logits_fn(cfg32, m32, h_pre[:, -1:])
+        choice = [torch.argmax(lg_pre, dim=-1)]
+        for t in range(LM_NEW):
+            h_t, caches = m32(toks[:, t:t + 1], caches=caches)
+            outs.append(h_t[:, 0])
+            if t < LM_NEW - 1:
+                choice.append(torch.argmax(logits_fn(cfg32, m32, h_t), -1))
+        h_dec = torch.stack(outs, dim=1)
+    torch.cuda.synchronize(device)
+    err = max_err((h_dec,), (h_full,), LM_RTOL, LM_ATOL,
+                  "lm_serve: f32 decode vs forward")
+    agree = float((torch.cat(choice, dim=1) == toks).float().mean())
+    gap = float((lg_pre - lg_bf16.float()).abs().max())
+    rec = {"decode_vs_forward_max_abs_err": err, "rtol": LM_RTOL,
+           "atol": LM_ATOL, "positions": [LM_PROMPT - 1,
+                                          LM_PROMPT + LM_NEW - 1],
+           "hidden_scale": float(h_full.abs().max()),
+           "bf16_vs_f32_prefill_logits_max_abs": gap,
+           "f32_logits_scale": float(lg_pre.abs().max()),
+           "greedy_agreement_bf16_vs_f32": agree,
+           "seconds": time.perf_counter() - t0}
+    del m32, caches, h_full, h_dec
+    torch.cuda.empty_cache()
+    return rec
+
+
+def hold_lm_cpu(seed, device) -> dict:
+    """The port's card forward against its CPU forward for a `reduced()`
+    qwen2 with the same parameters, full attention and KV blocks of 16
+    (the online softmax), hidden states and logits: in f32 at
+    LM_CPU_RTOL / LM_CPU_ATOL; in bf16 (the served dtypes, where
+    `_bmm_f32` takes its ``out_dtype`` branch on the card and its upcast
+    on the CPU) within LM_CPU_BF16_REL of the largest value, the share
+    of bit-equal values printed.  Then `hold_bmm_f32`."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import DecoderLM
+    from repro_torch.models.transformer import logits_fn
+    out, bf16 = {}, {}
+    for dtype in ("float32", "bfloat16"):
+        for chunk in (0, 16):
+            cfg = dataclasses.replace(reduced(get_config(LM_ARCH)),
+                                      attn_chunk=chunk, param_dtype=dtype,
+                                      compute_dtype=dtype)
+            cpu = DecoderLM(cfg, torch.Generator().manual_seed(seed),
+                            device="cpu")
+            card = DecoderLM(cfg, device=device)
+            card.load_state_dict(cpu.state_dict())
+            tok = torch.from_numpy(np.random.default_rng(seed).integers(
+                0, cfg.vocab, (4, 64)))
+            with torch.inference_mode():
+                h_cpu, h_card = cpu(tok), card(tok.to(device))
+                got = (h_card, logits_fn(cfg, card, h_card))
+                want = (h_cpu.to(device),
+                        logits_fn(cfg, cpu, h_cpu).to(device))
+            what = f"lm_serve: card vs CPU, reduced {LM_ARCH}, chunk {chunk}"
+            if dtype == "float32":
+                out[f"attn_chunk={chunk}"] = max_err(
+                    got, want, LM_CPU_RTOL, LM_CPU_ATOL, what)
+                continue
+            rec = {}
+            for name, g, w in zip(("hidden", "logits"), got, want):
+                if g.dtype != torch.bfloat16:
+                    raise AssertionError(f"{what}: {name} is {g.dtype}")
+                g, w = g.float(), w.float()
+                err, scale = float((g - w).abs().max()), float(w.abs().max())
+                rec[name] = {"max_abs_err": err, "scale": scale,
+                             "bit_equal": float((g == w).float().mean())}
+                if not err <= LM_CPU_BF16_REL * scale:
+                    raise AssertionError(f"{what}, bf16: {name} {rec}")
+            bf16[f"attn_chunk={chunk}"] = rec
+    return {"card_vs_cpu_max_abs_err": out, "rtol": LM_CPU_RTOL,
+            "atol": LM_CPU_ATOL, "bf16": bf16,
+            "bf16_rel_bar": LM_CPU_BF16_REL,
+            "bmm_f32": hold_bmm_f32(seed, device)}
+
+
+def hold_bmm_f32(seed, device) -> dict:
+    """`attention._bmm_f32` on bf16 operands at lm_serve's shapes, on the
+    card (one bf16 product accumulating and returning f32) against its
+    CPU branch (the operands upcast: exact products, f32 sums): decode's
+    scores (B·KV, rep, hd) × (B·KV, hd, max_len) and P·V (B·KV, rep,
+    max_len) × (B·KV, max_len, hd), and one prefill KV block (rep · 256
+    queries a group, 1024 keys).  f32 results within LM_BMM_REL of the
+    largest, and not all of them bf16 values."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.attention import _bmm_f32
+    cfg = get_config(LM_ARCH)
+    g, rep = LM_BATCH * cfg.n_kv_heads, cfg.n_heads_padded // cfg.n_kv_heads
+    hd, gen = cfg.hd, torch.Generator().manual_seed(seed)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen).to(torch.bfloat16)
+
+    cases = {"decode_scores": (normal(g, rep, hd), normal(g, hd, LM_MAX_LEN)),
+             "decode_pv": (torch.rand((g, rep, LM_MAX_LEN), generator=gen)
+                           .to(torch.bfloat16), normal(g, LM_MAX_LEN, hd)),
+             "prefill_block_scores": (normal(g, rep * 256, hd),
+                                      normal(g, hd, cfg.attn_chunk))}
+    rec = {}
+    for name, (a, b) in cases.items():
+        want = _bmm_f32(a, b)
+        got = _bmm_f32(a.to(device), b.to(device))
+        if got.dtype != torch.float32 or want.dtype != torch.float32:
+            raise AssertionError(f"lm_serve: _bmm_f32 {name} gave "
+                                 f"{got.dtype} on the card")
+        got = got.cpu()
+        err, scale = float((got - want).abs().max()), float(want.abs().max())
+        rounded = bool((got.to(torch.bfloat16).float() == got).all())
+        rec[name] = {"shape": [list(a.shape), list(b.shape)],
+                     "max_abs_err": err, "scale": scale}
+        if rounded or not err <= LM_BMM_REL * scale:
+            raise AssertionError(f"lm_serve: _bmm_f32 {name}, card vs CPU: "
+                                 f"{rec[name]}, all bf16 values: {rounded}")
+    return {**rec, "rel_bar": LM_BMM_REL}
+
+
+def run_lm_serve(seed: int, device):
+    """Phase ``lm_serve``: Qwen2-1.5B at its full published width and
+    depth (the 4 padded Q heads masked dead), weights from `tree_init`
+    on the card, `greedy_generate` in bf16 for LM_BATCH prompts of
+    LM_PROMPT tokens, LM_NEW new tokens, a LM_MAX_LEN cache; then the
+    same loop timed call by call (held token for token against
+    `greedy_generate`); the f32 decode-vs-forward hold
+    (`hold_lm_f32`) and the card-vs-CPU hold (`hold_lm_cpu`).  Emits
+    the record; returns (model, config): `run_curriculum` embeds with its
+    table."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import DecoderLM
+    from repro_torch.serve import greedy_generate
+
+    t_phase = time.perf_counter()
+    cfg = get_config(LM_ARCH)
+    got = {k: getattr(cfg, k) for k in LM_PUBLISHED}
+    if got != LM_PUBLISHED:
+        raise AssertionError(f"{LM_ARCH}: {got} is not the published "
+                             f"{LM_PUBLISHED}")
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    model = DecoderLM(cfg, torch.Generator(device=device).manual_seed(seed),
+                      device=device)
+    torch.cuda.synchronize(device)
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    prompt = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab, (LM_BATCH, LM_PROMPT)).astype(np.int32)).to(device)
+    batch = {"tokens": prompt}
+
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    base = torch.cuda.memory_allocated(device)
+    t0 = time.perf_counter()
+    toks = greedy_generate(cfg, model, batch, max_new=LM_NEW,
+                           max_len=LM_MAX_LEN, device=device)
+    torch.cuda.synchronize(device)
+    first_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(device)
+    if toks.shape != (LM_BATCH, LM_NEW) or toks.dtype != torch.int32 or \
+            not bool(((toks >= 0) & (toks < cfg.vocab)).all()):
+        raise AssertionError(f"lm_serve: tokens {tuple(toks.shape)} "
+                             f"{toks.dtype} outside [0, {cfg.vocab})")
+    timed, lg_bf16, prefill_ms, steps = timed_generate(cfg, model, batch,
+                                                       device)
+    if not torch.equal(timed, toks):
+        raise AssertionError("lm_serve: the timed loop's tokens differ "
+                             "from greedy_generate's")
+    if not bool(torch.isfinite(lg_bf16.float()).all()):
+        raise AssertionError("lm_serve: non-finite prefill logits")
+    step_ms = float(np.median(steps))
+    nbytes = lm_step_bytes(model, cfg)
+    bound_ms = [nbytes / r * 1e3 for r in HBM_PEAK_BYTES_PER_S]
+    loop_s = (prefill_ms + sum(steps)) / 1e3
+    rec = {"phase": "lm_serve", "arch": LM_ARCH, "dtype": "bfloat16",
+           "n_params": n_params, "layers": cfg.n_layers,
+           "d_model": cfg.d_model, "heads": [cfg.n_heads,
+                                             cfg.n_heads_padded],
+           "kv_heads": cfg.n_kv_heads, "d_ff": cfg.d_ff, "vocab": cfg.vocab,
+           "batch": LM_BATCH, "prompt": LM_PROMPT, "new_tokens": LM_NEW,
+           "max_len": LM_MAX_LEN, "attn_chunk": cfg.attn_chunk,
+           "init_s": init_s, "first_generate_s": first_s,
+           "prefill_ms": prefill_ms, "decode_ms_per_token": step_ms,
+           "decode_ms_p10_p90": [float(np.percentile(steps, 10)),
+                                 float(np.percentile(steps, 90))],
+           "tokens_per_s": LM_BATCH * LM_NEW / loop_s,
+           "decode_tokens_per_s": LM_BATCH / (step_ms / 1e3),
+           "peak_device_bytes": peak, "resident_bytes_before": base,
+           "decode_step_bytes": nbytes,
+           "decode_bound_ms": bound_ms,
+           "decode_bound_share": [b / step_ms for b in bound_ms],
+           "tokens_head": toks[0, :8].tolist()}
+    rec["f32"] = hold_lm_f32(model, cfg, prompt, toks, lg_bf16, device)
+    rec["cpu"] = hold_lm_cpu(seed, device)
+    rec["seconds"] = time.perf_counter() - t_phase
+    emit(rec)
+    return model, cfg
+
+
+# curriculum: curriculum_buckets over sequence_embeddings of lm_serve's own
+# table: CUR_SEQS sequences of CUR_LEN tokens, each drawn from one of
+# CUR_TOPICS topics of CUR_TOPIC_TOKENS token ids (made with numpy).
+CUR_SEQS, CUR_LEN, CUR_TOPICS, CUR_TOPIC_TOKENS = 65536, 256, 16, 64
+CUR_ACCURACY = 0.95     # tests/test_integration.py:58
+CUR_BATCH = 256         # CurriculumSampler's batch
+# The fuzzifier: the paper's KDD99 m.  At `curriculum_buckets`' default
+# m = 2 the memberships of 1536-wide embeddings flatten (FCM's high-
+# dimensional collapse: ambiguity ≈ 1, accuracy ≈ 1/16), the reference's
+# fit as much as the port's (scripts/fcm_flattening_witness.py, on the
+# CPU); the phase prints the default's fit on the card beside the held one.
+CUR_M, CUR_DEFAULT_M = 1.2, 2.0
+
+
+def curriculum_tokens(vocab, seed):
+    """(tokens (CUR_SEQS, CUR_LEN) int64, topic of each sequence)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    ids = rng.choice(vocab, CUR_TOPICS * CUR_TOPIC_TOKENS,
+                     replace=False).reshape(CUR_TOPICS, CUR_TOPIC_TOKENS)
+    topics = rng.integers(0, CUR_TOPICS, CUR_SEQS)
+    picks = rng.integers(0, CUR_TOPIC_TOKENS, (CUR_SEQS, CUR_LEN))
+    return ids[topics[:, None], picks], topics
+
+
+def bucket_ties(got, want, x, centers) -> tuple:
+    """(rows whose buckets differ, those of them whose two smallest d²
+    against ``centers`` lie farther apart than the d² expansion's f32
+    rounding, 2·γ_{d+2}·(‖x‖² + max‖v‖²) — not ties)."""
+    import torch
+    from repro_torch.engine.backend import pairwise_sqdist
+    diff = torch.nonzero(got != want).flatten()
+    if diff.numel() == 0:
+        return 0, 0
+    xs = x[diff].double()
+    two = torch.topk(pairwise_sqdist(xs, centers.double(), torch.float64),
+                     2, dim=1, largest=False).values
+    gamma = (x.shape[1] + 2) * 2.0 ** -24
+    slack = 2 * gamma * ((xs ** 2).sum(1)
+                         + (centers.double() ** 2).sum(1).max())
+    return int(diff.numel()), int(((two[:, 1] - two[:, 0]) > slack).sum())
+
+
+def run_curriculum(model, lm_cfg, seed: int, device, reps: int) -> list:
+    """Phase ``curriculum``: `curriculum_buckets` on backend ``hopper`` over
+    `sequence_embeddings` of the lm_serve model's table, launch counts
+    zeroed just before it and read after it; the buckets' accuracy
+    against the topics, the ambiguity's range, the buckets against a
+    ``torch``-backend fit from the same injected draws (and the hopper
+    fit from those draws), `CurriculumSampler` batches; each kernel entry
+    against its plain version at every shape the fit launched it at, and
+    timed.  Returns kernel entries."""
+    import numpy as np
+    import torch
+    from repro_torch.core import BigFCMConfig
+    from repro_torch.core.metrics import clustering_accuracy
+    from repro_torch.integration import (CurriculumSampler,
+                                         curriculum_buckets,
+                                         sequence_embeddings)
+    from repro_torch.kernels.fcm_update import (fcm_accumulate_cuda,
+                                                fcm_sweep_cuda, launch_plan,
+                                                reset_counts)
+
+    t_phase = time.perf_counter()
+    tokens, topics = curriculum_tokens(lm_cfg.vocab, seed + 1)
+    tok = torch.from_numpy(tokens).to(device)
+    table = model.embed.table
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    emb = sequence_embeddings(table, tok)
+    torch.cuda.synchronize(device)
+    embed_s = time.perf_counter() - t0
+    del tok
+    n, d = emb.shape
+    cfg = BigFCMConfig(n_clusters=CUR_TOPICS, m=CUR_M, combiner_eps=1e-6,
+                       max_iter=300, seed=seed, backend="hopper")
+    plan = launch_plan(device, n, d, CUR_TOPICS)
+
+    reset_counts()
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    bucket, amb, res = curriculum_buckets(emb, CUR_TOPICS, fcm_cfg=cfg,
+                                          device=device)
+    torch.cuda.synchronize(device)
+    wall = time.perf_counter() - t0
+    launches = {"fcm_sweep": fcm_sweep_cuda.launches,
+                "fcm_accumulate": fcm_accumulate_cuda.launches}
+    by_shape = {"fcm_sweep": dict(fcm_sweep_cuda.shapes),
+                "fcm_accumulate": dict(fcm_accumulate_cuda.shapes)}
+    if launches["fcm_sweep"] == 0:
+        raise AssertionError(f"curriculum: K2 was not launched: {launches}")
+    check_paths("curriculum", fcm_sweep_cuda, fcm_accumulate_cuda)
+    bucket_np, amb_np = bucket.cpu().numpy(), amb.cpu().numpy()
+    acc = clustering_accuracy(topics, bucket_np, CUR_TOPICS)
+    if bucket.shape != (n,) or amb.shape != (n,) or not bool(
+            torch.isfinite(amb).all()):
+        raise AssertionError("curriculum: mis-shaped or non-finite output")
+    if not (0.0 <= float(amb.min()) and float(amb.max()) <= 1.0 + 1e-6):
+        raise AssertionError(f"curriculum: ambiguity outside [0, 1]: "
+                             f"{float(amb.min())}, {float(amb.max())}")
+    if acc <= CUR_ACCURACY:
+        raise AssertionError(f"curriculum: accuracy {acc} <= {CUR_ACCURACY}")
+    diag = res.diagnostics
+    record = {"phase": "curriculum", "sequences": n, "seq_len": CUR_LEN,
+              "d": d, "c": CUR_TOPICS, "m": cfg.m,
+              "topic_tokens": CUR_TOPIC_TOKENS, "table": LM_ARCH,
+              "embed_dtype": str(emb.dtype).split(".")[-1],
+              "embed_s": embed_s, "wall_s": wall, "backend": cfg.backend,
+              "plan": {"path": plan.path, "grid": plan.grid,
+                       "rows": plan.rows, "smem": plan.smem},
+              "flag": diag.flag, "sample_size": diag.sample_size,
+              "combiner_iters": list(diag.combiner_iters),
+              "reducer_iters": diag.reducer_iters, "accuracy": acc,
+              "accuracy_bar": CUR_ACCURACY,
+              "ambiguity": [float(amb.min()), float(amb.mean()),
+                            float(amb.max())],
+              "launches": launches,
+              "launches_by_shape": {
+                  "fcm_sweep": shape_counts(fcm_sweep_cuda),
+                  "fcm_accumulate": shape_counts(fcm_accumulate_cuda)}}
+
+    # printed, not held: the same fit at the default m
+    t0 = time.perf_counter()
+    b2, a2, r2 = curriculum_buckets(
+        emb, CUR_TOPICS, fcm_cfg=dataclasses.replace(cfg, m=CUR_DEFAULT_M),
+        device=device)
+    torch.cuda.synchronize(device)
+    norms = torch.linalg.norm(r2.centers, dim=1)
+    record["default_m"] = {
+        "m": CUR_DEFAULT_M, "wall_s": time.perf_counter() - t0,
+        "accuracy": clustering_accuracy(topics, b2.cpu().numpy(),
+                                        CUR_TOPICS),
+        "ambiguity": [float(a2.min()), float(a2.mean()), float(a2.max())],
+        "center_norms": [float(norms.min()), float(norms.max())],
+        "center_spread": float(torch.cdist(r2.centers, r2.centers).max()),
+        "flag": r2.diagnostics.flag,
+        "iters": [*r2.diagnostics.combiner_iters,
+                  r2.diagnostics.reducer_iters]}
+    del b2, a2, r2
+
+    # hopper and torch from the same injected draws (driver off)
+    rng = np.random.default_rng(seed)
+    draws = dict(sample_idx=rng.choice(n, diag.sample_size, replace=False),
+                 seed_idx=rng.choice(diag.sample_size, CUR_TOPICS,
+                                     replace=False))
+    x = emb.float()
+    fits = {b: curriculum_buckets(
+        emb, CUR_TOPICS, fcm_cfg=dataclasses.replace(
+            cfg, use_driver=False, backend=b), device=device, **draws)
+        for b in ("hopper", "torch")}
+    (hb, ha, hres), (tb, ta, tres) = fits["hopper"], fits["torch"]
+    scale = float(torch.sqrt(torch.mean(x * x)))
+    ties = bucket_ties(hb, tb, x, tres.centers)
+    if ties[1]:
+        raise AssertionError(f"curriculum: hopper and torch buckets differ "
+                             f"beyond a tie at {ties[1]} of {n} rows")
+    record["vs_torch"] = {
+        "buckets_differ_ties": ties,
+        "center_err_rel_rms": float((hres.centers - tres.centers).abs()
+                                    .max()) / scale,
+        "ambiguity_max_abs_err": float((ha - ta).abs().max()),
+        "iters": [[*hres.diagnostics.combiner_iters,
+                   hres.diagnostics.reducer_iters],
+                  [*tres.diagnostics.combiner_iters,
+                   tres.diagnostics.reducer_iters]],
+        # printed: the main path ran the driver race, these fits did not
+        "main_path_vs_torch_differ": bucket_ties(bucket, tb, x,
+                                                 tres.centers)}
+    sampler = {}
+    for order in ("cohesion", "round_robin"):
+        batches = list(CurriculumSampler(bucket_np, amb_np,
+                                         batch=CUR_BATCH, order=order,
+                                         seed=seed))
+        if not batches or any(len(b) != CUR_BATCH for b in batches):
+            raise AssertionError(f"curriculum: {order} batches not full")
+        if order == "cohesion" and any(len(np.unique(bucket_np[b])) != 1
+                                       for b in batches):
+            raise AssertionError("curriculum: a cohesion batch spans "
+                                 "buckets")
+        sampler[order] = len(batches)
+    record["sampler_batches"] = sampler
+    record["seconds"] = time.perf_counter() - t_phase
+    emit(record)
+
+    ones = torch.ones((n,), dtype=torch.float32, device=device)
+    cases = {"full": (x, ones, res.centers, 0.0)}
+    for ns in sorted({k[1] for shapes in by_shape.values() for k in shapes}
+                     - {n}):
+        xs = x[:ns]
+        cases[f"n={ns}"] = (xs, ones[:ns], res.centers,
+                            q_rounding_bound(xs, ones[:ns], res.centers))
+    entries = shape_entries("curriculum", cases, by_shape, d, cfg.m, device,
+                            reps)
+    del x, emb, fits
+    torch.cuda.empty_cache()
+    return entries
+
+
 def bound_batched(t: int, n: int, d: int, c: int):
     """(ms, what sets it) for one tenant-stacked sweep: the (T, N, d)
     block, its (T, N) weights, V and m read once, the outputs written
@@ -4399,7 +4998,7 @@ def main(argv=None) -> int:
 
 
 def run_all(args, device) -> int:
-    """Phases 1 (the build) to 7, in the calibration sandbox."""
+    """Phases 1 (the build) to 8, in the calibration sandbox."""
     import torch
     emit(build_all())
 
@@ -4454,6 +5053,12 @@ def run_all(args, device) -> int:
         entries += run_stream_path(kdd_x, args.seed, device, ckpt_dir)
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+    model, lm_cfg = run_lm_serve(args.seed, device)
+    torch.cuda.empty_cache()
+    entries += run_curriculum(model, lm_cfg, args.seed, device, reps=20)
+    del model
+    torch.cuda.empty_cache()
 
     emit({"kernels": kernel_line(entries),
           "library_note": "no single PyTorch call computes the FCM sweep, "

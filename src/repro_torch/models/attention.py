@@ -1,0 +1,214 @@
+"""GQA attention with RoPE, KV-chunked softmax and cached decode —
+counterpart of `repro.models.attention` (self-attention; cross-attention
+comes with the encoder–decoder family, ROADMAP Queue 1 item 3b).
+
+Q heads may be padded per KV group (``cfg.n_heads_padded``): the padded
+slots are masked dead (`head_mask`), so the architecture stays
+config-exact.  Products stay plain ``torch`` matmuls, as the reference's
+are plain XLA; ``F.scaled_dot_product_attention`` would round
+differently from the reference's own softmax, so it is not used.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from .layers import apply_rope, rounded
+from .params import ParamTree, PDecl
+
+NEG_INF = -1e30
+
+
+def attention_decl(cfg, cross: bool = False):
+    d, h, kv, hd = cfg.d_model, cfg.n_heads_padded, cfg.n_kv_heads, cfg.hd
+    decl = {
+        "wq": PDecl((d, h * hd), ("embed", "heads")),
+        "wk": PDecl((d, kv * hd), ("embed", "kv_heads")),
+        "wv": PDecl((d, kv * hd), ("embed", "kv_heads")),
+        "wo": PDecl((h * hd, d), ("heads", "embed")),
+    }
+    if cfg.qkv_bias:
+        decl.update({
+            "bq": PDecl((h * hd,), ("heads",), "zeros"),
+            "bk": PDecl((kv * hd,), ("kv_heads",), "zeros"),
+            "bv": PDecl((kv * hd,), ("kv_heads",), "zeros"),
+        })
+    return decl
+
+
+def head_mask(cfg, dtype, device=None) -> Optional[torch.Tensor]:
+    """(H_pad,) 1/0 mask killing padded Q-head slots (slot r within each
+    KV group is real iff r < rep).  None when no padding."""
+    hp, h, kv = cfg.n_heads_padded, cfg.n_heads, cfg.n_kv_heads
+    if hp == h:
+        return None
+    rep, rep_pad = h // kv, hp // kv
+    m = (torch.arange(hp, device=device) % rep_pad) < rep
+    return m.to(dtype)
+
+
+class KVCache(NamedTuple):
+    """Past keys and values: k, v (B, S_max, KV, hd), or (L, B, S_max,
+    KV, hd) stacked over a stage's layers; ``length`` the filled
+    positions (a host int: positions never need a sync)."""
+    k: torch.Tensor
+    v: torch.Tensor
+    length: int
+
+
+def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
+               device=None) -> KVCache:
+    kv, hd = cfg.n_kv_heads, cfg.hd
+    return KVCache(torch.zeros((batch, max_len, kv, hd), dtype=dtype,
+                               device=device),
+                   torch.zeros((batch, max_len, kv, hd), dtype=dtype,
+                               device=device), 0)
+
+
+def _project(cfg, p, x):
+    h, kv, hd = cfg.n_heads_padded, cfg.n_kv_heads, cfg.hd
+    q = x @ p["wq"].to(x.dtype)
+    k = x @ p["wk"].to(x.dtype)
+    v = x @ p["wv"].to(x.dtype)
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(x.dtype)
+        k = k + p["bk"].to(x.dtype)
+        v = v + p["bv"].to(x.dtype)
+    b, s = x.shape[:2]
+    return q.reshape(b, s, h, hd), k.reshape(b, s, kv, hd), \
+        v.reshape(b, s, kv, hd)
+
+
+def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` (batched) with an f32 result — the reference's einsums
+    with ``preferred_element_type=float32``.  f32 inputs: a plain
+    product.  bf16 inputs on the card: one bf16 tensor-core product that
+    accumulates and returns f32 (``out_dtype``), never a bf16 result
+    rounded a second time.  bf16 on the CPU, which has no such kernel:
+    the f32 product of the operands upcast, the same products (bf16 →
+    f32 is exact, as is a product of two bf16 values in f32)."""
+    if a.dtype == torch.float32 and b.dtype == torch.float32:
+        return torch.bmm(a, b)
+    if a.device.type == "cuda":
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.float(), b.float())
+
+
+def _sdpa(q, k, v, *, causal: bool, q_offset: int, scale: float,
+          chunk: int = 0):
+    """softmax(q·kᵀ)·v with GQA head repetition.
+
+    q: (B, Sq, H, hd); k, v: (B, Sk, KV, hd).  ``q_offset`` is the absolute
+    position of q[0] (for causal masking against a longer KV).
+    When ``chunk`` > 0, Sk > chunk and chunk divides Sk, iterate KV
+    blocks with an online softmax (flash-style) so peak memory is
+    O(Sq·chunk), not O(Sq·Sk).  Scores and P·V accumulate in f32
+    (`_bmm_f32`); the inputs keep their dtype, with the reference's
+    casts: the scale and q·scale rounded to q's dtype, P to V's.
+    Returns f32.
+    """
+    b, sq, h, hd = q.shape
+    sk, kv = k.shape[1], k.shape[2]
+    rep = h // kv
+    dev = q.device
+    # the scale takes q's dtype first (bf16 0.353515625 for hd = 8)
+    qf = (q * rounded(scale, q.dtype)).reshape(b, sq, kv, rep, hd)
+    # (b·kv, rep·sq, hd): query rows grouped by KV head
+    qg = qf.permute(0, 2, 3, 1, 4).reshape(b * kv, rep * sq, hd)
+    qpos = q_offset + torch.arange(sq, device=dev)
+
+    def block(ks, vs, k0):
+        n = ks.shape[1]
+        kt = ks.permute(0, 2, 3, 1).reshape(b * kv, hd, n)
+        s = _bmm_f32(qg, kt).reshape(b, kv, rep, sq, n)
+        if causal:
+            kpos = k0 + torch.arange(n, device=dev)
+            mask = qpos[:, None] >= kpos[None, :]
+            s = torch.where(mask, s, NEG_INF)
+        return s, vs.permute(0, 2, 1, 3).reshape(b * kv, n, hd)
+
+    def pv(p_, vg):
+        n = p_.shape[-1]
+        return _bmm_f32(p_.to(vg.dtype).reshape(b * kv, rep * sq, n),
+                        vg).reshape(b, kv, rep, sq, hd)
+
+    if chunk and sk > chunk and sk % chunk == 0:
+        m = torch.full((b, kv, rep, sq), NEG_INF, dtype=torch.float32,
+                       device=dev)
+        l = torch.zeros((b, kv, rep, sq), dtype=torch.float32, device=dev)
+        acc = torch.zeros((b, kv, rep, sq, hd), dtype=torch.float32,
+                          device=dev)
+        for k0 in range(0, sk, chunk):
+            s, vg = block(k[:, k0:k0 + chunk], v[:, k0:k0 + chunk], k0)
+            m_new = torch.maximum(m, s.amax(-1))
+            p_ = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p_.sum(-1)
+            acc = acc * corr[..., None] + pv(p_, vg)
+            m = m_new
+        out = acc / torch.clamp(l, min=1e-30)[..., None]
+    else:
+        s, vg = block(k, v, 0)
+        out = pv(torch.softmax(s, dim=-1), vg)
+
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd)
+
+
+def attention(cfg, p, x, *, causal=True, positions=None,
+              cache: Optional[KVCache] = None):
+    """Self-attention layer.  Returns (y, new_cache).
+
+    * training/prefill: ``cache is None`` → self-attention over x.
+    * decode (or cached prefill): ``cache`` holds past KV; x is the new
+      (B, s, D) slice.  Its K/V are written into the cache's tensors in
+      place (the reference's functional update with its buffers
+      donated), and the new cache shares them.  Attention then runs
+      over all ``S_max`` slots, as the reference's does: the causal mask
+      kills the zeros past the filled length.
+    """
+    b, s, _ = x.shape
+    scale = cfg.hd ** -0.5
+    q, k, v = _project(cfg, p, x)
+
+    if cfg.pos == "rope":
+        if positions is None:
+            base = cache.length if cache is not None else 0
+            positions = (base + torch.arange(s, device=x.device)).expand(b, s)
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+
+    new_cache = None
+    if cache is not None:
+        ln = cache.length
+        if ln + s > cache.k.shape[1]:
+            raise ValueError(f"KV cache of {cache.k.shape[1]} positions "
+                             f"cannot take {s} more after {ln}")
+        cache.k[:, ln:ln + s] = k.to(cache.k.dtype)
+        cache.v[:, ln:ln + s] = v.to(cache.v.dtype)
+        new_cache = KVCache(cache.k, cache.v, ln + s)
+        out = _sdpa(q, cache.k, cache.v, causal=True, q_offset=ln,
+                    scale=scale, chunk=cfg.attn_chunk)
+    else:
+        out = _sdpa(q, k, v, causal=causal, q_offset=0, scale=scale,
+                    chunk=cfg.attn_chunk)
+
+    hm = head_mask(cfg, out.dtype, out.device)
+    if hm is not None:
+        out = out * hm[None, None, :, None]
+    out = out.reshape(b, s, cfg.n_heads_padded * cfg.hd).to(x.dtype)
+    y = out @ p["wo"].to(x.dtype)
+    return y, new_cache
+
+
+class Attention(ParamTree):
+    """The attention layer's parameters (`attention_decl`) over
+    `attention`."""
+
+    def __init__(self, cfg, *, dtype, device):
+        super().__init__(attention_decl(cfg), dtype=dtype, device=device)
+        self.cfg = cfg
+
+    def forward(self, x, *, causal=True, positions=None, cache=None):
+        return attention(self.cfg, self, x, causal=causal,
+                         positions=positions, cache=cache)

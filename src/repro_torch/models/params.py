@@ -1,0 +1,161 @@
+"""Declarative parameter trees — counterpart of `repro.models.params`.
+
+Models declare a nested dict of ``PDecl`` (shape + logical axes + init);
+from that single source of truth come the real initialized parameters
+(`tree_init`, in the reference's stacked layout), the parameter count,
+and the modules' own parameters (`ParamTree`), whose state-dict keys
+follow the reference's paths with every stacked ``(L, …)`` leaf split
+into per-layer parameters (`to_state`, `from_reference`).  Weights keep
+the reference's ``(in, out)`` layout (``x @ w``), so carrying a
+reference tree across is a copy.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Dict, Optional, Tuple, Union
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..device import resolve_device
+
+
+@dataclasses.dataclass(frozen=True)
+class PDecl:
+    shape: Tuple[int, ...]
+    logical: Tuple[Optional[str], ...]
+    init: str = "normal"        # normal | zeros | ones | embed
+    scale: Optional[float] = None
+
+    def __post_init__(self):
+        assert len(self.shape) == len(self.logical), (self.shape, self.logical)
+
+
+def _map(fn, tree):
+    """``fn`` over the leaves of a nested dict/list/tuple tree, dict keys
+    in sorted order (`jax.tree_util`'s flattening order)."""
+    if isinstance(tree, dict):
+        return {k: _map(fn, tree[k]) for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map(fn, t) for t in tree)
+    return fn(tree)
+
+
+def _leaves(tree) -> list:
+    out = []
+    _map(out.append, tree)
+    return out
+
+
+def tree_init(generator: torch.Generator, tree, dtype=torch.float32,
+              device: Union[str, torch.device] = "cuda"):
+    """Initialize a real param tree from the declaration tree, on
+    ``device`` from ``generator`` (a `torch.Generator` on that device).
+
+    The reference's rules: zeros, ones, ``embed`` = N(0, 1) × scale, and
+    ``normal`` = N(0, 1) × scale (default 1/√fan_in, fan_in the
+    second-to-last dim).  The distribution is the reference's; the bits
+    are not (`jax.random` has no torch counterpart) — carry a reference
+    tree across with `from_reference` for identical weights."""
+    dev = resolve_device(device)
+
+    def init_one(d: PDecl):
+        if d.init == "zeros":
+            return torch.zeros(d.shape, dtype=dtype, device=dev)
+        if d.init == "ones":
+            return torch.ones(d.shape, dtype=dtype, device=dev)
+        z = torch.randn(d.shape, generator=generator, dtype=dtype,
+                        device=dev)
+        if d.init == "embed":
+            return z * (d.scale or 1.0)
+        fan_in = d.shape[-2] if len(d.shape) >= 2 else d.shape[-1]
+        scale = d.scale if d.scale is not None else 1.0 / math.sqrt(fan_in)
+        return z * scale
+
+    return _map(init_one, tree)
+
+
+def n_params(tree) -> int:
+    return sum(math.prod(d.shape) for d in _leaves(tree))
+
+
+def stack_layers(decl_fn, n: int):
+    """Add a leading scanned 'layers' axis to every decl in a subtree."""
+    return _map(lambda d: PDecl((n,) + d.shape, ("layers",) + d.logical,
+                                d.init, d.scale), decl_fn())
+
+
+# ------------------------------------------------- reference layout ↔ port ---
+
+# Top-level lists whose entries hold ``(L, …)``-stacked leaves: the
+# port's modules keep one parameter set per layer, at ``<key>.<i>.layers.<l>``.
+STACKED = ("stages",)
+
+
+def to_state(tree, prefix: str = "") -> Dict[str, object]:
+    """Flatten a reference-layout tree (nested dicts/lists of arrays or
+    tensors) into ``{dotted path: leaf}``, each stacked leaf under
+    ``STACKED`` split along its layer axis: ``stages[0]["attn"]["wq"]``
+    of shape (L, d, h·hd) becomes ``stages.0.layers.<l>.attn.wq``."""
+    out: Dict[str, object] = {}
+
+    def walk(node, head, rest):
+        # ``head``: the path down to a stacked stage's "layers" (None
+        # outside one); ``rest``: the path below it (or the whole path)
+        if isinstance(node, dict):
+            for k in sorted(node):
+                walk(node[k], head, rest + (str(k),))
+        elif isinstance(node, (list, tuple)):
+            for i, t in enumerate(node):
+                if head is None and len(rest) == 1 and rest[0] in STACKED:
+                    walk(t, rest + (str(i), "layers"), ())
+                else:
+                    walk(t, head, rest + (str(i),))
+        elif head is not None:
+            for l in range(node.shape[0]):
+                out[".".join(head + (str(l),) + rest)] = node[l]
+        else:
+            out[".".join(rest)] = node
+
+    walk(tree, None, (prefix,) if prefix else ())
+    return out
+
+
+def from_reference(tree, device: Union[str, torch.device] = "cuda",
+                   dtype: Optional[torch.dtype] = None
+                   ) -> Dict[str, torch.Tensor]:
+    """The reference's param tree (nested dicts/lists of numpy arrays, or
+    anything ``np.asarray`` reads) as the port's state dict on
+    ``device``: keys as `to_state`, values copied (cast to ``dtype`` if
+    given).  Load it with ``model.load_state_dict(...)``."""
+    dev = resolve_device(device)
+    return {k: torch.tensor(np.asarray(v), device=dev, dtype=dtype)
+            for k, v in to_state(tree).items()}
+
+
+class ParamTree(nn.Module):
+    """Parameters and child modules named by a declaration tree's keys.
+    ``p["name"]`` and ``"name" in p`` read them, so the plain functions
+    of `layers` and `attention` take a module or a dict alike.  The
+    parameters are zeros until loaded (the serving slice's weights are
+    frozen: ``requires_grad`` is off)."""
+
+    def __init__(self, decl: dict, *, dtype: torch.dtype,
+                 device: torch.device):
+        super().__init__()
+        for k in sorted(decl):
+            d = decl[k]
+            if isinstance(d, PDecl):
+                self.register_parameter(k, nn.Parameter(
+                    torch.zeros(d.shape, dtype=dtype, device=device),
+                    requires_grad=False))
+            else:
+                self.add_module(k, ParamTree(d, dtype=dtype, device=device))
+
+    def __getitem__(self, k: str):
+        return getattr(self, k)
+
+    def __contains__(self, k: str) -> bool:
+        return k in self._parameters or k in self._modules

@@ -6,10 +6,11 @@ against a live streaming model (`assign_stream`), hot-swappable replicas
 and their publisher (`Scorer`, `SnapshotPublisher`,
 `snapshot_from_checkpoint`), the coalescing `ScoringService`, and the
 tenant plane's gather-scored `TenantScorer` with its tenant-routed
-`TenantScoringService`.  The LM decode helpers (`decode.py`) come with
-the LM stack.
+`TenantScoringService`; and the dense LM's greedy serving path
+(`make_prefill`, `make_serve_step`, `greedy_generate`).
 """
 from .cluster import assign_store, assign_stream, make_assigner
+from .decode import greedy_generate, make_prefill, make_serve_step
 from .scorer import (CenterSnapshot, Scorer, SnapshotPublisher,
                      snapshot_from_checkpoint)
 from .service import (DeadlineExceeded, Rejected, ScoreResult,
@@ -18,6 +19,7 @@ from .tenant import (TenantScorer, TenantScoringService, TenantSnapshot,
                      tenant_snapshot)
 
 __all__ = ["assign_store", "assign_stream", "make_assigner",
+           "make_serve_step", "make_prefill", "greedy_generate",
            "CenterSnapshot", "Scorer", "SnapshotPublisher",
            "snapshot_from_checkpoint",
            "DeadlineExceeded", "Rejected", "ScoreResult",

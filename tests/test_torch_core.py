@@ -191,3 +191,56 @@ def test_metrics_match_reference():
     np.testing.assert_array_equal(TM.assign(x, v, device="cpu"),
                                   RM.assign(x, v))
     assert TM.match_centers(v, x[:4]) == RM.match_centers(v, x[:4])
+
+
+# ----------------------------------- metrics and synth (tests/test_infra) ---
+
+def test_iris_copy_matches_reference():
+    (x, y), (rx, ry) = TD.iris(), RD.iris()
+    assert x.shape == (150, 4) and y.shape == (150,)
+    assert np.bincount(y).tolist() == [50, 50, 50]
+    np.testing.assert_array_equal(x, rx)
+    np.testing.assert_array_equal(y, ry)
+    assert x.dtype == rx.dtype and y.dtype == ry.dtype
+
+
+@pytest.mark.parametrize("n,seed", [(768, 0), (300, 5)])
+def test_pima_like_copy_matches_reference(n, seed):
+    for got, want in zip(TD.pima_like(n, seed=seed),
+                         RD.pima_like(n, seed=seed)):
+        np.testing.assert_array_equal(got, want)
+        assert got.dtype == want.dtype
+
+
+def test_kdd_like_imbalanced():
+    x, y = TD.make_kdd_like(5000)
+    assert x.shape == (5000, 41)
+    counts = np.bincount(y, minlength=23)
+    assert counts.max() > 5 * max(counts[counts > 0].min(), 1)
+
+
+def test_clustering_accuracy_perfect_permuted_and_reference():
+    y = np.array([0, 0, 1, 1, 2, 2])
+    a = np.array([2, 2, 0, 0, 1, 1])
+    assert TM.clustering_accuracy(y, a, 3) == 1.0
+    rng = np.random.default_rng(3)
+    for c in (2, 4, 7):
+        labels = rng.integers(0, 3, size=500)
+        assign = rng.integers(0, c, size=500)
+        assert TM.clustering_accuracy(labels, assign, c) == \
+            RM.clustering_accuracy(labels, assign, c)
+
+
+@pytest.mark.parametrize("n,max_points,seed", [(300, 300, 0),
+                                               (600, 256, 7)])
+def test_silhouette_matches_reference(n, max_points, seed):
+    """(600, 256): the subsampled branch, drawn from ``seed``."""
+    x, y = TD.pima_like(n)
+    s = TM.silhouette_width(x, y, max_points=max_points, seed=seed)
+    assert -1.0 <= s <= 1.0
+    assert s == RM.silhouette_width(x, y, max_points=max_points, seed=seed)
+
+
+def test_relative_speedup_matches_reference():
+    for a, b in ((3.0, 1.5), (1.0, 0.0), (2.5, 7.0)):
+        assert TM.relative_speedup(a, b) == RM.relative_speedup(a, b)

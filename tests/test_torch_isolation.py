@@ -126,7 +126,16 @@ def test_import_loads_no_jax_and_no_reference_module():
             "repro_torch.fleet.transport", "repro_torch.fleet.sim",
             "repro_torch.fleet.proc", "repro_torch.ft.elastic",
             "repro_torch.baselines.kmeans", "repro_torch.mesh",
-            "repro_torch.fleet.spmd"} \
+            "repro_torch.fleet.spmd", "repro_torch.core.metrics",
+            "repro_torch.sharding", "repro_torch.sharding.rules",
+            "repro_torch.integration", "repro_torch.integration.router_init",
+            "repro_torch.integration.curriculum", "repro_torch.configs",
+            "repro_torch.configs.base", "repro_torch.configs.qwen2_1_5b",
+            "repro_torch.models", "repro_torch.models.params",
+            "repro_torch.models.layers", "repro_torch.models.attention",
+            "repro_torch.models.transformer", "repro_torch.models.moe",
+            "repro_torch.models.mamba", "repro_torch.models.encdec",
+            "repro_torch.serve.decode"} \
         <= set(out["modules"])
     assert out["leaked"] == []
 
@@ -306,3 +315,61 @@ dist.destroy_process_group()
                for ln in out[:2]), out
     assert out[2] == "cpu: cpu"
     assert all(ln.startswith("deferred:") and "M13" in ln for ln in out[3:])
+
+
+def test_lm_modules_alone_load_no_jax_and_no_reference_module():
+    """The LM slice (models, configs, integration, decode) loads nothing
+    of `repro` (nor jax), each module on its own, every config too."""
+    for module in ("repro_torch.models", "repro_torch.integration",
+                   "repro_torch.configs", "repro_torch.serve.decode",
+                   "repro_torch.sharding", "repro_torch.core.metrics",
+                   "repro_torch.models.transformer"):
+        out = _run(_ALONE.format(module=module)).strip().splitlines()[-1]
+        assert json.loads(out) == [], module
+    every_config = "repro_torch.configs as C; [C.get_config(a) for a in C.ARCHS]"
+    out = _run(_ALONE.format(module=every_config)).strip().splitlines()[-1]
+    assert json.loads(out) == []
+
+
+_NO_CARD_LM = """
+import numpy as np
+import torch
+from repro_torch.configs import get_config, reduced
+from repro_torch.integration import curriculum_buckets, fcm_router_init
+from repro_torch.models import DecoderLM
+from repro_torch.models.params import tree_init
+from repro_torch.models.transformer import decl, init_caches
+from repro_torch.serve import greedy_generate
+cfg = reduced(get_config("qwen2-1.5b"))
+model = DecoderLM(cfg, torch.Generator().manual_seed(0), device="cpu")
+batch = {"tokens": np.zeros((1, 4), np.int32)}
+x = np.zeros((16, 2), np.float32)
+moe = reduced(get_config("olmoe-1b-7b"))
+calls = (lambda: DecoderLM(cfg),
+         lambda: DecoderLM(cfg, torch.Generator().manual_seed(0)),
+         lambda: greedy_generate(cfg, model, batch, max_new=2, max_len=8),
+         lambda: init_caches(cfg, 1, 8),
+         lambda: tree_init(torch.Generator(), decl(cfg)),
+         lambda: curriculum_buckets(x, 2),
+         lambda: fcm_router_init({"w_router": torch.zeros(2, 8)}, moe, x))
+for call in calls:
+    try:
+        call()
+    except RuntimeError as e:
+        print("raised:", e)
+    else:
+        print("ran")
+print("cpu:", greedy_generate(cfg, model, batch, max_new=2, max_len=8,
+                              device="cpu").shape)
+"""
+
+
+def test_lm_entry_points_raise_without_a_card():
+    """`DecoderLM`, `greedy_generate` and the rest of the LM slice on
+    their default device raise on a host without a card; the CPU runs
+    when asked for by name."""
+    out = _run(_NO_CARD_LM, CUDA_VISIBLE_DEVICES="").splitlines()
+    assert len(out) == 8, out
+    assert all(ln.startswith("raised:") and "device='cpu'" in ln
+               for ln in out[:7]), out
+    assert out[7] == "cpu: torch.Size([1, 2])"
