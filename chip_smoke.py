@@ -26,7 +26,15 @@ Phases, each printed as JSON lines; any failure raises and exits non-zero:
    (4096, 900, 64), (4096, 2048, 64), (1024, 7168, 384), m = 2 and 1.2,
    with phantom rows and with records on centers; K3 at (3, 1000, 2048,
    64) with one all-phantom tenant; and with its scratch cut so that its
-   sums add over tenant groups and row chunks.
+   sums add over tenant groups and row chunks.  Then the wide kernel
+   (``fcm_wide_kernel`` in ``csrc/fcm_accumulate.cu``: d split across a
+   cluster of CTAs, where C·d is past the tile kernel and V and one record
+   still fit shared memory) against its plain version in row chunks: K1/K2
+   at the curriculum's shapes (65,536 / 32,604 / 2048 / 32 / 16 × 1536,
+   C = 16), at d = 1024, 2048, 3072 (C = 16), (4096, 100, 128) and
+   (3000, 887, 64), m = 1.2 and 2, with phantom rows and with records on
+   centers, reruns bit for bit, and zero-weight records giving exact
+   zeros.
    Then the perf plane (``calibrate``), in a calibration sandbox (a fresh
    ``build/chip_smoke_calib_*/`` as ``REPRO_CALIB_DIR``, deleted at the
    end, so no earlier run's winners or tuned plans change a plan): the
@@ -238,8 +246,8 @@ PATH_SOURCE = {("fcm_sweep", "rows"): "fcm_batched",
                ("fcm_accumulate", "rows"): "fcm_batched",
                ("fcm_sweep", "tile"): "fcm_accumulate",
                ("fcm_accumulate", "tile"): "fcm_accumulate",
-               ("fcm_sweep", "first"): "fcm_accumulate",
-               ("fcm_accumulate", "first"): "fcm_accumulate",
+               ("fcm_sweep", "wide"): "fcm_accumulate",
+               ("fcm_accumulate", "wide"): "fcm_accumulate",
                ("fcm_sweep_batched", "rows"): "fcm_batched",
                ("fcm_sweep_batched", "first"): "fcm_batched",
                ("fcm_sweep", "ctiled"): "fcm_ctiled",
@@ -267,7 +275,7 @@ EXPECTED_PATH = {"higgs_like": "rows", "kdd99_like": "tile",
                  "tenants_t16": "rows", "tenants_65k": "rows",
                  "kdd99_stream": "tile", "drift_global": "tile",
                  "drift_split": "tile", "drift_event": "tile",
-                 "router_fit": "ctiled", "curriculum": "first"}
+                 "router_fit": "ctiled", "curriculum": "wide"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -677,6 +685,13 @@ def shape_entries(run_name, cases, by_shape, d, m, device, reps,
                 "ms_per_call": per_call, "plain_ms": plain_ms,
                 "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / ms,
                 "shape": [ns, d, c], "path": path})
+            if path == "wide":
+                plan = launch_plan(device, ns, d, c)
+                entries[-1].update(
+                    dsplits=plan.dsplits, rows=plan.rows,
+                    member_library_ms=membership_library_ms(xs, vs, n_rep),
+                    contraction_library_ms=contraction_library_ms(xs, c,
+                                                                  n_rep))
             if path == "ctiled":
                 plan = launch_plan(device, ns, d, c)
                 entries[-1]["launch_ms"] = ctiled_launch_ms(
@@ -718,16 +733,16 @@ CTILED_STAGES = ("member", "member_finish", "contract", "finish")
 
 
 class _StageLib:
-    """The C-tiled library with its chunk call cut to one launch:
-    ``fcm_ctiled_chunk(*args)`` runs ``stage_fn(stage, *args)``."""
+    """A kernel library with one call cut to one launch: ``attr(*args)``
+    (by default the C-tiled chunk call) runs ``stage_fn(stage, *args)``."""
 
-    def __init__(self, lib, stage_fn, stage):
+    def __init__(self, lib, stage_fn, stage, attr="fcm_ctiled_chunk"):
         self._lib, self._stage_fn, self._stage = lib, stage_fn, stage
-
-    def fcm_ctiled_chunk(self, *args):
-        return self._stage_fn(self._stage, *args)
+        self._attr = attr
 
     def __getattr__(self, name):
+        if name == self._attr:
+            return lambda *args: self._stage_fn(self._stage, *args)
         return getattr(self._lib, name)
 
 
@@ -1184,12 +1199,14 @@ def check_tenant_kernels(device) -> dict:
     """Phase 2b: the tenant-stacked kernel (K3) against its plain version
     at the test_kernels tolerances, per-tenant and scalar m, two
     phantom tenants; bit-identical reruns, exact zeros on phantoms, and
-    one tenant against the single-model kernel (K1/K2)."""
+    one tenant against the single-model kernel (K1/K2).  K3 at (64 + 2,
+    300, 41, 23), the first tenant-stacked version's path, is timed beside
+    its plain version and bound (``first_version``)."""
     import torch
     from repro_torch.kernels.fcm_update import (
         fcm_accumulate_batched_cuda, fcm_accumulate_batched_ref,
         fcm_accumulate_cuda, fcm_sweep_batched_cuda, fcm_sweep_batched_ref,
-        fcm_sweep_cuda)
+        fcm_sweep_cuda, launch_plan)
     worst = {"fcm_sweep_batched": 0.0, "fcm_accumulate_batched": 0.0}
     cases = 0
     for t in (1, 5, 64):
@@ -1228,8 +1245,18 @@ def check_tenant_kernels(device) -> dict:
             one[f"{kb.__name__}/d{d}c{c}"] = max_err(
                 got, k1(x, w, v, m), RTOL, atol,
                 f"{kb.__name__} T=1 vs {k1.__name__} d={d} C={c}")
+    x, w, v, m_t = tenant_stack(64, 300, 41, 23, 64 + 41 + 23, device)
+    b_ms, b_by = bound_batched(66, 300, 41, 23)
+    first = {"shape": [66, 300, 41, 23],
+             "path": launch_plan(device, 300, 41, 23, tenants=66).path,
+             "ms": time_loop_ms(
+                 lambda: fcm_sweep_batched_cuda(x, w, v, m_t), 200),
+             "plain_ms": time_ms(
+                 lambda: fcm_sweep_batched_ref(x, w, v, m_t), 20),
+             "bound_ms": b_ms, "bound_by": b_by}
     return {"phase": "tenant_kernels", "cases": cases,
             "max_abs_err": worst, "one_tenant_vs_k1_max_abs_err": one,
+            "first_version": first,
             "bitwise_deterministic": True, "phantom_tenants_exact_zero": True}
 
 
@@ -1275,14 +1302,15 @@ def launched_path(fn, before) -> str:
     return next(iter(new))[0]
 
 
-def hold_ctiled(kern, plain, args, atols, what) -> float:
-    """One C-tiled launch against its plain version (``atols`` per
-    output), counted on path "ctiled", and a bit-identical rerun."""
+def hold_launch(kern, plain, args, atols, what, path="ctiled") -> float:
+    """One launch against its plain version (``atols`` per output) and a
+    bit-identical rerun: through a wrapper, counted on ``path``; or
+    (``path`` None) a launcher that counts nothing (`fcm_sweep_wide`)."""
     import torch
-    before = kern.shapes.copy()
+    before = None if path is None else kern.shapes.copy()
     got = kern(*args)
-    if launched_path(kern, before) != "ctiled":
-        raise AssertionError(f"{what}: not on the C-tiled path")
+    if path is not None and launched_path(kern, before) != path:
+        raise AssertionError(f"{what}: not on the {path} path")
     err = max_err(got, plain(*args), RTOL, atols, what)
     if not all(torch.equal(a, b) for a, b in zip(got, kern(*args))):
         raise AssertionError(f"{what}: two launches differ")
@@ -1318,10 +1346,10 @@ def check_ctiled_kernels(device) -> dict:
         for label, args, q_atol in cases:
             what = f"ctiled ({n}, {d}, {c}) {label}"
             errs[what] = max(
-                hold_ctiled(fu.fcm_sweep_cuda, sweep, args,
+                hold_launch(fu.fcm_sweep_cuda, sweep, args,
                             (SWEEP_ATOL, SWEEP_ATOL, SWEEP_ATOL + q_atol),
                             "sweep " + what),
-                hold_ctiled(fu.fcm_accumulate_cuda, acc, args,
+                hold_launch(fu.fcm_accumulate_cuda, acc, args,
                             (ACC_ATOL, ACC_ATOL, ACC_ATOL + q_atol),
                             "accumulate " + what))
         times[f"{n}x{d}x{c}"] = {
@@ -1343,7 +1371,7 @@ def check_ctiled_kernels(device) -> dict:
                                    SWEEP_ATOL),
                                   (fu.fcm_accumulate_batched_cuda, bacc,
                                    ACC_ATOL)):
-            errs[f"{kern.__name__} {what}"] = hold_ctiled(
+            errs[f"{kern.__name__} {what}"] = hold_launch(
                 kern, plain, (x, w, v, m), atol, what)
             if any(bool(o[t - 1:].abs().any()) for o in kern(x, w, v, m)):
                 raise AssertionError(f"{what}: phantom tenant not 0")
@@ -1367,10 +1395,10 @@ def check_ctiled_kernels(device) -> dict:
                                    SWEEP_ATOL),
                                   (fu.fcm_accumulate_batched_cuda, bacc,
                                    ACC_ATOL)):
-            errs[f"{kern.__name__} chunked"] = hold_ctiled(
+            errs[f"{kern.__name__} chunked"] = hold_launch(
                 kern, plain, (x, w, v, m_t), atol,
                 f"{kern.__name__} in {chunks} chunks")
-        errs["fcm_sweep_cuda chunked"] = hold_ctiled(
+        errs["fcm_sweep_cuda chunked"] = hold_launch(
             fu.fcm_sweep_cuda, sweep, (x[0], w[0], v[0], float(m_t[0])),
             SWEEP_ATOL, "fcm_sweep_cuda in chunks")
     finally:
@@ -1385,6 +1413,82 @@ def check_ctiled_kernels(device) -> dict:
                         "rows": plan.rows, "scratch": plan.scratch},
             "times": times, "bitwise_deterministic": True,
             "phantom_tenant_exact_zero": True}
+
+
+# The wide kernel's checks (phase 2d): K1/K2 at the curriculum's shapes
+# (d = 1536, C = 16: the full sweep, the driver's sample, WFCMPB's block,
+# the 32- and 16-point merges), the other LM configs' d_model at C = 16
+# (Whisper-medium 1024, OLMoE 2048, Gemma-7B 3072), and the plan's
+# boundary checks (C = 128 at d = 100; d = 887: 4-byte copies, at C = 16
+# and at C = 64, the last d of the domain, where the plan takes the
+# C-tiled kernel and the wide one is held forced).
+WIDE_SHAPES = tuple((n, 1536, 16) for n in (65_536, 32_604, 2048, 32, 16)) \
+    + ((8192, 1024, 16), (8192, 2048, 16), (8192, 3072, 16),
+       (4096, 100, 128), (3000, 887, 16), (3000, 887, 64))
+
+
+def check_wide_kernels(device) -> dict:
+    """Phase 2d: the wide kernel (csrc/fcm_accumulate.cu,
+    fcm_wide_kernel) against its plain version (in row chunks) at
+    test_kernels.py's tolerances, at WIDE_SHAPES: m = 1.2 and 2, half the
+    rows zero-weight phantoms, and C records on the centers (q held to
+    the expansion's rounding bound); every launch rerun bit for bit;
+    records all of zero weight give exact zeros.  Where the plan takes
+    the wide path, through the wrappers, counted on it; where it takes
+    the C-tiled one (measured faster there), that path is held too and
+    the wide kernel forced.  Each shape's kernel, plain and bound times
+    are printed."""
+    import torch
+    from repro_torch.kernels import fcm_update as fu
+    sweep = plain_in_rows(fu.fcm_accumulate_ref, True)
+    acc = plain_in_rows(fu.fcm_accumulate_ref, False)
+    errs, times = {}, {}
+    for n, d, c in WIDE_SHAPES:
+        path = fu._plan(device.index, n, d, c).path
+        kerns = [(fu.fcm_sweep_cuda, fu.fcm_accumulate_cuda, path)]
+        if path != "wide":
+            kerns.append((functools.partial(fu.fcm_sweep_wide, normalize=True),
+                          functools.partial(fu.fcm_sweep_wide,
+                                            normalize=False), None))
+        x, w, v = _inputs(n, d, c, n + d + c, device)
+        half = w.clone()
+        half[n // 2:] = 0.0
+        on_centers = x[:c].clone()
+        cases = [("m=1.2", (x, w, v, 1.2), 0.0), ("m=2", (x, w, v, 2.0), 0.0),
+                 ("phantom rows", (x, half, v, 1.2), 0.0),
+                 ("records on centers", (x, w, on_centers, 1.2),
+                  q_rounding_bound(x, w, on_centers))]
+        for k2, k1, on in kerns:
+            for label, args, q_atol in cases:
+                what = f"{on or 'forced wide'} ({n}, {d}, {c}) {label}"
+                errs[what] = max(
+                    hold_launch(k2, sweep, args,
+                                (SWEEP_ATOL, SWEEP_ATOL, SWEEP_ATOL + q_atol),
+                                "sweep " + what, on),
+                    hold_launch(k1, acc, args,
+                                (ACC_ATOL, ACC_ATOL, ACC_ATOL + q_atol),
+                                "accumulate " + what, on))
+            zero = torch.zeros_like(w)
+            for kern in (k2, k1):
+                if any(bool(o.abs().any()) for o in kern(x, zero, v, 1.2)):
+                    raise AssertionError(
+                        f"{on or 'forced wide'} ({n}, {d}, {c}): records of "
+                        "zero weight do not give exact zeros")
+        wide = fu.wide_plan(device, n, d, c)
+        reps = 20 if n * d > 1 << 24 else 200
+        k2 = kerns[-1][0]
+        times[f"{n}x{d}x{c}"] = {
+            "path": path,
+            "wide_ms": time_loop_ms(lambda: k2(x, w, v, 1.2), reps),
+            "sweep_ms": time_loop_ms(lambda: fu.fcm_sweep_cuda(x, w, v, 1.2),
+                                     reps),
+            "plain_ms": time_ms(lambda: sweep(x, w, v, 1.2), 3),
+            "bound_ms": bound(n, d, c)[0], "rows": wide.rows,
+            "dsplits": wide.dsplits, "grid": wide.grid}
+        del x, w, v, half, on_centers, zero
+        torch.cuda.empty_cache()
+    return {"phase": "wide_kernels", "max_abs_err": errs, "times": times,
+            "bitwise_deterministic": True, "zero_weight_exact_zero": True}
 
 
 def tenant_cohort(run: TenantRun, seed: int):
@@ -4822,7 +4926,8 @@ def run_curriculum(model, lm_cfg, seed: int, device, reps: int) -> list:
               "embed_dtype": str(emb.dtype).split(".")[-1],
               "embed_s": embed_s, "wall_s": wall, "backend": cfg.backend,
               "plan": {"path": plan.path, "grid": plan.grid,
-                       "rows": plan.rows, "smem": plan.smem},
+                       "rows": plan.rows, "smem": plan.smem,
+                       "dsplits": plan.dsplits, "kper": plan.kper},
               "flag": diag.flag, "sample_size": diag.sample_size,
               "combiner_iters": list(diag.combiner_iters),
               "reducer_iters": diag.reducer_iters, "accuracy": acc,
@@ -4928,7 +5033,8 @@ def kernel_line(per_run) -> list:
     numbers, path and source under ``runs``."""
     entries = {}
     for e in per_run:
-        name = e["name"] + ("_ctiled" if e["path"] == "ctiled" else "")
+        name = e["name"] + {"ctiled": "_ctiled", "wide": "_wide"}.get(
+            e["path"], "")
         entries.setdefault(name, []).append(e)
     out = []
     for name, runs in entries.items():
@@ -4946,7 +5052,7 @@ def kernel_line(per_run) -> list:
             "runs": {e["run"]: {k: e[k] for k in (
                 "launches", "max_abs_err", "ms", "ms_per_call", "plain_ms",
                 "bound_ms", "bound_by", "bound_share", "shape", "path",
-                "source", "dsplits", "launch_ms", "member_library_ms",
+                "source", "dsplits", "rows", "launch_ms", "member_library_ms",
                 "contraction_library_ms", "fleet_launches") if k in e}
                 for e in runs}})
     return out
@@ -5005,6 +5111,7 @@ def run_all(args, device) -> int:
     emit(check_kernels(device))
     emit(check_tenant_kernels(device))
     emit(check_ctiled_kernels(device))
+    emit(check_wide_kernels(device))
     torch.cuda.empty_cache()
     emit(run_calibrate(device))
     torch.cuda.empty_cache()

@@ -4,7 +4,7 @@ chip_smoke.py launch them at, for one checkout of `repro_torch`, on one
 NVIDIA card:
 
     python3 scripts/compare_kernels.py [--src DIR] [--label NAME]
-                                       [--set all|ctiled]
+                                       [--set all|ctiled|wide|route]
 
 DIR is the ``src`` directory that holds ``repro_torch`` (default: this
 checkout's).  To compare two checkouts on one card, run it on each in
@@ -27,6 +27,27 @@ two library products of its halves (``member_library_ms``: x·vᵀ;
 ``-Xptxas -v`` lines.  A source without ``fcm_ctiled_stage`` (the first
 version's) is timed apart through a harness built beside it that
 launches its kernels one at a time.
+
+``--set wide`` times the single-model sweep where C ≤ 128 and d is too
+wide for the tile kernel, at the LM widths (``WIDE``: the ``curriculum``
+run's shapes at d = 1536, C = 16, m = 1.2; the other config widths at
+C = 16; the plan's boundary checks; tests/test_kernels.py's C > 128
+shapes): each on the checkout's own plan (``path``), held against its
+plain version; where that path is the first version ("first"), its two
+launches apart (``first_launch_ms``: partial, reduce, through a harness
+built beside its source); the C-tiled kernel forced at the same shape
+(``ctiled_ms``, ``ctiled_launch_ms``, held too), both library
+yardsticks and the bound; first the ``-Xptxas -v`` lines of
+``fcm_accumulate.cu``.  On a checkout with the wide kernel each wide
+launch is also timed with each stage of its tile loop left out
+(``wide_stage_ms``: a build with FCM_WIDE_STAGES cleared of that stage's
+bit; "none" keeps only the walk's fixed cost), and at full sizes under
+other plan choices (``wide_choice_ms``).
+
+``--set route`` times the wide kernel and the C-tiled kernel, each forced,
+over ``ROUTE`` (C = 8 … 128 across the wide domain's d, at N = 65,536,
+2048 and 32): the measurements behind the launch plan's choice between
+them (``fcm_update.WIDE_CTILED``).
 """
 from __future__ import annotations
 
@@ -63,6 +84,48 @@ CTILED += [(f"check/{n}x{d}x{c}", n, d, c)
            for n, d, c in ((4096, 900, 64), (4096, 2048, 64),
                            (1024, 7168, 384))]
 CTILED_K3 = (3, 1000, 2048, 64)
+# The wide single-model sweep (C <= 128, d past the tile kernel): the
+# curriculum run's full size, driver sample, WFCMPB block, 32- and
+# 16-point merges and K1 at 32,768 rows (d = 1536, C = 16, m = 1.2); the
+# other d_model of the configs at C = 16; the plan's boundary checks; and
+# tests/test_kernels.py's C > 128 shapes.  (kernel, label, N, d, C, m)
+WIDE = [("fcm_sweep", f"curriculum/{label}", n, 1536, 16, 1.2)
+        for label, n in (("full", 65_536), ("sample", 32_604),
+                         ("block", 2048), ("merge", 32), ("n=16", 16))]
+WIDE += [("fcm_accumulate", "curriculum/n=32768", 32_768, 1536, 16, 1.2)]
+WIDE += [("fcm_sweep", f"width/{d}", 65_536, d, 16, 1.2)
+         for d in (1024, 2048, 3072)]
+WIDE += [("fcm_sweep", f"check/{n}x{d}x{c}", n, d, c, 2.0)
+         for n, d, c in ((4096, 100, 128), (3000, 887, 64))]
+WIDE += [("fcm_sweep", f"c>128/{n}x{d}x{c}", n, d, c, 2.0)
+         for n, d, c in ((512, 8, 129), (300, 130, 131), (200, 129, 140),
+                         (96, 257, 129), (513, 131, 200))]
+
+# The first single-model version launches its two kernels from one C
+# call; this harness, compiled with its source, launches one of them
+# (0: the partials, 1: their sum).
+FIRST_HARNESS = r"""
+#include "%s"
+extern "C" int fcm_first_stage(
+    int stage, const float* x, const float* w, const float* v, long long n,
+    int d, int c, float m, float expo, int t, int grid, int block,
+    float* part, float* out_v, float* out_w, float* out_q, int normalize,
+    void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (stage == 0) {
+    const size_t smem = make_layout(d, c, t, block).total * sizeof(float);
+    cudaError_t err = cudaFuncSetAttribute(
+        fcm_partial_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    fcm_partial_kernel<<<grid, block, smem, s>>>(x, w, v, n, d, c, m, expo, t, part);
+  } else {
+    const int p_len = c * d + c + 1;
+    fcm_reduce_kernel<<<(p_len + 255) / 256, 256, 0, s>>>(part, grid, d, c, normalize,
+                                                         out_v, out_w, out_q);
+  }
+  return (int)cudaGetLastError();
+}
+"""
 
 # The first C-tiled version launches its three kernels from one C call;
 # this harness, compiled with its source, launches one of them, numbered
@@ -115,19 +178,12 @@ def stage_function(F, build):
     if b"fcm_ctiled_stage" in src.read_bytes():
         log = build.compile_source("fcm_ctiled", verbose=True)
         return F._ctiled_lib().fcm_ctiled_stage, log
-    out = build.BUILD_DIR / "libfcm_ctiled_stage_harness.so"
-    harness = build.BUILD_DIR / "fcm_ctiled_stage_harness.cu"
-    out.parent.mkdir(parents=True, exist_ok=True)
-    harness.write_text(STAGE_HARNESS % src)
-    proc = subprocess.run(
-        [build.nvcc_path(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
-         str(out), str(harness)], capture_output=True, text=True, check=True)
-    lib = ctypes.CDLL(str(out))
-    fn = lib.fcm_ctiled_stage
+    fn, log = harness(build, "fcm_ctiled_stage_harness", STAGE_HARNESS % src,
+                      "fcm_ctiled_stage")
     fn.argtypes = [ctypes.c_int] + list(F._ctiled_lib().fcm_ctiled_chunk
                                         .argtypes)
     fn.restype = ctypes.c_int
-    return fn, proc.stdout + proc.stderr
+    return fn, log
 
 
 def time_ctiled(F, build, emit, dev, g) -> None:
@@ -175,6 +231,250 @@ def time_ctiled(F, build, emit, dev, g) -> None:
          bound_ms=bound_batched(t, n, d, c)[0])
 
 
+def harness(build, name, text, symbol):
+    """(``symbol`` of a shared library built from ``text``, a harness that
+    includes a kernel source, beside the checkout's builds; the build's
+    ``-Xptxas -v`` lines)."""
+    import ctypes
+    out = build.BUILD_DIR / f"lib{name}.so"
+    src = build.BUILD_DIR / f"{name}.cu"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    src.write_text(text)
+    proc = subprocess.run(
+        [build.nvcc_path(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
+         str(out), str(src)], capture_output=True, text=True, check=True)
+    return (getattr(ctypes.CDLL(str(out)), symbol),
+            proc.stdout + proc.stderr)
+
+
+def first_launch_ms(F, build, kern, args, reps) -> dict:
+    """The first version's two launches timed apart (``partial``, its
+    CTAs' partials; ``reduce``, their sum in a second launch), each as
+    `time_loop_ms` times the whole.  Alone, the sum reads partials that
+    no launch wrote: its time, not its values, is what this measures."""
+    import ctypes
+    from chip_smoke import _StageLib, time_loop_ms
+    src = build.CSRC / "fcm_accumulate.cu"
+    fn, _ = harness(build, "fcm_first_stage_harness", FIRST_HARNESS % src,
+                    "fcm_first_stage")
+    real = F._lib
+    lib = real()
+    fn.argtypes = [ctypes.c_int] + list(lib.fcm_accumulate.argtypes)
+    fn.restype = ctypes.c_int
+    out = {}
+    try:
+        for stage, name in enumerate(("partial", "reduce")):
+            F._lib = lambda s=stage: _StageLib(lib, fn, s, "fcm_accumulate")
+            out[name] = time_loop_ms(lambda: kern(*args), reps)
+    finally:
+        F._lib = real
+    return out
+
+
+# The wide kernel's tile-loop stages (csrc/fcm_accumulate.cu,
+# FCM_WIDE_STAGES): a variant is built with one of them left out, or with
+# none of them (the walk's fixed cost: V, |v|², the final reduce).
+WIDE_STAGES = {"loads": 1, "x.v": 2, "post": 4, "cluster barrier": 8,
+               "contraction": 16, "membership": 32}
+WIDE_VARIANTS = {"none": 0, **{f"no {k}": 63 & ~b
+                               for k, b in WIDE_STAGES.items()}}
+
+
+class _Variant:
+    """The single-model library of a build of fcm_accumulate.cu with
+    FCM_WIDE_STAGES = ``mask``, its calls typed as ``lib``'s."""
+
+    def __init__(self, lib, path):
+        import ctypes
+        self._cdll = ctypes.CDLL(str(path))
+        self._lib = lib
+
+    def __getattr__(self, name):
+        fn = getattr(self._cdll, name)
+        real = getattr(self._lib, name)
+        fn.argtypes, fn.restype = real.argtypes, real.restype
+        return fn
+
+
+def wide_variants(F, build) -> dict:
+    """{variant name: library} of fcm_accumulate.cu built with stages of
+    the wide kernel's tile loop left out (WIDE_VARIANTS), one nvcc each,
+    all at once; {} for a source without FCM_WIDE_STAGES."""
+    from concurrent.futures import ThreadPoolExecutor
+    src = build.CSRC / "fcm_accumulate.cu"
+    if b"FCM_WIDE_STAGES" not in src.read_bytes():
+        return {}
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+
+    def one(item):
+        name, mask = item
+        cu = build.BUILD_DIR / f"fcm_wide_stages_{mask}.cu"
+        out = cu.with_suffix(".so")
+        cu.write_text(f"#define FCM_WIDE_STAGES {mask}\n#include \"{src}\"\n")
+        subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(out),
+                        str(cu)], capture_output=True, text=True, check=True)
+        return name, out
+
+    lib = F._lib()
+    with ThreadPoolExecutor(len(WIDE_VARIANTS)) as pool:
+        built = dict(pool.map(one, WIDE_VARIANTS.items()))
+    return {name: _Variant(lib, path) for name, path in built.items()}
+
+
+def wide_stage_ms(F, variants, kern, args, reps) -> dict:
+    """``kern(*args)`` on each variant (a stage of the wide kernel's tile
+    loop left out, or all of them), each timed as `time_loop_ms` times
+    the whole.  Such a variant computes wrong values: its time, not its
+    values, is what this measures."""
+    from chip_smoke import time_loop_ms
+    real = F._lib
+    out = {}
+    try:
+        for name, lib in variants.items():
+            F._lib = lambda lib=lib: lib
+            out[name] = time_loop_ms(lambda: kern(*args), reps)
+    finally:
+        F._lib = real
+    return out
+
+
+# The wide domain's (d, C) between the tile kernel's micro-tiles and V's
+# shared memory, at three N: the wide and C-tiled kernels forced.
+ROUTE = [(n, d, c) for c, ds in ((8, (1536, 3072, 6144)),
+                                 (16, (768, 1536, 3072)),
+                                 (24, (512, 1024, 2300)),
+                                 (32, (384, 1024, 1700)),
+                                 (64, (256, 512, 887)),
+                                 (128, (100, 256, 443)))
+         for d in ds for n in (65_536, 4096, 2048, 32)]
+
+
+def time_route(F, emit, dev, g) -> None:
+    """The wide and C-tiled kernels, each forced, at ROUTE (K2, m = 1.2),
+    each held against the plain version."""
+    import torch
+    from chip_smoke import (RTOL, SWEEP_ATOL, bound, max_err,
+                            plain_in_rows, time_loop_ms)
+    for n, d, c in ROUTE:
+        x = torch.randn((n, d), generator=g, device=dev)
+        w = torch.rand((n,), generator=g, device=dev) + 0.5
+        v = torch.randn((c, d), generator=g, device=dev)
+        want = plain_in_rows(F.fcm_accumulate_ref, True)(x, w, v, 1.2)
+        reps = 20 if n * d > 1 << 24 else 200
+        wide, wplan = F.fcm_sweep_wide, F.wide_plan(dev, n, d, c)
+        ct, _ = forced_ctiled(F, n, d, c, True)
+        for kern in (wide, ct):
+            max_err(kern(x, w, v, 1.2), want, RTOL, SWEEP_ATOL,
+                    f"{kern.__name__} at {(n, d, c)}")
+        emit("fcm_sweep", f"route/{n}x{d}x{c}", [n, d, c],
+             time_loop_ms(lambda: wide(x, w, v, 1.2), reps), None,
+             path=F._plan(0, n, d, c).path,
+             ctiled_ms=time_loop_ms(lambda: ct(x, w, v, 1.2), reps),
+             rows=wplan.rows, dsplits=wplan.dsplits, grid=wplan.grid,
+             bound_ms=bound(n, d, c)[0])
+        del x, w, v, want
+        torch.cuda.empty_cache()
+
+
+# Plan choices timed on the wide path: records per tile and d-split CTAs
+# scaled (PlanChoice.tile, .dsplit).
+WIDE_CHOICES = [(1.0, 1.0), (0.5, 1.0), (2.0, 1.0), (1.0, 0.5), (1.0, 2.0),
+                (1.0, 4.0), (0.5, 2.0)]
+
+
+def forced_ctiled(F, n, d, c, normalize):
+    """The C-tiled kernel at (n, d, c) whatever path the plan takes there:
+    ``plan_ctiled`` launched through the wrappers' own `_ctiled_launch`;
+    returns (launcher (x, w, v, m) → outputs, its plan)."""
+    import torch
+    sms, smem = F._card(0)
+    plan = F.plan_ctiled(1, n, d, c, sms=sms, smem_limit=smem)
+
+    def run(x, w, v, m):
+        f32 = dict(dtype=torch.float32, device=x.device)
+        out = (torch.empty((c, d), **f32), torch.empty((c,), **f32),
+               torch.empty((), **f32))
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        F._check(F._ctiled_launch(plan, x, w, v, None, float(m), 1, n, d, c,
+                                  normalize, x.device, stream, out),
+                 "launch", "fcm_ctiled")
+        return out
+    run.__name__ = "forced_ctiled"
+    return run, plan
+
+
+def time_wide(F, build, emit, dev, g) -> None:
+    """The single-model sweep at WIDE: on the checkout's plan, its first
+    version's launches apart, the C-tiled kernel forced, both library
+    yardsticks and the bound; every kernel held against its plain
+    version (row chunks) at the test_kernels.py tolerances."""
+    import torch
+    from chip_smoke import (ACC_ATOL, RTOL, SWEEP_ATOL, bound,
+                            contraction_library_ms, ctiled_launch_ms,
+                            max_err, membership_library_ms, plain_in_rows,
+                            time_loop_ms)
+    log = build.compile_source("fcm_accumulate", verbose=True)
+    print(json.dumps({"ptxas": [ln.strip() for ln in log.splitlines()
+                                if "registers" in ln or "smem" in ln
+                                or "spill" in ln or "Compiling" in ln]}),
+          flush=True)
+    has_first = b"fcm_partial_kernel" in (
+        build.CSRC / "fcm_accumulate.cu").read_bytes()
+    variants = wide_variants(F, build)
+    for kernel, run, n, d, c, m in WIDE:
+        x = torch.randn((n, d), generator=g, device=dev)
+        w = torch.rand((n,), generator=g, device=dev) + 0.5
+        v = torch.randn((c, d), generator=g, device=dev)
+        normalize = kernel == "fcm_sweep"
+        fn = getattr(F, kernel + "_cuda")
+        plain = plain_in_rows(F.fcm_accumulate_ref, normalize)
+        atol = SWEEP_ATOL if normalize else ACC_ATOL
+        if c > 128:
+            atol = max(atol, 3e-4)
+        reps = 20 if n * d > 1 << 24 else 200
+        want = plain(x, w, v, m)
+        err = max_err(fn(x, w, v, m), want, RTOL, atol, f"{kernel} {run}")
+        ct, ct_plan = forced_ctiled(F, n, d, c, normalize)
+        ct_err = max_err(ct(x, w, v, m), want, RTOL, atol,
+                         f"forced ctiled {run}")
+        del want
+        plan = F._plan(0, n, d, c)
+        extra = {}
+        if has_first and plan.path == "first":
+            extra["first_launch_ms"] = first_launch_ms(
+                F, build, fn, (x, w, v, m), reps)
+        if plan.path == "wide":
+            extra["clusters"] = plan.grid // plan.dsplits
+            extra["wide_stage_ms"] = wide_stage_ms(F, variants, fn,
+                                                   (x, w, v, m), reps)
+            extra["wide_choice_ms"] = {}
+            grid = WIDE_CHOICES
+            if n <= 4096:
+                # small N: tiles of r records on s-CTA clusters
+                grid = [(r / plan.rows, s / plan.dsplits)
+                        for r in (1, 2, 4, 8, 16, 32, 64) if r <= 2 * n
+                        for s in sorted({plan.dsplits, 2, 3, 5, 9})]
+            for t, sp in grid:
+                ch = F.PlanChoice(tile=t, dsplit=sp)
+                cp = F._plan(0, n, d, c, ch)
+                extra["wide_choice_ms"][f"tile={t},dsplit={sp}"] = [
+                    time_loop_ms(lambda: F._launch(x, w, v, m, normalize, ch),
+                                 reps), cp.rows, cp.dsplits, cp.grid]
+        emit(kernel, run, [n, d, c], *timed(lambda: fn(x, w, v, m), reps),
+             path=plan.path, grid=plan.grid, rows=plan.rows,
+             dsplits=plan.dsplits, smem=plan.smem, max_abs_err=err,
+             **extra,
+             ctiled_ms=time_loop_ms(lambda: ct(x, w, v, m), reps),
+             ctiled_launch_ms=ctiled_launch_ms(
+                 ct, (x, w, v, m), reps, ct_plan.dsplits > 1),
+             ctiled_dsplits=ct_plan.dsplits, ctiled_max_abs_err=ct_err,
+             member_library_ms=membership_library_ms(x, v, reps),
+             contraction_library_ms=contraction_library_ms(x, c, reps),
+             bound_ms=bound(n, d, c)[0], bound_by=bound(n, d, c)[1])
+        del x, w, v
+        torch.cuda.empty_cache()
+
+
 def timed(fn, reps: int):
     """(ms per launch over a CUDA-graph replay of ``reps`` back-to-back
     calls, median ms of events around single calls), as chip_smoke.py
@@ -187,7 +487,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", default=str(ROOT / "src"))
     ap.add_argument("--label", default="this checkout")
-    ap.add_argument("--set", choices=("all", "ctiled"), default="all")
+    ap.add_argument("--set", choices=("all", "ctiled", "wide", "route"),
+                    default="all")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -204,7 +505,12 @@ def main(argv=None) -> int:
                           "shape": shape, "ms": ms, "ms_per_call": per_call,
                           **extra}), flush=True)
 
-    time_ctiled(F, build, emit, dev, g)
+    if args.set == "wide":
+        time_wide(F, build, emit, dev, g)
+    elif args.set == "route":
+        time_route(F, emit, dev, g)
+    else:
+        time_ctiled(F, build, emit, dev, g)
     for kernel, run, n, d, c, m in (SINGLE if args.set == "all" else ()):
         x = torch.randn((n, d), generator=g, device=dev)
         w = torch.rand((n,), generator=g, device=dev) + 0.5

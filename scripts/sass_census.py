@@ -6,12 +6,12 @@ with the CUDA toolkit:
 
 Builds every kernel source (`repro_torch.kernels.build`), disassembles
 them with ``cuobjdump -sass`` and prints one JSON line per kernel
-function: its instruction count, and for its largest loop (the span of
-its longest backward branch) the instruction count and the count by
-opcode (``MUFU`` is the special-function unit: one ``MUFU.LG2`` per
-``logf``, one ``MUFU.EX2`` per ``expf``).  The counts are static: an
-instruction under a predicate or a branch counts once, whether it runs
-or not.
+function: its instruction count and its ``MUFU`` instructions by kind
+(``mufu``), and for its largest loop (the span of its longest backward
+branch) the instruction count and the count by opcode (``MUFU`` is the
+special-function unit: one ``MUFU.LG2`` per ``logf``, one ``MUFU.EX2``
+per ``expf``).  The counts are static: an instruction under a predicate
+or a branch counts once, whether it runs or not.
 """
 from __future__ import annotations
 
@@ -47,7 +47,10 @@ def census(sass: str) -> list:
         body = insns[loop[0]:loop[1] + 1] if loop[1] else []
         ops = collections.Counter(op.split(".")[0] if not op.startswith(
             "MUFU") else op for _, op, _ in body)
+        mufu = collections.Counter(op for _, op, _ in insns
+                                   if op.startswith("MUFU"))
         out.append({"function": name, "instructions": len(insns),
+                    "mufu": dict(mufu.most_common()),
                     "loop_instructions": len(body),
                     "loop_ops": dict(ops.most_common())})
 

@@ -21,7 +21,8 @@
 // center) cost about as many instructions again as the two contractions
 // at C = 23, d = 41.
 //
-// Three paths, chosen by kernels/fcm_update.py's launch plan:
+// Three paths, chosen by kernels/fcm_update.py's launch plan (which sends
+// the rest to fcm_ctiled.cu's C-tiled sweep):
 //
 //  * Small C*d (d <= 32 and C small enough, e.g. HIGGS-like d = 28, C = 2):
 //    the tenant-stacked source's register-resident fcm_rows_kernel at
@@ -47,187 +48,66 @@
 //    each one slice of the outputs (fcm::finish_partials): no second
 //    launch.  At small N (the driver's 2048- and 3184-row blocks) the
 //    tile shrinks so that the grid still covers the SMs.
-//  * fcm_partial_kernel + fcm_reduce_kernel, the first version, for the
-//    rest (C > 128 or C*d too large for the micro-tiles): V resident in
-//    shared memory, 128-row tiles staged in shared memory, d2 and the
-//    accumulation as scalar FMAs from shared memory, one thread per row
-//    for the membership, one partial per CTA and a second kernel that
-//    sums them in CTA order.
+//  * fcm_wide_kernel<MC, MD> (this file), for C*d past the tile kernel's
+//    micro-tiles while V and one record fit one block's shared memory,
+//    where the card measured it faster than the C-tiled kernel, such as
+//    an LM's d_model at C = 16 (the curriculum's d = 1536, Qwen2-1.5B).
+//    There the bound is bytes: a 65,536 x 1536 sweep reads 0.40 GB
+//    (0.1203 ms at 3.35 TB/s) and does 6.4 GFLOP (0.096 ms at
+//    67 TFLOP/s), so x must be read once and both contractions kept near
+//    the FMA rate.  It replaces the first version, which staged 21-row
+//    tiles by synchronous 4-byte loads, formed each d2 as one serial
+//    scalar dot, ran the membership on one thread per row with powf,
+//    read and wrote its partial v_num in device memory after every tile
+//    (0.61 GB of L2 traffic per sweep) and summed the partials in a
+//    second launch.
+//    - d is split across a cluster of S CTAs (thread-block clusters, up
+//      to 16), 512 threads each: CTA s holds dims [s*ds, (s+1)*ds) of V
+//      (resident) and of each tile, so that its share of v_num fits its
+//      registers (MC x MD = 16 a thread, for the whole walk) and a
+//      tile's slice fits shared memory beside the next one.  x is read
+//      from device memory once: 16-byte cp.async (4-byte where
+//      d % 4 != 0) into the other tile buffer while a tile is computed.
+//    - x.v and |x|^2 in 4-record x 4-center register micro-tiles (eight
+//      16-byte shared loads per 64 FMAs, the warp's 8 records in distinct
+//      banks), the slice's dims split between k-groups of threads summed
+//      in group order; each CTA stores its slice's sums into every CTA's
+//      shared memory (distributed shared memory), and after one cluster
+//      barrier each adds the S posts in rank order, so all S form the
+//      same d2 (and |v|^2 the same way, once), with no trip to device
+//      memory.
+//    - the membership on every thread: 512 / R lanes per record (at most
+//      32), fcm_common.cuh's log-space form (one logf and two expf per
+//      record and center, no powf), the min and the sum over centers by
+//      xor shuffles among them.
+//    - v_num += wum^T x over the CTA's slice from the tile it already
+//      holds, MC centers x MD dims a thread (two 16-byte loads of wum,
+//      the same for the warp, and one 8-byte load of x per 16 FMAs);
+//      rank 0 also sums w_i and q.  Each cluster writes one partial at
+//      the end, and the last CTAs to finish sum the partials in cluster
+//      order (fcm::finish_partials): no second launch.  The grid is at
+//      most the clusters the card holds at once, since that reduce waits
+//      for every CTA.
+//    - at small N (the driver's 2048-row blocks, 2C-point merges) the
+//      tile shrinks and d splits across more CTAs until they cover half
+//      the SMs (covering all of them was measured slower).
+//    A record equal to a center gets d2 = 0 exactly: |v|^2, |x|^2 and x.v
+//    run through the same k-groups, fmaf order and sums.
 //
 // No float atomics anywhere: for a fixed shape and card the summation
 // order is fixed, so two runs on the same input are bit-identical.  This
 // stands in for the TPU kernel's revisited output block, which relies on a
-// sequential grid that CUDA does not have.  Shared-memory row strides of
-// V, x and d2/wum are padded to odd lengths so that threads walking a
-// column hit distinct banks.  Offsets into x are 64-bit: N*d exceeds 2^31
-// at the paper's sizes.
+// sequential grid that CUDA does not have.  Offsets into x are 64-bit:
+// N*d exceeds 2^31 at the paper's sizes.
+
+#include <cooperative_groups.h>
+#include <stdint.h>
 
 #include "fcm_common.cuh"
 
 namespace {
 
 constexpr float kD2Floor = 1e-12f;
-
-struct Layout {      // offsets into dynamic shared memory, in floats
-  int ldv, ldx, ldc;  // padded row strides of V, the x tile, the d2/wum tiles
-  size_t v, v2, x, x2, w, d2, wum, red, total;
-};
-
-__host__ __device__ inline Layout make_layout(int d, int c, int t, int block) {
-  Layout L;
-  L.ldv = d | 1;
-  L.ldx = d | 1;
-  L.ldc = c | 1;
-  size_t o = 0;
-  L.v = o;   o += (size_t)c * L.ldv;
-  L.v2 = o;  o += c;
-  L.x = o;   o += (size_t)t * L.ldx;
-  L.x2 = o;  o += t;
-  L.w = o;   o += t;
-  L.d2 = o;  o += (size_t)t * L.ldc;
-  L.wum = o; o += (size_t)t * L.ldc;
-  L.red = o; o += block;
-  L.total = o;
-  return L;
-}
-
-__global__ void __launch_bounds__(256)
-fcm_partial_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                   const float* __restrict__ v, long long n, int d, int c,
-                   float m, float expo, int t, float* __restrict__ part) {
-  extern __shared__ float smem[];
-  const Layout L = make_layout(d, c, t, blockDim.x);
-  float* v_s = smem + L.v;
-  float* v2_s = smem + L.v2;
-  float* x_s = smem + L.x;
-  float* x2_s = smem + L.x2;
-  float* w_s = smem + L.w;
-  float* d2_s = smem + L.d2;
-  float* wum_s = smem + L.wum;
-  float* red_s = smem + L.red;
-
-  const int tid = threadIdx.x;
-  const int nt = blockDim.x;
-  const int cd = c * d;
-  const size_t p_len = (size_t)cd + c + 1;
-  float* my_part = part + (size_t)blockIdx.x * p_len;
-
-  for (int o = tid; o < cd + c; o += nt) my_part[o] = 0.f;
-  for (int o = tid; o < cd; o += nt) {
-    const int i = o / d, j = o - i * d;
-    v_s[i * L.ldv + j] = v[o];
-  }
-  __syncthreads();
-  for (int i = tid; i < c; i += nt) {
-    float s = 0.f;
-    for (int k = 0; k < d; ++k) s = fmaf(v_s[i * L.ldv + k], v_s[i * L.ldv + k], s);
-    v2_s[i] = s;
-  }
-
-  float q_acc = 0.f;
-  const long long n_tiles = (n + t - 1) / t;
-  for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const long long r0 = tile * t;
-    const int rows = (int)min((long long)t, n - r0);
-    const float* xg = x + r0 * (long long)d;
-    for (int o = tid; o < t * d; o += nt) {
-      const int r = o / d, j = o - r * d;
-      x_s[r * L.ldx + j] = (r < rows) ? xg[o] : 0.f;
-    }
-    for (int r = tid; r < t; r += nt) w_s[r] = (r < rows) ? w[r0 + r] : 0.f;
-    __syncthreads();
-
-    for (int r = tid; r < t; r += nt) {
-      float s = 0.f;
-      for (int k = 0; k < d; ++k) s = fmaf(x_s[r * L.ldx + k], x_s[r * L.ldx + k], s);
-      x2_s[r] = s;
-    }
-    __syncthreads();
-
-    for (int o = tid; o < t * c; o += nt) {
-      const int r = o / c, i = o - r * c;
-      const float* xr = x_s + r * L.ldx;
-      const float* vi = v_s + i * L.ldv;
-      float dot = 0.f;
-      for (int k = 0; k < d; ++k) dot = fmaf(xr[k], vi[k], dot);
-      d2_s[r * L.ldc + i] = fmaxf(x2_s[r] + v2_s[i] - 2.f * dot, kD2Floor);
-    }
-    __syncthreads();
-
-    // Log-space, max-normalized membership: one thread per row.
-    for (int r = tid; r < t; r += nt) {
-      const float* d2r = d2_s + r * L.ldc;
-      float* wr = wum_s + r * L.ldc;
-      float lmin = INFINITY;
-      for (int i = 0; i < c; ++i) lmin = fminf(lmin, logf(d2r[i]));
-      float s = 0.f;
-      for (int i = 0; i < c; ++i) {
-        const float ri = expf(-expo * (logf(d2r[i]) - lmin));
-        wr[i] = ri;
-        s += ri;
-      }
-      const float wk = w_s[r];
-      float qr = 0.f;
-      for (int i = 0; i < c; ++i) {
-        const float wum = powf(wr[i] / s, m) * wk;
-        wr[i] = wum;
-        qr = fmaf(wum, d2r[i], qr);
-      }
-      q_acc += qr;
-    }
-    __syncthreads();
-
-    // Each thread owns fixed outputs: v_num[i][j] for o < C*d, w_i after.
-    for (int o = tid; o < cd + c; o += nt) {
-      float acc = 0.f;
-      if (o < cd) {
-        const int i = o / d, j = o - i * d;
-        for (int r = 0; r < t; ++r)
-          acc = fmaf(wum_s[r * L.ldc + i], x_s[r * L.ldx + j], acc);
-      } else {
-        const int i = o - cd;
-        for (int r = 0; r < t; ++r) acc += wum_s[r * L.ldc + i];
-      }
-      my_part[o] += acc;
-    }
-    __syncthreads();
-  }
-
-  // q: fixed-order tree reduction over the CTA (blockDim is a power of 2).
-  red_s[tid] = q_acc;
-  __syncthreads();
-  for (int s = nt / 2; s > 0; s >>= 1) {
-    if (tid < s) red_s[tid] += red_s[tid + s];
-    __syncthreads();
-  }
-  if (tid == 0) my_part[cd + c] = red_s[0];
-}
-
-__global__ void fcm_reduce_kernel(const float* __restrict__ part, int g, int d,
-                                  int c, int normalize, float* __restrict__ out_v,
-                                  float* __restrict__ out_w,
-                                  float* __restrict__ out_q) {
-  const int cd = c * d;
-  const size_t p_len = (size_t)cd + c + 1;
-  const int o = blockIdx.x * blockDim.x + threadIdx.x;
-  if (o >= (int)p_len) return;
-  float s = 0.f;
-  for (int b = 0; b < g; ++b) s += part[(size_t)b * p_len + o];
-  if (o < cd) {
-    if (normalize) {
-      // The same loop as the w_i output's, so the divisor equals it bit for bit.
-      const int i = o / d;
-      float wi = 0.f;
-      for (int b = 0; b < g; ++b) wi += part[(size_t)b * p_len + cd + i];
-      s = s / fmaxf(wi, kD2Floor);
-    }
-    out_v[o] = s;
-  } else if (o < cd + c) {
-    out_w[o - cd] = s;
-  } else {
-    *out_q = s;
-  }
-}
 
 // -------------------------------------------------- register-blocked tile --
 
@@ -517,6 +397,438 @@ int tile_occupancy(int smem, int* per_sm) {
       per_sm, fcm_tile_kernel<RC>, kTileBlock, smem);
 }
 
+// ----------------------------------------------------------------- wide --
+
+constexpr int kWideBlock = 512;
+// The tile loop's stages, one bit each (all of them unless a timing
+// harness builds this file with some left out): 1 the x and w tile loads,
+// 2 the partial x.v and |x|^2, 4 the k-group sums and their push to the
+// cluster, 8 the cluster barrier, 16 the contraction, 32 the membership.
+#ifndef FCM_WIDE_STAGES
+#define FCM_WIDE_STAGES 63
+#endif
+constexpr int kWideStages = FCM_WIDE_STAGES;
+
+__host__ __device__ inline int round32(int a) { return (a + 31) & ~31; }
+
+struct WideLayout {  // offsets into dynamic shared memory, in floats
+  int cp, ldw, ldx, ks;  // C to 4; wum row stride; V and x row stride; k-groups
+  size_t ex;             // floats of one CTA's post: x.v (r x cp), then |x|^2 (r)
+  size_t v, vx, v2, x0, w0, x1, w1, rx0, rx1, ksb, wum, lg, red, total;
+};
+
+// The wide kernel's shared memory for a d-slice of ds dims, C centers,
+// r-record tiles, mc centers a thread in the contraction and clusters of
+// s CTAs: V's slice; the slice's partial |v|^2 (read by the cluster) and
+// the full |v|^2; two x and w tile buffers; two receive buffers of the s
+// CTAs' posts (partial x.v and |x|^2 of a tile); the k-groups' partials;
+// the tile's d2 then wum, and log d2 then its exponent; q's warp sums.
+// The V and x rows are round32(ds) + 4 floats apart (4 mod 32: the x.v
+// micro-tiles' 8 records of a warp in distinct banks), and every buffer
+// read as float4 starts 16-byte aligned.
+__host__ __device__ inline WideLayout wide_layout(int ds, int c, int r, int mc, int s) {
+  WideLayout L;
+  L.cp = (c + 3) & ~3;
+  L.ldw = (c + mc - 1) / mc * mc;
+  L.ldx = round32(ds) + 4;
+  const int rg = r / 4 > 1 ? r / 4 : 1;
+  L.ks = kWideBlock / (rg * (L.cp / 4));
+  L.ex = (size_t)r * L.cp + r;
+  size_t o = 0;
+  L.v = o;   o += (size_t)L.cp * L.ldx;
+  L.vx = o;  o += L.cp;
+  L.v2 = o;  o += L.cp;
+  L.x0 = o;  o += (size_t)r * L.ldx;
+  L.w0 = o;  o += round4(r);
+  L.x1 = o;  o += (size_t)r * L.ldx;
+  L.w1 = o;  o += round4(r);
+  L.rx0 = o; o += (size_t)s * L.ex;
+  L.rx1 = o; o += (size_t)s * L.ex;
+  L.ksb = o; o += (size_t)L.ks * L.ex;
+  L.wum = round4(o); o = L.wum + (size_t)r * L.ldw;
+  L.lg = o;  o += (size_t)r * L.ldw;
+  L.red = o; o += kWideBlock / 32;
+  L.total = o;
+  return L;
+}
+
+// One cluster of S CTAs per tile of R records: CTA s holds dims
+// [s*ds, (s+1)*ds) of V and of the tile.  The cluster's CTAs walk tiles
+// blockIdx.x / S, + gridDim.x / S, ...  Per tile, each CTA forms its
+// slice's partial x.v and |x|^2 of the tile (4 records x 4 centers a
+// thread, the slice's dims split between k-groups of threads, summed in
+// group order) and stores it into every CTA's receive buffer; after the
+// cluster barrier each CTA adds the S posts in rank order, so all S form
+// the same d2 and membership, and each adds wum^T x over its own slice
+// (MC centers x MD dims a thread, kept in registers for the whole walk).
+// Rank 0 also sums w_i and q.
+template <int MC, int MD>
+__global__ void __launch_bounds__(kWideBlock, 1)
+fcm_wide_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                const float* __restrict__ v, long long n, int d, int c, float m,
+                float expo, int R, int ds, int vec, int slices, int normalize,
+                float* __restrict__ part, int* __restrict__ tickets,
+                float* __restrict__ out_v, float* __restrict__ out_w,
+                float* __restrict__ out_q) {
+  namespace cg = cooperative_groups;
+  extern __shared__ __align__(16) float wide_smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int S = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const WideLayout L = wide_layout(ds, c, R, MC, S);
+  float* vs = wide_smem + L.v;
+  float* vx = wide_smem + L.vx;
+  float* v2 = wide_smem + L.v2;
+  float* ksb = wide_smem + L.ksb;
+  float* wum = wide_smem + L.wum;
+  float* lg = wide_smem + L.lg;
+  float* red = wide_smem + L.red;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int G = gridDim.x / S, gc = blockIdx.x / S;
+  const int k0 = rank * ds;
+  const int cp = L.cp;
+  const size_t ex = L.ex;
+  const int nq = ds / 4;  // float4 steps of the slice
+
+  // x.v micro-tile: k-group g, records rg + i*RG (i < 4), centers
+  // cgi + j*CG (j < 4), dims 4*[q0, q1) of the slice.
+  const int RG = R / 4 > 1 ? R / 4 : 1, CG = cp / 4;
+  const int mt = RG * CG;
+  const bool in1 = tid < mt * L.ks;
+  const int g = tid / mt, u = tid % mt, rg = u % RG, cgi = u / RG;
+  const int kq = (nq + L.ks - 1) / L.ks;
+  const int q0 = min(nq, g * kq), q1 = min(nq, q0 + kq);
+  // wum^T x micro-tile: centers agi*MC + a, dims dgi*MD + b of the slice.
+  const int DG = ds / MD, AG = (c + MC - 1) / MC;
+  const bool in3 = tid < AG * DG;
+  const int agi = tid / DG, dgi = tid % DG;
+  // membership: Lr lanes per record
+  const int Lr = R >= kWideBlock / 32 ? kWideBlock / R : 32;
+  const int rm = tid / Lr, h = tid % Lr;
+
+  for (int e = tid; e < R * L.ldw; e += kWideBlock) wum[e] = 0.f;
+
+  // V's slice, zero past C and d.
+  for (int e = tid; e < cp * nq; e += kWideBlock) {
+    const int i = e / nq, q = e - i * nq, k = k0 + 4 * q;
+    if (vec) {
+      const bool ok = i < c && k < d;
+      fcm::cp_async16(vs + i * L.ldx + 4 * q, ok ? v + (size_t)i * d + k : v, ok);
+    } else {
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        const bool ok = i < c && k + b < d;
+        fcm::cp_async4z(vs + i * L.ldx + 4 * q + b, ok ? v + (size_t)i * d + k + b : v, ok);
+      }
+    }
+  }
+  fcm::cp_async_commit();
+
+  const long long n_tiles = (n + R - 1) / R;
+  auto load = [&](int buf, long long tile) {
+    if (!(kWideStages & 1)) return;
+    float* xs = wide_smem + (buf ? L.x1 : L.x0);
+    float* ws = wide_smem + (buf ? L.w1 : L.w0);
+    const long long r0 = tile * R;
+    for (int r = warp; r < R; r += kWideBlock / 32) {
+      const bool row = r0 + r < n;
+      const float* src = x + (r0 + r) * d + k0;
+      float* dst = xs + r * L.ldx;
+      for (int q = lane; q < nq; q += 32) {
+        const int k = 4 * q;
+        if (vec) {
+          const bool ok = row && k0 + k < d;
+          fcm::cp_async16(dst + k, ok ? src + k : x, ok);
+        } else {
+#pragma unroll
+          for (int b = 0; b < 4; ++b) {
+            const bool ok = row && k0 + k + b < d;
+            fcm::cp_async4z(dst + k + b, ok ? src + k + b : x, ok);
+          }
+        }
+      }
+    }
+    for (int r = tid; r < R; r += kWideBlock)
+      fcm::cp_async4z(ws + r, r0 + r < n ? w + r0 + r : w, r0 + r < n);
+  };
+
+  long long tile = gc;
+  int buf = 0;
+  if (tile < n_tiles) load(0, tile);
+  fcm::cp_async_commit();
+  fcm::cp_async_wait<1>();
+  __syncthreads();  // V's slice is in
+
+  // |v|^2 of the slice: the same k-groups and fmaf order as x.v below, so
+  // that a record equal to a center gets d2 = 0 exactly.
+  if (in1 && rg == 0) {
+    float s[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int q = q0; q < q1; ++q) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float4 b = *reinterpret_cast<const float4*>(vs + (cgi + j * CG) * L.ldx + 4 * q);
+        s[j] = fmaf(b.x, b.x, s[j]);
+        s[j] = fmaf(b.y, b.y, s[j]);
+        s[j] = fmaf(b.z, b.z, s[j]);
+        s[j] = fmaf(b.w, b.w, s[j]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) ksb[g * cp + cgi + j * CG] = s[j];
+  }
+  __syncthreads();
+  for (int i = tid; i < cp; i += kWideBlock) {
+    float s = 0.f;
+    for (int k = 0; k < L.ks; ++k) s += ksb[k * cp + i];
+    vx[i] = s;
+  }
+  cluster.sync();
+  for (int i = tid; i < cp; i += kWideBlock) {
+    float s = 0.f;
+    for (int r = 0; r < S; ++r) s += cluster.map_shared_rank(vx, r)[i];
+    v2[i] = s;
+  }
+
+  float acc[MC][MD], accw[MC], accq = 0.f;
+#pragma unroll
+  for (int a = 0; a < MC; ++a) {
+    accw[a] = 0.f;
+#pragma unroll
+    for (int b = 0; b < MD; ++b) acc[a][b] = 0.f;
+  }
+
+  int par = 0;
+  for (; tile < n_tiles; tile += G) {
+    const long long next = tile + G;
+    if (next < n_tiles) load(buf ^ 1, next);
+    fcm::cp_async_commit();
+    fcm::cp_async_wait<1>();
+    __syncthreads();  // this tile is in; v2 is written
+    const int rows = (int)min((long long)R, n - tile * R);
+    const float* xs = wide_smem + (buf ? L.x1 : L.x0);
+    const float* ws = wide_smem + (buf ? L.w1 : L.w0);
+    float* rx = wide_smem + (par ? L.rx1 : L.rx0);
+
+    // 1. The slice's partial x.v and |x|^2 (on the lanes of center group
+    // 0), per k-group.
+    if ((kWideStages & 2) && in1) {
+      int xo[4], vo[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) xo[i] = min(rg + i * RG, R - 1) * L.ldx;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) vo[j] = (cgi + j * CG) * L.ldx;
+      float dot[4][4], x2[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        x2[i] = 0.f;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) dot[i][j] = 0.f;
+      }
+      const bool own_x2 = cgi == 0;
+#pragma unroll 2
+      for (int q = q0; q < q1; ++q) {
+        float4 a[4], b[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) a[i] = *reinterpret_cast<const float4*>(xs + xo[i] + 4 * q);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) b[j] = *reinterpret_cast<const float4*>(vs + vo[j] + 4 * q);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            dot[i][j] = fmaf(a[i].x, b[j].x, dot[i][j]);
+            dot[i][j] = fmaf(a[i].y, b[j].y, dot[i][j]);
+            dot[i][j] = fmaf(a[i].z, b[j].z, dot[i][j]);
+            dot[i][j] = fmaf(a[i].w, b[j].w, dot[i][j]);
+          }
+          if (own_x2) {
+            x2[i] = fmaf(a[i].x, a[i].x, x2[i]);
+            x2[i] = fmaf(a[i].y, a[i].y, x2[i]);
+            x2[i] = fmaf(a[i].z, a[i].z, x2[i]);
+            x2[i] = fmaf(a[i].w, a[i].w, x2[i]);
+          }
+        }
+      }
+      float* kp = ksb + g * ex;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = rg + i * RG;
+        if (r < R) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) kp[r * cp + cgi + j * CG] = dot[i][j];
+          if (own_x2) kp[(size_t)R * cp + r] = x2[i];
+        }
+      }
+    }
+    if (kWideStages & 4) {
+      __syncthreads();
+      // The k-groups summed in order: this CTA's post, stored into slot
+      // `rank` of every CTA's receive buffer.
+      for (int e = tid; e < (int)ex; e += kWideBlock) {
+        float s = 0.f;
+        for (int k = 0; k < L.ks; ++k) s += ksb[(size_t)k * ex + e];
+        for (int r = 0; r < S; ++r) cluster.map_shared_rank(rx, r)[rank * ex + e] = s;
+      }
+    }
+
+    // 2. d2 and the membership, the same on every CTA of the cluster: the
+    // S posts added in rank order; Lr lanes per record, the min and the sum
+    // over centers by xor shuffles among them (fcm::memberships' form).
+    if (kWideStages & 8) cluster.sync();  // every post is in, read only after this
+    if (kWideStages & 32) {
+      if (rm < R) {
+        float x2 = 0.f;
+        for (int r = 0; r < S; ++r) x2 += rx[r * ex + (size_t)R * cp + rm];
+        float* dr = wum + rm * L.ldw;
+        float* ar = lg + rm * L.ldw;
+        float lmin = INFINITY;
+        for (int i = h; i < c; i += Lr) {
+          float dot = 0.f;
+          for (int r = 0; r < S; ++r) dot += rx[r * ex + rm * cp + i];
+          const float d2 = fmaxf(x2 + v2[i] - 2.f * dot, kD2Floor);
+          const float a = logf(d2);
+          dr[i] = d2;
+          ar[i] = a;
+          lmin = fminf(lmin, a);
+        }
+        for (int off = Lr >> 1; off > 0; off >>= 1)
+          lmin = fminf(lmin, __shfl_xor_sync(fcm::kFull, lmin, off));
+        float sum = 0.f;
+        for (int i = h; i < c; i += Lr) {
+          const float a = -expo * (ar[i] - lmin);
+          ar[i] = a;
+          sum += expf(a);
+        }
+        for (int off = Lr >> 1; off > 0; off >>= 1) sum += __shfl_xor_sync(fcm::kFull, sum, off);
+        const float ls = logf(sum), wk = ws[rm];
+        for (int i = h; i < c; i += Lr) {
+          const float um = expf(m * (ar[i] - ls)) * wk;
+          if (rank == 0) accq = fmaf(um, dr[i], accq);
+          dr[i] = um;
+        }
+      }
+    }
+    __syncthreads();
+
+    // 3. v_num += wum^T x over the slice (w_i on rank 0).
+    if ((kWideStages & 16) && in3) {
+      const float* wp = wum + agi * MC;
+      const float* xp = xs + dgi * MD;
+#pragma unroll 4
+      for (int r = 0; r < rows; ++r) {
+        float wv[MC], xv[MD];
+#pragma unroll
+        for (int a = 0; a < MC; a += 4) {
+          const float4 t = *reinterpret_cast<const float4*>(wp + r * L.ldw + a);
+          wv[a] = t.x; wv[a + 1] = t.y; wv[a + 2] = t.z; wv[a + 3] = t.w;
+        }
+        if constexpr (MD == 2) {
+          const float2 t = *reinterpret_cast<const float2*>(xp + r * L.ldx);
+          xv[0] = t.x; xv[1] = t.y;
+        } else {
+#pragma unroll
+          for (int b = 0; b < MD; b += 4) {
+            const float4 t = *reinterpret_cast<const float4*>(xp + r * L.ldx + b);
+            xv[b] = t.x; xv[b + 1] = t.y; xv[b + 2] = t.z; xv[b + 3] = t.w;
+          }
+        }
+#pragma unroll
+        for (int a = 0; a < MC; ++a) {
+#pragma unroll
+          for (int b = 0; b < MD; ++b) acc[a][b] = fmaf(wv[a], xv[b], acc[a][b]);
+        }
+        if (rank == 0 && dgi == 0) {
+#pragma unroll
+          for (int a = 0; a < MC; ++a) accw[a] += wv[a];
+        }
+      }
+    }
+    __syncthreads();  // buf and wum are free for the next tile
+    buf ^= 1;
+    par ^= 1;
+  }
+  fcm::cp_async_wait<0>();
+  cluster.sync();  // no CTA leaves while another may still store to it
+
+  // The cluster's partial: each CTA its slice of v_num, rank 0 w_i and q.
+  const int p_len = c * d + c + 1;
+  float* my = part + (size_t)gc * p_len;
+  if (in3) {
+#pragma unroll
+    for (int a = 0; a < MC; ++a) {
+      const int i = agi * MC + a;
+#pragma unroll
+      for (int b = 0; b < MD; ++b) {
+        const int k = k0 + dgi * MD + b;
+        if (i < c && k < d) my[(size_t)i * d + k] = acc[a][b];
+      }
+      if (rank == 0 && dgi == 0 && i < c) my[(size_t)c * d + i] = accw[a];
+    }
+  }
+  accq = fcm::warp_sum(accq);
+  if (lane == 0) red[warp] = accq;
+  __syncthreads();
+  if (rank == 0 && tid == 0) {
+    float q = 0.f;
+    for (int k = 0; k < kWideBlock / 32; ++k) q += red[k];
+    my[(size_t)c * d + c] = q;
+  }
+  fcm::finish_partials(part, tickets, G, p_len, slices, d, c, normalize, out_v, out_w,
+                       out_q, gridDim.x);
+}
+
+template <int MC, int MD>
+cudaError_t wide_attributes(int S, int smem) {
+  cudaError_t err = cudaFuncSetAttribute(
+      fcm_wide_kernel<MC, MD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess || S <= 8) return err;
+  return cudaFuncSetAttribute(fcm_wide_kernel<MC, MD>,
+                              cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+}
+
+inline cudaLaunchConfig_t wide_config(int grid, int S, int smem, cudaStream_t s,
+                                      cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(kWideBlock);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = S;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+template <int MC, int MD>
+int wide_clusters(int S, int smem, int* clusters) {
+  cudaError_t err = wide_attributes<MC, MD>(S, smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = wide_config(S, S, smem, 0, &attr);
+  return (int)cudaOccupancyMaxActiveClusters(
+      clusters, (const void*)fcm_wide_kernel<MC, MD>, &cfg);
+}
+
+template <int MC, int MD>
+int launch_wide(const float* x, const float* w, const float* v, long long n, int d,
+                int c, float m, float expo, int R, int S, int ds, int vec, int grid,
+                int slices, int smem, float* part, int* tickets, float* out_v,
+                float* out_w, float* out_q, int normalize, cudaStream_t s) {
+  cudaError_t err = wide_attributes<MC, MD>(S, smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = wide_config(grid, S, smem, s, &attr);
+  err = cudaLaunchKernelEx(&cfg, fcm_wide_kernel<MC, MD>, x, w, v, n, d, c, m, expo, R, ds,
+                           vec, slices, normalize, part, tickets, out_v, out_w, out_q);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+inline bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
+
 }  // namespace
 
 extern "C" {
@@ -536,18 +848,10 @@ int fcm_device(int* sms, int* smem_optin) {
                                      cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
 }
 
-// Resident CTAs per SM at `block` threads and `smem` bytes of dynamic
-// shared memory: path 0 the first version's stage 1, path 2
-// fcm_tile_kernel<rc> (block is then 256).
-int fcm_occupancy(int path, int rc, int block, int smem, int* per_sm) {
+// Resident CTAs per SM of fcm_tile_kernel<rc> at `smem` bytes of dynamic
+// shared memory.
+int fcm_tile_occupancy(int rc, int smem, int* per_sm) {
   *per_sm = 0;
-  if (path == 0) {
-    cudaError_t err = cudaFuncSetAttribute(
-        fcm_partial_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
-    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        per_sm, fcm_partial_kernel, block, smem);
-  }
   switch (rc) {
     case 1: return tile_occupancy<1>(smem, per_sm);
     case 2: return tile_occupancy<2>(smem, per_sm);
@@ -555,6 +859,15 @@ int fcm_occupancy(int path, int rc, int block, int smem, int* per_sm) {
     case 4: return tile_occupancy<4>(smem, per_sm);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// The clusters of s CTAs of the wide kernel (mc = 4 or 8 centers a thread)
+// that the card holds at once with `smem` bytes of dynamic shared memory.
+int fcm_wide_clusters(int mc, int s, int smem, int* clusters) {
+  *clusters = 0;
+  if (s < 1 || s > 16) return (int)cudaErrorInvalidValue;
+  return mc == 4 ? wide_clusters<4, 4>(s, smem, clusters)
+                 : wide_clusters<8, 2>(s, smem, clusters);
 }
 
 // The tile path on `stream`: `grid` CTAs walk tr-row tiles; cg center
@@ -591,27 +904,33 @@ int fcm_tile_sweep(const float* x, const float* w, const float* v, long long n,
   return (int)cudaErrorInvalidValue;
 }
 
-// The first version on `stream`: stage 1 on `grid` CTAs of `block` threads
-// with t-row tiles, then stage 2.  `part` holds grid * (C*d + C + 1)
-// floats.  Returns cudaGetLastError() after the launches.
-int fcm_accumulate(const float* x, const float* w, const float* v, long long n,
-                   int d, int c, float m, float expo, int t, int grid, int block,
-                   float* part, float* out_v, float* out_w, float* out_q,
-                   int normalize, void* stream) {
+// The wide path on `stream`: clusters of S CTAs, `grid` CTAs in all (a
+// multiple of S, at most what the card holds at once: the ticketed final
+// reduce waits for every CTA), walk r-record tiles; CTA s of a cluster
+// holds dims [s*ds, (s+1)*ds) (ds a multiple of 8, S*ds >= d >
+// (S-1)*ds).  `slices` CTAs share the final reduce.  `part` holds
+// grid / S * (C*d + C + 1) floats, `tickets` 2 ints, zero before the first
+// launch (each launch leaves them zero).  Refuses a `smem` below the
+// layout's need.  Returns cudaGetLastError().
+int fcm_wide_sweep(const float* x, const float* w, const float* v, long long n, int d,
+                   int c, float m, float expo, int r, int S, int ds, int grid,
+                   int slices, int smem, float* part, int* tickets, float* out_v,
+                   float* out_w, float* out_q, int normalize, void* stream) {
+  const int mc = c <= 4 ? 4 : 8, md = 16 / mc;
+  const int cp = (c + 3) & ~3;
+  if (r < 1 || r > 64 || (r & (r - 1)) || (r >= 4 ? r / 4 : 1) * (cp / 4) > kWideBlock ||
+      S < 1 || S > 16 || grid < S || grid % S || ds < 8 || ds % 8 ||
+      (long long)S * ds < d || (long long)(S - 1) * ds >= d ||
+      (c + mc - 1) / mc * (ds / md) > kWideBlock || slices < 1 || slices > grid ||
+      wide_layout(ds, c, r, mc, S).total * sizeof(float) > (size_t)smem)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const size_t smem = make_layout(d, c, t, block).total * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      fcm_partial_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  fcm_partial_kernel<<<grid, block, smem, s>>>(x, w, v, n, d, c, m, expo, t, part);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int p_len = c * d + c + 1;
-  const int rb = 256;
-  fcm_reduce_kernel<<<(p_len + rb - 1) / rb, rb, 0, s>>>(part, grid, d, c, normalize,
-                                                         out_v, out_w, out_q);
-  return (int)cudaGetLastError();
+  const int vec = d % 4 == 0 && aligned16(x) && aligned16(v);
+  if (mc == 4)
+    return launch_wide<4, 4>(x, w, v, n, d, c, m, expo, r, S, ds, vec, grid, slices, smem,
+                             part, tickets, out_v, out_w, out_q, normalize, s);
+  return launch_wide<8, 2>(x, w, v, n, d, c, m, expo, r, S, ds, vec, grid, slices, smem,
+                           part, tickets, out_v, out_w, out_q, normalize, s);
 }
-
 
 }  // extern "C"

@@ -132,20 +132,22 @@ __device__ __forceinline__ float2 sum_partials2(const float* __restrict__ part, 
   return make_float2(s, s2);
 }
 
-// The final reduce of one group of P CTA partials (part: P x L floats,
-// L = C*d + C + 1: v_num, w_i, q), without a second launch.  Each CTA of
-// the group calls it after writing its partial.  The integer ticket
-// (tickets[0]) counts arrivals; the last S arrivals each sum one slice of
-// the L outputs, after waiting until all P partials are in (S == 1: the
-// last arrival finds them in).  A waiting CTA holds an SM slot only after
-// at least P - S of the group have finished, so the remaining ones always
-// find room: S is kept far below the card's resident CTAs.  tickets[1]
-// counts finished slices, and the last one resets both to 0 for the next
-// launch on the stream.  blockDim.x must be a multiple of 32.
+// The final reduce of one group of P partials (part: P x L floats,
+// L = C*d + C + 1: v_num, w_i, q), without a second launch.  Each of the
+// group's A CTAs calls it after writing its share of a partial (A == P:
+// one partial per CTA; the wide kernel's clusters write one partial
+// between A / P CTAs).  The integer ticket (tickets[0]) counts arrivals;
+// the last S arrivals each sum one slice of the L outputs, after waiting
+// until all A arrivals are in (S == 1: the last arrival finds them in).  A
+// waiting CTA holds an SM slot only after at least A - S of the group have
+// finished, so the remaining ones always find room: S is kept far below
+// the card's resident CTAs.  tickets[1] counts finished slices, and the
+// last one resets both to 0 for the next launch on the stream.
+// blockDim.x must be a multiple of 32.
 __device__ void finish_partials(const float* __restrict__ part, int* tickets, int P,
                                 int L, int S, int d, int c, int normalize,
                                 float* __restrict__ out_v, float* __restrict__ out_w,
-                                float* __restrict__ out_q) {
+                                float* __restrict__ out_q, int A) {
   __shared__ int s_ticket;
   // The barrier orders the CTA's partial writes before thread 0's fence,
   // which makes them visible device-wide before its ticket (cumulativity).
@@ -156,16 +158,16 @@ __device__ void finish_partials(const float* __restrict__ part, int* tickets, in
   }
   __syncthreads();
   const int t = s_ticket;
-  if (t < P - S) return;
+  if (t < A - S) return;
   if (threadIdx.x == 0 && S > 1) {
     volatile int* vt = tickets;
-    while (*vt < P) __nanosleep(64);
+    while (*vt < A) __nanosleep(64);
     __threadfence();
   }
   __syncthreads();
   const int cd = c * d;
   const int per = (L + S - 1) / S;
-  const int slice = t - (P - S);
+  const int slice = t - (A - S);
   const int o0 = slice * per;
   const int o1 = min(L, o0 + per);
   int g = 32;  // lanes per output: a function of (blockDim, per) alone
@@ -197,6 +199,15 @@ __device__ void finish_partials(const float* __restrict__ part, int* tickets, in
       atomicExch(tickets + 1, 0);
     }
   }
+}
+
+__device__ __forceinline__ void finish_partials(const float* __restrict__ part,
+                                                int* tickets, int P, int L, int S, int d,
+                                                int c, int normalize,
+                                                float* __restrict__ out_v,
+                                                float* __restrict__ out_w,
+                                                float* __restrict__ out_q) {
+  finish_partials(part, tickets, P, L, S, d, c, normalize, out_v, out_w, out_q, P);
 }
 
 }  // namespace fcm

@@ -4,7 +4,8 @@ their plain versions.
 Counterpart of `repro.kernels.fcm_update` (the Pallas TPU kernel) and
 `repro.kernels.ref` (its oracles).  The kernels are CUDA C++ for
 ``sm_90a`` in ``csrc/``: the single-model sweep's register-blocked tile
-kernel and first version in ``fcm_accumulate.cu``, the tenant-stacked
+kernel and its wide kernel (d split across a cluster of CTAs) in
+``fcm_accumulate.cu``, the tenant-stacked
 sweep (the reference's ``jax.vmap`` of the Pallas kernel) in
 ``fcm_batched.cu`` with its register-resident rows kernel (which the
 single-model sweep also runs, at T = 1, for small C·d) and first version,
@@ -28,8 +29,9 @@ and passes it in; a bucket never tuned runs the untuned plan.  A choice
 never changes the path: the path decides which kernel can hold V.
 
 A CUDA tensor launches the kernel (or raises); a CPU tensor takes the
-plain version.  The plan covers every (d, C): past the first versions'
-shared memory the C-tiled path walks the rows in chunks whose scratch
+plain version.  The plan covers every (d, C): past the shared memory of
+the wide kernel's domain and of the tenant-stacked first version, the
+C-tiled path walks the rows in chunks whose scratch
 stays within ``CTILED_SCRATCH_BYTES`` (`plan_ctiled`, `ctiled_chunks`).  Each wrapper counts its kernel launches in its
 ``launches`` attribute, and in ``shapes`` per (path, N, C) (single-model)
 or (path, T, N) (tenant-stacked), under one lock (host threads launch
@@ -45,6 +47,7 @@ import collections
 import ctypes
 import dataclasses
 import functools
+import math
 import threading
 from typing import Callable, Optional, Union
 
@@ -53,7 +56,7 @@ import torch
 from . import build
 
 _D2_FLOOR = 1e-12
-BLOCK = 256          # threads per CTA of the first versions (a power of 2)
+BLOCK = 256          # threads per CTA of the first tenant-stacked version
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
@@ -135,7 +138,7 @@ TILE_BLOCK, TILE_RM, TILE_AC, TILE_AD = 256, 4, 4, 8
 # and how many CTAs may share it (far below the card's resident CTAs)
 SLICE_FLOATS = 1024
 MAX_SLICES = 64
-_MAX_TILE_ROWS = 128  # the first versions' tile
+_MAX_TILE_ROWS = 128  # the first tenant-stacked version's tile
 _MAX_SPLITS = 65535   # the first tenant-stacked version's gridDim.y
 # The C-tiled kernels (csrc/fcm_ctiled.cu): CT_THREADS threads a CTA;
 # the membership's ring of CT_STAGES stages of CT_BK dims ([row][dim]
@@ -155,6 +158,24 @@ CTILED_SCRATCH_BYTES = 256 << 20
 # small N takes up to SMALL_SPLITS splits of at least SMALL_SPLIT_ROWS (its
 # 16-record stages wait on memory more than they compute)
 MIN_SPLIT_ROWS, SMALL_SPLITS, SMALL_SPLIT_ROWS = 128, 4, 32
+# The wide kernel (fcm_wide_kernel<MC, MD>): WIDE_BLOCK threads a CTA; a
+# cluster of at most WIDE_MAX_CLUSTER CTAs (past 8 the card's non-portable
+# size) shares each tile of at most WIDE_MAX_ROWS records (a power of 2),
+# each CTA a d-slice of a multiple of WIDE_DIM_STEP dims; x·vᵀ in 4 × 4
+# micro-tiles, v_num in MC × MD = 16 registers a thread for the whole walk
+# (`wide_micro`)
+WIDE_BLOCK, WIDE_MAX_CLUSTER, WIDE_MAX_ROWS, WIDE_DIM_STEP = 512, 16, 64, 8
+# Where both the wide and the C-tiled kernel can run, the wide one takes
+# C <= WIDE_C, C > 128 (the C-tiled kernel's second 64-center tile mostly
+# empty), C <= WIDE_MID_C with C*d <= WIDE_MID_CD, and N <= WIDE_SMALL_N
+# with C*d <= WIDE_SMALL_CD; the C-tiled one the rest (`wide_wins`:
+# scripts/compare_kernels.py --set route on an H100; PERF.md §6)
+WIDE_C, WIDE_MID_C, WIDE_MID_CD = 16, 24, 12288
+WIDE_SMALL_N, WIDE_SMALL_CD = 4096, 16384
+# At small N the wide grid aims at WIDE_FILL of the SMs (tiles halved down
+# to WIDE_MIN_ROWS records, then d split further): filling every SM there
+# was measured slower (more, emptier CTAs, more partials to sum)
+WIDE_FILL, WIDE_MIN_ROWS = 0.5, 2
 
 
 @dataclasses.dataclass(frozen=True)
@@ -177,19 +198,22 @@ UNTUNED = PlanChoice()
 @dataclasses.dataclass(frozen=True)
 class LaunchPlan:
     """One launch: ``path`` is "rows" (register-resident records), "tile"
-    (register-blocked tiles), "first" (the first version) or "ctiled"
-    (V streamed through shared memory); ``grid``
-    CTAs of ``block`` threads; ``rows`` records per split (rows) or per
-    tile (tile, first); ``splits`` row splits per tenant; ``smem`` bytes
-    of dynamic shared memory; ``slices`` CTAs that share the ticketed
-    final reduce (0: the CTAs write the outputs themselves, or the first
-    version's second launch sums).  ``dm``/``cm`` name the rows kernel's
-    instantiation and ``team_warps`` the warps that own one (tenant,
-    split); ``cg``, ``rc``, ``ag``, ``dg``, ``rs`` the tile kernel's
-    micro-tiles; ``group``, ``resident``, ``scratch``, ``tile``,
-    ``dsplits`` and ``kper`` the C-tiled kernel's tenants per launch, d²
-    block in shared memory, scratch bytes, records per membership tile,
-    d-splits and 32-dim chunks per d-split."""
+    (register-blocked tiles), "wide" (d split across a cluster of CTAs),
+    "first" (the first tenant-stacked version) or "ctiled" (V streamed
+    through shared memory); ``grid`` CTAs of ``block`` threads; ``rows``
+    records per split (rows) or per tile (tile, wide, first); ``splits``
+    row splits per tenant; ``smem`` bytes of dynamic shared memory;
+    ``slices`` CTAs that share the ticketed final reduce (0: the CTAs
+    write the outputs themselves, or the first version's second launch
+    sums).  ``dm``/``cm`` name the rows kernel's instantiation and
+    ``team_warps`` the warps that own one (tenant, split); ``cg``, ``rc``,
+    ``ag``, ``dg``, ``rs`` the tile kernel's micro-tiles; ``group``,
+    ``resident``, ``scratch``, ``tile``, ``dsplits`` and ``kper`` the
+    C-tiled kernel's tenants per launch, d² block in shared memory,
+    scratch bytes, records per membership tile, d-splits and 32-dim
+    chunks per d-split.  On the wide path ``dsplits`` is the cluster's
+    CTAs, ``kper`` the dims of each one's slice, ``cm`` the centers and
+    ``ag`` × ``dg`` the groups of its v_num micro-tiles."""
     path: str
     block: int
     grid: int
@@ -332,8 +356,10 @@ def _tile_plan(n, d, c, sms, ctas_per_sm, smem_limit,
 
 
 def first_layout_floats(d, c, t, block=BLOCK) -> int:
-    """The first single-model version's shared memory in floats
-    (csrc/fcm_accumulate.cu, `make_layout`)."""
+    """The single-model part of the first tenant-stacked version's shared
+    memory in floats (csrc/fcm_batched.cu, `make_layout`): V, a t-record
+    tile, its norms, weights, d² and wum, and a reduction buffer.  At one
+    record it also bounds the wide path's domain (`plan_sweep`)."""
     ldv = ldx = d | 1
     ldc = c | 1
     return c * ldv + c + t * ldx + 2 * t + 2 * t * ldc + block
@@ -472,40 +498,147 @@ def ctiled_chunks(plan: LaunchPlan, tenants: int, n: int) -> list:
             for r0 in (range(0, n, plan.rows) if n else (0,))]
 
 
+def wide_micro(c: int) -> tuple:
+    """The wide kernel's v_num micro-tile (MC centers, MD dims) a thread:
+    4 × 4 for C ≤ 4, else 8 × 2."""
+    return (4, 4) if c <= 4 else (8, 2)
+
+
+def wide_layout_floats(ds: int, c: int, r: int, s: int) -> int:
+    """The wide kernel's shared memory in floats for a ds-dim slice, C
+    centers, r-record tiles and clusters of s CTAs
+    (csrc/fcm_accumulate.cu, `wide_layout`): V's slice and |v|² twice, two
+    x and w tile buffers, two receive buffers of the s CTAs' posts (the
+    tile's partial x·vᵀ and |x|²), the k-groups' partials, wum and log d²,
+    and a float per warp."""
+    mc, _ = wide_micro(c)
+    cp, ldw, ldx = _round4(c), _cdiv(c, mc) * mc, ((ds + 31) & ~31) + 4
+    ks = WIDE_BLOCK // (max(1, r // 4) * (cp // 4))
+    ex = r * cp + r
+    o = cp * ldx + 2 * cp + 2 * (r * ldx + _round4(r)) + (2 * s + ks) * ex
+    return _round4(o) + 2 * r * ldw + WIDE_BLOCK // 32
+
+
+def wide_wins(n: int, d: int, c: int) -> bool:
+    """Whether the wide kernel, not the C-tiled one, takes an (n, d, C)
+    that both can run: at C <= 16 it was faster at every measured shape,
+    at 24 <= C <= 128 slower past small N and C·d (its d-slices shrink as
+    C grows, so its membership, formed on every CTA of a cluster, weighs
+    more), at C > 128 faster."""
+    return (c <= WIDE_C or c > 128
+            or (c <= WIDE_MID_C and c * d <= WIDE_MID_CD)
+            or (n <= WIDE_SMALL_N and c * d <= WIDE_SMALL_CD))
+
+
+def _wide_split(d: int, s: int) -> tuple:
+    """(CTAs, dims each) for d split s ways in WIDE_DIM_STEP-dim steps,
+    no CTA empty."""
+    ds = _cdiv(_cdiv(d, s), WIDE_DIM_STEP) * WIDE_DIM_STEP
+    return _cdiv(d, ds), ds
+
+
+def _wide_plan(n, d, c, sms, ctas_per_sm, smem_limit, choice=UNTUNED,
+               clusters=None):
+    """The wide kernel's launch, or None where d needs more than
+    WIDE_MAX_CLUSTER slices.  The fewest slices whose v_num micro-tiles
+    fit the CTA's threads, the largest tile (WIDE_MAX_ROWS down, halving)
+    that fits shared memory; where tiles × slices cover less than
+    WIDE_FILL of the SMs (a small N), the tile halves down to
+    WIDE_MIN_ROWS records, then d splits further;
+    ``choice.tile`` / ``choice.dsplit`` scale the tile (by powers of 2)
+    and the slices.  ``clusters`` (the card's occupancy query on the draft
+    plan) caps the grid at the clusters the card holds at once, since the
+    ticketed final reduce waits for every CTA; by default the SMs ×
+    resident CTAs (within shared memory) over the cluster size."""
+    mc, md = wide_micro(c)
+    ag = _cdiv(c, mc)
+    cap = WIDE_BLOCK // ag * md // WIDE_DIM_STEP * WIDE_DIM_STEP
+    if cap < WIDE_DIM_STEP or _cdiv(d, cap) > WIDE_MAX_CLUSTER:
+        return None
+    s_min = _cdiv(d, cap)
+    s_most = min(WIDE_MAX_CLUSTER, _cdiv(d, WIDE_DIM_STEP))
+
+    def fits(r, s, ds):
+        return (max(1, r // 4) * (_round4(c) // 4) <= WIDE_BLOCK
+                and 4 * wide_layout_floats(ds, c, r, s) <= smem_limit)
+
+    def tile(r, s, ds):
+        while r > 1 and not fits(r, s, ds):
+            r //= 2
+        return r if fits(r, s, ds) else 0
+
+    s, ds = _wide_split(d, s_min)
+    r = tile(WIDE_MAX_ROWS, s, ds)
+    if r == 0:
+        return None
+    aim = sms * WIDE_FILL
+    while r > WIDE_MIN_ROWS and _cdiv(n, r) * s < aim:
+        r //= 2
+    want = s
+    while _cdiv(n, r) * s < aim and want < s_most:
+        want += 1
+        s, ds = _wide_split(d, want)
+    if choice.dsplit != 1.0:
+        s, ds = _wide_split(d, max(s_min, min(s_most,
+                                               round(s * choice.dsplit))))
+    if choice.tile != 1.0:
+        scaled = 1 << max(0, round(math.log2(max(1.0, r * choice.tile))))
+        r = min(scaled, WIDE_MAX_ROWS)
+    r = tile(r, s, ds)
+    if r == 0:
+        return None
+    smem = 4 * wide_layout_floats(ds, c, r, s)
+    draft = LaunchPlan("wide", WIDE_BLOCK, 0, r, smem=smem, dsplits=s,
+                       kper=ds, cm=mc, ag=ag, dg=ds // md)
+    if clusters is None:
+        per_sm = min(_per_sm(ctas_per_sm, draft), smem_limit // smem)
+        held = sms * per_sm // s
+    else:
+        held = clusters(draft)
+    if held < 1:
+        return None
+    grid = s * max(1, min(_cdiv(n, r), held))
+    return dataclasses.replace(draft, grid=grid,
+                               slices=_slices(grid, c * d + c + 1))
+
+
 def plan_sweep(n: int, d: int, c: int, *, sms: int, ctas_per_sm: CtasPerSm,
-               smem_limit: int, choice: Optional[PlanChoice] = None
+               smem_limit: int, choice: Optional[PlanChoice] = None,
+               clusters: Optional[Callable[[LaunchPlan], int]] = None
                ) -> LaunchPlan:
     """The single-model sweep's launch for x (n, d) and C centers on a card
     with ``sms`` SMs, ``smem_limit`` bytes of shared memory per block and
     ``ctas_per_sm`` resident CTAs per SM (a number, or a function of the
-    draft plan, as the card's occupancy query is).
+    draft plan, as the card's occupancy query is); ``clusters``, the
+    clusters of a draft wide plan the card holds at once (`_wide_plan`).
 
     * "rows" — small C·d (`rows_variant`): the rows kernel at T = 1, the
       records split so that the card fills (`_split_rows`);
     * "tile" — C ≤ 128 and ⌈C/4⌉·⌈d/8⌉ ≤ 256 with a tile that fits shared
       memory: the register-blocked tile kernel;
-    * "first" — the rest, while V and one record fit shared memory (the
-      first version's `make_layout` at one row);
-    * "ctiled" — beyond that: the C-tiled kernel (`plan_ctiled`).
+    * "wide" — the rest while V and one record fit one block's shared
+      memory (`first_layout_floats` at one record: where the first
+      version ran, so that no C-tiled shape changes its path) and the
+      card measured it faster there (`wide_wins`): the wide kernel
+      (`_wide_plan`), d split across a cluster;
+    * "ctiled" — beyond that, and at N = 0: the C-tiled kernel
+      (`plan_ctiled`).
 
-    ``choice`` (`PlanChoice`) sets the path's free choices; the first
-    version has none.
+    ``choice`` (`PlanChoice`) sets the path's free choices.
     """
     choice = choice or UNTUNED
     if n > 0 and rows_variant(d, c) is not None:
         return _rows_plan(1, n, d, c, sms, ctas_per_sm, False, choice)
     plan = (_tile_plan(n, d, c, sms, ctas_per_sm, smem_limit, choice)
             if n > 0 else None)
+    if plan is None and n > 0 and wide_wins(n, d, c) and \
+            4 * first_layout_floats(d, c, 1) <= smem_limit:
+        plan = _wide_plan(n, d, c, sms, ctas_per_sm, smem_limit, choice,
+                          clusters)
     if plan is not None:
         return plan
-    t = _first_tile(first_layout_floats, _MAX_TILE_ROWS, smem_limit, d, c)
-    if t == 0:
-        return plan_ctiled(1, n, d, c, sms=sms, smem_limit=smem_limit,
-                           choice=choice)
-    draft = LaunchPlan("first", BLOCK, 0, t,
-                       smem=4 * first_layout_floats(d, c, t))
-    grid = max(1, min(_cdiv(n, t), sms * _per_sm(ctas_per_sm, draft)))
-    return dataclasses.replace(draft, grid=grid)
+    return plan_ctiled(1, n, d, c, sms=sms, smem_limit=smem_limit,
+                       choice=choice)
 
 
 def plan_batched(tenants: int, n: int, d: int, c: int, *, sms: int,
@@ -546,16 +679,18 @@ def _lib() -> ctypes.CDLL:
     lib.fcm_error_string.restype = ctypes.c_char_p
     lib.fcm_device.argtypes = [ctypes.POINTER(_I), ctypes.POINTER(_I)]
     lib.fcm_device.restype = _I
-    lib.fcm_occupancy.argtypes = [_I, _I, _I, _I, ctypes.POINTER(_I)]
-    lib.fcm_occupancy.restype = _I
+    lib.fcm_tile_occupancy.argtypes = [_I, _I, ctypes.POINTER(_I)]
+    lib.fcm_tile_occupancy.restype = _I
+    lib.fcm_wide_clusters.argtypes = [_I, _I, _I, ctypes.POINTER(_I)]
+    lib.fcm_wide_clusters.restype = _I
     lib.fcm_tile_sweep.argtypes = [
         _P, _P, _P, ctypes.c_longlong, _I, _I, ctypes.c_float, ctypes.c_float,
         _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P]
     lib.fcm_tile_sweep.restype = _I
-    lib.fcm_accumulate.argtypes = [
-        _P, _P, _P, ctypes.c_longlong, _I, _I, ctypes.c_float,
-        ctypes.c_float, _I, _I, _I, _P, _P, _P, _P, _I, _P]
-    lib.fcm_accumulate.restype = _I
+    lib.fcm_wide_sweep.argtypes = [
+        _P, _P, _P, ctypes.c_longlong, _I, _I, ctypes.c_float, ctypes.c_float,
+        _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P]
+    lib.fcm_wide_sweep.restype = _I
     return lib
 
 
@@ -615,18 +750,17 @@ def _card(device_index: int):
     return sms.value, smem.value
 
 
-def _occupancy(plan: LaunchPlan, kernel: str) -> int:
-    """Resident CTAs per SM of the kernel ``plan`` launches (``kernel``
-    names the source of the first version)."""
+def _occupancy(plan: LaunchPlan) -> int:
+    """Resident CTAs per SM of the kernel ``plan`` launches."""
     k = _I(0)
     if plan.path == "rows":
         _check(_batched_lib().fcm_batched_occupancy(
             1, plan.dm, plan.cm, plan.block, 0, ctypes.byref(k)),
             "fcm_batched_occupancy", "fcm_batched")
-    elif plan.path == "tile" or kernel == "fcm_accumulate":
-        _check(_lib().fcm_occupancy(2 if plan.path == "tile" else 0, plan.rc,
-                                    plan.block, plan.smem, ctypes.byref(k)),
-               "fcm_occupancy")
+    elif plan.path == "tile":
+        _check(_lib().fcm_tile_occupancy(plan.rc, plan.smem,
+                                         ctypes.byref(k)),
+               "fcm_tile_occupancy")
     else:
         _check(_batched_lib().fcm_batched_occupancy(
             0, 0, 0, plan.block, plan.smem, ctypes.byref(k)),
@@ -634,13 +768,32 @@ def _occupancy(plan: LaunchPlan, kernel: str) -> int:
     return k.value
 
 
+def _wide_clusters(plan: LaunchPlan) -> int:
+    """Clusters of ``plan.dsplits`` wide-kernel CTAs the card holds at
+    once (the occupancy query)."""
+    k = _I(0)
+    _check(_lib().fcm_wide_clusters(plan.cm, plan.dsplits, plan.smem,
+                                    ctypes.byref(k)), "fcm_wide_clusters")
+    return k.value
+
+
+@functools.lru_cache(maxsize=256)
+def wide_plan(device: torch.device, n: int, d: int,
+              c: int) -> Optional[LaunchPlan]:
+    """The wide kernel's launch at (n, d, C) on ``device``'s card whatever
+    path `plan_sweep` takes there (None outside its domain): for holding
+    and timing the kernel against the C-tiled one at the same shape."""
+    sms, smem = _card(device.index)
+    return _wide_plan(n, d, c, sms, _occupancy, smem,
+                      clusters=_wide_clusters)
+
+
 @functools.lru_cache(maxsize=256)
 def _plan(device_index: int, n: int, d: int, c: int,
           choice: Optional[PlanChoice] = None) -> LaunchPlan:
     sms, smem = _card(device_index)
     return plan_sweep(n, d, c, sms=sms, smem_limit=smem, choice=choice,
-                      ctas_per_sm=functools.partial(_occupancy,
-                                                    kernel="fcm_accumulate"))
+                      ctas_per_sm=_occupancy, clusters=_wide_clusters)
 
 
 @functools.lru_cache(maxsize=256)
@@ -648,9 +801,7 @@ def _batched_plan(device_index: int, tenants: int, n: int, d: int,
                   c: int, choice: Optional[PlanChoice] = None) -> LaunchPlan:
     sms, smem = _card(device_index)
     return plan_batched(tenants, n, d, c, sms=sms, smem_limit=smem,
-                        choice=choice,
-                        ctas_per_sm=functools.partial(_occupancy,
-                                                      kernel="fcm_batched"))
+                        choice=choice, ctas_per_sm=_occupancy)
 
 
 _TUNED: dict = {}   # (device, n, d, c, tenants) -> (generation, choice)
@@ -741,6 +892,18 @@ def _rows_launch(plan, x, w, v, m_ptr, m, tenants, n, d, c, normalize, dev,
         out_w.data_ptr(), out_q.data_ptr(), int(normalize), stream)
 
 
+def _wide_launch(plan, x, w, v, m, n, d, c, normalize, dev, stream, out):
+    """fcm_wide_kernel on ``plan`` (a "wide" `LaunchPlan`); the cluster
+    partials come from `torch.empty`."""
+    part = torch.empty((plan.grid // plan.dsplits, c * d + c + 1),
+                       dtype=torch.float32, device=dev)
+    return _lib().fcm_wide_sweep(
+        x.data_ptr(), w.data_ptr(), v.data_ptr(), n, d, c, m, 1.0 / (m - 1.0),
+        plan.rows, plan.dsplits, plan.kper, plan.grid, plan.slices,
+        plan.smem, part.data_ptr(), _tickets(dev, stream, 1).data_ptr(),
+        *(o.data_ptr() for o in out), int(normalize), stream)
+
+
 def _ctiled_launch(plan, x, w, v, m_ptr, m, tenants, n, d, c, normalize,
                    dev, stream, out):
     """The C-tiled kernel over `ctiled_chunks` (x (T, n, d) contiguous, T
@@ -772,10 +935,12 @@ def _ctiled_launch(plan, x, w, v, m_ptr, m, tenants, n, d, c, normalize,
 
 
 def _launch(x, w, centers, m: float, normalize: bool,
-            choice: Optional[PlanChoice] = None):
+            choice: Optional[PlanChoice] = None, wide: bool = False):
     """Launch the single-model sweep on ``choice`` (None: the tuned one
-    of its bucket, if any; autotuning times its candidates through it);
-    returns ((v, w_i, q), path).  Counts nothing: the wrappers count."""
+    of its bucket, if any; autotuning times its candidates through it),
+    or with ``wide`` on the wide kernel whatever the plan's path
+    (`wide_plan`); returns ((v, w_i, q), path).  Counts nothing: the
+    wrappers count."""
     _check_inputs("fcm_accumulate", x, w, centers, (2, 1, 2))
     n, d = x.shape
     c = centers.shape[0]
@@ -790,9 +955,15 @@ def _launch(x, w, centers, m: float, normalize: bool,
     dev = x.device
     m = float(m)
     with torch.cuda.device(dev):
-        if choice is None:
-            choice = tuned_choice(dev, n, d, c)
-        plan = _plan(dev.index, n, d, c, choice)
+        if wide:
+            plan = wide_plan(dev, n, d, c)
+            if plan is None:
+                raise ValueError(f"fcm_accumulate kernel: ({n}, {d}, {c}) is "
+                                 "outside the wide kernel's domain")
+        else:
+            if choice is None:
+                choice = tuned_choice(dev, n, d, c)
+            plan = _plan(dev.index, n, d, c, choice)
         out = (torch.empty((c, d), dtype=torch.float32, device=dev),
                torch.empty((c,), dtype=torch.float32, device=dev),
                torch.empty((), dtype=torch.float32, device=dev))
@@ -816,13 +987,8 @@ def _launch(x, w, centers, m: float, normalize: bool,
                 part.data_ptr(), _tickets(dev, stream, 1).data_ptr(),
                 *(o.data_ptr() for o in out), int(normalize), stream)
         else:
-            part = torch.empty((plan.grid, c * d + c + 1),
-                               dtype=torch.float32, device=dev)
-            err = _lib().fcm_accumulate(
-                x.data_ptr(), w.data_ptr(), v.data_ptr(), n, d, c, m,
-                1.0 / (m - 1.0), plan.rows, plan.grid, plan.block,
-                part.data_ptr(), *(o.data_ptr() for o in out),
-                int(normalize), stream)
+            err = _wide_launch(plan, x, w, v, m, n, d, c, normalize, dev,
+                               stream, out)
     _check(err, "launch", kernel)
     return out, plan.path
 
@@ -848,6 +1014,14 @@ def fcm_accumulate_cuda(x, w, centers, m: float = 2.0):
     out, path = _launch(x, w, centers, m, False)
     _count(fcm_accumulate_cuda, (path, x.shape[0], centers.shape[0]))
     return out
+
+
+def fcm_sweep_wide(x, w, centers, m: float = 2.0, normalize: bool = True):
+    """The single-model sweep (or, with ``normalize`` false, its raw
+    accumulators) on the wide kernel whatever path the plan takes at this
+    shape (`wide_plan`), to hold and time it against the C-tiled kernel;
+    CUDA tensors only, counts nothing."""
+    return _launch(x, w, centers, m, normalize, wide=True)[0]
 
 
 def fcm_sweep_cuda(x, w, centers, m: float = 2.0):

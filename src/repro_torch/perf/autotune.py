@@ -10,7 +10,9 @@ hold V):
   * the tile path: records per tile (``TILE_GRID``);
   * the C-tiled path: the membership's record tile (``CT_TILE_GRID``,
     between ``CT_TILES``) × its d-splits (``DSPLIT_GRID``);
-  * the first version: nothing to choose.
+  * the wide path: records per tile (``TILE_GRID``) × the CTAs its d is
+    split across (``DSPLIT_GRID``);
+  * the first tenant-stacked version: nothing to choose.
 
 Each choice is a scale of the plan's own pick, so one tuned choice
 serves every shape of its bucket.  The search first asks whether the
@@ -118,6 +120,9 @@ def choice_grid(path: str) -> list:
         return [PlanChoice(tile=s) for s in TILE_GRID]
     if path == "ctiled":
         return [PlanChoice(tile=t, dsplit=s) for t in CT_TILE_GRID
+                for s in DSPLIT_GRID]
+    if path == "wide":
+        return [PlanChoice(tile=t, dsplit=s) for t in TILE_GRID
                 for s in DSPLIT_GRID]
     return [PlanChoice()]
 

@@ -40,6 +40,9 @@ SHAPES = [
 OFF_LANE_SHAPES = [
     (300, 130, 131), (200, 129, 140), (96, 257, 129), (513, 131, 200),
 ]
+# C > 128 in the former first version's domain: the path the card
+# measured faster (PERF.md §6)
+WIDE_PAST_128 = "wide"
 
 
 @pytest.fixture
@@ -270,13 +273,14 @@ def _launched_path(kern, before):
 
 
 # Both sides of each dispatch boundary of the single-model sweep: rows
-# (d <= 32 at C = 2, d <= 4 at C <= 4) | tile (C <= 128) | first version
-# (V and one record in shared memory: d <= 887 at C = 64) | C-tiled.
+# (d <= 32 at C = 2, d <= 4 at C <= 4) | tile (C <= 128) | wide (V and one
+# record in shared memory: d <= 887 at C = 64) | C-tiled.
 @pytest.mark.parametrize("n,d,c,path", [
     (3000, 32, 2, "rows"), (3000, 33, 2, "tile"),
     (3000, 4, 4, "rows"), (3000, 4, 9, "tile"),
-    (3000, 41, 128, "tile"), (3000, 41, 129, "first"),
-    (3000, 887, 64, "first"), (3000, 888, 64, "ctiled"),
+    (3000, 41, 128, "tile"), (3000, 41, 129, WIDE_PAST_128),
+    (3000, 256, 64, "wide"), (3000, 257, 64, "ctiled"),
+    (3000, 887, 16, "wide"), (3000, 888, 64, "ctiled"),
     (3184, 2048, 64, "ctiled"), (2048, 2048, 64, "ctiled"),
     (2048, 41, 23, "tile"), (3184, 41, 23, "tile"),
     (2048, 28, 2, "rows"), (3184, 28, 2, "rows"),
@@ -295,6 +299,64 @@ def test_each_path_matches_plain_and_reruns_bit_identically(card, n, d, c,
         _close(got, plain(x, w, v, m), 3e-4, atol)
         for a, b in zip(got, kern(x, w, v, m)):
             assert torch.equal(a, b)
+
+
+# The wide kernel at the curriculum's shapes (d = 1536, C = 16: the full
+# sweep, the driver's sample, WFCMPB's block, the 32- and 16-point merges),
+# the other LM widths at C = 16, at d % 4 != 0 (887: 4-byte copies) and
+# C = 128, and past 8 CTAs a cluster (C = 2, d = 16,385).
+WIDE_SHAPES = [(65_536, 1536, 16), (32_604, 1536, 16), (2048, 1536, 16),
+               (32, 1536, 16), (16, 1536, 16), (8192, 1024, 16),
+               (8192, 3072, 16), (3000, 887, 16), (4096, 100, 128),
+               (1000, 16_385, 2)]
+@pytest.mark.parametrize("m", [1.2, 2.0])
+@pytest.mark.parametrize("n,d,c", WIDE_SHAPES)
+def test_wide_matches_plain_and_reruns_bit_identically(card, n, d, c, m):
+    """K1 and K2 on the wide path against their plain versions at the
+    test_kernels.py tolerances, with half the rows zero-weight phantoms
+    and with C records on the centers (q to the expansion's rounding
+    bound); reruns bit-identical; all-phantom records give exact zeros."""
+    x, w, v = _inputs(n, d, c, n + d + c, card)
+    assert _plan(card.index or 0, n, d, c).path == "wide"
+    half = w.clone()
+    half[n // 2:] = 0.0
+    on = x[:c].clone()
+    q_on = 2 * (d + 2) * 2.0 ** -24 * float(
+        (w * ((x * x).sum(1) + (on * on).sum(1).max())).sum())
+    for kern, plain, atol in ((fcm_sweep_cuda, fcm_sweep_ref, 3e-5),
+                              (fcm_accumulate_cuda, fcm_accumulate_ref,
+                               3e-3)):
+        for ws, vs, q_atol in ((w, v, 0.0), (half, v, 0.0), (w, on, q_on)):
+            before = kern.shapes.copy()
+            got = kern(x, ws, vs, m)
+            assert _launched_path(kern, before) == "wide"
+            want = plain(x, ws, vs, m)
+            _close(got[:2], want[:2], 3e-4, atol)
+            torch.testing.assert_close(got[2], want[2], rtol=3e-4,
+                                       atol=atol + q_atol)
+            for a, b in zip(got, kern(x, ws, vs, m)):
+                assert torch.equal(a, b)
+        for out in kern(x, torch.zeros_like(w), v, m):
+            assert not bool(out.abs().any())
+
+
+@pytest.mark.parametrize("normalize", [True, False])
+@pytest.mark.parametrize("n,d,c", [(3000, 887, 64), (65_536, 384, 32),
+                                   (2048, 443, 128)])
+def test_forced_wide_matches_plain_where_the_plan_takes_ctiled(card, n, d,
+                                                               c, normalize):
+    """Where the plan sends a shape of the wide domain to the C-tiled
+    kernel (measured faster there), the wide kernel forced onto it
+    (`fcm_sweep_wide`, as scripts/compare_kernels.py times it) still
+    matches the plain version, d % 4 != 0 included, and reruns bit for
+    bit."""
+    x, w, v = _inputs(n, d, c, n + d + c, card)
+    assert _plan(card.index or 0, n, d, c).path == "ctiled"
+    plain = fcm_sweep_ref if normalize else fcm_accumulate_ref
+    got = fcm_update.fcm_sweep_wide(x, w, v, 1.2, normalize)
+    _close(got, plain(x, w, v, 1.2), 3e-4, 3e-5 if normalize else 3e-3)
+    for a, b in zip(got, fcm_update.fcm_sweep_wide(x, w, v, 1.2, normalize)):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("n", [1000, 63])

@@ -152,9 +152,26 @@ def _cdiv(a, b):
     return -(-a // b)
 
 
-def _covers(plan, n, tenants=1):
-    assert plan.block % 32 == 0 and 32 <= plan.block <= 256
+def _covers(plan, n, tenants=1, d=None, c=None):
     assert plan.smem <= H100["smem_limit"]
+    if plan.path == "wide":
+        # clusters of dsplits CTAs of WIDE_BLOCK threads, each a whole
+        # 8-dim step of d, none empty; at most one cluster per tile; the
+        # micro-tiles fit a CTA
+        assert plan.block == fcm_update.WIDE_BLOCK
+        s, ds = plan.dsplits, plan.kper
+        assert 1 <= s <= fcm_update.WIDE_MAX_CLUSTER and ds % 8 == 0
+        assert d is not None and s * ds >= d > (s - 1) * ds
+        assert plan.grid % s == 0
+        assert 1 <= plan.grid // s <= _cdiv(n, plan.rows)
+        assert plan.rows in (1, 2, 4, 8, 16, 32, 64)
+        assert plan.ag * plan.dg <= plan.block
+        assert plan.dg * 16 // plan.cm == ds
+        assert plan.smem == 4 * fcm_update.wide_layout_floats(ds, c,
+                                                              plan.rows, s)
+        assert 1 <= plan.slices <= plan.grid
+        return
+    assert plan.block % 32 == 0 and 32 <= plan.block <= 256
     if plan.path == "ctiled":
         # row chunks and tenant groups within the launch limits
         assert 1 <= plan.group <= min(tenants, 65_535)
@@ -182,7 +199,7 @@ def _covers(plan, n, tenants=1):
 @pytest.mark.parametrize("n,d,c", PLAN_SHAPES)
 def test_plan_sweep_covers_every_record(n, d, c):
     plan = plan_sweep(n, d, c, **H100)
-    _covers(plan, n)
+    _covers(plan, n, d=d, c=c)
     if plan.path == "tile":
         assert plan.rc * plan.cg >= c and 32 % plan.cg == 0
         assert plan.ag * plan.dg * plan.rs <= 256
@@ -212,12 +229,12 @@ def test_plan_takes_the_fast_paths():
         assert (plan.path, plan.dm, plan.cm, plan.team_warps) == \
             ("rows", 4, 3, 1)
     assert plan_batched(66, 300, 41, 23, **H100).path == "first"
-    assert plan_sweep(512, 8, 129, **H100).path == "first"
+    assert plan_sweep(512, 8, 129, **H100).path == WIDE_PAST_128
     # both sides of each boundary
     assert plan_sweep(1000, 32, 2, **H100).path == "rows"
     assert plan_sweep(1000, 33, 2, **H100).path == "tile"
     assert plan_sweep(1000, 41, 128, **H100).path == "tile"
-    assert plan_sweep(1000, 41, 129, **H100).path == "first"
+    assert plan_sweep(1000, 41, 129, **H100).path == WIDE_PAST_128
     assert plan_batched(5, 300, 4, 8, **H100).path == "rows"
     assert plan_batched(5, 300, 4, 9, **H100).path == "first"
 
@@ -227,17 +244,145 @@ def test_plan_takes_the_fast_paths():
     (plan_batched, first_batched_layout_floats, "fcm_batched")])
 def test_plan_raises_exactly_where_shared_memory_runs_out(plan, layout,
                                                           kernel):
-    """With C = 64 the micro-tiles do not apply past d = 64; the first
-    version takes d while V and one record fit shared memory, and the
-    C-tiled kernel exactly past that (the plan raises nowhere)."""
-    c = 64
+    """Past the micro-tiles (d = 512 at C = 16, single-model; d = 64 at
+    C = 64, tenant-stacked) the wide kernel or the first version takes d
+    while V and one record fit shared memory, and the C-tiled kernel
+    exactly past that (the plan raises nowhere)."""
+    c = 64 if kernel == "fcm_batched" else 16
     d_max = max(d for d in range(1, 4000)
                 if 4 * layout(d, c, 1) <= H100["smem_limit"])
     args = (3, 100, d_max, c) if kernel == "fcm_batched" else (100, d_max, c)
-    assert plan(*args, **H100).path == "first"
+    inside = plan(*args, **H100)
+    assert inside.path == ("first" if kernel == "fcm_batched" else "wide")
     wider = plan(*args[:-2], d_max + 1, c, **H100)
     assert wider.path == "ctiled"
     _covers(wider, 100, 3 if kernel == "fcm_batched" else 1)
+
+
+# The wide path: past the tile kernel's micro-tiles while V and one record
+# fit shared memory, where the card measured it faster than the C-tiled
+# kernel (the LM configs' d_model at C = 16: Whisper-medium 1024,
+# Qwen2-1.5B 1536, OLMoE 2048, Gemma-7B 3072; 3399, the last d at C = 16).
+# Elsewhere the plan keeps its tile or C-tiled path.  C > 128 in the
+# former first version's domain goes to WIDE_PAST_128 (PERF.md §6).
+WIDE_PAST_128 = "wide"
+WIDE_DS = [100, 887, 1024, 1536, 2048, 3072, 3399]
+WIDE_CS = [16, 64, 128]
+
+
+def _expected_single_path(n, d, c):
+    """The single-model path by the plan's rule: tile where its
+    micro-tiles and a tile fit; wide while V and one record fit and the
+    card measured it faster (C ≤ 16, C > 128, C ≤ 24 with C·d ≤ 12,288,
+    or N ≤ 4096 with C·d ≤ 16,384); else C-tiled."""
+    if fcm_update._tile_plan(n, d, c, H100["sms"], H100["ctas_per_sm"],
+                             H100["smem_limit"]) is not None:
+        return "tile"
+    if 4 * first_layout_floats(d, c, 1) <= H100["smem_limit"] and (
+            c <= 16 or c > 128 or (c <= 24 and c * d <= 12_288)
+            or (n <= 4096 and c * d <= 16_384)):
+        return "wide"
+    return "ctiled"
+
+
+@pytest.mark.parametrize("n", [65_536, 4096, 32])
+@pytest.mark.parametrize("c", WIDE_CS)
+@pytest.mark.parametrize("d", WIDE_DS)
+def test_wide_plan_fits_and_covers_where_the_domain_reaches(n, d, c):
+    """Inside the wide domain the plan is "wide", within an H100's shared
+    memory, covering every record, dim and tile; outside it the plan
+    keeps its tile or C-tiled path."""
+    plan = plan_sweep(n, d, c, **H100)
+    assert plan.path == _expected_single_path(n, d, c)
+    _covers(plan, n, d=d, c=c)
+
+
+@pytest.mark.parametrize("n", [16, 32, 2048, 32_604, 65_536])
+def test_wide_plan_covers_the_sms_at_the_curriculum_shapes(n):
+    """At the curriculum's d = 1536, C = 16 the wide grid reaches the
+    card's 132 SMs by tiles from N = 2048 up; at the 16- and 32-point
+    merges it halves the tile (not below 2 records) and splits d across
+    more CTAs until they cover half the SMs, which the card measured
+    faster than covering all of them with emptier CTAs."""
+    plan = plan_sweep(n, 1536, 16, **H100)
+    assert plan.path == "wide"
+    _covers(plan, n, d=1536, c=16)
+    if n >= 2048:
+        assert plan.grid >= 132
+        assert plan.rows == 32 and plan.dsplits == 3
+    else:
+        assert 132 // 2 <= plan.grid < 132 and plan.rows == 2
+
+
+@pytest.mark.parametrize("n,d,c,path,micro,slices", [
+    # the tile kernel's micro-tiles end at ⌈C/4⌉·⌈d/8⌉ = 256
+    (4096, 512, 16, "tile", None, None), (4096, 513, 16, "wide", 8, 2),
+    (4096, 2048, 4, "tile", None, None), (4096, 2049, 4, "wide", 4, 2),
+    (4096, 64, 128, "tile", None, None), (4096, 65, 128, "wide", 8, 2),
+    # V and one record in shared memory
+    (4096, 3399, 16, "wide", 8, 7), (4096, 3400, 16, "ctiled", None, None),
+    # the measured crossover to the C-tiled kernel (`wide_wins`)
+    (65_536, 1024, 16, "wide", 8, 2), (65_536, 1024, 17, "ctiled", None, None),
+    (4096, 256, 64, "wide", 8, 2), (4096, 257, 64, "ctiled", None, None),
+    (4097, 256, 64, "ctiled", None, None),
+    (65_536, 100, 128, "ctiled", None, None), (65_536, 100, 129, "wide", 8, 2),
+    (65_536, 512, 24, "wide", 8, 2), (65_536, 513, 24, "ctiled", None, None),
+    # a small N: tiles of two records, d split until half the SMs are busy
+    (32, 1536, 16, "wide", 8, 5), (16, 1536, 16, "wide", 8, 9),
+    # the micro-tile's 4 × 8 / 8 × 4 split at C = 4 / 5
+    (4096, 8192, 4, "wide", 4, 4), (4096, 8192, 5, "wide", 8, 8),
+    # past 8 CTAs a cluster is the card's non-portable size
+    (4096, 16384, 2, "wide", 4, 8), (4096, 16385, 2, "wide", 4, 9)])
+def test_wide_plan_both_sides_of_each_boundary(n, d, c, path, micro,
+                                               slices):
+    plan = plan_sweep(n, d, c, **H100)
+    assert plan.path == path
+    _covers(plan, n, d=d, c=c)
+    if path == "wide":
+        assert (plan.cm, plan.dsplits) == (micro, slices)
+
+
+@pytest.mark.parametrize("held,path", [(40, "wide"), (1, "wide"),
+                                       (0, "ctiled")])
+def test_wide_grid_is_what_the_card_holds_at_once(held, path):
+    """The ticketed final reduce waits for every CTA, so the grid is at
+    most the clusters the card's occupancy query says it holds at once;
+    where it holds none, the C-tiled path takes the shape."""
+    plan = plan_sweep(65_536, 1536, 16, clusters=lambda draft: held,
+                      **H100)
+    assert plan.path == path
+    if path == "wide":
+        assert plan.grid == held * plan.dsplits
+
+
+@pytest.mark.parametrize("tile,dsplit", [(0.25, 1.0), (2.0, 1.0),
+                                         (1.0, 0.25), (1.0, 4.0),
+                                         (0.5, 2.0)])
+@pytest.mark.parametrize("n", [65_536, 2048, 32])
+def test_wide_plan_takes_the_tuned_scales(n, tile, dsplit):
+    """``PlanChoice.tile`` scales the records per tile by a power of 2,
+    ``dsplit`` the CTAs d is split across (never below what the
+    registers need nor above a cluster); the path and coverage stay."""
+    base = plan_sweep(n, 1536, 16, **H100)
+    plan = plan_sweep(n, 1536, 16, choice=fcm_update.PlanChoice(
+        tile=tile, dsplit=dsplit), **H100)
+    assert plan.path == "wide"
+    _covers(plan, n, d=1536, c=16)
+    assert 3 <= plan.dsplits <= fcm_update.WIDE_MAX_CLUSTER
+    if tile < 1.0:
+        assert plan.rows <= base.rows
+    if dsplit > 1.0:
+        assert plan.dsplits > base.dsplits
+
+
+def test_wide_layout_at_the_curriculum_shape():
+    """fcm_wide_kernel's shared memory at d = 1536, C = 16: three 512-dim
+    slices, 32-record tiles (516-float rows): V 8256, |v|² 32, two tiles
+    of 16,512 + 32, two receive buffers of three 544-float posts, sixteen
+    k-groups' 544, wum and log d² 512 each, a float per warp."""
+    assert fcm_update.wide_layout_floats(512, 16, 32, 3) == (
+        8256 + 32 + 2 * (16_512 + 32) + 2 * 3 * 544 + 16 * 544 + 2 * 512
+        + 16)
 
 
 ROUTER_WIDTHS = [(900, 64), (2048, 64), (7168, 384)]

@@ -605,6 +605,10 @@ def test_every_choice_keeps_the_path_and_covers_the_rows(n, d, c):
             assert plan.tile in CT_TILES
             assert plan.dsplits == -(-(-(-d // 32)) // plan.kper)
             assert plan.scratch <= fu.CTILED_SCRATCH_BYTES
+        elif plan.path == "wide":
+            assert plan.dsplits * plan.kper >= d > (plan.dsplits - 1) * \
+                plan.kper
+            assert plan.grid % plan.dsplits == 0 and plan.rows >= 1
 
 
 def test_tuned_choice_is_plain_math_on_the_cpu(calib_dir, monkeypatch):
