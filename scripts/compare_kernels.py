@@ -4,7 +4,7 @@ chip_smoke.py launch them at, for one checkout of `repro_torch`, on one
 NVIDIA card:
 
     python3 scripts/compare_kernels.py [--src DIR] [--label NAME]
-                                       [--set all|ctiled|wide|route]
+                      [--set all|ctiled|wide|route|tenant|tenant_route]
 
 DIR is the ``src`` directory that holds ``repro_torch`` (default: this
 checkout's).  To compare two checkouts on one card, run it on each in
@@ -47,7 +47,21 @@ other plan choices (``wide_choice_ms``).
 ``--set route`` times the wide kernel and the C-tiled kernel, each forced,
 over ``ROUTE`` (C = 8 … 128 across the wide domain's d, at N = 65,536,
 2048 and 32): the measurements behind the launch plan's choice between
-them (``fcm_update.WIDE_CTILED``).
+them (``fcm_update.wide_wins``).
+
+``--set tenant`` times the tenant-stacked sweep (K3) where C·d is past
+the rows kernel (``TENANT``: phase 2b's (66, 300, 41, 23), the
+``tenants_kdd99`` cohort's (4096, 512, 41, 23) and others, ragged live
+rows, per-tenant m): on the checkout's plan, held against its plain
+version; on a checkout whose plan takes the first tenant-stacked version
+there, its two launches apart (``first_launch_ms``); on the tile
+kernel's tenant axis, each stage of its tile loop left out
+(``tile_stage_ms``: builds that define ``FCM_TILE_STAGES``); the C-tiled
+kernel forced (``ctiled_ms``); then the single-model KDD99-like shapes,
+which share the tile kernel.  ``--set tenant_route`` times K3 on the
+checkout's plan beside the C-tiled kernel forced over ``TENANT_ROUTE``
+(past the tile kernel's micro-tiles while V_t and one record fit shared
+memory): the measurements behind ``plan_batched``'s choice there.
 """
 from __future__ import annotations
 
@@ -281,8 +295,8 @@ WIDE_VARIANTS = {"none": 0, **{f"no {k}": 63 & ~b
 
 
 class _Variant:
-    """The single-model library of a build of fcm_accumulate.cu with
-    FCM_WIDE_STAGES = ``mask``, its calls typed as ``lib``'s."""
+    """The single-model library of a build of fcm_accumulate.cu with some
+    stages of a tile loop left out, its calls typed as ``lib``'s."""
 
     def __init__(self, lib, path):
         import ctypes
@@ -296,35 +310,36 @@ class _Variant:
         return fn
 
 
-def wide_variants(F, build) -> dict:
-    """{variant name: library} of fcm_accumulate.cu built with stages of
-    the wide kernel's tile loop left out (WIDE_VARIANTS), one nvcc each,
-    all at once; {} for a source without FCM_WIDE_STAGES."""
+def stage_variants(F, build, macro, masks) -> dict:
+    """{variant name: library} of fcm_accumulate.cu built with ``macro``
+    (FCM_WIDE_STAGES or FCM_TILE_STAGES) set to each of ``masks`` (stages
+    of that kernel's tile loop left out), one nvcc each, all at once; {}
+    for a source without ``macro``."""
     from concurrent.futures import ThreadPoolExecutor
     src = build.CSRC / "fcm_accumulate.cu"
-    if b"FCM_WIDE_STAGES" not in src.read_bytes():
+    if macro.encode() not in src.read_bytes():
         return {}
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
 
     def one(item):
         name, mask = item
-        cu = build.BUILD_DIR / f"fcm_wide_stages_{mask}.cu"
+        cu = build.BUILD_DIR / f"{macro.lower()}_{mask}.cu"
         out = cu.with_suffix(".so")
-        cu.write_text(f"#define FCM_WIDE_STAGES {mask}\n#include \"{src}\"\n")
+        cu.write_text(f"#define {macro} {mask}\n#include \"{src}\"\n")
         subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(out),
                         str(cu)], capture_output=True, text=True, check=True)
         return name, out
 
     lib = F._lib()
-    with ThreadPoolExecutor(len(WIDE_VARIANTS)) as pool:
-        built = dict(pool.map(one, WIDE_VARIANTS.items()))
+    with ThreadPoolExecutor(len(masks)) as pool:
+        built = dict(pool.map(one, masks.items()))
     return {name: _Variant(lib, path) for name, path in built.items()}
 
 
-def wide_stage_ms(F, variants, kern, args, reps) -> dict:
-    """``kern(*args)`` on each variant (a stage of the wide kernel's tile
-    loop left out, or all of them), each timed as `time_loop_ms` times
-    the whole.  Such a variant computes wrong values: its time, not its
+def stage_ms(F, variants, kern, args, reps) -> dict:
+    """``kern(*args)`` on each variant (a stage of the wide or the tile
+    kernel's tile loop left out, or all of them), each timed as
+    `time_loop_ms` times the whole.  Such a variant computes wrong values: its time, not its
     values, is what this measures."""
     from chip_smoke import time_loop_ms
     real = F._lib
@@ -353,7 +368,7 @@ def time_route(F, emit, dev, g) -> None:
     """The wide and C-tiled kernels, each forced, at ROUTE (K2, m = 1.2),
     each held against the plain version."""
     import torch
-    from chip_smoke import (RTOL, SWEEP_ATOL, bound, max_err,
+    from chip_smoke import (RTOL, SWEEP_ATOL, bound, forced_ctiled, max_err,
                             plain_in_rows, time_loop_ms)
     for n, d, c in ROUTE:
         x = torch.randn((n, d), generator=g, device=dev)
@@ -382,27 +397,6 @@ WIDE_CHOICES = [(1.0, 1.0), (0.5, 1.0), (2.0, 1.0), (1.0, 0.5), (1.0, 2.0),
                 (1.0, 4.0), (0.5, 2.0)]
 
 
-def forced_ctiled(F, n, d, c, normalize):
-    """The C-tiled kernel at (n, d, c) whatever path the plan takes there:
-    ``plan_ctiled`` launched through the wrappers' own `_ctiled_launch`;
-    returns (launcher (x, w, v, m) → outputs, its plan)."""
-    import torch
-    sms, smem = F._card(0)
-    plan = F.plan_ctiled(1, n, d, c, sms=sms, smem_limit=smem)
-
-    def run(x, w, v, m):
-        f32 = dict(dtype=torch.float32, device=x.device)
-        out = (torch.empty((c, d), **f32), torch.empty((c,), **f32),
-               torch.empty((), **f32))
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        F._check(F._ctiled_launch(plan, x, w, v, None, float(m), 1, n, d, c,
-                                  normalize, x.device, stream, out),
-                 "launch", "fcm_ctiled")
-        return out
-    run.__name__ = "forced_ctiled"
-    return run, plan
-
-
 def time_wide(F, build, emit, dev, g) -> None:
     """The single-model sweep at WIDE: on the checkout's plan, its first
     version's launches apart, the C-tiled kernel forced, both library
@@ -411,8 +405,8 @@ def time_wide(F, build, emit, dev, g) -> None:
     import torch
     from chip_smoke import (ACC_ATOL, RTOL, SWEEP_ATOL, bound,
                             contraction_library_ms, ctiled_launch_ms,
-                            max_err, membership_library_ms, plain_in_rows,
-                            time_loop_ms)
+                            forced_ctiled, max_err, membership_library_ms,
+                            plain_in_rows, time_loop_ms)
     log = build.compile_source("fcm_accumulate", verbose=True)
     print(json.dumps({"ptxas": [ln.strip() for ln in log.splitlines()
                                 if "registers" in ln or "smem" in ln
@@ -420,7 +414,7 @@ def time_wide(F, build, emit, dev, g) -> None:
           flush=True)
     has_first = b"fcm_partial_kernel" in (
         build.CSRC / "fcm_accumulate.cu").read_bytes()
-    variants = wide_variants(F, build)
+    variants = stage_variants(F, build, "FCM_WIDE_STAGES", WIDE_VARIANTS)
     for kernel, run, n, d, c, m in WIDE:
         x = torch.randn((n, d), generator=g, device=dev)
         w = torch.rand((n,), generator=g, device=dev) + 0.5
@@ -445,8 +439,8 @@ def time_wide(F, build, emit, dev, g) -> None:
                 F, build, fn, (x, w, v, m), reps)
         if plan.path == "wide":
             extra["clusters"] = plan.grid // plan.dsplits
-            extra["wide_stage_ms"] = wide_stage_ms(F, variants, fn,
-                                                   (x, w, v, m), reps)
+            extra["wide_stage_ms"] = stage_ms(F, variants, fn, (x, w, v, m),
+                                              reps)
             extra["wide_choice_ms"] = {}
             grid = WIDE_CHOICES
             if n <= 4096:
@@ -475,6 +469,219 @@ def time_wide(F, build, emit, dev, g) -> None:
         torch.cuda.empty_cache()
 
 
+# K3, the tenant-stacked sweep, where C·d is past the rows kernel
+# (T, N, d, C; m = 1.2 per tenant, as the tenant plane passes it): phase
+# 2b's check, a shape just past the rows kernel's C, the tenants_kdd99
+# cohort's bucket and a quarter of it, and two shapes past the tile
+# kernel's micro-tiles (C-tiled), the second one where the first version
+# measured faster (many tenants at small d, C > 128).  Each tenant's live
+# rows are U[64, 513) at N = 512 (the cohort's), else U[N/3, N]; the rest
+# zero-weight zeros.
+TENANT = [(66, 300, 41, 23), (5, 300, 4, 9), (4096, 512, 41, 23),
+          (1024, 512, 41, 23), (66, 300, 256, 64), (1024, 512, 8, 129)]
+# The single-model KDD99-like sweep, which shares the tile kernel.
+KDD_SINGLE = [e for e in SINGLE if e[1].startswith("kdd99_like/")]
+# The tile kernel's tile-loop stages (csrc/fcm_accumulate.cu,
+# FCM_TILE_STAGES), left out one at a time, or all of them.
+TILE_STAGES = {"loads": 1, "x.v": 2, "membership": 4, "contraction": 8}
+TILE_VARIANTS = {"none": 0, **{f"no {k}": 15 & ~b
+                               for k, b in TILE_STAGES.items()}}
+# The domain past the tile kernel's micro-tiles where V_t and one record
+# fit shared memory (the first tenant-stacked version's): d from 129 to
+# 445 at C = 64, C from 129 to 200 at d from 8 to 64, at nine (T, N) from
+# (3, 4096) to (4096, 16).
+TENANT_ROUTE = [(t, n, d, c)
+                for d, c in ((129, 64), (160, 64), (192, 64), (256, 64),
+                             (445, 64), (8, 129), (8, 200), (16, 160),
+                             (24, 129), (32, 129), (32, 200), (48, 160),
+                             (64, 160))
+                for t, n in ((3, 4096), (66, 300), (66, 4096), (256, 128),
+                             (1024, 32), (1024, 512), (4096, 16), (4096, 32),
+                             (4096, 128))]
+
+# The first tenant-stacked version launches its two kernels from one C
+# call; this harness, compiled with its source, launches one of them
+# (0: the partials, 1: their sum).
+BATCHED_FIRST_HARNESS = r"""
+#include "%s"
+extern "C" int fcm_batched_first_stage(
+    int stage, const float* x, const float* w, const float* v,
+    const float* m_t, long long tenants, long long n, int d, int c, int t,
+    int splits, int smem_bytes, int block, float* part, float* out_v,
+    float* out_w, float* out_q, int normalize, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (stage == 0) {
+    cudaError_t err = cudaFuncSetAttribute(
+        fcm_batched_partial_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem_bytes);
+    if (err != cudaSuccess) return (int)err;
+    fcm_batched_partial_kernel<<<dim3((unsigned)tenants, (unsigned)splits), block,
+                                 smem_bytes, s>>>(x, w, v, m_t, n, d, c, t, part);
+  } else {
+    const long long outs = tenants * (c * d + c + 1);
+    fcm_batched_reduce_kernel<<<(unsigned)((outs + 255) / 256), 256, 0, s>>>(
+        part, tenants, splits, d, c, normalize, out_v, out_w, out_q);
+  }
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def first_batched_launch_ms(F, build, kern, args, reps) -> dict:
+    """The first tenant-stacked version's two launches timed apart
+    (``partial``, ``reduce``), as `first_launch_ms` times the single-model
+    one's."""
+    import ctypes
+    from chip_smoke import _StageLib, time_loop_ms
+    src = build.CSRC / "fcm_batched.cu"
+    fn, _ = harness(build, "fcm_batched_first_stage_harness",
+                    BATCHED_FIRST_HARNESS % src, "fcm_batched_first_stage")
+    real = F._batched_lib
+    lib = real()
+    fn.argtypes = [ctypes.c_int] + list(lib.fcm_batched_accumulate.argtypes)
+    fn.restype = ctypes.c_int
+    out = {}
+    try:
+        for stage, name in enumerate(("partial", "reduce")):
+            F._batched_lib = lambda s=stage: _StageLib(
+                lib, fn, s, "fcm_batched_accumulate")
+            out[name] = time_loop_ms(lambda: kern(*args), reps)
+    finally:
+        F._batched_lib = real
+    return out
+
+
+def tenant_inputs(t, n, d, c, dev, g):
+    """(x, w, v, m, live share) at (T, N, d, C): ragged live rows (TENANT's
+    note), zero-weight zero rows after them, m = 1.2 per tenant."""
+    import torch
+    lo, hi = (64, 513) if n == 512 else (max(1, n // 3), n + 1)
+    live = torch.randint(lo, hi, (t, 1), generator=g, device=dev)
+    keep = torch.arange(n, device=dev)[None] < live
+    x = torch.randn((t, n, d), generator=g, device=dev) * keep[..., None]
+    w = (torch.rand((t, n), generator=g, device=dev) * 1.5 + 0.5) * keep
+    v = torch.randn((t, c, d), generator=g, device=dev)
+    m = torch.full((t,), 1.2, device=dev)
+    return x, w, v, m, float(keep.sum()) / (t * n)
+
+
+def tile_plan_ms(F, plan, t, n, d, c, kern, args, reps) -> dict:
+    """``kern(*args)`` on other tile plans at this shape, each timed as
+    `time_loop_ms` times the whole: one split per tenant (the CTA walks
+    its tenant's tiles alone) where the plan splits, and each tile scale
+    of autotuning's TILE_GRID below 1."""
+    import dataclasses
+    from chip_smoke import time_loop_ms
+    sms, smem = F._card(0)
+    alts = {}
+    if plan.splits > 1:
+        alts["splits=1"] = dataclasses.replace(plan, grid=t, splits=1,
+                                               slices=0)
+    for scale in (0.5, 0.25):
+        alts[f"tile={scale}"] = F.plan_batched(
+            t, n, d, c, sms=sms, smem_limit=smem,
+            ctas_per_sm=F._occupancy, choice=F.PlanChoice(tile=scale))
+    real = F._batched_plan
+    out = {}
+    try:
+        for name, alt in alts.items():
+            F._batched_plan = lambda *a, alt=alt: alt
+            out[name] = [time_loop_ms(lambda: kern(*args), reps), alt.rows,
+                         alt.splits, alt.grid]
+    finally:
+        F._batched_plan = real
+    return out
+
+
+def time_tenant(F, build, emit, dev, g) -> None:
+    """K3 at TENANT on the checkout's plan, held against its plain version
+    (row chunks); the first version's two launches apart where the plan
+    takes it ("first"); the tile path's loop stages left out in turn
+    (``tile_stage_ms``); the C-tiled kernel forced at each shape, held
+    too; the bound.  Then the single-model KDD99-like shapes, which share
+    the tile kernel.  First the ``-Xptxas -v`` lines of
+    ``fcm_accumulate.cu``."""
+    from chip_smoke import (RTOL, SWEEP_ATOL, bound_batched, forced_ctiled,
+                            max_err, plain_in_rows, time_loop_ms)
+    import torch
+    log = build.compile_source("fcm_accumulate", verbose=True)
+    print(json.dumps({"ptxas": [ln.strip() for ln in log.splitlines()
+                                if "registers" in ln or "smem" in ln
+                                or "spill" in ln or "Compiling" in ln]}),
+          flush=True)
+    has_first = b"fcm_batched_partial_kernel" in (
+        build.CSRC / "fcm_batched.cu").read_bytes()
+    variants = stage_variants(F, build, "FCM_TILE_STAGES", TILE_VARIANTS)
+    fn = F.fcm_sweep_batched_cuda
+    for t, n, d, c in TENANT:
+        x, w, v, m, live = tenant_inputs(t, n, d, c, dev, g)
+        reps = 20 if t * n * d > 1 << 24 else 200
+        want = plain_in_rows(F.fcm_accumulate_batched_ref, True)(x, w, v, m)
+        what = f"K3 at {(t, n, d, c)}"
+        err = max_err(fn(x, w, v, m), want, RTOL, SWEEP_ATOL, what)
+        ct, ct_plan = forced_ctiled(F, n, d, c, True, tenants=t)
+        ct_err = max_err(ct(x, w, v, m), want, RTOL, SWEEP_ATOL,
+                         "forced C-tiled " + what)
+        del want
+        plan = F._batched_plan(0, t, n, d, c)
+        extra = {}
+        if has_first and plan.path == "first":
+            extra["first_launch_ms"] = first_batched_launch_ms(
+                F, build, fn, (x, w, v, m), reps)
+        if plan.path == "tile" and variants:
+            extra["tile_stage_ms"] = stage_ms(F, variants, fn, (x, w, v, m),
+                                              reps)
+        if plan.path == "tile":
+            extra["tile_plan_ms"] = tile_plan_ms(F, plan, t, n, d, c, fn,
+                                                 (x, w, v, m), reps)
+        b_ms, b_by = bound_batched(t, n, d, c)
+        emit("fcm_sweep_batched", f"tenant/{t}x{n}x{d}x{c}", [t, n, d, c],
+             *timed(lambda: fn(x, w, v, m), reps), path=plan.path,
+             grid=plan.grid, rows=plan.rows, splits=plan.splits,
+             smem=plan.smem, live_share=live, max_abs_err=err, **extra,
+             ctiled_ms=time_loop_ms(lambda: ct(x, w, v, m), reps),
+             ctiled_max_abs_err=ct_err, bound_ms=b_ms, bound_by=b_by)
+        del x, w, v
+        torch.cuda.empty_cache()
+    for kernel, run, n, d, c, m in KDD_SINGLE:
+        x = torch.randn((n, d), generator=g, device=dev)
+        w = torch.rand((n,), generator=g, device=dev) + 0.5
+        v = torch.randn((c, d), generator=g, device=dev)
+        f1 = getattr(F, kernel + "_cuda")
+        emit(kernel, run, [n, d, c],
+             *timed(lambda: f1(x, w, v, m), 20 if n > 1 << 20 else 500),
+             path=F._plan(0, n, d, c).path)
+        del x, w
+        torch.cuda.empty_cache()
+
+
+def time_tenant_route(F, emit, dev, g) -> None:
+    """K3 on the checkout's plan and the C-tiled kernel forced, at
+    TENANT_ROUTE, the plan's kernel held against the C-tiled one: on a
+    checkout whose plan takes the first tenant-stacked version there, the
+    measurements behind the plan's choice past the tile kernel's
+    micro-tiles."""
+    import torch
+    from chip_smoke import (OFF_LANE_ATOL, RTOL, bound_batched,
+                            forced_ctiled, max_err, time_loop_ms)
+    fn = F.fcm_sweep_batched_cuda
+    for t, n, d, c in TENANT_ROUTE:
+        x, w, v, m, live = tenant_inputs(t, n, d, c, dev, g)
+        ct, ct_plan = forced_ctiled(F, n, d, c, True, tenants=t)
+        err = max_err(fn(x, w, v, m), ct(x, w, v, m), 2 * RTOL,
+                      2 * OFF_LANE_ATOL, f"K3 vs forced C-tiled at "
+                      f"{(t, n, d, c)}")
+        reps = 20 if t * n * d > 1 << 24 else 100
+        emit("fcm_sweep_batched", f"tenant_route/{t}x{n}x{d}x{c}",
+             [t, n, d, c], time_loop_ms(lambda: fn(x, w, v, m), reps), None,
+             path=F._batched_plan(0, t, n, d, c).path,
+             ctiled_ms=time_loop_ms(lambda: ct(x, w, v, m), reps),
+             ctiled_grid=ct_plan.grid, live_share=live, max_gap=err,
+             bound_ms=bound_batched(t, n, d, c)[0])
+        del x, w, v
+        torch.cuda.empty_cache()
+
+
 def timed(fn, reps: int):
     """(ms per launch over a CUDA-graph replay of ``reps`` back-to-back
     calls, median ms of events around single calls), as chip_smoke.py
@@ -487,7 +694,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", default=str(ROOT / "src"))
     ap.add_argument("--label", default="this checkout")
-    ap.add_argument("--set", choices=("all", "ctiled", "wide", "route"),
+    ap.add_argument("--set", choices=("all", "ctiled", "wide", "route",
+                                      "tenant", "tenant_route"),
                     default="all")
     args = ap.parse_args(argv)
     import torch
@@ -509,6 +717,10 @@ def main(argv=None) -> int:
         time_wide(F, build, emit, dev, g)
     elif args.set == "route":
         time_route(F, emit, dev, g)
+    elif args.set == "tenant":
+        time_tenant(F, build, emit, dev, g)
+    elif args.set == "tenant_route":
+        time_tenant_route(F, emit, dev, g)
     else:
         time_ctiled(F, build, emit, dev, g)
     for kernel, run, n, d, c, m in (SINGLE if args.set == "all" else ()):

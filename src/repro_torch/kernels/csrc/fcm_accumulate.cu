@@ -1,8 +1,11 @@
 // FCM accumulation sweep (BigFCM paper, Alg. 1 body) for Hopper, sm_90a.
 //
 // Replaces repro/kernels/fcm_update.py::_fcm_tile_kernel (reached through
-// fcm_accumulate_pallas and fcm_sweep_pallas).  For records x (N, d) with
-// weights w (N,) and centers V (C, d), in IEEE fp32:
+// fcm_accumulate_pallas and fcm_sweep_pallas) and, through the tile
+// kernel's tenant axis, its jax.vmap in repro/engine/backend.py:216-232
+// (the tenant-stacked sweep of fcm_converge_batched) wherever C*d is past
+// fcm_batched.cu's rows kernel.  For records x (N, d) with weights w (N,)
+// and centers V (C, d) (per tenant t: x_t, w_t, V_t and m_t), in IEEE fp32:
 //
 //   d2[k][i] = max(|x_k|^2 + |v_i|^2 - 2 x_k.v_i, 1e-12)
 //   u[k][i]  = r_i / sum_j r_j,   r_i = exp(-(log d2_i - min_j log d2_j) / (m - 1))
@@ -42,12 +45,31 @@
 //    subset of the tile's records, and v_num, w_i and q stay in registers
 //    for the CTA's whole walk: no per-tile global read-modify-write.  The
 //    x and wum rows are 16-byte aligned, so a record's 8 dims and 4
-//    centers arrive as three float4 shared loads.  At
-//    the end the row subsets are summed in order, each CTA writes one
-//    partial, and the last CTAs to finish sum the partials in CTA order,
-//    each one slice of the outputs (fcm::finish_partials): no second
-//    launch.  At small N (the driver's 2048- and 3184-row blocks) the
-//    tile shrinks so that the grid still covers the SMs.
+//    centers arrive as three float4 shared loads.  At the end the row
+//    subsets are summed in order, each CTA writes one partial, and the
+//    last CTAs to finish sum the partials in CTA order, each one slice of
+//    the outputs (fcm::finish_partials): no second launch.  At small N
+//    (the driver's 2048- and 3184-row blocks) the tile shrinks so that the
+//    grid still covers the SMs.
+//    fcm_tile_tenants_kernel<RC> (this file) is the same kernel with a
+//    tenant axis (T models in one launch, C*d past the rows kernel, such
+//    as a tenant cohort at KDD99 width): both run the same stages (the
+//    tile_* device functions), each with its own walk; its note says
+//    where they differ.  CTA b owns split b % S of tenant b / S,
+//    reading x_t, w_t, V_t and m_t (or a scalar m).  A tenant's N is cut
+//    into tiles of at most the cap within one record of each other (300
+//    rows: 3 x 100; more, down to 64 records, where that gives the splits
+//    to fill the card).  Where the tenants alone fill the card, S = 1: the
+//    CTA walks its tenant alone, first scanning its weights so that the
+//    trailing zero-weight phantom rows of the bucket are not walked (they
+//    would add exact zeros), and writes v_new (or v_num), w_i and q
+//    itself: no partial, no ticket.  With fewer tenants the rows split
+//    across S CTAs and each tenant's last CTA sums its partials in split
+//    order.  It replaces the first tenant-stacked version, which staged
+//    128-row tiles by synchronous 4-byte loads, formed each d2 as one
+//    serial scalar dot, ran the membership on one thread per row with
+//    powf, summed each of its C*d + C outputs serially over a tile's rows
+//    and added its partials in a second launch.
 //  * fcm_wide_kernel<MC, MD> (this file), for C*d past the tile kernel's
 //    micro-tiles while V and one record fit one block's shared memory,
 //    where the card measured it faster than the C-tiled kernel, such as
@@ -155,6 +177,257 @@ __host__ __device__ inline TileLayout tile_layout(int d, int c, int tr, int rs, 
   return L;
 }
 
+// The tile loop's stages, one bit each (all of them unless a timing
+// harness builds this file with some left out): 1 the x and w tile loads,
+// 2 x.v and |x|^2, 4 the membership, 8 the contraction.  Only the tenant
+// kernel reads them.
+#ifndef FCM_TILE_STAGES
+#define FCM_TILE_STAGES 15
+#endif
+constexpr int kTileStages = FCM_TILE_STAGES;
+
+// ---- the stages both tile kernels run (fcm_tile_kernel, one model, and
+// fcm_tile_tenants_kernel, a tenant axis); kChains fmaf chains for |x|^2,
+// |v|^2 and x.v (the dims k = chain mod kChains, added at the end), and
+// the membership's shuffles kIl records at a time.
+
+// |v_i|^2 from device memory into v2_s, in the fmaf chains a record's
+// |x|^2 and x.v take (`tile_dots`), so that a record equal to a center
+// gets d2 = 0 exactly.
+template <int kChains>
+__device__ __forceinline__ void tile_center_norms(const float* __restrict__ v, int d,
+                                                  int c, float* v2_s) {
+  for (int i = threadIdx.x; i < c; i += kTileBlock) {
+    const float* vi = v + i * d;
+    float s = 0.f;
+    if constexpr (kChains == 1) {
+      for (int k = 0; k < d; ++k) s = fmaf(__ldg(vi + k), __ldg(vi + k), s);
+    } else {
+      float sb = 0.f;
+      int k = 0;
+      for (; k + 1 < d; k += 2) {
+        s = fmaf(__ldg(vi + k), __ldg(vi + k), s);
+        sb = fmaf(__ldg(vi + k + 1), __ldg(vi + k + 1), sb);
+      }
+      if (k < d) s = fmaf(__ldg(vi + k), __ldg(vi + k), s);
+      s += sb;
+    }
+    v2_s[i] = s;
+  }
+}
+
+// x.v and |x|^2 at dim k of the d2 micro-tile into one chain's sums.
+template <int RC>
+__device__ __forceinline__ void tile_dot_step(const float* xs, const float* v_s,
+                                              int ldx, int ldv, const int (&ridx)[kRM],
+                                              const int (&cidx)[RC], int k,
+                                              float (&xc)[kRM], float (&dc)[kRM][RC]) {
+  float xv[kRM], vv[RC];
+#pragma unroll
+  for (int i = 0; i < kRM; ++i) xv[i] = xs[ridx[i] * ldx + k];
+#pragma unroll
+  for (int j = 0; j < RC; ++j) vv[j] = v_s[cidx[j] * ldv + k];
+#pragma unroll
+  for (int i = 0; i < kRM; ++i) {
+    xc[i] = fmaf(xv[i], xv[i], xc[i]);
+#pragma unroll
+    for (int j = 0; j < RC; ++j) dc[i][j] = fmaf(xv[i], vv[j], dc[i][j]);
+  }
+}
+
+// The d2 micro-tile's x.v and |x|^2: kRM records x RC centers a thread.
+template <int RC, int kChains>
+__device__ __forceinline__ void tile_dots(const float* xs, const float* v_s, int ldx,
+                                          int ldv, const int (&ridx)[kRM],
+                                          const int (&cidx)[RC], int d,
+                                          float (&x2)[kRM], float (&dot)[kRM][RC]) {
+#pragma unroll
+  for (int i = 0; i < kRM; ++i) {
+    x2[i] = 0.f;
+#pragma unroll
+    for (int j = 0; j < RC; ++j) dot[i][j] = 0.f;
+  }
+  if constexpr (kChains == 1) {
+#pragma unroll 4
+    for (int k = 0; k < d; ++k) tile_dot_step<RC>(xs, v_s, ldx, ldv, ridx, cidx, k, x2, dot);
+  } else {
+    float dotb[kRM][RC], x2b[kRM];
+#pragma unroll
+    for (int i = 0; i < kRM; ++i) {
+      x2b[i] = 0.f;
+#pragma unroll
+      for (int j = 0; j < RC; ++j) dotb[i][j] = 0.f;
+    }
+    int k = 0;
+#pragma unroll 2
+    for (; k + 1 < d; k += 2) {
+      tile_dot_step<RC>(xs, v_s, ldx, ldv, ridx, cidx, k, x2, dot);
+      tile_dot_step<RC>(xs, v_s, ldx, ldv, ridx, cidx, k + 1, x2b, dotb);
+    }
+    if (k < d) tile_dot_step<RC>(xs, v_s, ldx, ldv, ridx, cidx, k, x2, dot);
+#pragma unroll
+    for (int i = 0; i < kRM; ++i) {
+      x2[i] += x2b[i];
+#pragma unroll
+      for (int j = 0; j < RC; ++j) dot[i][j] += dotb[i][j];
+    }
+  }
+}
+
+// The min (kMin) or the sum over a record's cg neighbouring lanes, by xor
+// shuffles, for K records at once.
+template <bool kMin, int K>
+__device__ __forceinline__ void lanes_reduce(float (&a)[K], int cg) {
+  if constexpr (K == 1) {
+    for (int off = 1; off < cg; off <<= 1) {
+      const float o = __shfl_xor_sync(fcm::kFull, a[0], off);
+      a[0] = kMin ? fminf(a[0], o) : a[0] + o;
+    }
+  } else {
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      if (off < cg) {
+#pragma unroll
+        for (int i = 0; i < K; ++i) {
+          const float o = __shfl_xor_sync(fcm::kFull, a[i], off);
+          a[i] = kMin ? fminf(a[i], o) : a[i] + o;
+        }
+      }
+    }
+  }
+}
+
+// Membership (fcm::memberships' form) of the d2 micro-tile's records, kIl
+// at a time: the min and the sum over centers completed by xor shuffles
+// over the record's cg lanes; wum into wum_s and q's share into accq.  A
+// record past the tile (r >= rows) computes on stale values and writes
+// nothing.
+template <int RC, int kIl>
+__device__ __forceinline__ void tile_members(
+    const float (&x2)[kRM], const float (&dot)[kRM][RC], const float* v2_s,
+    const int (&cidx)[RC], const bool (&cval)[RC], const int (&ridx)[kRM], int rgi,
+    int rg, int rows, int cg, float m, float expo, const float* ws, float* wum_s,
+    int ldc, float& accq) {
+#pragma unroll
+  for (int i0 = 0; i0 < kRM; i0 += kIl) {
+    float d2[kIl][RC], a[kIl][RC], lmin[kIl], s[kIl];
+#pragma unroll
+    for (int ii = 0; ii < kIl; ++ii) {
+      const int i = i0 + ii;
+      lmin[ii] = INFINITY;
+#pragma unroll
+      for (int j = 0; j < RC; ++j) {
+        d2[ii][j] = cval[j] ? fmaxf(x2[i] + v2_s[cidx[j]] - 2.f * dot[i][j], kD2Floor)
+                            : INFINITY;
+        a[ii][j] = logf(d2[ii][j]);
+        lmin[ii] = fminf(lmin[ii], a[ii][j]);
+      }
+    }
+    lanes_reduce<true>(lmin, cg);
+#pragma unroll
+    for (int ii = 0; ii < kIl; ++ii) {
+      s[ii] = 0.f;
+#pragma unroll
+      for (int j = 0; j < RC; ++j) {
+        a[ii][j] = -expo * (a[ii][j] - lmin[ii]);
+        s[ii] += expf(a[ii][j]);
+      }
+    }
+    lanes_reduce<false>(s, cg);
+#pragma unroll
+    for (int ii = 0; ii < kIl; ++ii) {
+      const int i = i0 + ii;
+      const int r = rgi + i * rg;
+      const bool rv = r < rows;
+      const float ls = logf(s[ii]);
+      const float wk = ws[ridx[i]];
+      float qr = 0.f;
+#pragma unroll
+      for (int j = 0; j < RC; ++j) {
+        if (rv && cval[j]) {
+          const float wum = expf(m * (a[ii][j] - ls)) * wk;
+          wum_s[r * ldc + cidx[j]] = wum;
+          qr = fmaf(wum, d2[ii][j], qr);
+        }
+      }
+      accq += qr;
+    }
+  }
+}
+
+// v_num += wum^T x over the tile's records rsi, rsi + rs, ...: kAC
+// centers x kAD dims a thread (three float4 shared loads a record); w_i
+// on the threads of the first dim group.
+__device__ __forceinline__ void tile_contract(float (&acc)[kAC][kAD], float (&accw)[kAC],
+                                              const float* wum_s, const float* xs,
+                                              int rows, int rsi, int rs, int agi,
+                                              int dgi, int ldc, int ldx) {
+#pragma unroll 2
+  for (int r = rsi; r < rows; r += rs) {
+    const float4 w4 = *reinterpret_cast<const float4*>(wum_s + r * ldc + agi * kAC);
+    const float4* xp = reinterpret_cast<const float4*>(xs + r * ldx + dgi * kAD);
+    const float4 xa = xp[0], xb = xp[1];
+    const float wv[kAC] = {w4.x, w4.y, w4.z, w4.w};
+    const float xv[kAD] = {xa.x, xa.y, xa.z, xa.w, xb.x, xb.y, xb.z, xb.w};
+#pragma unroll
+    for (int a = 0; a < kAC; ++a) {
+#pragma unroll
+      for (int b = 0; b < kAD; ++b) acc[a][b] = fmaf(wv[a], xv[b], acc[a][b]);
+    }
+    if (dgi == 0) {
+#pragma unroll
+      for (int a = 0; a < kAC; ++a) accw[a] += wv[a];
+    }
+  }
+}
+
+// After the walk: each thread's v_num and w_i micro-tiles into scr and
+// scw, q's warp sums into red_s (read after the next barrier).
+__device__ __forceinline__ void tile_stash(const float (&acc)[kAC][kAD],
+                                           const float (&accw)[kAC], float accq,
+                                           bool acc_on, int rsi, int og, int ogi,
+                                           int ag, int agi, int dgi, int lane, int warp,
+                                           float* scr, float* scw, float* red_s) {
+  if (acc_on) {
+#pragma unroll
+    for (int a = 0; a < kAC; ++a) {
+#pragma unroll
+      for (int b = 0; b < kAD; ++b)
+        scr[(size_t)(rsi * og + ogi) * (kAC * kAD) + a * kAD + b] = acc[a][b];
+    }
+    if (dgi == 0) {
+#pragma unroll
+      for (int a = 0; a < kAC; ++a) scw[(rsi * ag + agi) * kAC + a] = accw[a];
+    }
+  }
+  accq = fcm::warp_sum(accq);
+  if (lane == 0) red_s[warp] = accq;
+}
+
+// The CTA's sums of output o of v_num (o < C*d) or i of w_i over the
+// record subsets in order, and of q over the warps.
+__device__ __forceinline__ float tile_v_sum(const float* scr, int o, int d, int dg,
+                                            int og, int rs) {
+  const int i = o / d, j = o - i * d;
+  const size_t slot = (size_t)((i / kAC) * dg + j / kAD) * (kAC * kAD)
+                      + (i % kAC) * kAD + j % kAD;
+  float s = 0.f;
+  for (int k = 0; k < rs; ++k) s += scr[(size_t)k * og * (kAC * kAD) + slot];
+  return s;
+}
+
+__device__ __forceinline__ float tile_w_sum(const float* scw, int i, int ag, int rs) {
+  float s = 0.f;
+  for (int k = 0; k < rs; ++k) s += scw[k * ag * kAC + i];
+  return s;
+}
+
+__device__ __forceinline__ float tile_q_sum(const float* red_s) {
+  float q = 0.f;
+  for (int k = 0; k < kTileBlock / 32; ++k) q += red_s[k];
+  return q;
+}
+
 template <int RC>
 __global__ void __launch_bounds__(kTileBlock, 2)
 fcm_tile_kernel(const float* __restrict__ x, const float* __restrict__ w,
@@ -174,18 +447,12 @@ fcm_tile_kernel(const float* __restrict__ x, const float* __restrict__ w,
   const int cd = c * d;
 
   // V arrives by cp.async with the first tile; meanwhile |v_i|^2 is formed
-  // from device memory in the same sequential fmaf order as a record's
-  // |x|^2 and x.v below, so that a record equal to a center gets d2 = 0
-  // exactly.  It is read after the walk's first barrier.
+  // (`tile_center_norms`).  It is read after the walk's first barrier.
   for (int o = tid; o < cd; o += kTileBlock) {
     const int i = o / d, j = o - i * d;
     fcm::cp_async4(v_s + i * L.ldv + j, v + o);
   }
-  for (int i = tid; i < c; i += kTileBlock) {
-    float s = 0.f;
-    for (int k = 0; k < d; ++k) s = fmaf(__ldg(v + i * d + k), __ldg(v + i * d + k), s);
-    v2_s[i] = s;
-  }
+  tile_center_norms<1>(v, d, c, v2_s);
 
   // d2 micro-tile: records rgi + i*rg (i < kRM) x centers cgi + j*cg (j < RC).
   // The cg threads of one record group are neighbouring lanes (cg | 32).
@@ -245,86 +512,12 @@ fcm_tile_kernel(const float* __restrict__ x, const float* __restrict__ w,
 #pragma unroll
     for (int i = 0; i < kRM; ++i) ridx[i] = min(rgi + i * rg, tr - 1);
     float dot[kRM][RC], x2[kRM];
-#pragma unroll
-    for (int i = 0; i < kRM; ++i) {
-      x2[i] = 0.f;
-#pragma unroll
-      for (int j = 0; j < RC; ++j) dot[i][j] = 0.f;
-    }
-#pragma unroll 4
-    for (int k = 0; k < d; ++k) {
-      float xv[kRM], vv[RC];
-#pragma unroll
-      for (int i = 0; i < kRM; ++i) xv[i] = xs[ridx[i] * L.ldx + k];
-#pragma unroll
-      for (int j = 0; j < RC; ++j) vv[j] = v_s[cidx[j] * L.ldv + k];
-#pragma unroll
-      for (int i = 0; i < kRM; ++i) {
-        x2[i] = fmaf(xv[i], xv[i], x2[i]);
-#pragma unroll
-        for (int j = 0; j < RC; ++j) dot[i][j] = fmaf(xv[i], vv[j], dot[i][j]);
-      }
-    }
-
-    // Membership (fcm::memberships' form), the min and the sum over
-    // centers completed by xor shuffles over the record's cg lanes.  A
-    // record past the tile computes on stale values and writes nothing.
-#pragma unroll
-    for (int i = 0; i < kRM; ++i) {
-      const int r = rgi + i * rg;
-      const bool rv = r < rows;
-      float d2[RC], a[RC];
-      float lmin = INFINITY;
-#pragma unroll
-      for (int j = 0; j < RC; ++j) {
-        d2[j] = cval[j] ? fmaxf(x2[i] + v2_s[cidx[j]] - 2.f * dot[i][j], kD2Floor)
-                        : INFINITY;
-        a[j] = logf(d2[j]);
-        lmin = fminf(lmin, a[j]);
-      }
-      for (int off = 1; off < cg; off <<= 1)
-        lmin = fminf(lmin, __shfl_xor_sync(fcm::kFull, lmin, off));
-      float s = 0.f;
-#pragma unroll
-      for (int j = 0; j < RC; ++j) {
-        a[j] = -expo * (a[j] - lmin);
-        s += expf(a[j]);
-      }
-      for (int off = 1; off < cg; off <<= 1) s += __shfl_xor_sync(fcm::kFull, s, off);
-      const float ls = logf(s);
-      const float wk = ws[ridx[i]];
-      float qr = 0.f;
-#pragma unroll
-      for (int j = 0; j < RC; ++j) {
-        if (rv && cval[j]) {
-          const float wum = expf(m * (a[j] - ls)) * wk;
-          wum_s[r * L.ldc + cidx[j]] = wum;
-          qr = fmaf(wum, d2[j], qr);
-        }
-      }
-      accq += qr;
-    }
+    tile_dots<RC, 1>(xs, v_s, L.ldx, L.ldv, ridx, cidx, d, x2, dot);
+    tile_members<RC, 1>(x2, dot, v2_s, cidx, cval, ridx, rgi, rg, rows, cg, m, expo, ws,
+                        wum_s, L.ldc, accq);
     __syncthreads();
 
-    if (acc_on) {
-#pragma unroll 2
-      for (int r = rsi; r < rows; r += rs) {
-        const float4 w4 = *reinterpret_cast<const float4*>(wum_s + r * L.ldc + agi * kAC);
-        const float4* xp = reinterpret_cast<const float4*>(xs + r * L.ldx + dgi * kAD);
-        const float4 xa = xp[0], xb = xp[1];
-        const float wv[kAC] = {w4.x, w4.y, w4.z, w4.w};
-        const float xv[kAD] = {xa.x, xa.y, xa.z, xa.w, xb.x, xb.y, xb.z, xb.w};
-#pragma unroll
-        for (int a = 0; a < kAC; ++a) {
-#pragma unroll
-          for (int b = 0; b < kAD; ++b) acc[a][b] = fmaf(wv[a], xv[b], acc[a][b]);
-        }
-        if (dgi == 0) {
-#pragma unroll
-          for (int a = 0; a < kAC; ++a) accw[a] += wv[a];
-        }
-      }
-    }
+    if (acc_on) tile_contract(acc, accw, wum_s, xs, rows, rsi, rs, agi, dgi, L.ldc, L.ldx);
     __syncthreads();
     buf ^= 1;
   }
@@ -334,41 +527,14 @@ fcm_tile_kernel(const float* __restrict__ x, const float* __restrict__ w,
   // The CTA's partial: each output summed over the record subsets in order.
   float* scr = tile_smem + L.scr;
   float* scw = tile_smem + L.scw;
-  if (acc_on) {
-#pragma unroll
-    for (int a = 0; a < kAC; ++a) {
-#pragma unroll
-      for (int b = 0; b < kAD; ++b)
-        scr[(size_t)(rsi * og + ogi) * (kAC * kAD) + a * kAD + b] = acc[a][b];
-    }
-    if (dgi == 0) {
-#pragma unroll
-      for (int a = 0; a < kAC; ++a) scw[(rsi * ag + agi) * kAC + a] = accw[a];
-    }
-  }
-  accq = fcm::warp_sum(accq);
-  if (lane == 0) red_s[warp] = accq;
+  tile_stash(acc, accw, accq, acc_on, rsi, og, ogi, ag, agi, dgi, lane, warp, scr, scw,
+             red_s);
   __syncthreads();
   const int p_len = cd + c + 1;
   float* my = part + (size_t)blockIdx.x * p_len;
-  for (int o = tid; o < cd + c; o += kTileBlock) {
-    float s = 0.f;
-    if (o < cd) {
-      const int i = o / d, j = o - i * d;
-      const size_t slot = (size_t)((i / kAC) * dg + j / kAD) * (kAC * kAD)
-                          + (i % kAC) * kAD + j % kAD;
-      for (int k = 0; k < rs; ++k) s += scr[(size_t)k * og * (kAC * kAD) + slot];
-    } else {
-      const int i = o - cd;
-      for (int k = 0; k < rs; ++k) s += scw[k * ag * kAC + i];
-    }
-    my[o] = s;
-  }
-  if (tid == 0) {
-    float q = 0.f;
-    for (int k = 0; k < kTileBlock / 32; ++k) q += red_s[k];
-    my[cd + c] = q;
-  }
+  for (int o = tid; o < cd + c; o += kTileBlock)
+    my[o] = o < cd ? tile_v_sum(scr, o, d, dg, og, rs) : tile_w_sum(scw, o - cd, ag, rs);
+  if (tid == 0) my[cd + c] = tile_q_sum(red_s);
   fcm::finish_partials(part, tickets, gridDim.x, p_len, slices, d, c, normalize,
                        out_v, out_w, out_q);
 }
@@ -395,6 +561,206 @@ int tile_occupancy(int smem, int* per_sm) {
   if (err != cudaSuccess) return (int)err;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       per_sm, fcm_tile_kernel<RC>, kTileBlock, smem);
+}
+
+__device__ __forceinline__ long long max_ll(long long a, long long b) {
+  return a > b ? a : b;
+}
+
+// The tile kernel with a tenant axis (the tenant-stacked sweep past the
+// rows kernel): fcm_tile_kernel's stages per tenant.  CTA b owns split
+// b % splits of tenant b / splits.  Tenant t reads x + t*n*d, w + t*n,
+// V_t and m_t[t] (or the scalar m); its n_eff rows fall in
+// ceil(n_eff / tr) tiles within one record of each other, and split s
+// walks tiles s, s + splits, ...  |x|^2, |v|^2 and x.v each run as two
+// fmaf chains, over the even and the odd dims, added at the end: at the
+// KDD99 width (|x|^2 ~ 680 against in-blob d2 ~ 40) the expansion cancels
+// most of its digits, and two half-length chains round less than one.  A
+// record equal to a center still gets d2 = 0 exactly: its chains hold the
+// same values in the same order as the center's.  The membership's
+// shuffles of a thread's kRM records are interleaved.  With trim (one
+// split per tenant), n_eff is one past the tenant's last nonzero weight:
+// its trailing zero-weight rows, which would add exact zeros, are not
+// walked.
+template <int RC>
+__global__ void __launch_bounds__(kTileBlock, 2)
+fcm_tile_tenants_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                const float* __restrict__ v, const float* __restrict__ m_t,
+                long long n, int d, int c, float m_s, float expo_s, int tr, int cg,
+                int ag, int dg, int rs, int splits, int slices, int trim,
+                int normalize, float* __restrict__ part, int* __restrict__ tickets,
+                float* __restrict__ out_v, float* __restrict__ out_w,
+                float* __restrict__ out_q) {
+  extern __shared__ __align__(16) float tile_smem[];
+  __shared__ long long live_s[kTileBlock / 32];
+  const TileLayout L = tile_layout(d, c, tr, rs, ag, dg);
+  float* v_s = tile_smem + L.v;
+  float* v2_s = tile_smem + L.v2;
+  float* wum_s = tile_smem + L.wum;
+  float* red_s = tile_smem + L.red;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int cd = c * d;
+  const long long tenant = (long long)blockIdx.x / splits;
+  const int split = (int)((long long)blockIdx.x - tenant * splits);
+  x += tenant * n * d;
+  w += tenant * n;
+  v += tenant * cd;
+  const float m = m_t ? m_t[tenant] : m_s;
+  const float expo = m_t ? 1.f / (m - 1.f) : expo_s;
+
+  // The micro-tiles' roles, as in fcm_tile_kernel.
+  const int rg = kTileBlock / cg;
+  const int cgi = tid % cg, rgi = tid / cg;
+  int cidx[RC];
+  bool cval[RC];
+#pragma unroll
+  for (int j = 0; j < RC; ++j) {
+    const int ci = cgi + j * cg;
+    cval[j] = ci < c;
+    cidx[j] = min(ci, c - 1);
+  }
+  const int og = ag * dg;
+  const bool acc_on = tid < rs * og;
+  const int ogi = tid % og, rsi = tid / og;
+  const int agi = ogi / dg, dgi = ogi - agi * dg;
+  float acc[kAC][kAD], accw[kAC], accq = 0.f;
+#pragma unroll
+  for (int a = 0; a < kAC; ++a) {
+    accw[a] = 0.f;
+#pragma unroll
+    for (int b = 0; b < kAD; ++b) acc[a][b] = 0.f;
+  }
+
+  auto load = [&](int buf, long long r0, int rows) {
+    if (!(kTileStages & 1)) return;
+    float* xs = tile_smem + (buf ? L.x1 : L.x0);
+    float* ws = tile_smem + (buf ? L.w1 : L.w0);
+    const float* xg = x + r0 * d;
+    for (int r = warp; r < rows; r += kTileBlock / 32)
+      for (int j = lane; j < d; j += 32)
+        fcm::cp_async4(xs + r * L.ldx + j, xg + (long long)r * d + j);
+    for (int r = tid; r < rows; r += kTileBlock) fcm::cp_async4(ws + r, w + r0 + r);
+  };
+
+  // V and the first tile arrive by cp.async together.  With trim the first
+  // tile's bounds wait on the scan of the weights below, so every row it
+  // may hold is loaded (tr at most).  Meanwhile |v_i|^2 is formed
+  // (`tile_center_norms`); it is read after the walk's first barrier.
+  for (int o = tid; o < cd; o += kTileBlock) {
+    const int i = o / d, j = o - i * d;
+    fcm::cp_async4(v_s + i * L.ldv + j, v + o);
+  }
+  tile_center_norms<2>(v, d, c, v2_s);
+  long long n_eff = n;
+  long long n_tiles = (n + tr - 1) / tr;
+  // Tile k: rows [k*per + min(k, extra), ...), per + (k < extra) of them.
+  long long per = 0, extra = 0;
+  auto balance = [&]() {
+    per = n_tiles ? n_eff / n_tiles : 0;
+    extra = n_eff - per * n_tiles;
+  };
+  balance();
+  auto start = [&](long long k) { return k * per + min(k, extra); };
+  auto span = [&](long long k) { return (int)(per + (k < extra)); };
+  long long tile = split;
+  if (trim) {
+    load(0, 0, (int)min((long long)tr, n));
+  } else if (tile < n_tiles) {
+    load(0, start(tile), span(tile));
+  }
+  fcm::cp_async_commit();
+  if (trim) {
+    long long last = -1;
+    for (long long r = tid; r < n; r += kTileBlock)
+      if (__ldg(w + r) != 0.f) last = r;
+    for (int off = 16; off > 0; off >>= 1)
+      last = max_ll(last, __shfl_xor_sync(fcm::kFull, last, off));
+    if (lane == 0) live_s[warp] = last;
+    __syncthreads();
+    last = live_s[0];
+    for (int k = 1; k < kTileBlock / 32; ++k) last = max_ll(last, live_s[k]);
+    n_eff = last + 1;
+    n_tiles = (n_eff + tr - 1) / tr;
+    balance();
+  }
+
+  int buf = 0;
+  for (; tile < n_tiles; tile += splits) {
+    const long long next = tile + splits;
+    if (next < n_tiles) load(buf ^ 1, start(next), span(next));
+    fcm::cp_async_commit();
+    fcm::cp_async_wait<1>();
+    __syncthreads();
+    const int rows = span(tile);
+    const float* xs = tile_smem + (buf ? L.x1 : L.x0);
+    const float* ws = tile_smem + (buf ? L.w1 : L.w0);
+
+    int ridx[kRM];
+#pragma unroll
+    for (int i = 0; i < kRM; ++i) ridx[i] = min(rgi + i * rg, tr - 1);
+    float dot[kRM][RC] = {}, x2[kRM] = {};
+    if (kTileStages & 2) tile_dots<RC, 2>(xs, v_s, L.ldx, L.ldv, ridx, cidx, d, x2, dot);
+    if (kTileStages & 4)
+      tile_members<RC, kRM>(x2, dot, v2_s, cidx, cval, ridx, rgi, rg, rows, cg, m, expo,
+                            ws, wum_s, L.ldc, accq);
+    __syncthreads();
+
+    if ((kTileStages & 8) && acc_on)
+      tile_contract(acc, accw, wum_s, xs, rows, rsi, rs, agi, dgi, L.ldc, L.ldx);
+    __syncthreads();
+    buf ^= 1;
+  }
+  fcm::cp_async_wait<0>();
+  __syncthreads();
+
+  // The CTA's sums: each output summed over the record subsets in order.
+  float* scr = tile_smem + L.scr;
+  float* scw = tile_smem + L.scw;
+  tile_stash(acc, accw, accq, acc_on, rsi, og, ogi, ag, agi, dgi, lane, warp, scr, scw,
+             red_s);
+  __syncthreads();
+  out_v += tenant * cd;
+  out_w += tenant * c;
+  out_q += tenant;
+  if (splits == 1) {
+    // The CTA owns its tenant and writes the outputs itself (no partial,
+    // no ticket); w_i as summed is the divisor, bit for bit.
+    for (int i = tid; i < c; i += kTileBlock) {
+      const float s = tile_w_sum(scw, i, ag, rs);
+      v2_s[i] = s;
+      out_w[i] = s;
+    }
+    if (tid == 0) *out_q = tile_q_sum(red_s);
+    __syncthreads();
+    for (int o = tid; o < cd; o += kTileBlock) {
+      const float s = tile_v_sum(scr, o, d, dg, og, rs);
+      out_v[o] = normalize ? s / fmaxf(v2_s[o / d], kD2Floor) : s;
+    }
+    return;
+  }
+  const int p_len = cd + c + 1;
+  float* my = part + (size_t)blockIdx.x * p_len;
+  for (int o = tid; o < cd + c; o += kTileBlock)
+    my[o] = o < cd ? tile_v_sum(scr, o, d, dg, og, rs) : tile_w_sum(scw, o - cd, ag, rs);
+  if (tid == 0) my[cd + c] = tile_q_sum(red_s);
+  fcm::finish_partials(part + (size_t)tenant * splits * p_len, tickets + 2 * tenant,
+                       splits, p_len, slices, d, c, normalize, out_v, out_w, out_q);
+}
+
+template <int RC>
+int launch_tile_tenants(const float* x, const float* w, const float* v, const float* m_t,
+                long long n, int d, int c, float m, float expo, int tr, int cg, int ag,
+                int dg, int rs, unsigned grid, int splits, int slices, int trim,
+                int smem, float* part, int* tickets, float* out_v, float* out_w,
+                float* out_q, int normalize, cudaStream_t s) {
+  cudaError_t err = cudaFuncSetAttribute(
+      fcm_tile_tenants_kernel<RC>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  fcm_tile_tenants_kernel<RC><<<grid, kTileBlock, smem, s>>>(
+      x, w, v, m_t, n, d, c, m, expo, tr, cg, ag, dg, rs, splits, slices, trim,
+      normalize, part, tickets, out_v, out_w, out_q);
+  return (int)cudaGetLastError();
 }
 
 // ----------------------------------------------------------------- wide --
@@ -849,7 +1215,8 @@ int fcm_device(int* sms, int* smem_optin) {
 }
 
 // Resident CTAs per SM of fcm_tile_kernel<rc> at `smem` bytes of dynamic
-// shared memory.
+// shared memory (fcm_tile_tenants_kernel<rc> runs at the same launch
+// bounds on the same layout).
 int fcm_tile_occupancy(int rc, int smem, int* per_sm) {
   *per_sm = 0;
   switch (rc) {
@@ -900,6 +1267,46 @@ int fcm_tile_sweep(const float* x, const float* w, const float* v, long long n,
     case 4: return launch_tile<4>(x, w, v, n, d, c, m, expo, tr, cg, ag, dg, rs, grid,
                                   slices, smem, part, tickets, out_v, out_w, out_q,
                                   normalize, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// The tenant-stacked tile path on `stream`: T = `tenants` models of n
+// records, `splits` CTAs each (T*splits in all) walking tiles of at most
+// tr records; cg center groups of rc = ceil(C / cg) centers
+// (1 <= rc <= 4, cg | 32), ag x dg v_num micro-tiles over rs record
+// subsets (ag*dg*rs <= 256).  m_t holds one fuzzifier per tenant, or is
+// null and m (with expo = 1 / (m - 1)) applies to all.  With splits > 1,
+// `slices` CTAs share each tenant's final reduce, `part` holds
+// T*splits*(C*d + C + 1) floats and `tickets` 2*T ints, zero before the
+// first launch (each launch leaves them zero); with splits == 1 each CTA
+// writes its tenant's outputs and both may be null, and `trim` skips each
+// tenant's trailing zero-weight rows.  Refuses a `smem` below the
+// layout's need.  Returns cudaGetLastError().
+int fcm_tile_tenants_sweep(const float* x, const float* w, const float* v,
+                           const float* m_t,
+                   long long n, int d, int c, float m, float expo, int tr, int cg,
+                   int rc, int ag, int dg, int rs, long long tenants, int splits,
+                   int slices, int trim, int smem, float* part, int* tickets,
+                   float* out_v, float* out_w, float* out_q, int normalize,
+                   void* stream) {
+  if (tile_layout(d, c, tr, rs, ag, dg).total * sizeof(float) > (size_t)smem ||
+      ag * dg * rs > kTileBlock || 32 % cg != 0 || rc * cg < c || tenants < 1 ||
+      splits < 1 || tenants * splits > 0x7fffffffLL ||
+      (splits > 1 && (slices < 1 || slices > splits)) || (trim && splits != 1))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const unsigned grid = (unsigned)(tenants * splits);
+#define FCM_TILE_LAUNCH(RC)                                                       \
+  case RC:                                                                        \
+    return launch_tile_tenants<RC>(x, w, v, m_t, n, d, c, m, expo, tr, cg, ag, dg, \
+                                   rs, grid, splits, slices, trim, smem, part,     \
+                                   tickets, out_v, out_w, out_q, normalize, s);
+  switch (rc) {
+    FCM_TILE_LAUNCH(1)
+    FCM_TILE_LAUNCH(2)
+    FCM_TILE_LAUNCH(3)
+    FCM_TILE_LAUNCH(4)
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -28,17 +28,21 @@
 // benchmark's cohort (1024 tenants of 32 rows, 0.66 MB) the bound is below
 // a microsecond and launch latency sets the time.
 //
-// Two paths, chosen by kernels/fcm_update.py's launch plan:
+// One kernel, fcm_rows_kernel<DM, CM, U>, for small C*d; past it
+// kernels/fcm_update.py's launch plan sends the tenant-stacked sweep to
+// fcm_accumulate.cu's register-blocked tile kernel (it takes a tenant
+// axis, such as d = 41, C = 23) and, past that kernel's micro-tiles, to
+// fcm_ctiled.cu's C-tiled sweep.
 //
-//  * fcm_rows_kernel<DM, CM, U>, the fast path for small C*d (d <= DM,
-//    C <= CM for one of the instantiated (DM, CM): (4,3), (4,4), (8,8),
-//    (16,4), (32,2); (4,3) is the tenant plane's exact width, so no
-//    center slot is computed for nothing).  No shared-memory tiles: each
-//    thread owns records (neighbouring lanes on neighbouring records, U of
-//    them in flight, read as float4 when d % 4 == 0), keeps its C*d + C + 1
-//    sums in registers for its whole walk, and forms the membership
-//    without powf (fcm_common.cuh).  V_t sits in shared memory and is read
-//    as a broadcast.  A team of warps owns one (tenant, row split):
+// fcm_rows_kernel takes d <= DM, C <= CM for one of the instantiated
+// (DM, CM): (4,3), (4,4), (8,8), (16,4), (32,2); (4,3) is the tenant
+// plane's exact width, so no center slot is computed for nothing.  No
+// shared-memory tiles: each thread owns records (neighbouring lanes on
+// neighbouring records, U of them in flight, read as float4 when d % 4 ==
+// 0), keeps its C*d + C + 1 sums in registers for its whole walk, and forms
+// the membership without powf (fcm_common.cuh).  V_t sits in shared memory
+// and is read as a broadcast.  A team of warps owns one (tenant, row
+// split):
 //      - one-warp teams, several per CTA, when the tenants alone fill the
 //        card and a tenant has at most 1024 records (the tenant plane):
 //        the warp loads its V_t, walks its tenant, sums by an xor tree and
@@ -50,18 +54,9 @@
 //        sweep calls this entry with T = 1) each CTA writes a partial and
 //        the last ones to finish sum them in split order
 //        (fcm::finish_partials).
-//  * fcm_batched_partial_kernel + fcm_batched_reduce_kernel, the first
-//    version, kept for C*d beyond the fast path (such as d = 41, C = 23):
-//    the grid is (tenants x row-splits); a CTA loads V_t and m_t into
-//    shared memory and walks its split's 128-row tiles of x and d2 in
-//    shared memory, one thread per row for the membership, the two sums
-//    over rows spread over floor(blockDim / (C*d + C)) row groups in a
-//    shared-memory accumulator; a second kernel sums each tenant's
-//    partials in split order.
 //
-// No float atomics in either path: for a fixed shape and card the
-// summation order is fixed, and two launches on the same input are
-// bit-identical.  Offsets are 64-bit: T*N*d reaches 1.3e8 on the tenant
+// No float atomics: for a fixed shape and card the summation order is
+// fixed, and two launches on the same input are bit-identical.  Offsets are 64-bit: T*N*d reaches 1.3e8 on the tenant
 // plane.
 
 #include "fcm_common.cuh"
@@ -69,203 +64,6 @@
 namespace {
 
 constexpr float kD2Floor = 1e-12f;
-
-struct Layout {      // offsets into dynamic shared memory, in floats
-  int ldv, ldx, ldc;  // padded row strides of V, the x tile, the d2/wum tiles
-  int groups;         // row groups of the two sums over rows
-  size_t v, v2, x, x2, w, d2, wum, acc, red, total;
-};
-
-__host__ __device__ inline int row_groups(int d, int c, int t, int block) {
-  const int n_out = c * d + c;
-  int g = block / n_out;
-  if (g > t) g = t;
-  return g > 0 ? g : 1;
-}
-
-__host__ __device__ inline Layout make_layout(int d, int c, int t, int block) {
-  Layout L;
-  L.ldv = d | 1;
-  L.ldx = d | 1;
-  L.ldc = c | 1;
-  L.groups = row_groups(d, c, t, block);
-  size_t o = 0;
-  L.v = o;   o += (size_t)c * L.ldv;
-  L.v2 = o;  o += c;
-  L.x = o;   o += (size_t)t * L.ldx;
-  L.x2 = o;  o += t;
-  L.w = o;   o += t;
-  L.d2 = o;  o += (size_t)t * L.ldc;
-  L.wum = o; o += (size_t)t * L.ldc;
-  L.acc = o; o += (size_t)L.groups * (c * d + c);
-  L.red = o; o += block;
-  L.total = o;
-  return L;
-}
-
-__global__ void __launch_bounds__(256)
-fcm_batched_partial_kernel(const float* __restrict__ x,
-                           const float* __restrict__ w,
-                           const float* __restrict__ v,
-                           const float* __restrict__ m_t, long long n, int d,
-                           int c, int t, float* __restrict__ part) {
-  extern __shared__ float smem[];
-  const Layout L = make_layout(d, c, t, blockDim.x);
-  float* v_s = smem + L.v;
-  float* v2_s = smem + L.v2;
-  float* x_s = smem + L.x;
-  float* x2_s = smem + L.x2;
-  float* w_s = smem + L.w;
-  float* d2_s = smem + L.d2;
-  float* wum_s = smem + L.wum;
-  float* acc_s = smem + L.acc;
-  float* red_s = smem + L.red;
-
-  const long long tenant = blockIdx.x;
-  const int split = blockIdx.y;
-  const int splits = gridDim.y;
-  const int tid = threadIdx.x;
-  const int nt = blockDim.x;
-  const int cd = c * d;
-  const int n_out = cd + c;
-  const int groups = L.groups;
-  const int slots = groups * n_out;
-  const float m = m_t[tenant];
-  const float expo = 1.f / (m - 1.f);
-  const float* xt = x + tenant * n * d;
-  const float* wt = w + tenant * n;
-  float* my_part = part + (size_t)(tenant * splits + split) * (n_out + 1);
-
-  for (int o = tid; o < slots; o += nt) acc_s[o] = 0.f;
-  for (int o = tid; o < cd; o += nt) {
-    const int i = o / d, j = o - i * d;
-    v_s[i * L.ldv + j] = v[tenant * cd + o];
-  }
-  __syncthreads();
-  for (int i = tid; i < c; i += nt) {
-    float s = 0.f;
-    for (int k = 0; k < d; ++k) s = fmaf(v_s[i * L.ldv + k], v_s[i * L.ldv + k], s);
-    v2_s[i] = s;
-  }
-
-  float q_acc = 0.f;
-  const long long n_tiles = (n + t - 1) / t;
-  for (long long tile = split; tile < n_tiles; tile += splits) {
-    const long long r0 = tile * t;
-    const int rows = (int)min((long long)t, n - r0);
-    const float* xg = xt + r0 * (long long)d;
-    for (int o = tid; o < rows * d; o += nt) {
-      const int r = o / d, j = o - r * d;
-      x_s[r * L.ldx + j] = xg[o];
-    }
-    for (int r = tid; r < rows; r += nt) w_s[r] = wt[r0 + r];
-    __syncthreads();
-
-    for (int r = tid; r < rows; r += nt) {
-      float s = 0.f;
-      for (int k = 0; k < d; ++k) s = fmaf(x_s[r * L.ldx + k], x_s[r * L.ldx + k], s);
-      x2_s[r] = s;
-    }
-    __syncthreads();
-
-    for (int o = tid; o < rows * c; o += nt) {
-      const int r = o / c, i = o - r * c;
-      const float* xr = x_s + r * L.ldx;
-      const float* vi = v_s + i * L.ldv;
-      float dot = 0.f;
-      for (int k = 0; k < d; ++k) dot = fmaf(xr[k], vi[k], dot);
-      d2_s[r * L.ldc + i] = fmaxf(x2_s[r] + v2_s[i] - 2.f * dot, kD2Floor);
-    }
-    __syncthreads();
-
-    // Log-space, max-normalized membership: one thread per row.
-    for (int r = tid; r < rows; r += nt) {
-      const float* d2r = d2_s + r * L.ldc;
-      float* wr = wum_s + r * L.ldc;
-      float lmin = INFINITY;
-      for (int i = 0; i < c; ++i) lmin = fminf(lmin, logf(d2r[i]));
-      float s = 0.f;
-      for (int i = 0; i < c; ++i) {
-        const float ri = expf(-expo * (logf(d2r[i]) - lmin));
-        wr[i] = ri;
-        s += ri;
-      }
-      const float wk = w_s[r];
-      float qr = 0.f;
-      for (int i = 0; i < c; ++i) {
-        const float wum = powf(wr[i] / s, m) * wk;
-        wr[i] = wum;
-        qr = fmaf(wum, d2r[i], qr);
-      }
-      q_acc += qr;
-    }
-    __syncthreads();
-
-    // Slot s = g*n_out + o: output o (v_num[i][j] for o < C*d, w_i after)
-    // over the tile's rows g, g + G, ...
-    for (int s = tid; s < slots; s += nt) {
-      const int g = s / n_out, o = s - g * n_out;
-      float acc = 0.f;
-      if (o < cd) {
-        const int i = o / d, j = o - i * d;
-        for (int r = g; r < rows; r += groups)
-          acc = fmaf(wum_s[r * L.ldc + i], x_s[r * L.ldx + j], acc);
-      } else {
-        const int i = o - cd;
-        for (int r = g; r < rows; r += groups) acc += wum_s[r * L.ldc + i];
-      }
-      acc_s[s] += acc;
-    }
-    __syncthreads();
-  }
-
-  for (int o = tid; o < n_out; o += nt) {
-    float s = 0.f;
-    for (int g = 0; g < groups; ++g) s += acc_s[g * n_out + o];
-    my_part[o] = s;
-  }
-  // q: fixed-order tree reduction over the CTA (blockDim is a power of 2).
-  red_s[tid] = q_acc;
-  __syncthreads();
-  for (int s = nt / 2; s > 0; s >>= 1) {
-    if (tid < s) red_s[tid] += red_s[tid + s];
-    __syncthreads();
-  }
-  if (tid == 0) my_part[n_out] = red_s[0];
-}
-
-__global__ void fcm_batched_reduce_kernel(const float* __restrict__ part,
-                                          long long tenants, int splits, int d,
-                                          int c, int normalize,
-                                          float* __restrict__ out_v,
-                                          float* __restrict__ out_w,
-                                          float* __restrict__ out_q) {
-  const int cd = c * d;
-  const int p_len = cd + c + 1;
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= tenants * p_len) return;
-  const long long tenant = idx / p_len;
-  const int o = (int)(idx - tenant * p_len);
-  const float* tp = part + (size_t)tenant * splits * p_len;
-  float s = 0.f;
-  for (int b = 0; b < splits; ++b) s += tp[(size_t)b * p_len + o];
-  if (o < cd) {
-    if (normalize) {
-      // The same loop as the w_i output's, so the divisor equals it bit for bit.
-      const int i = o / d;
-      float wi = 0.f;
-      for (int b = 0; b < splits; ++b) wi += tp[(size_t)b * p_len + cd + i];
-      s = s / fmaxf(wi, kD2Floor);
-    }
-    out_v[tenant * cd + o] = s;
-  } else if (o < cd + c) {
-    out_w[tenant * c + (o - cd)] = s;
-  } else {
-    out_q[tenant] = s;
-  }
-}
-
-// ------------------------------------------------------------- fast path --
 
 template <int DM, int CM, int U>
 __global__ void __launch_bounds__(256)
@@ -482,18 +280,9 @@ const char* fcm_batched_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// Resident CTAs per SM of one kernel at `block` threads and `smem` bytes
-// of dynamic shared memory: path 0 the first version's stage 1, path 1
-// fcm_rows_kernel<dm, cm>.
-int fcm_batched_occupancy(int path, int dm, int cm, int block, int smem, int* per_sm) {
+// Resident CTAs per SM of fcm_rows_kernel<dm, cm> at `block` threads.
+int fcm_batched_occupancy(int dm, int cm, int block, int* per_sm) {
   *per_sm = 0;
-  if (path == 0) {
-    cudaError_t err = cudaFuncSetAttribute(
-        fcm_batched_partial_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
-    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        per_sm, fcm_batched_partial_kernel, block, smem);
-  }
 #define FCM_ROWS_VARIANTS(X) X(4, 3, 4) X(4, 4, 4) X(8, 8, 2) X(16, 4, 1) X(32, 2, 1)
 #define FCM_ROWS_OCC(DM, CM, U) \
   if (dm == DM && cm == CM) return rows_occupancy<DM, CM, U>(block, per_sm);
@@ -528,32 +317,5 @@ int fcm_rows_sweep(const float* x, const float* w, const float* v,
   FCM_ROWS_VARIANTS(FCM_ROWS_LAUNCH)
   return (int)cudaErrorInvalidValue;
 }
-
-// The first version on `stream`: stage 1 on a (tenants x splits) grid of
-// `block` threads with t-row tiles and `smem_bytes` of shared memory, then
-// stage 2.  `part` holds tenants * splits * (C*d + C + 1) floats; m_t holds
-// one fuzzifier per tenant.  Returns cudaGetLastError() after the launches.
-int fcm_batched_accumulate(const float* x, const float* w, const float* v,
-                           const float* m_t, long long tenants, long long n,
-                           int d, int c, int t, int splits, int smem_bytes,
-                           int block, float* part, float* out_v, float* out_w,
-                           float* out_q, int normalize, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err = cudaFuncSetAttribute(
-      fcm_batched_partial_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem_bytes);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)tenants, (unsigned)splits);
-  fcm_batched_partial_kernel<<<grid, block, smem_bytes, s>>>(x, w, v, m_t, n, d, c,
-                                                             t, part);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const long long outs = tenants * (c * d + c + 1);
-  const int rb = 256;
-  fcm_batched_reduce_kernel<<<(unsigned)((outs + rb - 1) / rb), rb, 0, s>>>(
-      part, tenants, splits, d, c, normalize, out_v, out_w, out_q);
-  return (int)cudaGetLastError();
-}
-
 
 }  // extern "C"

@@ -7,9 +7,9 @@ Counterpart of `repro.kernels.fcm_update` (the Pallas TPU kernel) and
 kernel and its wide kernel (d split across a cluster of CTAs) in
 ``fcm_accumulate.cu``, the tenant-stacked
 sweep (the reference's ``jax.vmap`` of the Pallas kernel) in
-``fcm_batched.cu`` with its register-resident rows kernel (which the
-single-model sweep also runs, at T = 1, for small C·d) and first version,
-and the C-tiled sweep of both (any C·d, V streamed through shared memory)
+``fcm_batched.cu``'s register-resident rows kernel (which the
+single-model sweep also runs, at T = 1, for small C·d) and, past it, in
+the tile kernel's tenant axis, and the C-tiled sweep of both (any C·d, V streamed through shared memory)
 in ``fcm_ctiled.cu``; each source note says what it replaces, what bounds
 it and how it is laid out.
 
@@ -30,7 +30,7 @@ never changes the path: the path decides which kernel can hold V.
 
 A CUDA tensor launches the kernel (or raises); a CPU tensor takes the
 plain version.  The plan covers every (d, C): past the shared memory of
-the wide kernel's domain and of the tenant-stacked first version, the
+the wide kernel's domain and of the tile kernel's micro-tiles, the
 C-tiled path walks the rows in chunks whose scratch
 stays within ``CTILED_SCRATCH_BYTES`` (`plan_ctiled`, `ctiled_chunks`).  Each wrapper counts its kernel launches in its
 ``launches`` attribute, and in ``shapes`` per (path, N, C) (single-model)
@@ -56,7 +56,6 @@ import torch
 from . import build
 
 _D2_FLOOR = 1e-12
-BLOCK = 256          # threads per CTA of the first tenant-stacked version
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
@@ -134,12 +133,13 @@ MIN_ROWS = 8  # fewest records per CTA when a small N is spread over the SMs
 # fcm_tile_kernel's threads and micro-tiles (d2: TILE_RM records; v_num:
 # TILE_AC centers x TILE_AD dims)
 TILE_BLOCK, TILE_RM, TILE_AC, TILE_AD = 256, 4, 4, 8
+# Fewest records per tile the tenant-stacked tile plan shrinks a tile to
+# for more row splits when the tenants alone do not fill the card
+TENANT_MIN_TILE = 64
 # The ticketed final reduce: partial floats one of its CTAs reads at most,
 # and how many CTAs may share it (far below the card's resident CTAs)
 SLICE_FLOATS = 1024
 MAX_SLICES = 64
-_MAX_TILE_ROWS = 128  # the first tenant-stacked version's tile
-_MAX_SPLITS = 65535   # the first tenant-stacked version's gridDim.y
 # The C-tiled kernels (csrc/fcm_ctiled.cu): CT_THREADS threads a CTA;
 # the membership's ring of CT_STAGES stages of CT_BK dims ([row][dim]
 # tiles CT_LDK floats a row); membership tiles of CT_TILES records x
@@ -198,15 +198,16 @@ UNTUNED = PlanChoice()
 @dataclasses.dataclass(frozen=True)
 class LaunchPlan:
     """One launch: ``path`` is "rows" (register-resident records), "tile"
-    (register-blocked tiles), "wide" (d split across a cluster of CTAs),
-    "first" (the first tenant-stacked version) or "ctiled" (V streamed
-    through shared memory); ``grid`` CTAs of ``block`` threads; ``rows``
-    records per split (rows) or per tile (tile, wide, first); ``splits``
-    row splits per tenant; ``smem`` bytes of dynamic shared memory;
-    ``slices`` CTAs that share the ticketed final reduce (0: the CTAs
-    write the outputs themselves, or the first version's second launch
-    sums).  ``dm``/``cm`` name the rows kernel's instantiation and
-    ``team_warps`` the warps that own one (tenant, split); ``cg``, ``rc``,
+    (register-blocked tiles), "wide" (d split across a cluster of CTAs)
+    or "ctiled" (V streamed through shared memory); ``grid`` CTAs of
+    ``block`` threads; ``rows`` records per split (rows) or at most per
+    tile (tile, wide);
+    ``splits`` row splits per tenant (tile, one model: every CTA a
+    split); ``smem`` bytes of dynamic shared memory; ``slices`` CTAs that
+    share the ticketed final reduce (0: the CTAs write the outputs
+    themselves).  ``dm`` /
+    ``cm`` name the rows kernel's instantiation and ``team_warps`` the
+    warps that own one (tenant, split); ``cg``, ``rc``,
     ``ag``, ``dg``, ``rs`` the tile kernel's micro-tiles; ``group``,
     ``resident``, ``scratch``, ``tile``, ``dsplits`` and ``kper`` the
     C-tiled kernel's tenants per launch, d² block in shared memory,
@@ -322,21 +323,23 @@ def tile_layout_floats(d, c, tr, rs, ag, dg) -> int:
     return _round4(head + max(tiles, scratch)) + tr * ldc + TILE_BLOCK // 32
 
 
-def _tile_plan(n, d, c, sms, ctas_per_sm, smem_limit,
-               choice: PlanChoice = UNTUNED):
+def _tile_geometry(d: int, c: int) -> Optional[tuple]:
+    """The tile kernel's (cg, rc, ag, dg, rs) for (d, C): cg center groups
+    of rc centers in the d² micro-tile, ag × dg v_num micro-tiles over rs
+    record subsets; None past its micro-tiles (C > 128 or ⌈C/4⌉·⌈d/8⌉ >
+    256)."""
     cg = _pow2ceil(_cdiv(c, TILE_AC))
     ag, dg = _cdiv(c, TILE_AC), _cdiv(d, TILE_AD)
     if cg > 32 or ag * dg > TILE_BLOCK:
         return None
-    rc, rs = _cdiv(c, cg), TILE_BLOCK // (ag * dg)
-    # Full tiles give each thread TILE_RM records of the d² micro-tile; a
-    # small N gets tiles of N // SMs records (at least MIN_ROWS), so that
-    # every SM has one.
-    cap = TILE_RM * (TILE_BLOCK // cg)
-    tr = max(1, min(cap, max(MIN_ROWS, n // sms), n))
-    if choice.tile != 1.0:
-        tr = max(1, min(cap, n, round(tr * choice.tile)))
-    # Two CTAs per SM where the tile allows, else one.
+    return cg, _cdiv(c, cg), ag, dg, TILE_BLOCK // (ag * dg)
+
+
+def _tile_fit(d, c, tr, geo, smem_limit) -> int:
+    """The largest tile of at most ``tr`` records whose shared memory lets
+    two CTAs share an SM, else one (while that keeps at least
+    min(tr, 32) records), or 0 where not one record fits."""
+    _, _, ag, dg, rs = geo
     for budget in (smem_limit // 2, smem_limit):
         fit = tr
         while fit > 0 and (4 * tile_layout_floats(d, c, fit, rs, ag, dg)
@@ -344,42 +347,95 @@ def _tile_plan(n, d, c, sms, ctas_per_sm, smem_limit,
             fit -= 1
         if fit >= min(tr, 32):
             break
-    if fit == 0:
+    return fit
+
+
+def _tile_draft(d, c, tr, geo) -> LaunchPlan:
+    cg, rc, ag, dg, rs = geo
+    return LaunchPlan("tile", TILE_BLOCK, 0, tr,
+                      smem=4 * tile_layout_floats(d, c, tr, rs, ag, dg),
+                      cg=cg, rc=rc, ag=ag, dg=dg, rs=rs)
+
+
+def _tile_plan(n, d, c, sms, ctas_per_sm, smem_limit,
+               choice: PlanChoice = UNTUNED):
+    geo = _tile_geometry(d, c)
+    if geo is None:
         return None
-    tr = fit
-    smem = 4 * tile_layout_floats(d, c, tr, rs, ag, dg)
-    draft = LaunchPlan("tile", TILE_BLOCK, 0, tr, smem=smem, cg=cg, rc=rc,
-                       ag=ag, dg=dg, rs=rs)
+    # Full tiles give each thread TILE_RM records of the d² micro-tile; a
+    # small N gets tiles of N // SMs records (at least MIN_ROWS), so that
+    # every SM has one.
+    cap = TILE_RM * (TILE_BLOCK // geo[0])
+    tr = max(1, min(cap, max(MIN_ROWS, n // sms), n))
+    if choice.tile != 1.0:
+        tr = max(1, min(cap, n, round(tr * choice.tile)))
+    tr = _tile_fit(d, c, tr, geo, smem_limit)
+    if tr == 0:
+        return None
+    draft = _tile_draft(d, c, tr, geo)
     grid = min(_cdiv(n, tr), sms * _per_sm(ctas_per_sm, draft))
     return dataclasses.replace(draft, grid=grid,
                                slices=_slices(grid, c * d + c + 1))
 
 
-def first_layout_floats(d, c, t, block=BLOCK) -> int:
-    """The single-model part of the first tenant-stacked version's shared
-    memory in floats (csrc/fcm_batched.cu, `make_layout`): V, a t-record
-    tile, its norms, weights, d² and wum, and a reduction buffer.  At one
-    record it also bounds the wide path's domain (`plan_sweep`)."""
+def _tile_batched_plan(t, n, d, c, sms, ctas_per_sm, smem_limit,
+                       choice: PlanChoice = UNTUNED):
+    """The tile kernel's launch for T > 1 tenants of n records: each
+    tenant's rows in equal tiles of at most the cap (``choice.tile``
+    scales it), one CTA per tenant where the tenants alone fill the card
+    (the CTA writes the tenant's outputs), else up to enough row splits
+    per tenant to fill it, one a tile, the tiles shrunk for that down to
+    TENANT_MIN_TILE records (not below: a split's fixed cost, its V_t,
+    partial and share of the final sum, outweighs a smaller tile's
+    work), each tenant's last CTA summing its partials (one slice: no
+    CTA waits)."""
+    geo = _tile_geometry(d, c)
+    if geo is None:
+        return None
+    cap = TILE_RM * (TILE_BLOCK // geo[0])
+    if choice.tile != 1.0:
+        cap = max(1, min(cap, round(cap * choice.tile)))
+    cap = _tile_fit(d, c, min(cap, n), geo, smem_limit)
+    if cap == 0:
+        return None
+    slots = sms * _per_sm(ctas_per_sm, _tile_draft(d, c, cap, geo))
+    want = 1 if t >= slots else _cdiv(slots, t)
+    tiles = max(_cdiv(n, cap), min(want, _cdiv(n, TENANT_MIN_TILE)))
+    tr = _cdiv(n, tiles)
+    splits = min(want, tiles)
+    return dataclasses.replace(_tile_draft(d, c, tr, geo), grid=t * splits,
+                               splits=splits, slices=int(splits > 1))
+
+
+def tile_walk(plan: LaunchPlan, tenants: int, n: int, live=None) -> list:
+    """The (tenant, split, r0, r1) row ranges fcm_tile_tenants_kernel
+    walks on a tenant-stacked "tile" ``plan`` (csrc/fcm_accumulate.cu):
+    tenant t's n_eff rows in tiles = ⌈n_eff / rows⌉ tiles of
+    n_eff // tiles rows, the first n_eff % tiles of them one more, split
+    s walking tiles s, s + splits, ...; n_eff is n, or with one split per
+    tenant (T > 1) ``live[t]``, one past the tenant's last nonzero
+    weight."""
+    splits = plan.grid // tenants
+    out = []
+    for t in range(tenants):
+        ne = live[t] if live is not None and tenants > 1 and splits == 1 \
+            else n
+        tiles = _cdiv(ne, plan.rows)
+        per, extra = divmod(ne, tiles) if tiles else (0, 0)
+        out += [(t, k % splits, k * per + min(k, extra),
+                 (k + 1) * per + min(k + 1, extra)) for k in range(tiles)]
+    return out
+
+
+def first_layout_floats(d, c, t, block=256) -> int:
+    """Shared memory in floats of a block that holds V, a t-record tile,
+    its norms, weights, d² and wum, and a reduction buffer of ``block``
+    floats: at one record, the bound of the wide path's domain
+    (`plan_sweep`), kept where the single-model sweep's first version
+    ran, so that no C-tiled shape changed its path."""
     ldv = ldx = d | 1
     ldc = c | 1
     return c * ldv + c + t * ldx + 2 * t + 2 * t * ldc + block
-
-
-def first_batched_layout_floats(d, c, t, block=BLOCK) -> int:
-    """The first tenant-stacked version's shared memory in floats
-    (csrc/fcm_batched.cu, `make_layout`: its row groups' accumulator on
-    top of the single-model layout)."""
-    groups = max(1, min(block // (c * d + c), t))
-    return first_layout_floats(d, c, t, block) + groups * (c * d + c)
-
-
-def _first_tile(layout, limit_rows, smem_limit, d, c) -> int:
-    """The first version's rows per tile, or 0 where V and one record do
-    not fit shared memory (the C-tiled path's domain)."""
-    for t in range(limit_rows, 0, -1):
-        if 4 * layout(d, c, t) <= smem_limit:
-            return t
-    return 0
 
 
 def _d2_ld(c: int) -> int:
@@ -649,25 +705,25 @@ def plan_batched(tenants: int, n: int, d: int, c: int, *, sms: int,
 
     * "rows" — small C·d (`rows_variant`): one CTA per (tenant, split),
       one split per tenant once the tenants alone fill the card;
-    * "first" — the rest (such as d = 41, C = 23), while V_t and one
-      record fit shared memory;
-    * "ctiled" — beyond that: the C-tiled kernel (`plan_ctiled`).
+    * "tile" — where the tile kernel's micro-tiles and a tile fit (C ≤
+      128, ⌈C/4⌉·⌈d/8⌉ ≤ 256; such as d = 41, C = 23): at T = 1 the
+      single-model launch, else `_tile_batched_plan`;
+    * "ctiled" — the rest: the C-tiled kernel (`plan_ctiled`).
 
     ``choice`` as in `plan_sweep`.
     """
     choice = choice or UNTUNED
     if rows_variant(d, c) is not None:
         return _rows_plan(tenants, n, d, c, sms, ctas_per_sm, True, choice)
-    t = _first_tile(first_batched_layout_floats, min(_MAX_TILE_ROWS, n),
-                    smem_limit, d, c)
-    if t == 0:
-        return plan_ctiled(tenants, n, d, c, sms=sms, smem_limit=smem_limit,
-                           choice=choice)
-    smem = 4 * first_batched_layout_floats(d, c, t)
-    draft = LaunchPlan("first", BLOCK, 0, t, smem=smem)
-    target = sms * _per_sm(ctas_per_sm, draft)
-    splits = max(1, min(_cdiv(target, tenants), _cdiv(n, t), _MAX_SPLITS))
-    return dataclasses.replace(draft, grid=tenants * splits, splits=splits)
+    if tenants == 1:
+        plan = _tile_plan(n, d, c, sms, ctas_per_sm, smem_limit, choice)
+    else:
+        plan = _tile_batched_plan(tenants, n, d, c, sms, ctas_per_sm,
+                                  smem_limit, choice)
+    if plan is not None:
+        return plan
+    return plan_ctiled(tenants, n, d, c, sms=sms, smem_limit=smem_limit,
+                       choice=choice)
 
 
 # --------------------------------------------------------- the libraries --
@@ -687,6 +743,11 @@ def _lib() -> ctypes.CDLL:
         _P, _P, _P, ctypes.c_longlong, _I, _I, ctypes.c_float, ctypes.c_float,
         _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P]
     lib.fcm_tile_sweep.restype = _I
+    lib.fcm_tile_tenants_sweep.argtypes = [
+        _P, _P, _P, _P, ctypes.c_longlong, _I, _I, ctypes.c_float,
+        ctypes.c_float, _I, _I, _I, _I, _I, _I, ctypes.c_longlong, _I, _I,
+        _I, _I, _P, _P, _P, _P, _P, _I, _P]
+    lib.fcm_tile_tenants_sweep.restype = _I
     lib.fcm_wide_sweep.argtypes = [
         _P, _P, _P, ctypes.c_longlong, _I, _I, ctypes.c_float, ctypes.c_float,
         _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P]
@@ -699,18 +760,13 @@ def _batched_lib() -> ctypes.CDLL:
     lib = build.load("fcm_batched")
     lib.fcm_batched_error_string.argtypes = [_I]
     lib.fcm_batched_error_string.restype = ctypes.c_char_p
-    lib.fcm_batched_occupancy.argtypes = [_I, _I, _I, _I, _I,
-                                          ctypes.POINTER(_I)]
+    lib.fcm_batched_occupancy.argtypes = [_I, _I, _I, ctypes.POINTER(_I)]
     lib.fcm_batched_occupancy.restype = _I
     lib.fcm_rows_sweep.argtypes = [
         _P, _P, _P, _P, ctypes.c_float, ctypes.c_longlong, ctypes.c_longlong,
         _I, _I, _I, _I, ctypes.c_longlong, _I, _I, _I, _I, _I, _P, _P, _P,
         _P, _P, _I, _P]
     lib.fcm_rows_sweep.restype = _I
-    lib.fcm_batched_accumulate.argtypes = [
-        _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_longlong, _I, _I, _I, _I,
-        _I, _I, _P, _P, _P, _P, _I, _P]
-    lib.fcm_batched_accumulate.restype = _I
     return lib
 
 
@@ -751,19 +807,16 @@ def _card(device_index: int):
 
 
 def _occupancy(plan: LaunchPlan) -> int:
-    """Resident CTAs per SM of the kernel ``plan`` launches."""
+    """Resident CTAs per SM of the kernel ``plan`` launches (the rows or
+    the tile kernel)."""
     k = _I(0)
-    if plan.path == "rows":
-        _check(_batched_lib().fcm_batched_occupancy(
-            1, plan.dm, plan.cm, plan.block, 0, ctypes.byref(k)),
-            "fcm_batched_occupancy", "fcm_batched")
-    elif plan.path == "tile":
+    if plan.path == "tile":
         _check(_lib().fcm_tile_occupancy(plan.rc, plan.smem,
                                          ctypes.byref(k)),
                "fcm_tile_occupancy")
     else:
         _check(_batched_lib().fcm_batched_occupancy(
-            0, 0, 0, plan.block, plan.smem, ctypes.byref(k)),
+            plan.dm, plan.cm, plan.block, ctypes.byref(k)),
             "fcm_batched_occupancy", "fcm_batched")
     return k.value
 
@@ -890,6 +943,28 @@ def _rows_launch(plan, x, w, v, m_ptr, m, tenants, n, d, c, normalize, dev,
         None if part is None else part.data_ptr(),
         None if tickets is None else tickets.data_ptr(), out_v.data_ptr(),
         out_w.data_ptr(), out_q.data_ptr(), int(normalize), stream)
+
+
+def _tile_launch(plan, x, w, v, m_ptr, m, tenants, n, d, c, normalize, dev,
+                 stream, out):
+    """fcm_tile_tenants_kernel on ``plan`` (``plan.grid`` CTAs: T = 1 a
+    single-model plan, every CTA a split; else ``plan.splits`` a tenant);
+    one split per tenant writes the outputs itself and skips each
+    tenant's trailing zero-weight rows."""
+    splits = plan.grid // tenants
+    part = tickets = None
+    if splits > 1:
+        part = torch.empty((plan.grid, c * d + c + 1), dtype=torch.float32,
+                           device=dev)
+        tickets = _tickets(dev, stream, tenants)
+    return _lib().fcm_tile_tenants_sweep(
+        x.data_ptr(), w.data_ptr(), v.data_ptr(), m_ptr, n, d, c, m,
+        1.0 / (m - 1.0) if m_ptr is None else 0.0, plan.rows, plan.cg,
+        plan.rc, plan.ag, plan.dg, plan.rs, tenants, splits, plan.slices,
+        int(tenants > 1 and splits == 1), plan.smem,
+        None if part is None else part.data_ptr(),
+        None if tickets is None else tickets.data_ptr(),
+        *(o.data_ptr() for o in out), int(normalize), stream)
 
 
 def _wide_launch(plan, x, w, v, m, n, d, c, normalize, dev, stream, out):
@@ -1065,28 +1140,12 @@ def _launch_batched(x, w, centers, m, normalize: bool,
                torch.empty((tenants, c), dtype=torch.float32, device=dev),
                torch.empty((tenants,), dtype=torch.float32, device=dev))
         stream = torch.cuda.current_stream(dev).cuda_stream
-        kernel = "fcm_batched"
-        if plan.path == "rows":
-            err = _rows_launch(plan, x, w, v,
-                               None if mt is None else mt.data_ptr(),
-                               float(m) if scalar_m else 0.0, tenants, n, d,
-                               c, normalize, dev, stream, out)
-        elif plan.path == "ctiled":
-            kernel = "fcm_ctiled"
-            err = _ctiled_launch(plan, x, w, v,
-                                 None if mt is None else mt.data_ptr(),
-                                 float(m) if scalar_m else 0.0, tenants, n,
-                                 d, c, normalize, dev, stream, out)
-        else:
-            if mt is None:
-                mt = _fuzzifiers(m, tenants, dev).contiguous()
-            part = torch.empty((tenants * plan.splits, c * d + c + 1),
-                               dtype=torch.float32, device=dev)
-            err = _batched_lib().fcm_batched_accumulate(
-                x.data_ptr(), w.data_ptr(), v.data_ptr(), mt.data_ptr(),
-                tenants, n, d, c, plan.rows, plan.splits, plan.smem,
-                plan.block, part.data_ptr(), *(o.data_ptr() for o in out),
-                int(normalize), stream)
+        launch, kernel = {"rows": (_rows_launch, "fcm_batched"),
+                          "tile": (_tile_launch, "fcm_accumulate"),
+                          "ctiled": (_ctiled_launch, "fcm_ctiled")}[plan.path]
+        err = launch(plan, x, w, v, None if mt is None else mt.data_ptr(),
+                     float(m) if scalar_m else 0.0, tenants, n, d, c,
+                     normalize, dev, stream, out)
     _check(err, "launch", kernel)
     return out, plan.path
 

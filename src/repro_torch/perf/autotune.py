@@ -7,12 +7,14 @@ PlanChoice`), never the path itself (the path decides which kernel can
 hold V):
 
   * the rows path: records per split (``SPLIT_GRID``);
-  * the tile path: records per tile (``TILE_GRID``);
+  * the tile path: records per tile (``TILE_GRID``), single-model or
+    tenant-stacked (there a scale of each tenant's tile cap);
   * the C-tiled path: the membership's record tile (``CT_TILE_GRID``,
     between ``CT_TILES``) × its d-splits (``DSPLIT_GRID``);
   * the wide path: records per tile (``TILE_GRID``) × the CTAs its d is
     split across (``DSPLIT_GRID``);
-  * the first tenant-stacked version: nothing to choose.
+  * the first tenant-stacked version, which the plan keeps only for many
+    small tenants past the tile kernel's micro-tiles: nothing to choose.
 
 Each choice is a scale of the plan's own pick, so one tuned choice
 serves every shape of its bucket.  The search first asks whether the

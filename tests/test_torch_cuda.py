@@ -444,16 +444,22 @@ def test_ctiled_dsplit_matches_plain(card, n, d, c, phantoms):
 @pytest.mark.parametrize("t,n,d,c,path", [
     (700, 32, 4, 3, "rows"), (700, 512, 4, 3, "rows"),
     (700, 4096, 4, 3, "rows"), (5, 512, 4, 3, "rows"),
-    (5, 300, 4, 8, "rows"), (5, 300, 4, 9, "first"),
-    (5, 300, 445, 64, "first"), (5, 300, 446, 64, "ctiled"),
+    (5, 300, 4, 8, "rows"), (5, 300, 4, 9, "tile"),
+    (66, 300, 41, 23, "tile"), (300, 300, 41, 23, "tile"),
+    (5, 300, 445, 64, "ctiled"), (5, 300, 446, 64, "ctiled"),
+    (1024, 32, 8, 129, "ctiled"),
     (3, 1000, 2048, 64, "ctiled")])
 @pytest.mark.parametrize("scalar_m", [False, True])
 def test_batched_paths_match_plain_with_phantoms(card, t, n, d, c, path,
                                                  scalar_m):
     """K3 at N_b in {32, 512, 4096}: one-warp teams (many tenants of at
     most 1024 records), whole-CTA teams, row splits (few tenants), and
-    both sides of the rows path's C limit; per-tenant or scalar m; two
-    all-zero phantom tenants stay exactly 0; reruns are bit-identical."""
+    both sides of the rows path's C limit; the tile kernel's tenant axis
+    with row splits (66 tenants) and one CTA per tenant, trailing
+    zero-weight rows skipped (300); past its micro-tiles the C-tiled
+    kernel, also for many tenants of few records at small d; per-tenant
+    or scalar m; two all-zero phantom tenants stay exactly 0; reruns are
+    bit-identical."""
     x, w, v, m = _stack(t, n, d, c, t + n + d + c, card)
     m = 1.2 if scalar_m else m
     plan = _batched_plan(card.index or 0, t + 2, n, d, c)
@@ -639,7 +645,8 @@ def test_calibrated_auto_on_the_card(card, monkeypatch, tmp_path):
 @pytest.mark.parametrize("shape,tenants", [((4096, 2, 28), None),
                                            ((4096, 23, 41), None),
                                            ((4096, 64, 2048), None),
-                                           ((512, 3, 4), 64)])
+                                           ((512, 3, 4), 64),
+                                           ((512, 23, 41), 300)])
 def test_tuned_plans_match_plain(card, monkeypatch, tmp_path, shape,
                                  tenants):
     """Every plan the autotuner tries at a bucket launches and agrees with

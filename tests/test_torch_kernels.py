@@ -6,6 +6,7 @@ CTAs per SM and shared memory) and the build's source hash.
 
 Inputs come from numpy seeds and go to both packages.  Tolerances are
 those of tests/test_kernels.py."""
+import collections
 import shutil
 
 import jax.numpy as jnp
@@ -18,8 +19,7 @@ from repro.kernels.ops import accumulate_chunks as ref_accumulate_chunks
 from repro.kernels.ref import fcm_accumulate_ref as jnp_accumulate_ref
 from repro.kernels.ref import fcm_sweep_ref as jnp_sweep_ref
 from repro_torch.kernels import build, fcm_update, ops
-from repro_torch.kernels.fcm_update import (first_batched_layout_floats,
-                                            first_layout_floats,
+from repro_torch.kernels.fcm_update import (first_layout_floats,
                                             fcm_accumulate_cuda,
                                             fcm_accumulate_ref,
                                             fcm_sweep_cuda, fcm_sweep_ref,
@@ -228,7 +228,7 @@ def test_plan_takes_the_fast_paths():
         plan = plan_batched(t, n, 4, 3, **H100)
         assert (plan.path, plan.dm, plan.cm, plan.team_warps) == \
             ("rows", 4, 3, 1)
-    assert plan_batched(66, 300, 41, 23, **H100).path == "first"
+    assert plan_batched(66, 300, 41, 23, **H100).path == "tile"
     assert plan_sweep(512, 8, 129, **H100).path == WIDE_PAST_128
     # both sides of each boundary
     assert plan_sweep(1000, 32, 2, **H100).path == "rows"
@@ -236,27 +236,95 @@ def test_plan_takes_the_fast_paths():
     assert plan_sweep(1000, 41, 128, **H100).path == "tile"
     assert plan_sweep(1000, 41, 129, **H100).path == WIDE_PAST_128
     assert plan_batched(5, 300, 4, 8, **H100).path == "rows"
-    assert plan_batched(5, 300, 4, 9, **H100).path == "first"
+    assert plan_batched(5, 300, 4, 9, **H100).path == "tile"
 
 
-@pytest.mark.parametrize("plan,layout,kernel", [
-    (plan_sweep, first_layout_floats, "fcm_accumulate"),
-    (plan_batched, first_batched_layout_floats, "fcm_batched")])
-def test_plan_raises_exactly_where_shared_memory_runs_out(plan, layout,
-                                                          kernel):
-    """Past the micro-tiles (d = 512 at C = 16, single-model; d = 64 at
-    C = 64, tenant-stacked) the wide kernel or the first version takes d
-    while V and one record fit shared memory, and the C-tiled kernel
-    exactly past that (the plan raises nowhere)."""
-    c = 64 if kernel == "fcm_batched" else 16
-    d_max = max(d for d in range(1, 4000)
-                if 4 * layout(d, c, 1) <= H100["smem_limit"])
-    args = (3, 100, d_max, c) if kernel == "fcm_batched" else (100, d_max, c)
+def _tile_domain(d, c, n=1):
+    """Whether the tile kernel's micro-tiles and a tile of n records fit
+    (d, C) on an H100."""
+    return fcm_update._tile_plan(n, d, c, H100["sms"], H100["ctas_per_sm"],
+                                 H100["smem_limit"]) is not None
+
+
+@pytest.mark.parametrize("plan,kernel", [(plan_sweep, "fcm_accumulate"),
+                                         (plan_batched, "fcm_batched")])
+def test_plan_raises_exactly_where_shared_memory_runs_out(plan, kernel):
+    """Past the micro-tiles, single-model (d = 512 at C = 16), the wide
+    kernel takes d while V and one record fit shared memory, and the
+    C-tiled kernel exactly past that; tenant-stacked (C = 64), the tile
+    kernel takes d up to its micro-tiles' limit (d = 128) and the C-tiled
+    kernel exactly past it.  The plan raises nowhere."""
+    if kernel == "fcm_batched":
+        c = 64
+        d_max = max(d for d in range(1, 4000) if _tile_domain(d, c))
+        assert d_max == 128
+        args = (3, 100, d_max, c)
+    else:
+        c = 16
+        d_max = max(d for d in range(1, 4000)
+                    if 4 * first_layout_floats(d, c, 1) <= H100["smem_limit"])
+        args = (100, d_max, c)
     inside = plan(*args, **H100)
-    assert inside.path == ("first" if kernel == "fcm_batched" else "wide")
+    assert inside.path == ("tile" if kernel == "fcm_batched" else "wide")
     wider = plan(*args[:-2], d_max + 1, c, **H100)
     assert wider.path == "ctiled"
+    _covers(inside, 100, 3 if kernel == "fcm_batched" else 1, d=d_max, c=c)
     _covers(wider, 100, 3 if kernel == "fcm_batched" else 1)
+
+
+# Past the tile kernel's micro-tiles the C-tiled kernel takes every
+# tenant-stacked shape, including those where V_t and one record fit
+# shared memory (the first tenant-stacked version's former domain).
+@pytest.mark.parametrize("t,n,d,c", [
+    (4096, 32, 8, 129), (256, 128, 8, 200), (1024, 512, 16, 160),
+    (4096, 128, 32, 129), (4096, 16, 64, 160), (1024, 32, 129, 64),
+    (66, 300, 8, 129), (256, 128, 32, 129), (1024, 512, 32, 200),
+    (4096, 32, 64, 160), (4096, 128, 129, 64), (1024, 32, 192, 64),
+    (4096, 16, 445, 64), (4096, 16, 446, 64)])
+def test_plan_batched_past_the_micro_tiles(t, n, d, c):
+    plan = plan_batched(t, n, d, c, **H100)
+    assert plan.path == "ctiled"
+    _covers(plan, n, t, d=d, c=c)
+
+
+@pytest.mark.parametrize("t,n,d,c", [
+    (66, 300, 41, 23), (5, 300, 4, 9), (4096, 512, 41, 23),
+    (1024, 512, 41, 23), (3, 300, 128, 64), (264, 301, 41, 23),
+    (2, 20_000, 41, 23), (7, 9, 41, 23), (200, 513, 8, 100)])
+def test_tile_tenant_plan_covers_each_row_once_in_balanced_tiles(t, n, d,
+                                                                 c):
+    """Every "tile" tenant plan walks each (tenant, row) exactly once, in
+    tiles of at most ``plan.rows`` records within one record of each
+    other, every split of a tenant walking at least one tile; with one
+    split per tenant the walk stops at each tenant's last live row."""
+    plan = plan_batched(t, n, d, c, **H100)
+    assert plan.path == "tile"
+    _covers(plan, n, t, d=d, c=c)
+    splits = plan.grid // t
+    assert plan.splits == splits and plan.slices == int(splits > 1)
+    assert splits == (1 if t >= 264 else min(_cdiv(264, t), _cdiv(n,
+                                                                plan.rows)))
+    rng = np.random.default_rng(t + n)
+    lives = [None, rng.integers(0, n + 1, size=t)]
+    for live in lives:
+        walk = fcm_update.tile_walk(plan, t, n, live)
+        seen = np.zeros((t, n), np.int64)
+        sizes = collections.defaultdict(list)
+        used = collections.defaultdict(set)
+        for tenant, split, r0, r1 in walk:
+            assert 0 <= split < splits and 1 <= r1 - r0 <= plan.rows
+            seen[tenant, r0:r1] += 1
+            sizes[tenant].append(r1 - r0)
+            used[tenant].add(split)
+        ends = np.full(t, n) if live is None or splits > 1 else live
+        for tenant in range(t):
+            assert np.all(seen[tenant, :ends[tenant]] == 1)
+            assert np.all(seen[tenant, ends[tenant]:] == 0)
+            if ends[tenant]:
+                assert max(sizes[tenant]) - min(sizes[tenant]) <= 1
+                assert len(used[tenant]) == min(
+                    splits, len(sizes[tenant]))
+        assert len(used) == int(np.count_nonzero(ends))
 
 
 # The wide path: past the tile kernel's micro-tiles while V and one record

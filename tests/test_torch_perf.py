@@ -489,7 +489,8 @@ def _stub_tuning(monkeypatch, best, launch_s=2e-4):
     ((4096, 2, 28), None, PlanChoice(split=2.0), "rows"),
     ((4096, 23, 41), None, PlanChoice(tile=0.5), "tile"),
     ((4096, 64, 2048), None, PlanChoice(tile=2.0, dsplit=0.5), "ctiled"),
-    ((512, 3, 4), 64, PlanChoice(split=0.5), "rows")])
+    ((512, 3, 4), 64, PlanChoice(split=0.5), "rows"),
+    ((512, 23, 41), 4096, PlanChoice(tile=0.5), "tile")])
 def test_autotune_persists_and_kernels_pick_it_up(calib_dir, monkeypatch,
                                                   shape, tenants, best,
                                                   path):

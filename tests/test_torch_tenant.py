@@ -32,6 +32,7 @@ import repro_torch.engine as TE
 import repro_torch.serve as TS
 import repro_torch.tenant as T
 from repro.tenant.core import normalize_tenant_data as ref_normalize
+from repro_torch.data import synth
 from repro_torch.kernels import ops
 from repro_torch.kernels.fcm_update import (fcm_accumulate_batched_cuda,
                                             fcm_accumulate_batched_ref,
@@ -309,19 +310,107 @@ def test_tenant_set_matches_reference():
 
 FITS = {"cohort9": (9, 1, None),
         "cohort6_mixed_m": (6, 2, np.asarray([1.5, 2.0, 2.5, 3.0, 1.7, 2.2],
-                                             np.float32))}
+                                             np.float32)),
+        "kdd99_12": (12, 3, None)}
+# The KDD99-width case (the paper's d = 41, C = 23, m = 1.2; chip_smoke's
+# tenants_kdd99 cohort at a small size): 12 tenants of 24-60 consecutive
+# records of one make_kdd_like array (24: C distinct seeds and one more).
+# With about two records a center, m = 1.2 leaves centers that f32 does
+# not fix: two f32 fits part within a few sweeps (an ulp in one d² decides
+# which of two near-coincident centers takes a record), so the fit is
+# compared as a trajectory, step-locked: each of KDD_SWEEPS sweeps runs
+# both packages' fit (ε < 0, one sweep) from the reference's centers of
+# the step before, injected as the seeds.  A step is held on the tenants
+# whose reference step f32 fixes (its fits of the records scaled by
+# 1 ± 2⁻²² land within test_tenant.py's 1e-4 of it), at least two thirds
+# of them: centers within KDD_CENTER_TOL (absolute and relative) and the
+# float64 objective within KDD_OBJ_RTOL, three times test_tenant.py's
+# bars, since one sweep at m = 1.2 moves a membership by 1/(m − 1) = 5
+# times the relative rounding of its d² (about 2e-6 here, ‖x‖² ≈ 680);
+# the f32 q to the expansion's rounding bound.
+KDD_SWEEPS = 6
+KDD_CENTER_TOL, KDD_OBJ_RTOL = 3e-4, 3e-5
+
+
+def _kdd_cohort(t, seed):
+    rng = np.random.default_rng(seed)
+    sizes = rng.integers(24, 61, size=t)
+    x = synth.make_kdd_like(int(sizes.sum()), seed=seed)[0]
+    return {f"h{i}": part for i, part in
+            enumerate(np.split(x, np.cumsum(sizes)[:-1]))}
+
+
+def _fit_from(fit, module, data, cfg, v, monkeypatch, **kw):
+    """``fit`` (either package's `fit_tenants` or `fit_tenants_looped`)
+    with ``v`` as every tenant's seeds."""
+    monkeypatch.setattr(module, "seed_centers", lambda xs, cfg: v.copy())
+    try:
+        return fit(data, cfg, **kw)
+    finally:
+        monkeypatch.undo()
+
+
+def _hold_kdd_trajectory(data, t, looped, monkeypatch):
+    """The KDD99-width case's step-locked hold (the note above)."""
+    import repro.tenant.fit as ref_fit
+    import repro_torch.tenant.fit as port_fit
+    port = T.fit_tenants_looped if looped else T.fit_tenants
+    ref = R.fit_tenants_looped if looped else R.fit_tenants
+    kw = dict(n_clusters=23, m=1.2, seed=11, eps=-1.0, max_iter=1)
+    _, xs = normalize_tenant_data(data)
+    v = T.seed_centers(xs, T.TenantFitConfig(**kw))
+    assert np.array_equal(v, R.seed_centers(xs, R.TenantFitConfig(**kw)))
+    ms = _ms(1.2, t)
+    rcfg = R.TenantFitConfig(backend="jnp", **kw)
+    for _ in range(KDD_SWEEPS):
+        want = _fit_from(ref, ref_fit, data, rcfg, v, monkeypatch)
+        got = _fit_from(port, port_fit, data,
+                        T.TenantFitConfig(backend="torch", **kw), v,
+                        monkeypatch, device="cpu")
+        assert got.ids == want.ids and got.centers.dtype == np.float32
+        assert np.all(got.n_iter == 1) and np.all(want.n_iter == 1)
+        fixed = np.ones(t, bool)
+        for sign in (1, -1):
+            nudged = {k: x * np.float32(1 + sign * 2.0 ** -22)
+                      for k, x in data.items()}
+            n = _fit_from(ref, ref_fit, nudged, rcfg, v, monkeypatch)
+            fixed &= np.all(np.abs(n.centers - want.centers)
+                            <= 1e-4 + 1e-4 * np.abs(want.centers),
+                            axis=(1, 2))
+        assert 3 * fixed.sum() >= 2 * t, fixed
+        np.testing.assert_allclose(got.centers[fixed], want.centers[fixed],
+                                   rtol=KDD_CENTER_TOL, atol=KDD_CENTER_TOL)
+        jg = _objective64(xs, got.centers, ms)
+        jw = _objective64(xs, want.centers, ms)
+        assert np.all((np.abs(jg - jw) <= KDD_OBJ_RTOL * np.abs(jw))[fixed])
+        qg = np.asarray(got.objective, np.float64)
+        qw = np.asarray(want.objective, np.float64)
+        bound = 1e-5 * np.abs(qw) + _q_bound(xs, want.centers)
+        assert np.all((np.abs(qg - qw) <= bound)[fixed]), (qg, qw, bound)
+        v = want.centers
 
 
 @pytest.mark.parametrize("looped", [False, True])
 @pytest.mark.parametrize("case", sorted(FITS))
-def test_fit_tenants_matches_reference(case, looped):
+def test_fit_tenants_matches_reference(case, looped, monkeypatch):
     t, seed, m_t = FITS[case]
-    data = _cohort(t, seed=seed)
-    kw = dict(n_clusters=3, seed=11)
     port = T.fit_tenants_looped if looped else T.fit_tenants
     ref = R.fit_tenants_looped if looped else R.fit_tenants
     port_launches = port_obs.counter("tenant.fit.launches")
     ref_launches = ref_obs.counter("tenant.fit.launches")
+    if case.startswith("kdd99"):
+        data = _kdd_cohort(t, seed)
+        before = (port_launches.value, ref_launches.value)
+        _hold_kdd_trajectory(data, t, looped, monkeypatch)
+        # a dispatch per fit (per tenant looped): the port's step; the
+        # reference's step and its two nudged twins
+        launched = (port_launches.value - before[0],
+                    ref_launches.value - before[1])
+        per = t if looped else 1
+        assert launched == (KDD_SWEEPS * per, 3 * KDD_SWEEPS * per)
+        return
+    data = _cohort(t, seed=seed)
+    kw = dict(n_clusters=3, seed=11)
     before = (port_launches.value, ref_launches.value)
     got = port(data, T.TenantFitConfig(backend="torch", **kw), m_t=m_t,
                device="cpu")
