@@ -70,9 +70,8 @@ Phases, each printed as JSON lines; any failure raises and exits non-zero:
    draws (`hold_router_fits`); the ``router_init`` record holds every
    layer's router equal to (v/‖v‖)ᵀ of the fit and prints x·w's top-1
    agreement with `hard_assign` (m = 2 flattens the centers at d =
-   2048); then seeds the routers from tests/test_integration.py:23's
-   embedding table at OLMoE's full width (50,304 × 2048 blobs, spread
-   0.1, sep 2.0) and holds that agreement above 0.9; each shape held and timed, the
+   2048; the agreement is held on the embedding table that ``lm_moe``
+   seeds its routers from); each shape held and timed, the
    contraction's ``torch.matmul`` timed as its yardstick.  The HIGGS- and
    KDD99-like records print `kernel_roofline` of ``hopper`` at full size,
    its `sweep_bytes` held equal to `bound_bytes`.
@@ -205,7 +204,43 @@ Phases, each printed as JSON lines; any failure raises and exits non-zero:
    fit at `curriculum_buckets`' default m = 2 (the phase runs m = 1.2);
    K1/K2 at each of its shapes held against their plain versions and
    timed.
-8. the kernels line (one entry per kernel), the ``nvidia-smi`` line,
+8. LM families — four published configs at full width and depth, bf16
+   weights from `tree_init` on the card from ``--seed``, each served
+   through `greedy_generate` and its loop timed call by call (prefill
+   ms, decode ms per token, tokens/s, peak device memory, the decode
+   step's bytes bound over the probed HBM peak and its share, one more
+   step under `torch.profiler`: card time, kernels, top ops), each model
+   freed before the next; every one also holds its `reduced()` config's
+   card forward against the CPU's (f32 and bf16).
+   ``lm_moe``: OLMoE-1B-7B (16 layers, d 2048, 64 experts top-8, cf
+   1.25, 6.92 B parameters), its embedding table the blob table of
+   tests/test_integration.py:23 (50,304 × 2048, spread 0.1, sep 2.0),
+   its routers seeded by `fcm_router_init` on the module from that
+   table's fit on backend ``hopper`` (every launch C-tiled, counts zeroed
+   just before; its launches join the kernels line), held: every router
+   (v/‖v‖)ᵀ of the fit, layer 0's top-1 agreement with `hard_assign`
+   above 0.9; 8 prompts × 2048 tokens, 64 new, a 4096-slot cache;
+   printed from a tapped prefill and decode: pairs dropped per layer and
+   the router load with the seeded and the unseeded routers, the distinct
+   experts a step routes to (the bound counts those experts' weights,
+   attention, head, B embedding rows and the whole cache); held: in f32
+   (TF32 off) at cf = E/k (no drops) decode with the cache against one
+   forward over the 2048 + 64 tokens at rtol 5e-3 / atol 5e-4, tokens
+   near a routing tie exempt and counted; card vs CPU with identical
+   expert choices and drops in f32.  ``lm_ssm`` / ``lm_hybrid``:
+   Mamba2-2.7B (64 layers, d 2560, 80 heads of 64, state 128, chunk 256,
+   vocab 50,280 padded to 50,304) and Zamba2-7B (13 × (5 mamba + shared
+   attention) + 3, d 3584); the same prompts; held: the padded vocabulary
+   columns at −1e30, `ssd_chunked` at a full-width layer's shapes
+   against the float64 recurrence (2e-4), in f32 decode (1792-token
+   prefill, then 256 steps) against one forward over 2048 tokens on the
+   first SSM_HOLD_LAYERS layers (the full depth's gap printed), the
+   hybrid's shared attention one parameter set called by all 13 periods.
+   ``lm_encdec``: Whisper-medium (24 + 24 layers, d 1024) over 8 × 1500
+   stub frame embeddings from ``--seed``, 4 prompt tokens, 64 new, a
+   448-slot cache, the encoder timed apart; held: in f32 decode against
+   one decoder forward over the 68 tokens.
+9. the kernels line (one entry per kernel), the ``nvidia-smi`` line,
    and the final ``{"ok": true, ...}`` line.
 
 Launches are priced at their own shapes.  Each wrapper counts its
@@ -282,7 +317,8 @@ EXPECTED_PATH = {"higgs_like": "rows", "kdd99_like": "tile",
                  "tenants_kdd99": "tile",
                  "kdd99_stream": "tile", "drift_global": "tile",
                  "drift_split": "tile", "drift_event": "tile",
-                 "router_fit": "ctiled", "curriculum": "wide"}
+                 "router_fit": "ctiled", "curriculum": "wide",
+                 "lm_moe": "ctiled"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -1071,41 +1107,32 @@ def run_router_fit(seed: int, device, reps: int):
              rng.choice(lam, ROUTER_C, replace=False))
     record["hold"] = hold_router_fits(x, ones, cfg, draws, device)
     emit(record)
-    from repro_torch.data.synth import make_blobs
-    tab, _ = make_blobs(moe_cfg.vocab_padded, moe_cfg.d_model,
-                        moe_cfg.n_experts, spread=ROUTER_TABLE_SPREAD,
-                        sep=ROUTER_TABLE_SEP, seed=seed + 3)
-    tab = torch.from_numpy(tab).to(device)
-    synchronize(device)
-    t0 = time.perf_counter()
-    from_table, tab_res = fcm_router_init(tree, moe_cfg, tab, fcm_cfg=cfg,
-                                          device=device)
-    synchronize(device)
-    tab_s = time.perf_counter() - t0
-    tdiag = tab_res.diagnostics
     emit({"phase": "router_init", "arch": "olmoe-1b-7b",
-          "agreement_bar": ROUTER_AGREE,
-          "router_fit": hold_router_init(tree, seeded, res.centers, x,
-                                         False),
-          "embed_table": {
-              **hold_router_init(tree, from_table, tab_res.centers, tab,
-                                 True),
-              "rows": int(tab.shape[0]), "spread": ROUTER_TABLE_SPREAD,
-              "sep": ROUTER_TABLE_SEP, "wall_s": tab_s, "flag": tdiag.flag,
-              "iters": list(tdiag.combiner_iters) + [tdiag.reducer_iters]}})
-    del tree, seeded, from_table, tab
-
-    cases = {"full": (x, ones, res.centers, 0.0)}
-    for ns in sorted({k[1] for shapes in by_shape.values() for k in shapes}
-                     - {ROUTER_N}):
-        xs = x[:ns]
-        cases[f"n={ns}"] = (xs, ones[:ns], res.centers,
-                            q_rounding_bound(xs, ones[:ns], res.centers))
-    entries = shape_entries("router_fit", cases, by_shape, ROUTER_D,
-                            cfg.m, device, reps)
+          "router_fit": hold_router_init(tree, seeded, res.centers, x),
+          "embed_table": "fit and held in lm_moe, on the served model"})
+    del tree, seeded
+    entries = fit_entries("router_fit", x, ones, res.centers, by_shape,
+                          cfg.m, device, reps)
     del x
     torch.cuda.empty_cache()
     return entries
+
+
+def fit_entries(run_name, x, ones, centers, by_shape, m, device, reps):
+    """`shape_entries` of a fit over all of x: the full shape, and every
+    other N the fit launched a kernel at (x's first N rows; past x's own
+    N, x with WFCMPB's zero-weight phantom rows of zeros)."""
+    import torch
+    cases = {"full": (x, ones, centers, 0.0)}
+    for ns in sorted({k[1] for shapes in by_shape.values() for k in shapes}
+                     - {x.shape[0]}):
+        pad = max(0, ns - x.shape[0])
+        xs = torch.cat([x[:ns], x.new_zeros((pad, x.shape[1]))])
+        ws = torch.cat([ones[:ns], ones.new_zeros((pad,))])
+        cases[f"n={ns}"] = (xs, ws, centers, q_rounding_bound(xs, ws,
+                                                              centers))
+    return shape_entries(run_name, cases, by_shape, x.shape[1], m, device,
+                         reps)
 
 
 ROUTER_DSPLIT_N = (2 * ROUTER_C, BLOCK_SIZE)   # WFCMPB's merges and blocks
@@ -1115,7 +1142,8 @@ ROUTER_AGREE = 0.9      # top-1 routing vs hard_assign (tests/test_integration.p
 # unit centers and hard assignment to them part ways: that agreement is
 # printed.  It is held where tests/test_integration.py:23 holds it, on
 # that test's embedding table (make_blobs(vocab_padded, d_model,
-# n_experts, spread 0.1, sep 2.0)) made at OLMoE's full width.
+# n_experts, spread 0.1, sep 2.0)) made at OLMoE's full width: lm_moe
+# serves with it as the embedding table and its fit's routers.
 ROUTER_TABLE_SPREAD, ROUTER_TABLE_SEP = 0.1, 2.0
 
 
@@ -1142,11 +1170,11 @@ def olmoe_router_tree(seed, device):
     return cfg, tree_init(gen, decl, torch_dtype(cfg.param_dtype), device)
 
 
-def hold_router_init(tree, seeded, centers, x, hold_agreement) -> dict:
+def hold_router_init(tree, seeded, centers, x) -> dict:
     """Every layer's router of `fcm_router_init`'s tree equals (v/‖v‖)ᵀ of
     the fit in the leaf's own dtype, shape and device, the input tree
     untouched; and the share of rows where the top-1 choice of x·w is
-    `hard_assign`'s, held above ROUTER_AGREE if ``hold_agreement``."""
+    `hard_assign`'s, printed (`lm_moe` holds it on its table)."""
     import torch
     from repro_torch.core import hard_assign
     before = tree["stages"][0]["moe"]["w_router"]
@@ -1166,13 +1194,10 @@ def hold_router_init(tree, seeded, centers, x, hold_agreement) -> dict:
         agree += int(((xs @ w[0].float()).argmax(1)
                       == hard_assign(xs, centers)).sum())
     agree /= x.shape[0]
-    if hold_agreement and agree <= ROUTER_AGREE:
-        raise AssertionError(f"router_init: top-1 agreement {agree} <= "
-                             f"{ROUTER_AGREE}")
     norms = torch.linalg.norm(centers, dim=-1)
     return {"w_router": list(w.shape), "dtype": str(w.dtype).split(".")[-1],
             "layers_equal_unit_centers": w.shape[0],
-            "top1_agreement": agree, "agreement_held": hold_agreement,
+            "top1_agreement": agree,
             "center_norms": [float(norms.min()), float(norms.max())]}
 
 
@@ -4776,12 +4801,13 @@ def lm_step_bytes(model, cfg) -> int:
     return weights + cache
 
 
-def timed_generate(cfg, model, batch, device):
+def timed_generate(cfg, model, batch, device, max_len=LM_MAX_LEN,
+                   new=LM_NEW):
     """`greedy_generate`'s loop with each call timed to a synchronize:
-    (tokens, prefill logits, prefill ms, per-step ms)."""
+    (tokens, prefill logits, prefill ms, per-step ms, the last caches)."""
     import torch
     from repro_torch.serve import make_prefill, make_serve_step
-    prefill, step = make_prefill(cfg, LM_MAX_LEN), make_serve_step(cfg)
+    prefill, step = make_prefill(cfg, max_len), make_serve_step(cfg)
     torch.cuda.synchronize(device)
     t0 = time.perf_counter()
     logits, caches = prefill(model, batch)
@@ -4789,13 +4815,13 @@ def timed_generate(cfg, model, batch, device):
     torch.cuda.synchronize(device)
     prefill_ms = (time.perf_counter() - t0) * 1e3
     out, steps = [tok], []
-    for _ in range(LM_NEW - 1):
+    for _ in range(new - 1):
         t0 = time.perf_counter()
         tok, caches = step(model, caches, tok)
         torch.cuda.synchronize(device)
         steps.append((time.perf_counter() - t0) * 1e3)
         out.append(tok)
-    return torch.cat(out, dim=1), logits, prefill_ms, steps
+    return torch.cat(out, dim=1), logits, prefill_ms, steps, caches
 
 
 def hold_lm_f32(model, cfg, prompt, toks, lg_bf16, device) -> dict:
@@ -4806,14 +4832,8 @@ def hold_lm_f32(model, cfg, prompt, toks, lg_bf16, device) -> dict:
     not held: the f32 prefill logits against the bf16 ones, and the f32
     greedy choice at each of the 64 steps against the bf16 run's."""
     import torch
-    from repro_torch.models import DecoderLM
     from repro_torch.models.transformer import init_caches, logits_fn
-    torch.backends.cuda.matmul.allow_tf32 = False
-    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
-                                compute_dtype="float32")
-    m32 = DecoderLM(cfg32, device=device)
-    m32.load_state_dict({k: v.float() for k, v in model.state_dict().items()},
-                        assign=True)
+    cfg32, m32 = f32_twin(model, cfg, device)
     t0 = time.perf_counter()
     with torch.inference_mode():
         h_full = m32(torch.cat([prompt, toks], dim=1))[:, LM_PROMPT - 1:]
@@ -4848,55 +4868,13 @@ def hold_lm_f32(model, cfg, prompt, toks, lg_bf16, device) -> dict:
 
 
 def hold_lm_cpu(seed, device) -> dict:
-    """The port's card forward against its CPU forward for a `reduced()`
-    qwen2 with the same parameters, full attention and KV blocks of 16
-    (the online softmax), hidden states and logits: in f32 at
-    LM_CPU_RTOL / LM_CPU_ATOL; in bf16 (the served dtypes, where
-    `_bmm_f32` takes its ``out_dtype`` branch on the card and its upcast
-    on the CPU) within LM_CPU_BF16_REL of the largest value, the share
-    of bit-equal values printed.  Then `hold_bmm_f32`."""
-    import numpy as np
-    import torch
-    from repro_torch.configs import get_config, reduced
-    from repro_torch.models import DecoderLM
-    from repro_torch.models.transformer import logits_fn
-    out, bf16 = {}, {}
-    for dtype in ("float32", "bfloat16"):
-        for chunk in (0, 16):
-            cfg = dataclasses.replace(reduced(get_config(LM_ARCH)),
-                                      attn_chunk=chunk, param_dtype=dtype,
-                                      compute_dtype=dtype)
-            cpu = DecoderLM(cfg, torch.Generator().manual_seed(seed),
-                            device="cpu")
-            card = DecoderLM(cfg, device=device)
-            card.load_state_dict(cpu.state_dict())
-            tok = torch.from_numpy(np.random.default_rng(seed).integers(
-                0, cfg.vocab, (4, 64)))
-            with torch.inference_mode():
-                h_cpu, h_card = cpu(tok), card(tok.to(device))
-                got = (h_card, logits_fn(cfg, card, h_card))
-                want = (h_cpu.to(device),
-                        logits_fn(cfg, cpu, h_cpu).to(device))
-            what = f"lm_serve: card vs CPU, reduced {LM_ARCH}, chunk {chunk}"
-            if dtype == "float32":
-                out[f"attn_chunk={chunk}"] = max_err(
-                    got, want, LM_CPU_RTOL, LM_CPU_ATOL, what)
-                continue
-            rec = {}
-            for name, g, w in zip(("hidden", "logits"), got, want):
-                if g.dtype != torch.bfloat16:
-                    raise AssertionError(f"{what}: {name} is {g.dtype}")
-                g, w = g.float(), w.float()
-                err, scale = float((g - w).abs().max()), float(w.abs().max())
-                rec[name] = {"max_abs_err": err, "scale": scale,
-                             "bit_equal": float((g == w).float().mean())}
-                if not err <= LM_CPU_BF16_REL * scale:
-                    raise AssertionError(f"{what}, bf16: {name} {rec}")
-            bf16[f"attn_chunk={chunk}"] = rec
-    return {"card_vs_cpu_max_abs_err": out, "rtol": LM_CPU_RTOL,
-            "atol": LM_CPU_ATOL, "bf16": bf16,
-            "bf16_rel_bar": LM_CPU_BF16_REL,
-            "bmm_f32": hold_bmm_f32(seed, device)}
+    """`hold_family_cpu` for a `reduced()` qwen2 with full attention and
+    with KV blocks of 16 (the online softmax; in bf16 `_bmm_f32` takes
+    its ``out_dtype`` branch on the card and its upcast on the CPU), then
+    `hold_bmm_f32`."""
+    rec = {f"attn_chunk={c}": hold_family_cpu(LM_ARCH, seed, device,
+                                              attn_chunk=c) for c in (0, 16)}
+    return {**rec, "bmm_f32": hold_bmm_f32(seed, device)}
 
 
 def hold_bmm_f32(seed, device) -> dict:
@@ -4943,18 +4921,14 @@ def hold_bmm_f32(seed, device) -> dict:
 def run_lm_serve(seed: int, device):
     """Phase ``lm_serve``: Qwen2-1.5B at its full published width and
     depth (the 4 padded Q heads masked dead), weights from `tree_init`
-    on the card, `greedy_generate` in bf16 for LM_BATCH prompts of
-    LM_PROMPT tokens, LM_NEW new tokens, a LM_MAX_LEN cache; then the
-    same loop timed call by call (held token for token against
-    `greedy_generate`); the f32 decode-vs-forward hold
-    (`hold_lm_f32`) and the card-vs-CPU hold (`hold_lm_cpu`).  Emits
-    the record; returns (model, config): `run_curriculum` embeds with its
-    table."""
-    import numpy as np
+    on the card, served in bf16 by `serve_family` (LM_BATCH prompts of
+    LM_PROMPT tokens, LM_NEW new tokens, a LM_MAX_LEN cache); the f32
+    decode-vs-forward hold (`hold_lm_f32`) and the card-vs-CPU hold
+    (`hold_lm_cpu`).  Emits the record; returns (model, config):
+    `run_curriculum` embeds with its table."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import DecoderLM
-    from repro_torch.serve import greedy_generate
 
     t_phase = time.perf_counter()
     cfg = get_config(LM_ARCH)
@@ -4968,53 +4942,19 @@ def run_lm_serve(seed: int, device):
                       device=device)
     torch.cuda.synchronize(device)
     init_s = time.perf_counter() - t0
-    n_params = sum(p.numel() for p in model.parameters())
-    prompt = torch.from_numpy(np.random.default_rng(seed).integers(
-        0, cfg.vocab, (LM_BATCH, LM_PROMPT)).astype(np.int32)).to(device)
-    batch = {"tokens": prompt}
-
-    torch.cuda.synchronize(device)
-    torch.cuda.reset_peak_memory_stats(device)
-    base = torch.cuda.memory_allocated(device)
-    t0 = time.perf_counter()
-    toks = greedy_generate(cfg, model, batch, max_new=LM_NEW,
-                           max_len=LM_MAX_LEN, device=device)
-    torch.cuda.synchronize(device)
-    first_s = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated(device)
-    if toks.shape != (LM_BATCH, LM_NEW) or toks.dtype != torch.int32 or \
-            not bool(((toks >= 0) & (toks < cfg.vocab)).all()):
-        raise AssertionError(f"lm_serve: tokens {tuple(toks.shape)} "
-                             f"{toks.dtype} outside [0, {cfg.vocab})")
-    timed, lg_bf16, prefill_ms, steps = timed_generate(cfg, model, batch,
-                                                       device)
-    if not torch.equal(timed, toks):
-        raise AssertionError("lm_serve: the timed loop's tokens differ "
-                             "from greedy_generate's")
-    if not bool(torch.isfinite(lg_bf16.float()).all()):
-        raise AssertionError("lm_serve: non-finite prefill logits")
-    step_ms = float(np.median(steps))
-    nbytes = lm_step_bytes(model, cfg)
-    bound_ms = [nbytes / r * 1e3 for r in HBM_PEAK_BYTES_PER_S]
-    loop_s = (prefill_ms + sum(steps)) / 1e3
+    prompt = fam_prompt(cfg, seed).to(device)
+    rec, toks, lg_bf16, steps, caches = serve_family(
+        "lm_serve", cfg, model, {"tokens": prompt}, LM_MAX_LEN, LM_NEW,
+        device)
+    del caches
+    rec.update(bound_fields(lm_step_bytes(model, cfg),
+                            rec["decode_ms_per_token"]))
     rec = {"phase": "lm_serve", "arch": LM_ARCH, "dtype": "bfloat16",
-           "n_params": n_params, "layers": cfg.n_layers,
-           "d_model": cfg.d_model, "heads": [cfg.n_heads,
-                                             cfg.n_heads_padded],
+           "n_params": sum(p.numel() for p in model.parameters()),
+           "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "heads": [cfg.n_heads, cfg.n_heads_padded],
            "kv_heads": cfg.n_kv_heads, "d_ff": cfg.d_ff, "vocab": cfg.vocab,
-           "batch": LM_BATCH, "prompt": LM_PROMPT, "new_tokens": LM_NEW,
-           "max_len": LM_MAX_LEN, "attn_chunk": cfg.attn_chunk,
-           "init_s": init_s, "first_generate_s": first_s,
-           "prefill_ms": prefill_ms, "decode_ms_per_token": step_ms,
-           "decode_ms_p10_p90": [float(np.percentile(steps, 10)),
-                                 float(np.percentile(steps, 90))],
-           "tokens_per_s": LM_BATCH * LM_NEW / loop_s,
-           "decode_tokens_per_s": LM_BATCH / (step_ms / 1e3),
-           "peak_device_bytes": peak, "resident_bytes_before": base,
-           "decode_step_bytes": nbytes,
-           "decode_bound_ms": bound_ms,
-           "decode_bound_share": [b / step_ms for b in bound_ms],
-           "tokens_head": toks[0, :8].tolist()}
+           "attn_chunk": cfg.attn_chunk, "init_s": init_s, **rec}
     rec["f32"] = hold_lm_f32(model, cfg, prompt, toks, lg_bf16, device)
     rec["cpu"] = hold_lm_cpu(seed, device)
     rec["seconds"] = time.perf_counter() - t_phase
@@ -5221,6 +5161,811 @@ def run_curriculum(model, lm_cfg, seed: int, device, reps: int) -> list:
     return entries
 
 
+# lm_moe / lm_ssm / lm_hybrid / lm_encdec: the other LM families at their
+# published configs (src/repro_torch/configs/), random bf16 weights from
+# `tree_init` on the card from --seed, greedy serving through
+# `greedy_generate`.  Each phase frees its model before the next.
+FAM_PUBLISHED = {
+    "olmoe-1b-7b": dict(n_layers=16, d_model=2048, n_heads=16, n_kv_heads=16,
+                        d_ff=1024, vocab=50304, n_experts=64, top_k=8,
+                        capacity_factor=1.25, tie_embeddings=False),
+    "mamba2-2.7b": dict(n_layers=64, d_model=2560, ssm_expand=2,
+                        ssm_head_dim=64, ssm_state=128, ssm_chunk=256,
+                        vocab=50280, vocab_padded=50304),
+    "zamba2-7b": dict(n_layers=81, d_model=3584, n_heads=32, n_kv_heads=32,
+                      d_ff=14336, attn_period=5, ssm_state=64,
+                      ssm_head_dim=64, vocab=32000),
+    "whisper-medium": dict(n_layers=24, n_enc_layers=24, d_model=1024,
+                           n_heads=16, d_ff=4096, act="gelu",
+                           norm="layernorm", pos="learned",
+                           tie_embeddings=True, n_frames=1500,
+                           max_target_positions=448, vocab=51865),
+}
+FAM_N_PARAMS = {"olmoe-1b-7b": 6_919_096_320, "mamba2-2.7b": 2_831_418_880,
+                "zamba2-7b": 5_737_416_000, "whisper-medium": 760_102_912}
+# SSM holds: decode against one forward over whole SSD chunks (the
+# reference asserts S % 256 == 0 past one chunk): a 1792-token prefill,
+# then the prompt's next 256 tokens one at a time.
+SSM_HOLD_PROMPT, SSM_HOLD_STEPS = 1792, 256
+SSD_TOL = 2e-4                  # tests/test_mamba.py
+ENC_PROMPT, ENC_MAX_LEN = 4, 448    # whisper: 4 prompt tokens, 448 slots
+# A token whose k-th and (k+1)-th router probabilities lie within this
+# (relative) of each other, but are not equal, routes by rounding:
+# exempt, and counted.  Equal ones (duplicate router columns) go to the
+# lower expert on every path.
+MOE_TIE_REL = 1e-6
+# The SSM holds' depth: decode against forward in f32 at LM_RTOL /
+# LM_ATOL on the served model's first layers (full width).  The SSD's f32
+# gap between its chunked and recurrent forms grows with depth in both
+# packages (scripts/ssm_depth_witness.py, on the CPU at chunk 256: the
+# reference's own keeps the bar at 16 layers and misses it at 64); the
+# full depth's gap is printed beside it.
+SSM_HOLD_LAYERS = {"mamba2-2.7b": 16, "zamba2-7b": 15}   # zamba2: 2 × 6 + 3
+
+
+def fam_model(arch, seed, device):
+    """(config, model) of ``arch``'s published config, bf16 weights from
+    `tree_init` on the card; fails unless the shapes and the parameter
+    count are the published ones."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import DecoderLM, EncDecLM
+    cfg = get_config(arch)
+    got = {k: getattr(cfg, k) for k in FAM_PUBLISHED[arch]}
+    if got != FAM_PUBLISHED[arch]:
+        raise AssertionError(f"{arch}: {got} is not the published "
+                             f"{FAM_PUBLISHED[arch]}")
+    cls = EncDecLM if cfg.family == "encdec" else DecoderLM
+    model = cls(cfg, torch.Generator(device=device).manual_seed(seed),
+                device=device)
+    n = sum(p.numel() for p in model.parameters())
+    if n != FAM_N_PARAMS[arch]:
+        raise AssertionError(f"{arch}: {n} parameters, not "
+                             f"{FAM_N_PARAMS[arch]}")
+    return cfg, model
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def fam_prompt(cfg, seed, batch=None, length=None):
+    """(batch, length) int32 token ids from ``seed``, LM_BATCH ×
+    LM_PROMPT by default."""
+    import numpy as np
+    import torch
+    shape = (batch or LM_BATCH, length or LM_PROMPT)
+    return torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab, shape).astype(np.int32))
+
+
+def serve_family(name, cfg, model, batch, max_len, new, device) -> tuple:
+    """`greedy_generate` once (cold; peak device memory around it), then
+    `timed_generate`'s loop held token for token against it, then one
+    more step profiled (`profile_step`).  Returns (record fields,
+    tokens, prefill logits, per-step ms, caches)."""
+    import numpy as np
+    import torch
+    from repro_torch.serve import greedy_generate, make_serve_step
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    base = torch.cuda.memory_allocated(device)
+    t0 = time.perf_counter()
+    toks = greedy_generate(cfg, model, batch, max_new=new, max_len=max_len,
+                           device=device)
+    torch.cuda.synchronize(device)
+    first_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(device)
+    b = batch["tokens"].shape[0]
+    if toks.shape != (b, new) or toks.dtype != torch.int32 or \
+            not bool(((toks >= 0) & (toks < cfg.vocab)).all()):
+        raise AssertionError(f"{name}: tokens {tuple(toks.shape)} "
+                             f"{toks.dtype} outside [0, {cfg.vocab})")
+    timed, lg, prefill_ms, steps, caches = timed_generate(
+        cfg, model, batch, device, max_len=max_len, new=new)
+    if not torch.equal(timed, toks):
+        raise AssertionError(f"{name}: the timed loop's tokens differ "
+                             f"from greedy_generate's")
+    live = lg[..., :cfg.vocab].float()
+    if not bool(torch.isfinite(live).all()):
+        raise AssertionError(f"{name}: non-finite prefill logits")
+    if cfg.vocab_padded != cfg.vocab and not bool(
+            (lg[..., cfg.vocab:] == torch.tensor(-1e30, dtype=lg.dtype))
+            .all()):
+        raise AssertionError(f"{name}: padded vocabulary columns are not "
+                             f"-1e30")
+    step_ms = float(np.median(steps))
+    loop_s = (prefill_ms + sum(steps)) / 1e3
+    step = make_serve_step(cfg)
+    prof = profile_step(lambda: step(model, caches, toks[:, -1:]), device)
+    return ({"batch": b, "prompt": int(batch["tokens"].shape[1]),
+             "new_tokens": new, "max_len": max_len,
+             "first_generate_s": first_s, "prefill_ms": prefill_ms,
+             "decode_ms_per_token": step_ms,
+             "decode_ms_p10_p90": [float(np.percentile(steps, 10)),
+                                   float(np.percentile(steps, 90))],
+             "tokens_per_s": b * new / loop_s,
+             "decode_tokens_per_s": b / (step_ms / 1e3),
+             "peak_device_bytes": peak, "resident_bytes_before": base,
+             "vocab_pad_masked": cfg.vocab_padded != cfg.vocab,
+             "decode_step_profile": prof,
+             "tokens_head": toks[0, :8].tolist()}, toks, lg, steps, caches)
+
+
+def profile_step(step, device) -> dict:
+    """One decode step under `torch.profiler` (host and card): its wall
+    to a synchronize, the card's kernel time summed, the kernels
+    launched, and the six ops with the most card time.  The profiler
+    adds host time, so the idle share is an upper bound."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    step()                                  # warm: the profiler's own set-up
+    torch.cuda.synchronize(device)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize(device)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0))
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.device_time for e in kernels) / 1e3 if kernels else 0.0
+    top = sorted(prof.key_averages(), key=dev_us, reverse=True)[:6]
+    if not kernels:
+        return {"wall_ms": wall_ms, "device_ms": "not measured"}
+    return {"wall_ms": wall_ms, "device_ms": busy_ms,
+            "idle_share_at_most": 1 - busy_ms / wall_ms,
+            "kernels": len(kernels),
+            "top_ops_device_ms": [[e.key, dev_us(e) / 1e3, e.count]
+                                  for e in top]}
+
+
+def bound_fields(step_bytes, step_ms) -> dict:
+    """The decode step's bytes bound over the probed HBM peaks, and its
+    share of the measured step."""
+    bound_ms = [step_bytes / r * 1e3 for r in HBM_PEAK_BYTES_PER_S]
+    return {"decode_step_bytes": step_bytes, "decode_bound_ms": bound_ms,
+            "decode_bound_share": [b / step_ms for b in bound_ms]}
+
+
+def f32_twin(model, cfg, device, **changes):
+    """The same weights cast to f32 in a model of the f32 config (with
+    ``changes``); IEEE f32 products (TF32 off)."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                compute_dtype="float32", **changes)
+    m32 = type(model)(cfg32, device=device)
+    m32.load_state_dict({k: v.float() for k, v in model.state_dict().items()},
+                        assign=True)
+    return cfg32, m32
+
+
+def hold_decode_vs_forward(name, cfg32, m32, prompt, cont, device,
+                           exempt=None, hold=True) -> dict:
+    """A decoder in f32: cached prefill of ``prompt`` (B, P), then
+    ``cont`` (B, n) one token at a time, against one forward over all P
+    + n tokens, on the hidden states of positions P − 1 … P + n − 1 at
+    LM_RTOL / LM_ATOL (printed only, unless ``hold``).  ``exempt`` (B,
+    P + n) bool, if given, leaves positions out (near-tied routing)."""
+    import torch
+    from repro_torch.models.transformer import init_caches
+    b, p = prompt.shape
+    n = cont.shape[1]
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        h_full = m32(torch.cat([prompt, cont], dim=1))[:, p - 1:]
+        caches = init_caches(cfg32, b, p + n, torch.float32, device)
+        h_pre, caches = m32(prompt, caches=caches)
+        outs = [h_pre[:, -1]]
+        for t in range(n):
+            h_t, caches = m32(cont[:, t:t + 1], caches=caches)
+            outs.append(h_t[:, 0])
+        h_dec = torch.stack(outs, dim=1)
+    torch.cuda.synchronize(device)
+    held = None
+    if exempt is not None:
+        keep = ~exempt[:, p - 1:].to(device)
+        held = int(keep.sum())
+        h_dec, h_full = h_dec[keep], h_full[keep]
+    over = (h_dec - h_full).abs() - (LM_ATOL + LM_RTOL * h_full.abs())
+    if hold:
+        max_err((h_dec,), (h_full,), LM_RTOL, LM_ATOL,
+                f"{name}: f32 decode vs forward, {cfg32.n_layers} layers")
+    rec = {"layers": cfg32.n_layers, "held": hold,
+           "decode_vs_forward_max_abs_err": float(
+               (h_dec - h_full).abs().max()),
+           "within_bar": not bool((over > 0).any()),
+           "values_past_bar": int((over > 0).sum()), "rtol": LM_RTOL,
+           "atol": LM_ATOL, "positions": [p - 1, p + n - 1],
+           "hidden_scale": float(h_full.abs().max()),
+           "seconds": time.perf_counter() - t0}
+    if held is not None:
+        rec["positions_held"] = held
+        rec["positions_exempt_near_tie"] = int(exempt[:, p - 1:].sum())
+    return rec
+
+
+class MoeTaps:
+    """Forward hooks on every MoE layer of a `DecoderLM`.  At prefill
+    (S > 1): the (token, expert) pairs dropped past capacity, and the
+    router load of the layer's own input through its routers and through
+    ``unseeded`` (the routers before seeding); at decode: the distinct
+    experts the step routes to."""
+
+    def __init__(self, model, cfg, unseeded):
+        self.cfg, self.unseeded = cfg, unseeded
+        mods = [blk.moe for stage in model.stages for blk in stage.layers
+                if "moe" in blk._modules]
+        self.dropped, self.seeded_load, self.unseeded_load = {}, {}, {}
+        self.unseeded_dropped = {}
+        self.distinct = collections.defaultdict(list)
+        self.handles = [m.register_forward_hook(self._hook(i))
+                        for i, m in enumerate(mods)]
+
+    def _hook(self, i):
+        def hook(mod, args, out):
+            import torch
+            from repro_torch.models import moe
+            x = args[0]
+            cfg = self.cfg
+            if x.shape[1] > 1:
+                old = {"w_router": self.unseeded[i]}
+                self.dropped[i] = moe.dropped_pairs(cfg, mod, x)
+                self.seeded_load[i] = moe.router_load(cfg, mod, x)
+                self.unseeded_load[i] = moe.router_load(cfg, old, x)
+                self.unseeded_dropped[i] = moe.dropped_pairs(cfg, old, x)
+            else:
+                _, eidx = moe.route(cfg, mod.w_router,
+                                    x.reshape(-1, x.shape[-1]))
+                self.distinct[i].append(int(torch.unique(eidx).numel()))
+        return hook
+
+    def remove(self):
+        for h in self.handles:
+            h.remove()
+
+
+def load_summary(load) -> dict:
+    """A layer's router load (E,): its largest share over the even share
+    (E·max/Σ), and how many experts it leaves idle."""
+    lf = load.double()
+    return {"max_over_mean": float(lf.max() * lf.numel() / lf.sum()),
+            "idle_experts": int((load == 0).sum())}
+
+
+def hold_moe_routers(model, res, tab) -> dict:
+    """Every layer's router equal to (v/‖v‖)ᵀ of the fit in bf16, and
+    layer 0's top-1 choice over the table rows against `hard_assign`,
+    held above ROUTER_AGREE."""
+    import torch
+    from repro_torch.core import hard_assign
+    v = res.centers / (torch.linalg.norm(res.centers, dim=-1, keepdim=True)
+                       + 1e-8)
+    layers = [blk.moe.w_router for blk in model.stages[0].layers]
+    want = v.T.to(layers[0].dtype)
+    if not all(torch.equal(w, want) for w in layers):
+        raise AssertionError("lm_moe: a layer's router is not (v/|v|)^T "
+                             "of the fit")
+    agree = 0
+    for r0 in range(0, tab.shape[0], 1 << 15):
+        xs = tab[r0:r0 + (1 << 15)]
+        agree += int(((xs @ layers[0].float()).argmax(1)
+                      == hard_assign(xs, res.centers)).sum())
+    agree /= tab.shape[0]
+    if agree <= ROUTER_AGREE:
+        raise AssertionError(f"lm_moe: top-1 agreement {agree} <= "
+                             f"{ROUTER_AGREE}")
+    gaps = torch.cdist(res.centers, res.centers)
+    gaps.fill_diagonal_(torch.inf)
+    return {"layers_equal_unit_centers": len(layers),
+            "top1_agreement": agree, "agreement_bar": ROUTER_AGREE,
+            "distinct_router_columns": int(torch.unique(want.T, dim=0)
+                                           .shape[0]),
+            "center_min_gap": float(gaps.min()),
+            "center_norms": [float(x) for x in torch.aminmax(
+                torch.linalg.norm(res.centers, dim=-1))]}
+
+
+def seed_moe_routers(model, cfg, seed, device, reps) -> tuple:
+    """The router_init phase's blob table (tests/test_integration.py:23
+    at OLMoE's width) becomes the embedding table; `fcm_router_init`
+    seeds every router from its fit on backend ``hopper`` (the C-tiled
+    path), launch counts zeroed just before and read after; each kernel
+    entry held and timed at the fit's shapes.  Returns (record, kernel
+    entries, table)."""
+    import torch
+    from repro_torch.data.synth import make_blobs
+    from repro_torch.device import synchronize
+    from repro_torch.integration import fcm_router_init
+    from repro_torch.kernels.fcm_update import (fcm_accumulate_cuda,
+                                                fcm_sweep_cuda, reset_counts)
+    tab, _ = make_blobs(cfg.vocab_padded, cfg.d_model, cfg.n_experts,
+                        spread=ROUTER_TABLE_SPREAD, sep=ROUTER_TABLE_SEP,
+                        seed=seed + 3)
+    tab = torch.from_numpy(tab).to(device)
+    with torch.no_grad():
+        model.embed.table.copy_(tab)
+    fcm_cfg = router_config(seed)
+    reset_counts()
+    synchronize(device)
+    t0 = time.perf_counter()
+    _, res = fcm_router_init(model, cfg, tab, fcm_cfg=fcm_cfg, device=device)
+    synchronize(device)
+    fit_s = time.perf_counter() - t0
+    launches = {"fcm_sweep": fcm_sweep_cuda.launches,
+                "fcm_accumulate": fcm_accumulate_cuda.launches}
+    by_shape = {"fcm_sweep": dict(fcm_sweep_cuda.shapes),
+                "fcm_accumulate": dict(fcm_accumulate_cuda.shapes)}
+    if launches["fcm_sweep"] == 0:
+        raise AssertionError(f"lm_moe: the fit launched no sweep: "
+                             f"{launches}")
+    check_paths("lm_moe", fcm_sweep_cuda, fcm_accumulate_cuda)
+    diag = res.diagnostics
+    rec = {"rows": int(tab.shape[0]), "spread": ROUTER_TABLE_SPREAD,
+           "sep": ROUTER_TABLE_SEP, "backend": fcm_cfg.backend,
+           "fit_s": fit_s, "flag": diag.flag,
+           "iters": list(diag.combiner_iters) + [diag.reducer_iters],
+           "launches": launches,
+           "launches_by_shape": {
+               "fcm_sweep": shape_counts(fcm_sweep_cuda),
+               "fcm_accumulate": shape_counts(fcm_accumulate_cuda)},
+           **hold_moe_routers(model, res, tab)}
+    ones = torch.ones((tab.shape[0],), dtype=torch.float32, device=device)
+    entries = fit_entries("lm_moe", tab, ones, res.centers, by_shape,
+                          fcm_cfg.m, device, reps)
+    return rec, entries, tab
+
+
+def moe_step_bytes(model, cfg, distinct) -> int:
+    """Bytes a decode step must move: every weight but the experts' and
+    the embedding table (B rows looked up), the experts the step routes
+    to (mean distinct experts a layer), and the whole KV cache (the step
+    reads all max_len slots)."""
+    layers = [blk for stage in model.stages for blk in stage.layers]
+    experts = sum(nbytes(b.moe.w_in, b.moe.w_out) for b in layers
+                  if "moe" in b._modules)
+    one = nbytes(layers[-1].moe.w_in[0], layers[-1].moe.w_out[0])
+    rows = LM_BATCH * cfg.d_model * model.embed.table.element_size()
+    cache = 2 * cfg.n_layers * LM_BATCH * LM_MAX_LEN * cfg.n_kv_heads \
+        * cfg.hd * 2
+    rest = nbytes(*model.parameters()) - experts - nbytes(model.embed.table)
+    routed = sum(sum(v) / len(v) for v in distinct.values()) * one
+    return int(rest + rows + routed + cache)
+
+
+def run_lm_moe(seed, device, reps):
+    """Phase ``lm_moe``: OLMoE-1B-7B, routers seeded by BigFCM on the
+    card (`seed_moe_routers`), served in bf16; route statistics from a
+    tapped prefill and decode; the f32 decode-vs-forward hold at cf =
+    E/k (no drops), tokens near a routing tie exempt; the reduced config
+    on the card against the CPU.  Returns the fit's kernel entries."""
+    import torch
+    from repro_torch.serve import make_prefill, make_serve_step
+    t_phase = time.perf_counter()
+    arch = "olmoe-1b-7b"
+    cfg, model = fam_model(arch, seed, device)
+    unseeded = [blk.moe.w_router.detach().clone()
+                for blk in model.stages[0].layers]
+    seed_rec, entries, tab = seed_moe_routers(model, cfg, seed, device, reps)
+    del tab
+    prompt = fam_prompt(cfg, seed).to(device)
+    batch = {"tokens": prompt}
+    rec, toks, lg, steps, caches = serve_family(
+        "lm_moe", cfg, model, batch, LM_MAX_LEN, LM_NEW, device)
+    del caches
+    # the same prefill and steps again, tapped (not timed)
+    taps = MoeTaps(model, cfg, unseeded)
+    with torch.inference_mode():
+        _, c = make_prefill(cfg, LM_MAX_LEN)(model, batch)
+        step = make_serve_step(cfg)
+        for t in range(LM_NEW - 1):
+            _, c = step(model, c, toks[:, t:t + 1])
+    taps.remove()
+    del c
+    step_ms = rec["decode_ms_per_token"]
+    rec.update(bound_fields(moe_step_bytes(model, cfg, taps.distinct),
+                            step_ms))
+    n = len(taps.dropped)
+    rec["route"] = {
+        "capacity_prefill": max(8, int(LM_BATCH * LM_PROMPT * cfg.top_k
+                                       * cfg.capacity_factor)
+                                // cfg.n_experts),
+        "pairs_prefill": LM_BATCH * LM_PROMPT * cfg.top_k,
+        "dropped_pairs_prefill": [taps.dropped[i] for i in range(n)],
+        "dropped_pairs_prefill_unseeded": [taps.unseeded_dropped[i]
+                                           for i in range(n)],
+        "load_seeded": [load_summary(taps.seeded_load[i]) for i in range(n)],
+        "load_unseeded": [load_summary(taps.unseeded_load[i])
+                          for i in range(n)],
+        "decode_distinct_experts_mean": [
+            sum(taps.distinct[i]) / len(taps.distinct[i]) for i in range(n)]}
+    rec["router_init"] = seed_rec
+    # f32, TF32 off, cf = E/k: nothing drops in the forward or the steps
+    cfg32, m32 = f32_twin(model, cfg, device,
+                          capacity_factor=cfg.n_experts / cfg.top_k)
+    del model
+    torch.cuda.empty_cache()
+    ties = RouteTaps(m32, cfg32)
+    with torch.inference_mode():
+        m32(torch.cat([prompt, toks], dim=1))
+    ties.remove()
+    exempt = torch.zeros((LM_BATCH, LM_PROMPT + LM_NEW), dtype=torch.bool)
+    for _, _, gap in ties.calls:
+        exempt |= ((gap > 0) & (gap <= MOE_TIE_REL)).reshape(exempt.shape)
+    rec["f32"] = hold_decode_vs_forward("lm_moe", cfg32, m32, prompt, toks,
+                                        device, exempt=exempt)
+    del m32, ties
+    torch.cuda.empty_cache()
+    rec["cpu"] = hold_family_cpu(arch, seed, device)
+    rec["seconds"] = time.perf_counter() - t_phase
+    emit({"phase": "lm_moe", "arch": arch, "dtype": "bfloat16",
+          "n_params": FAM_N_PARAMS[arch], "layers": cfg.n_layers,
+          "d_model": cfg.d_model, "experts": [cfg.n_experts, cfg.top_k],
+          "d_ff": cfg.d_ff, "vocab": cfg.vocab,
+          "capacity_factor": cfg.capacity_factor,
+          "attn_chunk": cfg.attn_chunk, **rec})
+    return entries
+
+
+class RouteTaps:
+    """Forward hooks on every MoE layer of a `DecoderLM` recording, call
+    by call, each token's experts (T, k), the kept pairs (T·k,) in the
+    flat (token, k) order, and its relative gap between the k-th and
+    (k+1)-th probabilities (T,), all on the CPU."""
+
+    def __init__(self, model, cfg):
+        self.cfg, self.calls = cfg, []
+        mods = [blk.moe for stage in model.stages for blk in stage.layers
+                if "moe" in blk._modules]
+        self.handles = [m.register_forward_hook(self._hook) for m in mods]
+
+    def _hook(self, mod, args, out):
+        import torch
+        from repro_torch.models import moe
+        cfg = self.cfg
+        xt = args[0].reshape(-1, args[0].shape[-1])
+        _, eidx = moe.route(cfg, mod.w_router, xt)
+        dp = moe.dispatch(cfg, eidx)
+        kept = torch.zeros(eidx.numel(), dtype=torch.bool, device=xt.device)
+        kept[dp.order] = dp.valid
+        top = torch.sort(moe.softmax((xt @ mod.w_router.to(xt.dtype))
+                                     .float()), dim=-1,
+                         descending=True).values
+        k = cfg.top_k
+        gap = (top[:, k - 1] - top[:, k]) / top[:, k - 1]
+        self.calls.append((eidx.cpu(), kept.cpu(), gap.cpu()))
+
+    def remove(self):
+        for h in self.handles:
+            h.remove()
+
+
+def routing_diff(cpu_taps, card_taps, shape) -> dict:
+    """Tokens whose experts differ between the two runs (at any layer),
+    tokens near a tie on the CPU (MOE_TIE_REL), and pairs whose kept /
+    dropped state differs (a token routed elsewhere moves the ranks of
+    later tokens, in any row, in its experts); ``first`` (B, S) bool
+    marks each row's positions from its first token that differs either
+    way on (attention carries it on along the row)."""
+    import torch
+    differ = torch.zeros(shape, dtype=torch.bool)
+    kept = torch.zeros(shape, dtype=torch.bool)
+    near = torch.zeros(shape, dtype=torch.bool)
+    for (e0, k0, g0), (e1, k1, g1) in zip(cpu_taps.calls, card_taps.calls):
+        differ |= (e0 != e1).any(-1).reshape(shape)
+        kept |= (k0 != k1).reshape(e0.shape).any(-1).reshape(shape)
+        near |= ((g0 > 0) & (g0 <= MOE_TIE_REL)).reshape(shape)
+    first = torch.cumsum((differ | kept).int(), dim=1) > 0
+    return {"tokens_routed_differently": int(differ.sum()),
+            "tokens_near_tie": int(near.sum()),
+            "unexplained": int((differ & ~near).sum()),
+            "tokens_kept_differently": int(kept.sum()), "first": first}
+
+
+def hold_family_cpu(arch, seed, device, **changes) -> dict:
+    """The port's card forward against its CPU forward for ``arch``'s
+    `reduced()` config (with ``changes``) with the same parameters,
+    hidden states and logits: in f32 at LM_CPU_RTOL / LM_CPU_ATOL (the
+    SSM families at SSD_TOL); in bf16 within
+    LM_CPU_BF16_REL of the largest value.  MoE: in f32 every token's
+    experts and every kept / dropped pair (at the config's cf 1.25)
+    identical, tokens near a tie excepted (none expected); in bf16 a
+    token whose experts part (an ulp of a bf16 logit at a near tie)
+    leaves its row's later positions out, counted, at most half."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import DecoderLM, EncDecLM
+    from repro_torch.models import encdec as encdec_lib
+    from repro_torch.models.transformer import logits_fn
+    out = {}
+    # the SSD's exp of chunk cumsums and its f32 products differ from the
+    # CPU's by ulps: held at tests/test_mamba.py's bar
+    f32_bar = ((SSD_TOL, SSD_TOL) if get_config(arch).family in
+               ("ssm", "hybrid") else (LM_CPU_RTOL, LM_CPU_ATOL))
+    for dtype in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(reduced(get_config(arch)),
+                                  param_dtype=dtype, compute_dtype=dtype,
+                                  **changes)
+        enc = cfg.family == "encdec"
+        cls = EncDecLM if enc else DecoderLM
+        head = encdec_lib.logits_fn if enc else logits_fn
+        cpu = cls(cfg, torch.Generator().manual_seed(seed), device="cpu")
+        card = cls(cfg, device=device)
+        card.load_state_dict(cpu.state_dict())
+        rng = np.random.default_rng(seed)
+        tok = torch.from_numpy(rng.integers(0, cfg.vocab, (4, 64)))
+        taps = [RouteTaps(m, cfg) for m in (cpu, card)] if cfg.is_moe \
+            else None
+        with torch.inference_mode():
+            if enc:
+                frames = torch.from_numpy(rng.normal(
+                    size=(4, cfg.n_frames, cfg.d_model)).astype(np.float32))
+                h_cpu = cpu(tok, cpu.encode(frames))
+                h_card = card(tok.to(device), card.encode(frames.to(device)))
+            else:
+                h_cpu, h_card = cpu(tok), card(tok.to(device))
+            got = (h_card, head(cfg, card, h_card))
+            want = (h_cpu.to(device), head(cfg, cpu, h_cpu).to(device))
+        what = f"card vs CPU, reduced {arch}, {dtype}"
+        rec = {}
+        keep = None
+        if taps is not None:
+            for t in taps:
+                t.remove()
+            diff = routing_diff(taps[0], taps[1], tuple(tok.shape))
+            first = diff.pop("first")
+            rec["routing"] = diff
+            if dtype == "float32" and (diff["unexplained"]
+                                       or (diff["tokens_kept_differently"]
+                                           and not diff["tokens_near_tie"])):
+                raise AssertionError(f"{what}: routing parts: {diff}")
+            if dtype == "bfloat16":
+                keep = ~first.to(device)
+                rec["positions_left_out"] = int(first.sum())
+                if int(first.sum()) > first.numel() // 2:
+                    raise AssertionError(f"{what}: {diff}")
+        if dtype == "float32":
+            rec["max_abs_err"] = max_err(got, want, *f32_bar, what)
+        else:
+            for name, g, w in zip(("hidden", "logits"), got, want):
+                if g.dtype != torch.bfloat16:
+                    raise AssertionError(f"{what}: {name} is {g.dtype}")
+                g, w = g.float(), w.float()
+                if keep is not None:
+                    g, w = g[keep], w[keep]
+                live = w > -1e29
+                err = float((g - w).abs().max())
+                scale = float(w[live].abs().max())
+                rec[name] = {"max_abs_err": err, "scale": scale,
+                             "bit_equal": float((g == w).float().mean())}
+                if not err <= LM_CPU_BF16_REL * scale:
+                    raise AssertionError(f"{what}: {name} {rec}")
+        out[dtype] = rec
+    return {**out, "rtol": f32_bar[0], "atol": f32_bar[1],
+            "bf16_rel_bar": LM_CPU_BF16_REL}
+
+
+def hold_ssd_full(cfg, seed, device) -> dict:
+    """`ssd_chunked` at one full-width layer's shapes (LM_BATCH × LM_PROMPT
+    tokens, the config's heads, head dim, state and chunk) against the
+    sequential recurrence in float64 on the card (tests/test_mamba.py's
+    inputs and 2e-4), and timed."""
+    import numpy as np
+    import torch
+    from repro_torch.models.mamba import mamba_dims, ssd_chunked
+    _, h, _, n = mamba_dims(cfg)
+    b, s, p = LM_BATCH, LM_PROMPT, cfg.ssm_head_dim
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def u(shape, lo, hi):
+        return lo + (hi - lo) * torch.rand(shape, generator=gen,
+                                           device=device)
+    x = torch.randn((b, s, h, p), generator=gen, device=device)
+    dt = u((b, s, h), 0.01, 0.5)
+    a_log = u((h,), -1.0, 1.0)
+    bm = torch.randn((b, s, h, n), generator=gen, device=device)
+    cm = torch.randn((b, s, h, n), generator=gen, device=device)
+    d_skip = torch.randn((h,), generator=gen, device=device)
+    with torch.inference_mode():
+        y, final = ssd_chunked(x, dt, a_log, bm, cm, d_skip,
+                               chunk=cfg.ssm_chunk)
+        ms = time_ms(lambda: ssd_chunked(x, dt, a_log, bm, cm, d_skip,
+                                         chunk=cfg.ssm_chunk), 5)
+        a = -torch.exp(a_log.double())
+        state = torch.zeros((b, h, n, p), dtype=torch.float64, device=device)
+        ys = torch.empty((b, s, h, p), dtype=torch.float64, device=device)
+        for t in range(s):
+            dtt = dt[:, t].double()
+            xd = x[:, t].double() * dtt[..., None]
+            state = torch.exp(a * dtt)[..., None, None] * state + \
+                bm[:, t].double()[..., None] * xd[:, :, None, :]
+            ys[:, t] = torch.einsum("bhn,bhnp->bhp", cm[:, t].double(),
+                                    state) + d_skip.double()[None, :, None] \
+                * x[:, t].double()
+    err = max_err((y.double(), final.double()), (ys, state), SSD_TOL,
+                  SSD_TOL, "ssd_chunked vs sequential float64")
+    return {"shape": [b, s, h, p, n], "chunk": cfg.ssm_chunk,
+            "max_abs_err": err, "tol": SSD_TOL,
+            "y_scale": float(ys.abs().max()), "ms": ms}
+
+
+def ssm_step_bytes(model, cfg, caches) -> int:
+    """Bytes a decode step must move: every weight but the embedding
+    table (B rows looked up), the SSM and conv states read and written,
+    and the whole KV cache of each attention (read over all its slots)."""
+    from repro_torch.models.attention import KVCache
+    rows = LM_BATCH * cfg.d_model * model.embed.table.element_size()
+    total = nbytes(*model.parameters()) - nbytes(model.embed.table) + rows
+    for c in caches:
+        if isinstance(c, dict):
+            total += nbytes(c["attn"].k, c["attn"].v)
+            c = c["mambas"]
+        if isinstance(c, KVCache):
+            total += nbytes(c.k, c.v)
+        else:
+            total += 2 * nbytes(c.conv, c.ssm)
+    return int(total)
+
+
+def hold_shared_attention(model, cfg, device) -> dict:
+    """zamba2: one shared attention parameter set, the model's
+    ``shared_attn``, called by every period of a forward with the same
+    storage; no period holds attention of its own."""
+    import torch
+    from repro_torch.models.transformer import stage_plan
+    ptrs = []
+    hook = model.shared_attn.register_forward_hook(
+        lambda mod, args, out: ptrs.append(mod.attn.wq.data_ptr()))
+    with torch.inference_mode():
+        model(fam_prompt(cfg, 1, 1, cfg.ssm_chunk).to(device))
+    hook.remove()
+    periods = stage_plan(cfg)[0][1]
+    own = [k for k in model.state_dict() if k.startswith("stages.")
+           and (".attn." in k or ".mlp." in k)]
+    if ptrs != [model.shared_attn.attn.wq.data_ptr()] * periods or own:
+        raise AssertionError(f"lm_hybrid: shared attention called {ptrs} "
+                             f"over {periods} periods; own: {own[:4]}")
+    return {"periods": periods, "calls": len(ptrs),
+            "one_storage": len(set(ptrs)) == 1,
+            "shared_params": sum(p.numel()
+                                 for p in model.shared_attn.parameters())}
+
+
+def run_lm_ssm(phase, arch, seed, device):
+    """Phases ``lm_ssm`` (Mamba2-2.7B) and ``lm_hybrid`` (Zamba2-7B):
+    served in bf16; the f32 decode-vs-forward hold over whole SSD chunks
+    (SSM_HOLD_PROMPT prefill, SSM_HOLD_STEPS steps); `hold_ssd_full`;
+    the hybrid's shared attention; the reduced config on the card
+    against the CPU."""
+    import torch
+    t_phase = time.perf_counter()
+    cfg, model = fam_model(arch, seed, device)
+    prompt = fam_prompt(cfg, seed).to(device)
+    rec, toks, lg, steps, caches = serve_family(
+        phase, cfg, model, {"tokens": prompt}, LM_MAX_LEN, LM_NEW, device)
+    rec.update(bound_fields(ssm_step_bytes(model, cfg, caches),
+                            rec["decode_ms_per_token"]))
+    del caches
+    if cfg.family == "hybrid":
+        rec["shared_attention"] = hold_shared_attention(model, cfg, device)
+    cfg32, m32 = f32_twin(model, cfg, device)
+    del model
+    torch.cuda.empty_cache()
+    end = SSM_HOLD_PROMPT + SSM_HOLD_STEPS
+    args = (prompt[:, :SSM_HOLD_PROMPT], prompt[:, SSM_HOLD_PROMPT:end],
+            device)
+    rec["f32_full_depth"] = hold_decode_vs_forward(phase, cfg32, m32, *args,
+                                                   hold=False)
+    cut = dataclasses.replace(cfg32, n_layers=SSM_HOLD_LAYERS[arch])
+    m_cut = type(m32)(cut, device=device)
+    full = m32.state_dict()
+    m_cut.load_state_dict({k: full[k] for k in m_cut.state_dict()},
+                          assign=True)
+    rec["f32"] = hold_decode_vs_forward(phase, cut, m_cut, *args)
+    del m32, m_cut, full
+    torch.cuda.empty_cache()
+    rec["ssd"] = hold_ssd_full(cfg, seed, device)
+    torch.cuda.empty_cache()
+    rec["cpu"] = hold_family_cpu(arch, seed, device)
+    rec["seconds"] = time.perf_counter() - t_phase
+    from repro_torch.models.mamba import mamba_dims
+    di, heads, _, state = mamba_dims(cfg)
+    emit({"phase": phase, "arch": arch, "dtype": "bfloat16",
+          "n_params": FAM_N_PARAMS[arch], "layers": cfg.n_layers,
+          "d_model": cfg.d_model, "ssm": {"d_inner": di, "heads": heads,
+                                          "head_dim": cfg.ssm_head_dim,
+                                          "state": state,
+                                          "chunk": cfg.ssm_chunk},
+          "vocab": [cfg.vocab, cfg.vocab_padded], **rec})
+
+
+def run_lm_encdec(seed, device):
+    """Phase ``lm_encdec``: Whisper-medium over LM_BATCH streams of 1500
+    stub frame embeddings from ``seed``, ENC_PROMPT prompt tokens,
+    LM_NEW new, an ENC_MAX_LEN cache, served in bf16 (the encoder timed
+    apart); the f32 decode-vs-forward hold over the 4 + 64 tokens; the
+    reduced config on the card against the CPU."""
+    import numpy as np
+    import torch
+    from repro_torch.models import encdec as encdec_lib
+    t_phase = time.perf_counter()
+    arch = "whisper-medium"
+    cfg, model = fam_model(arch, seed, device)
+    rng = np.random.default_rng(seed)
+    frames = torch.from_numpy(rng.normal(
+        size=(LM_BATCH, cfg.n_frames, cfg.d_model)).astype(np.float32)
+    ).to(device)
+    prompt = fam_prompt(cfg, seed, LM_BATCH, ENC_PROMPT).to(device)
+    batch = {"tokens": prompt, "frames": frames}
+    rec, toks, lg, steps, caches = serve_family(
+        "lm_encdec", cfg, model, batch, ENC_MAX_LEN, LM_NEW, device)
+    with torch.inference_mode():
+        rec["encode_ms"] = time_ms(lambda: model.encode(frames), 3)
+    dec = [p for blk in model.dec_blocks for p in blk.parameters()]
+    rows = LM_BATCH * cfg.d_model * 2 * model.embed.table.element_size()
+    step_bytes = (nbytes(*dec) + nbytes(model.embed.table)
+                  + nbytes(*model.final_norm.parameters()) + rows
+                  + nbytes(caches.self_kv.k, caches.self_kv.v,
+                           caches.cross_k, caches.cross_v))
+    rec.update(bound_fields(int(step_bytes), rec["decode_ms_per_token"]))
+    del caches
+    cfg32, m32 = f32_twin(model, cfg, device)
+    del model
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        enc = m32.encode(frames)
+        h_full = m32(torch.cat([prompt, toks], dim=1), enc)[:,
+                                                            ENC_PROMPT - 1:]
+        c = encdec_lib.init_dec_caches(cfg32, m32, enc, LM_BATCH,
+                                       ENC_MAX_LEN, torch.float32)
+        h_pre, c = m32(prompt, caches=c)
+        outs = [h_pre[:, -1]]
+        for t in range(LM_NEW):
+            h_t, c = m32(toks[:, t:t + 1], caches=c)
+            outs.append(h_t[:, 0])
+        h_dec = torch.stack(outs, dim=1)
+    torch.cuda.synchronize(device)
+    rec["f32"] = {
+        "decode_vs_forward_max_abs_err": max_err(
+            (h_dec,), (h_full,), LM_RTOL, LM_ATOL,
+            "lm_encdec: f32 decode vs forward"),
+        "rtol": LM_RTOL, "atol": LM_ATOL,
+        "positions": [ENC_PROMPT - 1, ENC_PROMPT + LM_NEW - 1],
+        "hidden_scale": float(h_full.abs().max()),
+        "seconds": time.perf_counter() - t0}
+    del m32, c, enc
+    torch.cuda.empty_cache()
+    rec["cpu"] = hold_family_cpu(arch, seed, device)
+    rec["seconds"] = time.perf_counter() - t_phase
+    emit({"phase": "lm_encdec", "arch": arch, "dtype": "bfloat16",
+          "n_params": FAM_N_PARAMS[arch],
+          "layers": [cfg.n_enc_layers, cfg.n_layers],
+          "d_model": cfg.d_model, "frames": cfg.n_frames,
+          "vocab": [cfg.vocab, cfg.vocab_padded], **rec})
+
+
+def run_lm_families(seed, device, reps) -> list:
+    """The four family phases, each model freed before the next; returns
+    lm_moe's kernel entries."""
+    import torch
+    entries = run_lm_moe(seed, device, reps)
+    torch.cuda.empty_cache()
+    for phase, arch in (("lm_ssm", "mamba2-2.7b"),
+                        ("lm_hybrid", "zamba2-7b")):
+        run_lm_ssm(phase, arch, seed, device)
+        torch.cuda.empty_cache()
+    run_lm_encdec(seed, device)
+    torch.cuda.empty_cache()
+    return entries
+
+
 def bound_batched(t: int, n: int, d: int, c: int):
     """(ms, what sets it) for one tenant-stacked sweep: the (T, N, d)
     block, its (T, N) weights, V and m read once, the outputs written
@@ -5312,7 +6057,7 @@ def main(argv=None) -> int:
 
 
 def run_all(args, device) -> int:
-    """Phases 1 (the build) to 8, in the calibration sandbox."""
+    """Phases 1 (the build) to 9, in the calibration sandbox."""
     import torch
     emit(build_all())
 
@@ -5374,7 +6119,14 @@ def run_all(args, device) -> int:
     entries += run_curriculum(model, lm_cfg, args.seed, device, reps=20)
     del model
     torch.cuda.empty_cache()
+    entries += run_lm_families(args.seed, device, reps=20)
+    return finish(entries, device)
 
+
+def finish(entries, device) -> int:
+    """Phase 9: the kernels line, the ``nvidia-smi`` line, and the final
+    ``{"ok": true, ...}`` line."""
+    import torch
     emit({"kernels": kernel_line(entries),
           "library_note": "no single PyTorch call computes the FCM sweep, "
                           "single-model or tenant-stacked"})

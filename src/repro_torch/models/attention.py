@@ -1,6 +1,6 @@
 """GQA attention with RoPE, KV-chunked softmax and cached decode —
-counterpart of `repro.models.attention` (self-attention; cross-attention
-comes with the encoder–decoder family, ROADMAP Queue 1 item 3b).
+counterpart of `repro.models.attention`: self-attention, and the
+encoder–decoder's cross-attention (``kv_input=``, `attention_with_kv`).
 
 Q heads may be padded per KV group (``cfg.n_heads_padded``): the padded
 slots are masked dead (`head_mask`), so the architecture stays
@@ -155,9 +155,37 @@ def _sdpa(q, k, v, *, causal: bool, q_offset: int, scale: float,
     return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd)
 
 
+def _query(cfg, p, x):
+    """Q alone (B, S, H_pad, hd): cross-attention's projection."""
+    b, s, _ = x.shape
+    q = x @ p["wq"].to(x.dtype)
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(x.dtype)
+    return q.reshape(b, s, cfg.n_heads_padded, cfg.hd)
+
+
+def _output(cfg, p, out, x):
+    """Dead heads masked, heads merged in x's dtype, then ``wo``."""
+    b, s = x.shape[:2]
+    hm = head_mask(cfg, out.dtype, out.device)
+    if hm is not None:
+        out = out * hm[None, None, :, None]
+    out = out.reshape(b, s, cfg.n_heads_padded * cfg.hd).to(x.dtype)
+    return out @ p["wo"].to(x.dtype)
+
+
+def attention_with_kv(cfg, p, x, k, v):
+    """Cross-attention against precomputed K/V (B, S_enc, KV, hd): the
+    encoder–decoder's cached decode."""
+    out = _sdpa(_query(cfg, p, x), k.to(x.dtype), v.to(x.dtype),
+                causal=False, q_offset=0, scale=cfg.hd ** -0.5,
+                chunk=cfg.attn_chunk)
+    return _output(cfg, p, out, x)
+
+
 def attention(cfg, p, x, *, causal=True, positions=None,
-              cache: Optional[KVCache] = None):
-    """Self-attention layer.  Returns (y, new_cache).
+              cache: Optional[KVCache] = None, kv_input=None):
+    """Full attention layer.  Returns (y, new_cache).
 
     * training/prefill: ``cache is None`` → self-attention over x.
     * decode (or cached prefill): ``cache`` holds past KV; x is the new
@@ -166,12 +194,22 @@ def attention(cfg, p, x, *, causal=True, positions=None,
       donated), and the new cache shares them.  Attention then runs
       over all ``S_max`` slots, as the reference's does: the causal mask
       kills the zeros past the filled length.
+    * cross-attention: ``kv_input`` (B, S_enc, D) supplies the encoder
+      sequence: K/V projected from it (no bias), no RoPE, no mask.
     """
     b, s, _ = x.shape
     scale = cfg.hd ** -0.5
-    q, k, v = _project(cfg, p, x)
+    if kv_input is None:
+        q, k, v = _project(cfg, p, x)
+    else:
+        q = _query(cfg, p, x)
+        se = kv_input.shape[1]
+        k = (kv_input @ p["wk"].to(x.dtype)).reshape(b, se, cfg.n_kv_heads,
+                                                     cfg.hd)
+        v = (kv_input @ p["wv"].to(x.dtype)).reshape(b, se, cfg.n_kv_heads,
+                                                     cfg.hd)
 
-    if cfg.pos == "rope":
+    if cfg.pos == "rope" and kv_input is None:
         if positions is None:
             base = cache.length if cache is not None else 0
             positions = (base + torch.arange(s, device=x.device)).expand(b, s)
@@ -190,15 +228,9 @@ def attention(cfg, p, x, *, causal=True, positions=None,
         out = _sdpa(q, cache.k, cache.v, causal=True, q_offset=ln,
                     scale=scale, chunk=cfg.attn_chunk)
     else:
-        out = _sdpa(q, k, v, causal=causal, q_offset=0, scale=scale,
-                    chunk=cfg.attn_chunk)
-
-    hm = head_mask(cfg, out.dtype, out.device)
-    if hm is not None:
-        out = out * hm[None, None, :, None]
-    out = out.reshape(b, s, cfg.n_heads_padded * cfg.hd).to(x.dtype)
-    y = out @ p["wo"].to(x.dtype)
-    return y, new_cache
+        out = _sdpa(q, k, v, causal=causal and kv_input is None, q_offset=0,
+                    scale=scale, chunk=cfg.attn_chunk)
+    return _output(cfg, p, out, x), new_cache
 
 
 class Attention(ParamTree):
@@ -209,6 +241,8 @@ class Attention(ParamTree):
         super().__init__(attention_decl(cfg), dtype=dtype, device=device)
         self.cfg = cfg
 
-    def forward(self, x, *, causal=True, positions=None, cache=None):
+    def forward(self, x, *, causal=True, positions=None, cache=None,
+                kv_input=None):
         return attention(self.cfg, self, x, causal=causal,
-                         positions=positions, cache=cache)
+                         positions=positions, cache=cache,
+                         kv_input=kv_input)

@@ -1,11 +1,26 @@
-"""Encoder–decoder parameters (whisper-medium family) — counterpart of
-`repro.models.encdec`'s declaration (`decl`).  The encoder, the decoder
-with cross-attention and their caches are ROADMAP Queue 1 item 3b."""
+"""Encoder–decoder backbone (whisper-medium family) — counterpart of
+`repro.models.encdec`.
+
+The audio conv front end is a stub, as in the reference: the caller
+supplies precomputed frame embeddings (B, n_frames, D).  Encoder =
+bidirectional attention blocks; decoder = causal self-attention +
+cross-attention blocks with learned positions.  Cross-attention K/V are
+computed once at prefill (`init_dec_caches`) and carried in the cache.
+The functions take an `EncDecLM` (or anything that reads like it).
+"""
 from __future__ import annotations
 
-from .attention import attention_decl
-from .layers import embed_decl, mlp_decl, norm_decl
-from .params import PDecl, stack_layers
+from typing import NamedTuple, Optional, Union
+
+import torch
+from torch import nn
+
+from ..configs.base import ModelConfig
+from ..device import resolve_device
+from .attention import (Attention, KVCache, attention, attention_decl,
+                        attention_with_kv)
+from .layers import MLP, Embed, Norm, embed_decl, mlp_decl, norm, norm_decl
+from .params import ParamTree, PDecl, stack_layers, to_state, tree_init
 
 
 def _enc_block_decl(cfg):
@@ -19,15 +34,16 @@ def _dec_block_decl(cfg):
             "ln3": norm_decl(cfg), "mlp": mlp_decl(cfg)}
 
 
+def _pos_decl(cfg, n: int):
+    return {"table": PDecl((n, cfg.d_model), (None, "embed"), "embed",
+                           scale=cfg.d_model ** -0.5)}
+
+
 def decl(cfg):
     return {
         "embed": embed_decl(cfg),
-        "dec_pos": {"table": PDecl((cfg.max_target_positions, cfg.d_model),
-                                   (None, "embed"), "embed",
-                                   scale=cfg.d_model ** -0.5)},
-        "enc_pos": {"table": PDecl((cfg.n_frames, cfg.d_model),
-                                   (None, "embed"), "embed",
-                                   scale=cfg.d_model ** -0.5)},
+        "dec_pos": _pos_decl(cfg, cfg.max_target_positions),
+        "enc_pos": _pos_decl(cfg, cfg.n_frames),
         "enc_blocks": stack_layers(lambda: _enc_block_decl(cfg),
                                    cfg.n_enc_layers),
         "dec_blocks": stack_layers(lambda: _dec_block_decl(cfg),
@@ -35,3 +51,180 @@ def decl(cfg):
         "enc_norm": norm_decl(cfg),
         "final_norm": norm_decl(cfg),
     }
+
+
+class DecCache(NamedTuple):
+    """The decoder's caches, stacked over its layers: ``self_kv`` a
+    `KVCache` (L, B, max_len, KV, hd); ``cross_k`` / ``cross_v`` (L, B,
+    S_enc, KV, hd)."""
+    self_kv: KVCache
+    cross_k: torch.Tensor
+    cross_v: torch.Tensor
+
+
+def _dtype(cfg) -> torch.dtype:
+    return getattr(torch, cfg.compute_dtype)
+
+
+def encode(cfg: ModelConfig, params, frames):
+    """frames: (B, n_frames, D) stub embeddings → encoder states."""
+    dt = _dtype(cfg)
+    x = frames.to(dt)
+    x = x + params.enc_pos.table[:x.shape[1]].to(dt)[None]
+    for p in params.enc_blocks:
+        a, _ = attention(cfg, p.attn, norm(cfg, p.ln1, x), causal=False)
+        x = x + a
+        x = x + p.mlp(norm(cfg, p.ln2, x))
+    return norm(cfg, params.enc_norm, x)
+
+
+def _dec_block(cfg, p, x, enc, cache: Optional[DecCache]):
+    h = norm(cfg, p.ln1, x)
+    a, new_kv = attention(cfg, p.self_attn, h, causal=True,
+                          cache=cache.self_kv if cache is not None else None)
+    x = x + a
+    h = norm(cfg, p.ln2, x)
+    if cache is not None:   # decode: precomputed cross K/V
+        ca = attention_with_kv(cfg, p.cross_attn, h, cache.cross_k,
+                               cache.cross_v)
+    else:
+        ca, _ = attention(cfg, p.cross_attn, h, causal=False, kv_input=enc)
+    x = x + ca
+    x = x + p.mlp(norm(cfg, p.ln3, x))
+    new_cache = (DecCache(new_kv, cache.cross_k, cache.cross_v)
+                 if cache is not None else None)
+    return x, new_cache
+
+
+def decode(cfg: ModelConfig, params, tokens, enc, *,
+           caches: Optional[DecCache] = None):
+    """Decoder forward.  Returns hidden (without caches; ``enc`` the
+    encoder states) or (hidden, caches) (with caches from
+    `init_dec_caches`; ``enc`` unused)."""
+    dt = _dtype(cfg)
+    x = params.embed(tokens, dt)
+    base = caches.self_kv.length if caches is not None else 0
+    table = params.dec_pos.table
+    pos = torch.clamp(base + torch.arange(x.shape[1], device=x.device),
+                      max=table.shape[0] - 1)
+    x = x + table[pos].to(dt)[None]
+
+    if caches is None:
+        for p in params.dec_blocks:
+            x, _ = _dec_block(cfg, p, x, enc, None)
+        return norm(cfg, params.final_norm, x)
+    kv = caches.self_kv
+    length = kv.length
+    for l, p in enumerate(params.dec_blocks):
+        c = DecCache(KVCache(kv.k[l], kv.v[l], kv.length), caches.cross_k[l],
+                     caches.cross_v[l])
+        x, nc = _dec_block(cfg, p, x, None, c)
+        length = nc.self_kv.length
+    x = norm(cfg, params.final_norm, x)
+    return x, DecCache(KVCache(kv.k, kv.v, length), caches.cross_k,
+                       caches.cross_v)
+
+
+def init_dec_caches(cfg: ModelConfig, params, enc, batch: int,
+                    max_len: int, dtype=torch.bfloat16) -> DecCache:
+    """Stacked cross K/V projected from the encoder states (no bias, in
+    the states' dtype, then cast to ``dtype``) and empty self caches, on
+    the states' device."""
+    kv, hd = cfg.n_kv_heads, cfg.hd
+    b, s = enc.shape[:2]
+    ck = torch.stack([(enc @ p.cross_attn.wk.to(enc.dtype))
+                      .reshape(b, s, kv, hd).to(dtype)
+                      for p in params.dec_blocks])
+    cv = torch.stack([(enc @ p.cross_attn.wv.to(enc.dtype))
+                      .reshape(b, s, kv, hd).to(dtype)
+                      for p in params.dec_blocks])
+    shape = (cfg.n_layers, batch, max_len, kv, hd)
+    self_kv = KVCache(torch.zeros(shape, dtype=dtype, device=enc.device),
+                      torch.zeros(shape, dtype=dtype, device=enc.device), 0)
+    return DecCache(self_kv, ck, cv)
+
+
+def logits_fn(cfg, params, hidden):
+    logits = hidden @ params["embed"]["table"].to(hidden.dtype).T
+    if cfg.vocab_padded != cfg.vocab:
+        pad = cfg.vocab_padded - cfg.vocab
+        neg = torch.full(logits.shape[:-1] + (pad,), -1e30,
+                         dtype=logits.dtype, device=logits.device)
+        logits = torch.cat([logits[..., :cfg.vocab], neg], dim=-1)
+    return logits
+
+
+# --------------------------------------------------------------- modules ---
+
+class EncBlock(nn.Module):
+    """Bidirectional attention + MLP block (`_enc_block_decl`)."""
+
+    def __init__(self, cfg, *, dtype, device):
+        super().__init__()
+        self.ln1 = Norm(cfg, dtype=dtype, device=device)
+        self.attn = Attention(cfg, dtype=dtype, device=device)
+        self.ln2 = Norm(cfg, dtype=dtype, device=device)
+        self.mlp = MLP(cfg, dtype=dtype, device=device)
+
+
+class DecBlock(nn.Module):
+    """Causal self-attention + cross-attention + MLP block
+    (`_dec_block_decl`)."""
+
+    def __init__(self, cfg, *, dtype, device):
+        super().__init__()
+        self.ln1 = Norm(cfg, dtype=dtype, device=device)
+        self.self_attn = Attention(cfg, dtype=dtype, device=device)
+        self.ln2 = Norm(cfg, dtype=dtype, device=device)
+        self.cross_attn = Attention(cfg, dtype=dtype, device=device)
+        self.ln3 = Norm(cfg, dtype=dtype, device=device)
+        self.mlp = MLP(cfg, dtype=dtype, device=device)
+
+
+class EncDecLM(nn.Module):
+    """The encoder–decoder LM.  State-dict keys follow the reference's
+    parameter paths, one set per layer (``enc_blocks.3.attn.wq``,
+    ``dec_blocks.0.cross_attn.wk``): `params.from_reference` carries a
+    reference tree across.  ``generator`` and ``device`` as in
+    `transformer.DecoderLM`; the weights are frozen."""
+
+    def __init__(self, cfg: ModelConfig,
+                 generator: Optional[torch.Generator] = None, *,
+                 device: Union[str, torch.device] = "cuda"):
+        super().__init__()
+        if cfg.family != "encdec":
+            raise ValueError(f"EncDecLM: the {cfg.family!r} family is "
+                             f"transformer.DecoderLM")
+        dev = resolve_device(device)
+        dtype = getattr(torch, cfg.param_dtype)
+        build = torch.device("meta") if generator is not None else dev
+        kw = dict(dtype=dtype, device=build)
+        self.cfg = cfg
+        self.embed = Embed(cfg, **kw)
+        self.dec_pos = ParamTree(_pos_decl(cfg, cfg.max_target_positions),
+                                 **kw)
+        self.enc_pos = ParamTree(_pos_decl(cfg, cfg.n_frames), **kw)
+        self.enc_blocks = nn.ModuleList(
+            EncBlock(cfg, **kw) for _ in range(cfg.n_enc_layers))
+        self.dec_blocks = nn.ModuleList(
+            DecBlock(cfg, **kw) for _ in range(cfg.n_layers))
+        self.enc_norm = Norm(cfg, **kw)
+        self.final_norm = Norm(cfg, **kw)
+        if generator is not None:
+            self.load_state_dict(
+                to_state(tree_init(generator, decl(cfg), dtype, dev)),
+                assign=True)
+
+    def __getitem__(self, k: str):
+        return getattr(self, k)
+
+    def __contains__(self, k: str) -> bool:
+        return k in self._parameters or k in self._modules
+
+    def encode(self, frames):
+        return encode(self.cfg, self, frames)
+
+    def forward(self, tokens, enc=None, caches: Optional[DecCache] = None):
+        """`decode`: hidden over ``tokens`` against the encoder states
+        ``enc`` (B, S_enc, D), or (hidden, caches) with ``caches``."""
+        return decode(self.cfg, self, tokens, enc, caches=caches)

@@ -1,9 +1,23 @@
-"""Mamba2 (SSD) parameters — counterpart of `repro.models.mamba`'s
-declaration (`mamba_dims`, `mamba_decl`).  The block, its chunked scan
-and its cache are ROADMAP Queue 1 item 3b."""
+"""Mamba2 (SSD — state-space duality) block, chunked matmul formulation —
+counterpart of `repro.models.mamba`.
+
+The chunked algorithm turns the linear recurrence into batched products:
+an intra-chunk quadratic term (attention-like, over chunk length L only)
+plus an inter-chunk state recurrence over S/L carries of (H, N, P)
+states.  The SSD runs in f32 inside a bf16 model, as the reference's.
+``ssd_chunked`` takes whole chunks only: past one chunk, S must be a
+multiple of L (the reference asserts the same).  Its (B, S/L, H, L, L)
+f32 decay and score tensors are the layer's largest; they are freed when
+the layer returns.
+"""
 from __future__ import annotations
 
-from .params import PDecl
+from typing import NamedTuple, Optional
+
+import torch
+
+from .layers import Norm, rmsnorm, silu
+from .params import ParamTree, PDecl
 
 
 def mamba_dims(cfg):
@@ -30,3 +44,182 @@ def mamba_decl(cfg):
         "norm_scale": PDecl((di,), ("mlp",), "ones"),
         "w_out": PDecl((di, d), ("mlp", "embed")),
     }
+
+
+class MambaCache(NamedTuple):
+    """conv (B, conv_width − 1, conv_channels) in the model's dtype and
+    ssm (B, H, N, P) f32, or both stacked over a stage's layers."""
+    conv: torch.Tensor
+    ssm: torch.Tensor
+
+
+def init_mamba_cache(cfg, batch: int, dtype=torch.bfloat16,
+                     device=None) -> MambaCache:
+    di, h, g, n = mamba_dims(cfg)
+    conv_ch = di + 2 * g * n
+    return MambaCache(
+        torch.zeros((batch, cfg.ssm_conv - 1, conv_ch), dtype=dtype,
+                    device=device),
+        torch.zeros((batch, h, n, cfg.ssm_head_dim), dtype=torch.float32,
+                    device=device))
+
+
+def softplus(x):
+    """``jax.nn.softplus``: logaddexp(x, 0) = max(x, 0) + log1p(e^−|x|)
+    (no linear cut-off, unlike ``F.softplus``)."""
+    return torch.clamp(x, min=0) + torch.log1p(torch.exp(-x.abs()))
+
+
+def _segsum(x):
+    """x: (..., L) → (..., L, L); out[i,j] = Σ_{j<k≤i} x_k, -inf above diag."""
+    l = x.shape[-1]
+    c = torch.cumsum(x, -1)
+    ss = c[..., :, None] - c[..., None, :]
+    mask = torch.tril(torch.ones((l, l), dtype=torch.bool, device=x.device))
+    return torch.where(mask, ss, -torch.inf)
+
+
+def ssd_chunked(x, dt, a_log, b_mat, c_mat, d_skip, *, chunk: int,
+                init_state=None):
+    """SSD over a full sequence.
+
+    x: (B,S,H,P) pre-discretization inputs; dt: (B,S,H) post-softplus;
+    b_mat, c_mat: (B,S,H,N) (groups already repeated to heads).
+    Returns (y (B,S,H,P) f32, final_state (B,H,N,P) f32).
+    """
+    bsz, s, h, p = x.shape
+    n = b_mat.shape[-1]
+    l = min(chunk, s)
+    nc = s // l
+    if s % l:
+        raise ValueError(f"ssd_chunked: {s} positions are not whole "
+                         f"chunks of {l}")
+
+    a = -torch.exp(a_log.float()) * dt                   # (B,S,H) dA
+    xd = x.float() * dt[..., None]                       # X = x·dt
+
+    def blk(t, shape):
+        return t.reshape((bsz, nc, l) + shape)
+    a_b = blk(a, (h,))
+    x_b = blk(xd, (h, p))
+    bb = blk(b_mat.float(), (h, n))
+    cb = blk(c_mat.float(), (h, n))
+
+    a_cum = torch.cumsum(a_b, dim=2)                     # (B,C,L,H)
+    lmat = torch.exp(_segsum(a_b.permute(0, 1, 3, 2)))   # (B,C,H,L,L)
+    scores = torch.einsum("bclhn,bcshn->bchls", cb, bb) * lmat
+    del lmat
+    y_diag = torch.einsum("bchls,bcshp->bclhp", scores, x_b)
+    del scores
+
+    decay_states = torch.exp(a_cum[:, :, -1:, :] - a_cum)  # (B,C,L,H)
+    states = torch.einsum("bclhn,bclh,bclhp->bchnp", bb, decay_states, x_b)
+    chunk_decay = torch.exp(a_cum[:, :, -1, :])          # (B,C,H)
+
+    carry = (torch.zeros((bsz, h, n, p), dtype=torch.float32,
+                         device=x.device) if init_state is None
+             else init_state.float())
+    inits = []
+    for c in range(nc):                                  # the state scan
+        inits.append(carry)
+        carry = chunk_decay[:, c, :, None, None] * carry + states[:, c]
+    inits = torch.stack(inits, 1)                        # (B,C,H,N,P)
+
+    y_off = torch.einsum("bclhn,bchnp->bclhp", cb, inits) \
+        * torch.exp(a_cum)[..., None]
+    y = (y_diag + y_off).reshape(bsz, s, h, p)
+    y = y + d_skip.float()[None, None, :, None] * x.float()
+    return y, carry
+
+
+def ssd_decode_step(state, x, dt, a_log, b_mat, c_mat, d_skip):
+    """One-token SSD update.  x: (B,H,P); b/c: (B,H,N); state: (B,H,N,P)."""
+    a = -torch.exp(a_log.float()) * dt                   # (B,H)
+    xd = x.float() * dt[..., None]
+    new = torch.exp(a)[:, :, None, None] * state + \
+        torch.einsum("bhn,bhp->bhnp", b_mat.float(), xd)
+    y = torch.einsum("bhn,bhnp->bhp", c_mat.float(), new)
+    y = y + d_skip.float()[None, :, None] * x.float()
+    return y, new
+
+
+def _conv_causal(p, xbc, conv_state=None):
+    """Depthwise causal conv, width cfg.ssm_conv.  xbc: (B,S,CH).  The
+    taps are summed from the first, in xbc's dtype (the reference's
+    Python ``sum``)."""
+    w = p["conv_w"].to(xbc.dtype)                        # (W, CH)
+    width, s = w.shape[0], xbc.shape[1]
+    if conv_state is not None:
+        ctx = torch.cat([conv_state.to(xbc.dtype), xbc], dim=1)
+    else:
+        ctx = torch.nn.functional.pad(xbc, (0, 0, width - 1, 0))
+    out = ctx[:, 0:s] * w[0]
+    for i in range(1, width):
+        out = out + ctx[:, i:i + s] * w[i]
+    out = out + p["conv_b"].to(xbc.dtype)
+    new_state = ctx[:, -(width - 1):] if width > 1 else None
+    return silu(out), new_state
+
+
+def mamba_block(cfg, p, x, *, cache: Optional[MambaCache] = None):
+    """Full Mamba2 mixer.  x: (B,S,D) → (y, new_cache)."""
+    bsz, s, d = x.shape
+    di, h, g, n = mamba_dims(cfg)
+    rep = h // g
+    dt_raw = x @ p["wdt"].to(x.dtype)
+    z = x @ p["wz"].to(x.dtype)
+    xi = x @ p["wx"].to(x.dtype)
+    bproj = x @ p["wB"].to(x.dtype)
+    cproj = x @ p["wC"].to(x.dtype)
+
+    xbc = torch.cat([xi, bproj, cproj], dim=-1)
+    conv_in = cache.conv if cache is not None else None
+    xbc, new_conv = _conv_causal(p, xbc, conv_in)
+    xi, bproj, cproj = torch.split(xbc, [di, g * n, g * n], dim=-1)
+
+    dt = softplus(dt_raw.float() + p["dt_bias"].float())
+    xh = xi.reshape(bsz, s, h, cfg.ssm_head_dim)
+    bm = torch.repeat_interleave(bproj.reshape(bsz, s, g, n), rep, dim=2)
+    cm = torch.repeat_interleave(cproj.reshape(bsz, s, g, n), rep, dim=2)
+
+    if cache is not None and s == 1:
+        y, new_ssm = ssd_decode_step(
+            cache.ssm, xh[:, 0], dt[:, 0], p["A_log"], bm[:, 0], cm[:, 0],
+            p["D_skip"])
+        y = y[:, None]
+    else:
+        init = cache.ssm if cache is not None else None
+        y, new_ssm = ssd_chunked(xh, dt, p["A_log"], bm, cm, p["D_skip"],
+                                 chunk=cfg.ssm_chunk, init_state=init)
+
+    y = y.reshape(bsz, s, di).to(x.dtype)
+    # gated RMSNorm (mamba2): norm(y * silu(z))
+    y = rmsnorm({"scale": p["norm_scale"]}, y * silu(z))
+    out = y @ p["w_out"].to(x.dtype)
+    new_cache = (MambaCache(new_conv, new_ssm)
+                 if cache is not None else None)
+    return out, new_cache
+
+
+class Mamba(ParamTree):
+    """The mixer's parameters (`mamba_decl`) over `mamba_block`."""
+
+    def __init__(self, cfg, *, dtype, device):
+        super().__init__(mamba_decl(cfg), dtype=dtype, device=device)
+        self.cfg = cfg
+
+    def forward(self, x, cache: Optional[MambaCache] = None):
+        return mamba_block(self.cfg, self, x, cache=cache)
+
+
+class MambaBlock(torch.nn.Module):
+    """Pre-norm Mamba2 block (``{"ln1", "mamba"}``): x + mixer(norm(x))."""
+
+    def __init__(self, cfg, *, dtype, device):
+        super().__init__()
+        self.ln1 = Norm(cfg, dtype=dtype, device=device)
+        self.mamba = Mamba(cfg, dtype=dtype, device=device)
+
+    def forward(self, x, cache: Optional[MambaCache] = None):
+        m, new_cache = self.mamba(self.ln1(x), cache)
+        return x + m, new_cache

@@ -92,13 +92,23 @@ def stack_layers(decl_fn, n: int):
 # Top-level lists whose entries hold ``(L, …)``-stacked leaves: the
 # port's modules keep one parameter set per layer, at ``<key>.<i>.layers.<l>``.
 STACKED = ("stages",)
+# Top-level dicts of ``(L, …)``-stacked leaves (the encoder–decoder's
+# blocks): one parameter set per layer at ``<key>.<l>``.
+STACKED_BLOCKS = ("enc_blocks", "dec_blocks")
+# Keys inside a stacked stage whose leaves carry a second stacked axis
+# (the hybrid period's mamba blocks, (n_periods, attn_period, …)): one
+# set per inner layer at ``…layers.<l>.<key>.<j>``.
+INNER_STACKED = ("mambas",)
 
 
 def to_state(tree, prefix: str = "") -> Dict[str, object]:
     """Flatten a reference-layout tree (nested dicts/lists of arrays or
-    tensors) into ``{dotted path: leaf}``, each stacked leaf under
-    ``STACKED`` split along its layer axis: ``stages[0]["attn"]["wq"]``
-    of shape (L, d, h·hd) becomes ``stages.0.layers.<l>.attn.wq``."""
+    tensors) into ``{dotted path: leaf}``, each stacked leaf split along
+    its layer axes: ``stages[0]["attn"]["wq"]`` of shape (L, d, h·hd)
+    becomes ``stages.0.layers.<l>.attn.wq``; ``stages[0]["mambas"]["ln1"]
+    ["scale"]`` of shape (P, A, d) becomes ``stages.0.layers.<p>.mambas.
+    <a>.ln1.scale``; ``enc_blocks["mlp"]["w_in"]`` of shape (L, d, f)
+    becomes ``enc_blocks.<l>.mlp.w_in``."""
     out: Dict[str, object] = {}
 
     def walk(node, head, rest):
@@ -106,7 +116,10 @@ def to_state(tree, prefix: str = "") -> Dict[str, object]:
         # outside one); ``rest``: the path below it (or the whole path)
         if isinstance(node, dict):
             for k in sorted(node):
-                walk(node[k], head, rest + (str(k),))
+                if head is None and not rest and k in STACKED_BLOCKS:
+                    walk(node[k], (str(k),), ())
+                else:
+                    walk(node[k], head, rest + (str(k),))
         elif isinstance(node, (list, tuple)):
             for i, t in enumerate(node):
                 if head is None and len(rest) == 1 and rest[0] in STACKED:
@@ -115,7 +128,12 @@ def to_state(tree, prefix: str = "") -> Dict[str, object]:
                     walk(t, head, rest + (str(i),))
         elif head is not None:
             for l in range(node.shape[0]):
-                out[".".join(head + (str(l),) + rest)] = node[l]
+                if rest and rest[0] in INNER_STACKED:
+                    for j in range(node.shape[1]):
+                        out[".".join(head + (str(l), rest[0], str(j))
+                                     + rest[1:])] = node[l, j]
+                else:
+                    out[".".join(head + (str(l),) + rest)] = node[l]
         else:
             out[".".join(rest)] = node
 

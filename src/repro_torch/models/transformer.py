@@ -1,20 +1,20 @@
-"""Decoder-LM assembly — counterpart of `repro.models.transformer`.
+"""Decoder-LM assembly: dense / MoE / SSM / hybrid families —
+counterpart of `repro.models.transformer`.
 
-Layers are grouped into *stages* (`stage_plan`, every family); the
-declarations (`decl`) cover every family, so parameter counts match the
-reference's.  The model itself, `DecoderLM`, runs the dense family: a
-stage is a `Stage` module holding one `Block` per layer, where the
-reference scans stacked parameters.  The MoE, SSM and hybrid families
-and learned positions are ROADMAP Queue 1 item 3b; ``lm_loss`` comes
-with training (item 3c).
-
-Stage layout per family:
+Layers are grouped into *stages* (`stage_plan`); the model, `DecoderLM`,
+holds one module per stage with one block per layer, where the reference
+scans stacked parameters.  Stage layout per family:
 
   dense : [(block, L)]
   moe   : [(dense_block, first_dense)?, (moe_block, L - first_dense)]
   ssm   : [(mamba, L)]
   hybrid: [(period = ssm_per_period×mamba + 1 shared-attn, n_periods),
            (mamba, tail)]          # zamba2: 13×(5+1) + 3 = 81
+
+The hybrid's shared attention block is one parameter set (the model's
+``shared_attn``) applied at every period, the paper-accurate weight
+tying; each period keeps its own KV cache.  ``lm_loss`` comes with
+training (ROADMAP Queue 1 item 3c).
 """
 from __future__ import annotations
 
@@ -28,25 +28,14 @@ from ..device import resolve_device
 from .attention import Attention, KVCache, attention_decl
 from .layers import (MLP, Embed, Norm, embed_decl, mlp_decl, norm_decl,
                      rounded)
-from .mamba import mamba_decl
-from .moe import moe_decl
+from .mamba import MambaBlock, MambaCache, init_mamba_cache, mamba_decl
+from .moe import MoE, moe_decl
 from .params import ParamTree, PDecl, stack_layers, to_state, tree_init
 
 
 def torch_dtype(name: str) -> torch.dtype:
     """A config's dtype name ("bfloat16", "float32") as a torch dtype."""
     return getattr(torch, name)
-
-
-def _require_dense(cfg: ModelConfig, what: str) -> None:
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"{what}: the {cfg.family!r} family is not ported yet "
-            f"(ROADMAP Queue 1 item 3b)")
-    if cfg.pos != "rope":
-        raise NotImplementedError(
-            f"{what}: pos={cfg.pos!r} is not ported yet (ROADMAP Queue 1 "
-            f"item 3b)")
 
 
 # ------------------------------------------------------------ declares ---
@@ -90,15 +79,19 @@ def _lm_head_decl(cfg):
     return {"w": PDecl((cfg.d_model, cfg.vocab_padded), ("embed", "vocab"))}
 
 
+def _pos_embed_decl(cfg):
+    return {"table": PDecl((cfg.max_target_positions, cfg.d_model),
+                           (None, "embed"), "embed",
+                           scale=cfg.d_model ** -0.5)}
+
+
 def decl(cfg: ModelConfig) -> Dict[str, Any]:
     d: Dict[str, Any] = {"embed": embed_decl(cfg),
                          "final_norm": norm_decl(cfg)}
     if not cfg.tie_embeddings:
         d["lm_head"] = _lm_head_decl(cfg)
     if cfg.pos == "learned":
-        d["pos_embed"] = {"table": PDecl(
-            (cfg.max_target_positions, cfg.d_model), (None, "embed"),
-            "embed", scale=cfg.d_model ** -0.5)}
+        d["pos_embed"] = _pos_embed_decl(cfg)
     stages = []
     for kind, n in stage_plan(cfg):
         if kind == "dense":
@@ -125,52 +118,103 @@ def decl(cfg: ModelConfig) -> Dict[str, Any]:
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int,
                 dtype=torch.bfloat16,
-                device: Union[str, torch.device] = "cuda") -> List[KVCache]:
-    """One `KVCache` per stage of `stage_plan`, stacked over its layers:
-    k, v (L, B, max_len, KV, hd) zeros, length 0."""
-    _require_dense(cfg, "init_caches")
+                device: Union[str, torch.device] = "cuda") -> list:
+    """Per-stage caches matching `stage_plan`, stacked over each stage's
+    layers: a `KVCache` (k, v (L, B, max_len, KV, hd) zeros, length 0)
+    for attention stages, a `MambaCache` (conv (L, B, W − 1, CH) in
+    ``dtype``, ssm (L, B, H, N, P) f32) for mamba stages, and for the
+    period stage {"mambas": a `MambaCache` stacked (n_periods,
+    attn_period, …), "attn": a `KVCache` stacked over the periods}."""
     dev = resolve_device(device)
-    shape = (batch, max_len, cfg.n_kv_heads, cfg.hd)
-    return [KVCache(torch.zeros((n,) + shape, dtype=dtype, device=dev),
-                    torch.zeros((n,) + shape, dtype=dtype, device=dev), 0)
-            for _, n in stage_plan(cfg)]
+
+    def kv(n):
+        shape = (n, batch, max_len, cfg.n_kv_heads, cfg.hd)
+        return KVCache(torch.zeros(shape, dtype=dtype, device=dev),
+                       torch.zeros(shape, dtype=dtype, device=dev), 0)
+
+    def mb(*n):
+        one = init_mamba_cache(cfg, batch, dtype, dev)
+        return MambaCache(*(a.expand(n + a.shape).contiguous() for a in one))
+
+    caches = []
+    for kind, n in stage_plan(cfg):
+        if kind in ("dense", "moe"):
+            caches.append(kv(n))
+        elif kind == "mamba":
+            caches.append(mb(n))
+        else:  # period
+            caches.append({"mambas": mb(n, cfg.attn_period), "attn": kv(n)})
+    return caches
+
+
+def _first_kv(tree) -> Optional[KVCache]:
+    if isinstance(tree, KVCache):
+        return tree
+    if isinstance(tree, dict):
+        tree = [tree[k] for k in sorted(tree)]
+    if isinstance(tree, list):
+        for t in tree:
+            kv = _first_kv(t)
+            if kv is not None:
+                return kv
+    return None
 
 
 def caches_length(caches) -> int:
-    """Current fill position from the first KV cache found (else 0)."""
-    for c in caches or ():
-        if isinstance(c, KVCache):
-            return c.length
-    return 0
+    """Current fill position from the first KV cache found (else 0),
+    searching nested dicts (keys in sorted order) and lists as the
+    reference's ``tree_leaves`` does: a hybrid's is its first period's."""
+    kv = _first_kv(caches)
+    return 0 if kv is None else kv.length
 
 
 # --------------------------------------------------------------- modules ---
 
 class Block(nn.Module):
-    """Pre-norm attention + MLP block (`_attn_block_decl(cfg, "mlp")`)."""
+    """Pre-norm attention + FFN block (`_attn_block_decl`): the FFN an
+    MLP (``ffn="mlp"``) or the MoE layer (``ffn="moe"``)."""
 
-    def __init__(self, cfg, *, dtype, device):
+    def __init__(self, cfg, ffn: str = "mlp", *, dtype, device):
         super().__init__()
         self.ln1 = Norm(cfg, dtype=dtype, device=device)
         self.attn = Attention(cfg, dtype=dtype, device=device)
         self.ln2 = Norm(cfg, dtype=dtype, device=device)
-        self.mlp = MLP(cfg, dtype=dtype, device=device)
+        if ffn == "moe":
+            self.moe = MoE(cfg, dtype=dtype, device=device)
+        else:
+            self.mlp = MLP(cfg, dtype=dtype, device=device)
 
     def forward(self, x, cache: Optional[KVCache] = None, positions=None):
         a, new_cache = self.attn(self.ln1(x), causal=True,
                                  positions=positions, cache=cache)
         x = x + a
-        x = x + self.mlp(self.ln2(x))
+        h = self.ln2(x)
+        x = x + (self.moe(h) if "moe" in self._modules else self.mlp(h))
         return x, new_cache
 
 
-class Stage(nn.Module):
-    """``n`` blocks applied in order; its cache is stacked over them."""
+def _layer(cache, i):
+    """Layer i's slice of a stacked cache (its tensors are views)."""
+    if isinstance(cache, KVCache):
+        return KVCache(cache.k[i], cache.v[i], cache.length)
+    return MambaCache(cache.conv[i], cache.ssm[i])
 
-    def __init__(self, cfg, n: int, *, dtype, device):
+
+def _write_back(stacked: MambaCache, i, new: MambaCache) -> None:
+    """A mamba layer's new state into its slice of the stacked cache, in
+    place (the reference's scan restacks it)."""
+    stacked.conv[i].copy_(new.conv)
+    stacked.ssm[i].copy_(new.ssm)
+
+
+class Stage(nn.Module):
+    """``n`` attention blocks (FFN ``ffn``) applied in order; its cache is
+    a `KVCache` stacked over them."""
+
+    def __init__(self, cfg, n: int, ffn: str = "mlp", *, dtype, device):
         super().__init__()
         self.layers = nn.ModuleList(
-            Block(cfg, dtype=dtype, device=device) for _ in range(n))
+            Block(cfg, ffn, dtype=dtype, device=device) for _ in range(n))
 
     def forward(self, x, cache: Optional[KVCache] = None, positions=None):
         if cache is None:
@@ -179,16 +223,76 @@ class Stage(nn.Module):
             return x, None
         length = cache.length
         for i, layer in enumerate(self.layers):
-            x, nc = layer(x, KVCache(cache.k[i], cache.v[i], cache.length),
-                          positions)
+            x, nc = layer(x, _layer(cache, i), positions)
             length = nc.length
         return x, KVCache(cache.k, cache.v, length)
 
 
+def _run_mambas(blocks, x, cache: Optional[MambaCache]):
+    """Mamba blocks in order over a `MambaCache` stacked over them (its
+    tensors written in place), or none."""
+    for i, block in enumerate(blocks):
+        x, nc = block(x, None if cache is None else _layer(cache, i))
+        if cache is not None:
+            _write_back(cache, i, nc)
+    return x
+
+
+class MambaStage(nn.Module):
+    """``n`` Mamba2 blocks; its cache is a `MambaCache` stacked over them."""
+
+    def __init__(self, cfg, n: int, *, dtype, device):
+        super().__init__()
+        self.layers = nn.ModuleList(
+            MambaBlock(cfg, dtype=dtype, device=device) for _ in range(n))
+
+    def forward(self, x, cache: Optional[MambaCache] = None, positions=None):
+        return _run_mambas(self.layers, x, cache), cache
+
+
+class Period(nn.Module):
+    """One hybrid period's own parameters: its ``attn_period`` mamba
+    blocks (the shared attention block is the model's)."""
+
+    def __init__(self, cfg, *, dtype, device):
+        super().__init__()
+        self.mambas = nn.ModuleList(
+            MambaBlock(cfg, dtype=dtype, device=device)
+            for _ in range(cfg.attn_period))
+
+
+class PeriodStage(nn.Module):
+    """The hybrid's ``n`` periods: each runs its mamba blocks, then the
+    shared attention block ``shared`` against the period's own KV cache."""
+
+    def __init__(self, cfg, n: int, *, dtype, device):
+        super().__init__()
+        self.layers = nn.ModuleList(
+            Period(cfg, dtype=dtype, device=device) for _ in range(n))
+
+    def forward(self, x, cache: Optional[dict], positions, shared: Block):
+        if cache is None:
+            for period in self.layers:
+                x = _run_mambas(period.mambas, x, None)
+                x, _ = shared(x, None, positions)
+            return x, None
+        kv = cache["attn"]
+        length = kv.length
+        for p, period in enumerate(self.layers):
+            x = _run_mambas(period.mambas, x, _layer(cache["mambas"], p))
+            x, nc = shared(x, _layer(kv, p), positions)
+            length = nc.length
+        return x, {"mambas": cache["mambas"],
+                   "attn": KVCache(kv.k, kv.v, length)}
+
+
 class DecoderLM(nn.Module):
-    """The dense decoder LM.  State-dict keys follow the reference's
-    parameter paths, one set per layer (``stages.0.layers.3.attn.wq``):
-    `params.from_reference` carries a reference tree across.
+    """The decoder LM of every decoder family (dense, MoE, SSM, hybrid).
+    State-dict keys follow the reference's parameter paths, one set per
+    layer (``stages.0.layers.3.attn.wq``; a period's mamba blocks at
+    ``stages.0.layers.<period>.mambas.<j>``; the hybrid's
+    ``shared_attn``): `params.from_reference` carries a reference tree
+    across.
 
     ``generator`` (a `torch.Generator` on ``device``) initializes the
     weights with `tree_init`'s rules; without one they are zeros, to be
@@ -199,7 +303,9 @@ class DecoderLM(nn.Module):
                  generator: Optional[torch.Generator] = None, *,
                  device: Union[str, torch.device] = "cuda"):
         super().__init__()
-        _require_dense(cfg, "DecoderLM")
+        if cfg.family == "encdec":
+            raise ValueError("DecoderLM: the encoder-decoder family is "
+                             "models.encdec.EncDecLM")
         dev = resolve_device(device)
         dtype = torch_dtype(cfg.param_dtype)
         # with a generator the weights come from tree_init: build the
@@ -211,8 +317,20 @@ class DecoderLM(nn.Module):
         self.final_norm = Norm(cfg, **kw)
         if not cfg.tie_embeddings:
             self.lm_head = ParamTree(_lm_head_decl(cfg), **kw)
-        self.stages = nn.ModuleList(Stage(cfg, n, **kw)
-                                    for _, n in stage_plan(cfg))
+        if cfg.pos == "learned":
+            self.pos_embed = ParamTree(_pos_embed_decl(cfg), **kw)
+        stages = []
+        for kind, n in stage_plan(cfg):
+            if kind in ("dense", "moe"):
+                ffn = "moe" if kind == "moe" else "mlp"
+                stages.append(Stage(cfg, n, ffn, **kw))
+            elif kind == "mamba":
+                stages.append(MambaStage(cfg, n, **kw))
+            else:
+                stages.append(PeriodStage(cfg, n, **kw))
+        self.stages = nn.ModuleList(stages)
+        if cfg.family == "hybrid":
+            self.shared_attn = Block(cfg, "mlp", **kw)
         if generator is not None:
             self.load_state_dict(
                 to_state(tree_init(generator, decl(cfg), dtype, dev)),
@@ -224,7 +342,7 @@ class DecoderLM(nn.Module):
     def __contains__(self, k: str) -> bool:
         return k in self._parameters or k in self._modules
 
-    def forward(self, tokens, caches: Optional[List[KVCache]] = None,
+    def forward(self, tokens, caches: Optional[list] = None,
                 prefix_embeds=None, positions=None):
         """tokens: (B, S) integer ids → hidden (B, S', D), S' = S plus
         the ``prefix_embeds`` (B, P, D) length (VLM stub embeddings
@@ -239,10 +357,21 @@ class DecoderLM(nn.Module):
         if cfg.embed_scale:
             # √d_model rounded to the compute dtype first, as the reference
             x = x * rounded(cfg.d_model ** 0.5, dt)
+        if cfg.pos == "learned":
+            base = caches_length(caches) if caches is not None else 0
+            table = self.pos_embed.table
+            pos = torch.clamp(base + torch.arange(x.shape[1],
+                                                  device=x.device),
+                              max=table.shape[0] - 1)
+            x = x + table[pos].to(dt)[None]
         decoding = caches is not None
         new_caches = []
         for i, stage in enumerate(self.stages):
-            x, nc = stage(x, caches[i] if decoding else None, positions)
+            cache = caches[i] if decoding else None
+            if isinstance(stage, PeriodStage):
+                x, nc = stage(x, cache, positions, self.shared_attn)
+            else:
+                x, nc = stage(x, cache, positions)
             new_caches.append(nc)
         x = self.final_norm(x)
         return (x, new_caches) if decoding else x

@@ -6,8 +6,8 @@ against a live streaming model (`assign_stream`), hot-swappable replicas
 and their publisher (`Scorer`, `SnapshotPublisher`,
 `snapshot_from_checkpoint`), the coalescing `ScoringService`, and the
 tenant plane's gather-scored `TenantScorer` with its tenant-routed
-`TenantScoringService`; and the dense LM's greedy serving path
-(`make_prefill`, `make_serve_step`, `greedy_generate`).
+`TenantScoringService`; and the LM's greedy serving path for every
+family (`make_prefill`, `make_serve_step`, `greedy_generate`).
 """
 from .cluster import assign_store, assign_stream, make_assigner
 from .decode import greedy_generate, make_prefill, make_serve_step

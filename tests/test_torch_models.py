@@ -1,4 +1,6 @@
-"""`repro_torch.models` / `serve.decode` / `configs` against `repro`'s.
+"""`repro_torch.models` / `serve.decode` / `configs` against `repro`'s:
+the decoder families (dense, MoE, SSM, hybrid; the encoder–decoder is
+tests/test_torch_encdec.py's).
 
 The reference's own random parameters (`repro.models.params.tree_init`)
 are carried across with `from_reference`; inputs are made with numpy
@@ -38,6 +40,9 @@ from repro_torch.serve import decode as tdec
 RTOL, ATOL = 1e-4, 1e-5          # port vs reference, f32
 DENSE = ("starcoder2-7b", "stablelm-12b", "qwen2-1.5b", "gemma-7b",
          "pixtral-12b")
+# the other decoder families' reduced configs, and a dense one with
+# learned positions (clamped at max_target_positions − 1)
+FAMILIES = ("olmoe-1b-7b", "kimi-k2-1t-a32b", "mamba2-2.7b", "zamba2-7b")
 PADDED = dict(name="padded", family="dense", n_layers=2, d_model=48,
               n_heads=6, n_kv_heads=2, d_ff=96, vocab=250, head_dim=8,
               qkv_bias=True, compute_dtype="float32",
@@ -49,20 +54,25 @@ def _cfgs(case):
     arch's reduced config; "padded" (6 Q heads → 8 over 2 KV heads,
     vocab 250 → 256: the dead heads and the vocab mask); "chunked"
     (qwen2 reduced with KV blocks of 8: the online softmax in forward,
-    cached prefill and decode)."""
+    cached prefill and decode); "learned" (qwen2 reduced with learned
+    positions in a 16-row table, so 24 positions clamp)."""
     if case == "padded":
         from repro.configs.base import ModelConfig as RMC
         return RMC(**PADDED), ModelConfig(**PADDED)
-    arch = "qwen2-1.5b" if case == "chunked" else case
+    arch = "qwen2-1.5b" if case in ("chunked", "learned") else case
     ref, port = RC.reduced(RC.get_config(arch)), \
         TC.reduced(TC.get_config(arch))
     if case == "chunked":
         ref, port = (dataclasses.replace(c, attn_chunk=8)
                      for c in (ref, port))
+    if case == "learned":
+        ref, port = (dataclasses.replace(c, pos="learned",
+                                         max_target_positions=16)
+                     for c in (ref, port))
     return ref, port
 
 
-CASES = DENSE + ("padded", "chunked")
+CASES = DENSE + ("padded", "chunked") + FAMILIES + ("learned",)
 
 
 def _np_tree(tree):
@@ -91,6 +101,31 @@ def _batch(cfg, b, s, seed):
         batch["patch_embeds"] = rng.normal(
             size=(b, cfg.n_patches, cfg.d_model)).astype(np.float32)
     return batch
+
+
+def _prompt(cfg, s):
+    """A prompt length near ``s`` that the reference's SSD takes: past
+    one chunk, whole chunks only (src/repro/models/mamba.py:84)."""
+    if cfg.family in ("ssm", "hybrid") and s > cfg.ssm_chunk:
+        return s - s % cfg.ssm_chunk
+    return s
+
+
+def _cache_tensors(caches):
+    """The port's cache tensors in the reference's leaf order (dicts by
+    sorted key; a `KVCache`'s k, v; a `MambaCache`'s conv, ssm)."""
+    if isinstance(caches, dict):
+        return [t for k in sorted(caches) for t in _cache_tensors(caches[k])]
+    if isinstance(caches, TA.KVCache):
+        return [caches.k, caches.v]
+    if isinstance(caches, tuple):           # MambaCache
+        return list(caches)
+    return [t for c in caches for t in _cache_tensors(c)]
+
+
+def _ref_cache_arrays(caches):
+    """The reference's cache arrays, lengths left out."""
+    return [a for a in jax.tree_util.tree_leaves(caches) if a.ndim > 1]
 
 
 def _close(got, want, rtol=RTOL, atol=ATOL):
@@ -345,7 +380,7 @@ def test_greedy_generate_matches_reference(case):
     whose top-two logit gap (the reference's forward over its own
     tokens) is within the parity bound, and is not compared after."""
     rcfg, tcfg, params, model = _models(case, seed=1)
-    batch = _batch(tcfg, 3, 10, seed=2)
+    batch = _batch(tcfg, 3, _prompt(tcfg, 10), seed=2)
     want = np.asarray(rdec.greedy_generate(
         rcfg, params, {k: jnp.asarray(v) for k, v in batch.items()},
         max_new=8, max_len=32))
@@ -354,10 +389,16 @@ def test_greedy_generate_matches_reference(case):
     assert got.dtype == torch.int32 and got.shape == (3, 8)
     got = got.numpy()
     seq = np.concatenate([batch["tokens"], want[:, :-1]], axis=1)
+    # the reference's SSD takes whole chunks: pad the (causal) forward
+    pad = _prompt(tcfg, seq.shape[1] + tcfg.ssm_chunk) - seq.shape[1] \
+        if tcfg.family in ("ssm", "hybrid") else 0
+    seq = np.pad(seq, ((0, 0), (0, pad)))
     pe = batch.get("patch_embeds")
     h = rtf.forward(rcfg, params, jnp.asarray(seq),
                     prefix_embeds=None if pe is None else jnp.asarray(pe))
-    gap, top = _top2_gap(rtf.logits_fn(rcfg, params, h)[:, -8:])
+    gap, top = _top2_gap(
+        rtf.logits_fn(rcfg, params, h)[:, h.shape[1] - pad - 8:
+                                       h.shape[1] - pad])
     for r in range(3):
         for t in range(8):
             if got[r, t] != want[r, t]:
@@ -366,23 +407,33 @@ def test_greedy_generate_matches_reference(case):
                 break
 
 
-@pytest.mark.parametrize("case", ["qwen2-1.5b", "padded", "chunked"])
+@pytest.mark.parametrize("case", ["qwen2-1.5b", "padded", "chunked",
+                                  "learned"] + list(FAMILIES))
 def test_prefill_and_step_match_reference(case):
+    """Cached prefill and one decode step: logits, the next token, the
+    fill length (a hybrid's from its first period's KV cache; an SSM's
+    0, it has none) and every cache tensor — KV, conv and SSM states."""
     rcfg, tcfg, params, model = _models(case, seed=2)
-    batch = _batch(tcfg, 2, 9, seed=3)
+    s = _prompt(tcfg, 9)
+    batch = _batch(tcfg, 2, s, seed=3)
     lg_ref, rc = rdec.make_prefill(rcfg, 24)(
         params, {k: jnp.asarray(v) for k, v in batch.items()})
     lg, tc = tdec.make_prefill(tcfg, 24)(
         model, {k: torch.from_numpy(v) for k, v in batch.items()})
     _close(lg, lg_ref)
-    assert ttf.caches_length(tc) == int(rtf.caches_length(rc)) == 9
-    _close(tc[0].k, rc[0].k)
+    filled = 0 if tcfg.family == "ssm" else s
+    assert ttf.caches_length(tc) == int(rtf.caches_length(rc)) == filled
+    got, want = _cache_tensors(tc), _ref_cache_arrays(rc)
+    assert [tuple(t.shape) for t in got] == [a.shape for a in want]
+    for t, a in zip(got, want):
+        _close(t, a)
     tok = np.asarray(jnp.argmax(lg_ref, -1)).astype(np.int32)
     nxt_ref, rc = rdec.make_serve_step(rcfg)(params, rc, jnp.asarray(tok))
     nxt, tc = tdec.make_serve_step(tcfg)(model, tc, torch.from_numpy(tok))
     np.testing.assert_array_equal(nxt.numpy(), np.asarray(nxt_ref))
-    _close(tc[0].v, rc[0].v)
-    assert ttf.caches_length(tc) == 10
+    for t, a in zip(_cache_tensors(tc), _ref_cache_arrays(rc)):
+        _close(t, a)
+    assert ttf.caches_length(tc) == (0 if tcfg.family == "ssm" else s + 1)
 
 
 # ------------------------------------------- bf16, the served dtypes ---
@@ -408,8 +459,20 @@ def test_forward_bf16_matches_reference(case):
     or a sin/cos differs — at least 95 % of the elements equal, none
     more than 2⁻⁶ of the largest apart.  Against the compiled
     reference, whose XLA fusions leave some of those roundings out: none
-    more than 2⁻⁴ of the largest apart."""
+    more than 2⁻⁴ of the largest apart.
+
+    The other families' bars, op by op: at least half bit-equal, none
+    more than 2⁻⁵ of the largest apart.  The SSD's f32 products and an
+    expert's f32 sums run in another order than XLA's, so single bf16
+    outputs flip by one ulp, and the reduced models (random weights,
+    width 64) carry a flip on: at seeds 0–2, down to 63 % bit-equal and
+    1.6 % of the largest apart (zamba2), 84 % and 1.1 % (kimi).  The
+    compiled reference's fused roundings also move near-tied routing
+    choices (up to 5 of 24 tokens at seeds 0–3), each by a whole
+    expert's share, so the MoE families are held op by op only
+    (tests/test_torch_moe.py holds the routing itself)."""
     rcfg, tcfg, params, model = _models(case, dtype="bfloat16")
+    dense = case not in FAMILIES
     batch = _batch(tcfg, 2, 12, seed=1)
     tok = batch["tokens"]
     pe = batch.get("patch_embeds")
@@ -423,10 +486,13 @@ def test_forward_bf16_matches_reference(case):
         h_op = rtf.forward(rcfg, params, jnp.asarray(tok),
                            prefix_embeds=ref_pe)
         lg_op = rtf.logits_fn(rcfg, params, h_op)
-    _bf16_close(h, h_op, 0.95, 2.0 ** -6)
-    _bf16_close(lg, lg_op, 0.95, 2.0 ** -6)
-    h_jit = rtf.forward(rcfg, params, jnp.asarray(tok), prefix_embeds=ref_pe)
-    _bf16_close(h, h_jit, 0.0, 2.0 ** -4)
+    min_equal, rel = (0.95, 2.0 ** -6) if dense else (0.5, 2.0 ** -5)
+    _bf16_close(h, h_op, min_equal, rel)
+    _bf16_close(lg, lg_op, min_equal, rel)
+    if not tcfg.is_moe:
+        h_jit = rtf.forward(rcfg, params, jnp.asarray(tok),
+                            prefix_embeds=ref_pe)
+        _bf16_close(h, h_jit, 0.0, 2.0 ** -4)
 
 
 @pytest.mark.parametrize("case", ["qwen2-1.5b", "padded", "chunked"])
@@ -470,12 +536,23 @@ def _tiny(**kw):
     return ModelConfig(**base)
 
 
+TINY_FAMS = {   # tests/test_models.py:12-18
+    "moe": dict(family="moe", n_experts=8, top_k=2, capacity_factor=8.0,
+                qkv_bias=False),
+    "ssm": dict(family="ssm", d_ff=0, ssm_state=16, ssm_head_dim=16,
+                ssm_chunk=4, qkv_bias=False),
+    "hybrid": dict(family="hybrid", ssm_state=16, ssm_head_dim=16,
+                   ssm_chunk=4, attn_period=2, n_layers=7, qkv_bias=False),
+}
+
+
 @pytest.mark.parametrize("cfg", [_tiny(), _tiny(attn_chunk=8),
-                                 ModelConfig(**PADDED)],
-                         ids=["dense", "chunked", "padded"])
+                                 ModelConfig(**PADDED)]
+                         + [_tiny(**kw) for kw in TINY_FAMS.values()],
+                         ids=["dense", "chunked", "padded"] + list(TINY_FAMS))
 def test_decode_matches_forward(cfg):
     """tests/test_models.py:31's case (cached prefill of 8, then one token
-    at a time) on the port."""
+    at a time) on the port, for every decoder family."""
     model = DecoderLM(cfg, torch.Generator().manual_seed(0), device="cpu")
     tokens = torch.from_numpy(
         np.random.default_rng(0).integers(0, cfg.vocab, (2, 16)))
@@ -518,25 +595,111 @@ def test_gqa_repetition_consistency():
     _close(m(tokens), g(tokens).numpy(), rtol=2e-3, atol=2e-4)
 
 
-# --------------------------------------------- not ported: raises 3b -----
+# ------------------------------------------------- caches and params ---
 
-@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "mamba2-2.7b", "zamba2-7b",
-                                  "whisper-medium"])
-def test_other_families_raise_naming_3b(arch):
-    cfg = TC.reduced(TC.get_config(arch))
-    for call in (lambda: DecoderLM(cfg, device="cpu"),
-                 lambda: ttf.init_caches(cfg, 1, 8, device="cpu")):
-        with pytest.raises(NotImplementedError, match="item 3b"):
-            call()
-    if cfg.family == "encdec":
-        for make in (lambda: tdec.make_prefill(cfg, 8),
-                     lambda: tdec.make_serve_step(cfg)):
-            with pytest.raises(NotImplementedError, match="item 3b"):
-                make()
-    learned = dataclasses.replace(TC.reduced(TC.get_config("qwen2-1.5b")),
-                                  pos="learned")
-    with pytest.raises(NotImplementedError, match="item 3b"):
-        DecoderLM(learned, device="cpu")
+@pytest.mark.parametrize("arch", ["qwen2-1.5b"] + list(FAMILIES))
+def test_init_caches_match_reference(arch):
+    """Every stage's cache in the reference's layout: shapes and dtypes
+    (KV and conv in the given dtype, the SSM state f32), zeros, length 0."""
+    rcfg, tcfg = RC.reduced(RC.get_config(arch)), \
+        TC.reduced(TC.get_config(arch))
+    got = ttf.init_caches(tcfg, 3, 16, torch.bfloat16, device="cpu")
+    want = rtf.init_caches(rcfg, 3, 16, jnp.bfloat16)
+    ts, rs = _cache_tensors(got), _ref_cache_arrays(want)
+    assert [(tuple(t.shape), str(t.dtype).split(".")[1]) for t in ts] == \
+        [(a.shape, str(a.dtype)) for a in rs]
+    assert all(not bool(t.any()) for t in ts)
+    assert ttf.caches_length(got) == int(rtf.caches_length(want)) == 0
+
+
+def test_caches_length_finds_a_nested_kv_cache():
+    """A hybrid's caches hold their KV cache inside each period's dict
+    ({"attn", "mambas"}, sorted), as the reference's ``tree_leaves``
+    finds it; an SSM's hold none."""
+    kv = TA.KVCache(torch.zeros(1), torch.zeros(1), 7)
+    mb = (torch.zeros(1), torch.zeros(1))
+    assert ttf.caches_length([{"mambas": mb, "attn": kv}, mb]) == 7
+    assert ttf.caches_length([mb, [{"x": mb}, {"y": kv}]]) == 7
+    assert ttf.caches_length([mb]) == 0 and ttf.caches_length([]) == 0
+
+
+@pytest.mark.parametrize("arch", list(FAMILIES) + ["learned"])
+def test_from_reference_keys_per_family(arch):
+    """The reference's tree of each family loads into the port's module
+    key for key: stacked MoE and mamba stages, the period stage's doubly
+    stacked mambas ((n_periods, attn_period, …) → ``stages.0.layers.<p>.
+    mambas.<j>``), ``shared_attn`` once, learned ``pos_embed``."""
+    rcfg, tcfg, params, model = _models(arch)
+    state = from_reference(_np_tree(params), device="cpu")
+    assert set(state) == set(model.state_dict())
+    assert sum(v.numel() for v in state.values()) == \
+        ref_n_params(rtf.decl(rcfg))
+    if tcfg.family == "hybrid":
+        np.testing.assert_array_equal(
+            state["stages.0.layers.1.mambas.0.mamba.wz"].numpy(),
+            np.asarray(params["stages"][0]["mambas"]["mamba"]["wz"][1, 0]))
+        np.testing.assert_array_equal(
+            state["stages.1.layers.0.ln1.scale"].numpy(),
+            np.asarray(params["stages"][1]["ln1"]["scale"][0]))
+        assert "shared_attn.attn.wq" in state
+        assert not any(".attn." in k for k in state
+                       if k.startswith("stages."))
+    elif tcfg.is_moe:
+        last = len(params["stages"]) - 1
+        np.testing.assert_array_equal(
+            state[f"stages.{last}.layers.1.moe.w_in"].numpy(),
+            np.asarray(params["stages"][last]["moe"]["w_in"][1]))
+    elif tcfg.pos == "learned":
+        np.testing.assert_array_equal(state["pos_embed.table"].numpy(),
+                                      np.asarray(params["pos_embed"]["table"]))
+
+
+def test_hybrid_shares_one_attention_block():
+    """zamba2's shared attention: one parameter set, applied at every
+    period (each with its own KV cache).  Changing it changes the
+    output; the periods' own modules hold no attention."""
+    rcfg, tcfg, params, model = _models("zamba2-7b")
+    stage = model.stages[0]
+    assert len(stage.layers) == 2 and all(
+        len(p.mambas) == tcfg.attn_period for p in stage.layers)
+    calls = []
+    hook = model.shared_attn.register_forward_hook(
+        lambda mod, args, out: calls.append(mod.attn.wq.data_ptr()))
+    tok = torch.from_numpy(_batch(tcfg, 1, 8, 0)["tokens"])
+    with torch.inference_mode():
+        h = model(tok)
+        caches = ttf.init_caches(tcfg, 1, 16, torch.float32, device="cpu")
+        model(tok, caches=caches)
+    hook.remove()
+    assert calls == [model.shared_attn.attn.wq.data_ptr()] * 4
+    assert caches[0]["attn"].k.shape[0] == 2      # a KV cache a period
+    assert bool(caches[0]["attn"].k[1].any())
+    with torch.no_grad():
+        model.shared_attn.attn.wo.mul_(2)
+    with torch.inference_mode():
+        assert not torch.allclose(model(tok), h)
+
+
+def test_vocab_padding_masked():
+    """tests/test_padding_profiles.py:76's reduced mamba2 case: vocab 500
+    pads to 512, whose columns hold −1e30 and take no probability; the
+    logits match the reference's."""
+    cfg = dataclasses.replace(TC.reduced(TC.get_config("mamba2-2.7b")),
+                              vocab=500)
+    rcfg = dataclasses.replace(RC.reduced(RC.get_config("mamba2-2.7b")),
+                               vocab=500)
+    assert cfg.vocab_padded == 512
+    params = ref_tree_init(jax.random.PRNGKey(0), rtf.decl(rcfg))
+    model = DecoderLM(cfg, device="cpu")
+    model.load_state_dict(from_reference(_np_tree(params), device="cpu"))
+    tok = np.random.default_rng(1).integers(0, 500, (2, 8)).astype(np.int32)
+    with torch.inference_mode():
+        logits = ttf.logits_fn(cfg, model, model(torch.from_numpy(tok)))
+    assert logits.shape[-1] == 512
+    assert bool((logits[..., 500:] == -1e30).all())
+    assert float(torch.softmax(logits, -1)[..., 500:].max()) == 0.0
+    _close(logits[..., :500], rtf.logits_fn(rcfg, params, rtf.forward(
+        rcfg, params, jnp.asarray(tok)))[..., :500])
 
 
 def test_param_tree_reads_like_a_dict():
