@@ -203,7 +203,26 @@ Phases, each printed as JSON lines; any failure raises and exits non-zero:
    at ties, full `CurriculumSampler` batches; printed only: the same
    fit at `curriculum_buckets`' default m = 2 (the phase runs m = 1.2);
    K1/K2 at each of its shapes held against their plain versions and
-   timed.
+   timed.  Then ``lm_train``: Qwen2-1.5B at its published config trained
+   through `launch.train.build` (bf16 weights from ``--seed``, AdamW with
+   f32 moments, the cosine schedule at peak 3e-4 with warmup 2, clip 1.0,
+   remat, the chunked `lm_loss`) on 8 × 2048 batches from
+   `synthetic_token_batches`: 2 warm-up and 8 timed steps (step ms, p10–p90,
+   tokens/s, peak device memory, the model-FLOPs share of the bf16 peak,
+   one more step under `torch.profiler`); held: finite losses, the first
+   within 0.5 of ln(vocab) (tests/test_archs_smoke.py:44), the last three's
+   mean below it; a checkpoint written after step 2 and restored into a
+   fresh state (other weights) takes step 3 as the uninterrupted run did
+   (bit for bit, else within 1e-4 and a bf16 ulp); an f32 twin (full
+   width, 2 layers, TF32 off) takes one step on the card and on the CPU:
+   the loss within 1e-5, every gradient within 1e-4 of its leaf's
+   largest, the card's update against the CPU's optimizer on the card's
+   gradients within 2 ulps plus 1e-5 of the update.  Then
+   ``lm_train_dp``: `train.dp.make_dp_train_step` on 2 gloo ranks sharing
+   the card (full width, 2 layers, bf16 wire with error feedback, 3 steps
+   of 4 × 2048), held bit for bit (else within a bf16 ulp) against the
+   same steps composed in this process; printed: bytes gathered (half an
+   f32 wire) and seconds in collectives.
 8. LM families — four published configs at full width and depth, bf16
    weights from `tree_init` on the card from ``--seed``, each served
    through `greedy_generate` and its loop timed call by call (prefill
@@ -227,7 +246,13 @@ Phases, each printed as JSON lines; any failure raises and exits non-zero:
    (TF32 off) at cf = E/k (no drops) decode with the cache against one
    forward over the 2048 + 64 tokens at rtol 5e-3 / atol 5e-4, tokens
    near a routing tie exempt and counted; card vs CPU with identical
-   expert choices and drops in f32.  ``lm_ssm`` / ``lm_hybrid``:
+   expert choices and drops in f32.  ``lm_train_moe`` then trains that
+   model, seeded routers and all (`build`'s ``params=``; no second init
+   or fit), with Adafactor on 8 × 2048 batches: 2 warm-up and 6 timed
+   steps, printed as ``lm_train``'s, with the pairs dropped and the router
+   load of the first batch before and after; held: finite losses, the
+   first within the smoke bar, and the f32 twin of its first 2 layers at
+   cf = E/k (no drops), routing identical on the card and the CPU.  ``lm_ssm`` / ``lm_hybrid``:
    Mamba2-2.7B (64 layers, d 2560, 80 heads of 64, state 128, chunk 256,
    vocab 50,280 padded to 50,304) and Zamba2-7B (13 × (5 mamba + shared
    attention) + 3, d 3584); the same prompts; held: the padded vocabulary
@@ -5543,7 +5568,8 @@ def run_lm_moe(seed, device, reps):
     card (`seed_moe_routers`), served in bf16; route statistics from a
     tapped prefill and decode; the f32 decode-vs-forward hold at cf =
     E/k (no drops), tokens near a routing tie exempt; the reduced config
-    on the card against the CPU.  Returns the fit's kernel entries."""
+    on the card against the CPU; then ``lm_train_moe`` trains the same
+    model (`run_lm_train_moe`).  Returns the fit's kernel entries."""
     import torch
     from repro_torch.serve import make_prefill, make_serve_step
     t_phase = time.perf_counter()
@@ -5585,10 +5611,10 @@ def run_lm_moe(seed, device, reps):
         "decode_distinct_experts_mean": [
             sum(taps.distinct[i]) / len(taps.distinct[i]) for i in range(n)]}
     rec["router_init"] = seed_rec
-    # f32, TF32 off, cf = E/k: nothing drops in the forward or the steps
+    # f32, TF32 off, cf = E/k: nothing drops in the forward or the steps;
+    # the bf16 model stays for lm_train_moe
     cfg32, m32 = f32_twin(model, cfg, device,
                           capacity_factor=cfg.n_experts / cfg.top_k)
-    del model
     torch.cuda.empty_cache()
     ties = RouteTaps(m32, cfg32)
     with torch.inference_mode():
@@ -5609,6 +5635,9 @@ def run_lm_moe(seed, device, reps):
           "d_ff": cfg.d_ff, "vocab": cfg.vocab,
           "capacity_factor": cfg.capacity_factor,
           "attn_chunk": cfg.attn_chunk, **rec})
+    run_lm_train_moe(model, cfg, unseeded, seed_rec, seed, device)
+    del model
+    torch.cuda.empty_cache()
     return entries
 
 
@@ -5966,6 +5995,597 @@ def run_lm_families(seed, device, reps) -> list:
     return entries
 
 
+# lm_train / lm_train_moe / lm_train_dp: the training path
+# (`repro_torch.launch.train.build`, `train.step`, `train.dp`, `optim`,
+# `models.transformer.lm_loss`, remat) at the published configs, random
+# weights from --seed, batches from `synthetic_token_batches`.
+TRAIN_BATCH, TRAIN_SEQ = 8, 2048
+TRAIN_LR, TRAIN_WARMUP, TRAIN_CLIP = 3e-4, 2, 1.0
+TRAIN_STEPS, TRAIN_MOE_STEPS = 8, 6      # timed, after TRAIN_WARMUP warm-up
+TRAIN_CKPT_AT = TRAIN_WARMUP             # checkpoint after this many steps
+SMOKE_LOSS_REL = 0.5        # first loss vs ln(vocab), tests/test_archs_smoke.py:44
+# H100 SXM dense bf16 tensor-core peak, published, at 700 W
+BF16_PEAK_FLOP_PER_S = 989e12
+# f32 twins (TF32 off): full width, TWIN_LAYERS layers, one step on the
+# card against the same step on the CPU.  The loss within TWIN_LOSS_REL;
+# every gradient within TWIN_GRAD_REL of its leaf's largest |g| (f32 sums
+# in another order); the card's optimizer update against the CPU's
+# optimizer applied to the card's gradients within TWIN_ULPS f32 ulps of
+# the parameter plus TWIN_UPDATE_REL of the update (Adafactor's means and
+# RMS are sums taken in another order).
+TWIN_LAYERS, TWIN_BATCH, TWIN_SEQ = 2, 2, 64
+TWIN_LOSS_REL, TWIN_GRAD_REL, TWIN_ULPS = 1e-5, 1e-4, 2
+TWIN_UPDATE_REL = 1e-5
+# the checkpoint's resumed step where the card's kernels are not
+# deterministic: the loss within CKPT_LOSS_REL, every parameter within
+# one bf16 ulp (2^-8 of its value)
+CKPT_LOSS_REL = 1e-4
+DP_RANKS, DP_LAYERS, DP_STEPS, DP_BATCH = 2, 2, 3, 4
+LM_N_PARAMS = 1_587_768_832     # Qwen2-1.5B as declared (tied, 16 Q slots)
+DP_SAMPLE = 4099            # every n-th residual element returned by a rank
+
+
+def train_flops(cfg, model, tokens: int) -> float:
+    """Model FLOPs of one training step over ``tokens`` tokens (PaLM's
+    count, remat's recompute not counted): 6·N per token for the
+    parameters a token's products use — every weight but the input
+    embedding's lookup (a tied table counts once, as the head), the MoE
+    layers' experts at top_k / n_experts of their weights — plus
+    12·L·H·hd·S per token for attention's scores and values over the
+    sequence (real heads, not the padded ones)."""
+    n = sum(p.numel() for p in model.parameters())
+    if not cfg.tie_embeddings:
+        n -= model.embed.table.numel()
+    if cfg.is_moe:
+        experts = sum(b.moe.w_in.numel() + b.moe.w_out.numel()
+                      for s in model.stages for b in s.layers
+                      if "moe" in b._modules)
+        n -= experts * (1 - cfg.top_k / cfg.n_experts)
+    attn = 12 * cfg.n_layers * cfg.n_heads * cfg.hd * TRAIN_SEQ
+    return float(tokens * (6 * n + attn))
+
+
+def published_lm(arch, want):
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    got = {k: getattr(cfg, k) for k in want}
+    if got != want:
+        raise AssertionError(f"{arch}: {got} is not the published {want}")
+    return cfg
+
+
+def train_batches(cfg, n, seed, batch=TRAIN_BATCH, seq=TRAIN_SEQ):
+    from repro_torch.data.lm import synthetic_token_batches
+    return [{"tokens": t, "labels": y} for t, y in synthetic_token_batches(
+        cfg.vocab, batch, seq, steps=n, seed=seed)]
+
+
+def timed_steps(state, step_fn, batches, device, on_step=None):
+    """Every batch through ``step_fn``, each step timed to a synchronize;
+    ``on_step(i, state)`` runs after step i, outside its time.  Returns
+    (state, per-step ms, [{loss, grad_norm, lr}], peak device bytes)."""
+    import torch
+    from repro_torch.device import synchronize
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
+    ms, hist = [], []
+    for i, b in enumerate(batches):
+        synchronize(device)
+        t0 = time.perf_counter()
+        state, m = step_fn(state, b)
+        synchronize(device)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        hist.append({k: float(m[k]) for k in ("loss", "grad_norm", "lr")})
+        if on_step is not None:
+            on_step(i, state)
+    peak = torch.cuda.max_memory_allocated(device) if cuda else None
+    return state, ms, hist, peak
+
+
+def hold_losses(name, cfg, hist, *, falls=True) -> dict:
+    """Every loss finite, the first within the smoke bar of ln(vocab),
+    and (``falls``) the mean of the last 3 below the first."""
+    losses = [h["loss"] for h in hist]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{name}: non-finite loss in {losses}")
+    ln_v = math.log(cfg.vocab)
+    if abs(losses[0] - ln_v) > SMOKE_LOSS_REL * ln_v:
+        raise AssertionError(f"{name}: first loss {losses[0]} not within "
+                             f"{SMOKE_LOSS_REL} of ln(vocab) = {ln_v}")
+    last3 = sum(losses[-3:]) / 3
+    if falls and not last3 < losses[0]:
+        raise AssertionError(f"{name}: mean of the last 3 losses {last3} "
+                             f"is not below the first {losses[0]}")
+    return {"ln_vocab": ln_v, "first": losses[0], "last3_mean": last3,
+            "smoke_rel": SMOKE_LOSS_REL}
+
+
+def step_record(cfg, model, ms, hist, peak, warmup, tokens) -> dict:
+    import numpy as np
+    timed = ms[warmup:]
+    med = float(np.median(timed))
+    flops = train_flops(cfg, model, tokens)
+    return {"steps": len(ms), "warmup_steps": warmup,
+            "step_ms": ms, "step_ms_median": med,
+            "step_ms_p10_p90": [float(np.percentile(timed, 10)),
+                                float(np.percentile(timed, 90))],
+            "tokens_per_step": tokens, "tokens_per_s": tokens / med * 1e3,
+            "peak_device_bytes": peak, "model_flops_per_step": flops,
+            "model_flops_share": flops / (med / 1e3) / BF16_PEAK_FLOP_PER_S,
+            "bf16_peak_flop_per_s": BF16_PEAK_FLOP_PER_S,
+            "history": hist}
+
+
+def twin_side(cfg, state_dict, batch, opt_name, device, lr, taps=None,
+              update=True):
+    """One f32 step of a `DecoderLM` of ``cfg`` holding ``state_dict``, on
+    ``device``: (loss, grad norm, clipped grads on the CPU by path,
+    parameters after the step on the CPU — without ``update``, the
+    gradients only —, route taps)."""
+    from repro_torch.models import DecoderLM
+    from repro_torch.optim import clip_by_global_norm, make
+    from repro_torch.train.step import (loss_and_grads, on_device,
+                                        param_groups)
+    model = DecoderLM(cfg, device=device)
+    model.load_state_dict({k: v.to(device) for k, v in state_dict.items()})
+    model.requires_grad_(True)
+    tap = taps(model, cfg) if taps is not None else None
+    groups = param_groups(model)
+    opt = make(opt_name)
+    st = opt.init(groups)
+    loss, grads = loss_and_grads(cfg, model, groups, on_device(batch, device))
+    grads, gnorm = clip_by_global_norm(grads, TRAIN_CLIP)
+    cpu_grads = {p: [t.detach().cpu() for t in ts] for p, ts in grads.items()}
+    after = None
+    if update:
+        opt.update(grads, st, groups, lr)
+        after = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    if tap is not None:
+        tap.remove()
+    return float(loss), float(gnorm), cpu_grads, after, tap
+
+
+def hold_twin(name, cfg, state_dict, batch, opt_name, device,
+              taps=None) -> dict:
+    """The f32 twin's step on the card against the CPU's (TF32 off): the
+    loss, every gradient, and the card's update against the CPU's
+    optimizer applied to the card's gradients from the same start (the
+    CPU's own update would only add the gradients' rounding, held
+    already)."""
+    import torch
+    from repro_torch.models import DecoderLM
+    from repro_torch.optim import make, schedule
+    from repro_torch.train.step import param_groups
+    torch.backends.cuda.matmul.allow_tf32 = False
+    lr = schedule.cosine_schedule(0, peak=TRAIN_LR, warmup=TRAIN_WARMUP,
+                                  total=TRAIN_WARMUP + TRAIN_STEPS)
+    t0 = time.perf_counter()
+    l_card, n_card, g_card, p_card, tap_card = twin_side(
+        cfg, state_dict, batch, opt_name, device, lr, taps)
+    l_cpu, n_cpu, g_cpu, _, tap_cpu = twin_side(
+        cfg, state_dict, batch, opt_name, torch.device("cpu"), lr, taps,
+        update=False)
+    rec = {"layers": cfg.n_layers, "batch": list(batch["tokens"].shape),
+           "optimizer": opt_name, "loss_card": l_card, "loss_cpu": l_cpu,
+           "grad_norm_card": n_card, "grad_norm_cpu": n_cpu,
+           "loss_rel_bar": TWIN_LOSS_REL, "grad_rel_bar": TWIN_GRAD_REL,
+           "update_ulps_bar": TWIN_ULPS}
+    if tap_card is not None:
+        diff = routing_diff(tap_cpu, tap_card, batch["tokens"].shape)
+        diff.pop("first")
+        rec["routing"] = diff
+        if diff["tokens_routed_differently"] or \
+                diff["tokens_kept_differently"]:
+            raise AssertionError(f"{name}: f32 twin routes differently on "
+                                 f"the card and the CPU: {diff}")
+    if not abs(l_card - l_cpu) <= TWIN_LOSS_REL * abs(l_cpu):
+        raise AssertionError(f"{name}: f32 twin loss {l_card} on the card, "
+                             f"{l_cpu} on the CPU")
+    worst = 0.0
+    for path, ts in g_cpu.items():
+        scale = max(float(t.abs().max()) for t in ts)
+        err = max(float((a - b).abs().max())
+                  for a, b in zip(g_card[path], ts))
+        worst = max(worst, err / scale if scale else err)
+        if err > TWIN_GRAD_REL * scale:
+            raise AssertionError(f"{name}: f32 twin gradient {path} off by "
+                                 f"{err:.3e} of {scale:.3e}")
+    rec["grad_worst_rel"] = worst
+    # the CPU's optimizer on the card's gradients, from the same start
+    ref = DecoderLM(cfg, device="cpu")
+    ref.load_state_dict(state_dict)
+    groups = param_groups(ref)
+    opt = make(opt_name)
+    opt.update(g_card, opt.init(groups), groups, lr)
+    worst = 0.0
+    for k, v in ref.state_dict().items():
+        bar = (TWIN_ULPS * torch.finfo(torch.float32).eps
+               * v.abs().clamp(min=torch.finfo(torch.float32).tiny)
+               + TWIN_UPDATE_REL * (v - state_dict[k]).abs())
+        worst = max(worst, float(((p_card[k] - v).abs() / bar).max()))
+    rec["update_worst_share_of_bar"] = worst
+    if worst > 1.0:
+        raise AssertionError(f"{name}: the card's {opt_name} update is "
+                             f"{worst}x its bar off the CPU's on its "
+                             f"gradients")
+    rec["seconds"] = time.perf_counter() - t0
+    return rec
+
+
+def twin_state(model, cfg, layers):
+    """The first ``layers`` layers of ``model`` (and its embedding, norm
+    and head) as an f32 state dict on the CPU."""
+    out = {}
+    for k, v in model.state_dict().items():
+        parts = k.split(".")
+        if parts[0] == "stages" and int(parts[3]) >= layers:
+            continue
+        out[k] = v.detach().float().cpu()
+    return out
+
+
+def hold_checkpoint(cfg, mgr, want, batch, seed, device) -> dict:
+    """A fresh state (other weights, from ``seed`` + 1) restored from
+    ``mgr``'s checkpoint takes the uninterrupted run's next step:
+    ``want`` = (its loss, grad norm, parameters after it)."""
+    import torch
+    from repro_torch.launch.train import build, restore
+    t0 = time.perf_counter()
+    state, step_fn = build(cfg, optimizer="adamw", lr=TRAIN_LR,
+                           warmup=TRAIN_WARMUP,
+                           total_steps=TRAIN_WARMUP + TRAIN_STEPS,
+                           seed=seed + 1, device=device)
+    mgr.wait()
+    state = restore(mgr, state)
+    restore_s = time.perf_counter() - t0
+    if int(state.step) != TRAIN_CKPT_AT:
+        raise AssertionError(f"lm_train: restored step {int(state.step)}")
+    state, m = step_fn(state, batch)
+    loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+    w_loss, w_gnorm, w_params = want
+    params = state.params.state_dict()
+    differ = [k for k, v in w_params.items() if not torch.equal(v, params[k])]
+    bits = not differ and loss == w_loss and gnorm == w_gnorm
+    rec = {"saved_after_steps": TRAIN_CKPT_AT, "loss": loss,
+           "uninterrupted_loss": w_loss, "grad_norm": gnorm,
+           "uninterrupted_grad_norm": w_gnorm, "bit_equal": bits,
+           "params_differing": len(differ), "restore_s": restore_s}
+    if not bits:
+        # not bit for bit: the card's gradient sums (index_put_'s
+        # accumulation in the embedding's backward, cuBLAS's split-K)
+        # took another order; the step within CKPT_LOSS_REL and one bf16 ulp
+        worst = 0.0
+        for k in differ:
+            ulp = w_params[k].float().abs() * 2.0 ** -8 + 2.0 ** -133
+            worst = max(worst, float(((params[k].float()
+                                       - w_params[k].float()).abs()
+                                      / ulp).max()))
+        rec["params_worst_bf16_ulps"] = worst
+        if abs(loss - w_loss) > CKPT_LOSS_REL * abs(w_loss) or worst > 1.0:
+            raise AssertionError(f"lm_train: the resumed step differs: "
+                                 f"{rec}")
+    del state, step_fn
+    return rec
+
+
+def run_lm_train(seed, device, ckpt_dir):
+    """Phase ``lm_train``: Qwen2-1.5B at its published config trained
+    through `launch.train.build` (AdamW, f32 moments, cosine schedule at
+    peak TRAIN_LR, warmup TRAIN_WARMUP, clip TRAIN_CLIP) on 8 × 2048
+    token batches from `synthetic_token_batches`: TRAIN_WARMUP warm-up
+    and TRAIN_STEPS timed steps; a checkpoint after TRAIN_CKPT_AT steps
+    restored into a fresh state takes the next step
+    (`hold_checkpoint`); the f32 twin (`hold_twin`)."""
+    import torch
+    from repro_torch.device import synchronize
+    from repro_torch.ft.checkpoint import CheckpointManager
+    from repro_torch.launch.train import build, checkpoint_tree
+    t_phase = time.perf_counter()
+    cfg = published_lm(LM_ARCH, LM_PUBLISHED)
+    total = TRAIN_WARMUP + TRAIN_STEPS
+    batches = train_batches(cfg, total, seed)
+    t0 = time.perf_counter()
+    state, step_fn = build(cfg, optimizer="adamw", lr=TRAIN_LR,
+                           warmup=TRAIN_WARMUP, total_steps=total,
+                           seed=seed, device=device)
+    synchronize(device)
+    build_s = time.perf_counter() - t0
+    model = state.params
+    n = sum(p.numel() for p in model.parameters())
+    if n != LM_N_PARAMS:
+        raise AssertionError(f"lm_train: {n} parameters")
+    mgr = CheckpointManager(str(ckpt_dir), keep=1)
+    want, save_s = [], []
+
+    def on_step(i, st):
+        if i + 1 == TRAIN_CKPT_AT:
+            t0 = time.perf_counter()
+            mgr.save(i + 1, checkpoint_tree(st))     # host snapshot now
+            t1 = time.perf_counter()
+            mgr.wait()      # the write off the timed steps' host
+            save_s.append((t1 - t0, time.perf_counter() - t1))
+        if i == TRAIN_CKPT_AT:
+            want.append({k: v.detach().clone()
+                         for k, v in st.params.state_dict().items()})
+
+    state, ms, hist, peak = timed_steps(state, step_fn, batches, device,
+                                        on_step)
+    rec = step_record(cfg, model, ms, hist, peak, TRAIN_WARMUP,
+                      TRAIN_BATCH * TRAIN_SEQ)
+    rec["losses_held"] = hold_losses("lm_train", cfg, hist)
+    # two more steps on the state (dropped after): the second profiled
+    rec["step_profile"] = profile_step(lambda: step_fn(state, batches[-1]),
+                                       device)
+    twin = twin_state(model, cfg, TWIN_LAYERS)
+    del state, step_fn, model
+    torch.cuda.empty_cache()
+    h = hist[TRAIN_CKPT_AT]
+    rec["checkpoint"] = hold_checkpoint(
+        cfg, mgr, (h["loss"], h["grad_norm"], want[0]),
+        batches[TRAIN_CKPT_AT], seed, device)
+    rec["checkpoint"]["snapshot_s"], rec["checkpoint"]["write_s"] = save_s[0]
+    del want
+    torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(cfg, n_layers=TWIN_LAYERS,
+                                param_dtype="float32",
+                                compute_dtype="float32")
+    rec["f32_twin"] = hold_twin(
+        "lm_train", cfg32, twin,
+        train_batches(cfg, 1, seed + 7, TWIN_BATCH, TWIN_SEQ)[0], "adamw",
+        device)
+    rec["seconds"] = time.perf_counter() - t_phase
+    emit({"phase": "lm_train", "arch": LM_ARCH, "dtype": "bfloat16",
+          "optimizer": "adamw", "n_params": n, "lr": TRAIN_LR,
+          "warmup": TRAIN_WARMUP, "grad_clip": TRAIN_CLIP,
+          "batch": [TRAIN_BATCH, TRAIN_SEQ], "remat": cfg.remat,
+          "loss_chunk": cfg.loss_chunk, "build_s": build_s,
+          "nvidia_smi": nvidia_smi(), **rec})
+
+
+def drops_and_load(model, cfg, unseeded, tokens) -> dict:
+    """A no-grad forward over ``tokens`` (B, S) tapped at every MoE
+    layer: pairs dropped and the router load (`MoeTaps`)."""
+    import torch
+    taps = MoeTaps(model, cfg, unseeded)
+    with torch.no_grad():
+        model(tokens)
+    taps.remove()
+    n = len(taps.dropped)
+    return {"dropped_pairs": [taps.dropped[i] for i in range(n)],
+            "pairs": int(tokens.numel()) * cfg.top_k,
+            "load": [load_summary(taps.seeded_load[i]) for i in range(n)]}
+
+
+def run_lm_train_moe(model, cfg, unseeded, router_rec, seed, device):
+    """Phase ``lm_train_moe``: OLMoE-1B-7B, `lm_moe`'s model with its
+    BigFCM-seeded routers, trained through `launch.train.build` (its
+    ``params=``) with Adafactor on 8 × 2048 batches: TRAIN_WARMUP
+    warm-up and TRAIN_MOE_STEPS timed steps; the dropped pairs and router
+    load of the first batch before and after; the f32 twin of its first
+    TWIN_LAYERS layers at cf = E/k (no drops), routing held identical."""
+    import torch
+    from repro_torch.launch.train import build
+    t_phase = time.perf_counter()
+    total = TRAIN_WARMUP + TRAIN_MOE_STEPS
+    batches = train_batches(cfg, total, seed)
+    first = torch.as_tensor(batches[0]["tokens"], device=device)
+    before = drops_and_load(model, cfg, unseeded, first)
+    state, step_fn = build(cfg, optimizer="adafactor", lr=TRAIN_LR,
+                           warmup=TRAIN_WARMUP, total_steps=total,
+                           device=device, params=model)
+    state, ms, hist, peak = timed_steps(state, step_fn, batches, device)
+    rec = step_record(cfg, model, ms, hist, peak, TRAIN_WARMUP,
+                      TRAIN_BATCH * TRAIN_SEQ)
+    rec["losses_held"] = hold_losses("lm_train_moe", cfg, hist, falls=False)
+    after = drops_and_load(model, cfg, unseeded, first)
+    # two more steps (their weights are not held): the second profiled
+    rec["step_profile"] = profile_step(lambda: step_fn(state, batches[-1]),
+                                       device)
+    del state, step_fn
+    torch.cuda.empty_cache()
+    rec["route"] = {"capacity": max(8, int(first.numel() * cfg.top_k
+                                           * cfg.capacity_factor)
+                                    // cfg.n_experts),
+                    "before": before, "after": after}
+    twin = twin_state(model, cfg, TWIN_LAYERS)
+    model.requires_grad_(False)
+    cfg32 = dataclasses.replace(
+        cfg, n_layers=TWIN_LAYERS, param_dtype="float32",
+        compute_dtype="float32", capacity_factor=cfg.n_experts / cfg.top_k)
+    rec["f32_twin"] = hold_twin(
+        "lm_train_moe", cfg32, twin,
+        train_batches(cfg, 1, seed + 7, TWIN_BATCH, TWIN_SEQ)[0],
+        "adafactor", device, taps=RouteTaps)
+    rec["router_seed"] = {"run": "lm_moe", "launches": router_rec["launches"],
+                          "backend": router_rec["backend"],
+                          "fit_s": router_rec["fit_s"]}
+    rec["seconds"] = time.perf_counter() - t_phase
+    emit({"phase": "lm_train_moe", "arch": "olmoe-1b-7b", "dtype": "bfloat16",
+          "optimizer": "adafactor", "n_params": FAM_N_PARAMS["olmoe-1b-7b"],
+          "lr": TRAIN_LR, "warmup": TRAIN_WARMUP, "grad_clip": TRAIN_CLIP,
+          "batch": [TRAIN_BATCH, TRAIN_SEQ],
+          "capacity_factor": cfg.capacity_factor, **rec})
+
+
+def digest(t) -> str:
+    """sha256 of a tensor's bytes."""
+    import hashlib
+    import torch
+    return hashlib.sha256(t.detach().cpu().contiguous().reshape(-1)
+                          .view(torch.uint8).numpy()).hexdigest()
+
+
+def dp_config():
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(LM_ARCH), n_layers=DP_LAYERS)
+
+
+def dp_setup(cfg, seed, device):
+    """(model, optimizer, schedule) of the DP phase: the bf16 model of
+    ``cfg`` from ``seed`` on ``device``, trainable; AdamW."""
+    import torch
+    from repro_torch.models import DecoderLM
+    from repro_torch.optim import adamw, cosine_schedule
+    model = DecoderLM(cfg, torch.Generator(device=device).manual_seed(seed),
+                      device=device)
+    model.requires_grad_(True)
+    return model, adamw(), (lambda s: cosine_schedule(
+        s, peak=TRAIN_LR, warmup=TRAIN_WARMUP, total=DP_STEPS))
+
+
+def dp_rank_job(mesh, seed, batches):
+    """One rank of ``lm_train_dp``: `make_dp_train_step` over the mesh's
+    "data" axis, DP_STEPS steps; the losses, the parameters (rank 0: all,
+    as CPU tensors; both: digests), the residuals' digests and a strided
+    sample, the bytes gathered and the seconds in collectives."""
+    import torch
+    from repro_torch import mesh as M
+    from repro_torch import obs
+    from repro_torch.device import synchronize
+    from repro_torch.train.dp import init_dp_state, make_dp_train_step
+    dev = M.rank_device(mesh)
+    cfg = dp_config()
+    model, opt, lr_fn = dp_setup(cfg, seed, dev)
+    state = init_dp_state(model, opt)
+    step = make_dp_train_step(cfg, opt, lr_fn, mesh, data_axes=("data",))
+    gathered = obs.counter("mesh.gathered_bytes")
+    coll = obs.counter("mesh.collective_s")
+    b0, c0 = gathered.value, coll.value
+    hist, step_s = [], []
+    for b in batches:
+        synchronize(dev)
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        synchronize(dev)
+        step_s.append(time.perf_counter() - t0)
+        hist.append({k: float(m[k]) for k in ("loss", "grad_norm", "lr")})
+    params = model.state_dict()
+    first = mesh.mesh.flatten()[0] == torch.distributed.get_rank()
+    return {"history": hist, "step_s": step_s,
+            "gathered_bytes": gathered.value - b0,
+            "collective_s": coll.value - c0,
+            "param_digests": {k: digest(v) for k, v in params.items()},
+            "params": ({k: v.detach().cpu() for k, v in params.items()}
+                       if bool(first) else None),
+            "error_digests": {p: [digest(t) for t in ts]
+                              for p, ts in state.error.items()},
+            "error_sample": {p: [t.reshape(-1)[::DP_SAMPLE].cpu()
+                                 for t in ts]
+                             for p, ts in state.error.items()}}
+
+
+def dp_compose(cfg, seed, batches, device):
+    """The DP steps composed in one process: each rank's row block's
+    gradients (`loss_and_grads`), its error feedback, the wire values
+    added in f32 in rank order and divided (`average_in_order`), the
+    losses likewise, then the update (`apply_update`).  Returns (model,
+    history, residuals per rank)."""
+    import torch
+    from repro_torch import mesh as M
+    from repro_torch.train.dp import average_in_order, error_feedback
+    from repro_torch.train.step import (apply_update, init_train_state,
+                                        loss_and_grads, on_device,
+                                        param_groups)
+    model, opt, lr_fn = dp_setup(cfg, seed, device)
+    state = init_train_state(model, opt)
+    groups = param_groups(model)
+    err = [{p: [torch.zeros(t.shape, dtype=torch.float32, device=device)
+                for t in g.parts] for p, g in groups.items()}
+           for _ in range(DP_RANKS)]
+    hist = []
+    for b in batches:
+        rows = b["tokens"].shape[0] // DP_RANKS
+        losses, wires = [], []
+        for r in range(DP_RANKS):
+            shard = on_device({k: v[r * rows:(r + 1) * rows]
+                               for k, v in b.items()}, device)
+            loss, grads = loss_and_grads(cfg, model, groups, shard)
+            q, err[r] = error_feedback(grads, err[r], torch.bfloat16)
+            losses.append(loss.reshape(1))
+            wires.append(q)
+            del grads
+        g_sync = {p: [average_in_order(torch.stack(
+            [wires[r][p][i] for r in range(DP_RANKS)]), DP_RANKS)
+            for i in range(len(g.parts))] for p, g in groups.items()}
+        loss = (M.sum_in_order(losses) / DP_RANKS)[0]
+        del wires
+        state, m = apply_update(state, groups, g_sync, loss, opt, lr_fn,
+                                TRAIN_CLIP)
+        hist.append({k: float(m[k]) for k in ("loss", "grad_norm", "lr")})
+    return model, hist, err
+
+
+def run_lm_train_dp(seed, device):
+    """Phase ``lm_train_dp``: `train.dp.make_dp_train_step` on DP_RANKS
+    gloo ranks sharing the card (`mesh.spawn_mesh`), Qwen2-1.5B at full
+    width and DP_LAYERS layers in bf16, a bf16 wire with error feedback,
+    DP_STEPS steps of DP_BATCH × 2048 tokens; held against the same steps
+    composed in this process (`dp_compose`), bit for bit."""
+    import torch
+    from repro_torch import mesh as M
+    t_phase = time.perf_counter()
+    cfg = dp_config()
+    batches = train_batches(cfg, DP_STEPS, seed + 11, DP_BATCH)
+    t0 = time.perf_counter()
+    ranks = M.spawn_mesh(dp_rank_job, (DP_RANKS,), ("data",),
+                         backend="gloo", device_type=device.type,
+                         timeout_s=600.0, args=(seed, batches))
+    spawn_s = time.perf_counter() - t0
+    model, hist, err = dp_compose(cfg, seed, batches, device)
+    params = model.state_dict()
+    n = sum(p.numel() for p in model.parameters())
+    rec = {"ranks": DP_RANKS, "layers": DP_LAYERS, "n_params": n,
+           "batch": [DP_BATCH, TRAIN_SEQ], "steps": DP_STEPS,
+           "wire": "bfloat16", "spawn_s": spawn_s,
+           "rank_step_s": [r["step_s"] for r in ranks],
+           "rank_gathered_bytes": [r["gathered_bytes"] for r in ranks],
+           "f32_wire_bytes": 4 * n * DP_RANKS * DP_STEPS,
+           "rank_collective_s": [r["collective_s"] for r in ranks],
+           "history": ranks[0]["history"], "composed_history": hist}
+    for r in ranks:
+        if r["history"] != ranks[0]["history"] or \
+                r["param_digests"] != ranks[0]["param_digests"]:
+            raise AssertionError("lm_train_dp: the ranks' replicas differ")
+    want = {k: digest(v) for k, v in params.items()}
+    p_bits = want == ranks[0]["param_digests"]
+    e_bits = all(r["error_digests"] == {p: [digest(t) for t in ts]
+                                        for p, ts in err[i].items()}
+                 for i, r in enumerate(ranks))
+    rec["bit_equal"] = {"history": ranks[0]["history"] == hist,
+                        "params": p_bits, "residuals": e_bits}
+    if not all(rec["bit_equal"].values()):
+        # not bit for bit: the card's gradient sums (index_put_'s
+        # accumulation in the embedding's backward, cuBLAS's split-K)
+        # took another order in the two processes
+        got = ranks[0]["params"]
+        worst = max(float(((got[k].float() - v.float().cpu()).abs()
+                           / (v.float().cpu().abs() * 2.0 ** -8
+                              + 2.0 ** -133)).max()) for k, v in params.items())
+        loss_gap = max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                       for a, b in zip(ranks[0]["history"], hist))
+        res_gap = 0.0
+        for i, r in enumerate(ranks):
+            for p, ts in r["error_sample"].items():
+                for a, t in zip(ts, err[i][p]):
+                    b = t.reshape(-1)[::DP_SAMPLE].cpu()
+                    res_gap = max(res_gap, float((a - b).abs().max()))
+        rec["tolerance"] = {"params_worst_bf16_ulps": worst,
+                            "loss_worst_rel": loss_gap,
+                            "residual_sample_max_abs": res_gap}
+        if worst > 1.0 or loss_gap > CKPT_LOSS_REL:
+            raise AssertionError(f"lm_train_dp: off the composition: {rec}")
+    if not all(g == 2 * n * DP_RANKS * DP_STEPS + 4 * DP_RANKS * DP_STEPS
+               for g in rec["rank_gathered_bytes"]):
+        raise AssertionError(f"lm_train_dp: gathered "
+                             f"{rec['rank_gathered_bytes']} bytes, not a "
+                             f"bf16 payload")
+    rec["seconds"] = time.perf_counter() - t_phase
+    del model, err
+    torch.cuda.empty_cache()
+    emit({"phase": "lm_train_dp", "arch": LM_ARCH, **rec})
+
+
 def bound_batched(t: int, n: int, d: int, c: int):
     """(ms, what sets it) for one tenant-stacked sweep: the (T, N, d)
     block, its (T, N) weights, V and m read once, the outputs written
@@ -6118,6 +6738,14 @@ def run_all(args, device) -> int:
     torch.cuda.empty_cache()
     entries += run_curriculum(model, lm_cfg, args.seed, device, reps=20)
     del model
+    torch.cuda.empty_cache()
+    ckpt_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_train_", dir=stores))
+    try:
+        run_lm_train(args.seed, device, ckpt_dir)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    run_lm_train_dp(args.seed, device)
     torch.cuda.empty_cache()
     entries += run_lm_families(args.seed, device, reps=20)
     return finish(entries, device)

@@ -103,15 +103,25 @@ def _rebuild(tree, leaves):
 def _to_host(leaf) -> np.ndarray:
     """A host snapshot of one leaf: a tensor is copied (so the caller may
     mutate it while the write runs), anything else goes through
-    `np.asarray`, as the reference does."""
+    `np.asarray`, as the reference does.  numpy has no bfloat16 (without
+    ``ml_dtypes``, which the card's machine lacks): a bf16 tensor is
+    written as its 16-bit pattern, an int16 array."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().to("cpu", copy=True).numpy()
+        t = leaf.detach().to("cpu", copy=True)
+        if t.dtype == torch.bfloat16:
+            t = t.view(torch.int16)
+        return t.numpy()
     return np.asarray(leaf)
 
 
 def _like(arr: np.ndarray, like):
-    """``arr`` in the kind, dtype and device of the template leaf."""
+    """``arr`` in the kind, dtype and device of the template leaf (an
+    int16 array into a bf16 template: the bit pattern `_to_host`
+    wrote)."""
     if isinstance(like, torch.Tensor):
+        if like.dtype == torch.bfloat16 and arr.dtype == np.int16:
+            return torch.from_numpy(np.ascontiguousarray(arr)).view(
+                torch.bfloat16).to(like.device)
         return torch.as_tensor(arr, dtype=like.dtype, device=like.device)
     return np.asarray(arr, dtype=getattr(like, "dtype", None))
 

@@ -80,6 +80,29 @@ def _project(cfg, p, x):
         v.reshape(b, s, kv, hd)
 
 
+class _BmmF32(torch.autograd.Function):
+    """bf16 ``a @ b`` (batched) returned in f32 on the card, with a
+    backward (torch gives ``bmm``'s ``out_dtype`` form none): each
+    operand's gradient is the product of the f32 cotangent rounded to the
+    operands' dtype with the other operand, accumulated in f32 and
+    returned in that dtype."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return torch.bmm(a, b, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g = g.to(a.dtype)
+        ga = torch.bmm(g, b.transpose(1, 2)) if ctx.needs_input_grad[0] \
+            else None
+        gb = torch.bmm(a.transpose(1, 2), g) if ctx.needs_input_grad[1] \
+            else None
+        return ga, gb
+
+
 def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` (batched) with an f32 result — the reference's einsums
     with ``preferred_element_type=float32``.  f32 inputs: a plain
@@ -87,11 +110,12 @@ def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     accumulates and returns f32 (``out_dtype``), never a bf16 result
     rounded a second time.  bf16 on the CPU, which has no such kernel:
     the f32 product of the operands upcast, the same products (bf16 →
-    f32 is exact, as is a product of two bf16 values in f32)."""
+    f32 is exact, as is a product of two bf16 values in f32).  All three
+    are differentiable (the card's through `_BmmF32`)."""
     if a.dtype == torch.float32 and b.dtype == torch.float32:
         return torch.bmm(a, b)
     if a.device.type == "cuda":
-        return torch.bmm(a, b, out_dtype=torch.float32)
+        return _BmmF32.apply(a, b)
     return torch.bmm(a.float(), b.float())
 
 

@@ -7,6 +7,9 @@ bidirectional attention blocks; decoder = causal self-attention +
 cross-attention blocks with learned positions.  Cross-attention K/V are
 computed once at prefill (`init_dec_caches`) and carried in the cache.
 The functions take an `EncDecLM` (or anything that reads like it).
+Under grad with ``cfg.remat`` (training) each encoder and decoder block
+is recomputed in the backward pass, as the reference's
+``jax.checkpoint``'ed bodies.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ from .attention import (Attention, KVCache, attention, attention_decl,
                         attention_with_kv)
 from .layers import MLP, Embed, Norm, embed_decl, mlp_decl, norm, norm_decl
 from .params import ParamTree, PDecl, stack_layers, to_state, tree_init
+from .transformer import remat, rematted
 
 
 def _enc_block_decl(cfg):
@@ -72,10 +76,15 @@ def encode(cfg: ModelConfig, params, frames):
     x = frames.to(dt)
     x = x + params.enc_pos.table[:x.shape[1]].to(dt)[None]
     for p in params.enc_blocks:
-        a, _ = attention(cfg, p.attn, norm(cfg, p.ln1, x), causal=False)
-        x = x + a
-        x = x + p.mlp(norm(cfg, p.ln2, x))
+        x = (rematted(_enc_block, x, cfg, p) if remat(cfg, None)
+             else _enc_block(x, cfg, p))
     return norm(cfg, params.enc_norm, x)
+
+
+def _enc_block(x, cfg, p):
+    a, _ = attention(cfg, p.attn, norm(cfg, p.ln1, x), causal=False)
+    x = x + a
+    return x + p.mlp(norm(cfg, p.ln2, x))
 
 
 def _dec_block(cfg, p, x, enc, cache: Optional[DecCache]):
@@ -111,7 +120,11 @@ def decode(cfg: ModelConfig, params, tokens, enc, *,
 
     if caches is None:
         for p in params.dec_blocks:
-            x, _ = _dec_block(cfg, p, x, enc, None)
+            if remat(cfg, None):
+                x = rematted(lambda h, e, blk=p: _dec_block(
+                    cfg, blk, h, e, None)[0], x, enc)
+            else:
+                x, _ = _dec_block(cfg, p, x, enc, None)
         return norm(cfg, params.final_norm, x)
     kv = caches.self_kv
     length = kv.length
@@ -186,7 +199,8 @@ class EncDecLM(nn.Module):
     parameter paths, one set per layer (``enc_blocks.3.attn.wq``,
     ``dec_blocks.0.cross_attn.wk``): `params.from_reference` carries a
     reference tree across.  ``generator`` and ``device`` as in
-    `transformer.DecoderLM`; the weights are frozen."""
+    `transformer.DecoderLM`; ``requires_grad`` off until a trainer
+    turns it on."""
 
     def __init__(self, cfg: ModelConfig,
                  generator: Optional[torch.Generator] = None, *,

@@ -67,7 +67,8 @@ def softmax(x):
     """``jax.nn.softmax`` over the last axis in x's dtype: exp(x − max)
     over its sum, the sum taken in f32 and rounded to x's dtype (jnp's
     reductions upcast bf16)."""
-    e = torch.exp(x - x.amax(-1, keepdim=True))
+    # the shift carries no gradient (jax.nn.softmax's custom JVP)
+    e = torch.exp(x - x.amax(-1, keepdim=True).detach())
     return e / e.float().sum(-1, keepdim=True).to(e.dtype)
 
 
@@ -126,19 +127,24 @@ def dispatch(cfg, eidx) -> Dispatch:
 
 
 def _expert_ffn(w_in, w_out, x, out=None):
-    """x: (E, rows, D) → (E, rows, D) (into ``out`` if given); SwiGLU
-    experts, run in groups of experts whose (G, rows, 2F) hidden
-    activations stay within FFN_GROUP_ELEMS elements (each expert's
-    products are the same whatever the grouping)."""
+    """x: (E, rows, D) → (E, rows, D); SwiGLU experts, run in groups of
+    experts whose (G, rows, 2F) hidden activations stay within
+    FFN_GROUP_ELEMS elements (each expert's products are the same
+    whatever the grouping).  Serving passes ``out`` and the groups'
+    products are written into it; without it (training: autograd takes
+    no ``out=``) they are new tensors, concatenated."""
     e, rows, _ = x.shape
-    out = torch.empty_like(x) if out is None else out
     group = max(1, FFN_GROUP_ELEMS // max(1, rows * w_in.shape[-1]))
+    parts = []
     for i in range(0, e, group):
         h = torch.bmm(x[i:i + group], w_in[i:i + group].to(x.dtype))
         u, g = torch.chunk(h, 2, dim=-1)
-        torch.bmm(u * silu(g), w_out[i:i + group].to(x.dtype),
-                  out=out[i:i + group])
-    return out
+        w = w_out[i:i + group].to(x.dtype)
+        if out is None:
+            parts.append(torch.bmm(u * silu(g), w))
+        else:
+            torch.bmm(u * silu(g), w, out=out[i:i + group])
+    return torch.cat(parts) if out is None else out
 
 
 def _moe_local(x, w_router, w_in, w_out, *, cfg):
@@ -156,9 +162,15 @@ def _moe_local(x, w_router, w_in, w_out, *, cfg):
     tok = dp.order // k                              # token of each pair
     buf = torch.zeros((e * rows + 1, d), dtype=x.dtype, device=x.device)
     buf[slot] = xt[tok]                              # row e·rows: trash
-    y = torch.zeros_like(buf)           # its last row: the dropped pairs' 0
-    _expert_ffn(w_in, w_out, buf[:-1].view(e, rows, d),
-                out=y[:-1].view(e, rows, d))
+    if torch.is_grad_enabled():
+        # new tensors for autograd; the trash row stays out of the
+        # graph (its gradient is zero), and y's is the dropped pairs' 0
+        y = torch.cat([_expert_ffn(w_in, w_out, buf[:-1].view(e, rows, d))
+                       .reshape(e * rows, d), buf.new_zeros((1, d))])
+    else:
+        y = torch.zeros_like(buf)       # its last row: the dropped pairs' 0
+        _expert_ffn(w_in, w_out, buf[:-1].view(e, rows, d),
+                    out=y[:-1].view(e, rows, d))
     del buf
     w = torch.where(dp.valid, gate.reshape(-1)[dp.order], 0.0).to(x.dtype)
     contrib = torch.empty((t * k, d), dtype=x.dtype, device=x.device)

@@ -141,6 +141,78 @@ def to_state(tree, prefix: str = "") -> Dict[str, object]:
     return out
 
 
+class _At:
+    """A stand-in leaf for `to_state`: a reference path, its stacked shape
+    and the index a split takes into it."""
+
+    def __init__(self, path: str, shape: Tuple[int, ...], index=()):
+        self.path, self.full, self.index = path, shape, index
+        self.shape = shape[len(index):]
+
+    def __getitem__(self, i):
+        i = i if isinstance(i, tuple) else (i,)
+        return _At(self.path, self.full, self.index + i)
+
+
+def _stand_ins(tree, path=()):
+    if isinstance(tree, dict):
+        return {k: _stand_ins(tree[k], path + (str(k),)) for k in tree}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_stand_ins(t, path + (str(i),))
+                          for i, t in enumerate(tree))
+    return _At("/".join(path), tuple(tree.shape))
+
+
+def reference_layout(decl) -> Dict[str, Tuple[Tuple[int, ...], list]]:
+    """Each reference leaf of the declaration tree ``decl``, in
+    `jax.tree_util`'s order, by its path (keys joined by ``/``, as the
+    checkpoint manager writes it: ``"stages/0/attn/wq"``) → (its stacked
+    shape, the port's state-dict keys of its per-layer parts, row-major
+    over the stacked axes) — `to_state`'s split, read back."""
+    out: Dict[str, Tuple[Tuple[int, ...], list]] = {}
+    for key, at in to_state(_stand_ins(decl)).items():
+        out.setdefault(at.path, (at.full, []))[1].append(key)
+    return out
+
+
+def param_groups(model: nn.Module, decl) -> dict:
+    """The model's parameters grouped by the reference's leaves: path →
+    `optim.Group` (stacked shape, the per-layer parameters), in the
+    reference's order — what the optimizers take."""
+    from ..optim.optimizers import Group
+    named = dict(model.named_parameters())
+    return {path: Group(shape, tuple(named[k] for k in keys))
+            for path, (shape, keys) in reference_layout(decl).items()}
+
+
+def nest(flat: Dict[str, object]):
+    """A ``{"a/b/0/c": leaf}`` map as the nested tree it flattens (a
+    numeric key indexes a list: the reference's ``stages``)."""
+    root: dict = {}
+    for path, leaf in flat.items():
+        keys = path.split("/")
+        node = root
+        for k in keys[:-1]:
+            node = node.setdefault(k, {})
+        node[keys[-1]] = leaf
+
+    def lists(node):
+        if not isinstance(node, dict):
+            return node
+        if node and all(k.isdigit() for k in node):
+            return [lists(node[str(i)]) for i in range(len(node))]
+        return {k: lists(v) for k, v in node.items()}
+    return lists(root)
+
+
+def to_reference(model: nn.Module, decl):
+    """`from_reference`'s inverse: the model's parameters as the
+    reference's tree (stacked leaves, as CPU tensors)."""
+    return nest({path: torch.stack([p.detach().cpu() for p in g.parts])
+                 .reshape(g.shape)
+                 for path, g in param_groups(model, decl).items()})
+
+
 def from_reference(tree, device: Union[str, torch.device] = "cuda",
                    dtype: Optional[torch.dtype] = None
                    ) -> Dict[str, torch.Tensor]:
@@ -157,8 +229,9 @@ class ParamTree(nn.Module):
     """Parameters and child modules named by a declaration tree's keys.
     ``p["name"]`` and ``"name" in p`` read them, so the plain functions
     of `layers` and `attention` take a module or a dict alike.  The
-    parameters are zeros until loaded (the serving slice's weights are
-    frozen: ``requires_grad`` is off)."""
+    parameters are zeros until loaded, with ``requires_grad`` off: the
+    caller turns it on to train (``model.requires_grad_(True)``,
+    `launch.train.build`) and serving leaves it off."""
 
     def __init__(self, decl: dict, *, dtype: torch.dtype,
                  device: torch.device):

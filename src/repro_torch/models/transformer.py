@@ -13,8 +13,14 @@ scans stacked parameters.  Stage layout per family:
 
 The hybrid's shared attention block is one parameter set (the model's
 ``shared_attn``) applied at every period, the paper-accurate weight
-tying; each period keeps its own KV cache.  ``lm_loss`` comes with
-training (ROADMAP Queue 1 item 3c).
+tying; each period keeps its own KV cache.
+
+Training (`lm_loss`, and ``cfg.remat``): where the reference scans a
+stage under ``jax.checkpoint``, the port recomputes each block (each
+hybrid period as one unit) in the backward pass with
+``torch.utils.checkpoint`` — when ``cfg.remat`` is set, grad is enabled
+and no cache is passed (`remat`).  Decode and prefill run under
+``torch.inference_mode`` and are not touched.
 """
 from __future__ import annotations
 
@@ -22,6 +28,7 @@ from typing import Any, Dict, List, Optional, Union
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
@@ -170,6 +177,19 @@ def caches_length(caches) -> int:
 
 # --------------------------------------------------------------- modules ---
 
+def remat(cfg, cache) -> bool:
+    """Whether a layer recomputes its activations in the backward pass:
+    ``cfg.remat``, grad enabled and no cache (training, as the
+    reference's ``not decoding``)."""
+    return cfg.remat and cache is None and torch.is_grad_enabled()
+
+
+def rematted(fn, x, *args):
+    """``fn(x, *args)`` with its activations recomputed in the backward
+    pass (``torch.utils.checkpoint``, non-reentrant)."""
+    return checkpoint(fn, x, *args, use_reentrant=False)
+
+
 class Block(nn.Module):
     """Pre-norm attention + FFN block (`_attn_block_decl`): the FFN an
     MLP (``ffn="mlp"``) or the MoE layer (``ffn="moe"``)."""
@@ -219,7 +239,11 @@ class Stage(nn.Module):
     def forward(self, x, cache: Optional[KVCache] = None, positions=None):
         if cache is None:
             for layer in self.layers:
-                x, _ = layer(x, None, positions)
+                if remat(layer.attn.cfg, None):
+                    x = rematted(lambda h, blk=layer: blk(h, None,
+                                                          positions)[0], x)
+                else:
+                    x, _ = layer(x, None, positions)
             return x, None
         length = cache.length
         for i, layer in enumerate(self.layers):
@@ -232,6 +256,9 @@ def _run_mambas(blocks, x, cache: Optional[MambaCache]):
     """Mamba blocks in order over a `MambaCache` stacked over them (its
     tensors written in place), or none."""
     for i, block in enumerate(blocks):
+        if remat(block.mamba.cfg, cache):
+            x = rematted(lambda h, blk=block: blk(h)[0], x)
+            continue
         x, nc = block(x, None if cache is None else _layer(cache, i))
         if cache is not None:
             _write_back(cache, i, nc)
@@ -261,6 +288,13 @@ class Period(nn.Module):
             for _ in range(cfg.attn_period))
 
 
+def _period_body(x, period, shared, positions):
+    """One hybrid period without a cache: its mamba blocks, then the
+    shared attention block."""
+    x = _run_mambas(period.mambas, x, None)
+    return shared(x, None, positions)[0]
+
+
 class PeriodStage(nn.Module):
     """The hybrid's ``n`` periods: each runs its mamba blocks, then the
     shared attention block ``shared`` against the period's own KV cache."""
@@ -273,8 +307,10 @@ class PeriodStage(nn.Module):
     def forward(self, x, cache: Optional[dict], positions, shared: Block):
         if cache is None:
             for period in self.layers:
-                x = _run_mambas(period.mambas, x, None)
-                x, _ = shared(x, None, positions)
+                if remat(shared.attn.cfg, None):
+                    x = rematted(_period_body, x, period, shared, positions)
+                else:
+                    x = _period_body(x, period, shared, positions)
             return x, None
         kv = cache["attn"]
         length = kv.length
@@ -297,7 +333,8 @@ class DecoderLM(nn.Module):
     ``generator`` (a `torch.Generator` on ``device``) initializes the
     weights with `tree_init`'s rules; without one they are zeros, to be
     loaded (``load_state_dict``).  The weights take the config's
-    ``param_dtype`` and are frozen (this slice serves)."""
+    ``param_dtype``, with ``requires_grad`` off until a trainer turns it
+    on (`launch.train.build`)."""
 
     def __init__(self, cfg: ModelConfig,
                  generator: Optional[torch.Generator] = None, *,
@@ -379,11 +416,22 @@ class DecoderLM(nn.Module):
 
 # ---------------------------------------------------------------- heads ---
 
+def head_weight(cfg, params) -> torch.Tensor:
+    """The output projection: the embedding table (V, D) when tied, else
+    ``lm_head.w`` (D, V)."""
+    return (params["embed"]["table"] if cfg.tie_embeddings
+            else params["lm_head"]["w"])
+
+
 def logits_fn(cfg, params, hidden):
+    return _logits(cfg, head_weight(cfg, params), hidden)
+
+
+def _logits(cfg, head, hidden):
     if cfg.tie_embeddings:
-        logits = hidden @ params["embed"]["table"].to(hidden.dtype).T
+        logits = hidden @ head.to(hidden.dtype).T
     else:
-        logits = hidden @ params["lm_head"]["w"].to(hidden.dtype)
+        logits = hidden @ head.to(hidden.dtype)
     if cfg.vocab_padded != cfg.vocab:
         # mask sharding-pad columns so softmax/CE never route mass there
         pad = cfg.vocab_padded - cfg.vocab
@@ -391,3 +439,33 @@ def logits_fn(cfg, params, hidden):
                          dtype=logits.dtype, device=logits.device)
         logits = torch.cat([logits[..., :cfg.vocab], neg], dim=-1)
     return logits
+
+
+def _chunk_nll(cfg, head, hidden, labels):
+    """Σ (logsumexp − gold logit) over one chunk, in f32."""
+    logits = _logits(cfg, head, hidden).to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return torch.sum(logz - gold)
+
+
+def lm_loss(cfg: ModelConfig, params, hidden, labels):
+    """Chunked-over-sequence vocab cross-entropy: the mean over the
+    (B, S) tokens, the sequence cut into chunks of ``cfg.loss_chunk``
+    positions (lowered until it divides S, as the reference).  Under
+    grad each chunk's logits are recomputed in the backward pass
+    (``torch.utils.checkpoint``), so the (B, S, V) f32 logits and their
+    softmax never materialize: one chunk's at a time."""
+    b, s, _ = hidden.shape
+    chunk = min(cfg.loss_chunk, s)
+    while s % chunk:
+        chunk -= 1
+    head = head_weight(cfg, params)
+    grad = torch.is_grad_enabled()
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c0 in range(0, s, chunk):
+        h, y = hidden[:, c0:c0 + chunk], labels[:, c0:c0 + chunk]
+        total = total + (checkpoint(_chunk_nll, cfg, head, h, y,
+                                    use_reentrant=False) if grad
+                         else _chunk_nll(cfg, head, h, y))
+    return total / (b * s)

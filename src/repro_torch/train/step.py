@@ -1,0 +1,186 @@
+"""Training step: loss → grads → clip → optimizer, with optional
+microbatch gradient accumulation — counterpart of `repro.train.step`.
+
+The parameters are the model's own (`models.transformer.DecoderLM`,
+`models.encdec.EncDecLM`, ``requires_grad`` on); autograd takes the
+gradients and the optimizer (`repro_torch.optim`) works on them grouped
+by the reference's leaves (`param_groups`), updating the parameters and
+its state in place.  The step counter and the optimizer's ``count`` are
+0-d int32 tensors on the CPU, so the schedule and the bias corrections
+need no device sync.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, NamedTuple
+
+import numpy as np
+import torch
+
+from ..configs.base import ModelConfig
+from ..models import encdec as encdec_lib
+from ..models import transformer as tf
+from ..models.params import from_reference, nest, to_reference
+from ..models.params import param_groups as _param_groups
+from ..optim import (Optimizer, clip_by_global_norm, state_from_reference,
+                     state_to_reference)
+
+F32 = torch.float32
+
+
+class TrainState(NamedTuple):
+    params: Any              # the model (an nn.Module), trainable
+    opt_state: Any
+    step: torch.Tensor       # 0-d int32, on the CPU
+
+
+def model_decl(cfg: ModelConfig):
+    return (encdec_lib.decl(cfg) if cfg.family == "encdec"
+            else tf.decl(cfg))
+
+
+def param_groups(model) -> dict:
+    """The model's parameters by reference leaf (`optim.Group`s)."""
+    return _param_groups(model, model_decl(model.cfg))
+
+
+def init_train_state(params, optimizer: Optimizer) -> TrainState:
+    return TrainState(params, optimizer.init(param_groups(params)),
+                      torch.zeros((), dtype=torch.int32))
+
+
+def model_loss(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor]):
+    """Cross-entropy for any family.  batch keys:
+    tokens/labels (all), frames (encdec), patch_embeds (vlm)."""
+    if cfg.family == "encdec":
+        enc = encdec_lib.encode(cfg, params, batch["frames"])
+        hidden = encdec_lib.decode(cfg, params, batch["tokens"], enc)
+        return tf.lm_loss(cfg, params, hidden, batch["labels"])
+    prefix = batch.get("patch_embeds")
+    hidden = params(batch["tokens"], prefix_embeds=prefix)
+    if prefix is not None:
+        hidden = hidden[:, prefix.shape[1]:]
+    return tf.lm_loss(cfg, params, hidden, batch["labels"])
+
+
+def model_device(model) -> torch.device:
+    return next(model.parameters()).device
+
+
+def on_device(batch, device) -> Dict[str, torch.Tensor]:
+    """The batch's arrays (numpy or tensors) as tensors on ``device``."""
+    return {k: torch.as_tensor(v if isinstance(v, torch.Tensor)
+                               else np.asarray(v), device=device)
+            for k, v in batch.items()}
+
+
+def regroup(groups, flat: List[torch.Tensor]) -> Dict[str, list]:
+    """A flat list in the groups' part order as {path: [tensors]}."""
+    out, i = {}, 0
+    for path, g in groups.items():
+        out[path] = list(flat[i:i + len(g.parts)])
+        i += len(g.parts)
+    return out
+
+
+def loss_and_grads(cfg, model, groups, batch):
+    """(loss, {path: [gradient of each part]}) of `model_loss`; a
+    parameter the loss does not reach gets zeros, as ``jax.grad``
+    gives."""
+    loss = model_loss(cfg, model, batch)
+    grads = torch.autograd.grad(
+        loss, [p for g in groups.values() for p in g.parts],
+        allow_unused=True, materialize_grads=True)
+    return loss.detach(), regroup(groups, grads)
+
+
+def apply_update(state: TrainState, groups, grads, loss, optimizer,
+                 lr_fn, grad_clip: float):
+    """Clip, then the optimizer's update → (next state, metrics)."""
+    grads, gnorm = clip_by_global_norm(grads, grad_clip)
+    lr = lr_fn(state.step)
+    _, new_opt = optimizer.update(grads, state.opt_state, groups, lr)
+    metrics = {"loss": loss, "grad_norm": gnorm, "lr": lr,
+               "step": state.step}
+    return TrainState(state.params, new_opt, state.step + 1), metrics
+
+
+def make_train_step(cfg: ModelConfig, optimizer: Optimizer, lr_fn,
+                    *, grad_clip: float = 1.0, microbatches: int = 1):
+    """Returns train_step(state, batch) → (state, metrics); the batch's
+    arrays are moved to the model's device.  With ``microbatches`` > 1
+    the batch's rows are cut into that many consecutive slices whose
+    losses and f32 gradients are summed, then divided by their count (the
+    reference's ``lax.scan``)."""
+
+    def step_fn(state: TrainState, batch):
+        model = state.params
+        groups = param_groups(model)
+        dev = model_device(model)
+        batch = on_device(batch, dev)
+        if microbatches == 1:
+            loss, grads = loss_and_grads(cfg, model, groups, batch)
+            return apply_update(state, groups, grads, loss, optimizer,
+                                lr_fn, grad_clip)
+        loss = torch.zeros((), dtype=F32, device=dev)
+        grads = {p: [torch.zeros(t.shape, dtype=F32, device=dev)
+                     for t in g.parts] for p, g in groups.items()}
+        for i in range(microbatches):
+            mb = {k: v.reshape((microbatches, v.shape[0] // microbatches)
+                               + tuple(v.shape[1:]))[i]
+                  for k, v in batch.items()}
+            l, g = loss_and_grads(cfg, model, groups, mb)
+            loss = loss + l
+            for p, ts in g.items():
+                for acc, t in zip(grads[p], ts):
+                    acc.add_(t.to(F32))
+            del g
+        loss = loss / microbatches
+        for ts in grads.values():
+            for t in ts:
+                t.div_(microbatches)
+        return apply_update(state, groups, grads, loss, optimizer, lr_fn,
+                            grad_clip)
+
+    return step_fn
+
+
+# ------------------------------------------- the reference's layout ---
+
+def _at(tree, path: str):
+    for k in path.split("/"):
+        tree = tree[int(k)] if isinstance(tree, (list, tuple)) else tree[k]
+    return tree
+
+
+def train_state_to_reference(state: TrainState) -> Dict[str, Any]:
+    """The train state as the reference's ``TrainState`` fields, CPU
+    tensors with stacked leaves: ``{"params": tree, "opt_state": tree,
+    "step": int32}``."""
+    model = state.params
+    opt = state_to_reference(state.opt_state, param_groups(model))
+    return {"params": to_reference(model, model_decl(model.cfg)),
+            "opt_state": {k: nest(v) if isinstance(v, dict) else v
+                          for k, v in opt.items()},
+            "step": state.step.clone()}
+
+
+def train_state_from_reference(cfg: ModelConfig, ref,
+                               device="cuda") -> TrainState:
+    """The reference's ``TrainState`` (``ref.params``, ``ref.opt_state``,
+    ``ref.step``, leaves as numpy arrays; a namedtuple or a dict with
+    those keys) as the port's: a trainable model of ``cfg`` on
+    ``device`` and the optimizer state (AdamW, Adafactor or SGD, told by
+    its keys) in the port's layout."""
+    from ..models import DecoderLM, EncDecLM
+    get = (ref.get if isinstance(ref, dict)
+           else lambda k: getattr(ref, k))
+    cls = EncDecLM if cfg.family == "encdec" else DecoderLM
+    model = cls(cfg, device=device)
+    model.load_state_dict(from_reference(get("params"), device=device))
+    model.requires_grad_(True)
+    groups = param_groups(model)
+    opt = {k: (v if k == "count" else {p: _at(v, p) for p in groups})
+           for k, v in get("opt_state").items()}
+    return TrainState(model, state_from_reference(opt, groups),
+                      torch.as_tensor(np.asarray(get("step")),
+                                      dtype=torch.int32).cpu())

@@ -774,3 +774,61 @@ def test_fleet_on_the_card(card, tmp_path):
     np.testing.assert_allclose(res.centers, twin.centers, rtol=0,
                                atol=1e-4 * scale)
     assert abs(res.objective - twin.objective) / twin.objective < 1e-5
+
+
+def test_bmm_f32_backward_on_the_card(card):
+    """`attention._bmm_f32` on bf16 operands on the card (its `_BmmF32`
+    autograd function: torch gives ``bmm``'s ``out_dtype`` form no
+    backward) against the f32 product of the same operands: the result
+    within 1e-5 of its largest value, each gradient in the operand's dtype
+    within 2⁻⁷ of its largest (the f32 cotangent rounded to bf16, then a
+    bf16 product accumulated in f32)."""
+    from repro_torch.models.attention import _bmm_f32
+    gen = torch.Generator(device=card).manual_seed(0)
+    a = torch.randn(6, 48, 32, generator=gen, device=card).to(torch.bfloat16)
+    b = torch.randn(6, 32, 40, generator=gen, device=card).to(torch.bfloat16)
+    g = torch.randn(6, 48, 40, generator=gen, device=card)
+    a.requires_grad_(True)
+    b.requires_grad_(True)
+    out = _bmm_f32(a, b)
+    assert out.dtype == torch.float32
+    out.backward(g)
+    a32 = a.detach().float().requires_grad_(True)
+    b32 = b.detach().float().requires_grad_(True)
+    want = torch.bmm(a32, b32)
+    want.backward(g)
+    scale = float(want.detach().abs().max())
+    assert float((out.detach() - want.detach()).abs().max()) <= 1e-5 * scale
+    for got, ref in ((a.grad, a32.grad), (b.grad, b32.grad)):
+        assert got.dtype == torch.bfloat16
+        err = float((got.float() - ref).abs().max())
+        assert err <= 2 ** -7 * float(ref.abs().max()), err
+
+
+def test_train_step_on_the_card(card):
+    """One training step of reduced qwen2 and olmoe in bf16 on the card
+    (remat, the chunked loss, the MoE dispatch under autograd) against
+    the same step on the CPU: losses within 2⁻⁶, finite parameters."""
+    import dataclasses as dc
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch.train import build
+    for arch in ("qwen2-1.5b", "olmoe-1b-7b"):
+        cfg = dc.replace(reduced(get_config(arch)), param_dtype="bfloat16",
+                         compute_dtype="bfloat16")
+        rng = np.random.default_rng(0)
+        batch = {"tokens": rng.integers(0, cfg.vocab, (4, 32)).astype(
+            np.int32), "labels": rng.integers(0, cfg.vocab, (4, 32))
+            .astype(np.int32)}
+        losses = []
+        for dev in (card, torch.device("cpu")):
+            state, step = build(cfg, seed=0, device=card, warmup=2,
+                                total_steps=4)
+            if dev.type == "cpu":
+                state.params.to(dev)
+                state, step = build(cfg, device=dev, warmup=2,
+                                    total_steps=4, params=state.params)
+            state, m = step(state, batch)
+            losses.append(float(m["loss"]))
+            assert all(bool(torch.isfinite(p).all())
+                       for p in state.params.parameters())
+        assert abs(losses[0] - losses[1]) <= 2 ** -6 * abs(losses[1]), losses

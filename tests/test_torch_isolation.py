@@ -135,7 +135,12 @@ def test_import_loads_no_jax_and_no_reference_module():
             "repro_torch.models.layers", "repro_torch.models.attention",
             "repro_torch.models.transformer", "repro_torch.models.moe",
             "repro_torch.models.mamba", "repro_torch.models.encdec",
-            "repro_torch.serve.decode"} \
+            "repro_torch.serve.decode", "repro_torch.optim",
+            "repro_torch.optim.optimizers", "repro_torch.optim.schedule",
+            "repro_torch.train", "repro_torch.train.step",
+            "repro_torch.train.dp", "repro_torch.data.lm",
+            "repro_torch.launch", "repro_torch.launch.mesh",
+            "repro_torch.launch.specs", "repro_torch.launch.train"} \
         <= set(out["modules"])
     assert out["leaked"] == []
 
@@ -373,3 +378,42 @@ def test_lm_entry_points_raise_without_a_card():
     assert all(ln.startswith("raised:") and "device='cpu'" in ln
                for ln in out[:7]), out
     assert out[7] == "cpu: torch.Size([1, 2])"
+
+
+def test_training_modules_alone_load_no_jax_and_no_reference_module():
+    """The training slice (optim, train, data.lm, launch) loads nothing
+    of `repro` (nor jax), each module on its own."""
+    for module in ("repro_torch.optim", "repro_torch.train",
+                   "repro_torch.train.dp", "repro_torch.data.lm",
+                   "repro_torch.launch.mesh", "repro_torch.launch.specs",
+                   "repro_torch.launch.train"):
+        out = _run(_ALONE.format(module=module)).strip().splitlines()[-1]
+        assert json.loads(out) == [], module
+
+
+_NO_CARD_TRAIN = """
+from repro_torch.configs import get_config, reduced
+from repro_torch.launch.train import build, train
+cfg = reduced(get_config("qwen2-1.5b"))
+calls = (lambda: build(cfg),
+         lambda: train(cfg, steps=1, batch=1, seq=4, log_fn=lambda s: None))
+for call in calls:
+    try:
+        call()
+    except RuntimeError as e:
+        print("raised:", e)
+    else:
+        print("ran")
+state, _ = build(cfg, device="cpu")
+print("cpu:", next(state.params.parameters()).device)
+"""
+
+
+def test_trainer_raises_without_a_card():
+    """The trainer on its default device raises on a host without a card;
+    the CPU runs when asked for by name."""
+    out = _run(_NO_CARD_TRAIN, CUDA_VISIBLE_DEVICES="").splitlines()
+    assert len(out) == 3, out
+    assert all(ln.startswith("raised:") and "device='cpu'" in ln
+               for ln in out[:2]), out
+    assert out[2] == "cpu: cpu"
