@@ -217,12 +217,32 @@ Phases, each printed as JSON lines; any failure raises and exits non-zero:
    width, 2 layers, TF32 off) takes one step on the card and on the CPU:
    the loss within 1e-5, every gradient within 1e-4 of its leaf's
    largest, the card's update against the CPU's optimizer on the card's
-   gradients within 2 ulps plus 1e-5 of the update.  Then
+   gradients within 2 ulps plus 1e-5 of the update; one more, untimed
+   step under `launch.roofline.counted_flops` (FlopCounterMode): its
+   FLOPs within 0.85–1.15 of `launch.flops_model.step_flops` at the
+   8 × 2048 cell (tests/test_flops_model.py:46's bar; remat on), printed
+   beside `model_flops_for`, `train_flops`, the per-op table and the ops
+   the counter has no formula for.  Then
    ``lm_train_dp``: `train.dp.make_dp_train_step` on 2 gloo ranks sharing
    the card (full width, 2 layers, bf16 wire with error feedback, 3 steps
    of 4 × 2048), held bit for bit (else within a bf16 ulp) against the
    same steps composed in this process; printed: bytes gathered (half an
-   f32 wire) and seconds in collectives.
+   f32 wire) and seconds in collectives.  Then ``lm_moe_ep``: OLMoE-1B-7B's
+   MoE layer at its published widths (d 2048, 64 experts, top-8, d_ff
+   1024; weights from ``--seed``) expert-parallel over a (1, 4) ("data",
+   "model") mesh of 4 gloo ranks sharing the card, 16 experts a rank:
+   `models.moe.moe` under the "tp" profile (tokens replicated, the partial
+   outputs summed over "model") and under "fsdp" (a2a: tokens split, two
+   `mesh.all_to_all` exchanges each way).  Held: in f32 at cf 8 (no pair
+   dropped; 4 × 1024 tokens), each branch's y and gradients (x, the
+   rank's expert slices, the router's parts summed over the ranks)
+   against the single-rank layer on the card within 1e-4 of each
+   tensor's largest value (plus 1e-4 relative).  Timed in bf16 at cf 1.25
+   on 8 × 2048 tokens: ms a layer forward and forward + backward for a2a,
+   tp (each rep from a barrier; the slowest rank's) and one rank alone;
+   printed: each rank's all-to-all and gathered bytes and collective
+   seconds of one call, the share of pairs each branch drops (tp's held
+   equal to one rank's: one data rank, the same capacity).
 8. LM families — four published configs at full width and depth, bf16
    weights from `tree_init` on the card from ``--seed``, each served
    through `greedy_generate` and its loop timed call by call (prefill
@@ -6045,6 +6065,35 @@ def train_flops(cfg, model, tokens: int) -> float:
     return float(tokens * (6 * n + attn))
 
 
+FLOPS_BAR = (0.85, 1.15)    # tests/test_flops_model.py:46
+
+
+def hold_step_flops(cfg, model, step) -> dict:
+    """One training ``step()`` under `counted_flops` (FlopCounterMode),
+    held within FLOPS_BAR of `flops_model.step_flops` at the phase's
+    8 × 2048 cell, printed beside `roofline.model_flops_for` and this
+    script's `train_flops`, with the counter's per-op table and the ops
+    it has no formula for."""
+    from repro_torch.configs import ShapeCell
+    from repro_torch.launch.flops_model import step_flops
+    from repro_torch.launch.roofline import counted_flops, model_flops_for
+    cell = ShapeCell("lm_train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    t0 = time.perf_counter()
+    got = counted_flops(step)
+    analytic = step_flops(cfg, cell)
+    rec = {"counted": got["total"], "by_op": got["by_op"],
+           "uncounted_ops": got["uncounted"], "step_flops": analytic,
+           "ratio": analytic / got["total"], "bar": FLOPS_BAR,
+           "model_flops_for": model_flops_for(cfg, cell),
+           "train_flops": train_flops(cfg, model, TRAIN_BATCH * TRAIN_SEQ),
+           "remat": cfg.remat, "loss": float(got["result"][1]["loss"]),
+           "seconds": time.perf_counter() - t0}
+    if not FLOPS_BAR[0] < rec["ratio"] < FLOPS_BAR[1]:
+        raise AssertionError(f"lm_train: step_flops / counted FLOPs "
+                             f"outside {FLOPS_BAR}: {rec}")
+    return rec
+
+
 def published_lm(arch, want):
     from repro_torch.configs import get_config
     cfg = get_config(arch)
@@ -6317,6 +6366,9 @@ def run_lm_train(seed, device, ckpt_dir):
     # two more steps on the state (dropped after): the second profiled
     rec["step_profile"] = profile_step(lambda: step_fn(state, batches[-1]),
                                        device)
+    # and one counted, untimed
+    rec["flops"] = hold_step_flops(cfg, model,
+                                   lambda: step_fn(state, batches[-1]))
     twin = twin_state(model, cfg, TWIN_LAYERS)
     del state, step_fn, model
     torch.cuda.empty_cache()
@@ -6586,6 +6638,300 @@ def run_lm_train_dp(seed, device):
     emit({"phase": "lm_train_dp", "arch": LM_ARCH, **rec})
 
 
+# lm_moe_ep: OLMoE-1B-7B's MoE layer at its published widths, expert
+# parallel over a (1, 4) ("data", "model") mesh of gloo ranks sharing the
+# card (`mesh.spawn_mesh`), each rank holding 16 of the 64 experts.
+EP_ARCH = "olmoe-1b-7b"
+EP_PUBLISHED = dict(d_model=2048, n_experts=64, top_k=8, d_ff=1024,
+                    capacity_factor=1.25)
+EP_SHAPE, EP_NAMES = (1, 4), ("data", "model")
+# (a) the f32 hold at cf 8 (no pair dropped): 4096 N(0, 1) tokens as
+# 4 × 1024, so that the global batch divides the 4 ranks (the
+# reference's a2a condition; 2 × 2048 would take the tp branch under
+# "fsdp" too).  Each branch's y and gradients (x, its expert slices, the
+# router's parts summed over the ranks) against the single-rank layer
+# on the card: |got − want| ≤ EP_REL · max|want| + EP_REL · |want|.
+EP_HOLD = (4, 1024, 8.0)
+EP_REL = 1e-4
+# (b) the timed bf16 layer at the published cf 1.25 on lm_moe's prompt
+# batch: 8 × 2048 tokens; EP_REPS timed repetitions after one warm-up.
+EP_TIME = (8, 2048)
+EP_REPS = 5
+EP_DEADLINE_S = 600.0
+
+
+def ep_config(cf, dtype):
+    cfg = published_lm(EP_ARCH, EP_PUBLISHED)
+    return dataclasses.replace(cfg, capacity_factor=cf, param_dtype=dtype,
+                               compute_dtype=dtype)
+
+
+def ep_layer(cfg, seed, batch, seq, device):
+    """(the layer's whole weights from ``seed`` by `tree_init` on
+    ``device``, x (batch, seq, d) and the cotangent g, both N(0, 1))."""
+    import torch
+    from repro_torch.models.moe import moe_decl
+    from repro_torch.models.params import tree_init
+    from repro_torch.models.transformer import torch_dtype
+    dt = torch_dtype(cfg.param_dtype)
+    p = tree_init(torch.Generator(device=device).manual_seed(seed),
+                  moe_decl(cfg), dt, device)
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    x, g = (torch.randn((batch, seq, cfg.d_model), generator=gen,
+                        device=device).to(dt) for _ in range(2))
+    return p, x, g
+
+
+def ep_blocks(cfg, p, x, g, mesh, profile, rank) -> dict:
+    """This rank's part of one `moe` call under ``profile``: the branch,
+    x's placement and block (a leaf), g's block, the weights (w_router
+    whole, the expert slices; leaves) and the global batch."""
+    from repro_torch.models import moe as TM
+    from repro_torch.sharding import local_block, mesh_context, \
+        profile_context
+    with mesh_context(mesh), profile_context(profile):
+        branch = TM.ep_branch(cfg, mesh, x.shape[0])
+    spec = (TM.ep_batch_axes(branch, mesh), None, None)
+    experts = ("model", None, None)
+
+    def leaf(t):
+        return t.detach().clone().requires_grad_(True)
+    return {"profile": profile, "branch": branch, "spec": spec,
+            "b": x.shape[0], "x": leaf(local_block(x, spec, mesh, rank)),
+            "g": local_block(g, spec, mesh, rank).contiguous(),
+            "p": {"w_router": leaf(p["w_router"]),
+                  "w_in": leaf(local_block(p["w_in"], experts, mesh, rank)),
+                  "w_out": leaf(local_block(p["w_out"], experts, mesh,
+                                            rank))}}
+
+
+def ep_run(cfg, mesh, blk, backward):
+    """One `moe` call on the rank's blocks ``blk`` (`ep_blocks`; without
+    a mesh, the whole layer on one rank), and the backward of sum(y·g)
+    → y."""
+    import torch
+    from repro_torch.models import moe as TM
+    from repro_torch.sharding import mesh_context, profile_context
+    for t in (*blk["p"].values(), blk["x"]):
+        t.grad = None
+    with mesh_context(mesh), profile_context(blk["profile"]), \
+            torch.set_grad_enabled(backward):
+        y = TM.moe(cfg, blk["p"], blk["x"], global_batch=blk["b"])
+        if backward:
+            (y.float() * blk["g"].float()).sum().backward()
+    return y
+
+
+def ep_dropped(cfg, mesh, blk) -> int:
+    from repro_torch import mesh as M
+    from repro_torch.models import moe as TM
+    return TM.dropped_pairs(cfg, blk["p"], blk["x"].detach(),
+                            branch=blk["branch"],
+                            n_ranks=M.axis_sizes(mesh)["model"],
+                            rank=M.block_index(mesh, ("model",))[0])
+
+
+def ep_err(got, want) -> dict:
+    diff = (got.detach().float() - want.detach().float()).abs()
+    mag = want.detach().float().abs()
+    scale = float(mag.max())
+    return {"max_abs_err": float(diff.max()), "scale": scale,
+            "ok": bool((diff <= EP_REL * scale + EP_REL * mag).all())}
+
+
+def ep_hold(mesh, seed, dev, rank) -> dict:
+    """(a): the single-rank layer's y and gradients (computed on this
+    rank's card in full), then each branch's on the rank's blocks."""
+    import torch
+    from repro_torch import mesh as M
+    from repro_torch.models import moe as TM
+    from repro_torch.sharding import local_block
+    torch.backends.cuda.matmul.allow_tf32 = False
+    b, s, cf = EP_HOLD
+    cfg = ep_config(cf, "float32")
+    p, x, g = ep_layer(cfg, seed, b, s, dev)
+    want = {k: v.detach().clone().requires_grad_(True) for k, v in p.items()}
+    xw = x.clone().requires_grad_(True)
+    yw = TM.moe(cfg, want, xw)
+    (yw * g).sum().backward()
+    out = {"single_dropped": TM.dropped_pairs(cfg, p, x)}
+    experts = ("model", None, None)
+    for profile in ("tp", "fsdp"):
+        blk = ep_blocks(cfg, p, x, g, mesh, profile, rank)
+        y = ep_run(cfg, mesh, blk, True)
+        spec, bp = blk["spec"], blk["p"]
+        router = M.psum(bp["w_router"].grad, mesh, ("data", "model"))
+        out[profile] = {
+            "branch": blk["branch"],
+            "y": ep_err(y, local_block(yw, spec, mesh, rank)),
+            "grad_x": ep_err(blk["x"].grad,
+                             local_block(xw.grad, spec, mesh, rank)),
+            "grad_w_in": ep_err(bp["w_in"].grad, local_block(
+                want["w_in"].grad, experts, mesh, rank)),
+            "grad_w_out": ep_err(bp["w_out"].grad, local_block(
+                want["w_out"].grad, experts, mesh, rank)),
+            "grad_w_router_summed": ep_err(router, want["w_router"].grad),
+            "dropped": ep_dropped(cfg, mesh, blk)}
+        del y, blk, bp, router
+    del p, x, g, want, xw, yw
+    torch.cuda.empty_cache()
+    return out
+
+
+def ep_rank_job(mesh, seed):
+    """One rank of ``lm_moe_ep``: (a) the f32 holds, (b) both branches
+    timed in bf16, forward alone and forward + backward, with the bytes
+    and seconds of one call's collectives and the pairs this rank
+    dropped."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import mesh as M
+    from repro_torch import obs
+    from repro_torch.device import synchronize
+    dev = M.rank_device(mesh)
+    rank = dist.get_rank()
+    out = {"rank": rank, "hold": ep_hold(mesh, seed, dev, rank)}
+    b, s = EP_TIME
+    cfg = ep_config(EP_PUBLISHED["capacity_factor"], "bfloat16")
+    p, x, g = ep_layer(cfg, seed + 2, b, s, dev)
+    counters = {k: obs.counter("mesh." + k) for k in
+                ("all_to_all_bytes", "gathered_bytes", "collective_s")}
+    for profile in ("fsdp", "tp"):
+        blk = ep_blocks(cfg, p, x, g, mesh, profile, rank)
+        rec = {"branch": blk["branch"], "x_block": list(blk["x"].shape)}
+        peak_bytes(dev, reset=True)
+        for name, bwd in (("fwd", False), ("fwd_bwd", True)):
+            before = {k: c.value for k, c in counters.items()}
+            y = ep_run(cfg, mesh, blk, bwd)
+            synchronize(dev)
+            rec[name + "_one_call"] = {k: c.value - before[k]
+                                       for k, c in counters.items()}
+            if not bool(torch.isfinite(y).all()):
+                raise AssertionError(f"lm_moe_ep: {blk['branch']}: y is "
+                                     "not finite")
+            del y
+            rec[name + "_ms"] = time_calls(
+                functools.partial(ep_run, cfg, mesh, blk, bwd), dev,
+                before=dist.barrier)
+        rec["dropped"] = ep_dropped(cfg, mesh, blk)
+        rec["peak_device_bytes"] = peak_bytes(dev)
+        out[blk["branch"]] = rec
+        del blk
+        torch.cuda.empty_cache()
+    return out
+
+
+def run_lm_moe_ep(seed, device):
+    """Phase ``lm_moe_ep``: `moe`'s expert-parallel branches (``tp``:
+    tokens replicated over "model", a psum of the partial outputs;
+    ``a2a`` under "fsdp": tokens split over "model", two `all_to_all`
+    exchanges each way) on 4 gloo ranks sharing the card, at
+    OLMoE-1B-7B's published widths (d 2048, 64 experts, top-8, d_ff 1024;
+    one layer, weights from ``seed``).  (a) f32 at cf 8: each branch's y
+    and gradients against the single-rank layer on the card; (b) bf16 at
+    cf 1.25 on 8 × 2048 tokens: ms a layer, forward and forward +
+    backward, for a2a, tp and one rank, bytes each rank's collectives
+    move, the pairs dropped."""
+    import numpy as np
+    import torch
+    from repro_torch import mesh as M
+    from repro_torch.models import moe as TM
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    ranks = M.spawn_mesh(ep_rank_job, EP_SHAPE, EP_NAMES, backend="gloo",
+                         device_type=device.type, timeout_s=EP_DEADLINE_S,
+                         args=(seed,))
+    spawn_s = time.perf_counter() - t0
+    # the single rank here, alone on the card
+    b, s = EP_TIME
+    cfg = ep_config(EP_PUBLISHED["capacity_factor"], "bfloat16")
+    p, x, g = ep_layer(cfg, seed + 2, b, s, device)
+    one = {"profile": "tp", "b": b, "g": g,
+           "x": x.clone().requires_grad_(True),
+           "p": {k: v.detach().clone().requires_grad_(True)
+                 for k, v in p.items()}}
+    peak_bytes(device, reset=True)
+    one = {"fwd_ms": time_calls(functools.partial(ep_run, cfg, None, one,
+                                                  False), device),
+           "fwd_bwd_ms": time_calls(functools.partial(ep_run, cfg, None,
+                                                      one, True), device),
+           "dropped": TM.dropped_pairs(cfg, p, x),
+           "peak_device_bytes": peak_bytes(device)}
+    del p, x, g
+    torch.cuda.empty_cache()
+    pairs = b * s * cfg.top_k
+    rec = {"arch": EP_ARCH, "mesh": dict(zip(EP_NAMES, EP_SHAPE)),
+           "backend": "gloo", "experts_per_rank": cfg.n_experts
+           // EP_SHAPE[1], "spawn_s": spawn_s, "reps": EP_REPS,
+           "hold_f32": {"tokens": list(EP_HOLD[:2]), "cf": EP_HOLD[2],
+                        "rel": EP_REL,
+                        "ranks": [r["hold"] for r in ranks]},
+           "timed_bf16": {"tokens": [b, s], "cf": cfg.capacity_factor,
+                          "pairs": pairs, "single": one}}
+    for r in ranks:
+        for profile, branch in (("tp", "tp"), ("fsdp", "a2a")):
+            h = r["hold"][profile]
+            bad = [k for k, v in h.items()
+                   if isinstance(v, dict) and not v["ok"]]
+            if h["branch"] != branch or bad:
+                raise AssertionError(f"lm_moe_ep: rank {r['rank']} "
+                                     f"{profile}: {bad or h['branch']}: {h}")
+            if h["dropped"] or r["hold"]["single_dropped"]:
+                raise AssertionError(f"lm_moe_ep: pairs dropped at cf "
+                                     f"{EP_HOLD[2]}: {r['hold']}")
+    for branch in ("a2a", "tp"):
+        per = [r[branch] for r in ranks]
+        fwd = np.max([q["fwd_ms"] for q in per], axis=0)
+        both = np.max([q["fwd_bwd_ms"] for q in per], axis=0)
+        rec["timed_bf16"][branch] = {
+            "fwd_ms": fwd.tolist(), "fwd_ms_median": float(np.median(fwd)),
+            "fwd_bwd_ms": both.tolist(),
+            "fwd_bwd_ms_median": float(np.median(both)),
+            "dropped_share": sum(q["dropped"] for q in per) / pairs,
+            "ranks": per}
+    rec["timed_bf16"]["single"].update(
+        fwd_ms_median=float(np.median(one["fwd_ms"])),
+        fwd_bwd_ms_median=float(np.median(one["fwd_bwd_ms"])),
+        dropped_share=one["dropped"] / pairs)
+    if rec["timed_bf16"]["tp"]["dropped_share"] != \
+            rec["timed_bf16"]["single"]["dropped_share"]:
+        # one data rank: tp's capacity is the single rank's, and so are
+        # its drops
+        raise AssertionError(f"lm_moe_ep: tp drops differ from one "
+                             f"rank's: {rec['timed_bf16']}")
+    rec["seconds"] = time.perf_counter() - t_phase
+    emit({"phase": "lm_moe_ep", "nvidia_smi": nvidia_smi(), **rec})
+
+
+def peak_bytes(device, reset=False):
+    """The card's peak allocated bytes (None on the CPU); ``reset``
+    starts a new peak."""
+    import torch
+    if device.type != "cuda":
+        return None
+    if reset:
+        torch.cuda.reset_peak_memory_stats(device)
+    return torch.cuda.max_memory_allocated(device)
+
+
+def time_calls(fn, device, reps=EP_REPS, before=None) -> list:
+    """``fn()`` once to warm up, then ``reps`` times, each from a
+    synchronize (after ``before()``: the ranks' barrier) to a
+    synchronize: ms each."""
+    from repro_torch.device import synchronize
+    fn()
+    ms = []
+    for _ in range(reps):
+        if before is not None:
+            before()
+        synchronize(device)
+        t0 = time.perf_counter()
+        fn()
+        synchronize(device)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return ms
+
+
 def bound_batched(t: int, n: int, d: int, c: int):
     """(ms, what sets it) for one tenant-stacked sweep: the (T, N, d)
     block, its (T, N) weights, V and m read once, the outputs written
@@ -6746,6 +7092,8 @@ def run_all(args, device) -> int:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
     torch.cuda.empty_cache()
     run_lm_train_dp(args.seed, device)
+    torch.cuda.empty_cache()
+    run_lm_moe_ep(args.seed, device)
     torch.cuda.empty_cache()
     entries += run_lm_families(args.seed, device, reps=20)
     return finish(entries, device)

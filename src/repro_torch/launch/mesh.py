@@ -9,12 +9,12 @@ import torch.distributed as dist
 
 from .. import mesh as M
 
-ITEM_3D = ("ROADMAP Queue 1 item 3d (the sharded LM: model-parallel "
-           "meshes, sharding rules, the production mesh)")
+ITEM_3D = ("ROADMAP Queue 1 item 3d iv (the sharded LM's model-parallel "
+           "training: model-parallel meshes, the production mesh)")
 
 
 def make_production_mesh(*, multi_pod: bool = False):
-    """The reference's 16×16 (data, model) pod mesh: item 3d."""
+    """The reference's 16×16 (data, model) pod mesh: item 3d iv."""
     raise NotImplementedError(f"make_production_mesh comes with {ITEM_3D}")
 
 
@@ -23,7 +23,7 @@ def make_host_mesh(model_parallel: int = 1, *, device_type: str = "cuda"):
     every rank one replica — one card gives (1, 1).  Without a process
     group this process joins a one-rank gloo group over an in-process
     store (no network, no files); under ``torchrun`` the caller's group
-    is used.  ``model_parallel`` > 1 is item 3d."""
+    is used.  ``model_parallel`` > 1 is item 3d iv."""
     if model_parallel != 1:
         raise NotImplementedError(
             f"--model-parallel {model_parallel}: model-parallel meshes come "

@@ -17,7 +17,7 @@ already taken are drawn and skipped), so it takes the steps the
 uninterrupted run would have taken, bit for bit where the device's
 kernels are deterministic; the reference reseeds the stream at ``seed +
 start`` instead.  A single card only: ``--model-parallel`` > 1 and
-``--production-mesh`` are ROADMAP Queue 1 item 3d.
+``--production-mesh`` are ROADMAP Queue 1 item 3d iv.
 """
 from __future__ import annotations
 
@@ -166,7 +166,7 @@ def main():
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--model-parallel", type=int, default=1)
     ap.add_argument("--production-mesh", action="store_true",
-                    help="16x16 pod mesh (ROADMAP Queue 1 item 3d)")
+                    help="16x16 pod mesh (ROADMAP Queue 1 item 3d iv)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")

@@ -24,8 +24,20 @@ costs nothing and keeps one code path).
   * `psum` — the gathered partials added in rank order, so every rank
     holds the same bits and a rerun repeats them whatever ring order the
     backend uses.
+  * `all_to_all` — ``jax.lax.all_to_all(t, axis, 0, 0, tiled=False)``
+    over one mesh axis, on that axis's subgroup (its payload is the
+    routed tokens of expert parallelism, hundreds of MB, not summaries);
+    differentiable, its backward the inverse all-to-all.
+  * `enter_replicated` / `reduce_replicated` — shard_map's transposes
+    for a value replicated over an axis, under autograd: the first is the
+    identity whose backward sums the ranks' cotangents over the axes; the
+    second is `psum` whose backward hands each rank the (replicated)
+    output cotangent unchanged.
   * `broadcast_first` — rank 0's tensor or picklable object on every
     rank (decisions that pick a branch must be identical everywhere).
+  * `AbstractMesh` — axis names and sizes with no process group
+    (`repro.compat.abstract_mesh`'s counterpart): placements at
+    production shapes, (16, 16) or (2, 16, 16), computed on one host.
   * `spawn_mesh` — start ``fn`` on every rank of a fresh process group
     (a ``file://`` rendezvous in a temporary directory), with a deadline;
     how the tests and `chip_smoke.py` run a mesh on one host.
@@ -44,7 +56,8 @@ Users launch ranks with ``torchrun`` (which sets ``RANK``,
 
 Instrumentation: each collective adds its host seconds to
 ``mesh.collective_s`` and the bytes it receives to ``mesh.gathered_bytes``
-(`repro_torch.obs` counters; the process's own, like every counter).
+— `all_to_all` to ``mesh.all_to_all_bytes`` — (`repro_torch.obs`
+counters; the process's own, like every counter).
 """
 from __future__ import annotations
 
@@ -117,6 +130,31 @@ def mesh_size(mesh) -> int:
     return int(mesh.mesh.numel())
 
 
+def axis_sizes(mesh) -> dict:
+    """Dim name → size of a `DeviceMesh` or an `AbstractMesh`, in the
+    mesh's dim order (the reference's ``mesh.shape``)."""
+    return dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+
+
+class AbstractMesh:
+    """A mesh's axis names and sizes, ranks row-major over its shape, with
+    no process group behind it (`repro.compat.abstract_mesh`'s
+    counterpart): what placements (`repro_torch.sharding`) and
+    `local_block` read, for meshes no host here runs, such as the
+    production (16, 16) and (2, 16, 16).  Collectives refuse it."""
+
+    def __init__(self, shape: Sequence[int], axis_names: Sequence[str]):
+        shape, names = tuple(int(s) for s in shape), tuple(axis_names)
+        if len(shape) != len(names):
+            raise ValueError(f"mesh shape {shape} and axis names {names} "
+                             "differ in length")
+        self.mesh_dim_names = names
+        self.mesh = torch.arange(math.prod(shape)).reshape(shape)
+
+    def __repr__(self) -> str:
+        return f"AbstractMesh({axis_sizes(self)})"
+
+
 def _coords(mesh, rank: int) -> dict:
     """Dim name → coordinate of ``rank`` in ``mesh``."""
     where = (mesh.mesh == rank).nonzero()
@@ -129,7 +167,7 @@ def _block(mesh, rank: int, axes: Tuple[str, ...]) -> Tuple[int, int]:
     """(block index, block count) of ``rank`` over ``axes``, row-major
     over the axes as given — `jax.sharding.PartitionSpec((axes,))`'s
     order, and `jax.lax.all_gather(t, axes)`'s."""
-    sizes = dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+    sizes = axis_sizes(mesh)
     unknown = [a for a in axes if a not in sizes]
     if unknown:
         raise ValueError(f"axes {unknown} are not dims of the mesh "
@@ -230,6 +268,91 @@ def psum(t: torch.Tensor, mesh, axes: Axes = ("data",)) -> torch.Tensor:
     """The sum of ``t`` over ``axes``: the gathered partials added in
     rank order, so every rank holds the same bits."""
     return sum_in_order(all_gather(t, mesh, axes))
+
+
+def _all_to_all(t: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    n = axis_sizes(mesh)[axis]
+    if t.shape[0] != n:
+        raise ValueError(f"all_to_all over {axis!r} ({n} ranks) needs a "
+                         f"leading dim of {n}, not {tuple(t.shape)}")
+    if not hasattr(mesh, "get_group"):
+        raise TypeError(f"{mesh!r} has no process group to run "
+                        "all_to_all on")
+    t0 = time.perf_counter()
+    wire = t.detach().to(_wire_device()).contiguous()
+    out = torch.empty_like(wire)
+    # the axis's subgroup (DeviceMesh builds one per axis and coordinate
+    # on every rank, in one order), its ranks in the axis's order
+    dist.all_to_all_single(out, wire, group=mesh.get_group(axis))
+    out = out.to(t.device)
+    obs.counter("mesh.collective_s").add(time.perf_counter() - t0)
+    obs.counter("mesh.all_to_all_bytes").add(
+        out.numel() * out.element_size())
+    return out
+
+
+class _AllToAll(torch.autograd.Function):
+    """`all_to_all` under autograd: chunk j of rank i's input lands as
+    chunk i on rank j, so the cotangents travel back by the same
+    exchange."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return _all_to_all(t, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all(g, ctx.mesh, ctx.axis), None, None
+
+
+def all_to_all(t: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """``jax.lax.all_to_all(t, axis, split_axis=0, concat_axis=0,
+    tiled=False)`` over the one mesh axis ``axis``: ``t`` (n, …) with n
+    the axis's size; chunk j goes to the member at coordinate j of the
+    axis, and the result's chunk i is what the member at coordinate i
+    sent this rank.  Every rank's ``t`` has the same shape and dtype
+    (gloo and NCCL take equal splits).  It runs on the axis's subgroup
+    (the members sharing this rank's coordinates on the other dims),
+    under gloo through host memory; differentiable.  Its received bytes
+    go to ``mesh.all_to_all_bytes``."""
+    return _AllToAll.apply(t, mesh, axis)
+
+
+class _EnterReplicated(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return psum(g, ctx.mesh, ctx.axes), None, None
+
+
+class _ReduceReplicated(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axes):
+        return psum(t, mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+def enter_replicated(t: torch.Tensor, mesh, axes: Axes) -> torch.Tensor:
+    """``t`` as it is; under autograd its cotangent is summed over
+    ``axes`` (`psum`): the transpose of shard_map's input replicated over
+    ``axes``, each member's use of it a part of one global use."""
+    return _EnterReplicated.apply(t, mesh, _axes(axes))
+
+
+def reduce_replicated(t: torch.Tensor, mesh, axes: Axes) -> torch.Tensor:
+    """`psum` of ``t`` over ``axes``, its result replicated there; under
+    autograd each member's part takes the output's cotangent unchanged
+    (every member holds the same one, and the global result counts
+    once)."""
+    return _ReduceReplicated.apply(t, mesh, _axes(axes))
 
 
 def broadcast_first(value, mesh):

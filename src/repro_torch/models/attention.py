@@ -7,6 +7,9 @@ slots are masked dead (`head_mask`), so the architecture stays
 config-exact.  Products stay plain ``torch`` matmuls, as the reference's
 are plain XLA; ``F.scaled_dot_product_attention`` would round
 differently from the reference's own softmax, so it is not used.
+The shape side of tensor parallelism is here (`_kv_logical`,
+`cache_logical`); the model code runs on one rank until ROADMAP Queue 1
+item 3d iv.
 """
 from __future__ import annotations
 
@@ -14,6 +17,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..mesh import axis_sizes
+from ..sharding.rules import get_mesh
 from .layers import apply_rope, rounded
 from .params import ParamTree, PDecl
 
@@ -46,6 +51,21 @@ def head_mask(cfg, dtype, device=None) -> Optional[torch.Tensor]:
     rep, rep_pad = h // kv, hp // kv
     m = (torch.arange(hp, device=device) % rep_pad) < rep
     return m.to(dtype)
+
+
+def _kv_logical(cfg) -> Optional[str]:
+    """Shard 4D K/V on kv_heads only when it divides the model axis;
+    otherwise replicate them explicitly (the cheap, predictable layout)."""
+    mesh = get_mesh()
+    ms = axis_sizes(mesh).get("model", 1) if mesh is not None else 1
+    return "kv_heads" if cfg.n_kv_heads % max(ms, 1) == 0 else None
+
+
+def cache_logical(cfg, mesh_model: int):
+    """Logical axes for the KV cache given the model-axis size."""
+    if cfg.n_kv_heads % max(mesh_model, 1) == 0:
+        return ("batch", "seq", "kv_heads", None)
+    return ("batch", "seq", None, "kv_heads")  # shard head_dim instead
 
 
 class KVCache(NamedTuple):

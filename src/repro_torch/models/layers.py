@@ -4,8 +4,8 @@ counterpart of `repro.models.layers`.
 Plain functions of a parameter mapping ``p`` (a dict or a `ParamTree`),
 each with its declaration, and small modules over them.  The port runs
 on one card: the reference's ``constrain`` sharding hints have no
-counterpart here (they come with the sharded LM, ROADMAP Queue 1 item
-3d) and are omitted throughout the model code.
+counterpart here (they come with tensor parallelism in the model code,
+ROADMAP Queue 1 item 3d iv) and are omitted throughout the model code.
 """
 from __future__ import annotations
 

@@ -2,8 +2,11 @@
 
 Models declare a nested dict of ``PDecl`` (shape + logical axes + init);
 from that single source of truth come the real initialized parameters
-(`tree_init`, in the reference's stacked layout), the parameter count,
-and the modules' own parameters (`ParamTree`), whose state-dict keys
+(`tree_init`, in the reference's stacked layout), the ``meta`` tensors
+of the dry-run path (`tree_abstract`: a 1T-parameter model allocates
+nothing), the placement tree (`tree_pspecs`, via `sharding.rules`), the
+parameter count, and the modules' own parameters (`ParamTree`), whose
+state-dict keys
 follow the reference's paths with every stacked ``(L, …)`` leaf split
 into per-layer parameters (`to_state`, `from_reference`).  Weights keep
 the reference's ``(in, out)`` layout (``x @ w``), so carrying a
@@ -20,6 +23,7 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
+from ..sharding.rules import is_spec, local_block, logical_to_spec
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,6 +79,41 @@ def tree_init(generator: torch.Generator, tree, dtype=torch.float32,
         return z * scale
 
     return _map(init_one, tree)
+
+
+def tree_abstract(tree, dtype=torch.bfloat16):
+    """The declaration tree's ``meta`` tensors (the reference's
+    ShapeDtypeStructs): shapes and ``dtype``, no storage."""
+    return _map(lambda d: torch.empty(d.shape, dtype=dtype, device="meta"),
+                tree)
+
+
+def tree_pspecs(tree, mesh=None):
+    """The placement tree from the logical axes (divisibility-safe,
+    `logical_to_spec` under the active profile)."""
+    return _map(lambda d: logical_to_spec(d.logical, mesh, dims=d.shape),
+                tree)
+
+
+def tree_paths(tree, prefix: str = "") -> Dict[str, object]:
+    """``{path: leaf}`` of a nested dict/list tree, keys joined by ``/``
+    (``"stages/0/attn/wq"``), in `jax.tree_util`'s order; a placement (a
+    plain tuple) is a leaf."""
+    out: Dict[str, object] = {}
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            for k in sorted(node):
+                walk(node[k], path + (str(k),))
+        elif isinstance(node, list) or (isinstance(node, tuple)
+                                        and not is_spec(node)):
+            for i, t in enumerate(node):
+                walk(t, path + (str(i),))
+        else:
+            out["/".join(path)] = node
+
+    walk(tree, (prefix,) if prefix else ())
+    return out
 
 
 def n_params(tree) -> int:
@@ -214,13 +253,30 @@ def to_reference(model: nn.Module, decl):
 
 
 def from_reference(tree, device: Union[str, torch.device] = "cuda",
-                   dtype: Optional[torch.dtype] = None
+                   dtype: Optional[torch.dtype] = None, *, decl=None,
+                   mesh=None, rank: Optional[int] = None
                    ) -> Dict[str, torch.Tensor]:
     """The reference's param tree (nested dicts/lists of numpy arrays, or
     anything ``np.asarray`` reads) as the port's state dict on
     ``device``: keys as `to_state`, values copied (cast to ``dtype`` if
-    given).  Load it with ``model.load_state_dict(...)``."""
+    given).  Load it with ``model.load_state_dict(...)``.
+
+    With ``mesh`` (and the tree's declaration ``decl``), each leaf is
+    first cut to the block ``rank`` (default: this process's rank) holds
+    under `tree_pspecs` (``decl``, ``mesh``) in the active profile
+    (`sharding.local_block`); the layer axes are never split, so a
+    stacked leaf's per-layer parts are blocks too."""
     dev = resolve_device(device)
+    if mesh is not None:
+        if decl is None:
+            raise ValueError("from_reference: a mesh needs the tree's "
+                             "declaration (decl=) to place its leaves")
+        if rank is None:
+            import torch.distributed as dist
+            rank = dist.get_rank()
+        specs = tree_paths(tree_pspecs(decl, mesh))
+        tree = nest({p: local_block(np.asarray(v), specs[p], mesh, rank)
+                     for p, v in tree_paths(tree).items()})
     return {k: torch.tensor(np.asarray(v), device=dev, dtype=dtype)
             for k, v in to_state(tree).items()}
 

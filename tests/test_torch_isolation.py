@@ -140,7 +140,8 @@ def test_import_loads_no_jax_and_no_reference_module():
             "repro_torch.train", "repro_torch.train.step",
             "repro_torch.train.dp", "repro_torch.data.lm",
             "repro_torch.launch", "repro_torch.launch.mesh",
-            "repro_torch.launch.specs", "repro_torch.launch.train"} \
+            "repro_torch.launch.specs", "repro_torch.launch.train",
+            "repro_torch.launch.flops_model", "repro_torch.launch.roofline"} \
         <= set(out["modules"])
     assert out["leaked"] == []
 
@@ -381,12 +382,16 @@ def test_lm_entry_points_raise_without_a_card():
 
 
 def test_training_modules_alone_load_no_jax_and_no_reference_module():
-    """The training slice (optim, train, data.lm, launch) loads nothing
+    """The training slice (optim, train, data.lm, launch) and the
+    sharded LM's rules, FLOPs model and expert parallelism load nothing
     of `repro` (nor jax), each module on its own."""
     for module in ("repro_torch.optim", "repro_torch.train",
                    "repro_torch.train.dp", "repro_torch.data.lm",
                    "repro_torch.launch.mesh", "repro_torch.launch.specs",
-                   "repro_torch.launch.train"):
+                   "repro_torch.launch.train",
+                   "repro_torch.launch.flops_model",
+                   "repro_torch.launch.roofline",
+                   "repro_torch.sharding.rules", "repro_torch.models.moe"):
         out = _run(_ALONE.format(module=module)).strip().splitlines()[-1]
         assert json.loads(out) == [], module
 

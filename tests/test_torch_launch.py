@@ -20,11 +20,13 @@ import torch
 import repro.configs as RC
 from repro.launch.specs import batch_axes_for as ref_batch_axes_for
 from repro.launch.specs import model_decl as ref_model_decl
+from repro.sharding.rules import profile_context as ref_profile_context
 import repro_torch.configs as TC
 from repro_torch.ft.checkpoint import CheckpointManager
 from repro_torch.launch import specs
 from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
 from repro_torch.launch.train import train
+from repro_torch.sharding import profile_context
 
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 CFG = TC.reduced(TC.get_config("qwen2-1.5b"))
@@ -133,10 +135,14 @@ def test_model_decl_matches_reference(arch):
                                                       "model")),
                                          ((1, 1), ("data", "model"))])
 @pytest.mark.parametrize("b", [1, 2, 3, 4, 8, 12, 16])
-def test_batch_axes_for_matches_reference(shape, names, b):
+@pytest.mark.parametrize("profile", ["tp", "fsdp"])
+def test_batch_axes_for_matches_reference(shape, names, b, profile):
+    """The active profile's batch rule: ("pod", "data") under "tp",
+    ("pod", "data", "model") under "fsdp"."""
     ref_mesh = types.SimpleNamespace(axis_names=names,
                                      shape=dict(zip(names, shape)))
     port_mesh = types.SimpleNamespace(mesh_dim_names=names,
                                       mesh=torch.zeros(shape))
-    assert specs.batch_axes_for(b, port_mesh) == \
-        ref_batch_axes_for(b, ref_mesh)
+    with profile_context(profile), ref_profile_context(profile):
+        assert specs.batch_axes_for(b, port_mesh) == \
+            ref_batch_axes_for(b, ref_mesh)
