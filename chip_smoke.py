@@ -181,13 +181,13 @@ Phases, each printed as JSON lines; any failure raises and exits non-zero:
    (28 layers, d_model 1536, 12 Q heads padded to 16 with the 4 padded
    masked dead, 2 KV heads, d_ff 8960, vocab 151,936, tied, θ = 1e6),
    weights from `tree_init` on the card from ``--seed``, in bf16:
-   `greedy_generate` for 8 prompts of 2048 tokens, 64 new tokens, a
+   `greedy_generate` for 8 prompts of 2048 tokens, 32 new tokens, a
    4096-slot cache (KV blocks of 1024: the online softmax in prefill
    and decode); the same loop timed call by call (prefill ms, decode ms
    per token, tokens/s, peak device memory, the decode step's bytes
    bound — weights plus the whole cache over the probed HBM peak — and
    its share).  Held: the same weights in f32 with TF32 off, decode with
-   the cache against one forward over the 2048 + 64 tokens (rtol 5e-3,
+   the cache against one forward over the 2048 + 32 tokens (rtol 5e-3,
    atol 5e-4, tests/test_models.py:47), the card's forward against
    the CPU's for a reduced qwen2 (f32: 1e-4 / 1e-5; bf16: 2⁻⁴ of the
    largest value), and attention's f32-accumulating bf16 product
@@ -224,7 +224,7 @@ Phases, each printed as JSON lines; any failure raises and exits non-zero:
    beside `model_flops_for`, `train_flops`, the per-op table and the ops
    the counter has no formula for.  Then
    ``lm_train_dp``: `train.dp.make_dp_train_step` on 2 gloo ranks sharing
-   the card (full width, 2 layers, bf16 wire with error feedback, 3 steps
+   the card (full width, 2 layers, bf16 wire with error feedback, 2 steps
    of 4 × 2048), held bit for bit (else within a bf16 ulp) against the
    same steps composed in this process; printed: bytes gathered (half an
    f32 wire) and seconds in collectives.  Then ``lm_moe_ep``: OLMoE-1B-7B's
@@ -242,7 +242,25 @@ Phases, each printed as JSON lines; any failure raises and exits non-zero:
    tp (each rep from a barrier; the slowest rank's) and one rank alone;
    printed: each rank's all-to-all and gathered bytes and collective
    seconds of one call, the share of pairs each branch drops (tp's held
-   equal to one rank's: one data rank, the same capacity).
+   equal to one rank's: one data rank, the same capacity).  Then
+   ``lm_train_mp``: the sharded trainer (`sharding.spmd`: FSDP over
+   "data", tensor parallelism over "model"; `launch.train.build` and its
+   step on a mesh) on a (2, 2) ("data", "model") mesh of 4 gloo ranks
+   sharing the card.  Held in f32 (TF32 off), one AdamW step at lr 1e-3
+   on 4 × 64 tokens against the one-rank step on the card from the same
+   draws: Qwen2-1.5B at its published widths cut to 2 layers under "tp"
+   and "fsdp", OLMoE-1B-7B cut to 1 MoE layer at cf 8 under "tp" — the
+   loss and grad norm within 1e-5, each rank's block of every updated
+   leaf within 2.02 · lr of the one-rank leaf's block and all but 0.1 %
+   of its elements within 1e-5 of the weight plus 0.01 · lr.  Timed:
+   Qwen2-1.5B (2 layers, bf16, "tp"), 1 + 3 steps of 4 × 2048 tokens:
+   the slowest rank's step ms, tokens/s, peak GB a rank, the bytes a rank
+   moves a step by kind (parameter gathers, reduce-scatters, psums) and
+   its seconds in collectives, beside ``lm_train_dp``'s step.  After step
+   2 a sharded checkpoint; 2 fresh ranks restore it on `make_mesh_for`'s
+   (1, 2) mesh (every restored block bit for bit against its block of
+   the saved global leaf) and take steps 3–4: the first resumed loss
+   below the first loss + 0.5, printed beside the 4-rank run's.
 8. LM families — four published configs at full width and depth, bf16
    weights from `tree_init` on the card from ``--seed``, each served
    through `greedy_generate` and its loop timed call by call (prefill
@@ -258,17 +276,17 @@ Phases, each printed as JSON lines; any failure raises and exits non-zero:
    table's fit on backend ``hopper`` (every launch C-tiled, counts zeroed
    just before; its launches join the kernels line), held: every router
    (v/‖v‖)ᵀ of the fit, layer 0's top-1 agreement with `hard_assign`
-   above 0.9; 8 prompts × 2048 tokens, 64 new, a 4096-slot cache;
+   above 0.9; 8 prompts × 2048 tokens, 32 new, a 4096-slot cache;
    printed from a tapped prefill and decode: pairs dropped per layer and
    the router load with the seeded and the unseeded routers, the distinct
    experts a step routes to (the bound counts those experts' weights,
    attention, head, B embedding rows and the whole cache); held: in f32
    (TF32 off) at cf = E/k (no drops) decode with the cache against one
-   forward over the 2048 + 64 tokens at rtol 5e-3 / atol 5e-4, tokens
+   forward over the 2048 + 32 tokens at rtol 5e-3 / atol 5e-4, tokens
    near a routing tie exempt and counted; card vs CPU with identical
    expert choices and drops in f32.  ``lm_train_moe`` then trains that
    model, seeded routers and all (`build`'s ``params=``; no second init
-   or fit), with Adafactor on 8 × 2048 batches: 2 warm-up and 6 timed
+   or fit), with Adafactor on 8 × 2048 batches: 2 warm-up and 3 timed
    steps, printed as ``lm_train``'s, with the pairs dropped and the router
    load of the first batch before and after; held: finite losses, the
    first within the smoke bar, and the f32 twin of its first 2 layers at
@@ -282,7 +300,7 @@ Phases, each printed as JSON lines; any failure raises and exits non-zero:
    first SSM_HOLD_LAYERS layers (the full depth's gap printed), the
    hybrid's shared attention one parameter set called by all 13 periods.
    ``lm_encdec``: Whisper-medium (24 + 24 layers, d 1024) over 8 × 1500
-   stub frame embeddings from ``--seed``, 4 prompt tokens, 64 new, a
+   stub frame embeddings from ``--seed``, 4 prompt tokens, 32 new, a
    448-slot cache, the encoder timed apart; held: in f32 decode against
    one decoder forward over the 68 tokens.
 9. the kernels line (one entry per kernel), the ``nvidia-smi`` line,
@@ -4820,7 +4838,7 @@ def run_mesh_path(held_x: dict, cfgs: dict, seed: int, mesh_dir: Path,
 # lm_serve: Qwen2-1.5B at its published config (src/repro_torch/configs/
 # qwen2_1_5b.py), random weights from --seed, greedy serving in bf16.
 LM_ARCH = "qwen2-1.5b"
-LM_BATCH, LM_PROMPT, LM_NEW, LM_MAX_LEN = 8, 2048, 64, 4096
+LM_BATCH, LM_PROMPT, LM_NEW, LM_MAX_LEN = 8, 2048, 32, 4096
 LM_RTOL, LM_ATOL = 5e-3, 5e-4       # decode vs forward, tests/test_models.py:47
 LM_CPU_RTOL, LM_CPU_ATOL = 1e-4, 1e-5   # card vs CPU forward, f32
 # card vs CPU forward in bf16: of the largest |h|, as tests/
@@ -4871,8 +4889,8 @@ def timed_generate(cfg, model, batch, device, max_len=LM_MAX_LEN,
 
 def hold_lm_f32(model, cfg, prompt, toks, lg_bf16, device) -> dict:
     """The same weights cast to f32, IEEE f32 products (TF32 off): decode
-    with the cache (prefill of the prompt, then the bf16 run's 64 tokens
-    one at a time) against one forward over all 2048 + 64 tokens, on the
+    with the cache (prefill of the prompt, then the bf16 run's 32 tokens
+    one at a time) against one forward over all 2048 + 32 tokens, on the
     hidden states of positions 2047–2111 at LM_RTOL / LM_ATOL.  Printed,
     not held: the f32 prefill logits against the bf16 ones, and the f32
     greedy choice at each of the 64 steps against the bf16 run's."""
@@ -5938,7 +5956,7 @@ def run_lm_encdec(seed, device):
     """Phase ``lm_encdec``: Whisper-medium over LM_BATCH streams of 1500
     stub frame embeddings from ``seed``, ENC_PROMPT prompt tokens,
     LM_NEW new, an ENC_MAX_LEN cache, served in bf16 (the encoder timed
-    apart); the f32 decode-vs-forward hold over the 4 + 64 tokens; the
+    apart); the f32 decode-vs-forward hold over the 4 + 32 tokens; the
     reduced config on the card against the CPU."""
     import numpy as np
     import torch
@@ -6021,7 +6039,7 @@ def run_lm_families(seed, device, reps) -> list:
 # weights from --seed, batches from `synthetic_token_batches`.
 TRAIN_BATCH, TRAIN_SEQ = 8, 2048
 TRAIN_LR, TRAIN_WARMUP, TRAIN_CLIP = 3e-4, 2, 1.0
-TRAIN_STEPS, TRAIN_MOE_STEPS = 8, 6      # timed, after TRAIN_WARMUP warm-up
+TRAIN_STEPS, TRAIN_MOE_STEPS = 8, 3      # timed, after TRAIN_WARMUP warm-up
 TRAIN_CKPT_AT = TRAIN_WARMUP             # checkpoint after this many steps
 SMOKE_LOSS_REL = 0.5        # first loss vs ln(vocab), tests/test_archs_smoke.py:44
 # H100 SXM dense bf16 tensor-core peak, published, at 700 W
@@ -6040,7 +6058,7 @@ TWIN_UPDATE_REL = 1e-5
 # deterministic: the loss within CKPT_LOSS_REL, every parameter within
 # one bf16 ulp (2^-8 of its value)
 CKPT_LOSS_REL = 1e-4
-DP_RANKS, DP_LAYERS, DP_STEPS, DP_BATCH = 2, 2, 3, 4
+DP_RANKS, DP_LAYERS, DP_STEPS, DP_BATCH = 2, 2, 2, 4
 LM_N_PARAMS = 1_587_768_832     # Qwen2-1.5B as declared (tied, 16 Q slots)
 DP_SAMPLE = 4099            # every n-th residual element returned by a rank
 
@@ -6636,6 +6654,7 @@ def run_lm_train_dp(seed, device):
     del model, err
     torch.cuda.empty_cache()
     emit({"phase": "lm_train_dp", "arch": LM_ARCH, **rec})
+    return rec
 
 
 # lm_moe_ep: OLMoE-1B-7B's MoE layer at its published widths, expert
@@ -6656,7 +6675,7 @@ EP_REL = 1e-4
 # (b) the timed bf16 layer at the published cf 1.25 on lm_moe's prompt
 # batch: 8 × 2048 tokens; EP_REPS timed repetitions after one warm-up.
 EP_TIME = (8, 2048)
-EP_REPS = 5
+EP_REPS = 2
 EP_DEADLINE_S = 600.0
 
 
@@ -6903,6 +6922,431 @@ def run_lm_moe_ep(seed, device):
     emit({"phase": "lm_moe_ep", "nvidia_smi": nvidia_smi(), **rec})
 
 
+# lm_train_mp: model-parallel training (`sharding.spmd`: FSDP over
+# "data", tensor parallelism over "model", the sharded `launch.train`) on
+# a (2, 2) ("data", "model") mesh of gloo ranks sharing the card, and the
+# elastic restart onto half of them.
+MP_SHAPE, MP_NAMES = (2, 2), ("data", "model")
+MP_LAYERS, MP_MOE_LAYERS = 2, 1
+# (a) f32 (TF32 off), one AdamW step at the constant lr MP_LR on
+# MP_HOLD global tokens, each case against the one-rank port step on the
+# card from the same parameters and batch: the loss and the grad norm
+# within MP_LOSS_REL; each rank's block of every updated leaf against its
+# block of the one-rank leaf, every element within MP_STEP_BAR · lr
+# (AdamW's first step moves an element by lr at most, plus the equal
+# decay: where a gradient is rounding noise the two steps may go
+# opposite ways) and all but MP_LOOSE_SHARE of a leaf's elements within
+# MP_TIGHT_REL · |w| + MP_TIGHT_LR · lr — the K bias, whose gradient the
+# softmax's shift invariance makes noise, held at the first bar alone.
+MP_HOLD = (4, 64)
+MP_LR = 1e-3
+MP_LOSS_REL = 1e-5
+MP_STEP_BAR = 2.02
+MP_TIGHT_REL, MP_TIGHT_LR, MP_LOOSE_SHARE = 1e-5, 1e-2, 1e-3
+MP_MOE_CF = 8.0
+# (b) bf16 under "tp": 1 warm-up step and MP_TIMED timed ones of MP_TIME
+# global tokens, lm_train's AdamW schedule; a sharded checkpoint after
+# step MP_CKPT_AT.  (c) the restart on (1, 2): MP_RESUMED steps.
+MP_TIME = (4, 2048)
+MP_TIMED, MP_CKPT_AT, MP_RESUMED = 3, 2, 2
+MP_DEADLINE_S = 600.0
+# Both groups of ranks are spawned at once, so that their processes'
+# start (20–35 s of imports, CUDA contexts and the rendezvous a spawn on
+# this card) overlaps the parent's one-rank steps and the 4-rank run;
+# each waits for its go-ahead file: the 4 ranks for the one-rank
+# results, the 2 restart ranks for the 4-rank run's end.
+MP_POLL_S = 0.2
+
+
+def mp_wait(path, deadline_s=MP_DEADLINE_S):
+    """Block until ``path`` exists (another process's go-ahead)."""
+    t_end = time.monotonic() + deadline_s
+    while not os.path.exists(path):
+        if time.monotonic() > t_end:
+            raise TimeoutError(f"lm_train_mp: no {path} after {deadline_s} s")
+        time.sleep(MP_POLL_S)
+
+
+def mp_signal(path):
+    with open(path + ".tmp", "w") as f:
+        f.write("go")
+    os.replace(path + ".tmp", path)
+
+
+def mp_config(arch, layers, dtype, **kw):
+    """Qwen2-1.5B or OLMoE-1B-7B at their published widths, cut to
+    ``layers`` layers, in ``dtype``."""
+    cfg = published_lm(arch, LM_PUBLISHED if arch == LM_ARCH
+                       else EP_PUBLISHED)
+    return dataclasses.replace(cfg, n_layers=layers, param_dtype=dtype,
+                               compute_dtype=dtype, **kw)
+
+
+def mp_cases():
+    """(name, config, profile) of the f32 holds."""
+    qwen = mp_config(LM_ARCH, MP_LAYERS, "float32")
+    olmoe = mp_config(EP_ARCH, MP_MOE_LAYERS, "float32",
+                      capacity_factor=MP_MOE_CF)
+    return [("qwen2_tp", qwen, "tp"), ("qwen2_fsdp", qwen, "fsdp"),
+            ("olmoe_tp", olmoe, "tp")]
+
+
+def mp_step_fn(cfg):
+    from repro_torch.optim import adamw
+    from repro_torch.train import make_train_step
+    return make_train_step(cfg, adamw(), lambda s: MP_LR,
+                           grad_clip=TRAIN_CLIP)
+
+
+def mp_timed_step_fn(cfg):
+    from repro_torch.optim import adamw, cosine_schedule
+    from repro_torch.train import make_train_step
+    return make_train_step(cfg, adamw(), lambda s: cosine_schedule(
+        s, peak=TRAIN_LR, warmup=TRAIN_WARMUP, total=1 + MP_TIMED),
+        grad_clip=TRAIN_CLIP)
+
+
+def mp_blocks(state) -> dict:
+    """A (sharded) state's stacked parameter blocks, by reference path."""
+    import torch
+    from repro_torch.train.step import param_groups
+    return {p: torch.stack([t.detach() for t in g.parts]).reshape(g.shape)
+            for p, g in param_groups(state.params).items()}
+
+
+def mp_want(cfg, seed, batch, device, path) -> dict:
+    """The one-rank port step on the card: its loss and grad norm; its
+    updated leaves saved to ``path``."""
+    import torch
+    from repro_torch.launch.train import build
+    torch.backends.cuda.matmul.allow_tf32 = False
+    state, _ = build(cfg, None, seed=seed, device=device)
+    state, m = mp_step_fn(cfg)(state, batch)
+    torch.save({k: v.cpu() for k, v in mp_blocks(state).items()}, path)
+    out = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"])}
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def mp_hold_blocks(state, want_path, mesh, rank) -> dict:
+    """This rank's blocks of the updated leaves against its blocks of the
+    one-rank step's: per leaf the largest error, the elements past the
+    tight bar, the count."""
+    import torch
+    from repro_torch.launch.specs import model_decl
+    from repro_torch.models.params import tree_paths, tree_pspecs
+    from repro_torch.sharding import block_of
+    want = torch.load(want_path, mmap=True)
+    specs = tree_paths(tree_pspecs(model_decl(state.params.cfg), mesh))
+    out = {}
+    for path, got in mp_blocks(state).items():
+        w = block_of(want[path], specs[path], mesh, rank).to(
+            got.device).float()
+        diff = (got.float() - w).abs()
+        tight = MP_TIGHT_REL * w.abs() + MP_TIGHT_LR * MP_LR
+        out[path] = {"max_abs_err": float(diff.max()),
+                     "loose": int((diff > tight).sum()),
+                     "numel": diff.numel()}
+    return out
+
+
+def mp_counters() -> dict:
+    from repro_torch import obs
+    return {k: obs.counter("mesh." + k).value for k in (
+        "param_gather_bytes", "reduce_scatter_bytes", "psum_bytes",
+        "all_to_all_bytes", "collective_s")}
+
+
+def mp_rank_job(mesh, seed, hold_batches, wants, batches, ckpt_dir,
+                work_dir):
+    """One rank of ``lm_train_mp``: (a) each f32 case's sharded step and
+    its blocks held against the one-rank step's; (b) the timed bf16
+    steps, each with its bytes by kind and collective seconds, and the
+    sharded checkpoint after step MP_CKPT_AT."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import mesh as M
+    from repro_torch.device import synchronize
+    from repro_torch.ft import CheckpointManager
+    from repro_torch.launch.specs import train_state_pspecs
+    from repro_torch.launch.train import build, sharded_checkpoint_tree
+    from repro_torch.sharding import profile_context
+    t_ready = time.time()
+    mp_wait(os.path.join(work_dir, "wants_ready"))
+    t_start = time.time()
+    dev = M.rank_device(mesh)
+    rank = dist.get_rank()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {"rank": rank, "hold": {}, "hold_s": {}, "t_ready": t_ready,
+           "t_start": t_start}
+    for name, cfg, profile in mp_cases():
+        t0 = time.perf_counter()
+        with profile_context(profile):
+            state, _ = build(cfg, mesh, seed=seed, device=dev.type)
+            state, m = mp_step_fn(cfg)(state, hold_batches[cfg.name])
+            out["hold"][name] = {
+                "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                "leaves": mp_hold_blocks(state, wants[cfg.name], mesh, rank)}
+        out["hold_s"][name] = time.perf_counter() - t0
+        del state
+        torch.cuda.empty_cache()
+    cfg = mp_config(LM_ARCH, MP_LAYERS, "bfloat16")
+    steps = []
+    t_timed = time.perf_counter()
+    with profile_context("tp"):
+        state, _ = build(cfg, mesh, seed=seed + 1, device=dev.type)
+        step = mp_timed_step_fn(cfg)
+        peak_bytes(dev, reset=True)
+        for i, b in enumerate(batches):
+            before = mp_counters()
+            dist.barrier()
+            synchronize(dev)
+            t0 = time.perf_counter()
+            state, m = step(state, b)
+            synchronize(dev)
+            rec = {"ms": (time.perf_counter() - t0) * 1e3,
+                   "loss": float(m["loss"]),
+                   "grad_norm": float(m["grad_norm"])}
+            rec.update({k: v - before[k] for k, v in mp_counters().items()})
+            steps.append(rec)
+            if i + 1 == MP_CKPT_AT:
+                t0 = time.perf_counter()
+                CheckpointManager(ckpt_dir).save(
+                    i + 1, sharded_checkpoint_tree(state),
+                    shardings=(mesh, train_state_pspecs(cfg, "adamw", mesh)))
+                out["ckpt_save_s"] = time.perf_counter() - t0
+        out["peak_device_bytes"] = peak_bytes(dev)
+    out["timed"] = steps
+    out["timed_s"] = time.perf_counter() - t_timed
+    del state
+    torch.cuda.empty_cache()
+    dist.barrier()
+    if M.is_first(mesh):
+        mp_signal(os.path.join(work_dir, "four_ranks_done"))
+    out["t_end"] = time.time()
+    return out
+
+
+def mp_resume_job(mesh, seed, batches, ckpt_dir, work_dir):
+    """One rank of the restart: `make_mesh_for` over the 2 ranks left
+    (model_parallel 2: (1, 2)), a bf16 model built there, the checkpoint
+    restored (`restore_sharded`), each restored block compared bit for
+    bit (as 16- or 32-bit integers) with its block of the saved global
+    leaf, then the remaining steps."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.ft import CheckpointManager, make_mesh_for
+    from repro_torch.ft.checkpoint import _flatten_with_paths, flatten_specs
+    from repro_torch.launch.specs import train_state_pspecs
+    from repro_torch.launch.train import (build, restore_sharded,
+                                          sharded_checkpoint_tree)
+    from repro_torch.sharding import block_of, profile_context
+    t_ready = time.time()
+    mp_wait(os.path.join(work_dir, "four_ranks_done"))
+    t_start = time.time()
+    rank = dist.get_rank()
+    new = make_mesh_for(list(range(dist.get_world_size())),
+                        model_parallel=2, device_type=mesh.device_type)
+    cfg = mp_config(LM_ARCH, MP_LAYERS, "bfloat16")
+
+    def bits(t):
+        return t.view({2: torch.int16, 4: torch.int32,
+                       8: torch.int64}[t.element_size()])
+    t0 = time.perf_counter()
+    with profile_context("tp"):
+        state, _ = build(cfg, new, seed=seed + 2, device=new.device_type)
+        step = mp_timed_step_fn(cfg)
+        build_s = time.perf_counter() - t0
+        mgr = CheckpointManager(ckpt_dir)
+        t0 = time.perf_counter()
+        state = restore_sharded(mgr, state, "adamw")
+        restore_s = time.perf_counter() - t0
+        d, manifest = mgr._manifest(mgr.latest_step())
+        specs = dict(flatten_specs(train_state_pspecs(cfg, "adamw", new)))
+        same, leaves = 0, 0
+        for path, t in _flatten_with_paths(sharded_checkpoint_tree(state)):
+            saved = np.load(os.path.join(d, manifest[path]["file"]),
+                            mmap_mode="r")
+            blk = torch.from_numpy(np.array(block_of(saved, specs[path], new,
+                                                     rank))).to(t.device)
+            leaves += 1
+            same += bool(torch.equal(bits(t.contiguous()), bits(blk)))
+        digest_s = time.perf_counter() - t0 - build_s - restore_s
+        losses = []
+        for b in batches:
+            state, m = step(state, b)
+            losses.append(float(m["loss"]))
+        steps_s = time.perf_counter() - t0 - build_s - restore_s - digest_s
+    return {"rank": rank, "mesh": list(new.mesh.shape),
+            "step": int(state.step) - len(batches), "restore_s": restore_s,
+            "build_s": build_s, "digest_s": digest_s, "steps_s": steps_s,
+            "t_ready": t_ready, "t_start": t_start, "t_end": time.time(),
+            "leaves": leaves, "bit_equal": same, "losses": losses}
+
+
+def run_lm_train_mp(seed, device, work_dir, dp_rec):
+    """Phase ``lm_train_mp``: the sharded trainer (`launch.train.build` /
+    its step on a mesh, `sharding.spmd`) on MP_SHAPE gloo ranks sharing
+    the card.  (a) Qwen2-1.5B ("tp" and "fsdp") and OLMoE-1B-7B ("tp",
+    cf 8) at their published widths in f32, one step held against the
+    one-rank step; (b) Qwen2-1.5B in bf16, timed, with its bytes by kind;
+    (c) the restart on 2 of the ranks from (b)'s sharded checkpoint."""
+    import numpy as np
+    import torch
+    from repro_torch import mesh as M
+    import threading
+    t_phase = time.perf_counter()
+    hold_batches, wants = {}, {}
+    for _, cfg, _ in mp_cases():
+        hold_batches[cfg.name] = train_batches(cfg, 1, seed + 21,
+                                               *MP_HOLD)[0]
+        wants[cfg.name] = str(work_dir / f"want_{cfg.name}.pt")
+    cfg = mp_config(LM_ARCH, MP_LAYERS, "bfloat16")
+    batches = train_batches(cfg, 1 + MP_TIMED, seed + 22, *MP_TIME)
+    ckpt_dir = str(work_dir / "ckpt")
+    spawns = {
+        "four_ranks": (mp_rank_job, MP_SHAPE, (
+            seed, hold_batches, wants, batches, ckpt_dir, str(work_dir))),
+        "two_ranks": (mp_resume_job, (1, 2), (
+            seed, batches[MP_CKPT_AT:], ckpt_dir, str(work_dir)))}
+    got, walls = {}, {}
+
+    def spawn(name):
+        fn, shape, args = spawns[name]
+        walls[name] = [time.time()]
+        try:
+            got[name] = M.spawn_mesh(fn, shape, MP_NAMES, backend="gloo",
+                                     device_type=device.type,
+                                     timeout_s=MP_DEADLINE_S, args=args)
+        except BaseException as e:      # re-raised below
+            got[name] = e
+        walls[name].append(time.time())
+        if name == "four_ranks":        # the restart's go-ahead, whatever
+            done = str(work_dir / "four_ranks_done")    # the outcome
+            if not os.path.exists(done):
+                mp_signal(done)
+    threads = [threading.Thread(target=spawn, args=(n,)) for n in spawns]
+    for t in threads:
+        t.start()
+    want_rec = {}
+    t0 = time.perf_counter()
+    try:
+        for _, cfg, _ in mp_cases():
+            if cfg.name not in want_rec:
+                want_rec[cfg.name] = mp_want(cfg, seed,
+                                             hold_batches[cfg.name], device,
+                                             wants[cfg.name])
+    finally:
+        mp_signal(str(work_dir / "wants_ready"))
+        want_s = time.perf_counter() - t0
+        for t in threads:
+            t.join()
+    for name in spawns:
+        if isinstance(got[name], BaseException):
+            raise got[name]
+    ranks, resumed = got["four_ranks"], got["two_ranks"]
+    spawn_s = walls["four_ranks"][1] - walls["four_ranks"][0]
+    resume_spawn_s = walls["two_ranks"][1] - walls["two_ranks"][0]
+    # a spawn's seconds before its ranks were ready (process start,
+    # imports, the group), its wait for the go-ahead, and after the last
+    # rank's job ended (teardown)
+    overhead = {name: {"start": max(r["t_ready"] for r in got[name])
+                       - walls[name][0],
+                       "wait": max(r["t_start"] - r["t_ready"]
+                                   for r in got[name]),
+                       "teardown": walls[name][1] - max(
+                           r["t_end"] for r in got[name])}
+                for name in spawns}
+    hold = {}
+    for name, cfg, profile in mp_cases():
+        want = want_rec[cfg.name]
+        per = [r["hold"][name] for r in ranks]
+        for key in ("loss", "grad_norm"):
+            gap = max(abs(p[key] - want[key]) / abs(want[key]) for p in per)
+            if gap > MP_LOSS_REL:
+                raise AssertionError(f"lm_train_mp: {name} {key} off the "
+                                     f"one-rank step by {gap}: {per}")
+        worst, loose = 0.0, {}
+        for r, p in enumerate(per):
+            for path, e in p["leaves"].items():
+                worst = max(worst, e["max_abs_err"])
+                if e["max_abs_err"] > MP_STEP_BAR * MP_LR:
+                    raise AssertionError(f"lm_train_mp: {name} rank {r} "
+                                         f"{path}: {e}")
+                if e["loose"] and not path.endswith("attn/bk"):
+                    loose[path] = loose.get(path, 0) + e["loose"]
+                    if e["loose"] > MP_LOOSE_SHARE * e["numel"]:
+                        raise AssertionError(f"lm_train_mp: {name} rank {r} "
+                                             f"{path}: {e}")
+        hold[name] = {"profile": profile, "want": want,
+                      "losses": [p["loss"] for p in per],
+                      "grad_norms": [p["grad_norm"] for p in per],
+                      "leaves": len(per[0]["leaves"]),
+                      "max_abs_err": worst, "loose_elements": loose}
+    timed = [[r["timed"][i] for r in ranks] for i in range(1 + MP_TIMED)]
+    losses = [s[0]["loss"] for s in timed]
+    if not all(math.isfinite(x) for x in losses) or any(
+            s[j]["loss"] != s[0]["loss"] for s in timed
+            for j in range(len(s))):
+        raise AssertionError(f"lm_train_mp: the ranks' losses {timed}")
+    slowest = [max(r["ms"] for r in s) for s in timed[1:]]
+    tokens = MP_TIME[0] * MP_TIME[1]
+    by_kind = {k: [s[0][k] for s in timed[1:]] for k in (
+        "param_gather_bytes", "reduce_scatter_bytes", "psum_bytes",
+        "all_to_all_bytes")}
+    coll = [max(r["collective_s"] for r in s) for s in timed[1:]]
+    for r in resumed:
+        if r["bit_equal"] != r["leaves"] or r["step"] != MP_CKPT_AT:
+            raise AssertionError(f"lm_train_mp: restore on (1, 2): {r}")
+        if not r["losses"][0] < losses[0] + 0.5:
+            raise AssertionError(f"lm_train_mp: resumed loss "
+                                 f"{r['losses'][0]} not below the first "
+                                 f"{losses[0]} + 0.5")
+    rec = {"mesh": dict(zip(MP_NAMES, MP_SHAPE)), "backend": "gloo",
+           "want_s": want_s, "spawn_s": spawn_s,
+           "spawn_overhead_s": overhead,
+           "hold_s": {name: max(r["hold_s"][name] for r in ranks)
+                      for name, _, _ in mp_cases()},
+           "timed_s": max(r["timed_s"] for r in ranks),
+           "hold_f32": {"tokens": list(MP_HOLD), "lr": MP_LR,
+                        "cases": hold,
+                        "bars": {"loss_rel": MP_LOSS_REL,
+                                 "step_bar_lr": MP_STEP_BAR,
+                                 "tight": [MP_TIGHT_REL, MP_TIGHT_LR],
+                                 "loose_share": MP_LOOSE_SHARE}},
+           "timed_bf16": {
+               "arch": LM_ARCH, "layers": MP_LAYERS, "profile": "tp",
+               "tokens": list(MP_TIME), "losses": losses,
+               "step_ms_slowest_rank": slowest,
+               "step_ms_median": float(np.median(slowest)),
+               "tokens_per_s": tokens / (float(np.median(slowest)) / 1e3),
+               "peak_gb_per_rank": [(r["peak_device_bytes"] or 0) / 1e9
+                                    for r in ranks],
+               "bytes_per_rank_step": by_kind,
+               "collective_s_slowest_rank": coll,
+               "collective_share": float(np.median(
+                   [c * 1e3 / ms for c, ms in zip(coll, slowest)])),
+               "ckpt_save_s": max(r["ckpt_save_s"] for r in ranks),
+               "lm_train_dp_step_ms_median": float(np.median(
+                   [s * 1e3 for s in dp_rec["rank_step_s"][0][1:]]))
+               if dp_rec else None},
+           "restart": {"mesh": resumed[0]["mesh"],
+                       "spawn_s": resume_spawn_s,
+                       "restore_s": max(r["restore_s"] for r in resumed),
+                       "build_s": max(r["build_s"] for r in resumed),
+                       "digest_s": max(r["digest_s"] for r in resumed),
+                       "steps_s": max(r["steps_s"] for r in resumed),
+                       "leaves_bit_equal": [r["bit_equal"]
+                                            for r in resumed],
+                       "resumed_losses": resumed[0]["losses"],
+                       "four_rank_losses": losses[MP_CKPT_AT:]}}
+    rec["seconds"] = time.perf_counter() - t_phase
+    torch.cuda.empty_cache()
+    emit({"phase": "lm_train_mp", "nvidia_smi": nvidia_smi(), **rec})
+
+
 def peak_bytes(device, reset=False):
     """The card's peak allocated bytes (None on the CPU); ``reset``
     starts a new peak."""
@@ -7091,9 +7535,15 @@ def run_all(args, device) -> int:
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
     torch.cuda.empty_cache()
-    run_lm_train_dp(args.seed, device)
+    dp_rec = run_lm_train_dp(args.seed, device)
     torch.cuda.empty_cache()
     run_lm_moe_ep(args.seed, device)
+    torch.cuda.empty_cache()
+    mp_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_mp_", dir=stores))
+    try:
+        run_lm_train_mp(args.seed, device, mp_dir, dp_rec)
+    finally:
+        shutil.rmtree(mp_dir, ignore_errors=True)
     torch.cuda.empty_cache()
     entries += run_lm_families(args.seed, device, reps=20)
     return finish(entries, device)

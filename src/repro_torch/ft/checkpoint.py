@@ -21,10 +21,22 @@ flattens it — dict keys in **sorted** order, namedtuple fields by name,
 list and tuple items by index, ``None`` holding no leaf — and a leaf's
 path is its keys joined by ``/`` (``{'b': NT(centers, weights), 'a': [x,
 {'z': …, 'y': …}]}`` gives ``a/0``, ``a/1/y``, ``a/1/z``, ``b/centers``,
-``b/weights``).  Restoring onto a device mesh (``shardings=``) serves the
-LM trainer's sharded state and comes with it (M13); a replicated stream
-state restores onto a `repro_torch.mesh` mesh through
-`StreamingBigFCM.restore(mesh=)`.
+``b/weights``).  A replicated stream state restores onto a
+`repro_torch.mesh` mesh through `StreamingBigFCM.restore(mesh=)`.
+
+Sharded (``shardings=(mesh, placements)``, the LM trainer's state on a
+mesh: each rank's tree holds its blocks, the placement tree — e.g.
+`launch.specs.train_state_pspecs` — says whose): the files are still
+the global leaves, one ``.npy`` each, readable by either package and by
+a mesh of another shape.  Rank 0 makes the ``.tmp`` directory and the
+global files of the split leaves (``open_memmap``); each rank writes its
+blocks into them, only the first rank holding a block writing it (a
+whole leaf: np.save by that rank); after a barrier rank 0 writes the
+manifest and renames.  Every rank must see the one directory (a shared
+filesystem), and the sharded save is synchronous: its barriers are
+collectives of the trainer's group.  `restore(shardings=)` reads each
+rank's block of every leaf through ``mmap_mode="r"``
+(`sharding.block_of`: a gated leaf's columns paired).
 
 Each write is an ``ft.checkpoint.save`` span (on the writer thread) and
 one ``ft.checkpoint.saves``; each restore an ``ft.checkpoint.restore``
@@ -43,7 +55,9 @@ from typing import Any, List, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import mesh as M
 from .. import obs
+from ..sharding.rules import block_of, is_spec, put_block, spec_axes
 
 
 def _is_namedtuple(x) -> bool:
@@ -81,6 +95,39 @@ def _flatten_with_paths(tree, prefix: Tuple[str, ...] = ()
     for key, child in kids:
         out += _flatten_with_paths(child, prefix + (key,))
     return out
+
+
+def flatten_specs(tree, prefix: Tuple[str, ...] = ()
+                  ) -> List[Tuple[str, tuple]]:
+    """[(path, placement)] of a placement tree in `_flatten_with_paths`'
+    order, a placement (a plain tuple, ``()`` for a scalar) a leaf."""
+    if tree is None:
+        return []
+    if is_spec(tree):
+        return [("/".join(prefix), tree)]
+    out = []
+    for key, child in _children(tree):
+        out += flatten_specs(child, prefix + (key,))
+    return out
+
+
+def _sharded(tree, shardings) -> List[Tuple[str, Any, tuple]]:
+    """[(path, leaf, placement)] of a tree and its placement tree."""
+    leaves = _flatten_with_paths(tree)
+    specs = flatten_specs(shardings[1])
+    if [k for k, _ in leaves] != [k for k, _ in specs]:
+        raise ValueError("the placement tree does not match the tree: "
+                         f"{[k for k, _ in leaves][:5]}… vs "
+                         f"{[k for k, _ in specs][:5]}…")
+    return [(k, leaf, spec) for (k, leaf), (_, spec) in zip(leaves, specs)]
+
+
+def global_shape(local_shape, spec, mesh) -> Tuple[int, ...]:
+    """The whole leaf's shape from a block's under ``spec``."""
+    sizes = M.axis_sizes(mesh)
+    spec = tuple(spec) + (None,) * (len(local_shape) - len(spec))
+    return tuple(int(n) * int(np.prod([sizes[a] for a in spec_axes(e)]))
+                 for n, e in zip(local_shape, spec))
 
 
 def _rebuild(tree, leaves):
@@ -138,7 +185,17 @@ class CheckpointManager:
         os.makedirs(directory, exist_ok=True)
 
     # ------------------------------------------------------------- save --
-    def save(self, step: int, tree: Any) -> None:
+    def save(self, step: int, tree: Any, shardings: Any = None) -> None:
+        """Write ``tree`` as checkpoint ``step``: asynchronously, or with
+        ``shardings`` = (mesh, placement tree), each rank's blocks into
+        the global leaves, synchronously (see the module's
+        docstring)."""
+        if shardings is not None:
+            self.wait()
+            with obs.span("ft.checkpoint.save", step=step):
+                self._save_sharded(step, tree, shardings)
+            obs.counter("ft.checkpoint.saves").add(1)
+            return
         # host snapshot happens NOW (so the caller can mutate its state)
         host = [(k, _to_host(v)) for k, v in _flatten_with_paths(tree)]
         self.wait()                     # backpressure: one in flight
@@ -190,6 +247,56 @@ class CheckpointManager:
                 shutil.rmtree(final)
             os.rename(tmp, final)       # atomic publish
             self._gc()
+
+    def _save_sharded(self, step: int, tree, shardings):
+        import torch.distributed as dist
+        from ..sharding.spmd import first_holder
+        mesh = shardings[0]
+        rank = dist.get_rank()
+        first = M.is_first(mesh)
+        tmp = os.path.join(self.dir, f"step_{step:010d}.tmp")
+        final = os.path.join(self.dir, f"step_{step:010d}")
+        host = [(k, _to_host(v), spec) for k, v, spec
+                in _sharded(tree, shardings)]
+        manifest = {}
+        for key, arr, spec in host:
+            manifest[key] = {"file": key.replace("/", "__") + ".npy",
+                             "shape": list(global_shape(arr.shape, spec,
+                                                        mesh)),
+                             "dtype": str(arr.dtype)}
+        if first:
+            if os.path.exists(tmp):
+                shutil.rmtree(tmp)
+            os.makedirs(tmp)
+            for key, arr, spec in host:
+                if any(spec_axes(e) for e in spec):
+                    np.lib.format.open_memmap(
+                        os.path.join(tmp, manifest[key]["file"]), "w+",
+                        arr.dtype, tuple(manifest[key]["shape"])).flush()
+        M.barrier(mesh)
+        for key, arr, spec in host:
+            if not first_holder(spec, mesh, rank):
+                continue
+            path = os.path.join(tmp, manifest[key]["file"])
+            if any(spec_axes(e) for e in spec):
+                out = np.load(path, mmap_mode="r+")
+                put_block(out, arr, spec, mesh, rank)
+                out.flush()
+                del out
+            else:
+                np.save(path, arr)
+        M.barrier(mesh)
+        if first:
+            with open(os.path.join(tmp, "manifest.json"), "w") as f:
+                json.dump({"step": step, "leaves": manifest}, f)
+                f.flush()
+                os.fsync(f.fileno())
+            with self._lock:
+                if os.path.exists(final):
+                    shutil.rmtree(final)
+                os.rename(tmp, final)
+                self._gc()
+        M.barrier(mesh)                 # published before anyone reads
 
     def _gc(self):
         steps = sorted(self.all_steps())
@@ -246,11 +353,12 @@ class CheckpointManager:
     def restore(self, tree_like: Any, step: Optional[int] = None,
                 shardings: Any = None) -> Any:
         """Restore into the structure of ``tree_like``; each leaf takes
-        its template leaf's kind and dtype (a tensor's device too)."""
+        its template leaf's kind and dtype (a tensor's device too).  With
+        ``shardings`` = (mesh, placement tree), ``tree_like`` holds this
+        rank's blocks and each leaf's block is read from the global file
+        through ``mmap_mode="r"`` (a mesh of any shape)."""
         if shardings is not None:
-            raise NotImplementedError(
-                "restore(shardings=...) places the LM trainer's sharded "
-                "leaves on a device mesh; it comes with the LM stack (M13)")
+            return self._restore_sharded(tree_like, step, shardings)
         step = self._step(step)
         with obs.span("ft.checkpoint.restore", step=step):
             d, manifest = self._manifest(step)
@@ -258,5 +366,28 @@ class CheckpointManager:
                          like)
                    for key, like in _flatten_with_paths(tree_like)]
         # every restore is a restart in the fault-tolerance story
+        obs.counter("ft.checkpoint.restores").add(1)
+        return _rebuild(tree_like, iter(out))
+
+    def _restore_sharded(self, tree_like, step, shardings):
+        import torch.distributed as dist
+        leaves = _sharded(tree_like, shardings)
+        mesh, rank = shardings[0], dist.get_rank()
+        step = self._step(step)
+        with obs.span("ft.checkpoint.restore", step=step):
+            d, manifest = self._manifest(step)
+            out = []
+            for key, like, spec in leaves:
+                arr = np.load(os.path.join(d, manifest[key]["file"]),
+                              mmap_mode="r")
+                blk = np.array(block_of(arr, spec, mesh, rank), copy=True)
+                if tuple(blk.shape) != tuple(like.shape):
+                    raise ValueError(
+                        f"{key}: the block of the saved "
+                        f"{tuple(arr.shape)} under {spec} is "
+                        f"{tuple(blk.shape)}, not the {tuple(like.shape)} "
+                        "this rank holds")
+                out.append(_like(blk, like))
+                del arr
         obs.counter("ft.checkpoint.restores").add(1)
         return _rebuild(tree_like, iter(out))

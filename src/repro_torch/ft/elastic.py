@@ -1,9 +1,15 @@
-"""Straggler mitigation, the single-host half of `repro.ft.elastic`.
+"""Elastic scaling and straggler mitigation — counterpart of
+`repro.ft.elastic`.
 
-Counterpart of `repro.ft.elastic`'s `detect_stragglers` and
-`StragglerMonitor`, an own copy (stdlib and `repro_torch.obs` only).  The
-mesh half (`make_mesh_for`, `elastic_remesh`) serves the LM trainer's
-elastic restart only, and comes with it (M13): both raise until then.
+`make_mesh_for` gives the reference's best-effort (pod, data, model)
+mesh over the ranks a restarted job came back with, and
+`elastic_remesh` re-blocks a live sharded state from one mesh onto
+another over the same ranks — (2, 4) → (4, 2), say — by gathering each
+leaf and cutting this rank's block under the same placement.  Where the
+world itself shrank or grew, the ranks of the old mesh are gone and the
+path is the checkpoint (`CheckpointManager.restore(shardings=)` onto the
+new mesh), as the reference's docstring says: the port's
+`elastic_remesh` does not move state between process groups.
 
 `StragglerMonitor` implements the speculative-execution analogue: SPMD
 steps are synchronous, so a straggling host shows up as a slow global
@@ -18,29 +24,66 @@ job by more than the iteration budget.
 """
 from __future__ import annotations
 
+import math
 import statistics
 import time
-from typing import Callable, List, Mapping, Optional, Tuple
+from typing import Callable, List, Mapping, Optional, Sequence, Tuple
 
 from .. import obs
 
 
-def _lm_stack(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} reshards the LM trainer's (pod, data, model) state; it "
-        "comes with the LM stack (M13).  BigFCM's own mesh is "
-        "repro_torch.mesh")
-
-
-def make_mesh_for(devices, *, model_parallel: int, pods: int = 1):
-    """The reference's best-effort (pod, data, model) mesh; raises until
-    M13."""
-    raise _lm_stack("make_mesh_for")
+def make_mesh_for(ranks: Sequence[int], *, model_parallel: int,
+                  pods: int = 1, device_type: str = "cuda"):
+    """Best-effort (pod, data, model) mesh over ``ranks`` of the current
+    process group (an elastic restart may come back with fewer): model =
+    gcd(``model_parallel``, n), data = n // (model · pods), the first
+    pods · data · model of ``ranks`` laid row-major — the reference's
+    rule over its devices; ("data", "model") when ``pods`` is 1."""
+    from .. import mesh as M
+    ranks = [int(r) for r in ranks]
+    n = len(ranks)
+    model = math.gcd(int(model_parallel), n)
+    data = n // (model * pods)
+    if data < 1:
+        raise ValueError(f"{n} ranks hold no ({pods}, data, {model}) mesh")
+    if pods > 1:
+        shape, names = (pods, data, model), ("pod", "data", "model")
+    else:
+        shape, names = (data, model), ("data", "model")
+    return M.make_mesh(shape, names, device_type=device_type,
+                       ranks=ranks[:pods * data * model])
 
 
 def elastic_remesh(state, old_shardings, new_mesh):
-    """The reference's live-pytree reshard; raises until M13."""
-    raise _lm_stack("elastic_remesh")
+    """Re-block a live sharded tree onto ``new_mesh`` (same placements):
+    ``old_shardings`` = (old mesh, placement tree), ``state`` this rank's
+    blocks under it; each leaf is gathered from the old mesh's ranks and
+    this rank's block under the same placement on ``new_mesh`` kept (a
+    gated leaf's columns paired).  Both meshes span the same ranks."""
+    import torch.distributed as dist
+    from .. import mesh as M
+    from ..sharding.rules import block_of, put_block
+    from .checkpoint import _rebuild, _sharded, global_shape
+    old_mesh = old_shardings[0]
+    if sorted(old_mesh.mesh.flatten().tolist()) != \
+            sorted(new_mesh.mesh.flatten().tolist()):
+        raise ValueError("elastic_remesh re-blocks between meshes over the "
+                         "same ranks; a changed world restarts from the "
+                         "checkpoint (CheckpointManager.restore(shardings=))")
+    obs.counter("ft.elastic.remesh").add(1)
+    obs.event("ft.elastic.remesh", n_devices=M.mesh_size(new_mesh))
+    rank = dist.get_rank()
+    axes = tuple(old_mesh.mesh_dim_names)
+    members = M._members(old_mesh, axes)
+    out = []
+    for _, x, spec in _sharded(state, old_shardings):
+        parts = M.all_gather(x.contiguous(), old_mesh, axes)
+        full = x.new_empty(global_shape(x.shape, spec, old_mesh))
+        for r, blk in zip(members, parts):
+            put_block(full, blk, spec, old_mesh, r)
+        out.append(block_of(full, spec, new_mesh, rank).clone())
+        del full, parts
+    return _rebuild(state, iter(out))
 
 
 def detect_stragglers(

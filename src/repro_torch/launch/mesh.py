@@ -5,33 +5,57 @@ Defined as functions, so importing this module touches no device and
 joins no process group."""
 from __future__ import annotations
 
+import math
+import os
+
 import torch.distributed as dist
 
 from .. import mesh as M
 
-ITEM_3D = ("ROADMAP Queue 1 item 3d iv (the sharded LM's model-parallel "
-           "training: model-parallel meshes, the production mesh)")
+
+def _join(device_type: str) -> None:
+    """Join this process's group: the one ``torchrun`` describes in the
+    environment (NCCL on cards, gloo on the CPU), else a one-rank gloo
+    group over an in-process store (no network, no files)."""
+    if dist.is_initialized():
+        return
+    if "WORLD_SIZE" in os.environ and "MASTER_ADDR" in os.environ:
+        dist.init_process_group("nccl" if device_type == "cuda" else "gloo")
+    else:
+        dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                                world_size=1)
 
 
-def make_production_mesh(*, multi_pod: bool = False):
-    """The reference's 16×16 (data, model) pod mesh: item 3d iv."""
-    raise NotImplementedError(f"make_production_mesh comes with {ITEM_3D}")
+def make_production_mesh(*, multi_pod: bool = False,
+                         device_type: str = "cuda"):
+    """The reference's pod mesh: 16×16 ("data", "model"), or 2×16×16
+    ("pod", "data", "model") with ``multi_pod``, over the first 256 (512)
+    ranks of the process group.  Fewer ranks raise `RuntimeError`, as
+    the reference does with fewer devices."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    n = math.prod(shape)
+    world = dist.get_world_size() if dist.is_initialized() else int(
+        os.environ.get("WORLD_SIZE", 1))
+    if world < n:
+        raise RuntimeError(
+            f"mesh {shape} needs {n} ranks, have {world} — launch "
+            f"{n} ranks (torchrun) to train on it")
+    _join(device_type)
+    return M.make_mesh(shape, axes, device_type=device_type,
+                       ranks=range(n))
 
 
 def make_host_mesh(model_parallel: int = 1, *, device_type: str = "cuda"):
-    """A ("data", "model") mesh over the host's ranks: (world size, 1),
-    every rank one replica — one card gives (1, 1).  Without a process
-    group this process joins a one-rank gloo group over an in-process
-    store (no network, no files); under ``torchrun`` the caller's group
-    is used.  ``model_parallel`` > 1 is item 3d iv."""
-    if model_parallel != 1:
-        raise NotImplementedError(
-            f"--model-parallel {model_parallel}: model-parallel meshes come "
-            f"with {ITEM_3D}")
-    if not dist.is_initialized():
-        dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
-                                world_size=1)
-    return M.make_mesh((dist.get_world_size(), 1), ("data", "model"),
+    """A ("data", "model") mesh over the process group's ranks: mp =
+    gcd(``model_parallel``, world size) ranks a replica, (world / mp,
+    mp) — the reference's rule over its devices; one card gives (1, 1).
+    Without a process group this process joins one (`_join`: torchrun's,
+    or a one-rank group)."""
+    _join(device_type)
+    n = dist.get_world_size()
+    mp = math.gcd(int(model_parallel), n)
+    return M.make_mesh((n // mp, mp), ("data", "model"),
                        device_type=device_type)
 
 

@@ -22,8 +22,8 @@ from ..models.params import PDecl, nest, tree_abstract, tree_paths, \
     tree_pspecs
 from ..models.transformer import stage_plan, torch_dtype
 from ..optim import Optimizer
-from ..sharding.rules import (PROFILES, get_profile, logical_to_spec,
-                              map_leaves, pspec)
+from ..sharding.rules import (PROFILES, Paired, get_profile,
+                              logical_to_spec, map_leaves, pspec)
 from ..train.step import TrainState, model_decl
 
 __all__ = ["batch_axes_for", "model_decl", "abstract_params",
@@ -79,9 +79,13 @@ def opt_pspecs(cfg: ModelConfig, optimizer_name: str, mesh):
         def one(d, spec):
             parts = list(spec) + [None] * (len(d.shape) - len(spec))
             if len(d.shape) >= 2:
+                vc = pspec(*(parts[:-2] + parts[-1:]))
+                # a gated leaf's column statistics pair as its columns
                 return {"vr": pspec(*parts[:-1]),
-                        "vc": pspec(*(parts[:-2] + parts[-1:]))}
-            return {"v": pspec(*parts)}
+                        "vc": Paired(vc) if isinstance(spec, Paired)
+                        else vc}
+            v = pspec(*parts)
+            return {"v": Paired(v) if isinstance(spec, Paired) else v}
         return {"m": _zip_map(one, model_decl(cfg), pspecs), "count": ()}
     raise ValueError(optimizer_name)
 

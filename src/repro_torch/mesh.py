@@ -8,10 +8,12 @@ with the same arguments; what the reference computes once and hands
 every device, every rank computes (or receives) here.  The mesh is a
 `torch.distributed.device_mesh.DeviceMesh` with named dims — e.g.
 ``("pod", "data")`` — over the default process group, ranks laid out
-row-major over its shape; every collective below runs over the default
-group and picks its axes' members out of it (the payloads are a few KB
-of summaries, so gathering from every rank and keeping the axes' ranks
-costs nothing and keeps one code path).
+row-major over its shape.  A collective over some of its axes runs on
+those axes' subgroup (the ranks sharing this rank's coordinates on the
+other dims; a group of its own for each set of axes, made on first use
+by its members alone), so its payload reaches only the ranks that need
+it: a few KB of BigFCM summaries, or the hundreds of MB of an LM's
+tensor-parallel activations and FSDP parameter gathers.
 
   * `make_mesh` / `rank_device` — the mesh and this rank's device
     (``cuda:{local rank % device count}``; the CPU for a CPU mesh).
@@ -24,6 +26,14 @@ costs nothing and keeps one code path).
   * `psum` — the gathered partials added in rank order, so every rank
     holds the same bits and a rerun repeats them whatever ring order the
     backend uses.
+  * `reduce_scatter` — the sum over the axes, each member keeping its
+    block of one dim: an all-to-all of the blocks, each block's parts
+    added in rank order (the bits of `psum`'s block, at 1/P of the
+    bytes received).
+  * `gather_param` — a parameter's block gathered over the axes that
+    only store it (FSDP), under autograd: its backward is
+    `reduce_scatter`, each member's use of the whole a part of one
+    global use.
   * `all_to_all` — ``jax.lax.all_to_all(t, axis, 0, 0, tiled=False)``
     over one mesh axis, on that axis's subgroup (its payload is the
     routed tokens of expert parallelism, hundreds of MB, not summaries);
@@ -56,8 +66,11 @@ Users launch ranks with ``torchrun`` (which sets ``RANK``,
 
 Instrumentation: each collective adds its host seconds to
 ``mesh.collective_s`` and the bytes it receives to ``mesh.gathered_bytes``
-— `all_to_all` to ``mesh.all_to_all_bytes`` — (`repro_torch.obs`
-counters; the process's own, like every counter).
+— `all_to_all` to ``mesh.all_to_all_bytes``, `reduce_scatter` to
+``mesh.reduce_scatter_bytes`` — (`repro_torch.obs` counters; the
+process's own, like every counter).  By kind besides: `psum`'s gathers
+also go to ``mesh.psum_bytes`` (a tensor-parallel all-reduce) and
+`gather_param`'s to ``mesh.param_gather_bytes``.
 """
 from __future__ import annotations
 
@@ -85,11 +98,14 @@ def _axes(axes: Axes) -> Tuple[str, ...]:
 
 
 def make_mesh(shape: Sequence[int], axis_names: Sequence[str], *,
-              device_type: str = "cuda"):
+              device_type: str = "cuda",
+              ranks: Optional[Sequence[int]] = None):
     """A `DeviceMesh` of ``shape`` with dims ``axis_names`` over the
     initialised default process group, ranks row-major over ``shape``
-    (their product must be the world size).  On ``"cuda"`` this rank's
-    card becomes the current device."""
+    (their product must be the world size).  ``ranks`` lays out those
+    ranks instead, in their order — a subset of the world (the ranks
+    outside it hold no coordinate and take no part in its collectives).
+    On ``"cuda"`` this rank's card becomes the current device."""
     from torch.distributed.device_mesh import DeviceMesh
     if not dist.is_initialized():
         raise RuntimeError("make_mesh needs an initialised default process "
@@ -100,15 +116,18 @@ def make_mesh(shape: Sequence[int], axis_names: Sequence[str], *,
         raise ValueError(f"mesh shape {shape} and axis names {names} "
                          "differ in length")
     world = dist.get_world_size()
-    if math.prod(shape) != world:
+    ranks = list(range(world)) if ranks is None else [int(r) for r in ranks]
+    if math.prod(shape) != len(ranks) or not set(ranks) <= set(range(world)) \
+            or len(set(ranks)) != len(ranks):
         raise ValueError(f"mesh shape {shape} holds {math.prod(shape)} "
-                         f"ranks; the process group has {world}")
+                         f"ranks; it is given {ranks} of a process group of "
+                         f"{world}")
     if device_type == "cuda":
         torch.cuda.set_device(_local_device(torch.device("cuda")))
     elif device_type != "cpu":
         raise ValueError(f"unsupported mesh device type {device_type!r}: "
                          "cuda or cpu")
-    return DeviceMesh(device_type, torch.arange(world).reshape(shape),
+    return DeviceMesh(device_type, torch.tensor(ranks).reshape(shape),
                       mesh_dim_names=names)
 
 
@@ -217,13 +236,66 @@ def _wire_device() -> torch.device:
     return torch.device("cpu")
 
 
-def _gather_all(t: torch.Tensor) -> List[torch.Tensor]:
-    """Every rank's ``t`` (equal shapes), by rank, on ``t``'s device."""
-    t0 = time.perf_counter()
+def _to_wire(t: torch.Tensor) -> torch.Tensor:
+    """``t`` flat and contiguous on the wire's device; a 16-bit tensor as
+    its bytes under gloo (which refuses int16, and not every build takes
+    bf16)."""
     wire = t.detach().to(_wire_device()).reshape(-1).contiguous()
-    out = [torch.empty_like(wire) for _ in range(dist.get_world_size())]
-    dist.all_gather(out, wire)
-    out = [o.to(t.device).reshape(t.shape) for o in out]
+    if wire.element_size() == 2 and wire.device.type == "cpu":
+        wire = wire.view(torch.uint8)
+    return wire
+
+
+def _from_wire(w: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """A wire tensor back as ``like``'s dtype and device (flat)."""
+    if w.dtype != like.dtype:
+        w = w.view(like.dtype)
+    return w.to(like.device)
+
+
+def _members(mesh, axes: Tuple[str, ...]) -> List[int]:
+    """This rank's members over ``axes`` in block order (`_group`),
+    cached on the mesh."""
+    cache = mesh.__dict__.setdefault("_repro_members", {})
+    if axes not in cache:
+        cache[axes] = _group(mesh, axes)
+    return cache[axes]
+
+
+def _subgroup(mesh, axes: Tuple[str, ...]):
+    """The process group of this rank's members over ``axes``: the
+    default group where they are every rank, a mesh dim's own group for
+    one axis, else a group made by its members alone on first use (so
+    ranks outside it need not take part), cached on the mesh."""
+    members = _members(mesh, axes)
+    if len(members) == dist.get_world_size():
+        return None
+    if len(axes) == 1 and hasattr(mesh, "get_group"):
+        return mesh.get_group(axes[0])
+    cache = mesh.__dict__.setdefault("_repro_groups", {})
+    key = tuple(sorted(members))
+    if key not in cache:
+        cache[key] = dist.new_group(list(key),
+                                    use_local_synchronization=True)
+    return cache[key]
+
+
+def _gather_group(t: torch.Tensor, mesh, axes: Tuple[str, ...]
+                  ) -> List[torch.Tensor]:
+    """Every member's ``t`` (equal shapes) over ``axes``, in block order,
+    on ``t``'s device."""
+    t0 = time.perf_counter()
+    members = _members(mesh, axes)
+    wire = _to_wire(t)
+    if len(members) == 1:
+        out = [wire]
+    else:
+        got = [torch.empty_like(wire) for _ in members]
+        dist.all_gather(got, wire, group=_subgroup(mesh, axes))
+        # the group's ranks ascend; the blocks follow the axes' order
+        by_rank = dict(zip(sorted(members), got))
+        out = [by_rank[r] for r in members]
+    out = [_from_wire(o, t).reshape(t.shape) for o in out]
     obs.counter("mesh.collective_s").add(time.perf_counter() - t0)
     obs.counter("mesh.gathered_bytes").add(
         wire.numel() * wire.element_size() * len(out))
@@ -234,9 +306,9 @@ def all_gather(t: torch.Tensor, mesh, axes: Axes = ("data",)
                ) -> torch.Tensor:
     """The (P, …) stack of ``t`` over ``axes`` — the members sharing
     this rank's coordinates on the other dims — in the order
-    `jax.lax.all_gather(t, axes)` stacks it."""
-    parts = _gather_all(t)
-    return torch.stack([parts[r] for r in _group(mesh, _axes(axes))])
+    `jax.lax.all_gather(t, axes)` stacks it, gathered on their
+    subgroup."""
+    return torch.stack(_gather_group(t, mesh, _axes(axes)))
 
 
 def gather_rows(x_l: torch.Tensor, idx, mesh, axes: Axes = ("data",)
@@ -267,7 +339,74 @@ def sum_in_order(parts) -> torch.Tensor:
 def psum(t: torch.Tensor, mesh, axes: Axes = ("data",)) -> torch.Tensor:
     """The sum of ``t`` over ``axes``: the gathered partials added in
     rank order, so every rank holds the same bits."""
-    return sum_in_order(all_gather(t, mesh, axes))
+    parts = _gather_group(t, mesh, _axes(axes))
+    obs.counter("mesh.psum_bytes").add(
+        t.numel() * t.element_size() * len(parts))
+    return sum_in_order(parts)
+
+
+def reduce_scatter(t: torch.Tensor, mesh, axes: Axes = ("data",),
+                   dim: int = 0) -> torch.Tensor:
+    """The sum of ``t`` over ``axes``, of which this rank keeps its block
+    along ``dim`` (P equal blocks in the axes' row-major order, as
+    `shard_rows` cuts): the bits of ``psum(t)``'s block.  Each member
+    sends block j to the member at block j (one all-to-all on the
+    subgroup) and adds the parts it receives in rank order."""
+    axes = _axes(axes)
+    members = _members(mesh, axes)
+    p = len(members)
+    n = int(t.shape[dim])
+    if n % p:
+        raise ValueError(f"reduce_scatter over {axes} ({p} ranks): dim "
+                         f"{dim} of {tuple(t.shape)} does not split")
+    blocks = t.movedim(dim, 0).reshape((p, n // p) + tuple(
+        t.movedim(dim, 0).shape[1:]))
+    if p == 1:
+        return blocks[0].movedim(0, dim)
+    t0 = time.perf_counter()
+    # all_to_all_single takes and gives the chunks by group rank
+    # (ascending global rank); block j goes to members[j]
+    order = sorted(range(p), key=lambda j: members[j])
+    send = torch.stack([_to_wire(blocks[j]) for j in order])
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=_subgroup(mesh, axes))
+    by_rank = dict(zip(sorted(members), recv))
+    parts = [_from_wire(by_rank[r], t).reshape(blocks.shape[1:])
+             for r in members]
+    out = sum_in_order(parts).movedim(0, dim)
+    obs.counter("mesh.collective_s").add(time.perf_counter() - t0)
+    obs.counter("mesh.reduce_scatter_bytes").add(
+        recv.numel() * recv.element_size())
+    return out
+
+
+class _GatherParam(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, dim, mesh, axes):
+        ctx.dim, ctx.mesh, ctx.axes = dim, mesh, axes
+        parts = _gather_group(t, mesh, axes)
+        obs.counter("mesh.param_gather_bytes").add(
+            t.numel() * t.element_size() * len(parts))
+        return torch.cat(parts, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (reduce_scatter(g.contiguous(), ctx.mesh, ctx.axes, ctx.dim),
+                None, None, None)
+
+
+def gather_param(block: torch.Tensor, dim: int, mesh, axes: Axes
+                 ) -> torch.Tensor:
+    """The whole of a tensor along ``dim`` from the members' blocks over
+    ``axes`` (row-major over the axes as listed: `local_block`'s order);
+    under autograd its cotangent is summed over the axes and each member
+    keeps its block (`reduce_scatter`) — the members' uses of the whole
+    are parts of one global use, as an FSDP parameter's are.  No axes:
+    ``block`` itself."""
+    axes = _axes(axes)
+    if not axes:
+        return block
+    return _GatherParam.apply(block, dim % block.dim(), mesh, axes)
 
 
 def _all_to_all(t: torch.Tensor, mesh, axis: str) -> torch.Tensor:
@@ -279,12 +418,12 @@ def _all_to_all(t: torch.Tensor, mesh, axis: str) -> torch.Tensor:
         raise TypeError(f"{mesh!r} has no process group to run "
                         "all_to_all on")
     t0 = time.perf_counter()
-    wire = t.detach().to(_wire_device()).contiguous()
+    wire = _to_wire(t).reshape(n, -1)
     out = torch.empty_like(wire)
     # the axis's subgroup (DeviceMesh builds one per axis and coordinate
     # on every rank, in one order), its ranks in the axis's order
     dist.all_to_all_single(out, wire, group=mesh.get_group(axis))
-    out = out.to(t.device)
+    out = _from_wire(out, t).reshape(t.shape)
     obs.counter("mesh.collective_s").add(time.perf_counter() - t0)
     obs.counter("mesh.all_to_all_bytes").add(
         out.numel() * out.element_size())
@@ -370,6 +509,14 @@ def broadcast_first(value, mesh):
         out = box[0]
     obs.counter("mesh.collective_s").add(time.perf_counter() - t0)
     return out
+
+
+def barrier(mesh) -> None:
+    """Wait until every rank of the mesh is here."""
+    group = _subgroup(mesh, tuple(mesh.mesh_dim_names))
+    if group is None and dist.get_world_size() == 1:
+        return
+    dist.barrier(group=group)
 
 
 def is_first(mesh) -> bool:

@@ -7,9 +7,15 @@ slots are masked dead (`head_mask`), so the architecture stays
 config-exact.  Products stay plain ``torch`` matmuls, as the reference's
 are plain XLA; ``F.scaled_dot_product_attention`` would round
 differently from the reference's own softmax, so it is not used.
-The shape side of tensor parallelism is here (`_kv_logical`,
-`cache_logical`); the model code runs on one rank until ROADMAP Queue 1
-item 3d iv.
+Under a mesh of more than one rank (`sharding.spmd`, training: no
+cache) the layer is tensor-parallel where its Q heads split over
+"model": Q/K/V column-parallel over "heads" / "kv_heads", ``wo``
+row-parallel, the padded-head mask cut to the rank's heads
+(`_attention_spmd`).  Where the KV heads do not split over "model"
+(`_kv_logical` replicates K and V), K and V are computed whole on every
+rank — ``wk`` / ``wv`` gathered over "model" where their columns are
+split mid-head, their cotangents reduce-scattered — and each rank takes
+the KV head of each of its Q heads.
 """
 from __future__ import annotations
 
@@ -17,8 +23,10 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from .. import mesh as M
 from ..mesh import axis_sizes
-from ..sharding.rules import get_mesh
+from ..sharding import spmd
+from ..sharding.rules import constrain, get_mesh
 from .layers import apply_rope, rounded
 from .params import ParamTree, PDecl
 
@@ -243,6 +251,14 @@ def attention(cfg, p, x, *, causal=True, positions=None,
     """
     b, s, _ = x.shape
     scale = cfg.hd ** -0.5
+    mesh = spmd.active_mesh()
+    if mesh is not None:
+        if cache is not None or kv_input is not None:
+            raise NotImplementedError(
+                "attention under a mesh of more than one rank runs the "
+                "training path (no cache, self-attention); the sharded "
+                "decode and cross-attention are not the port's")
+        return _attention_spmd(cfg, p, x, positions, mesh), None
     if kv_input is None:
         q, k, v = _project(cfg, p, x)
     else:
@@ -275,6 +291,68 @@ def attention(cfg, p, x, *, causal=True, positions=None,
         out = _sdpa(q, k, v, causal=causal and kv_input is None, q_offset=0,
                     scale=scale, chunk=cfg.attn_chunk)
     return _output(cfg, p, out, x), new_cache
+
+
+def _attention_spmd(cfg, p, x, positions, mesh):
+    """Causal self-attention on this rank's blocks (see the module's
+    docstring): x (B_loc, S, D) replicated over "model" → (B_loc, S, D)."""
+    decl = attention_decl(cfg)
+    b, s, _ = x.shape
+    gb = spmd.global_batch(b, mesh)
+    hd, hp, kv = cfg.hd, cfg.n_heads_padded, cfg.n_kv_heads
+    tp = spmd.model_split(decl["wq"], 1, mesh)
+    m, n = spmd.model_rank(mesh) if tp else (0, 1)
+    k_split = spmd.model_split(decl["wk"], 1, mesh)
+    if k_split and not tp:
+        raise NotImplementedError(
+            f"{cfg.name}: K/V columns split over 'model' while the "
+            f"{hp} Q heads do not: pad the heads to the model axis")
+    whole_kv = tp and kv % n != 0       # _kv_logical replicates K and V
+    if tp:                              # column-parallel input
+        x = M.enter_replicated(x, mesh, "model")
+
+    def proj(w, bias):
+        wt = spmd.param(p, w, decl, mesh)
+        bt = p[bias] if cfg.qkv_bias else None
+        if whole_kv and w != "wq":
+            if k_split:                 # columns split mid-head: gather
+                wt = M.gather_param(wt, 1, mesh, ("model",))
+                bt = None if bt is None else M.gather_param(
+                    bt, 0, mesh, ("model",))
+            else:                       # whole, each rank's use a part
+                wt = M.enter_replicated(wt, mesh, "model")
+                bt = None if bt is None else M.enter_replicated(
+                    bt, mesh, "model")
+        y = x @ wt.to(x.dtype)
+        if bt is not None:
+            y = y + bt.to(x.dtype)
+        return y.reshape(b, s, -1, hd)
+
+    q, k, v = proj("wq", "bq"), proj("wk", "bk"), proj("wv", "bv")
+    kvlog = _kv_logical(cfg)
+    q = constrain(q, "batch", "seq", "heads", None, shape=(gb, s, hp, hd))
+    k = constrain(k, "batch", "seq", kvlog, None, shape=(gb, s, kv, hd))
+    v = constrain(v, "batch", "seq", kvlog, None, shape=(gb, s, kv, hd))
+    if cfg.pos == "rope":
+        if positions is None:
+            positions = torch.arange(s, device=x.device).expand(b, s)
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    h = q.shape[2]
+    if whole_kv:                        # each Q head's KV head
+        group = (m * h + torch.arange(h, device=x.device)) // (hp // kv)
+        k, v = k[:, :, group], v[:, :, group]
+    out = _sdpa(q, k, v, causal=True, q_offset=0, scale=cfg.hd ** -0.5,
+                chunk=cfg.attn_chunk)
+    hm = head_mask(cfg, out.dtype, out.device)
+    if hm is not None:
+        out = out * hm[m * h:(m + 1) * h][None, None, :, None]
+    out = out.reshape(b, s, h * hd).to(x.dtype)
+    out = constrain(out, "batch", "seq", "heads", shape=(gb, s, hp * hd))
+    y = out @ spmd.param(p, "wo", decl, mesh).to(x.dtype)
+    if tp:                              # row-parallel output
+        y = M.reduce_replicated(y, mesh, "model")
+    return y
 
 
 class Attention(ParamTree):

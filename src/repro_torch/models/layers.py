@@ -2,10 +2,13 @@
 counterpart of `repro.models.layers`.
 
 Plain functions of a parameter mapping ``p`` (a dict or a `ParamTree`),
-each with its declaration, and small modules over them.  The port runs
-on one card: the reference's ``constrain`` sharding hints have no
-counterpart here (they come with tensor parallelism in the model code,
-ROADMAP Queue 1 item 3d iv) and are omitted throughout the model code.
+each with its declaration, and small modules over them.  Under a mesh of
+more than one rank (`sharding.spmd`) ``p`` holds this rank's blocks: the
+MLP gathers their storage dims and runs column-parallel into row-parallel
+where its hidden dim is split over "model" (a gated ``w_in``'s block is
+its paired [u_r | g_r]); the embedding is vocab-parallel
+(`vocab_embed`).  `sharding.constrain` checks the layouts where the
+reference constrains them.
 """
 from __future__ import annotations
 
@@ -14,6 +17,9 @@ from typing import Optional
 
 import torch
 
+from .. import mesh as M
+from ..sharding import spmd
+from ..sharding.rules import constrain
 from .params import ParamTree, PDecl
 
 
@@ -82,11 +88,13 @@ def mlp_decl(cfg):
     d, f = cfg.d_model, cfg.d_ff
     gated = cfg.act in ("swiglu", "geglu")
     decl = {
-        "w_in": PDecl((d, (2 if gated else 1) * f), ("embed", "mlp")),
+        "w_in": PDecl((d, (2 if gated else 1) * f), ("embed", "mlp"),
+                      gated=gated),
         "w_out": PDecl((f, d), ("mlp", "embed")),
     }
     if cfg.mlp_bias:
-        decl["b_in"] = PDecl(((2 if gated else 1) * f,), ("mlp",), "zeros")
+        decl["b_in"] = PDecl(((2 if gated else 1) * f,), ("mlp",), "zeros",
+                             gated=gated)
         decl["b_out"] = PDecl((d,), (None,), "zeros")
     return decl
 
@@ -120,7 +128,13 @@ def gelu_tanh(x):
 
 
 def mlp(cfg, p, x):
-    h = x @ p["w_in"].to(x.dtype)
+    mesh = spmd.active_mesh()
+    decl = mlp_decl(cfg) if mesh is not None else None
+    tp = spmd.model_split(decl["w_in"], 1, mesh) if mesh is not None \
+        else False
+    if tp:                                  # column-parallel input
+        x = M.enter_replicated(x, mesh, "model")
+    h = x @ spmd.param(p, "w_in", decl, mesh).to(x.dtype)
     if "b_in" in p:
         h = h + p["b_in"].to(x.dtype)
     if cfg.act in ("swiglu", "geglu"):
@@ -128,7 +142,12 @@ def mlp(cfg, p, x):
         h = u * (silu(g) if cfg.act == "swiglu" else gelu_tanh(g))
     else:
         h = gelu_tanh(h)
-    y = h @ p["w_out"].to(x.dtype)
+    if mesh is not None:
+        h = constrain(h, "batch", "seq", "act_mlp", shape=(
+            spmd.global_batch(h.shape[0], mesh), h.shape[1], cfg.d_ff))
+    y = h @ spmd.param(p, "w_out", decl, mesh).to(x.dtype)
+    if tp:                                  # row-parallel output
+        y = M.reduce_replicated(y, mesh, "model")
     if "b_out" in p:
         y = y + p["b_out"].to(x.dtype)
     return y
@@ -143,6 +162,22 @@ def embed_decl(cfg):
 
 def embed(p, tokens, dtype):
     return p["table"].to(dtype)[tokens]
+
+
+def vocab_embed(cfg, table, tokens, dtype, mesh):
+    """The lookup under a mesh: ``table`` is this rank's block of the
+    (V, D) table with D gathered (`spmd.param`).  Split over "model"
+    (vocab-parallel), each rank fills the rows of the tokens it owns into
+    zeros and the ranks' parts are summed (`mesh.reduce_replicated`: x
+    plus zeros is x exactly); whole, a plain lookup."""
+    if not spmd.model_split(embed_decl(cfg)["table"], 0, mesh):
+        return table.to(dtype)[tokens]
+    n = table.shape[0]
+    local = tokens - spmd.model_rank(mesh)[0] * n
+    mine = (local >= 0) & (local < n)
+    rows = table.to(dtype)[torch.where(mine, local, 0)]
+    x = torch.where(mine[..., None], rows, torch.zeros_like(rows))
+    return M.reduce_replicated(x, mesh, "model")
 
 
 def unembed(p, x):

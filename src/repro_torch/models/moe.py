@@ -56,6 +56,17 @@ sum over the ranks holding the same block — the data axes for an
 expert slice, every rank for ``w_router`` — being the global one (the
 data-parallel reduction a trainer makes).
 
+In a sharded model (`MoE` under a mesh of more than one rank,
+`sharding.spmd`) the layer's parameters are the rank's blocks under
+`tree_pspecs`: `moe_spmd` gathers their "embed" / "expert_embed" dims
+(reduce-scattered in the backward), hands the expert branch the block
+of x it takes, sums the router's gradient parts over "model" under
+``tp`` (each rank routes for its own experts), and runs the shared
+experts tensor-parallel.  Without an expert-parallel branch (one
+"model" rank, or experts that do not split over it) the ranks' rows are
+gathered and the single-rank layer runs on the global batch, as the
+reference's capacity is the global batch's; each rank keeps its rows.
+
 BigFCM tie-in: `repro_torch.integration.fcm_router_init` seeds
 ``w_router`` with FCM centroids of token embeddings.
 """
@@ -67,6 +78,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from .. import mesh as M
+from ..sharding import spmd
 from ..sharding.rules import data_axes, get_mesh, get_profile
 from .layers import silu
 from .params import ParamTree, PDecl
@@ -89,7 +101,8 @@ def moe_decl(cfg):
     }
     if cfg.n_shared_experts:
         fs = f * cfg.n_shared_experts
-        decl["w_shared_in"] = PDecl((d, 2 * fs), ("embed", "mlp"))
+        decl["w_shared_in"] = PDecl((d, 2 * fs), ("embed", "mlp"),
+                                    gated=True)
         decl["w_shared_out"] = PDecl((fs, d), ("mlp", "embed"))
     return decl
 
@@ -342,26 +355,68 @@ def moe(cfg, p, x, *, global_batch: Optional[int] = None):
                 f"moe ({branch or 'one rank'}): a block of {x.shape[0]} "
                 f"rows over {ep_batch_axes(branch, mesh)} is not the "
                 f"global batch {global_batch}")
-    if branch is None:
-        y = _moe_local(x, p["w_router"], p["w_in"], p["w_out"], cfg=cfg)
-    else:
-        n = M.axis_sizes(mesh)["model"]
-        if p["w_in"].shape[0] != cfg.n_experts // n:
-            raise ValueError(f"moe ({branch}): w_in holds "
-                             f"{p['w_in'].shape[0]} experts, not this "
-                             f"rank's {cfg.n_experts // n}")
-        if branch == "a2a":
-            y = _moe_a2a(x, p["w_router"], p["w_in"], p["w_out"], cfg=cfg,
-                         n_ranks=n, mesh=mesh)
-        else:
-            y = _moe_local(x, p["w_router"], p["w_in"], p["w_out"],
-                           cfg=cfg, n_ranks=n,
-                           rank=M.block_index(mesh, ("model",))[0],
-                           mesh=mesh)
+    y = _routed(cfg, p, x, mesh, branch)
     if cfg.n_shared_experts:
         h = x @ p["w_shared_in"].to(x.dtype)
         u, g = torch.chunk(h, 2, dim=-1)
         y = y + (u * silu(g)) @ p["w_shared_out"].to(x.dtype)
+    return y
+
+
+def _routed(cfg, p, x, mesh, branch):
+    """The routed experts of `moe` under ``branch``."""
+    if branch is None:
+        return _moe_local(x, p["w_router"], p["w_in"], p["w_out"], cfg=cfg)
+    n = M.axis_sizes(mesh)["model"]
+    if p["w_in"].shape[0] != cfg.n_experts // n:
+        raise ValueError(f"moe ({branch}): w_in holds "
+                         f"{p['w_in'].shape[0]} experts, not this "
+                         f"rank's {cfg.n_experts // n}")
+    if branch == "a2a":
+        return _moe_a2a(x, p["w_router"], p["w_in"], p["w_out"], cfg=cfg,
+                        n_ranks=n, mesh=mesh)
+    return _moe_local(x, p["w_router"], p["w_in"], p["w_out"], cfg=cfg,
+                      n_ranks=n, rank=M.block_index(mesh, ("model",))[0],
+                      mesh=mesh)
+
+
+def moe_spmd(cfg, p, x, mesh):
+    """The layer in a sharded model (see the module's docstring): p this
+    rank's blocks under `tree_pspecs`, x (B_loc, S, D) its rows of the
+    global batch, replicated over "model" under "tp" → (B_loc, S, D)."""
+    decl = moe_decl(cfg)
+    gb = spmd.global_batch(x.shape[0], mesh)
+    branch = ep_branch(cfg, mesh, gb)
+    w = {k: spmd.param(p, k, decl, mesh)
+         for k in ("w_router", "w_in", "w_out")}
+    if branch is None:
+        # the reference's capacity is the global batch's: gather the
+        # rows, run one rank's layer on them, keep this rank's
+        axes = spmd.batch_axes(mesh)
+        b, _ = M.block_index(mesh, axes)
+        x_all = M.gather_param(x, 0, mesh, axes)
+        y = _moe_local(x_all, w["w_router"], w["w_in"], w["w_out"],
+                       cfg=cfg)
+        y = y[b * x.shape[0]:(b + 1) * x.shape[0]]
+    else:
+        if tuple(ep_batch_axes(branch, mesh)) != spmd.batch_axes(mesh):
+            raise NotImplementedError(
+                f"moe ({branch}): the branch splits the batch over "
+                f"{ep_batch_axes(branch, mesh)}, the trainer over "
+                f"{spmd.batch_axes(mesh)}")
+        if branch == "tp":
+            # each rank routes for its own experts: the router's gradient
+            # parts add over "model"
+            w["w_router"] = M.enter_replicated(w["w_router"], mesh, "model")
+        y = _routed(cfg, w, x, mesh, branch)
+    if cfg.n_shared_experts:
+        tp = spmd.model_split(decl["w_shared_in"], 1, mesh)
+        xs = M.enter_replicated(x, mesh, "model") if tp else x
+        h = xs @ spmd.param(p, "w_shared_in", decl, mesh).to(x.dtype)
+        u, g = torch.chunk(h, 2, dim=-1)     # this rank's [u_r | g_r]
+        ys = (u * silu(g)) @ spmd.param(p, "w_shared_out", decl,
+                                        mesh).to(x.dtype)
+        y = y + (M.reduce_replicated(ys, mesh, "model") if tp else ys)
     return y
 
 
@@ -398,4 +453,7 @@ class MoE(ParamTree):
         self.cfg = cfg
 
     def forward(self, x):
+        mesh = spmd.active_mesh()
+        if mesh is not None:
+            return moe_spmd(self.cfg, self, x, mesh)
         return moe(self.cfg, self, x)

@@ -23,7 +23,7 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
-from ..sharding.rules import is_spec, local_block, logical_to_spec
+from ..sharding.rules import Paired, block_of, is_spec, logical_to_spec
 
 
 @dataclasses.dataclass(frozen=True)
@@ -32,6 +32,8 @@ class PDecl:
     logical: Tuple[Optional[str], ...]
     init: str = "normal"        # normal | zeros | ones | embed
     scale: Optional[float] = None
+    # the last dim is a gated MLP's [u | g]: placed `Paired` on a mesh
+    gated: bool = False
 
     def __post_init__(self):
         assert len(self.shape) == len(self.logical), (self.shape, self.logical)
@@ -54,7 +56,7 @@ def _leaves(tree) -> list:
 
 
 def tree_init(generator: torch.Generator, tree, dtype=torch.float32,
-              device: Union[str, torch.device] = "cuda"):
+              device: Union[str, torch.device] = "cuda", cut=None):
     """Initialize a real param tree from the declaration tree, on
     ``device`` from ``generator`` (a `torch.Generator` on that device).
 
@@ -62,7 +64,11 @@ def tree_init(generator: torch.Generator, tree, dtype=torch.float32,
     ``normal`` = N(0, 1) × scale (default 1/√fan_in, fan_in the
     second-to-last dim).  The distribution is the reference's; the bits
     are not (`jax.random` has no torch counterpart) — carry a reference
-    tree across with `from_reference` for identical weights."""
+    tree across with `from_reference` for identical weights.
+
+    ``cut(decl, tensor)``, if given, is applied to each leaf as soon as it
+    is drawn (a rank keeping its block of it, the rest freed): the draws,
+    and so the bits, are the whole tree's."""
     dev = resolve_device(device)
 
     def init_one(d: PDecl):
@@ -78,7 +84,9 @@ def tree_init(generator: torch.Generator, tree, dtype=torch.float32,
         scale = d.scale if d.scale is not None else 1.0 / math.sqrt(fan_in)
         return z * scale
 
-    return _map(init_one, tree)
+    if cut is None:
+        return _map(init_one, tree)
+    return _map(lambda d: cut(d, init_one(d)), tree)
 
 
 def tree_abstract(tree, dtype=torch.bfloat16):
@@ -90,9 +98,12 @@ def tree_abstract(tree, dtype=torch.bfloat16):
 
 def tree_pspecs(tree, mesh=None):
     """The placement tree from the logical axes (divisibility-safe,
-    `logical_to_spec` under the active profile)."""
-    return _map(lambda d: logical_to_spec(d.logical, mesh, dims=d.shape),
-                tree)
+    `logical_to_spec` under the active profile); a gated leaf's placement
+    is `Paired` (equal to the plain one)."""
+    def one(d):
+        spec = logical_to_spec(d.logical, mesh, dims=d.shape)
+        return Paired(spec) if d.gated else spec
+    return _map(one, tree)
 
 
 def tree_paths(tree, prefix: str = "") -> Dict[str, object]:
@@ -123,7 +134,7 @@ def n_params(tree) -> int:
 def stack_layers(decl_fn, n: int):
     """Add a leading scanned 'layers' axis to every decl in a subtree."""
     return _map(lambda d: PDecl((n,) + d.shape, ("layers",) + d.logical,
-                                d.init, d.scale), decl_fn())
+                                d.init, d.scale, d.gated), decl_fn())
 
 
 # ------------------------------------------------- reference layout ↔ port ---
@@ -217,11 +228,21 @@ def reference_layout(decl) -> Dict[str, Tuple[Tuple[int, ...], list]]:
 def param_groups(model: nn.Module, decl) -> dict:
     """The model's parameters grouped by the reference's leaves: path →
     `optim.Group` (stacked shape, the per-layer parameters), in the
-    reference's order — what the optimizers take."""
+    reference's order — what the optimizers take.  A model sharded over
+    a mesh (its ``mesh``) gives each group this rank's stacked block
+    shape, its placement and the mesh."""
     from ..optim.optimizers import Group
     named = dict(model.named_parameters())
-    return {path: Group(shape, tuple(named[k] for k in keys))
-            for path, (shape, keys) in reference_layout(decl).items()}
+    mesh = getattr(model, "mesh", None)
+    specs = tree_paths(tree_pspecs(decl, mesh)) if mesh is not None else {}
+    out = {}
+    for path, (shape, keys) in reference_layout(decl).items():
+        parts = tuple(named[k] for k in keys)
+        if mesh is not None:
+            shape = shape[:len(shape) - parts[0].dim()] + tuple(
+                parts[0].shape)
+        out[path] = Group(shape, parts, specs.get(path), mesh)
+    return out
 
 
 def nest(flat: Dict[str, object]):
@@ -264,8 +285,9 @@ def from_reference(tree, device: Union[str, torch.device] = "cuda",
     With ``mesh`` (and the tree's declaration ``decl``), each leaf is
     first cut to the block ``rank`` (default: this process's rank) holds
     under `tree_pspecs` (``decl``, ``mesh``) in the active profile
-    (`sharding.local_block`); the layer axes are never split, so a
-    stacked leaf's per-layer parts are blocks too."""
+    (`sharding.block_of`: a gated leaf's columns paired); the layer axes
+    are never split, so a stacked leaf's per-layer parts are blocks
+    too."""
     dev = resolve_device(device)
     if mesh is not None:
         if decl is None:
@@ -275,10 +297,26 @@ def from_reference(tree, device: Union[str, torch.device] = "cuda",
             import torch.distributed as dist
             rank = dist.get_rank()
         specs = tree_paths(tree_pspecs(decl, mesh))
-        tree = nest({p: local_block(np.asarray(v), specs[p], mesh, rank)
+        tree = nest({p: block_of(np.asarray(v), specs[p], mesh, rank)
                      for p, v in tree_paths(tree).items()})
     return {k: torch.tensor(np.asarray(v), device=dev, dtype=dtype)
             for k, v in to_state(tree).items()}
+
+
+def assign_state(module: nn.Module, state: Dict[str, torch.Tensor]
+                 ) -> None:
+    """Replace the module's parameters by the state dict's tensors, as
+    they are (shapes included: a rank's blocks into a skeleton built at
+    the global shapes), ``requires_grad`` off.  Every parameter must be
+    given."""
+    names = {k for k, _ in module.named_parameters()}
+    if set(state) != names:
+        raise KeyError(f"assign_state: missing {sorted(names - set(state))}"
+                       f", unexpected {sorted(set(state) - names)}")
+    for key, t in state.items():
+        *path, leaf = key.split(".")
+        owner = module.get_submodule(".".join(path))
+        owner._parameters[leaf] = nn.Parameter(t, requires_grad=False)
 
 
 class ParamTree(nn.Module):

@@ -21,6 +21,16 @@ hybrid period as one unit) in the backward pass with
 ``torch.utils.checkpoint`` — when ``cfg.remat`` is set, grad is enabled
 and no cache is passed (`remat`).  Decode and prefill run under
 ``torch.inference_mode`` and are not touched.
+
+Model parallelism (`sharding.spmd`): ``DecoderLM(cfg, …, mesh=)`` holds
+this rank's block of every parameter under `tree_pspecs` in the active
+profile, and its forward runs under that mesh (`sharding.mesh_context`)
+on this rank's rows of the batch: the layers gather their storage dims
+and run tensor-parallel where "model" splits their compute dims, the
+embedding and `lm_loss` vocab-parallel (the loss the global mean: each
+rank's sum over the global token count, summed over the batch axes).
+The dense and MoE families only; a recomputed block re-issues its
+collectives in the backward, in the same order on every rank.
 """
 from __future__ import annotations
 
@@ -33,11 +43,16 @@ from torch.utils.checkpoint import checkpoint
 from ..configs.base import ModelConfig
 from ..device import resolve_device
 from .attention import Attention, KVCache, attention_decl
+from .. import mesh as M
+from ..sharding import spmd
+from ..sharding.rules import (block_of, constrain, get_mesh, get_profile,
+                              mesh_context, profile_context)
 from .layers import (MLP, Embed, Norm, embed_decl, mlp_decl, norm_decl,
-                     rounded)
+                     rounded, vocab_embed)
 from .mamba import MambaBlock, MambaCache, init_mamba_cache, mamba_decl
 from .moe import MoE, moe_decl
-from .params import ParamTree, PDecl, stack_layers, to_state, tree_init
+from .params import (ParamTree, PDecl, assign_state, stack_layers, to_state,
+                     tree_init, tree_paths, tree_pspecs)
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -186,8 +201,16 @@ def remat(cfg, cache) -> bool:
 
 def rematted(fn, x, *args):
     """``fn(x, *args)`` with its activations recomputed in the backward
-    pass (``torch.utils.checkpoint``, non-reentrant)."""
-    return checkpoint(fn, x, *args, use_reentrant=False)
+    pass (``torch.utils.checkpoint``, non-reentrant), under the mesh and
+    profile of the forward: the backward of CUDA tensors runs on
+    autograd's device thread, which does not see this thread's
+    contexts."""
+    mesh, profile = get_mesh(), get_profile()
+
+    def run(*a):
+        with mesh_context(mesh), profile_context(profile):
+            return fn(*a)
+    return checkpoint(run, x, *args, use_reentrant=False)
 
 
 class Block(nn.Module):
@@ -210,6 +233,11 @@ class Block(nn.Module):
         x = x + a
         h = self.ln2(x)
         x = x + (self.moe(h) if "moe" in self._modules else self.mlp(h))
+        mesh = spmd.active_mesh()
+        if mesh is not None:
+            x = constrain(x, "batch", "seq", "act_embed", shape=(
+                spmd.global_batch(x.shape[0], mesh), x.shape[1],
+                x.shape[2]))
         return x, new_cache
 
 
@@ -334,20 +362,33 @@ class DecoderLM(nn.Module):
     weights with `tree_init`'s rules; without one they are zeros, to be
     loaded (``load_state_dict``).  The weights take the config's
     ``param_dtype``, with ``requires_grad`` off until a trainer turns it
-    on (`launch.train.build`)."""
+    on (`launch.train.build`).
+
+    With ``mesh`` (more than one rank; dense and MoE families) the model
+    holds this rank's blocks under `tree_pspecs` in the active profile,
+    which it records (``mesh``, ``profile``): drawn from ``generator``
+    as the whole tree is (each leaf cut as it is drawn), or zeros until
+    `params.assign_state` puts blocks in (`params.from_reference` with
+    ``mesh=`` cuts a reference tree)."""
 
     def __init__(self, cfg: ModelConfig,
                  generator: Optional[torch.Generator] = None, *,
-                 device: Union[str, torch.device] = "cuda"):
+                 device: Union[str, torch.device] = "cuda", mesh=None):
         super().__init__()
         if cfg.family == "encdec":
             raise ValueError("DecoderLM: the encoder-decoder family is "
                              "models.encdec.EncDecLM")
         dev = resolve_device(device)
         dtype = torch_dtype(cfg.param_dtype)
-        # with a generator the weights come from tree_init: build the
-        # skeleton without storage and take its tensors as they are
-        build = torch.device("meta") if generator is not None else dev
+        if mesh is not None and M.mesh_size(mesh) == 1:
+            mesh = None
+        if mesh is not None:
+            spmd.check_family(cfg)
+        self.mesh, self.profile = mesh, get_profile()
+        # with a generator (or a mesh) the weights come afterwards: build
+        # the skeleton without storage and take its tensors as they are
+        build = torch.device("meta") if generator is not None \
+            or mesh is not None else dev
         kw = dict(dtype=dtype, device=build)
         self.cfg = cfg
         self.embed = Embed(cfg, **kw)
@@ -368,10 +409,27 @@ class DecoderLM(nn.Module):
         self.stages = nn.ModuleList(stages)
         if cfg.family == "hybrid":
             self.shared_attn = Block(cfg, "mlp", **kw)
-        if generator is not None:
+        if mesh is not None:
+            assign_state(self, to_state(
+                self._blocks(generator, dtype, dev)))
+        elif generator is not None:
             self.load_state_dict(
                 to_state(tree_init(generator, decl(cfg), dtype, dev)),
                 assign=True)
+
+    def _blocks(self, generator, dtype, dev):
+        """This rank's blocks of the parameter tree (reference layout):
+        drawn leaf by leaf as `tree_init` draws the whole tree, each cut
+        at once (`sharding.block_of`); zeros without a generator."""
+        rank = torch.distributed.get_rank()
+        specs = tree_pspecs(decl(self.cfg), self.mesh)
+        cuts = iter(tree_paths(specs).values())    # tree_init's order
+
+        def cut(d, t):
+            return block_of(t, next(cuts), self.mesh, rank).clone()
+        if generator is not None:
+            return tree_init(generator, decl(self.cfg), dtype, dev, cut=cut)
+        return tree_init(None, _zeros(decl(self.cfg)), dtype, dev, cut=cut)
 
     def __getitem__(self, k: str):
         return getattr(self, k)
@@ -380,15 +438,27 @@ class DecoderLM(nn.Module):
         return k in self._parameters or k in self._modules
 
     def forward(self, tokens, caches: Optional[list] = None,
-                prefix_embeds=None, positions=None):
+                prefix_embeds=None, positions=None, table=None):
         """tokens: (B, S) integer ids → hidden (B, S', D), S' = S plus
         the ``prefix_embeds`` (B, P, D) length (VLM stub embeddings
         occupying the first P positions).  With ``caches`` (from
         `init_caches`): decode or cached prefill, returning (hidden, new
-        caches)."""
+        caches).
+
+        On a sharded model: under its mesh and profile, tokens this
+        rank's rows of the global batch, training only; ``table`` the
+        embedding table already gathered (`sharded_head`, shared with
+        the tied loss: one gradient, one reduce-scatter)."""
         cfg = self.cfg
         dt = torch_dtype(cfg.compute_dtype)
-        x = self.embed(tokens, dt)
+        mesh = self._check_mesh(caches, prefix_embeds)
+        if mesh is not None:
+            if table is None:
+                table = spmd.param(self.embed, "table", embed_decl(cfg),
+                                   mesh)
+            x = vocab_embed(cfg, table, tokens, dt, mesh)
+        else:
+            x = self.embed(tokens, dt)
         if prefix_embeds is not None:
             x = torch.cat([prefix_embeds.to(dt), x], dim=1)
         if cfg.embed_scale:
@@ -400,7 +470,14 @@ class DecoderLM(nn.Module):
             pos = torch.clamp(base + torch.arange(x.shape[1],
                                                   device=x.device),
                               max=table.shape[0] - 1)
+            if mesh is not None:
+                table = spmd.param(self.pos_embed, "table",
+                                   _pos_embed_decl(cfg), mesh)
             x = x + table[pos].to(dt)[None]
+        if mesh is not None:
+            x = constrain(x, "batch", "seq", "act_embed", shape=(
+                spmd.global_batch(x.shape[0], mesh), x.shape[1],
+                x.shape[2]))
         decoding = caches is not None
         new_caches = []
         for i, stage in enumerate(self.stages):
@@ -412,6 +489,34 @@ class DecoderLM(nn.Module):
             new_caches.append(nc)
         x = self.final_norm(x)
         return (x, new_caches) if decoding else x
+
+    def _check_mesh(self, caches, prefix_embeds):
+        """The active mesh of more than one rank, checked against the one
+        the model is sharded over (and the profile it was cut under)."""
+        mesh = spmd.active_mesh()
+        if mesh is not self.mesh:
+            raise RuntimeError(
+                f"DecoderLM sharded over {self.mesh!r} run under the mesh "
+                f"{mesh!r}: enter its mesh_context (and only its)")
+        if mesh is not None:
+            if get_profile() != self.profile:
+                raise RuntimeError(f"DecoderLM cut under the "
+                                   f"{self.profile!r} profile run under "
+                                   f"{get_profile()!r}")
+            if caches is not None or prefix_embeds is not None:
+                raise NotImplementedError(
+                    "a sharded DecoderLM trains (no caches, no prefix "
+                    "embeddings)")
+        return mesh
+
+
+def _zeros(tree):
+    """The declaration tree with every leaf's init "zeros"."""
+    if isinstance(tree, dict):
+        return {k: _zeros(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_zeros(t) for t in tree)
+    return PDecl(tree.shape, tree.logical, "zeros", tree.scale, tree.gated)
 
 
 # ---------------------------------------------------------------- heads ---
@@ -425,6 +530,20 @@ def head_weight(cfg, params) -> torch.Tensor:
 
 def logits_fn(cfg, params, hidden):
     return _logits(cfg, head_weight(cfg, params), hidden)
+
+
+def _head_decl(cfg):
+    return (embed_decl(cfg)["table"] if cfg.tie_embeddings
+            else _lm_head_decl(cfg)["w"])
+
+
+def sharded_head(cfg, params, mesh):
+    """This rank's block of the output projection with its storage dim
+    gathered (`spmd.param`): the (tied) table (V_r, D) or ``lm_head.w``
+    (D, V_r), V_r the rank's vocabulary block where "model" splits it."""
+    if cfg.tie_embeddings:
+        return spmd.param(params["embed"], "table", embed_decl(cfg), mesh)
+    return spmd.param(params["lm_head"], "w", _lm_head_decl(cfg), mesh)
 
 
 def _logits(cfg, head, hidden):
@@ -449,23 +568,68 @@ def _chunk_nll(cfg, head, hidden, labels):
     return torch.sum(logz - gold)
 
 
-def lm_loss(cfg: ModelConfig, params, hidden, labels):
+def _chunk_nll_vp(cfg, head, hidden, labels, mesh):
+    """`_chunk_nll` with the vocabulary split over "model": this rank's
+    logits are its block of columns; the max and the sum of exponentials
+    are taken over the ranks' blocks (the max with no gradient, as
+    logsumexp's shift), the gold logit from the rank that owns it."""
+    logits = (hidden @ head.to(hidden.dtype).T if cfg.tie_embeddings
+              else hidden @ head.to(hidden.dtype))
+    n = logits.shape[-1]
+    v0 = spmd.model_rank(mesh)[0] * n
+    col = v0 + torch.arange(n, device=logits.device)
+    logits = torch.where(col < cfg.vocab, logits,
+                         torch.full((), -1e30, dtype=logits.dtype,
+                                    device=logits.device))
+    logits = logits.to(torch.float32)
+    top = M.all_gather(logits.detach().amax(-1), mesh, "model").amax(0)
+    sumexp = torch.exp(logits - top[..., None]).sum(-1)
+    logz = top + torch.log(M.reduce_replicated(sumexp, mesh, "model"))
+    local = labels.long() - v0
+    mine = (local >= 0) & (local < n)
+    gold = torch.gather(logits, -1, torch.where(mine, local, 0)[..., None]
+                        )[..., 0]
+    gold = M.reduce_replicated(torch.where(mine, gold, 0.0), mesh, "model")
+    return torch.sum(logz - gold)
+
+
+def lm_loss(cfg: ModelConfig, params, hidden, labels, head=None):
     """Chunked-over-sequence vocab cross-entropy: the mean over the
     (B, S) tokens, the sequence cut into chunks of ``cfg.loss_chunk``
     positions (lowered until it divides S, as the reference).  Under
     grad each chunk's logits are recomputed in the backward pass
     (``torch.utils.checkpoint``), so the (B, S, V) f32 logits and their
-    softmax never materialize: one chunk's at a time."""
+    softmax never materialize: one chunk's at a time.
+
+    Under a mesh of more than one rank, hidden and labels are this rank's
+    rows, ``head`` the gathered projection (`sharded_head`; gathered here
+    if not given); where "model" splits the vocabulary each chunk's loss
+    is vocab-parallel (`_chunk_nll_vp`, its collectives recomputed with
+    it).  The result is the global mean on every rank: this rank's sum
+    over the global token count, summed over the batch axes."""
     b, s, _ = hidden.shape
     chunk = min(cfg.loss_chunk, s)
     while s % chunk:
         chunk -= 1
-    head = head_weight(cfg, params)
+    mesh = spmd.active_mesh()
+    nll = _chunk_nll
+    args = ()
+    if mesh is None:
+        head = head_weight(cfg, params)
+    else:
+        head = sharded_head(cfg, params, mesh) if head is None else head
+        if spmd.model_split(_head_decl(cfg), 0 if cfg.tie_embeddings else 1,
+                            mesh):
+            hidden = M.enter_replicated(hidden, mesh, "model")
+            nll, args = _chunk_nll_vp, (mesh,)
     grad = torch.is_grad_enabled()
     total = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for c0 in range(0, s, chunk):
         h, y = hidden[:, c0:c0 + chunk], labels[:, c0:c0 + chunk]
-        total = total + (checkpoint(_chunk_nll, cfg, head, h, y,
+        total = total + (checkpoint(nll, cfg, head, h, y, *args,
                                     use_reentrant=False) if grad
-                         else _chunk_nll(cfg, head, h, y))
-    return total / (b * s)
+                         else nll(cfg, head, h, y, *args))
+    if mesh is None:
+        return total / (b * s)
+    return M.reduce_replicated(total / (spmd.global_batch(b, mesh) * s),
+                               mesh, spmd.batch_axes(mesh))

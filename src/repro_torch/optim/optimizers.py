@@ -25,9 +25,18 @@ classes round differently and none of them is this Adafactor.
   passes (the RMS, then the update), never stacked: OLMoE's expert leaf
   is 4.3 G elements.  Leaves of per-layer vectors (and scalars) are
   stacked, a few KB each.
+
+A `Group` of a model sharded over a mesh carries its placement and the
+mesh, its parts being this rank's blocks.  AdamW and SGD need nothing
+more; `global_norm` counts each leaf once (each block's squares from the
+first rank holding it, summed over the mesh in rank order), and
+Adafactor's row and column means and its update RMS, which reduce over
+whole leaves, add their blocks' sums over the axes that split the
+reduced dims (`_sum_over`).
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Callable, Dict, NamedTuple, Optional, Sequence
 
 import numpy as np
@@ -44,9 +53,12 @@ class Optimizer(NamedTuple):
 class Group(NamedTuple):
     """One reference leaf: its stacked ``shape`` and the ``parts`` that
     make it up, row-major over its leading stacked axes (one part of the
-    full shape for a leaf that is not stacked)."""
+    full shape for a leaf that is not stacked).  Sharded: ``spec`` its
+    placement on ``mesh``, ``shape`` and the parts this rank's block."""
     shape: tuple
     parts: tuple
+    spec: Optional[tuple] = None
+    mesh: Any = None
 
     @property
     def lead(self) -> tuple:
@@ -70,21 +82,76 @@ def _scalar(v) -> torch.Tensor:
     return torch.as_tensor(v, dtype=F32)
 
 
-def global_norm(grads) -> torch.Tensor:
+def _axes_of(grp: Group, dims) -> tuple:
+    """The mesh axes splitting the leaf's dims ``dims`` (negative
+    indices into its stacked shape)."""
+    from ..sharding.rules import spec_axes
+    spec = tuple(grp.spec) + (None,) * (len(grp.shape) - len(grp.spec))
+    return tuple(a for d in dims for a in spec_axes(spec[d]))
+
+
+def _sum_over(t: torch.Tensor, grp: Group, dims) -> torch.Tensor:
+    """``t``, partial sums over the leaf's dims ``dims``, summed over the
+    ranks splitting them (rank order); a leaf that is not sharded:
+    ``t``."""
+    if grp.mesh is None:
+        return t
+    axes = _axes_of(grp, dims)
+    if not axes:
+        return t
+    from ..mesh import psum
+    return psum(t, grp.mesh, axes)
+
+
+def _count(grp: Group, n: int, dims) -> int:
+    """``n`` local elements over the leaf's dims ``dims`` as the global
+    count."""
+    if grp.mesh is None:
+        return n
+    from ..mesh import axis_sizes
+    sizes = axis_sizes(grp.mesh)
+    return n * math.prod(sizes[a] for a in _axes_of(grp, dims))
+
+
+def global_norm(grads, params=None) -> torch.Tensor:
     """√(Σ g²) over every part of every leaf, in f32 (leaf by leaf in the
-    reference's order; a stacked leaf's parts summed one by one)."""
-    total = None
+    reference's order; a stacked leaf's parts summed one by one).  With
+    sharded ``params`` (`Group`s on a mesh), each leaf's squares come
+    from the first rank holding each of its blocks, summed over the mesh
+    in rank order: every rank gets the same bits."""
+    gs = groups(params) if params is not None else {}
+    mesh = next((g.mesh for g in gs.values() if g.mesh is not None), None)
+    if mesh is None:
+        total = None
+        for path in grads:
+            for g in _parts(grads, path):
+                s = torch.sum(torch.square(g.to(F32)))
+                total = s if total is None else total + s
+        return torch.sqrt(total)
+    import torch.distributed as dist
+    from ..mesh import psum
+    from ..sharding.spmd import first_holder
+    rank = dist.get_rank()
+    sums = []
     for path in grads:
+        s = None
         for g in _parts(grads, path):
-            s = torch.sum(torch.square(g.to(F32)))
-            total = s if total is None else total + s
+            q = torch.sum(torch.square(g.to(F32)))
+            s = q if s is None else s + q
+        if not first_holder(gs[path].spec, mesh, rank):
+            s = torch.zeros_like(s)
+        sums.append(s)
+    total = None
+    for s in psum(torch.stack(sums), mesh, mesh.mesh_dim_names):
+        total = s if total is None else total + s
     return torch.sqrt(total)
 
 
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, params=None):
     """Scale every gradient by min(1, max_norm / ‖g‖) in f32 and round it
-    back to its dtype, in place → (grads, the norm before clipping)."""
-    norm = global_norm(grads)
+    back to its dtype, in place → (grads, the norm before clipping);
+    ``params`` as `global_norm`'s."""
+    norm = global_norm(grads, params)
     scale = torch.clamp(_scalar(max_norm).to(norm.device)
                         / torch.clamp(norm, min=1e-12), max=1.0)
     with torch.no_grad():
@@ -149,38 +216,57 @@ def adafactor(eps=1e-30, clip_threshold=1.0, decay=0.8,
         return {"m": {k: one(g) for k, g in groups(params).items()},
                 "count": torch.zeros((), dtype=torch.int32)}
 
-    def factored_step(g, vr, vc):
+    def mean(t, grp, dim, leaf_dim=None):
+        """``t.mean(dim)``, the leaf's dim ``leaf_dim`` (default ``dim``;
+        negative) whole: on a sharded leaf the blocks' sums added over
+        the ranks splitting it, over its global size."""
+        if grp.mesh is None:
+            return t.mean(dim)
+        leaf_dim = dim if leaf_dim is None else leaf_dim
+        return _sum_over(t.sum(dim), grp, (leaf_dim,)) / _count(
+            grp, t.shape[dim], (leaf_dim,))
+
+    def factored_step(g, vr, vc, grp):
         """The update direction of one matrix (or stack of them) from its
         f32 gradient and its new factored statistics."""
-        denom = (vr / torch.clamp(vr.mean(-1, keepdim=True), min=eps)
-                 )[..., None] * vc[..., None, :]
+        row_mean = mean(vr, grp, -1, -2)[..., None]
+        denom = (vr / torch.clamp(row_mean, min=eps))[..., None] \
+            * vc[..., None, :]
         return g * torch.rsqrt(torch.clamp(denom, min=eps))
+
+    def rms_of(total, n, grp):
+        dims = tuple(range(-len(grp.shape), 0))
+        return torch.sqrt(_sum_over(total, grp, dims)
+                          / _count(grp, n, dims) + eps)
 
     def apply(p, step, rms, lr):
         step = step / torch.clamp(rms / clip_threshold, min=1.0)
         p.copy_(p.to(F32) - lr * (step + weight_decay * p.to(F32)))
 
-    def whole(gs, s, ps, shape, beta, lr):
+    def whole(gs, s, ps, shape, beta, lr, grp):
         """The reference's formula on the stacked leaf (its parts stacked:
         vectors and scalars, or one part)."""
         g = torch.stack([t.to(F32) for t in gs]).reshape(shape)
         g2 = g * g + eps
         if len(shape) >= 2:
-            vr = beta * s["vr"] + (1 - beta) * g2.mean(-1)
-            vc = beta * s["vc"] + (1 - beta) * g2.mean(-2)
-            step = factored_step(g, vr, vc)
+            vr = beta * s["vr"] + (1 - beta) * mean(g2, grp, -1)
+            vc = beta * s["vc"] + (1 - beta) * mean(g2, grp, -2)
+            step = factored_step(g, vr, vc, grp)
             s["vr"].copy_(vr)
             s["vc"].copy_(vc)
         else:
             v = beta * s["v"] + (1 - beta) * g2
             step = g * torch.rsqrt(torch.clamp(v, min=eps))
             s["v"].copy_(v)
-        rms = torch.sqrt(torch.mean(step * step) + eps)
+        if grp.mesh is None:
+            rms = torch.sqrt(torch.mean(step * step) + eps)
+        else:
+            rms = rms_of(torch.sum(step * step), step.numel(), grp)
         step = step.reshape((len(ps),) + tuple(ps[0].shape))
         for i, p in enumerate(ps):
             apply(p, step[i], rms, lr)
 
-    def sliced(gs, s, ps, lead, beta, lr):
+    def sliced(gs, s, ps, lead, beta, lr, grp):
         """Parts that are matrices (or stacks of them): statistics slice
         by slice into the stacked state; the RMS over the whole leaf in a
         first pass, the update in a second."""
@@ -190,16 +276,19 @@ def adafactor(eps=1e-30, clip_threshold=1.0, decay=0.8,
         for i, g in enumerate(gs):
             g = g.to(F32)
             g2 = g * g + eps
-            vr[i].copy_(beta * vr[i] + (1 - beta) * g2.mean(-1))
-            vc[i].copy_(beta * vc[i] + (1 - beta) * g2.mean(-2))
+            vr[i].copy_(beta * vr[i] + (1 - beta) * mean(g2, grp, -1))
+            vc[i].copy_(beta * vc[i] + (1 - beta) * mean(g2, grp, -2))
             del g2
-            step = factored_step(g, vr[i], vc[i])
+            step = factored_step(g, vr[i], vc[i], grp)
             sq = torch.sum(step * step)
             total = sq if total is None else total + sq
             n += step.numel()
-        rms = torch.sqrt(total / n + eps)
+        if grp.mesh is None:
+            rms = torch.sqrt(total / n + eps)
+        else:
+            rms = rms_of(total, n, grp)
         for i, (g, p) in enumerate(zip(gs, ps)):
-            apply(p, factored_step(g.to(F32), vr[i], vc[i]), rms, lr)
+            apply(p, factored_step(g.to(F32), vr[i], vc[i], grp), rms, lr)
 
     @torch.no_grad()
     def update(grads, state, params, lr):
@@ -209,9 +298,9 @@ def adafactor(eps=1e-30, clip_threshold=1.0, decay=0.8,
         for path, grp in groups(params).items():
             gs, s = _parts(grads, path), state["m"][path]
             if len(grp.shape) >= 2 and grp.parts[0].dim() >= 2:
-                sliced(gs, s, grp.parts, grp.lead, beta, lr)
+                sliced(gs, s, grp.parts, grp.lead, beta, lr, grp)
             else:
-                whole(gs, s, grp.parts, grp.shape, beta, lr)
+                whole(gs, s, grp.parts, grp.shape, beta, lr, grp)
         return params, {"m": state["m"], "count": count}
 
     return Optimizer(init, update)

@@ -11,11 +11,13 @@ A mesh is the port's `DeviceMesh` (`repro_torch.mesh.make_mesh`) or an
 plain tuple of entries, one a dim — ``None``, an axis name or a tuple of
 names — as the reference's ``PartitionSpec`` (`pspec` collapses a
 one-name tuple to the name, as ``PartitionSpec`` does); `local_block`
-cuts a tensor to the block one rank holds under it.
+cuts a tensor to the block one rank holds under it (`block_of` also
+cuts a `Paired` placement, a gated MLP's [u | g] columns).
 
-``constrain`` comes with tensor parallelism in the model code (ROADMAP
-Queue 1 item 3d iv); until then the port's model code omits the
-reference's calls.
+`constrain` is the reference's ``with_sharding_constraint`` by logical
+axes.  The port is SPMD with explicit collectives, so its model code
+knows its layouts: `constrain` checks that a tensor is the block its
+logical axes give this rank, and raises otherwise.
 """
 from __future__ import annotations
 
@@ -187,12 +189,90 @@ def logical_to_spec(logical: Sequence[Optional[str]], mesh=None,
     return tuple(entries)
 
 
+def constrain(x, *logical: Optional[str], shape: Sequence[int] = None):
+    """``x`` itself, once checked to be this rank's block of a tensor of
+    the global ``shape`` placed by ``logical`` (`logical_to_spec` with
+    ``dims=shape`` under the active mesh and profile): each dim the
+    global size over the size of its entry's axes.  A no-op without a
+    mesh of more than one rank.  A wrong block raises."""
+    mesh = get_mesh()
+    if mesh is None or mesh.mesh.numel() == 1:
+        return x
+    if shape is None or len(shape) != x.dim():
+        raise ValueError(f"constrain under a mesh needs the global shape "
+                         f"of the {x.dim()}-d tensor, not {shape}")
+    spec = logical_to_spec(logical, mesh, dims=shape)
+    sizes = axis_sizes(mesh)
+    want = tuple(int(n) // math.prod(sizes[a] for a in spec_axes(e))
+                 for n, e in zip(shape, spec))
+    if tuple(x.shape) != want:
+        raise ValueError(f"constrain{tuple(logical)}: a block of "
+                         f"{tuple(x.shape)}, not the {want} that {spec} "
+                         f"gives of {tuple(shape)} on {sizes}")
+    return x
+
+
+class Paired(tuple):
+    """A placement whose last dim holds two halves side by side — a gated
+    MLP's ``w_in`` columns [u | g] — each cut on its own: a rank's block
+    of that dim is its block of u, then its block of g (`block_of`), so
+    the column-parallel ``u_r · act(g_r)`` needs no exchange.  Equal to
+    the plain placement (it is the same tuple); on disk and in the
+    reference the leaf keeps its [u | g] layout."""
+
+    def __repr__(self) -> str:
+        return f"Paired{tuple.__repr__(self)}"
+
+
+def _halves(t, spec):
+    """(u, g) of a `Paired` placement's last dim, or None where that dim
+    is whole."""
+    if not isinstance(spec, Paired) or len(spec) < t.ndim \
+            or not spec_axes(spec[t.ndim - 1]):
+        return None
+    n = int(t.shape[-1])
+    if n % 2:
+        raise ValueError(f"a paired last dim of odd size {n}")
+    return t[..., :n // 2], t[..., n // 2:]
+
+
+def block_of(t, spec: Sequence, mesh, rank: int):
+    """`local_block`, except under a `Paired` placement: there the last
+    dim's block is the rank's block of each half, side by side (a new
+    tensor or array, not a view)."""
+    halves = _halves(t, spec)
+    if halves is None:
+        return local_block(t, spec, mesh, rank)
+    u, g = (local_block(h, spec, mesh, rank) for h in halves)
+    if isinstance(t, torch.Tensor):
+        return torch.cat([u, g], dim=-1)
+    import numpy as np
+    return np.concatenate([u, g], axis=-1)
+
+
+def put_block(full, blk, spec: Sequence, mesh, rank: int) -> None:
+    """`block_of`'s inverse: write ``rank``'s block ``blk`` into the
+    global array ``full`` (numpy, a memmap, or a tensor) in place."""
+    halves = _halves(full, spec)
+    if halves is None:
+        full[_index(full, spec, mesh, rank) + (Ellipsis,)] = blk
+        return
+    n = int(blk.shape[-1]) // 2
+    for h, part in zip(halves, (blk[..., :n], blk[..., n:])):
+        h[_index(h, spec, mesh, rank) + (Ellipsis,)] = part
+
+
 def local_block(t, spec: Sequence, mesh, rank: int):
     """The block of ``t`` (a tensor or numpy array; sliced, not copied)
     that ``rank`` holds under ``spec``: dim i split into equal blocks over
     entry i's axes, ``rank``'s block in row-major order over those axes
     as listed (`PartitionSpec`'s order); dims past the spec whole.  A dim
     its blocks do not divide raises."""
+    return t[_index(t, spec, mesh, rank)]
+
+
+def _index(t, spec: Sequence, mesh, rank: int) -> tuple:
+    """The slices of `local_block`."""
     spec = tuple(spec)
     if len(spec) > t.ndim:
         raise ValueError(f"spec {spec} has more entries than the "
@@ -210,7 +290,7 @@ def local_block(t, spec: Sequence, mesh, rank: int):
                              f"{count} blocks over {axes}")
         per = n // count
         index.append(slice(b * per, (b + 1) * per))
-    return t[tuple(index)]
+    return tuple(index)
 
 
 def map_leaves(fn, tree):

@@ -8,6 +8,18 @@ by the reference's leaves (`param_groups`), updating the parameters and
 its state in place.  The step counter and the optimizer's ``count`` are
 0-d int32 tensors on the CPU, so the schedule and the bias corrections
 need no device sync.
+
+A model sharded over a mesh (``DecoderLM(…, mesh=)``, `sharding.spmd`)
+takes the sharded step: every rank is handed the same global batch and
+runs on its rows over the profile's batch axes (each microbatch's
+block, as the reference splits each microbatch), under the model's mesh
+and profile.  The loss is then the global mean on every rank; the
+backward has summed each gradient over its leaf's storage axes
+(`mesh.gather_param`), and the step sums it over the batch axes its
+placement leaves whole (`sync_grads`: one rank-ordered f32 sum per set of
+axes) before the clip, whose norm counts each leaf once, and the
+update, which is elementwise on the blocks (Adafactor's reductions add
+over the ranks).
 """
 from __future__ import annotations
 
@@ -16,6 +28,7 @@ from typing import Any, Dict, List, NamedTuple
 import numpy as np
 import torch
 
+from .. import mesh as M
 from ..configs.base import ModelConfig
 from ..models import encdec as encdec_lib
 from ..models import transformer as tf
@@ -23,6 +36,8 @@ from ..models.params import from_reference, nest, to_reference
 from ..models.params import param_groups as _param_groups
 from ..optim import (Optimizer, clip_by_global_norm, state_from_reference,
                      state_to_reference)
+from ..sharding import spmd
+from ..sharding.rules import mesh_context, profile_context
 
 F32 = torch.float32
 
@@ -55,6 +70,12 @@ def model_loss(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor]):
         enc = encdec_lib.encode(cfg, params, batch["frames"])
         hidden = encdec_lib.decode(cfg, params, batch["tokens"], enc)
         return tf.lm_loss(cfg, params, hidden, batch["labels"])
+    mesh = spmd.active_mesh()
+    if mesh is not None:            # sharded: one gathered head, tied or not
+        head = tf.sharded_head(cfg, params, mesh)
+        hidden = params(batch["tokens"],
+                        table=head if cfg.tie_embeddings else None)
+        return tf.lm_loss(cfg, params, hidden, batch["labels"], head=head)
     prefix = batch.get("patch_embeds")
     hidden = params(batch["tokens"], prefix_embeds=prefix)
     if prefix is not None:
@@ -96,7 +117,7 @@ def loss_and_grads(cfg, model, groups, batch):
 def apply_update(state: TrainState, groups, grads, loss, optimizer,
                  lr_fn, grad_clip: float):
     """Clip, then the optimizer's update → (next state, metrics)."""
-    grads, gnorm = clip_by_global_norm(grads, grad_clip)
+    grads, gnorm = clip_by_global_norm(grads, grad_clip, groups)
     lr = lr_fn(state.step)
     _, new_opt = optimizer.update(grads, state.opt_state, groups, lr)
     metrics = {"loss": loss, "grad_norm": gnorm, "lr": lr,
@@ -114,6 +135,10 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer, lr_fn,
 
     def step_fn(state: TrainState, batch):
         model = state.params
+        if getattr(model, "mesh", None) is not None:
+            with mesh_context(model.mesh), profile_context(model.profile):
+                return sharded_step(cfg, state, batch, optimizer, lr_fn,
+                                    grad_clip, microbatches)
         groups = param_groups(model)
         dev = model_device(model)
         batch = on_device(batch, dev)
@@ -144,6 +169,71 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer, lr_fn,
     return step_fn
 
 
+def sharded_step(cfg, state: TrainState, batch, optimizer, lr_fn,
+                 grad_clip: float, microbatches: int):
+    """One step of a sharded model on the global ``batch`` (see the
+    module's docstring), under its mesh and profile."""
+    model = state.params
+    mesh = model.mesh
+    groups = param_groups(model)
+    dev = model_device(model)
+    rows = int(next(iter(batch.values())).shape[0])
+    if rows % microbatches:
+        raise ValueError(f"{rows} rows do not split into {microbatches} "
+                         "microbatches")
+    per = rows // microbatches
+    spmd.check_batch(per, mesh)
+    axes = spmd.batch_axes(mesh)
+
+    def block(i):
+        return on_device({k: M.shard_rows(v[i * per:(i + 1) * per], mesh,
+                                          axes)
+                          for k, v in batch.items()}, dev)
+    if microbatches == 1:
+        loss, grads = loss_and_grads(cfg, model, groups, block(0))
+    else:
+        loss = torch.zeros((), dtype=F32, device=dev)
+        grads = {p: [torch.zeros(t.shape, dtype=F32, device=dev)
+                     for t in g.parts] for p, g in groups.items()}
+        for i in range(microbatches):
+            l, g = loss_and_grads(cfg, model, groups, block(i))
+            loss = loss + l
+            for p, ts in g.items():
+                for acc, t in zip(grads[p], ts):
+                    acc.add_(t.to(F32))
+            del g
+        loss = loss / microbatches
+        for ts in grads.values():
+            for t in ts:
+                t.div_(microbatches)
+    grads = sync_grads(grads, groups, mesh)
+    return apply_update(state, groups, grads, loss, optimizer, lr_fn,
+                        grad_clip)
+
+
+def sync_grads(grads, groups, mesh):
+    """Each leaf's gradient summed over the batch axes its placement
+    leaves whole (`spmd.grad_sum_axes`; the norm scales and the biases
+    of the column-parallel layers, for one): the leaves sharing a set of
+    axes as one f32 payload, its parts added in rank order, each
+    gradient rounded back to its dtype."""
+    by_axes: Dict[tuple, list] = {}
+    for path, g in groups.items():
+        axes = spmd.grad_sum_axes(g.spec, mesh)
+        if axes:
+            by_axes.setdefault(axes, []).append(path)
+    out = dict(grads)
+    for axes, paths in by_axes.items():
+        flat = [t for p in paths for t in grads[p]]
+        total = M.psum(torch.cat([t.reshape(-1).to(F32) for t in flat]),
+                       mesh, axes)
+        parts = iter(torch.split(total, [t.numel() for t in flat]))
+        for p in paths:
+            out[p] = [next(parts).reshape(t.shape).to(t.dtype)
+                      for t in grads[p]]
+    return out
+
+
 # ------------------------------------------- the reference's layout ---
 
 def _at(tree, path: str):
@@ -155,7 +245,7 @@ def _at(tree, path: str):
 def train_state_to_reference(state: TrainState) -> Dict[str, Any]:
     """The train state as the reference's ``TrainState`` fields, CPU
     tensors with stacked leaves: ``{"params": tree, "opt_state": tree,
-    "step": int32}``."""
+    "step": int32}`` (a sharded model's: this rank's stacked blocks)."""
     model = state.params
     opt = state_to_reference(state.opt_state, param_groups(model))
     return {"params": to_reference(model, model_decl(model.cfg)),

@@ -128,6 +128,7 @@ def test_import_loads_no_jax_and_no_reference_module():
             "repro_torch.baselines.kmeans", "repro_torch.mesh",
             "repro_torch.fleet.spmd", "repro_torch.core.metrics",
             "repro_torch.sharding", "repro_torch.sharding.rules",
+            "repro_torch.sharding.spmd",
             "repro_torch.integration", "repro_torch.integration.router_init",
             "repro_torch.integration.curriculum", "repro_torch.configs",
             "repro_torch.configs.base", "repro_torch.configs.qwen2_1_5b",
@@ -290,7 +291,9 @@ def test_fleet_and_kmeans_entry_points_raise_without_a_card():
 def test_mesh_on_cuda_raises_without_a_card():
     """A CUDA mesh (the default) whose card is missing raises, and so
     does spawning CUDA ranks — nothing is spawned; a CPU mesh is asked
-    for by name.  The LM trainer's elastic remesh raises naming M13."""
+    for by name.  The LM trainer's elastic restart mesh likewise:
+    `make_mesh_for` raises on CUDA without a card, and gives the
+    reference's (1, 1) on the CPU."""
     code = """
 import tempfile
 import torch.distributed as dist
@@ -307,20 +310,23 @@ for call in (lambda: M.make_mesh((1,), ("data",)),
     else:
         print("ran")
 print("cpu:", M.rank_device(M.make_mesh((1,), ("data",), device_type="cpu")))
-for call in (lambda: make_mesh_for([0], model_parallel=1),
-             lambda: elastic_remesh({}, {}, None)):
-    try:
-        call()
-    except NotImplementedError as e:
-        print("deferred:", e)
+try:
+    make_mesh_for([0], model_parallel=2)
+except RuntimeError as e:
+    print("raised:", e)
+else:
+    print("ran")
+m = make_mesh_for([0], model_parallel=2, device_type="cpu")
+print("for:", tuple(m.mesh.shape), m.mesh_dim_names,
+      elastic_remesh({}, (m, {}), m))
 dist.destroy_process_group()
 """
     out = _run(code, CUDA_VISIBLE_DEVICES="").splitlines()
     assert len(out) == 5, out
     assert all(ln.startswith("raised:") and "device='cpu'" in ln
-               for ln in out[:2]), out
+               for ln in out[:2] + out[3:4]), out
     assert out[2] == "cpu: cpu"
-    assert all(ln.startswith("deferred:") and "M13" in ln for ln in out[3:])
+    assert out[4] == "for: (1, 1) ('data', 'model') {}"
 
 
 def test_lm_modules_alone_load_no_jax_and_no_reference_module():
@@ -383,15 +389,18 @@ def test_lm_entry_points_raise_without_a_card():
 
 def test_training_modules_alone_load_no_jax_and_no_reference_module():
     """The training slice (optim, train, data.lm, launch) and the
-    sharded LM's rules, FLOPs model and expert parallelism load nothing
-    of `repro` (nor jax), each module on its own."""
+    sharded LM's rules, FLOPs model, expert parallelism, explicit SPMD and
+    elastic restart load nothing of `repro` (nor jax), each module on its
+    own."""
     for module in ("repro_torch.optim", "repro_torch.train",
                    "repro_torch.train.dp", "repro_torch.data.lm",
                    "repro_torch.launch.mesh", "repro_torch.launch.specs",
                    "repro_torch.launch.train",
                    "repro_torch.launch.flops_model",
                    "repro_torch.launch.roofline",
-                   "repro_torch.sharding.rules", "repro_torch.models.moe"):
+                   "repro_torch.sharding.rules", "repro_torch.models.moe",
+                   "repro_torch.sharding.spmd", "repro_torch.ft.elastic",
+                   "repro_torch.ft.checkpoint"):
         out = _run(_ALONE.format(module=module)).strip().splitlines()[-1]
         assert json.loads(out) == [], module
 

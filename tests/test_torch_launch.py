@@ -6,7 +6,10 @@ stopped at step 8 (its logger raises there, as a crash would) and run
 again resumes from that checkpoint and takes the uninterrupted run's last
 four steps bit for bit.  The command line runs and resumes (a
 subprocess: `make_host_mesh` joins this process to a one-rank group).
-Model-parallel meshes raise naming ROADMAP item 3d."""
+Model-parallel meshes (ROADMAP item 3d iv): `make_host_mesh`'s gcd rule
+on one rank, the production mesh's rank count, and a mesh of several
+ranks training sharded only on its ranks (tests/test_torch_tp.py holds
+the sharded training itself)."""
 import json
 import os
 import subprocess
@@ -106,14 +109,27 @@ def test_cli_runs_and_resumes(tmp_path):
 
 
 def test_model_parallel_and_production_mesh_are_item_3d():
-    with pytest.raises(NotImplementedError, match="item 3d"):
-        make_host_mesh(2)
-    with pytest.raises(NotImplementedError, match="item 3d"):
+    """`make_host_mesh(mp)` takes gcd(mp, world) ranks a replica: (1, 1)
+    on one rank at mp 2 and 8 (in a subprocess: it joins a one-rank
+    group); `make_production_mesh` raises below its 256 ranks; a mesh of
+    several ranks trains sharded, every rank of its group calling
+    ``train``: this process alone is not its ranks and raises, never
+    training replicated."""
+    code = ("import sys; sys.path.insert(0, %r)\n"
+            "from repro_torch.launch.mesh import make_host_mesh\n"
+            "for mp in (2, 8):\n"
+            "    m = make_host_mesh(mp, device_type='cpu')\n"
+            "    print(tuple(m.mesh.shape), m.mesh_dim_names)\n"
+            % os.path.abspath(SRC))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.splitlines() == ["(1, 1) ('data', 'model')"] * 2
+    with pytest.raises(RuntimeError, match="needs 256 ranks"):
         make_production_mesh()
-    # a mesh of several replicas is not trained replicated by accident
     four = types.SimpleNamespace(mesh_dim_names=("data", "model"),
                                  mesh=torch.zeros(4, 1))
-    with pytest.raises(NotImplementedError, match="item 3d"):
+    with pytest.raises(RuntimeError, match="process group"):
         train(CFG, four, **RUN)
 
 

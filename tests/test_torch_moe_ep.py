@@ -265,8 +265,8 @@ def test_drop_sets_match_reference(runs, case, profile):
 def test_collective_bytes(runs, case):
     """a2a moves two (E, cap, D) f32 buffers each way (forward, backward)
     and gathers nothing; tp exchanges no all-to-all and gathers the
-    (T, D) output from the 8 ranks in the forward and the x cotangent
-    in the backward."""
+    (T, D) output from the 4 ranks of its "model" subgroup in the forward
+    and the x cotangent in the backward."""
     cfg, (cf, a) = runs["cfgs"][case], runs["cases"][case]
     b, s, d = a["x"].shape
     for r in runs["port"]:
@@ -276,7 +276,7 @@ def test_collective_bytes(runs, case):
         assert r[case, "fsdp"]["gathered_bytes"] == 0
         t_tp = b * s // 2
         assert r[case, "tp"]["a2a_bytes"] == 0
-        assert r[case, "tp"]["gathered_bytes"] == 2 * 8 * t_tp * d * 4
+        assert r[case, "tp"]["gathered_bytes"] == 2 * 4 * t_tp * d * 4
 
 
 def test_all_to_all_matches_jax(runs):

@@ -534,9 +534,10 @@ def test_port_checkpoint_tensors_and_async_snapshot(tmp_path):
     ref = RefCkpt(str(tmp_path)).restore_arrays()
     np.testing.assert_array_equal(ref["centers"],
                                   np.arange(6, dtype=np.float32).reshape(3, 2))
-    # the LM trainer's sharded restore is deferred to the LM stack
-    with pytest.raises(NotImplementedError, match="M13"):
-        mgr.restore(state, shardings=object())
+    # a sharded restore (the LM trainer's) checks its placement tree
+    # against the tree first (tests/test_torch_elastic.py restores one)
+    with pytest.raises(ValueError, match="placement tree does not match"):
+        mgr.restore(state, shardings=(None, {"centers": (None, None)}))
 
 
 def test_interrupted_write_leaves_latest_good_checkpoint(tmp_path):
