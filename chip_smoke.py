@@ -249,10 +249,17 @@ Phases, each printed as JSON lines; any failure raises and exits non-zero:
    sharing the card.  Held in f32 (TF32 off), one AdamW step at lr 1e-3
    on 4 × 64 tokens against the one-rank step on the card from the same
    draws: Qwen2-1.5B at its published widths cut to 2 layers under "tp"
-   and "fsdp", OLMoE-1B-7B cut to 1 MoE layer at cf 8 under "tp" — the
-   loss and grad norm within 1e-5, each rank's block of every updated
-   leaf within 2.02 · lr of the one-rank leaf's block and all but 0.1 %
-   of its elements within 1e-5 of the weight plus 0.01 · lr.  Timed:
+   and "fsdp", OLMoE-1B-7B cut to 1 MoE layer at cf 8 under "tp",
+   Mamba2-2.7B cut to 2 layers under "tp", Zamba2-7B cut to 7 layers
+   (one period of 5 Mamba2 layers and the shared attention block, one
+   tail layer) under "tp" and "fsdp", Whisper-medium cut to 2 + 2
+   layers under "tp" on 4 × 1500 N(0, 1) frames — the loss and grad
+   norm within 1e-5, each rank's block of every updated leaf within
+   2.02 · lr of the one-rank leaf's block and all but 0.1 % of its
+   elements within 1e-5 of the weight plus 0.01 · lr; printed per case:
+   the slowest rank's step ms and the bytes a rank moves by kind.  The
+   phase's ranks are spawned before ``lm_train_dp`` and wait for the
+   phase, so that their start overlaps the two phases before it.  Timed:
    Qwen2-1.5B (2 layers, bf16, "tp"), 1 + 3 steps of 4 × 2048 tokens:
    the slowest rank's step ms, tokens/s, peak GB a rank, the bytes a rank
    moves a step by kind (parameter gathers, reduce-scatters, psums) and
@@ -297,7 +304,7 @@ Phases, each printed as JSON lines; any failure raises and exits non-zero:
    columns at −1e30, `ssd_chunked` at a full-width layer's shapes
    against the float64 recurrence (2e-4), in f32 decode (1792-token
    prefill, then 256 steps) against one forward over 2048 tokens on the
-   first SSM_HOLD_LAYERS layers (the full depth's gap printed), the
+   first SSM_HOLD_LAYERS layers (the gap at SSM_WITNESS_LAYERS printed), the
    hybrid's shared attention one parameter set called by all 13 periods.
    ``lm_encdec``: Whisper-medium (24 + 24 layers, d 1024) over 8 × 1500
    stub frame embeddings from ``--seed``, 4 prompt tokens, 32 new, a
@@ -5262,8 +5269,11 @@ MOE_TIE_REL = 1e-6
 # gap between its chunked and recurrent forms grows with depth in both
 # packages (scripts/ssm_depth_witness.py, on the CPU at chunk 256: the
 # reference's own keeps the bar at 16 layers and misses it at 64); the
-# full depth's gap is printed beside it.
+# gap deeper in is printed beside it, at SSM_WITNESS_LAYERS (at the full
+# 64 / 81 layers its 256 f32 decode steps took 30 / 47 s of the script's
+# limit).
 SSM_HOLD_LAYERS = {"mamba2-2.7b": 16, "zamba2-7b": 15}   # zamba2: 2 × 6 + 3
+SSM_WITNESS_LAYERS = {"mamba2-2.7b": 32, "zamba2-7b": 39}  # zamba2: 6 × 6 + 3
 
 
 def fam_model(arch, seed, device):
@@ -5927,15 +5937,19 @@ def run_lm_ssm(phase, arch, seed, device):
     end = SSM_HOLD_PROMPT + SSM_HOLD_STEPS
     args = (prompt[:, :SSM_HOLD_PROMPT], prompt[:, SSM_HOLD_PROMPT:end],
             device)
-    rec["f32_full_depth"] = hold_decode_vs_forward(phase, cfg32, m32, *args,
-                                                   hold=False)
-    cut = dataclasses.replace(cfg32, n_layers=SSM_HOLD_LAYERS[arch])
-    m_cut = type(m32)(cut, device=device)
     full = m32.state_dict()
-    m_cut.load_state_dict({k: full[k] for k in m_cut.state_dict()},
-                          assign=True)
-    rec["f32"] = hold_decode_vs_forward(phase, cut, m_cut, *args)
-    del m32, m_cut, full
+
+    def cut_to(n):
+        cut = dataclasses.replace(cfg32, n_layers=n)
+        m_cut = type(m32)(cut, device=device)
+        m_cut.load_state_dict({k: full[k] for k in m_cut.state_dict()},
+                              assign=True)
+        return cut, m_cut
+    rec["f32_witness"] = hold_decode_vs_forward(
+        phase, *cut_to(SSM_WITNESS_LAYERS[arch]), *args, hold=False)
+    rec["f32"] = hold_decode_vs_forward(
+        phase, *cut_to(SSM_HOLD_LAYERS[arch]), *args)
+    del m32, full
     torch.cuda.empty_cache()
     rec["ssd"] = hold_ssd_full(cfg, seed, device)
     torch.cuda.empty_cache()
@@ -6928,6 +6942,10 @@ def run_lm_moe_ep(seed, device):
 # elastic restart onto half of them.
 MP_SHAPE, MP_NAMES = (2, 2), ("data", "model")
 MP_LAYERS, MP_MOE_LAYERS = 2, 1
+# the other families' cuts: Mamba2 2 layers; Zamba2 one period of 5
+# Mamba2 layers and the shared attention block, then one tail layer (both
+# stage kinds); Whisper 2 encoder + 2 decoder layers
+MP_FAM_LAYERS = {"mamba2-2.7b": 2, "zamba2-7b": 7, "whisper-medium": 2}
 # (a) f32 (TF32 off), one AdamW step at the constant lr MP_LR on
 # MP_HOLD global tokens, each case against the one-rank port step on the
 # card from the same parameters and batch: the loss and the grad norm
@@ -6950,18 +6968,26 @@ MP_MOE_CF = 8.0
 MP_TIME = (4, 2048)
 MP_TIMED, MP_CKPT_AT, MP_RESUMED = 3, 2, 2
 MP_DEADLINE_S = 600.0
-# Both groups of ranks are spawned at once, so that their processes'
-# start (20–35 s of imports, CUDA contexts and the rendezvous a spawn on
-# this card) overlaps the parent's one-rank steps and the 4-rank run;
-# each waits for its go-ahead file: the 4 ranks for the one-rank
-# results, the 2 restart ranks for the 4-rank run's end.
+# Both groups of ranks are spawned at once, before ``lm_train_dp``, so
+# that their processes' start (20–50 s of imports, CUDA contexts and the
+# rendezvous a spawn on this card) overlaps that phase, ``lm_moe_ep``,
+# the parent's one-rank steps and the 4-rank run; each waits for its
+# go-ahead file: the 4 ranks for the phase's start and then for each
+# case's one-rank leaves (after their own step), the 2 restart ranks for
+# the 4-rank run's end.
 MP_POLL_S = 0.2
 
 
 def mp_wait(path, deadline_s=MP_DEADLINE_S):
-    """Block until ``path`` exists (another process's go-ahead)."""
+    """Block until ``path`` exists (another process's go-ahead); raise
+    once its directory holds ``wants_failed`` (the one-rank steps
+    failed)."""
     t_end = time.monotonic() + deadline_s
+    failed = os.path.join(os.path.dirname(path), "wants_failed")
     while not os.path.exists(path):
+        if os.path.exists(failed):
+            raise RuntimeError(f"lm_train_mp: no {path}: the one-rank "
+                               "steps failed")
         if time.monotonic() > t_end:
             raise TimeoutError(f"lm_train_mp: no {path} after {deadline_s} s")
         time.sleep(MP_POLL_S)
@@ -6974,10 +7000,10 @@ def mp_signal(path):
 
 
 def mp_config(arch, layers, dtype, **kw):
-    """Qwen2-1.5B or OLMoE-1B-7B at their published widths, cut to
-    ``layers`` layers, in ``dtype``."""
-    cfg = published_lm(arch, LM_PUBLISHED if arch == LM_ARCH
-                       else EP_PUBLISHED)
+    """An arch at its published widths (Qwen2-1.5B, OLMoE-1B-7B or one of
+    `FAM_PUBLISHED`), cut to ``layers`` layers, in ``dtype``."""
+    want = {LM_ARCH: LM_PUBLISHED, EP_ARCH: EP_PUBLISHED}.get(arch)
+    cfg = published_lm(arch, want or FAM_PUBLISHED[arch])
     return dataclasses.replace(cfg, n_layers=layers, param_dtype=dtype,
                                compute_dtype=dtype, **kw)
 
@@ -6987,8 +7013,26 @@ def mp_cases():
     qwen = mp_config(LM_ARCH, MP_LAYERS, "float32")
     olmoe = mp_config(EP_ARCH, MP_MOE_LAYERS, "float32",
                       capacity_factor=MP_MOE_CF)
+    fam = {arch: mp_config(arch, n, "float32", **(
+        {"n_enc_layers": n} if arch == "whisper-medium" else {}))
+        for arch, n in MP_FAM_LAYERS.items()}
     return [("qwen2_tp", qwen, "tp"), ("qwen2_fsdp", qwen, "fsdp"),
-            ("olmoe_tp", olmoe, "tp")]
+            ("olmoe_tp", olmoe, "tp"),
+            ("mamba2_tp", fam["mamba2-2.7b"], "tp"),
+            ("zamba2_tp", fam["zamba2-7b"], "tp"),
+            ("zamba2_fsdp", fam["zamba2-7b"], "fsdp"),
+            ("whisper_tp", fam["whisper-medium"], "tp")]
+
+
+def mp_hold_batch(cfg, seed):
+    """The f32 hold's batch: MP_HOLD tokens of ``seed``, with N(0, 1)
+    frames of ``seed`` for the encoder–decoder."""
+    import numpy as np
+    batch = train_batches(cfg, 1, seed, *MP_HOLD)[0]
+    if cfg.family == "encdec":
+        batch["frames"] = np.random.default_rng(seed).standard_normal(
+            (MP_HOLD[0], cfg.n_frames, cfg.d_model), dtype=np.float32)
+    return batch
 
 
 def mp_step_fn(cfg):
@@ -7022,7 +7066,9 @@ def mp_want(cfg, seed, batch, device, path) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     state, _ = build(cfg, None, seed=seed, device=device)
     state, m = mp_step_fn(cfg)(state, batch)
-    torch.save({k: v.cpu() for k, v in mp_blocks(state).items()}, path)
+    torch.save({k: v.cpu() for k, v in mp_blocks(state).items()},
+               path + ".tmp")
+    os.replace(path + ".tmp", path)     # the ranks' go-ahead for this case
     out = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"])}
     del state
     torch.cuda.empty_cache()
@@ -7060,10 +7106,12 @@ def mp_counters() -> dict:
 
 def mp_rank_job(mesh, seed, hold_batches, wants, batches, ckpt_dir,
                 work_dir):
-    """One rank of ``lm_train_mp``: (a) each f32 case's sharded step and
-    its blocks held against the one-rank step's; (b) the timed bf16
-    steps, each with its bytes by kind and collective seconds, and the
-    sharded checkpoint after step MP_CKPT_AT."""
+    """One rank of ``lm_train_mp``, once the phase begins (its ``go``
+    file): (a) each f32 case's sharded step, timed with its bytes by
+    kind, and its blocks held against the one-rank step's (once the
+    parent has written them); (b) the timed
+    bf16 steps, each with its bytes by kind and collective seconds, and
+    the sharded checkpoint after step MP_CKPT_AT."""
     import torch
     import torch.distributed as dist
     from repro_torch import mesh as M
@@ -7073,20 +7121,32 @@ def mp_rank_job(mesh, seed, hold_batches, wants, batches, ckpt_dir,
     from repro_torch.launch.train import build, sharded_checkpoint_tree
     from repro_torch.sharding import profile_context
     t_ready = time.time()
-    mp_wait(os.path.join(work_dir, "wants_ready"))
+    mp_wait(os.path.join(work_dir, "go"))
     t_start = time.time()
     dev = M.rank_device(mesh)
     rank = dist.get_rank()
     torch.backends.cuda.matmul.allow_tf32 = False
     out = {"rank": rank, "hold": {}, "hold_s": {}, "t_ready": t_ready,
-           "t_start": t_start}
+           "t_start": t_start, "want_wait_s": {}}
     for name, cfg, profile in mp_cases():
         t0 = time.perf_counter()
         with profile_context(profile):
             state, _ = build(cfg, mesh, seed=seed, device=dev.type)
-            state, m = mp_step_fn(cfg)(state, hold_batches[cfg.name])
+            step = mp_step_fn(cfg)
+            before = mp_counters()
+            dist.barrier()
+            synchronize(dev)
+            t1 = time.perf_counter()
+            state, m = step(state, hold_batches[cfg.name])
+            synchronize(dev)
+            ms = (time.perf_counter() - t1) * 1e3
+            moved = {k: v - before[k] for k, v in mp_counters().items()}
+            t1 = time.perf_counter()
+            mp_wait(wants[cfg.name])
+            out["want_wait_s"][name] = time.perf_counter() - t1
             out["hold"][name] = {
                 "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                "ms": ms, "bytes": moved,
                 "leaves": mp_hold_blocks(state, wants[cfg.name], mesh, rank)}
         out["hold_s"][name] = time.perf_counter() - t0
         del state
@@ -7186,22 +7246,17 @@ def mp_resume_job(mesh, seed, batches, ckpt_dir, work_dir):
             "leaves": leaves, "bit_equal": same, "losses": losses}
 
 
-def run_lm_train_mp(seed, device, work_dir, dp_rec):
-    """Phase ``lm_train_mp``: the sharded trainer (`launch.train.build` /
-    its step on a mesh, `sharding.spmd`) on MP_SHAPE gloo ranks sharing
-    the card.  (a) Qwen2-1.5B ("tp" and "fsdp") and OLMoE-1B-7B ("tp",
-    cf 8) at their published widths in f32, one step held against the
-    one-rank step; (b) Qwen2-1.5B in bf16, timed, with its bytes by kind;
-    (c) the restart on 2 of the ranks from (b)'s sharded checkpoint."""
-    import numpy as np
-    import torch
-    from repro_torch import mesh as M
+def start_lm_train_mp(seed, device, work_dir):
+    """``lm_train_mp``'s two groups of ranks, spawned ahead of the phase
+    so that their processes' start overlaps the phases before it: each
+    waits in ``work_dir`` for its go-ahead (the 4 ranks for ``go``, which
+    `run_lm_train_mp` writes) or for ``wants_failed`` → the handle
+    `run_lm_train_mp` takes."""
     import threading
-    t_phase = time.perf_counter()
+    from repro_torch import mesh as M
     hold_batches, wants = {}, {}
     for _, cfg, _ in mp_cases():
-        hold_batches[cfg.name] = train_batches(cfg, 1, seed + 21,
-                                               *MP_HOLD)[0]
+        hold_batches[cfg.name] = mp_hold_batch(cfg, seed + 21)
         wants[cfg.name] = str(work_dir / f"want_{cfg.name}.pt")
     cfg = mp_config(LM_ARCH, MP_LAYERS, "bfloat16")
     batches = train_batches(cfg, 1 + MP_TIMED, seed + 22, *MP_TIME)
@@ -7227,9 +7282,30 @@ def run_lm_train_mp(seed, device, work_dir, dp_rec):
             done = str(work_dir / "four_ranks_done")    # the outcome
             if not os.path.exists(done):
                 mp_signal(done)
-    threads = [threading.Thread(target=spawn, args=(n,)) for n in spawns]
+    threads = [threading.Thread(target=spawn, args=(n,), daemon=True)
+               for n in spawns]
     for t in threads:
         t.start()
+    return {"threads": threads, "got": got, "walls": walls,
+            "spawns": spawns, "hold_batches": hold_batches, "wants": wants}
+
+
+def run_lm_train_mp(seed, device, work_dir, dp_rec, started):
+    """Phase ``lm_train_mp``: the sharded trainer (`launch.train.build` /
+    its step on a mesh, `sharding.spmd`) on MP_SHAPE gloo ranks sharing
+    the card, spawned by `start_lm_train_mp` (``started``).  (a) each
+    case of `mp_cases` at its published widths in f32, one step held
+    against the one-rank step; (b) Qwen2-1.5B in bf16, timed, with its
+    bytes by kind; (c) the restart on 2 of the ranks from (b)'s sharded
+    checkpoint."""
+    import numpy as np
+    import torch
+    t_phase = time.perf_counter()
+    t_go = time.time()
+    mp_signal(str(work_dir / "go"))
+    threads, got, walls = (started[k] for k in ("threads", "got", "walls"))
+    spawns, hold_batches, wants = (started[k] for k in (
+        "spawns", "hold_batches", "wants"))
     want_rec = {}
     t0 = time.perf_counter()
     try:
@@ -7239,7 +7315,8 @@ def run_lm_train_mp(seed, device, work_dir, dp_rec):
                                              hold_batches[cfg.name], device,
                                              wants[cfg.name])
     finally:
-        mp_signal(str(work_dir / "wants_ready"))
+        if len(want_rec) < len(wants):  # the ranks stop waiting and fail
+            mp_signal(str(work_dir / "wants_failed"))
         want_s = time.perf_counter() - t0
         for t in threads:
             t.join()
@@ -7263,8 +7340,10 @@ def run_lm_train_mp(seed, device, work_dir, dp_rec):
     for name, cfg, profile in mp_cases():
         want = want_rec[cfg.name]
         per = [r["hold"][name] for r in ranks]
+        gaps = {}
         for key in ("loss", "grad_norm"):
             gap = max(abs(p[key] - want[key]) / abs(want[key]) for p in per)
+            gaps[key + "_rel"] = gap
             if gap > MP_LOSS_REL:
                 raise AssertionError(f"lm_train_mp: {name} {key} off the "
                                      f"one-rank step by {gap}: {per}")
@@ -7280,11 +7359,17 @@ def run_lm_train_mp(seed, device, work_dir, dp_rec):
                     if e["loose"] > MP_LOOSE_SHARE * e["numel"]:
                         raise AssertionError(f"lm_train_mp: {name} rank {r} "
                                              f"{path}: {e}")
-        hold[name] = {"profile": profile, "want": want,
+        hold[name] = {"arch": cfg.name, "profile": profile, "want": want,
                       "losses": [p["loss"] for p in per],
                       "grad_norms": [p["grad_norm"] for p in per],
-                      "leaves": len(per[0]["leaves"]),
-                      "max_abs_err": worst, "loose_elements": loose}
+                      **gaps, "leaves": len(per[0]["leaves"]),
+                      "max_abs_err": worst,
+                      "worst_over_step_bar": worst / (MP_STEP_BAR * MP_LR),
+                      "loose_elements": loose,
+                      "step_ms_slowest_rank": max(p["ms"] for p in per),
+                      "bytes_per_rank": per[0]["bytes"],
+                      "want_wait_s": max(r["want_wait_s"][name]
+                                         for r in ranks)}
     timed = [[r["timed"][i] for r in ranks] for i in range(1 + MP_TIMED)]
     losses = [s[0]["loss"] for s in timed]
     if not all(math.isfinite(x) for x in losses) or any(
@@ -7306,6 +7391,7 @@ def run_lm_train_mp(seed, device, work_dir, dp_rec):
                                  f"{losses[0]} + 0.5")
     rec = {"mesh": dict(zip(MP_NAMES, MP_SHAPE)), "backend": "gloo",
            "want_s": want_s, "spawn_s": spawn_s,
+           "spawned_before_phase_s": t_go - walls["four_ranks"][0],
            "spawn_overhead_s": overhead,
            "hold_s": {name: max(r["hold_s"][name] for r in ranks)
                       for name, _, _ in mp_cases()},
@@ -7535,13 +7621,18 @@ def run_all(args, device) -> int:
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
     torch.cuda.empty_cache()
-    dp_rec = run_lm_train_dp(args.seed, device)
-    torch.cuda.empty_cache()
-    run_lm_moe_ep(args.seed, device)
-    torch.cuda.empty_cache()
     mp_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_mp_", dir=stores))
     try:
-        run_lm_train_mp(args.seed, device, mp_dir, dp_rec)
+        started = start_lm_train_mp(args.seed, device, mp_dir)
+        try:
+            dp_rec = run_lm_train_dp(args.seed, device)
+            torch.cuda.empty_cache()
+            run_lm_moe_ep(args.seed, device)
+        except BaseException:           # the waiting ranks fail and exit
+            mp_signal(str(mp_dir / "wants_failed"))
+            raise
+        torch.cuda.empty_cache()
+        run_lm_train_mp(args.seed, device, mp_dir, dp_rec, started)
     finally:
         shutil.rmtree(mp_dir, ignore_errors=True)
     torch.cuda.empty_cache()

@@ -16,7 +16,7 @@ largest |decode − forward|, the values past tests/test_models.py's bar
 At Mamba2's chunk of 256 (about 5 minutes) both packages keep the bar at
 16 layers and miss it at 64.
 chip_smoke.py's ``lm_ssm`` / ``lm_hybrid`` hold that bar on their first
-layers and print the full depth's gap.
+layers and print the gap deeper in (32 / 39 layers).
 
 One JSON line per depth.  Like the parity tests, it imports both packages.
 """

@@ -20,8 +20,8 @@ start`` instead.
 
 On a mesh of more than one rank (``torchrun --nproc-per-node N … 
 --model-parallel M``: a (N / gcd(M, N), gcd(M, N)) ("data", "model")
-mesh, `make_host_mesh`; ``--production-mesh``: the 16×16 pod mesh) the
-dense and MoE families train sharded under the active profile
+mesh, `make_host_mesh`; ``--production-mesh``: the 16×16 pod mesh) every
+decoder family trains sharded under the active profile
 (`sharding.spmd`): every rank draws the same global parameters from
 ``--seed`` and keeps its blocks, draws the same global batches and takes
 its rows, and the checkpoint is the reference's global leaves, written
@@ -78,18 +78,17 @@ def build(cfg, mesh=None, *, optimizer="adamw", lr=3e-4, warmup=100,
     dev = resolve_device(device)
     opt = make_opt(optimizer)
     sharded = _sharded_mesh(mesh)
+    cls = EncDecLM if cfg.family == "encdec" else DecoderLM
     if sharded is not None:
-        spmd.check_family(cfg)
         spmd.check_ranks(sharded)
         if dev.type == "cuda":
             dev = M.rank_device(sharded)
         if params is None:
-            params = DecoderLM(cfg, torch.Generator(device=dev)
-                               .manual_seed(seed), device=dev, mesh=sharded)
+            params = cls(cfg, torch.Generator(device=dev).manual_seed(seed),
+                         device=dev, mesh=sharded)
         elif getattr(params, "mesh", None) is None:
             params = shard_model(params, sharded, dev)
     elif params is None:
-        cls = EncDecLM if cfg.family == "encdec" else DecoderLM
         params = cls(cfg, torch.Generator(device=dev).manual_seed(seed),
                      device=dev)
     params.requires_grad_(True)
@@ -103,11 +102,12 @@ def build(cfg, mesh=None, *, optimizer="adamw", lr=3e-4, warmup=100,
 
 
 def shard_model(model, mesh, device=None):
-    """A whole ``DecoderLM``'s blocks for this rank of ``mesh`` under the
-    active profile: a sharded ``DecoderLM`` (requires_grad off)."""
+    """A whole ``DecoderLM``'s or ``EncDecLM``'s blocks for this rank of
+    ``mesh`` under the active profile: a sharded model of its class
+    (requires_grad off)."""
     cfg = model.cfg
     dev = device or next(model.parameters()).device
-    out = DecoderLM(cfg, device=dev, mesh=mesh)
+    out = type(model)(cfg, device=dev, mesh=mesh)
     decl = S.model_decl(cfg)
     rank = torch.distributed.get_rank()
     specs = tree_paths(tree_pspecs(decl, mesh))
@@ -204,7 +204,6 @@ def train(cfg, mesh=None, *, steps, batch, seq, ckpt_dir=None,
                                                        "model": 1}
     sharded = _sharded_mesh(mesh)
     if sharded is not None:
-        spmd.check_family(cfg)
         with profile_context(get_profile()):
             spmd.check_batch(batch // microbatches, sharded)
     state, step_fn = build(

@@ -11,11 +11,14 @@ Under a mesh of more than one rank (`sharding.spmd`, training: no
 cache) the layer is tensor-parallel where its Q heads split over
 "model": Q/K/V column-parallel over "heads" / "kv_heads", ``wo``
 row-parallel, the padded-head mask cut to the rank's heads
-(`_attention_spmd`).  Where the KV heads do not split over "model"
-(`_kv_logical` replicates K and V), K and V are computed whole on every
-rank — ``wk`` / ``wv`` gathered over "model" where their columns are
-split mid-head, their cotangents reduce-scattered — and each rank takes
-the KV head of each of its Q heads.
+(`_attention_spmd`) — causal or bidirectional self-attention, and
+cross-attention, whose K/V are projected from the encoder states
+entered replicated (their cotangent summed over "model", and over the
+decoder layers that read them).  Where the KV heads do not split over
+"model" (`_kv_logical` replicates K and V), K and V are computed whole
+on every rank — ``wk`` / ``wv`` gathered over "model" where their
+columns are split mid-head, their cotangents reduce-scattered — and
+each rank takes the KV head of each of its Q heads.
 """
 from __future__ import annotations
 
@@ -253,12 +256,13 @@ def attention(cfg, p, x, *, causal=True, positions=None,
     scale = cfg.hd ** -0.5
     mesh = spmd.active_mesh()
     if mesh is not None:
-        if cache is not None or kv_input is not None:
+        if cache is not None:
             raise NotImplementedError(
                 "attention under a mesh of more than one rank runs the "
-                "training path (no cache, self-attention); the sharded "
-                "decode and cross-attention are not the port's")
-        return _attention_spmd(cfg, p, x, positions, mesh), None
+                "training path (no cache); the sharded decode is not the "
+                "port's")
+        return _attention_spmd(cfg, p, x, positions, mesh, causal=causal,
+                               kv_input=kv_input), None
     if kv_input is None:
         q, k, v = _project(cfg, p, x)
     else:
@@ -293,11 +297,16 @@ def attention(cfg, p, x, *, causal=True, positions=None,
     return _output(cfg, p, out, x), new_cache
 
 
-def _attention_spmd(cfg, p, x, positions, mesh):
-    """Causal self-attention on this rank's blocks (see the module's
-    docstring): x (B_loc, S, D) replicated over "model" → (B_loc, S, D)."""
+def _attention_spmd(cfg, p, x, positions, mesh, *, causal=True,
+                    kv_input=None):
+    """Attention on this rank's blocks (see the module's docstring): x
+    (B_loc, S, D) replicated over "model" → (B_loc, S, D); self-attention,
+    or cross-attention against ``kv_input`` (B_loc, S_enc, D), likewise
+    replicated (its K/V without bias, no RoPE, no mask)."""
     decl = attention_decl(cfg)
     b, s, _ = x.shape
+    kx = x if kv_input is None else kv_input
+    se = kx.shape[1]
     gb = spmd.global_batch(b, mesh)
     hd, hp, kv = cfg.hd, cfg.n_heads_padded, cfg.n_kv_heads
     tp = spmd.model_split(decl["wq"], 1, mesh)
@@ -310,10 +319,14 @@ def _attention_spmd(cfg, p, x, positions, mesh):
     whole_kv = tp and kv % n != 0       # _kv_logical replicates K and V
     if tp:                              # column-parallel input
         x = M.enter_replicated(x, mesh, "model")
+        kx = x if kv_input is None else M.enter_replicated(kv_input, mesh,
+                                                           "model")
 
     def proj(w, bias):
         wt = spmd.param(p, w, decl, mesh)
-        bt = p[bias] if cfg.qkv_bias else None
+        src = x if w == "wq" else kx
+        bt = p[bias] if cfg.qkv_bias and (w == "wq" or kv_input is None) \
+            else None
         if whole_kv and w != "wq":
             if k_split:                 # columns split mid-head: gather
                 wt = M.gather_param(wt, 1, mesh, ("model",))
@@ -323,17 +336,17 @@ def _attention_spmd(cfg, p, x, positions, mesh):
                 wt = M.enter_replicated(wt, mesh, "model")
                 bt = None if bt is None else M.enter_replicated(
                     bt, mesh, "model")
-        y = x @ wt.to(x.dtype)
+        y = src @ wt.to(x.dtype)
         if bt is not None:
             y = y + bt.to(x.dtype)
-        return y.reshape(b, s, -1, hd)
+        return y.reshape(b, src.shape[1], -1, hd)
 
     q, k, v = proj("wq", "bq"), proj("wk", "bk"), proj("wv", "bv")
     kvlog = _kv_logical(cfg)
     q = constrain(q, "batch", "seq", "heads", None, shape=(gb, s, hp, hd))
-    k = constrain(k, "batch", "seq", kvlog, None, shape=(gb, s, kv, hd))
-    v = constrain(v, "batch", "seq", kvlog, None, shape=(gb, s, kv, hd))
-    if cfg.pos == "rope":
+    k = constrain(k, "batch", "seq", kvlog, None, shape=(gb, se, kv, hd))
+    v = constrain(v, "batch", "seq", kvlog, None, shape=(gb, se, kv, hd))
+    if cfg.pos == "rope" and kv_input is None:
         if positions is None:
             positions = torch.arange(s, device=x.device).expand(b, s)
         q = apply_rope(q, positions, cfg.rope_theta)
@@ -342,8 +355,8 @@ def _attention_spmd(cfg, p, x, positions, mesh):
     if whole_kv:                        # each Q head's KV head
         group = (m * h + torch.arange(h, device=x.device)) // (hp // kv)
         k, v = k[:, :, group], v[:, :, group]
-    out = _sdpa(q, k, v, causal=True, q_offset=0, scale=cfg.hd ** -0.5,
-                chunk=cfg.attn_chunk)
+    out = _sdpa(q, k, v, causal=causal and kv_input is None, q_offset=0,
+                scale=cfg.hd ** -0.5, chunk=cfg.attn_chunk)
     hm = head_mask(cfg, out.dtype, out.device)
     if hm is not None:
         out = out * hm[m * h:(m + 1) * h][None, None, :, None]

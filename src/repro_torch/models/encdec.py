@@ -10,6 +10,16 @@ The functions take an `EncDecLM` (or anything that reads like it).
 Under grad with ``cfg.remat`` (training) each encoder and decoder block
 is recomputed in the backward pass, as the reference's
 ``jax.checkpoint``'ed bodies.
+
+Model parallelism (`sharding.spmd`): ``EncDecLM(cfg, …, mesh=)`` holds
+this rank's block of every parameter under `tree_pspecs` in the active
+profile, and `encode` / `decode` run under that mesh on this rank's rows
+of the batch (frames and tokens alike), training only: the position
+tables gathered over their storage dim, the encoder's bidirectional and
+the decoder's causal self-attention and its cross-attention
+tensor-parallel where "model" splits the heads (`attention`), the
+embedding vocab-parallel and shared with the tied loss
+(`transformer.sharded_head`).
 """
 from __future__ import annotations
 
@@ -20,11 +30,16 @@ from torch import nn
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
+from .. import mesh as M
+from ..sharding import spmd
+from ..sharding.rules import constrain, get_profile
 from .attention import (Attention, KVCache, attention, attention_decl,
                         attention_with_kv)
-from .layers import MLP, Embed, Norm, embed_decl, mlp_decl, norm, norm_decl
-from .params import ParamTree, PDecl, stack_layers, to_state, tree_init
-from .transformer import remat, rematted
+from .layers import (MLP, Embed, Norm, embed_decl, mlp_decl, norm, norm_decl,
+                     vocab_embed)
+from .params import (ParamTree, PDecl, assign_state, stack_layers, to_state,
+                     tree_init)
+from .transformer import check_model_mesh, remat, rematted, sharded_init
 
 
 def _enc_block_decl(cfg):
@@ -70,11 +85,28 @@ def _dtype(cfg) -> torch.dtype:
     return getattr(torch, cfg.compute_dtype)
 
 
+def _act(x, mesh):
+    """``x`` (B_loc, S, D) checked to be this rank's rows, D whole."""
+    if mesh is None:
+        return x
+    return constrain(x, "batch", "seq", "act_embed", shape=(
+        spmd.global_batch(x.shape[0], mesh), x.shape[1], x.shape[2]))
+
+
+def _pos_table(cfg, params, name: str, n: int, mesh):
+    """A learned position table, its storage dim gathered on a mesh."""
+    if mesh is None:
+        return params[name].table
+    return spmd.param(params[name], "table", _pos_decl(cfg, n), mesh)
+
+
 def encode(cfg: ModelConfig, params, frames):
     """frames: (B, n_frames, D) stub embeddings → encoder states."""
     dt = _dtype(cfg)
+    mesh = check_model_mesh(params, False)
     x = frames.to(dt)
-    x = x + params.enc_pos.table[:x.shape[1]].to(dt)[None]
+    table = _pos_table(cfg, params, "enc_pos", cfg.n_frames, mesh)
+    x = _act(x + table[:x.shape[1]].to(dt)[None], mesh)
     for p in params.enc_blocks:
         x = (rematted(_enc_block, x, cfg, p) if remat(cfg, None)
              else _enc_block(x, cfg, p))
@@ -100,23 +132,33 @@ def _dec_block(cfg, p, x, enc, cache: Optional[DecCache]):
         ca, _ = attention(cfg, p.cross_attn, h, causal=False, kv_input=enc)
     x = x + ca
     x = x + p.mlp(norm(cfg, p.ln3, x))
+    x = _act(x, spmd.active_mesh())
     new_cache = (DecCache(new_kv, cache.cross_k, cache.cross_v)
                  if cache is not None else None)
     return x, new_cache
 
 
 def decode(cfg: ModelConfig, params, tokens, enc, *,
-           caches: Optional[DecCache] = None):
+           caches: Optional[DecCache] = None, table=None):
     """Decoder forward.  Returns hidden (without caches; ``enc`` the
     encoder states) or (hidden, caches) (with caches from
-    `init_dec_caches`; ``enc`` unused)."""
+    `init_dec_caches`; ``enc`` unused).  On a sharded model ``table`` is
+    the embedding table already gathered (`transformer.sharded_head`,
+    shared with the tied loss), or None to gather it here."""
     dt = _dtype(cfg)
-    x = params.embed(tokens, dt)
+    mesh = check_model_mesh(params, caches is not None)
+    if mesh is None:
+        x = params.embed(tokens, dt)
+    else:
+        if table is None:
+            table = spmd.param(params.embed, "table", embed_decl(cfg), mesh)
+        x = vocab_embed(cfg, table, tokens, dt, mesh)
     base = caches.self_kv.length if caches is not None else 0
-    table = params.dec_pos.table
+    pos_table = _pos_table(cfg, params, "dec_pos", cfg.max_target_positions,
+                           mesh)
     pos = torch.clamp(base + torch.arange(x.shape[1], device=x.device),
-                      max=table.shape[0] - 1)
-    x = x + table[pos].to(dt)[None]
+                      max=pos_table.shape[0] - 1)
+    x = _act(x + pos_table[pos].to(dt)[None], mesh)
 
     if caches is None:
         for p in params.dec_blocks:
@@ -200,18 +242,24 @@ class EncDecLM(nn.Module):
     ``dec_blocks.0.cross_attn.wk``): `params.from_reference` carries a
     reference tree across.  ``generator`` and ``device`` as in
     `transformer.DecoderLM`; ``requires_grad`` off until a trainer
-    turns it on."""
+    turns it on.  With ``mesh`` (more than one rank) the model holds this
+    rank's blocks under the active profile, as a sharded
+    `transformer.DecoderLM` does (``mesh``, ``profile``)."""
 
     def __init__(self, cfg: ModelConfig,
                  generator: Optional[torch.Generator] = None, *,
-                 device: Union[str, torch.device] = "cuda"):
+                 device: Union[str, torch.device] = "cuda", mesh=None):
         super().__init__()
         if cfg.family != "encdec":
             raise ValueError(f"EncDecLM: the {cfg.family!r} family is "
                              f"transformer.DecoderLM")
         dev = resolve_device(device)
         dtype = getattr(torch, cfg.param_dtype)
-        build = torch.device("meta") if generator is not None else dev
+        if mesh is not None and M.mesh_size(mesh) == 1:
+            mesh = None
+        self.mesh, self.profile = mesh, get_profile()
+        build = torch.device("meta") if generator is not None \
+            or mesh is not None else dev
         kw = dict(dtype=dtype, device=build)
         self.cfg = cfg
         self.embed = Embed(cfg, **kw)
@@ -224,7 +272,10 @@ class EncDecLM(nn.Module):
             DecBlock(cfg, **kw) for _ in range(cfg.n_layers))
         self.enc_norm = Norm(cfg, **kw)
         self.final_norm = Norm(cfg, **kw)
-        if generator is not None:
+        if mesh is not None:
+            assign_state(self, to_state(
+                sharded_init(decl(cfg), mesh, generator, dtype, dev)))
+        elif generator is not None:
             self.load_state_dict(
                 to_state(tree_init(generator, decl(cfg), dtype, dev)),
                 assign=True)

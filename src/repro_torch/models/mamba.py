@@ -9,6 +9,20 @@ states.  The SSD runs in f32 inside a bf16 model, as the reference's.
 multiple of L (the reference asserts the same).  Its (B, S/L, H, L, L)
 f32 decay and score tensors are the layer's largest; they are freed when
 the layer returns.
+
+Under a mesh of more than one rank (`sharding.spmd`, training: no cache)
+the mixer is tensor-parallel where "model" splits its inner channels and
+heads (`_mamba_spmd`): column-parallel from x to the SSD, row-parallel
+out of ``w_out``.  Three parts do not follow the dense pattern.  The
+conv's channels are the concatenation [xi | B | C], so a rank's block of
+``conv_w`` / ``conv_b`` is a contiguous range of it, not its xi block
+plus B and C: the rank gathers the whole (small) conv over "model" and
+takes its xi channels' and the B/C channels' taps, the cotangent
+reduce-scattered back.  B and C come from ``wB`` / ``wC``, whole on
+every "model" rank, but each rank's heads use them: the weights enter
+replicated (`mesh.enter_replicated`), their cotangents summed over
+"model" once.  The gated RMSNorm spans all inner channels: its sum of
+squares is added over "model" in f32, forward and backward.
 """
 from __future__ import annotations
 
@@ -16,6 +30,9 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from .. import mesh as M
+from ..sharding import spmd
+from ..sharding.rules import constrain
 from .layers import Norm, rmsnorm, silu
 from .params import ParamTree, PDecl
 
@@ -163,6 +180,13 @@ def _conv_causal(p, xbc, conv_state=None):
 
 def mamba_block(cfg, p, x, *, cache: Optional[MambaCache] = None):
     """Full Mamba2 mixer.  x: (B,S,D) → (y, new_cache)."""
+    mesh = spmd.active_mesh()
+    if mesh is not None:
+        if cache is not None:
+            raise NotImplementedError(
+                "the Mamba2 mixer under a mesh of more than one rank runs "
+                "the training path (no cache)")
+        return _mamba_spmd(cfg, p, x, mesh), None
     bsz, s, d = x.shape
     di, h, g, n = mamba_dims(cfg)
     rep = h // g
@@ -201,6 +225,76 @@ def mamba_block(cfg, p, x, *, cache: Optional[MambaCache] = None):
     return out, new_cache
 
 
+# (leaf, dim) of the mixer's inner channels and heads: split over
+# "model" together or not at all
+_TP_DIMS = (("wz", 1), ("wx", 1), ("wdt", 1), ("conv_w", 1), ("conv_b", 0),
+            ("A_log", 0), ("D_skip", 0), ("dt_bias", 0), ("norm_scale", 0),
+            ("w_out", 0))
+
+
+def _mamba_spmd(cfg, p, x, mesh, eps: float = 1e-6):
+    """The mixer on this rank's blocks (see the module's docstring): x
+    (B_loc, S, D) replicated over "model" → (B_loc, S, D)."""
+    decl = mamba_decl(cfg)
+    bsz, s, _ = x.shape
+    di, h, g, n = mamba_dims(cfg)
+    split = {spmd.model_split(decl[k], dim, mesh) for k, dim in _TP_DIMS}
+    if len(split) != 1:
+        raise NotImplementedError(
+            f"{cfg.name}: {di} inner channels, {h} SSD heads and "
+            f"{di + 2 * g * n} conv channels do not all split over "
+            f"{M.axis_sizes(mesh)}'s 'model' axis")
+    tp = split.pop()
+    m, nm = spmd.model_rank(mesh) if tp else (0, 1)
+    dl, hl = di // nm, h // nm
+    gb = spmd.global_batch(bsz, mesh)
+
+    def w(name):
+        return spmd.param(p, name, decl, mesh).to(x.dtype)
+    wb, wc = w("wB"), w("wC")
+    if tp:                              # column-parallel input
+        x = M.enter_replicated(x, mesh, "model")
+        wb = M.enter_replicated(wb, mesh, "model")
+        wc = M.enter_replicated(wc, mesh, "model")
+    dt_raw = x @ w("wdt")
+    z = x @ w("wz")
+    xi = x @ w("wx")
+    xbc = torch.cat([xi, x @ wb, x @ wc], dim=-1)   # [xi_r | B | C]
+    conv = {"conv_w": p["conv_w"], "conv_b": p["conv_b"]}
+    if tp:                              # the taps of this rank's channels
+        taps = torch.cat([torch.arange(m * dl, (m + 1) * dl),
+                          torch.arange(di, di + 2 * g * n)]).to(x.device)
+        conv = {"conv_w": M.gather_param(conv["conv_w"], 1, mesh,
+                                         ("model",))[:, taps],
+                "conv_b": M.gather_param(conv["conv_b"], 0, mesh,
+                                         ("model",))[taps]}
+    xbc, _ = _conv_causal(conv, xbc)
+    xi, bproj, cproj = torch.split(xbc, [dl, g * n, g * n], dim=-1)
+
+    dt = softplus(dt_raw.float() + p["dt_bias"].float())
+    xh = constrain(xi.reshape(bsz, s, hl, cfg.ssm_head_dim), "batch",
+                   "seq", "act_heads", None,
+                   shape=(gb, s, h, cfg.ssm_head_dim))
+    group = (m * hl + torch.arange(hl, device=x.device)) // (h // g)
+    bm = bproj.reshape(bsz, s, g, n)[:, :, group]
+    cm = cproj.reshape(bsz, s, g, n)[:, :, group]
+    y, _ = ssd_chunked(xh, dt, p["A_log"], bm, cm, p["D_skip"],
+                       chunk=cfg.ssm_chunk)
+    y = y.reshape(bsz, s, dl).to(x.dtype)
+    if not tp:
+        y = rmsnorm({"scale": p["norm_scale"]}, y * silu(z), eps)
+        return y @ w("w_out")
+    # the gated RMSNorm over all di channels: the sum of squares added
+    # over "model" (its cotangent too: each rank's part feeds its own)
+    gy = (y * silu(z)).float()
+    sq = M.enter_replicated(M.reduce_replicated(
+        torch.sum(gy * gy, dim=-1, keepdim=True), mesh, "model"),
+        mesh, "model")
+    y = (gy * torch.rsqrt(sq / di + eps)
+         * p["norm_scale"].float()).to(x.dtype)
+    return M.reduce_replicated(y @ w("w_out"), mesh, "model")  # row-parallel
+
+
 class Mamba(ParamTree):
     """The mixer's parameters (`mamba_decl`) over `mamba_block`."""
 
@@ -222,4 +316,10 @@ class MambaBlock(torch.nn.Module):
 
     def forward(self, x, cache: Optional[MambaCache] = None):
         m, new_cache = self.mamba(self.ln1(x), cache)
-        return x + m, new_cache
+        x = x + m
+        mesh = spmd.active_mesh()
+        if mesh is not None:
+            x = constrain(x, "batch", "seq", "act_embed", shape=(
+                spmd.global_batch(x.shape[0], mesh), x.shape[1],
+                x.shape[2]))
+        return x, new_cache

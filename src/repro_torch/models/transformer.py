@@ -29,8 +29,12 @@ on this rank's rows of the batch: the layers gather their storage dims
 and run tensor-parallel where "model" splits their compute dims, the
 embedding and `lm_loss` vocab-parallel (the loss the global mean: each
 rank's sum over the global token count, summed over the batch axes).
-The dense and MoE families only; a recomputed block re-issues its
-collectives in the backward, in the same order on every rank.
+Every decoder family: the Mamba2 mixer is tensor-parallel over its inner
+channels and heads (`mamba`), the hybrid's shared attention block
+gathers its storage dims at each period that applies it (its gradient
+the sum over the periods).  A recomputed block (a hybrid period as one)
+re-issues its collectives in the backward, in the same order on every
+rank.
 """
 from __future__ import annotations
 
@@ -364,12 +368,12 @@ class DecoderLM(nn.Module):
     ``param_dtype``, with ``requires_grad`` off until a trainer turns it
     on (`launch.train.build`).
 
-    With ``mesh`` (more than one rank; dense and MoE families) the model
-    holds this rank's blocks under `tree_pspecs` in the active profile,
-    which it records (``mesh``, ``profile``): drawn from ``generator``
-    as the whole tree is (each leaf cut as it is drawn), or zeros until
-    `params.assign_state` puts blocks in (`params.from_reference` with
-    ``mesh=`` cuts a reference tree)."""
+    With ``mesh`` (more than one rank) the model holds this rank's blocks
+    under `tree_pspecs` in the active profile, which it records
+    (``mesh``, ``profile``): drawn from ``generator`` as the whole tree is
+    (each leaf cut as it is drawn), or zeros until `params.assign_state`
+    puts blocks in (`params.from_reference` with ``mesh=`` cuts a
+    reference tree)."""
 
     def __init__(self, cfg: ModelConfig,
                  generator: Optional[torch.Generator] = None, *,
@@ -382,8 +386,6 @@ class DecoderLM(nn.Module):
         dtype = torch_dtype(cfg.param_dtype)
         if mesh is not None and M.mesh_size(mesh) == 1:
             mesh = None
-        if mesh is not None:
-            spmd.check_family(cfg)
         self.mesh, self.profile = mesh, get_profile()
         # with a generator (or a mesh) the weights come afterwards: build
         # the skeleton without storage and take its tensors as they are
@@ -411,25 +413,11 @@ class DecoderLM(nn.Module):
             self.shared_attn = Block(cfg, "mlp", **kw)
         if mesh is not None:
             assign_state(self, to_state(
-                self._blocks(generator, dtype, dev)))
+                sharded_init(decl(cfg), mesh, generator, dtype, dev)))
         elif generator is not None:
             self.load_state_dict(
                 to_state(tree_init(generator, decl(cfg), dtype, dev)),
                 assign=True)
-
-    def _blocks(self, generator, dtype, dev):
-        """This rank's blocks of the parameter tree (reference layout):
-        drawn leaf by leaf as `tree_init` draws the whole tree, each cut
-        at once (`sharding.block_of`); zeros without a generator."""
-        rank = torch.distributed.get_rank()
-        specs = tree_pspecs(decl(self.cfg), self.mesh)
-        cuts = iter(tree_paths(specs).values())    # tree_init's order
-
-        def cut(d, t):
-            return block_of(t, next(cuts), self.mesh, rank).clone()
-        if generator is not None:
-            return tree_init(generator, decl(self.cfg), dtype, dev, cut=cut)
-        return tree_init(None, _zeros(decl(self.cfg)), dtype, dev, cut=cut)
 
     def __getitem__(self, k: str):
         return getattr(self, k)
@@ -451,7 +439,8 @@ class DecoderLM(nn.Module):
         the tied loss: one gradient, one reduce-scatter)."""
         cfg = self.cfg
         dt = torch_dtype(cfg.compute_dtype)
-        mesh = self._check_mesh(caches, prefix_embeds)
+        mesh = check_model_mesh(self, caches is not None
+                                or prefix_embeds is not None)
         if mesh is not None:
             if table is None:
                 table = spmd.param(self.embed, "table", embed_decl(cfg),
@@ -490,24 +479,41 @@ class DecoderLM(nn.Module):
         x = self.final_norm(x)
         return (x, new_caches) if decoding else x
 
-    def _check_mesh(self, caches, prefix_embeds):
-        """The active mesh of more than one rank, checked against the one
-        the model is sharded over (and the profile it was cut under)."""
-        mesh = spmd.active_mesh()
-        if mesh is not self.mesh:
-            raise RuntimeError(
-                f"DecoderLM sharded over {self.mesh!r} run under the mesh "
-                f"{mesh!r}: enter its mesh_context (and only its)")
-        if mesh is not None:
-            if get_profile() != self.profile:
-                raise RuntimeError(f"DecoderLM cut under the "
-                                   f"{self.profile!r} profile run under "
-                                   f"{get_profile()!r}")
-            if caches is not None or prefix_embeds is not None:
-                raise NotImplementedError(
-                    "a sharded DecoderLM trains (no caches, no prefix "
-                    "embeddings)")
-        return mesh
+
+def check_model_mesh(model, serving: bool):
+    """The active mesh of more than one rank, checked against the one
+    ``model`` is sharded over (and the profile it was cut under); on a
+    mesh ``serving`` (caches or prefix embeddings) raises."""
+    name = type(model).__name__
+    mesh = spmd.active_mesh()
+    if mesh is not model.mesh:
+        raise RuntimeError(
+            f"{name} sharded over {model.mesh!r} run under the mesh "
+            f"{mesh!r}: enter its mesh_context (and only its)")
+    if mesh is not None:
+        if get_profile() != model.profile:
+            raise RuntimeError(f"{name} cut under the {model.profile!r} "
+                               f"profile run under {get_profile()!r}")
+        if serving:
+            raise NotImplementedError(
+                f"a sharded {name} trains (no caches, no prefix "
+                "embeddings)")
+    return mesh
+
+
+def sharded_init(tree, mesh, generator, dtype, dev):
+    """This rank's blocks of the declaration ``tree`` on ``mesh`` under
+    the active profile (reference layout): drawn leaf by leaf as
+    `tree_init` draws the whole tree, each cut at once
+    (`sharding.block_of`); zeros without a generator."""
+    rank = torch.distributed.get_rank()
+    cuts = iter(tree_paths(tree_pspecs(tree, mesh)).values())  # its order
+
+    def cut(d, t):
+        return block_of(t, next(cuts), mesh, rank).clone()
+    if generator is not None:
+        return tree_init(generator, tree, dtype, dev, cut=cut)
+    return tree_init(None, _zeros(tree), dtype, dev, cut=cut)
 
 
 def _zeros(tree):

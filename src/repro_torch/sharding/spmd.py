@@ -35,8 +35,6 @@ from .rules import (PROFILES, Paired, get_mesh, get_profile,
                     logical_to_spec, spec_axes)
 
 STORAGE = ("embed", "expert_embed")
-ITEM_3D_V = ("ROADMAP Queue 1 item 3d v (Mamba2, the hybrid and the "
-             "encoder-decoder under model parallelism)")
 
 
 def active_mesh():
@@ -110,15 +108,6 @@ def check_batch(rows: int, mesh) -> None:
             f"{get_profile()!r} profile: the sharded LM takes a batch that "
             "divides them (the reference would split the sequence or "
             "replicate rows instead)")
-
-
-def check_family(cfg) -> None:
-    """The families whose sharded code the port has: dense and MoE
-    decoders."""
-    if cfg.family not in ("dense", "moe"):
-        raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}) on a mesh of more than one rank: "
-            f"{ITEM_3D_V}")
 
 
 def check_ranks(mesh) -> None:

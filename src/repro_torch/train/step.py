@@ -66,11 +66,14 @@ def init_train_state(params, optimizer: Optimizer) -> TrainState:
 def model_loss(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor]):
     """Cross-entropy for any family.  batch keys:
     tokens/labels (all), frames (encdec), patch_embeds (vlm)."""
-    if cfg.family == "encdec":
-        enc = encdec_lib.encode(cfg, params, batch["frames"])
-        hidden = encdec_lib.decode(cfg, params, batch["tokens"], enc)
-        return tf.lm_loss(cfg, params, hidden, batch["labels"])
     mesh = spmd.active_mesh()
+    if cfg.family == "encdec":      # sharded: one gathered (tied) table
+        head = tf.sharded_head(cfg, params, mesh) if mesh is not None \
+            else None
+        enc = encdec_lib.encode(cfg, params, batch["frames"])
+        hidden = encdec_lib.decode(cfg, params, batch["tokens"], enc,
+                                   table=head)
+        return tf.lm_loss(cfg, params, hidden, batch["labels"], head=head)
     if mesh is not None:            # sharded: one gathered head, tied or not
         head = tf.sharded_head(cfg, params, mesh)
         hidden = params(batch["tokens"],

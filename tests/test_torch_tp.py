@@ -28,7 +28,8 @@ port on 8 ranks against itself on one rank (dense: the same losses and
 blocks at the same bars); the subgroup collectives against the
 gather-everything composition bit for bit; `make_host_mesh`,
 `make_mesh_for` and `make_production_mesh` against the reference's
-rules; `constrain`; the families that raise on a mesh."""
+rules; `constrain`; every family past the family gate, refused on a mesh
+only by `check_ranks` outside the mesh's process group."""
 import os
 import pickle
 import subprocess
@@ -383,11 +384,15 @@ def test_constrain_checks_the_block():
 @pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-7b",
                                   "whisper-medium"])
 def test_other_families_raise_on_a_mesh(arch):
+    """Mamba2, the hybrid and the encoder–decoder pass the family gate as
+    the dense decoder does: on a mesh of which this process is no rank,
+    `build` and `train` raise `spmd.check_ranks`' error, and nothing
+    else (tests/test_torch_tp_families.py trains them on a mesh)."""
     cfg = treduced(tget_config(arch))
     mesh = M.AbstractMesh((2, 4), NAMES)
-    with pytest.raises(NotImplementedError, match="3d v"):
+    with pytest.raises(RuntimeError, match="this process is none of them"):
         build(cfg, mesh, device="cpu")
-    with pytest.raises(NotImplementedError, match="3d v"):
+    with pytest.raises(RuntimeError, match="this process is none of them"):
         train(cfg, mesh, steps=1, batch=8, seq=8, device="cpu")
 
 
