@@ -4,7 +4,8 @@ card and check it.  Run from the root of a checkout:
 
     python3 chip_smoke.py [--seed N]
 
-Phases, each printed as JSON lines; any failure raises and exits non-zero:
+Phases, each printed as JSON lines (``at_s``: seconds since the start);
+any failure raises and exits non-zero:
 
 1. device  — the card (``nvidia-smi`` name and power limit), torch and
    CUDA versions, and the ``nvcc`` build of every kernel source in the
@@ -52,7 +53,8 @@ Phases, each printed as JSON lines; any failure raises and exits non-zero:
 3. main path — `bigfcm_fit` on backend ``hopper`` at the paper's dataset
    sizes (HIGGS-like 11,000,000 × 28, C=2, m=2; KDD99-like
    4,898,431 × 41, C=23, m=1.2; ε=5e-7 as in benchmarks/t6_datasets.py),
-   data made from ``--seed``.  Launch counts are zeroed right before the
+   data made from ``--seed`` on the host while the kernels build (as is
+   ``router_fit``'s).  Launch counts are zeroed right before the
    fit and read right after the global objective pass.  Then the fit
    with injected seeds through ``hopper`` is held against the ``torch``
    backend on the card, and each kernel entry against its plain version
@@ -116,9 +118,10 @@ Phases, each printed as JSON lines; any failure raises and exits non-zero:
    a float64 recompute.  K1 and K2 are held and timed at the fleet's own
    inputs; their launches join the entries of the same shape.
    Then ``mesh`` (`run_mesh_path`, after ``fleet``): `bigfcm_fit` on a
-   `repro_torch.mesh` device mesh of spawned ranks, the arrays saved
-   once under a temporary ``build/chip_smoke_mesh_*/`` and memory-mapped
-   by the ranks: (i) the HIGGS-like fit on a (4,) ("data",) mesh of 4
+   `repro_torch.mesh` device mesh of spawned ranks (spawned after
+   ``fleet``, so that their start overlaps the KDD99-like store phase),
+   the arrays saved once under a temporary ``build/chip_smoke_mesh_*/``
+   and memory-mapped by the ranks: (i) the HIGGS-like fit on a (4,) ("data",) mesh of 4
    gloo ranks sharing the card (2,750,000 rows each), (ii) the
    KDD99-like fit padded with one zero-weight phantom row to 4,898,432
    rows on a (2, 2) ("pod", "data") mesh with the hierarchical reducer;
@@ -258,8 +261,9 @@ Phases, each printed as JSON lines; any failure raises and exits non-zero:
    2.02 · lr of the one-rank leaf's block and all but 0.1 % of its
    elements within 1e-5 of the weight plus 0.01 · lr; printed per case:
    the slowest rank's step ms and the bytes a rank moves by kind.  The
-   phase's ranks are spawned before ``lm_train_dp`` and wait for the
-   phase, so that their start overlaps the two phases before it.  Timed:
+   ranks of ``lm_train_dp``, ``lm_moe_ep`` and ``lm_train_mp`` are
+   spawned before ``lm_train`` and wait for their phase, so that their
+   start overlaps the phases before it.  Timed:
    Qwen2-1.5B (2 layers, bf16, "tp"), 1 + 3 steps of 4 × 2048 tokens:
    the slowest rank's step ms, tokens/s, peak GB a rank, the bytes a rank
    moves a step by kind (parameter gathers, reduce-scatters, psums) and
@@ -268,6 +272,29 @@ Phases, each printed as JSON lines; any failure raises and exits non-zero:
    (1, 2) mesh (every restored block bit for bit against its block of
    the saved global leaf) and take steps 3–4: the first resumed loss
    below the first loss + 0.5, printed beside the 4-rank run's.
+   ``lm_serve_mp``, run by the same 4 ranks after their training: sharded
+   prefill and greedy decode (`serve.decode` on a sharded model, caches
+   in each rank's blocks).  Held in f32 (TF32 off) against the one-rank
+   path on the card from the same draws, 4 × 64-token prompts and 2
+   tokens generated (the prefill's and one decode step's): Qwen2-1.5B (2 layers) under "tp" and "fsdp", a batch
+   of 1 under "tp" (replicated over every batch axis) and of 2 under
+   "fsdp" (replicated over "model"), OLMoE-1B-7B (1 MoE layer, cf 8)
+   under "tp" and "fsdp", Mamba2-2.7B (2 layers) under "tp": each rank's
+   block of the prefill's last logits within 1e-5 of the one-rank
+   logits' largest magnitude, the tokens equal on every rank.  Timed:
+   Qwen2-1.5B (2 layers, bf16) under "tp" and "fsdp", a prefill of 4 ×
+   2048 tokens, then 8 greedy decode steps: per rank the prefill ms, the
+   decode ms a token, the bytes by kind and the collective seconds.
+   ``dryrun``: ``python -m repro_torch.launch.dryrun`` in a subprocess
+   started before the build, on one torch thread (it does no card work:
+   fake tensors), collected before the kernels line — Qwen2-1.5B
+   ``train_4k`` pod1 "tp" and "fsdp", OLMoE-1B-7B ``train_4k`` pod2
+   "fsdp", Zamba2-7B ``decode_32k`` pod1, Mamba2-2.7B ``long_500k`` pod1
+   and Kimi-K2 ``decode_32k`` pod1, each traced as rank 0 of the
+   production mesh; printed per cell: the status, a rank's argument and
+   peak GB, the FLOPs, the collective bytes by kind, the three roofline
+   terms and the bottleneck under the card's rates; a cell that errs
+   fails the phase.
 8. LM families — four published configs at full width and depth, bf16
    weights from `tree_init` on the card from ``--seed``, each served
    through `greedy_generate` and its loop timed call by call (prefill
@@ -296,7 +323,7 @@ Phases, each printed as JSON lines; any failure raises and exits non-zero:
    or fit), with Adafactor on 8 × 2048 batches: 2 warm-up and 3 timed
    steps, printed as ``lm_train``'s, with the pairs dropped and the router
    load of the first batch before and after; held: finite losses, the
-   first within the smoke bar, and the f32 twin of its first 2 layers at
+   first within the smoke bar, and the f32 twin of its first layer at
    cf = E/k (no drops), routing identical on the card and the CPU.  ``lm_ssm`` / ``lm_hybrid``:
    Mamba2-2.7B (64 layers, d 2560, 80 heads of 64, state 128, chunk 256,
    vocab 50,280 padded to 50,304) and Zamba2-7B (13 × (5 mamba + shared
@@ -304,7 +331,7 @@ Phases, each printed as JSON lines; any failure raises and exits non-zero:
    columns at −1e30, `ssd_chunked` at a full-width layer's shapes
    against the float64 recurrence (2e-4), in f32 decode (1792-token
    prefill, then 256 steps) against one forward over 2048 tokens on the
-   first SSM_HOLD_LAYERS layers (the gap at SSM_WITNESS_LAYERS printed), the
+   first SSM_HOLD_LAYERS layers, the
    hybrid's shared attention one parameter set called by all 13 periods.
    ``lm_encdec``: Whisper-medium (24 + 24 layers, d 1024) over 8 × 1500
    stub frame embeddings from ``--seed``, 4 prompt tokens, 32 new, a
@@ -347,6 +374,7 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+T_START = time.perf_counter()
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
 SOURCES = ("fcm_accumulate", "fcm_batched", "fcm_ctiled")  # csrc/<name>.cu
@@ -450,6 +478,10 @@ TENANT_RUNS = (TenantRun("tenants_t16", 1024, (8, 30), (), 1e-3, 12, 16,
 
 
 def emit(obj) -> None:
+    """One JSON line; a phase's line also gets ``at_s``, the seconds
+    since this module was imported."""
+    if "phase" in obj:
+        obj = {**obj, "at_s": time.perf_counter() - T_START}
     print(json.dumps(obj), flush=True)
 
 
@@ -903,21 +935,30 @@ def ctiled_launch_ms(kern, args, reps, dsplit, stage_fn=None) -> dict:
     return out
 
 
-def run_main_path(run: Run, n: int, seed: int, device, reps: int):
-    """Phase 3 for one dataset: the main path with counted launches, the
-    hopper-vs-torch comparison at full size, and the per-kernel checks
-    and times.  Returns (phase record, kernel entries)."""
+def main_path_arrays(seed: int) -> dict:
+    """The arrays of phase 3, made with numpy from ``seed``: each run's of
+    RUNS by its maker, and ``router_fit``'s (`make_router_like`)."""
+    from repro_torch.data import synth
+    out = {run.name: getattr(synth, run.maker)(run.n, seed=seed)[0]
+           for run in RUNS}
+    out["router_fit"] = make_router_like(ROUTER_N, ROUTER_D, ROUTER_C, seed)
+    return out
+
+
+def run_main_path(run: Run, x_np, seed: int, device, reps: int):
+    """Phase 3 for one dataset (``x_np``, from `main_path_arrays`): the
+    main path with counted launches, the hopper-vs-torch comparison at
+    full size, and the per-kernel checks and times.  Returns (phase
+    record, kernel entries)."""
     import numpy as np
     import torch
     from repro_torch.core import BigFCMConfig, bigfcm_fit
-    from repro_torch.data import synth
     from repro_torch.device import synchronize
     from repro_torch.engine import get_backend
     from repro_torch.kernels.fcm_update import (fcm_accumulate_cuda,
                                                 fcm_sweep_cuda, reset_counts)
 
     t0 = time.perf_counter()
-    x_np, _ = getattr(synth, run.maker)(n, seed=seed)
     x = torch.from_numpy(x_np).to(device)
     n, d = x.shape
     if d != run.d:
@@ -1105,7 +1146,7 @@ def hold_router_fits(x, ones, cfg, draws, device) -> dict:
     return rec
 
 
-def run_router_fit(seed: int, device, reps: int):
+def run_router_fit(x_np, seed: int, device, reps: int):
     """Phase 3b: `fcm_router_init` over OLMoE's router tree, its
     `bigfcm_fit` on backend ``hopper`` at router_fit's full width (the
     C-tiled kernel's main path), launch counts zeroed just before it and
@@ -1123,7 +1164,6 @@ def run_router_fit(seed: int, device, reps: int):
                                                 fcm_sweep_cuda, reset_counts)
 
     t0 = time.perf_counter()
-    x_np = make_router_like(ROUTER_N, ROUTER_D, ROUTER_C, seed)
     x = torch.from_numpy(x_np).to(device)
     del x_np
     ones = torch.ones((ROUTER_N,), dtype=torch.float32, device=device)
@@ -1701,15 +1741,29 @@ def tenant_cohort(run: TenantRun, seed: int):
     return data, m_t
 
 
+def direct_d2(x, v):
+    """‖x − v‖² (T, N, C) of x (T, N, d) and v (T, C, d) by the direct
+    difference, summed one coordinate at a time: no (T, N, C, d) block
+    and no expansion's cancellation.  (`torch.cdist`'s direct form gives
+    the same to rounding, but the card runs it as one thread block per
+    distance: 12.6 M blocks a sweep at tenants_65k's shape.)"""
+    import torch
+    d2 = torch.zeros(x.shape[:2] + v.shape[1:2], dtype=x.dtype,
+                     device=x.device)
+    for k in range(x.shape[2]):
+        diff = x[:, :, None, k] - v[:, None, :, k]
+        d2.addcmul_(diff, diff)
+    return d2
+
+
 def sweep64(X, W, V, m):
     """One tenant-stacked sweep in float64 with the direct ‖x − v‖²
-    (`torch.cdist`'s direct form, no (T, N, C, d) block): (new centers,
-    each tenant's Eq.-(2) objective at V, masses w_i)."""
+    (`direct_d2`): (new centers, each tenant's Eq.-(2) objective at V,
+    masses w_i)."""
     import torch
     x, mm = X.double(), m.double()[:, None, None]
     v = V.double()
-    d2 = torch.cdist(x, v, compute_mode="donot_use_mm_for_euclid_dist"
-                     ).square().clamp_min(1e-12)
+    d2 = direct_d2(x, v).clamp_min(1e-12)
     lg = d2.log()
     r = torch.exp(-(lg - lg.min(-1, keepdim=True).values) / (mm - 1.0))
     wum = (r / r.sum(-1, keepdim=True)) ** mm * W.double()[..., None]
@@ -4645,19 +4699,13 @@ def mesh_entries(run, name, x, w, centers, ranks, device) -> list:
                          reps=10)
 
 
-def run_mesh_path(held_x: dict, cfgs: dict, seed: int, mesh_dir: Path,
-                  device) -> list:
-    """The mesh phase (module note, 7): returns its kernel entries."""
-    import dataclasses as dc
+def start_mesh_path(held_x: dict, cfgs: dict, seed: int, mesh_dir: Path):
+    """The mesh phase's arrays saved under ``mesh_dir`` and its ranks
+    spawned ahead (`spawn_ahead`): the 4 gloo ranks and each NCCL world,
+    held until `run_mesh_path` → its handle."""
     import numpy as np
     import torch
-    from repro_torch.baselines import mr_fuzzy_kmeans, mr_kmeans
-    from repro_torch.core import bigfcm_fit
-    from repro_torch.data.plane import batched
-    from repro_torch.engine import MergePlan, Summary, merge_summaries
-    from repro_torch.fleet import BF16_REL_BOUND
-    from repro_torch.mesh import spawn_mesh
-    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
     arrays = {}
     for name, x in held_x.items():
         w = None
@@ -4673,13 +4721,36 @@ def run_mesh_path(held_x: dict, cfgs: dict, seed: int, mesh_dir: Path,
     rng = np.random.default_rng(seed)
     stack = (rng.normal(scale=5.0, size=(4, 23, 41)).astype(np.float32),
              rng.uniform(0.5, 2.0, size=(4, 23)).astype(np.float32))
-    setup_s = time.perf_counter() - t_phase
+    setup_s = time.perf_counter() - t0
+    # NCCL at the card count (with 2-4 cards its HIGGS-like fit is (i)
+    # again over NCCL; past 4 cards, (i) runs again at 4 ranks)
+    count = torch.cuda.device_count()
+    worlds = [(count, False)] + ([(4, True)] if count > 4 else [])
+    return {"arrays": arrays, "stack": stack, "setup_s": setup_s,
+            "gloo": spawn_ahead(str(mesh_dir / "go_gloo"), mesh_rank_job,
+                                (4,), ("data",), MESH_DEADLINE_S,
+                                args=(arrays, cfgs, stack), backend="gloo"),
+            "nccl": [(p, fit_only, spawn_ahead(
+                str(mesh_dir / f"go_nccl_{p}"), mesh_nccl_job, (p,),
+                ("data",), MESH_DEADLINE_S,
+                args=(arrays, cfgs, stack, fit_only), backend="nccl"))
+                for p, fit_only in worlds]}
 
-    t0 = time.perf_counter()
-    ranks = spawn_mesh(mesh_rank_job, (4,), ("data",), backend="gloo",
-                       timeout_s=MESH_DEADLINE_S,
-                       args=(arrays, cfgs, stack))
-    gloo_s = time.perf_counter() - t0
+
+def run_mesh_path(started: dict, cfgs: dict, device) -> list:
+    """The mesh phase (module note, 7) on the ranks `start_mesh_path`
+    spawned (``started``): returns its kernel entries."""
+    import dataclasses as dc
+    import numpy as np
+    import torch
+    from repro_torch.baselines import mr_fuzzy_kmeans, mr_kmeans
+    from repro_torch.core import bigfcm_fit
+    from repro_torch.data.plane import batched
+    from repro_torch.engine import MergePlan, Summary, merge_summaries
+    from repro_torch.fleet import BF16_REL_BOUND
+    t_phase = time.perf_counter()
+    arrays, stack = started["arrays"], started["stack"]
+    ranks, gloo_s, gloo_ahead_s = join_spawn(started["gloo"])
     entries, records = [], []
     for name, (shape, names, hier) in MESH_RUNS.items():
         x, w = mesh_load(arrays[name])
@@ -4778,15 +4849,10 @@ def run_mesh_path(held_x: dict, cfgs: dict, seed: int, mesh_dir: Path,
                     "exchange_max_abs_err": exchange,
                     "exchange_scale": ex_scale})
 
-    # (v) NCCL at the card count (with 2-4 cards its HIGGS-like fit is
-    # (i) again over NCCL; past 4 cards, (i) runs again at 4 ranks)
-    count = torch.cuda.device_count()
+    # (v) NCCL at the card count (`start_mesh_path`)
     t0 = time.perf_counter()
-    worlds = [(count, False)] + ([(4, True)] if count > 4 else [])
-    for p, fit_only in worlds:
-        nccl = spawn_mesh(mesh_nccl_job, (p,), ("data",), backend="nccl",
-                          timeout_s=MESH_DEADLINE_S,
-                          args=(arrays, cfgs, stack, fit_only))
+    for p, fit_only, handle in started["nccl"]:
+        nccl = join_spawn(handle)[0]
         got = nccl[0]["fit"]
         if p == 1:
             # the single-device branch: bigfcm_fit without a mesh, from
@@ -4834,8 +4900,10 @@ def run_mesh_path(held_x: dict, cfgs: dict, seed: int, mesh_dir: Path,
                 raise AssertionError(f"nccl mesh at {p} ranks: {rec}")
         records.append(rec)
     nccl_s = time.perf_counter() - t0
-    records.append({"phase": "mesh_done", "setup_s": setup_s,
-                    "gloo_spawn_s": gloo_s, "nccl_s": nccl_s,
+    records.append({"phase": "mesh_done", "setup_s": started["setup_s"],
+                    "gloo_ranks_s": gloo_s,
+                    "gloo_spawned_before_phase_s": gloo_ahead_s,
+                    "nccl_s": nccl_s,
                     "seconds": time.perf_counter() - t_phase})
     for rec in records:
         emit(rec)
@@ -5268,12 +5336,8 @@ MOE_TIE_REL = 1e-6
 # LM_ATOL on the served model's first layers (full width).  The SSD's f32
 # gap between its chunked and recurrent forms grows with depth in both
 # packages (scripts/ssm_depth_witness.py, on the CPU at chunk 256: the
-# reference's own keeps the bar at 16 layers and misses it at 64); the
-# gap deeper in is printed beside it, at SSM_WITNESS_LAYERS (at the full
-# 64 / 81 layers its 256 f32 decode steps took 30 / 47 s of the script's
-# limit).
+# reference's own keeps the bar at 16 layers and misses it at 64).
 SSM_HOLD_LAYERS = {"mamba2-2.7b": 16, "zamba2-7b": 15}   # zamba2: 2 × 6 + 3
-SSM_WITNESS_LAYERS = {"mamba2-2.7b": 32, "zamba2-7b": 39}  # zamba2: 6 × 6 + 3
 
 
 def fam_model(arch, seed, device):
@@ -5419,12 +5483,12 @@ def f32_twin(model, cfg, device, **changes):
 
 
 def hold_decode_vs_forward(name, cfg32, m32, prompt, cont, device,
-                           exempt=None, hold=True) -> dict:
+                           exempt=None) -> dict:
     """A decoder in f32: cached prefill of ``prompt`` (B, P), then
     ``cont`` (B, n) one token at a time, against one forward over all P
     + n tokens, on the hidden states of positions P − 1 … P + n − 1 at
-    LM_RTOL / LM_ATOL (printed only, unless ``hold``).  ``exempt`` (B,
-    P + n) bool, if given, leaves positions out (near-tied routing)."""
+    LM_RTOL / LM_ATOL.  ``exempt`` (B, P + n) bool, if given, leaves
+    positions out (near-tied routing)."""
     import torch
     from repro_torch.models.transformer import init_caches
     b, p = prompt.shape
@@ -5445,15 +5509,11 @@ def hold_decode_vs_forward(name, cfg32, m32, prompt, cont, device,
         keep = ~exempt[:, p - 1:].to(device)
         held = int(keep.sum())
         h_dec, h_full = h_dec[keep], h_full[keep]
-    over = (h_dec - h_full).abs() - (LM_ATOL + LM_RTOL * h_full.abs())
-    if hold:
-        max_err((h_dec,), (h_full,), LM_RTOL, LM_ATOL,
-                f"{name}: f32 decode vs forward, {cfg32.n_layers} layers")
-    rec = {"layers": cfg32.n_layers, "held": hold,
-           "decode_vs_forward_max_abs_err": float(
-               (h_dec - h_full).abs().max()),
-           "within_bar": not bool((over > 0).any()),
-           "values_past_bar": int((over > 0).sum()), "rtol": LM_RTOL,
+    rec = {"layers": cfg32.n_layers,
+           "decode_vs_forward_max_abs_err": max_err(
+               (h_dec,), (h_full,), LM_RTOL, LM_ATOL,
+               f"{name}: f32 decode vs forward, {cfg32.n_layers} layers"),
+           "rtol": LM_RTOL,
            "atol": LM_ATOL, "positions": [p - 1, p + n - 1],
            "hidden_scale": float(h_full.abs().max()),
            "seconds": time.perf_counter() - t0}
@@ -5945,8 +6005,6 @@ def run_lm_ssm(phase, arch, seed, device):
         m_cut.load_state_dict({k: full[k] for k in m_cut.state_dict()},
                               assign=True)
         return cut, m_cut
-    rec["f32_witness"] = hold_decode_vs_forward(
-        phase, *cut_to(SSM_WITNESS_LAYERS[arch]), *args, hold=False)
     rec["f32"] = hold_decode_vs_forward(
         phase, *cut_to(SSM_HOLD_LAYERS[arch]), *args)
     del m32, full
@@ -6064,8 +6122,10 @@ BF16_PEAK_FLOP_PER_S = 989e12
 # in another order); the card's optimizer update against the CPU's
 # optimizer applied to the card's gradients within TWIN_ULPS f32 ulps of
 # the parameter plus TWIN_UPDATE_REL of the update (Adafactor's means and
-# RMS are sums taken in another order).
-TWIN_LAYERS, TWIN_BATCH, TWIN_SEQ = 2, 2, 64
+# RMS are sums taken in another order).  OLMoE's twin holds one layer:
+# the CPU's step of two, 64 experts each at cf = E/k, took 40–57 s on an
+# H100 machine's host.
+TWIN_LAYERS, TWIN_MOE_LAYERS, TWIN_BATCH, TWIN_SEQ = 2, 1, 2, 64
 TWIN_LOSS_REL, TWIN_GRAD_REL, TWIN_ULPS = 1e-5, 1e-4, 2
 TWIN_UPDATE_REL = 1e-5
 # the checkpoint's resumed step where the card's kernels are not
@@ -6447,7 +6507,8 @@ def run_lm_train_moe(model, cfg, unseeded, router_rec, seed, device):
     ``params=``) with Adafactor on 8 × 2048 batches: TRAIN_WARMUP
     warm-up and TRAIN_MOE_STEPS timed steps; the dropped pairs and router
     load of the first batch before and after; the f32 twin of its first
-    TWIN_LAYERS layers at cf = E/k (no drops), routing held identical."""
+    TWIN_MOE_LAYERS layers at cf = E/k (no drops), routing held
+    identical."""
     import torch
     from repro_torch.launch.train import build
     t_phase = time.perf_counter()
@@ -6472,10 +6533,10 @@ def run_lm_train_moe(model, cfg, unseeded, router_rec, seed, device):
                                            * cfg.capacity_factor)
                                     // cfg.n_experts),
                     "before": before, "after": after}
-    twin = twin_state(model, cfg, TWIN_LAYERS)
+    twin = twin_state(model, cfg, TWIN_MOE_LAYERS)
     model.requires_grad_(False)
     cfg32 = dataclasses.replace(
-        cfg, n_layers=TWIN_LAYERS, param_dtype="float32",
+        cfg, n_layers=TWIN_MOE_LAYERS, param_dtype="float32",
         compute_dtype="float32", capacity_factor=cfg.n_experts / cfg.top_k)
     rec["f32_twin"] = hold_twin(
         "lm_train_moe", cfg32, twin,
@@ -6600,28 +6661,35 @@ def dp_compose(cfg, seed, batches, device):
     return model, hist, err
 
 
-def run_lm_train_dp(seed, device):
+def start_lm_train_dp(seed, device, work_dir):
+    """``lm_train_dp``'s DP_RANKS ranks, spawned ahead (`spawn_ahead`),
+    held until `run_lm_train_dp` → its handle."""
+    cfg = dp_config()
+    batches = train_batches(cfg, DP_STEPS, seed + 11, DP_BATCH)
+    return spawn_ahead(str(work_dir / "go_dp"), dp_rank_job, (DP_RANKS,),
+                       ("data",), 600.0, args=(seed, batches),
+                       backend="gloo", device_type=device.type)
+
+
+def run_lm_train_dp(seed, device, started):
     """Phase ``lm_train_dp``: `train.dp.make_dp_train_step` on DP_RANKS
-    gloo ranks sharing the card (`mesh.spawn_mesh`), Qwen2-1.5B at full
-    width and DP_LAYERS layers in bf16, a bf16 wire with error feedback,
-    DP_STEPS steps of DP_BATCH × 2048 tokens; held against the same steps
+    gloo ranks sharing the card (`mesh.spawn_mesh`, spawned ahead by
+    `start_lm_train_dp`: ``started``), Qwen2-1.5B at full width and
+    DP_LAYERS layers in bf16, a bf16 wire with error feedback, DP_STEPS
+    steps of DP_BATCH × 2048 tokens; held against the same steps
     composed in this process (`dp_compose`), bit for bit."""
     import torch
-    from repro_torch import mesh as M
     t_phase = time.perf_counter()
     cfg = dp_config()
     batches = train_batches(cfg, DP_STEPS, seed + 11, DP_BATCH)
-    t0 = time.perf_counter()
-    ranks = M.spawn_mesh(dp_rank_job, (DP_RANKS,), ("data",),
-                         backend="gloo", device_type=device.type,
-                         timeout_s=600.0, args=(seed, batches))
-    spawn_s = time.perf_counter() - t0
+    ranks, ranks_s, ahead_s = join_spawn(started)
     model, hist, err = dp_compose(cfg, seed, batches, device)
     params = model.state_dict()
     n = sum(p.numel() for p in model.parameters())
     rec = {"ranks": DP_RANKS, "layers": DP_LAYERS, "n_params": n,
            "batch": [DP_BATCH, TRAIN_SEQ], "steps": DP_STEPS,
-           "wire": "bfloat16", "spawn_s": spawn_s,
+           "wire": "bfloat16", "ranks_s": ranks_s,
+           "spawned_before_phase_s": ahead_s,
            "rank_step_s": [r["step_s"] for r in ranks],
            "rank_gathered_bytes": [r["gathered_bytes"] for r in ranks],
            "f32_wire_bytes": 4 * n * DP_RANKS * DP_STEPS,
@@ -6854,11 +6922,20 @@ def ep_rank_job(mesh, seed):
     return out
 
 
-def run_lm_moe_ep(seed, device):
+def start_lm_moe_ep(seed, device, work_dir):
+    """``lm_moe_ep``'s ranks, spawned ahead (`spawn_ahead`), held until
+    `run_lm_moe_ep` → its handle."""
+    return spawn_ahead(str(work_dir / "go_ep"), ep_rank_job, EP_SHAPE,
+                       EP_NAMES, EP_DEADLINE_S, args=(seed,),
+                       backend="gloo", device_type=device.type)
+
+
+def run_lm_moe_ep(seed, device, started):
     """Phase ``lm_moe_ep``: `moe`'s expert-parallel branches (``tp``:
     tokens replicated over "model", a psum of the partial outputs;
     ``a2a`` under "fsdp": tokens split over "model", two `all_to_all`
-    exchanges each way) on 4 gloo ranks sharing the card, at
+    exchanges each way) on 4 gloo ranks sharing the card (spawned ahead
+    by `start_lm_moe_ep`: ``started``), at
     OLMoE-1B-7B's published widths (d 2048, 64 experts, top-8, d_ff 1024;
     one layer, weights from ``seed``).  (a) f32 at cf 8: each branch's y
     and gradients against the single-rank layer on the card; (b) bf16 at
@@ -6867,14 +6944,9 @@ def run_lm_moe_ep(seed, device):
     move, the pairs dropped."""
     import numpy as np
     import torch
-    from repro_torch import mesh as M
     from repro_torch.models import moe as TM
     t_phase = time.perf_counter()
-    t0 = time.perf_counter()
-    ranks = M.spawn_mesh(ep_rank_job, EP_SHAPE, EP_NAMES, backend="gloo",
-                         device_type=device.type, timeout_s=EP_DEADLINE_S,
-                         args=(seed,))
-    spawn_s = time.perf_counter() - t0
+    ranks, ranks_s, ahead_s = join_spawn(started)
     # the single rank here, alone on the card
     b, s = EP_TIME
     cfg = ep_config(EP_PUBLISHED["capacity_factor"], "bfloat16")
@@ -6895,7 +6967,8 @@ def run_lm_moe_ep(seed, device):
     pairs = b * s * cfg.top_k
     rec = {"arch": EP_ARCH, "mesh": dict(zip(EP_NAMES, EP_SHAPE)),
            "backend": "gloo", "experts_per_rank": cfg.n_experts
-           // EP_SHAPE[1], "spawn_s": spawn_s, "reps": EP_REPS,
+           // EP_SHAPE[1], "ranks_s": ranks_s,
+           "spawned_before_phase_s": ahead_s, "reps": EP_REPS,
            "hold_f32": {"tokens": list(EP_HOLD[:2]), "cf": EP_HOLD[2],
                         "rel": EP_REL,
                         "ranks": [r["hold"] for r in ranks]},
@@ -6968,28 +7041,27 @@ MP_MOE_CF = 8.0
 MP_TIME = (4, 2048)
 MP_TIMED, MP_CKPT_AT, MP_RESUMED = 3, 2, 2
 MP_DEADLINE_S = 600.0
-# Both groups of ranks are spawned at once, before ``lm_train_dp``, so
-# that their processes' start (20–50 s of imports, CUDA contexts and the
-# rendezvous a spawn on this card) overlaps that phase, ``lm_moe_ep``,
-# the parent's one-rank steps and the 4-rank run; each waits for its
-# go-ahead file: the 4 ranks for the phase's start and then for each
-# case's one-rank leaves (after their own step), the 2 restart ranks for
-# the 4-rank run's end.
+# Both groups of ranks are spawned at once, before ``lm_train``, so
+# that their processes' start (20–60 s of imports, CUDA contexts and the
+# rendezvous a spawn on this card) overlaps that phase, ``lm_train_dp``,
+# ``lm_moe_ep``, the parent's one-rank steps and the 4-rank run; each
+# waits for its go-ahead file: the 4 ranks for the phase's start and then
+# for each case's one-rank leaves (after their own step), the 2 restart
+# ranks for the 4-rank run's end.
 MP_POLL_S = 0.2
 
 
 def mp_wait(path, deadline_s=MP_DEADLINE_S):
     """Block until ``path`` exists (another process's go-ahead); raise
-    once its directory holds ``wants_failed`` (the one-rank steps
-    failed)."""
+    once its directory holds ``wants_failed`` (the parent failed: a
+    phase before the rank's own, or the one-rank steps)."""
     t_end = time.monotonic() + deadline_s
     failed = os.path.join(os.path.dirname(path), "wants_failed")
     while not os.path.exists(path):
         if os.path.exists(failed):
-            raise RuntimeError(f"lm_train_mp: no {path}: the one-rank "
-                               "steps failed")
+            raise RuntimeError(f"no {path}: the parent failed")
         if time.monotonic() > t_end:
-            raise TimeoutError(f"lm_train_mp: no {path} after {deadline_s} s")
+            raise TimeoutError(f"no {path} after {deadline_s} s")
         time.sleep(MP_POLL_S)
 
 
@@ -6997,6 +7069,49 @@ def mp_signal(path):
     with open(path + ".tmp", "w") as f:
         f.write("go")
     os.replace(path + ".tmp", path)
+
+
+def held_job(mesh, go, fn, args):
+    """A rank spawned ahead of its phase (`spawn_ahead`): ``fn(mesh,
+    *args)`` once the file ``go`` exists."""
+    mp_wait(go)
+    return fn(mesh, *args)
+
+
+def spawn_ahead(go, fn, shape, names, timeout_s, args=(), **kw):
+    """`spawn_mesh` (``kw``: backend, device type) of ``fn`` started now
+    on a thread, so that its processes' start (imports, CUDA contexts,
+    the rendezvous: 10–60 s a spawn on the card's host) overlaps the
+    phases before its own; each rank holds until ``go`` exists and fails
+    once ``go``'s directory holds ``wants_failed`` → the handle
+    `join_spawn` takes."""
+    import threading
+    from repro_torch.mesh import spawn_mesh
+    box = {"go": go, "t_spawn": time.perf_counter()}
+
+    def run():
+        try:
+            box["ranks"] = spawn_mesh(held_job, shape, names,
+                                      timeout_s=timeout_s,
+                                      args=(go, fn, args), **kw)
+        except BaseException as e:      # re-raised by join_spawn
+            box["error"] = e
+    box["thread"] = threading.Thread(target=run, daemon=True)
+    box["thread"].start()
+    return box
+
+
+def join_spawn(box) -> tuple:
+    """A `spawn_ahead` group's go-ahead, then its ranks' results → (the
+    results by rank, the seconds from the go-ahead to them, the seconds
+    the spawn started before the go-ahead)."""
+    t_go = time.perf_counter()
+    mp_signal(box["go"])
+    box["thread"].join()
+    if "error" in box:
+        raise box["error"]
+    return (box["ranks"], time.perf_counter() - t_go,
+            t_go - box["t_spawn"])
 
 
 def mp_config(arch, layers, dtype, **kw):
@@ -7022,6 +7137,164 @@ def mp_cases():
             ("zamba2_tp", fam["zamba2-7b"], "tp"),
             ("zamba2_fsdp", fam["zamba2-7b"], "fsdp"),
             ("whisper_tp", fam["whisper-medium"], "tp")]
+
+
+# lm_serve_mp (run by lm_train_mp's 4 ranks): (a) f32 holds of the
+# sharded prefill and greedy decode at SERVE_HOLD prompts, SERVE_HOLD_NEW
+# tokens generated, against the one-rank path on the card from the same
+# draws: each rank's block of the prefill's last logits within
+# SERVE_LOGIT_REL of the one-rank logits' largest magnitude, the tokens
+# equal; (b) bf16 Qwen2-1.5B (MP_LAYERS layers) under "tp" and "fsdp",
+# a prefill of SERVE_TIME tokens, then SERVE_NEW decode steps, timed.
+SERVE_HOLD = (4, 64)
+SERVE_HOLD_NEW = 2     # the prefill's token and one decode step
+SERVE_LOGIT_REL = 1e-5
+SERVE_TIME = (4, 2048)
+SERVE_NEW = 8
+
+
+def serve_cases():
+    """(name, config, profile, batch) of lm_serve_mp's f32 holds: a batch
+    of 1 is whole on every rank, one of 2 under "fsdp" split over "data"
+    and replicated over "model"."""
+    qwen = mp_config(LM_ARCH, MP_LAYERS, "float32")
+    olmoe = mp_config(EP_ARCH, MP_MOE_LAYERS, "float32",
+                      capacity_factor=MP_MOE_CF)
+    mamba = mp_config("mamba2-2.7b", MP_FAM_LAYERS["mamba2-2.7b"],
+                      "float32")
+    return [("qwen2_tp", qwen, "tp", 4), ("qwen2_fsdp", qwen, "fsdp", 4),
+            ("qwen2_tp_b1", qwen, "tp", 1),
+            ("qwen2_fsdp_b2", qwen, "fsdp", 2),
+            ("olmoe_tp", olmoe, "tp", 4), ("olmoe_fsdp", olmoe, "fsdp", 4),
+            ("mamba2_tp", mamba, "tp", 4)]
+
+
+def serve_key(cfg, batch) -> str:
+    return f"{cfg.name}_b{batch}"
+
+
+def serve_tokens(cfg, seed, batch):
+    """The first ``batch`` prompts of SERVE_HOLD tokens of ``seed``."""
+    return train_batches(cfg, 1, seed, *SERVE_HOLD)[0]["tokens"][:batch]
+
+
+def serve_run(cfg, model, tokens, new, device):
+    """Prefill ``tokens``, then ``new`` − 1 greedy decode steps, each
+    timed from a barrier where ``model`` is sharded → (the prefill's
+    logits, the (B, new) tokens, prefill ms, decode ms of each step, the
+    bytes moved by kind in the prefill and in the decode steps)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.device import synchronize
+    from repro_torch.serve.decode import (first_tokens, make_prefill,
+                                          make_serve_step)
+    tokens = torch.as_tensor(tokens, device=device)
+    b, s = tokens.shape
+    prefill = make_prefill(cfg, s + new)
+    step = make_serve_step(cfg)
+    sharded = getattr(model, "mesh", None) is not None
+
+    def mark():
+        if sharded:
+            dist.barrier()
+        synchronize(device)
+        return time.perf_counter(), mp_counters()
+    t0, c0 = mark()
+    logits, caches = prefill(model, {"tokens": tokens})
+    tok = first_tokens(cfg, model, logits, b)
+    t1, c1 = mark()
+    out, step_ms = [tok], []
+    for _ in range(new - 1):
+        ts, _ = mark()
+        tok, caches = step(model, caches, tok)
+        synchronize(device)
+        step_ms.append((time.perf_counter() - ts) * 1e3)
+        out.append(tok)
+    _, c2 = mark()
+    return {"logits": logits, "tokens": torch.cat(out, 1).cpu(),
+            "prefill_ms": (t1 - t0) * 1e3, "step_ms": step_ms,
+            "prefill_moved": {k: c1[k] - c0[k] for k in c0},
+            "decode_moved": {k: c2[k] - c1[k] for k in c1}}
+
+
+def serve_want(cfg, seed, tokens, device, path) -> None:
+    """The one-rank path on the card (the model of ``seed`` as `build`
+    draws it): its prefill logits and tokens saved to ``path``, the
+    ranks' go-ahead for that hold."""
+    import torch
+    from repro_torch.models import DecoderLM
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = DecoderLM(cfg, torch.Generator(device=device).manual_seed(seed),
+                      device=device)
+    got = serve_run(cfg, model, tokens, SERVE_HOLD_NEW, device)
+    torch.save({"logits": got["logits"].float().cpu(),
+                "tokens": got["tokens"]}, path + ".tmp")
+    os.replace(path + ".tmp", path)
+    del model
+    torch.cuda.empty_cache()
+
+
+def serve_rank(mesh, seed, serve_wants, dev) -> dict:
+    """lm_serve_mp on one rank: (a) each f32 hold's sharded run and its
+    block of the logits and its tokens against the one-rank path's, (b)
+    the timed bf16 runs."""
+    import torch
+    from repro_torch import mesh as M
+    from repro_torch.launch.train import build
+    from repro_torch.serve.decode import _vocab_block
+    from repro_torch.sharding import mesh_context, profile_context, spmd
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {"hold": {}, "timed": {}}
+    for name, cfg, profile, b in serve_cases():
+        t0 = time.perf_counter()
+        with profile_context(profile):
+            state, _ = build(cfg, mesh, seed=seed, device=dev.type)
+            got = serve_run(cfg, state.params, serve_tokens(cfg, seed + 23,
+                                                            b),
+                            SERVE_HOLD_NEW, dev)
+            del state
+            path = serve_wants[serve_key(cfg, b)]
+            t1 = time.perf_counter()
+            mp_wait(path)
+            wait_s = time.perf_counter() - t1
+            want = torch.load(path)
+            with mesh_context(mesh), spmd.rows(b, mesh):
+                rows = M.shard_rows(want["logits"], mesh,
+                                    spmd.batch_axes(mesh))
+                v0, n = _vocab_block(cfg, mesh)
+        blk = rows[..., v0:v0 + n].to(dev)
+        err = float((got["logits"].float() - blk).abs().max())
+        # the scale: the largest real logit (padded columns hold -1e30)
+        scale = float(want["logits"][..., :cfg.vocab].abs().max())
+        out["hold"][name] = {
+            "max_abs_err": err, "rel": err / scale,
+            "tokens_equal": bool(torch.equal(got["tokens"],
+                                             want["tokens"])),
+            "prefill_ms": got["prefill_ms"], "step_ms": got["step_ms"],
+            "decode_moved": got["decode_moved"], "want_wait_s": wait_s,
+            "seconds": time.perf_counter() - t0}
+        torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32 = True
+    cfg = mp_config(LM_ARCH, MP_LAYERS, "bfloat16")
+    tokens = train_batches(cfg, 1, seed + 24, *SERVE_TIME)[0]["tokens"]
+    for profile in ("tp", "fsdp"):
+        t0 = time.perf_counter()
+        with profile_context(profile):
+            state, _ = build(cfg, mesh, seed=seed + 1, device=dev.type)
+            serve_run(cfg, state.params, tokens[:, :64], 2, dev)  # warm
+            before = mp_counters()
+            got = serve_run(cfg, state.params, tokens, SERVE_NEW, dev)
+            del state
+        out["timed"][profile] = {
+            "prefill_ms": got["prefill_ms"], "step_ms": got["step_ms"],
+            "prefill_moved": got["prefill_moved"],
+            "decode_moved": got["decode_moved"],
+            "collective_s": mp_counters()["collective_s"]
+            - before["collective_s"],
+            "tokens": got["tokens"][:, :2].tolist(),
+            "seconds": time.perf_counter() - t0}
+        torch.cuda.empty_cache()
+    return out
 
 
 def mp_hold_batch(cfg, seed):
@@ -7105,13 +7378,14 @@ def mp_counters() -> dict:
 
 
 def mp_rank_job(mesh, seed, hold_batches, wants, batches, ckpt_dir,
-                work_dir):
+                work_dir, serve_wants):
     """One rank of ``lm_train_mp``, once the phase begins (its ``go``
     file): (a) each f32 case's sharded step, timed with its bytes by
     kind, and its blocks held against the one-rank step's (once the
     parent has written them); (b) the timed
     bf16 steps, each with its bytes by kind and collective seconds, and
-    the sharded checkpoint after step MP_CKPT_AT."""
+    the sharded checkpoint after step MP_CKPT_AT; then ``lm_serve_mp``
+    (`serve_rank`)."""
     import torch
     import torch.distributed as dist
     from repro_torch import mesh as M
@@ -7184,6 +7458,9 @@ def mp_rank_job(mesh, seed, hold_batches, wants, batches, ckpt_dir,
     dist.barrier()
     if M.is_first(mesh):
         mp_signal(os.path.join(work_dir, "four_ranks_done"))
+    t0 = time.perf_counter()
+    out["serve"] = serve_rank(mesh, seed, serve_wants, dev)
+    out["serve_s"] = time.perf_counter() - t0
     out["t_end"] = time.time()
     return out
 
@@ -7258,12 +7535,16 @@ def start_lm_train_mp(seed, device, work_dir):
     for _, cfg, _ in mp_cases():
         hold_batches[cfg.name] = mp_hold_batch(cfg, seed + 21)
         wants[cfg.name] = str(work_dir / f"want_{cfg.name}.pt")
+    serve_wants = {serve_key(cfg, b): str(
+        work_dir / f"serve_want_{serve_key(cfg, b)}.pt")
+        for _, cfg, _, b in serve_cases()}
     cfg = mp_config(LM_ARCH, MP_LAYERS, "bfloat16")
     batches = train_batches(cfg, 1 + MP_TIMED, seed + 22, *MP_TIME)
     ckpt_dir = str(work_dir / "ckpt")
     spawns = {
         "four_ranks": (mp_rank_job, MP_SHAPE, (
-            seed, hold_batches, wants, batches, ckpt_dir, str(work_dir))),
+            seed, hold_batches, wants, batches, ckpt_dir, str(work_dir),
+            serve_wants)),
         "two_ranks": (mp_resume_job, (1, 2), (
             seed, batches[MP_CKPT_AT:], ckpt_dir, str(work_dir)))}
     got, walls = {}, {}
@@ -7287,7 +7568,8 @@ def start_lm_train_mp(seed, device, work_dir):
     for t in threads:
         t.start()
     return {"threads": threads, "got": got, "walls": walls,
-            "spawns": spawns, "hold_batches": hold_batches, "wants": wants}
+            "spawns": spawns, "hold_batches": hold_batches, "wants": wants,
+            "serve_wants": serve_wants}
 
 
 def run_lm_train_mp(seed, device, work_dir, dp_rec, started):
@@ -7308,15 +7590,23 @@ def run_lm_train_mp(seed, device, work_dir, dp_rec, started):
         "spawns", "hold_batches", "wants"))
     want_rec = {}
     t0 = time.perf_counter()
+    serve_wants = started["serve_wants"]
+    served = set()
     try:
         for _, cfg, _ in mp_cases():
             if cfg.name not in want_rec:
                 want_rec[cfg.name] = mp_want(cfg, seed,
                                              hold_batches[cfg.name], device,
                                              wants[cfg.name])
+        for _, cfg, _, b in serve_cases():
+            key = serve_key(cfg, b)
+            if key not in served:
+                serve_want(cfg, seed, serve_tokens(cfg, seed + 23, b),
+                           device, serve_wants[key])
+                served.add(key)
     finally:
-        if len(want_rec) < len(wants):  # the ranks stop waiting and fail
-            mp_signal(str(work_dir / "wants_failed"))
+        if len(want_rec) < len(wants) or len(served) < len(serve_wants):
+            mp_signal(str(work_dir / "wants_failed"))  # the ranks fail
         want_s = time.perf_counter() - t0
         for t in threads:
             t.join()
@@ -7431,6 +7721,48 @@ def run_lm_train_mp(seed, device, work_dir, dp_rec, started):
     rec["seconds"] = time.perf_counter() - t_phase
     torch.cuda.empty_cache()
     emit({"phase": "lm_train_mp", "nvidia_smi": nvidia_smi(), **rec})
+    emit(serve_record(ranks))
+
+
+def serve_record(ranks) -> dict:
+    """Phase ``lm_serve_mp``'s record from the 4 ranks' `serve_rank`
+    results; raises past a gate."""
+    import numpy as np
+    hold = {}
+    for name, cfg, profile, b in serve_cases():
+        per = [r["serve"]["hold"][name] for r in ranks]
+        for r, p in enumerate(per):
+            if not p["tokens_equal"] or not p["rel"] <= SERVE_LOGIT_REL:
+                raise AssertionError(f"lm_serve_mp: {name} rank {r}: {p}")
+        hold[name] = {"arch": cfg.name, "profile": profile, "batch": b,
+                      "max_abs_err": max(p["max_abs_err"] for p in per),
+                      "rel": max(p["rel"] for p in per),
+                      "tokens_equal": True,
+                      "prefill_ms_slowest_rank": max(p["prefill_ms"]
+                                                     for p in per),
+                      "decode_bytes_rank0": per[0]["decode_moved"]}
+    timed = {}
+    for profile in ("tp", "fsdp"):
+        per = [r["serve"]["timed"][profile] for r in ranks]
+        if any(p["tokens"] != per[0]["tokens"] for p in per):
+            raise AssertionError(f"lm_serve_mp: {profile}: the ranks' "
+                                 f"tokens differ: {per}")
+        timed[profile] = {
+            "per_rank": [{
+                "prefill_ms": p["prefill_ms"],
+                "decode_ms_per_token": float(np.median(p["step_ms"])),
+                "prefill_bytes": p["prefill_moved"],
+                "decode_bytes": p["decode_moved"],
+                "collective_s": p["collective_s"]} for p in per],
+            "seconds": max(p["seconds"] for p in per)}
+    return {"phase": "lm_serve_mp", "nvidia_smi": nvidia_smi(),
+            "mesh": dict(zip(MP_NAMES, MP_SHAPE)), "backend": "gloo",
+            "hold_f32": {"tokens": list(SERVE_HOLD), "new": SERVE_HOLD_NEW,
+                         "logit_rel_bar": SERVE_LOGIT_REL, "cases": hold},
+            "timed_bf16": {"arch": LM_ARCH, "layers": MP_LAYERS,
+                           "tokens": list(SERVE_TIME), "new": SERVE_NEW,
+                           "profiles": timed},
+            "seconds": max(r["serve_s"] for r in ranks)}
 
 
 def peak_bytes(device, reset=False):
@@ -7507,6 +7839,81 @@ def kernel_line(per_run) -> list:
     return out
 
 
+# Phase ``dryrun``: the port's dry run of these cells, in a subprocess
+# started before the build on one torch thread (fake tensors: no card
+# work), collected before the kernels line.
+DRYRUN_CELLS = ("qwen2-1.5b__train_4k__pod1",
+                "qwen2-1.5b__train_4k__pod1__fsdp",
+                "olmoe-1b-7b__train_4k__pod2__fsdp",
+                "zamba2-7b__decode_32k__pod1",
+                "mamba2-2.7b__long_500k__pod1",
+                "kimi-k2-1t-a32b__decode_32k__pod1")
+DRYRUN_DEADLINE_S = 900.0
+
+
+def start_dryrun(out_dir: Path):
+    """``python -m repro_torch.launch.dryrun`` over DRYRUN_CELLS into
+    ``out_dir``, started now → (the process, its start on the perf
+    counter, its start on the wall clock)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               OMP_NUM_THREADS="1")
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+           "--out-dir", str(out_dir)]
+    for cell in DRYRUN_CELLS:
+        cmd += ["--cell", cell]
+    log = open(out_dir / "log.txt", "w")
+    proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT,
+                            env=env, cwd=str(ROOT))
+    log.close()
+    return proc, time.perf_counter(), time.time()
+
+
+def run_dryrun(started, out_dir: Path) -> dict:
+    """Phase ``dryrun``: wait for the subprocess, then each cell's
+    status, a rank's argument and peak GB, its FLOPs, its collective
+    bytes by kind, the three roofline terms and the bottleneck; raises
+    if the process failed or a cell is not "ok"."""
+    proc, t0, t0_wall = started
+    t_wait = time.perf_counter()
+    try:
+        code = proc.wait(timeout=max(1.0, DRYRUN_DEADLINE_S
+                                     - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        raise
+    waited = time.perf_counter() - t_wait
+    cells = {}
+    for cell in DRYRUN_CELLS:
+        path = out_dir / f"{cell}.json"
+        if not path.exists():
+            raise AssertionError(f"dryrun: no record of {cell}: "
+                                 + (out_dir / "log.txt").read_text()[-3000:])
+        rec = json.loads(path.read_text())
+        if rec["status"] != "ok":
+            raise AssertionError(f"dryrun: {cell}: {rec.get('error')}\n"
+                                 f"{rec.get('traceback')}")
+        ro, mem = rec["roofline"], rec["memory_analysis"]
+        cells[cell] = {
+            "status": rec["status"], "trace_s": rec["t_lower_s"],
+            "argument_gb": mem["argument_size_in_bytes"] / 1e9,
+            "peak_gb": rec["peak_bytes_per_rank"] / 1e9,
+            "card_gb": rec["card_memory_bytes"] / 1e9,
+            "counted_flops": rec["compiled_cost"]["flops"],
+            "flops_per_dev": ro["flops_per_dev"],
+            "coll_breakdown": ro["coll_breakdown"],
+            "t_compute_s": ro["t_compute_s"], "t_memory_s": ro["t_memory_s"],
+            "t_collective_s": ro["t_collective_s"],
+            "bottleneck": ro["bottleneck"], "mfu_bound": ro["mfu_bound"]}
+    if code != 0:
+        raise AssertionError(f"dryrun exited {code}: "
+                             + (out_dir / "log.txt").read_text()[-3000:])
+    # the process's own end: its last write (the log or a record)
+    done_s = max(p.stat().st_mtime for p in out_dir.iterdir()) - t0_wall
+    return {"phase": "dryrun", "cells": cells,
+            "seconds": time.perf_counter() - t0, "done_after_s": done_s,
+            "waited_s": waited, "nvidia_smi": nvidia_smi()}
+
+
 def build_all() -> dict:
     """Build every kernel source at once (one ``nvcc`` each, in
     parallel), timed; returns each one's ptxas register/smem lines."""
@@ -7553,8 +7960,27 @@ def main(argv=None) -> int:
 
 
 def run_all(args, device) -> int:
-    """Phases 1 (the build) to 9, in the calibration sandbox."""
+    """Phases 1 (the build) to 9, in the calibration sandbox; the dry run
+    in a subprocess alongside."""
+    dry_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_dryrun_",
+                                    dir=ROOT / "build"))
+    dry = start_dryrun(dry_dir)
+    try:
+        return run_phases(args, device, dry, dry_dir)
+    finally:
+        if dry[0].poll() is None:
+            dry[0].kill()
+            dry[0].wait()
+        shutil.rmtree(dry_dir, ignore_errors=True)
+
+
+def run_phases(args, device, dry, dry_dir) -> int:
+    from concurrent.futures import ThreadPoolExecutor
     import torch
+    # phase 3's arrays, made on the host while nvcc builds the kernels
+    pool = ThreadPoolExecutor(1)
+    made = pool.submit(main_path_arrays, args.seed)
+    pool.shutdown(wait=False)
     emit(build_all())
 
     emit(check_kernels(device))
@@ -7566,12 +7992,15 @@ def run_all(args, device) -> int:
     torch.cuda.empty_cache()
 
     entries, held = [], {}
+    arrays = made.result()
     for run in RUNS:
-        got, held[run.name] = run_main_path(run, run.n, args.seed, device,
-                                            reps=20)
+        got, held[run.name] = run_main_path(run, arrays.pop(run.name),
+                                            args.seed, device, reps=20)
         entries += got
         torch.cuda.empty_cache()
-    entries += run_router_fit(args.seed, device, reps=20)
+    entries += run_router_fit(arrays.pop("router_fit"), args.seed, device,
+                              reps=20)
+    del arrays
     for run in TENANT_RUNS:
         entries.append(run_tenant_path(run, args.seed, device, reps=20))
         torch.cuda.empty_cache()
@@ -7583,24 +8012,32 @@ def run_all(args, device) -> int:
     kdd_m = held["kdd99_like"]["cfg"].m
     mesh_x = {run.name: held[run.name]["x"] for run in RUNS}
     mesh_cfgs = {run.name: held[run.name]["cfg"] for run in RUNS}
-    try:
-        for run in RUNS:
-            run_held = held.pop(run.name)
-            entries.append(run_store_path(run, run_held, store_dir, device))
-            torch.cuda.empty_cache()
-            if run.name == FLEET_RUN:
-                entries += run_fleet_path(run, run_held, held["kdd99_like"],
-                                          store_dir, entries, device)
-                torch.cuda.empty_cache()
-    finally:
-        shutil.rmtree(store_dir, ignore_errors=True)
     mesh_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_mesh_", dir=stores))
     try:
-        entries += run_mesh_path(mesh_x, mesh_cfgs, args.seed, mesh_dir,
-                                 device)
+        try:
+            for run in RUNS:
+                run_held = held.pop(run.name)
+                entries.append(run_store_path(run, run_held, store_dir,
+                                              device))
+                torch.cuda.empty_cache()
+                if run.name == FLEET_RUN:
+                    entries += run_fleet_path(run, run_held,
+                                              held["kdd99_like"], store_dir,
+                                              entries, device)
+                    torch.cuda.empty_cache()
+                    # the mesh phase's ranks start during the store phase
+                    # after the fleet's
+                    mesh = start_mesh_path(mesh_x, mesh_cfgs, args.seed,
+                                           mesh_dir)
+        finally:
+            shutil.rmtree(store_dir, ignore_errors=True)
+        entries += run_mesh_path(mesh, mesh_cfgs, device)
+    except BaseException:               # the waiting ranks fail and exit
+        mp_signal(str(mesh_dir / "wants_failed"))
+        raise
     finally:
         shutil.rmtree(mesh_dir, ignore_errors=True)
-    del mesh_x
+    del mesh_x, mesh
     torch.cuda.empty_cache()
     emit(run_serve(kdd_x, kdd_centers, kdd_m, args.seed, device))
     torch.cuda.empty_cache()
@@ -7615,19 +8052,24 @@ def run_all(args, device) -> int:
     entries += run_curriculum(model, lm_cfg, args.seed, device, reps=20)
     del model
     torch.cuda.empty_cache()
-    ckpt_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_train_", dir=stores))
-    try:
-        run_lm_train(args.seed, device, ckpt_dir)
-    finally:
-        shutil.rmtree(ckpt_dir, ignore_errors=True)
-    torch.cuda.empty_cache()
     mp_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_mp_", dir=stores))
     try:
+        # the ranks of lm_train_dp, lm_moe_ep and lm_train_mp, spawned
+        # now: their processes start during lm_train
         started = start_lm_train_mp(args.seed, device, mp_dir)
         try:
-            dp_rec = run_lm_train_dp(args.seed, device)
+            dp = start_lm_train_dp(args.seed, device, mp_dir)
+            ep = start_lm_moe_ep(args.seed, device, mp_dir)
+            ckpt_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_train_",
+                                             dir=stores))
+            try:
+                run_lm_train(args.seed, device, ckpt_dir)
+            finally:
+                shutil.rmtree(ckpt_dir, ignore_errors=True)
             torch.cuda.empty_cache()
-            run_lm_moe_ep(args.seed, device)
+            dp_rec = run_lm_train_dp(args.seed, device, dp)
+            torch.cuda.empty_cache()
+            run_lm_moe_ep(args.seed, device, ep)
         except BaseException:           # the waiting ranks fail and exit
             mp_signal(str(mp_dir / "wants_failed"))
             raise
@@ -7637,6 +8079,7 @@ def run_all(args, device) -> int:
         shutil.rmtree(mp_dir, ignore_errors=True)
     torch.cuda.empty_cache()
     entries += run_lm_families(args.seed, device, reps=20)
+    emit(run_dryrun(dry, dry_dir))
     return finish(entries, device)
 
 

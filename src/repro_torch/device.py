@@ -51,3 +51,11 @@ def synchronize(device: torch.device) -> None:
     """Wait for the card's queued work (no-op on the CPU)."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def is_fake(t: torch.Tensor) -> bool:
+    """Whether ``t`` is a ``FakeTensorMode`` tensor (the dry run traces
+    on them): shapes without data, so nothing of it can be read on the
+    host."""
+    from torch._subclasses.fake_tensor import FakeTensor
+    return isinstance(t, FakeTensor)

@@ -65,8 +65,8 @@ def elastic_remesh(state, old_shardings, new_mesh):
     from ..sharding.rules import block_of, put_block
     from .checkpoint import _rebuild, _sharded, global_shape
     old_mesh = old_shardings[0]
-    if sorted(old_mesh.mesh.flatten().tolist()) != \
-            sorted(new_mesh.mesh.flatten().tolist()):
+    if sorted(M.layout(old_mesh).ravel().tolist()) != \
+            sorted(M.layout(new_mesh).ravel().tolist()):
         raise ValueError("elastic_remesh re-blocks between meshes over the "
                          "same ranks; a changed world restarts from the "
                          "checkpoint (CheckpointManager.restore(shardings=))")

@@ -30,8 +30,10 @@ def make_production_mesh(*, multi_pod: bool = False,
                          device_type: str = "cuda"):
     """The reference's pod mesh: 16×16 ("data", "model"), or 2×16×16
     ("pod", "data", "model") with ``multi_pod``, over the first 256 (512)
-    ranks of the process group.  Fewer ranks raise `RuntimeError`, as
-    the reference does with fewer devices."""
+    ranks of the process group — torchrun's, or the "fake" group of 256
+    or 512 ranks the dry run joins (`launch.dryrun.join_fake_group`),
+    which this joins nothing beside.  Fewer ranks raise `RuntimeError`,
+    as the reference does with fewer devices."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
     n = math.prod(shape)
@@ -61,4 +63,4 @@ def make_host_mesh(model_parallel: int = 1, *, device_type: str = "cuda"):
 
 def mesh_shape(mesh) -> dict:
     """{axis: size} of a mesh (the reference's ``dict(mesh.shape)``)."""
-    return dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+    return M.axis_sizes(mesh)

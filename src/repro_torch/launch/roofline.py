@@ -1,22 +1,31 @@
-"""The LM half of the reference's roofline layer — counterpart of
-`repro.launch.roofline`'s `active_params` and `model_flops_for`
-(6·N_active·D useful-FLOPs accounting) — and `counted_flops`, the FLOPs
-a step really runs, by ``torch.utils.flop_counter.FlopCounterMode``
-(the count `flops_model.step_flops` is held against).
+"""Roofline-term extraction for the LM dry run — counterpart of
+`repro.launch.roofline`.
 
-The HLO half the reference re-exports from `repro.perf.roofline`
-(``Roofline``, ``analyze``, ``collective_bytes``, ``compiled_cost``)
-comes with the dry run (ROADMAP Queue 1 item 3d ii), with this card's
-peak and link rates, not the TPU's.
+The program roofline (`Roofline` with its compute / memory / collective
+terms under the card's rates, `analyze`, `collective_bytes`,
+`compiled_cost`) lives in `repro_torch.perf.roofline` and is re-exported
+here for the dry run, as the reference re-exports it.  This module keeps
+the LM-specific half: `active_params` and `model_flops_for`
+(6·N_active·D useful-FLOPs accounting), `counted_flops` (the FLOPs a
+step really runs, by ``torch.utils.flop_counter.FlopCounterMode``: the
+count `flops_model.step_flops` is held against) and `ProgramTrace`, what
+the dry run records of a traced step: its c10d calls, the bytes its ops
+touch, its FLOPs and its peak live bytes.
 """
 from __future__ import annotations
 
 import collections
 import math
+import weakref
 
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
 
 from ..models.params import PDecl
+from ..perf.roofline import (  # noqa: F401 — dry-run re-exports
+    HBM_BW, LINK_BW, PEAK_FLOPS, Roofline, analyze, collective_bytes,
+    collective_kind, compiled_cost)
 from .specs import model_decl
 
 
@@ -90,6 +99,26 @@ class _GlobalOnly:
         return False
 
 
+def _flop_counter():
+    """``FlopCounterMode`` with one global table (`_GlobalOnly`) and
+    `_bmm_flops` for ``bmm``'s ``out_dtype`` form."""
+    from torch.utils.flop_counter import FlopCounterMode
+    counter = FlopCounterMode(display=False,
+                              custom_mapping={torch.ops.aten.bmm: _bmm_flops})
+    counter.mod_tracker = _GlobalOnly()
+    return counter
+
+
+class _Ops(TorchDispatchMode):
+    def __init__(self):
+        super().__init__()
+        self.calls = collections.Counter()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.calls[func.overloadpacket] += 1
+        return func(*args, **(kwargs or {}))
+
+
 def counted_flops(fn) -> dict:
     """``fn()`` under ``FlopCounterMode`` (its formulas; one global
     table, `_GlobalOnly`) → {"total": FLOPs, "by_op":
@@ -97,21 +126,7 @@ def counted_flops(fn) -> dict:
     counter has no formula for (elementwise ops, reductions, copies,
     gathers: work the analytic model does not count either), "result":
     fn's return}."""
-    from torch.utils._python_dispatch import TorchDispatchMode
-    from torch.utils.flop_counter import FlopCounterMode
-
-    class _Ops(TorchDispatchMode):
-        def __init__(self):
-            super().__init__()
-            self.calls = collections.Counter()
-
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            self.calls[func.overloadpacket] += 1
-            return func(*args, **(kwargs or {}))
-
-    counter = FlopCounterMode(display=False,
-                              custom_mapping={torch.ops.aten.bmm: _bmm_flops})
-    counter.mod_tracker = _GlobalOnly()
+    counter = _flop_counter()
     ops = _Ops()
     with counter, ops:
         result = fn()
@@ -122,3 +137,96 @@ def counted_flops(fn) -> dict:
                 ops.calls.items(), key=lambda kv: str(kv[0]))
                 if k not in counter.flop_registry},
             "result": result}
+
+
+def _tensors(*trees) -> list:
+    return [t for t in tree_leaves(trees) if isinstance(t, torch.Tensor)]
+
+
+def _nbytes(ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+class _Recorder(TorchDispatchMode):
+    """`ProgramTrace`'s dispatch mode: every op's operand and result
+    bytes, each c10d call's kind and bytes, and the storages the ops
+    allocate (a result whose storage is none of its operands'), held
+    live until they are freed."""
+
+    def __init__(self, trace: "ProgramTrace"):
+        super().__init__()
+        self.trace = trace
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        tr = self.trace
+        if func.namespace == "c10d":
+            kind = collective_kind(func.__name__.split(".")[0])
+            if kind is not None:
+                name, res, opd = kind
+                tr.calls.append((name, _nbytes(_tensors(args[opd])),
+                                 _nbytes(_tensors(args[res]))))
+            return out
+        ins = _tensors(args, kwargs)
+        outs = _tensors(out)
+        tr.bytes_accessed += _nbytes(ins) + _nbytes(outs)
+        inputs = {t.untyped_storage()._cdata for t in ins}
+        for t in outs:
+            tr._allocated(t.untyped_storage(), inputs)
+        return out
+
+
+class ProgramTrace:
+    """What the dry run records of one traced step (``with
+    ProgramTrace() as tr: step(...)``), on ``FakeTensorMode`` tensors or
+    real ones:
+
+      * ``calls`` — each c10d collective as (kind, operand bytes, result
+        bytes) (`perf.roofline.collective_bytes` sums them by kind);
+      * ``bytes_accessed`` — the operand and result bytes of every other
+        op dispatched;
+      * ``flops`` — ``FlopCounterMode``'s count (`counted_flops`' table);
+      * ``peak_bytes`` — the most bytes of storage the step's own ops held
+        live at once (each storage counted once, from the op that
+        allocated it until it is freed); what lived before the step is
+        not counted.
+    """
+
+    def __init__(self):
+        self.calls = []
+        self.bytes_accessed = 0
+        self.flops = 0
+        self.live_bytes = 0
+        self.peak_bytes = 0
+        self._held = set()
+        self._counter = None
+        self._recorder = None
+
+    def _allocated(self, storage, inputs) -> None:
+        key = storage._cdata
+        if key in inputs or key in self._held:
+            return
+        n = storage.nbytes()
+        self._held.add(key)
+        self.live_bytes += n
+        self.peak_bytes = max(self.peak_bytes, self.live_bytes)
+        weakref.finalize(storage, self._freed, key, n)
+
+    def _freed(self, key, n) -> None:
+        self._held.discard(key)
+        self.live_bytes -= n
+
+    def __enter__(self):
+        self._counter = _flop_counter()
+        self._recorder = _Recorder(self)
+        self._counter.__enter__()
+        self._recorder.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._recorder.__exit__(*exc)
+        self._counter.__exit__(*exc)
+        self.flops = int(sum(self._counter.get_flop_counts().get(
+            "Global", {}).values()))
+        return False

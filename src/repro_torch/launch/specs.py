@@ -22,28 +22,25 @@ from ..models.params import PDecl, nest, tree_abstract, tree_paths, \
     tree_pspecs
 from ..models.transformer import stage_plan, torch_dtype
 from ..optim import Optimizer
-from ..sharding.rules import (PROFILES, Paired, get_profile,
-                              logical_to_spec, map_leaves, pspec)
+from ..sharding import spmd
+from ..sharding.rules import Paired, logical_to_spec, map_leaves, pspec
 from ..train.step import TrainState, model_decl
 
 __all__ = ["batch_axes_for", "model_decl", "abstract_params",
            "param_pspecs", "opt_pspecs", "train_state_pspecs",
            "abstract_train_state", "batch_inputs", "batch_pspecs",
-           "abstract_caches", "cache_pspecs", "decode_inputs"]
+           "abstract_caches", "cache_pspecs", "decode_inputs",
+           "optimizer_name", "rank_blocks", "block_bytes", "step_arguments"]
 
 META = torch.device("meta")
 
 
 def batch_axes_for(b: int, mesh) -> Tuple[str, ...]:
     """Largest prefix of the active profile's batch axes whose product
-    divides the batch (tp: (pod,data); fsdp: (pod,data,model))."""
-    sizes = axis_sizes(mesh)
-    axes, prod = [], 1
-    for a in PROFILES[get_profile()]["batch"]:
-        if a in sizes and b % (prod * sizes[a]) == 0:
-            axes.append(a)
-            prod *= sizes[a]
-    return tuple(axes)
+    divides the batch (tp: (pod,data); fsdp: (pod,data,model)):
+    `sharding.spmd.rows_axes`, the axes the sharded LM splits its rows
+    over."""
+    return spmd.rows_axes(b, mesh)
 
 
 def _bspec(b: int, mesh, *trailing) -> tuple:
@@ -53,6 +50,12 @@ def _bspec(b: int, mesh, *trailing) -> tuple:
 
 def _meta(shape, dtype) -> torch.Tensor:
     return torch.empty(shape, dtype=dtype, device=META)
+
+
+def optimizer_name(cfg: ModelConfig) -> str:
+    """The dry run's optimizer: Adafactor for the 1T config (factored
+    states), AdamW for the rest."""
+    return "adafactor" if cfg.name.startswith("kimi") else "adamw"
 
 
 def abstract_params(cfg: ModelConfig):
@@ -227,3 +230,83 @@ def decode_inputs(cfg: ModelConfig, cell: ShapeCell):
     b = cell.global_batch
     return (abstract_caches(cfg, b, cell.seq_len),
             _meta((b, 1), torch.int32))
+
+
+# ------------------------------------------------------ a rank's blocks --
+
+def _zip_specs(fn, tree, specs):
+    """``fn(leaf, spec)`` over a tree of tensors and its placement tree
+    (a NamedTuple's fields, dicts by key, lists in order)."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree, specs)
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_zip_specs(fn, t, s)
+                            for t, s in zip(tree, specs)))
+    if isinstance(tree, dict):
+        return {k: _zip_specs(fn, tree[k], specs[k]) for k in tree}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_zip_specs(fn, t, s) for t, s in zip(tree, specs))
+    return tree
+
+
+def rank_blocks(tree, specs, mesh, rank: int = 0):
+    """Each ``meta`` leaf of ``tree`` cut to the block ``rank`` holds
+    under its placement in ``specs`` (`sharding.local_block`; a `Paired`
+    leaf's block is as large): the rank's arguments, as ``meta``
+    tensors."""
+    from ..sharding.rules import local_block
+    return _zip_specs(lambda t, sp: local_block(t, sp, mesh, rank),
+                      tree, specs)
+
+
+def block_bytes(tree) -> int:
+    """Bytes of the tensors of a tree (each leaf's own size)."""
+    total = []
+    map_leaves(lambda t: total.append(t.numel() * t.element_size()), tree)
+    return int(sum(total))
+
+
+def step_arguments(cfg: ModelConfig, cell: ShapeCell, mesh,
+                   rank: int = 0) -> Dict[str, Any]:
+    """The blocks ``rank`` holds of the arguments of the cell's step, as
+    ``meta`` tensors under the reference's placements in the active
+    profile: {"state" (train: params, optimizer state, step) or
+    "params", "batch" (train, prefill: without labels), "caches" and
+    "tokens" (decode)} — what the reference's ``memory_analysis``
+    counts as a device's arguments.  The encoder–decoder's decode step
+    reads no encoder parameter, nor the cross-attention's ``wk`` / ``wv``
+    (its K/V are cached): they are left out, as the reference's
+    ``jax.jit`` prunes arguments its program does not use."""
+    opt_name = optimizer_name(cfg)
+    out: Dict[str, Any] = {}
+    if cell.kind == "train":
+        from ..optim.optimizers import make as make_opt
+        state = abstract_train_state(cfg, make_opt(opt_name))
+        out["state"] = rank_blocks(
+            state, train_state_pspecs(cfg, opt_name, mesh), mesh, rank)
+    else:
+        params = rank_blocks(abstract_params(cfg), param_pspecs(cfg, mesh),
+                             mesh, rank)
+        if cfg.family == "encdec" and cell.kind == "decode":
+            params = {k: v for k, v in params.items()
+                      if not k.startswith("enc_")}
+            cross = dict(params["dec_blocks"]["cross_attn"])
+            del cross["wk"], cross["wv"]
+            params["dec_blocks"] = {**params["dec_blocks"],
+                                    "cross_attn": cross}
+        out["params"] = params
+    if cell.kind in ("train", "prefill"):
+        batch = batch_inputs(cfg, cell)
+        specs = batch_pspecs(cfg, cell, mesh)
+        if cell.kind == "prefill":
+            batch.pop("labels")
+            specs.pop("labels")
+        out["batch"] = rank_blocks(batch, specs, mesh, rank)
+    else:
+        caches, tokens = decode_inputs(cfg, cell)
+        out["caches"] = rank_blocks(
+            caches, cache_pspecs(cfg, caches, cell.global_batch, mesh),
+            mesh, rank)
+        out["tokens"] = rank_blocks(
+            tokens, _bspec(cell.global_batch, mesh, None), mesh, rank)
+    return out

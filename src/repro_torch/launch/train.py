@@ -51,7 +51,7 @@ from ..models.params import (assign_state, n_params, nest, to_reference,
 from ..optim import cosine_schedule
 from ..optim.optimizers import make as make_opt
 from ..sharding import spmd
-from ..sharding.rules import block_of, get_profile, profile_context
+from ..sharding.rules import block_of, profile_context
 from ..train import TrainState, init_train_state, make_train_step
 from ..train.step import (_at, param_groups, state_from_reference,
                           train_state_to_reference)
@@ -203,9 +203,6 @@ def train(cfg, mesh=None, *, steps, batch, seq, ckpt_dir=None,
     shape = mesh_shape(mesh) if mesh is not None else {"data": 1,
                                                        "model": 1}
     sharded = _sharded_mesh(mesh)
-    if sharded is not None:
-        with profile_context(get_profile()):
-            spmd.check_batch(batch // microbatches, sharded)
     state, step_fn = build(
         cfg, mesh, optimizer=optimizer, lr=lr, total_steps=max(steps, 2),
         microbatches=microbatches, seed=seed, device=device, params=params)

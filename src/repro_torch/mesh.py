@@ -56,6 +56,13 @@ Backends: NCCL across cards, gloo for the CPU tests and for several
 ranks on one card (NCCL refuses two ranks on one GPU).  Under gloo a
 collective's payload is staged through host memory here, explicitly —
 that is the transport; the kernels still run on each rank's device.
+Under the "fake" backend (`torch.testing._internal.distributed.fake_pg`,
+what the dry run joins: one process standing for rank 0 of 256 or 512)
+a payload stays on its own device, no card is selected, and the
+collectives return at once — on ``FakeTensorMode`` tensors they move
+nothing and allocate nothing.  A mesh's rank layout is read from a numpy
+copy (`layout`), so placements and groups are worked out under
+``FakeTensorMode`` too.
 
 Users launch ranks with ``torchrun`` (which sets ``RANK``,
 ``WORLD_SIZE``, ``LOCAL_RANK`` and the rendezvous), then::
@@ -122,13 +129,32 @@ def make_mesh(shape: Sequence[int], axis_names: Sequence[str], *,
         raise ValueError(f"mesh shape {shape} holds {math.prod(shape)} "
                          f"ranks; it is given {ranks} of a process group of "
                          f"{world}")
-    if device_type == "cuda":
+    if device_type == "cuda" and not is_fake():
         torch.cuda.set_device(_local_device(torch.device("cuda")))
-    elif device_type != "cpu":
+    elif device_type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported mesh device type {device_type!r}: "
                          "cuda or cpu")
-    return DeviceMesh(device_type, torch.tensor(ranks).reshape(shape),
+    mesh = DeviceMesh(device_type, torch.tensor(ranks).reshape(shape),
                       mesh_dim_names=names)
+    mesh.__dict__["_repro_layout"] = np.asarray(ranks).reshape(shape)
+    return mesh
+
+
+def is_fake() -> bool:
+    """Whether the default process group is the "fake" backend's (the
+    dry run's stand-in for a cluster)."""
+    return dist.is_initialized() and dist.get_backend() == "fake"
+
+
+def layout(mesh) -> np.ndarray:
+    """The mesh's ranks as a numpy array of its shape (cached on the
+    mesh): read without dispatching a tensor op, so under
+    ``FakeTensorMode`` too."""
+    got = mesh.__dict__.get("_repro_layout")
+    if got is None:
+        got = np.asarray(mesh.mesh.tolist()).reshape(tuple(mesh.mesh.shape))
+        mesh.__dict__["_repro_layout"] = got
+    return got
 
 
 def _local_device(dev: torch.device) -> torch.device:
@@ -146,13 +172,13 @@ def rank_device(mesh) -> torch.device:
 
 
 def mesh_size(mesh) -> int:
-    return int(mesh.mesh.numel())
+    return int(layout(mesh).size)
 
 
 def axis_sizes(mesh) -> dict:
     """Dim name → size of a `DeviceMesh` or an `AbstractMesh`, in the
     mesh's dim order (the reference's ``mesh.shape``)."""
-    return dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+    return dict(zip(mesh.mesh_dim_names, layout(mesh).shape))
 
 
 class AbstractMesh:
@@ -169,6 +195,7 @@ class AbstractMesh:
                              "differ in length")
         self.mesh_dim_names = names
         self.mesh = torch.arange(math.prod(shape)).reshape(shape)
+        self._repro_layout = np.arange(math.prod(shape)).reshape(shape)
 
     def __repr__(self) -> str:
         return f"AbstractMesh({axis_sizes(self)})"
@@ -176,7 +203,7 @@ class AbstractMesh:
 
 def _coords(mesh, rank: int) -> dict:
     """Dim name → coordinate of ``rank`` in ``mesh``."""
-    where = (mesh.mesh == rank).nonzero()
+    where = np.argwhere(layout(mesh) == rank)
     if where.shape[0] != 1:
         raise ValueError(f"rank {rank} is not in the mesh")
     return dict(zip(mesh.mesh_dim_names, where[0].tolist()))
@@ -203,7 +230,7 @@ def _group(mesh, axes: Tuple[str, ...]) -> List[int]:
     coordinates on every other dim), in block order."""
     me = _coords(mesh, dist.get_rank())
     others = [a for a in mesh.mesh_dim_names if a not in axes]
-    members = [r for r in mesh.mesh.flatten().tolist()
+    members = [r for r in layout(mesh).ravel().tolist()
                if all(_coords(mesh, r)[a] == me[a] for a in others)]
     return sorted(members, key=lambda r: _block(mesh, r, axes)[0])
 
@@ -228,11 +255,14 @@ def block_index(mesh, axes: Axes = ("data",)) -> Tuple[int, int]:
     return _block(mesh, dist.get_rank(), _axes(axes))
 
 
-def _wire_device() -> torch.device:
-    """Where a collective's payload travels: this rank's card under NCCL,
-    host memory under gloo."""
-    if dist.get_backend() == "nccl":
+def _wire_device(t: torch.Tensor) -> torch.device:
+    """Where ``t``'s payload travels: this rank's card under NCCL, host
+    memory under gloo, its own device under the fake backend."""
+    backend = dist.get_backend()
+    if backend == "nccl":
         return torch.device("cuda", torch.cuda.current_device())
+    if backend == "fake":
+        return t.device
     return torch.device("cpu")
 
 
@@ -240,7 +270,7 @@ def _to_wire(t: torch.Tensor) -> torch.Tensor:
     """``t`` flat and contiguous on the wire's device; a 16-bit tensor as
     its bytes under gloo (which refuses int16, and not every build takes
     bf16)."""
-    wire = t.detach().to(_wire_device()).reshape(-1).contiguous()
+    wire = t.detach().to(_wire_device(t)).reshape(-1).contiguous()
     if wire.element_size() == 2 and wire.device.type == "cpu":
         wire = wire.view(torch.uint8)
     return wire
@@ -280,25 +310,44 @@ def _subgroup(mesh, axes: Tuple[str, ...]):
     return cache[key]
 
 
-def _gather_group(t: torch.Tensor, mesh, axes: Tuple[str, ...]
-                  ) -> List[torch.Tensor]:
-    """Every member's ``t`` (equal shapes) over ``axes``, in block order,
-    on ``t``'s device."""
+def _gather_all(out: torch.Tensor, wire: torch.Tensor, group) -> None:
+    """Every member's flat ``wire`` into the flat ``out``, in group-rank
+    order (``all_gather_single``, or its older name)."""
+    gather = getattr(dist, "all_gather_single", None) \
+        or dist.all_gather_into_tensor
+    gather(out, wire, group=group)
+
+
+def _block_order(members: List[int]) -> Optional[List[int]]:
+    """The group-rank positions of ``members`` (in block order), or None
+    where block order is the group's rank order already."""
+    ranked = sorted(members)
+    order = [ranked.index(r) for r in members]
+    return None if order == list(range(len(members))) else order
+
+
+def _gather_stack(t: torch.Tensor, mesh, axes: Tuple[str, ...]
+                  ) -> torch.Tensor:
+    """Every member's ``t`` (equal shapes) over ``axes``, stacked (P, …)
+    in block order, on ``t``'s device: one gather into one buffer."""
     t0 = time.perf_counter()
     members = _members(mesh, axes)
     wire = _to_wire(t)
-    if len(members) == 1:
-        out = [wire]
+    p = len(members)
+    if p == 1:
+        got = wire[None]
     else:
-        got = [torch.empty_like(wire) for _ in members]
-        dist.all_gather(got, wire, group=_subgroup(mesh, axes))
+        got = wire.new_empty((p * wire.numel(),))
+        _gather_all(got, wire, _subgroup(mesh, axes))
         # the group's ranks ascend; the blocks follow the axes' order
-        by_rank = dict(zip(sorted(members), got))
-        out = [by_rank[r] for r in members]
-    out = [_from_wire(o, t).reshape(t.shape) for o in out]
+        got = got.view(p, -1)
+        order = _block_order(members)
+        if order is not None:
+            got = got[torch.tensor(order, device=got.device)]
+    out = _from_wire(got, t).reshape((p,) + tuple(t.shape))
     obs.counter("mesh.collective_s").add(time.perf_counter() - t0)
-    obs.counter("mesh.gathered_bytes").add(
-        wire.numel() * wire.element_size() * len(out))
+    obs.counter("mesh.gathered_bytes").add(wire.numel() * wire.element_size()
+                                           * p)
     return out
 
 
@@ -308,7 +357,7 @@ def all_gather(t: torch.Tensor, mesh, axes: Axes = ("data",)
     this rank's coordinates on the other dims — in the order
     `jax.lax.all_gather(t, axes)` stacks it, gathered on their
     subgroup."""
-    return torch.stack(_gather_group(t, mesh, _axes(axes)))
+    return _gather_stack(t, mesh, _axes(axes))
 
 
 def gather_rows(x_l: torch.Tensor, idx, mesh, axes: Axes = ("data",)
@@ -339,10 +388,10 @@ def sum_in_order(parts) -> torch.Tensor:
 def psum(t: torch.Tensor, mesh, axes: Axes = ("data",)) -> torch.Tensor:
     """The sum of ``t`` over ``axes``: the gathered partials added in
     rank order, so every rank holds the same bits."""
-    parts = _gather_group(t, mesh, _axes(axes))
+    parts = _gather_stack(t, mesh, _axes(axes))
     obs.counter("mesh.psum_bytes").add(
         t.numel() * t.element_size() * len(parts))
-    return sum_in_order(parts)
+    return sum_in_order(parts.unbind(0))
 
 
 def reduce_scatter(t: torch.Tensor, mesh, axes: Axes = ("data",),
@@ -366,13 +415,17 @@ def reduce_scatter(t: torch.Tensor, mesh, axes: Axes = ("data",),
     t0 = time.perf_counter()
     # all_to_all_single takes and gives the chunks by group rank
     # (ascending global rank); block j goes to members[j]
-    order = sorted(range(p), key=lambda j: members[j])
-    send = torch.stack([_to_wire(blocks[j]) for j in order])
+    order = _block_order(members)
+    send = blocks
+    if order is not None:
+        send = blocks[torch.tensor(sorted(range(p), key=lambda j: members[j]),
+                                   device=blocks.device)]
+    send = _to_wire(send).view(p, -1)
     recv = torch.empty_like(send)
     dist.all_to_all_single(recv, send, group=_subgroup(mesh, axes))
-    by_rank = dict(zip(sorted(members), recv))
-    parts = [_from_wire(by_rank[r], t).reshape(blocks.shape[1:])
-             for r in members]
+    if order is not None:
+        recv = recv[torch.tensor(order, device=recv.device)]
+    parts = _from_wire(recv, t).reshape(blocks.shape).unbind(0)
     out = sum_in_order(parts).movedim(0, dim)
     obs.counter("mesh.collective_s").add(time.perf_counter() - t0)
     obs.counter("mesh.reduce_scatter_bytes").add(
@@ -384,10 +437,13 @@ class _GatherParam(torch.autograd.Function):
     @staticmethod
     def forward(ctx, t, dim, mesh, axes):
         ctx.dim, ctx.mesh, ctx.axes = dim, mesh, axes
-        parts = _gather_group(t, mesh, axes)
+        parts = _gather_stack(t, mesh, axes)
         obs.counter("mesh.param_gather_bytes").add(
             t.numel() * t.element_size() * len(parts))
-        return torch.cat(parts, dim)
+        # (P, …, n, …) → (…, P·n, …): the blocks side by side along dim
+        whole = parts.movedim(0, dim)
+        return whole.reshape(tuple(t.shape[:dim]) + (-1,)
+                             + tuple(t.shape[dim + 1:]))
 
     @staticmethod
     def backward(ctx, g):
@@ -500,12 +556,12 @@ def broadcast_first(value, mesh):
     travels pickled."""
     t0 = time.perf_counter()
     if isinstance(value, torch.Tensor):
-        wire = value.detach().to(_wire_device()).contiguous()
-        dist.broadcast(wire, src=int(mesh.mesh.flatten()[0]))
+        wire = value.detach().to(_wire_device(value)).contiguous()
+        dist.broadcast(wire, src=int(layout(mesh).flat[0]))
         out = wire.to(value.device)
     else:
         box = [value]
-        dist.broadcast_object_list(box, src=int(mesh.mesh.flatten()[0]))
+        dist.broadcast_object_list(box, src=int(layout(mesh).flat[0]))
         out = box[0]
     obs.counter("mesh.collective_s").add(time.perf_counter() - t0)
     return out
@@ -521,7 +577,7 @@ def barrier(mesh) -> None:
 
 def is_first(mesh) -> bool:
     """True on the rank whose answers `broadcast_first` hands out."""
-    return dist.get_rank() == int(mesh.mesh.flatten()[0])
+    return dist.get_rank() == int(layout(mesh).flat[0])
 
 
 def agreed_backend(spec, mesh, *, shape=None):

@@ -7,9 +7,8 @@ slots are masked dead (`head_mask`), so the architecture stays
 config-exact.  Products stay plain ``torch`` matmuls, as the reference's
 are plain XLA; ``F.scaled_dot_product_attention`` would round
 differently from the reference's own softmax, so it is not used.
-Under a mesh of more than one rank (`sharding.spmd`, training: no
-cache) the layer is tensor-parallel where its Q heads split over
-"model": Q/K/V column-parallel over "heads" / "kv_heads", ``wo``
+Under a mesh of more than one rank (`sharding.spmd`) the layer is
+tensor-parallel where its Q heads split over "model": Q/K/V column-parallel over "heads" / "kv_heads", ``wo``
 row-parallel, the padded-head mask cut to the rank's heads
 (`_attention_spmd`) — causal or bidirectional self-attention, and
 cross-attention, whose K/V are projected from the encoder states
@@ -19,6 +18,14 @@ decoder layers that read them).  Where the KV heads do not split over
 on every rank — ``wk`` / ``wv`` gathered over "model" where their
 columns are split mid-head, their cotangents reduce-scattered — and
 each rank takes the KV head of each of its Q heads.
+
+Serving under a mesh: a rank's KV cache block holds its rows and its
+KV heads (`local_kv_heads`) — where K and V are computed whole, all of
+them, where the reference splits the head dim over "model"
+(`cache_logical`): a rank-local layout, so that a decode step reads its
+cache and moves nothing but the row-parallel sum.  The new token's K/V
+go into the block at the cache's length, and the rank attends over its
+heads.  Cross-attention's cached K/V are blocks alike (`cross_kv`).
 """
 from __future__ import annotations
 
@@ -231,7 +238,12 @@ def _output(cfg, p, out, x):
 
 def attention_with_kv(cfg, p, x, k, v):
     """Cross-attention against precomputed K/V (B, S_enc, KV, hd): the
-    encoder–decoder's cached decode."""
+    encoder–decoder's cached decode.  Under a mesh of more than one rank,
+    x is this rank's rows and k / v its block of them (`cross_kv`)."""
+    mesh = spmd.active_mesh()
+    if mesh is not None:
+        return _attention_spmd(cfg, p, x, None, mesh, causal=False,
+                               kv=(k, v))[0]
     out = _sdpa(_query(cfg, p, x), k.to(x.dtype), v.to(x.dtype),
                 causal=False, q_offset=0, scale=cfg.hd ** -0.5,
                 chunk=cfg.attn_chunk)
@@ -256,13 +268,8 @@ def attention(cfg, p, x, *, causal=True, positions=None,
     scale = cfg.hd ** -0.5
     mesh = spmd.active_mesh()
     if mesh is not None:
-        if cache is not None:
-            raise NotImplementedError(
-                "attention under a mesh of more than one rank runs the "
-                "training path (no cache); the sharded decode is not the "
-                "port's")
         return _attention_spmd(cfg, p, x, positions, mesh, causal=causal,
-                               kv_input=kv_input), None
+                               kv_input=kv_input, cache=cache)
     if kv_input is None:
         q, k, v = _project(cfg, p, x)
     else:
@@ -282,14 +289,8 @@ def attention(cfg, p, x, *, causal=True, positions=None,
 
     new_cache = None
     if cache is not None:
-        ln = cache.length
-        if ln + s > cache.k.shape[1]:
-            raise ValueError(f"KV cache of {cache.k.shape[1]} positions "
-                             f"cannot take {s} more after {ln}")
-        cache.k[:, ln:ln + s] = k.to(cache.k.dtype)
-        cache.v[:, ln:ln + s] = v.to(cache.v.dtype)
-        new_cache = KVCache(cache.k, cache.v, ln + s)
-        out = _sdpa(q, cache.k, cache.v, causal=True, q_offset=ln,
+        new_cache = _write(cache, k, v)
+        out = _sdpa(q, cache.k, cache.v, causal=True, q_offset=cache.length,
                     scale=scale, chunk=cfg.attn_chunk)
     else:
         out = _sdpa(q, k, v, causal=causal and kv_input is None, q_offset=0,
@@ -297,38 +298,66 @@ def attention(cfg, p, x, *, causal=True, positions=None,
     return _output(cfg, p, out, x), new_cache
 
 
-def _attention_spmd(cfg, p, x, positions, mesh, *, causal=True,
-                    kv_input=None):
-    """Attention on this rank's blocks (see the module's docstring): x
-    (B_loc, S, D) replicated over "model" → (B_loc, S, D); self-attention,
-    or cross-attention against ``kv_input`` (B_loc, S_enc, D), likewise
-    replicated (its K/V without bias, no RoPE, no mask)."""
+def _write(cache: KVCache, k, v) -> KVCache:
+    """k, v (B, s, KV, hd) written into the cache's tensors at its
+    length, in place → the cache s positions longer."""
+    ln, s = cache.length, k.shape[1]
+    if ln + s > cache.k.shape[1]:
+        raise ValueError(f"KV cache of {cache.k.shape[1]} positions "
+                         f"cannot take {s} more after {ln}")
+    cache.k[:, ln:ln + s] = k.to(cache.k.dtype)
+    cache.v[:, ln:ln + s] = v.to(cache.v.dtype)
+    return KVCache(cache.k, cache.v, ln + s)
+
+
+class _Layout(NamedTuple):
+    """How the attention layer splits over a mesh: ``tp`` whether its Q
+    heads split over "model" (this rank ``m`` of ``n``), ``k_split``
+    whether ``wk`` / ``wv``'s columns do, ``whole_kv`` whether K and V
+    are computed whole on every rank (`_kv_logical` replicates them)."""
+    tp: bool
+    m: int
+    n: int
+    k_split: bool
+    whole_kv: bool
+
+
+def _layout(cfg, mesh) -> _Layout:
     decl = attention_decl(cfg)
-    b, s, _ = x.shape
-    kx = x if kv_input is None else kv_input
-    se = kx.shape[1]
-    gb = spmd.global_batch(b, mesh)
-    hd, hp, kv = cfg.hd, cfg.n_heads_padded, cfg.n_kv_heads
     tp = spmd.model_split(decl["wq"], 1, mesh)
     m, n = spmd.model_rank(mesh) if tp else (0, 1)
     k_split = spmd.model_split(decl["wk"], 1, mesh)
     if k_split and not tp:
         raise NotImplementedError(
             f"{cfg.name}: K/V columns split over 'model' while the "
-            f"{hp} Q heads do not: pad the heads to the model axis")
-    whole_kv = tp and kv % n != 0       # _kv_logical replicates K and V
-    if tp:                              # column-parallel input
-        x = M.enter_replicated(x, mesh, "model")
-        kx = x if kv_input is None else M.enter_replicated(kv_input, mesh,
-                                                           "model")
+            f"{cfg.n_heads_padded} Q heads do not: pad the heads to the "
+            "model axis")
+    return _Layout(tp, m, n, k_split, tp and cfg.n_kv_heads % n != 0)
 
-    def proj(w, bias):
+
+def local_kv_heads(cfg, mesh) -> int:
+    """The KV heads a rank's cache block holds under ``mesh``: its block
+    of them where the Q heads split over "model" and the KV heads divide
+    it, else all of them (K and V are computed whole on every rank)."""
+    if mesh is None:
+        return cfg.n_kv_heads
+    lay = _layout(cfg, mesh)
+    return cfg.n_kv_heads // lay.n if lay.tp and not lay.whole_kv \
+        else cfg.n_kv_heads
+
+
+def _kv_proj(cfg, p, src, mesh, lay: _Layout, bias: bool):
+    """K and V (B_loc, S, KV_loc, hd) of ``src`` on this rank's blocks:
+    its KV heads, or all of them where ``lay.whole_kv`` (``wk`` / ``wv``
+    gathered over "model" where their columns split mid-head, their
+    cotangents reduce-scattered; else entered replicated)."""
+    decl = attention_decl(cfg)
+    out = []
+    for w, bname in (("wk", "bk"), ("wv", "bv")):
         wt = spmd.param(p, w, decl, mesh)
-        src = x if w == "wq" else kx
-        bt = p[bias] if cfg.qkv_bias and (w == "wq" or kv_input is None) \
-            else None
-        if whole_kv and w != "wq":
-            if k_split:                 # columns split mid-head: gather
+        bt = p[bname] if cfg.qkv_bias and bias else None
+        if lay.whole_kv:
+            if lay.k_split:             # columns split mid-head: gather
                 wt = M.gather_param(wt, 1, mesh, ("model",))
                 bt = None if bt is None else M.gather_param(
                     bt, 0, mesh, ("model",))
@@ -336,36 +365,100 @@ def _attention_spmd(cfg, p, x, positions, mesh, *, causal=True,
                 wt = M.enter_replicated(wt, mesh, "model")
                 bt = None if bt is None else M.enter_replicated(
                     bt, mesh, "model")
-        y = src @ wt.to(x.dtype)
+        y = src @ wt.to(src.dtype)
         if bt is not None:
-            y = y + bt.to(x.dtype)
-        return y.reshape(b, src.shape[1], -1, hd)
+            y = y + bt.to(src.dtype)
+        out.append(y.reshape(src.shape[0], src.shape[1], -1, cfg.hd))
+    return out
 
-    q, k, v = proj("wq", "bq"), proj("wk", "bk"), proj("wv", "bv")
+
+def cross_kv(cfg, p, enc):
+    """Cross-attention's K and V (B, S_enc, KV, hd) projected from the
+    encoder states ``enc`` (no bias, in its dtype): under a mesh of more
+    than one rank this rank's block of them (`local_kv_heads`), from its
+    rows of ``enc``."""
+    mesh = spmd.active_mesh()
+    b, se, _ = enc.shape
+    if mesh is None:
+        return [(enc @ p[w].to(enc.dtype)).reshape(b, se, cfg.n_kv_heads,
+                                                   cfg.hd)
+                for w in ("wk", "wv")]
+    return _kv_proj(cfg, p, enc, mesh, _layout(cfg, mesh), bias=False)
+
+
+def _group_kv(k, v, m: int, h: int, hp: int, kv: int):
+    """Each of this rank's ``h`` Q heads (from head ``m·h``) given its KV
+    head, out of the ``kv`` whole: a view of the heads' range where they
+    cover it evenly (the GQA repetition then pairs them), else their
+    gathered copies."""
+    group = [(m * h + i) // (hp // kv) for i in range(h)]
+    lo, hi = group[0], group[-1] + 1
+    per = h // (hi - lo)
+    if h % (hi - lo) == 0 and group == [lo + i // per for i in range(h)]:
+        return k[:, :, lo:hi], v[:, :, lo:hi]
+    idx = torch.tensor(group, device=k.device)
+    return k[:, :, idx], v[:, :, idx]
+
+
+def _attention_spmd(cfg, p, x, positions, mesh, *, causal=True,
+                    kv_input=None, cache: Optional[KVCache] = None,
+                    kv=None):
+    """Attention on this rank's blocks (see the module's docstring): x
+    (B_loc, S, D) replicated over "model" → (y (B_loc, S, D), the new
+    cache or None).  Self-attention, its K/V written into this rank's
+    cache block when ``cache`` is given (`init_cache` of its
+    `local_kv_heads`); cross-attention against ``kv_input`` (B_loc,
+    S_enc, D), likewise replicated (its K/V without bias, no RoPE, no
+    mask), or against this rank's block ``kv`` = (k, v) of them
+    (`cross_kv`: the cached decode)."""
+    decl = attention_decl(cfg)
+    b, s, _ = x.shape
+    gb = spmd.global_batch(b, mesh)
+    hd, hp, nkv = cfg.hd, cfg.n_heads_padded, cfg.n_kv_heads
+    lay = _layout(cfg, mesh)
+    cross = kv_input is not None or kv is not None
+    if lay.tp:                          # column-parallel input
+        x = M.enter_replicated(x, mesh, "model")
+        if kv_input is not None:
+            kv_input = M.enter_replicated(kv_input, mesh, "model")
+    q = x @ spmd.param(p, "wq", decl, mesh).to(x.dtype)
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(x.dtype)
+    q = q.reshape(b, s, -1, hd)
+    if kv is None:
+        k, v = _kv_proj(cfg, p, x if kv_input is None else kv_input, mesh,
+                        lay, bias=kv_input is None)
+    else:
+        k, v = (t.to(x.dtype) for t in kv)
     kvlog = _kv_logical(cfg)
+    se = k.shape[1]
     q = constrain(q, "batch", "seq", "heads", None, shape=(gb, s, hp, hd))
-    k = constrain(k, "batch", "seq", kvlog, None, shape=(gb, se, kv, hd))
-    v = constrain(v, "batch", "seq", kvlog, None, shape=(gb, se, kv, hd))
-    if cfg.pos == "rope" and kv_input is None:
+    k = constrain(k, "batch", "seq", kvlog, None, shape=(gb, se, nkv, hd))
+    v = constrain(v, "batch", "seq", kvlog, None, shape=(gb, se, nkv, hd))
+    base = cache.length if cache is not None else 0
+    if cfg.pos == "rope" and not cross:
         if positions is None:
-            positions = torch.arange(s, device=x.device).expand(b, s)
+            positions = (base + torch.arange(s, device=x.device)).expand(b, s)
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
+    new_cache = None
+    if cache is not None:
+        new_cache = _write(cache, k, v)
+        k, v = cache.k, cache.v
     h = q.shape[2]
-    if whole_kv:                        # each Q head's KV head
-        group = (m * h + torch.arange(h, device=x.device)) // (hp // kv)
-        k, v = k[:, :, group], v[:, :, group]
-    out = _sdpa(q, k, v, causal=causal and kv_input is None, q_offset=0,
+    if lay.whole_kv:                    # each Q head's KV head
+        k, v = _group_kv(k, v, lay.m, h, hp, nkv)
+    out = _sdpa(q, k, v, causal=causal and not cross, q_offset=base,
                 scale=cfg.hd ** -0.5, chunk=cfg.attn_chunk)
     hm = head_mask(cfg, out.dtype, out.device)
     if hm is not None:
-        out = out * hm[m * h:(m + 1) * h][None, None, :, None]
+        out = out * hm[lay.m * h:(lay.m + 1) * h][None, None, :, None]
     out = out.reshape(b, s, h * hd).to(x.dtype)
     out = constrain(out, "batch", "seq", "heads", shape=(gb, s, hp * hd))
     y = out @ spmd.param(p, "wo", decl, mesh).to(x.dtype)
-    if tp:                              # row-parallel output
+    if lay.tp:                          # row-parallel output
         y = M.reduce_replicated(y, mesh, "model")
-    return y
+    return y, new_cache
 
 
 class Attention(ParamTree):

@@ -14,7 +14,8 @@ is recomputed in the backward pass, as the reference's
 Model parallelism (`sharding.spmd`): ``EncDecLM(cfg, …, mesh=)`` holds
 this rank's block of every parameter under `tree_pspecs` in the active
 profile, and `encode` / `decode` run under that mesh on this rank's rows
-of the batch (frames and tokens alike), training only: the position
+of the batch (frames and tokens alike), in training and in serving
+(`init_dec_caches` gives each rank its blocks of the caches): the position
 tables gathered over their storage dim, the encoder's bidirectional and
 the decoder's causal self-attention and its cross-attention
 tensor-parallel where "model" splits the heads (`attention`), the
@@ -34,7 +35,7 @@ from .. import mesh as M
 from ..sharding import spmd
 from ..sharding.rules import constrain, get_profile
 from .attention import (Attention, KVCache, attention, attention_decl,
-                        attention_with_kv)
+                        attention_with_kv, cross_kv, local_kv_heads)
 from .layers import (MLP, Embed, Norm, embed_decl, mlp_decl, norm, norm_decl,
                      vocab_embed)
 from .params import (ParamTree, PDecl, assign_state, stack_layers, to_state,
@@ -103,7 +104,7 @@ def _pos_table(cfg, params, name: str, n: int, mesh):
 def encode(cfg: ModelConfig, params, frames):
     """frames: (B, n_frames, D) stub embeddings → encoder states."""
     dt = _dtype(cfg)
-    mesh = check_model_mesh(params, False)
+    mesh = check_model_mesh(params)
     x = frames.to(dt)
     table = _pos_table(cfg, params, "enc_pos", cfg.n_frames, mesh)
     x = _act(x + table[:x.shape[1]].to(dt)[None], mesh)
@@ -146,7 +147,7 @@ def decode(cfg: ModelConfig, params, tokens, enc, *,
     the embedding table already gathered (`transformer.sharded_head`,
     shared with the tied loss), or None to gather it here."""
     dt = _dtype(cfg)
-    mesh = check_model_mesh(params, caches is not None)
+    mesh = check_model_mesh(params)
     if mesh is None:
         x = params.embed(tokens, dt)
     else:
@@ -184,16 +185,17 @@ def init_dec_caches(cfg: ModelConfig, params, enc, batch: int,
                     max_len: int, dtype=torch.bfloat16) -> DecCache:
     """Stacked cross K/V projected from the encoder states (no bias, in
     the states' dtype, then cast to ``dtype``) and empty self caches, on
-    the states' device."""
-    kv, hd = cfg.n_kv_heads, cfg.hd
-    b, s = enc.shape[:2]
-    ck = torch.stack([(enc @ p.cross_attn.wk.to(enc.dtype))
-                      .reshape(b, s, kv, hd).to(dtype)
-                      for p in params.dec_blocks])
-    cv = torch.stack([(enc @ p.cross_attn.wv.to(enc.dtype))
-                      .reshape(b, s, kv, hd).to(dtype)
-                      for p in params.dec_blocks])
-    shape = (cfg.n_layers, batch, max_len, kv, hd)
+    the states' device.  On a sharded model (under its mesh, ``enc``
+    this rank's rows of a global batch of ``batch``) this rank's blocks:
+    its rows and KV heads (`attention.local_kv_heads`)."""
+    mesh = check_model_mesh(params)
+    kv_heads = local_kv_heads(cfg, mesh)
+    if mesh is not None:
+        batch //= spmd.batch_split(mesh)
+    cross = [cross_kv(cfg, p.cross_attn, enc) for p in params.dec_blocks]
+    ck = torch.stack([k.to(dtype) for k, _ in cross])
+    cv = torch.stack([v.to(dtype) for _, v in cross])
+    shape = (cfg.n_layers, batch, max_len, kv_heads, cfg.hd)
     self_kv = KVCache(torch.zeros(shape, dtype=dtype, device=enc.device),
                       torch.zeros(shape, dtype=dtype, device=enc.device), 0)
     return DecCache(self_kv, ck, cv)

@@ -10,8 +10,8 @@ multiple of L (the reference asserts the same).  Its (B, S/L, H, L, L)
 f32 decay and score tensors are the layer's largest; they are freed when
 the layer returns.
 
-Under a mesh of more than one rank (`sharding.spmd`, training: no cache)
-the mixer is tensor-parallel where "model" splits its inner channels and
+Under a mesh of more than one rank (`sharding.spmd`) the mixer is
+tensor-parallel where "model" splits its inner channels and
 heads (`_mamba_spmd`): column-parallel from x to the SSD, row-parallel
 out of ``w_out``.  Three parts do not follow the dense pattern.  The
 conv's channels are the concatenation [xi | B | C], so a rank's block of
@@ -23,6 +23,14 @@ every "model" rank, but each rank's heads use them: the weights enter
 replicated (`mesh.enter_replicated`), their cotangents summed over
 "model" once.  The gated RMSNorm spans all inner channels: its sum of
 squares is added over "model" in f32, forward and backward.
+
+Serving under a mesh: a rank's caches are rank-local blocks — the conv
+state of its rows holds the channels it convolves, [xi_r | B | C], and
+the SSM state its heads.  The reference places the conv state's
+channels [xi | B | C] over "model" as one contiguous range
+(`launch.specs.cache_pspecs`), which is not a rank's channels; the
+port's block is larger by the B and C channels every rank keeps, and a
+decode step moves nothing for the conv.
 """
 from __future__ import annotations
 
@@ -71,8 +79,12 @@ class MambaCache(NamedTuple):
 
 
 def init_mamba_cache(cfg, batch: int, dtype=torch.bfloat16,
-                     device=None) -> MambaCache:
+                     device=None, mesh=None) -> MambaCache:
+    """Zero caches of ``batch`` rows; with ``mesh`` (more than one rank)
+    this rank's blocks (`local_dims`)."""
     di, h, g, n = mamba_dims(cfg)
+    if mesh is not None:
+        di, h = local_dims(cfg, mesh)
     conv_ch = di + 2 * g * n
     return MambaCache(
         torch.zeros((batch, cfg.ssm_conv - 1, conv_ch), dtype=dtype,
@@ -182,11 +194,7 @@ def mamba_block(cfg, p, x, *, cache: Optional[MambaCache] = None):
     """Full Mamba2 mixer.  x: (B,S,D) → (y, new_cache)."""
     mesh = spmd.active_mesh()
     if mesh is not None:
-        if cache is not None:
-            raise NotImplementedError(
-                "the Mamba2 mixer under a mesh of more than one rank runs "
-                "the training path (no cache)")
-        return _mamba_spmd(cfg, p, x, mesh), None
+        return _mamba_spmd(cfg, p, x, mesh, cache)
     bsz, s, d = x.shape
     di, h, g, n = mamba_dims(cfg)
     rep = h // g
@@ -232,19 +240,38 @@ _TP_DIMS = (("wz", 1), ("wx", 1), ("wdt", 1), ("conv_w", 1), ("conv_b", 0),
             ("w_out", 0))
 
 
-def _mamba_spmd(cfg, p, x, mesh, eps: float = 1e-6):
-    """The mixer on this rank's blocks (see the module's docstring): x
-    (B_loc, S, D) replicated over "model" → (B_loc, S, D)."""
+def _tp(cfg, mesh) -> bool:
+    """Whether the mixer's inner channels and heads split over "model"
+    (all of them together, or none)."""
     decl = mamba_decl(cfg)
-    bsz, s, _ = x.shape
-    di, h, g, n = mamba_dims(cfg)
     split = {spmd.model_split(decl[k], dim, mesh) for k, dim in _TP_DIMS}
     if len(split) != 1:
+        di, h, g, n = mamba_dims(cfg)
         raise NotImplementedError(
             f"{cfg.name}: {di} inner channels, {h} SSD heads and "
             f"{di + 2 * g * n} conv channels do not all split over "
             f"{M.axis_sizes(mesh)}'s 'model' axis")
-    tp = split.pop()
+    return split.pop()
+
+
+def local_dims(cfg, mesh):
+    """(inner channels, SSD heads) of this rank's block of the mixer."""
+    di, h, _, _ = mamba_dims(cfg)
+    nm = spmd.model_rank(mesh)[1] if _tp(cfg, mesh) else 1
+    return di // nm, h // nm
+
+
+def _mamba_spmd(cfg, p, x, mesh, cache: Optional[MambaCache] = None,
+                eps: float = 1e-6):
+    """The mixer on this rank's blocks (see the module's docstring): x
+    (B_loc, S, D) replicated over "model" → (y (B_loc, S, D), the new
+    cache or None); ``cache`` this rank's block (`init_mamba_cache` with
+    ``mesh``: its rows, its [xi_r | B | C] conv channels and its
+    heads)."""
+    decl = mamba_decl(cfg)
+    bsz, s, _ = x.shape
+    di, h, g, n = mamba_dims(cfg)
+    tp = _tp(cfg, mesh)
     m, nm = spmd.model_rank(mesh) if tp else (0, 1)
     dl, hl = di // nm, h // nm
     gb = spmd.global_batch(bsz, mesh)
@@ -268,7 +295,8 @@ def _mamba_spmd(cfg, p, x, mesh, eps: float = 1e-6):
                                          ("model",))[:, taps],
                 "conv_b": M.gather_param(conv["conv_b"], 0, mesh,
                                          ("model",))[taps]}
-    xbc, _ = _conv_causal(conv, xbc)
+    xbc, new_conv = _conv_causal(conv, xbc,
+                                 None if cache is None else cache.conv)
     xi, bproj, cproj = torch.split(xbc, [dl, g * n, g * n], dim=-1)
 
     dt = softplus(dt_raw.float() + p["dt_bias"].float())
@@ -278,12 +306,20 @@ def _mamba_spmd(cfg, p, x, mesh, eps: float = 1e-6):
     group = (m * hl + torch.arange(hl, device=x.device)) // (h // g)
     bm = bproj.reshape(bsz, s, g, n)[:, :, group]
     cm = cproj.reshape(bsz, s, g, n)[:, :, group]
-    y, _ = ssd_chunked(xh, dt, p["A_log"], bm, cm, p["D_skip"],
-                       chunk=cfg.ssm_chunk)
+    if cache is not None and s == 1:
+        y, new_ssm = ssd_decode_step(cache.ssm, xh[:, 0], dt[:, 0],
+                                     p["A_log"], bm[:, 0], cm[:, 0],
+                                     p["D_skip"])
+        y = y[:, None]
+    else:
+        y, new_ssm = ssd_chunked(
+            xh, dt, p["A_log"], bm, cm, p["D_skip"], chunk=cfg.ssm_chunk,
+            init_state=None if cache is None else cache.ssm)
+    new_cache = None if cache is None else MambaCache(new_conv, new_ssm)
     y = y.reshape(bsz, s, dl).to(x.dtype)
     if not tp:
         y = rmsnorm({"scale": p["norm_scale"]}, y * silu(z), eps)
-        return y @ w("w_out")
+        return y @ w("w_out"), new_cache
     # the gated RMSNorm over all di channels: the sum of squares added
     # over "model" (its cotangent too: each rank's part feeds its own)
     gy = (y * silu(z)).float()
@@ -292,7 +328,8 @@ def _mamba_spmd(cfg, p, x, mesh, eps: float = 1e-6):
         mesh, "model")
     y = (gy * torch.rsqrt(sq / di + eps)
          * p["norm_scale"].float()).to(x.dtype)
-    return M.reduce_replicated(y @ w("w_out"), mesh, "model")  # row-parallel
+    # row-parallel output
+    return M.reduce_replicated(y @ w("w_out"), mesh, "model"), new_cache
 
 
 class Mamba(ParamTree):

@@ -35,8 +35,10 @@ axis is > 1 and divides E.  The port is SPMD, so every rank passes its
 own block of x, and `moe` is told the global batch (``global_batch=``),
 which decides the branch:
 
-* ``tp`` — x split over the data axes, replicated over "model": each
-  rank routes every token of its block, runs its experts
+* ``tp`` — x split over the data axes (those whose product divides
+  the global batch; replicated over the others: a decode batch of 1 is
+  whole on every rank), replicated over "model": each rank routes every
+  token of its block, runs its experts
   (`_moe_local` at n ranks, cap from the block's tokens) and the
   partial outputs are summed over "model" (`mesh.reduce_replicated`,
   adds in rank order where XLA's all-reduce has none: held to a
@@ -78,6 +80,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from .. import mesh as M
+from ..device import is_fake
 from ..sharding import spmd
 from ..sharding.rules import data_axes, get_mesh, get_profile
 from .layers import silu
@@ -245,9 +248,10 @@ def _moe_local(x, w_router, w_in, w_out, *, cfg, n_ranks: int = 1,
     xt = x.reshape(t, d)
     gate, eidx = route(cfg, w_router, xt)
     dp = dispatch(cfg, eidx, n_ranks=n_ranks, rank=rank)
-    # rows an expert in the buffer: the fullest expert's (≤ cap)
+    # rows an expert in the buffer: the fullest expert's (≤ cap); a
+    # traced tensor (the dry run's) has no count to read: cap rows
     rows = dp.cap
-    if dp.cap > CAP_FLOOR:
+    if dp.cap > CAP_FLOOR and not is_fake(x):
         rows = min(dp.cap, int(dp.counts[:e_loc].max()))
     slot = torch.where(dp.valid, dp.sorted_e * rows + dp.pos, e_loc * rows)
     tok = dp.order // k                              # token of each pair
@@ -322,13 +326,20 @@ def ep_branch(cfg, mesh, global_batch: int) -> Optional[str]:
     return "tp"
 
 
-def ep_batch_axes(branch: Optional[str], mesh) -> tuple:
+def ep_batch_axes(branch: Optional[str], mesh,
+                  global_batch: Optional[int] = None) -> tuple:
     """The mesh axes x's batch dim is split over under ``branch`` (the
     reference's x_spec): the data axes, and "model" under "a2a"; none on
-    one rank."""
+    one rank.  With ``global_batch``, under "tp", those of the data axes
+    whose product divides it (`launch.specs.batch_axes_for`'s rule): the
+    rows are replicated over the others (a batch of 1 on every rank)."""
     if branch is None:
         return ()
-    return data_axes(mesh) + (("model",) if branch == "a2a" else ())
+    if branch == "a2a":
+        return data_axes(mesh) + ("model",)
+    if global_batch is None:
+        return data_axes(mesh)
+    return spmd.dividing_axes(data_axes(mesh), global_batch, mesh)
 
 
 def moe(cfg, p, x, *, global_batch: Optional[int] = None):
@@ -348,13 +359,13 @@ def moe(cfg, p, x, *, global_batch: Optional[int] = None):
             raise ValueError("moe under a mesh needs global_batch=: the "
                              "a2a-or-tp choice reads the global batch")
         branch = ep_branch(cfg, mesh, global_batch)
-        blocks = math.prod(M.axis_sizes(mesh)[a]
-                           for a in ep_batch_axes(branch, mesh))
+        axes = ep_batch_axes(branch, mesh, global_batch)
+        blocks = math.prod(M.axis_sizes(mesh)[a] for a in axes)
         if x.shape[0] * blocks != global_batch:
             raise ValueError(
                 f"moe ({branch or 'one rank'}): a block of {x.shape[0]} "
-                f"rows over {ep_batch_axes(branch, mesh)} is not the "
-                f"global batch {global_batch}")
+                f"rows over {axes} is not the global batch "
+                f"{global_batch}")
     y = _routed(cfg, p, x, mesh, branch)
     if cfg.n_shared_experts:
         h = x @ p["w_shared_in"].to(x.dtype)
@@ -399,10 +410,10 @@ def moe_spmd(cfg, p, x, mesh):
                        cfg=cfg)
         y = y[b * x.shape[0]:(b + 1) * x.shape[0]]
     else:
-        if tuple(ep_batch_axes(branch, mesh)) != spmd.batch_axes(mesh):
+        if ep_batch_axes(branch, mesh, gb) != spmd.batch_axes(mesh):
             raise NotImplementedError(
                 f"moe ({branch}): the branch splits the batch over "
-                f"{ep_batch_axes(branch, mesh)}, the trainer over "
+                f"{ep_batch_axes(branch, mesh, gb)}, the step over "
                 f"{spmd.batch_axes(mesh)}")
         if branch == "tp":
             # each rank routes for its own experts: the router's gradient

@@ -38,6 +38,7 @@ rank.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict, List, Optional, Union
 
 import torch
@@ -46,10 +47,11 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
-from .attention import Attention, KVCache, attention_decl
+from .attention import Attention, KVCache, attention_decl, local_kv_heads
 from .. import mesh as M
 from ..sharding import spmd
 from ..sharding.rules import (block_of, constrain, get_mesh, get_profile,
+                              get_rows, rows_context,
                               mesh_context, profile_context)
 from .layers import (MLP, Embed, Norm, embed_decl, mlp_decl, norm_decl,
                      rounded, vocab_embed)
@@ -144,22 +146,33 @@ def decl(cfg: ModelConfig) -> Dict[str, Any]:
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int,
                 dtype=torch.bfloat16,
-                device: Union[str, torch.device] = "cuda") -> list:
+                device: Union[str, torch.device] = "cuda",
+                mesh=None) -> list:
     """Per-stage caches matching `stage_plan`, stacked over each stage's
     layers: a `KVCache` (k, v (L, B, max_len, KV, hd) zeros, length 0)
     for attention stages, a `MambaCache` (conv (L, B, W − 1, CH) in
     ``dtype``, ssm (L, B, H, N, P) f32) for mamba stages, and for the
     period stage {"mambas": a `MambaCache` stacked (n_periods,
-    attn_period, …), "attn": a `KVCache` stacked over the periods}."""
+    attn_period, …), "attn": a `KVCache` stacked over the periods (the
+    shared block's one cache a period)}.
+
+    With ``mesh`` (more than one rank, under the rows of a global batch
+    of ``batch``: `sharding.spmd.rows`) this rank's blocks: its rows,
+    its KV heads (`attention.local_kv_heads`), its Mamba2 channels and
+    heads (`mamba.local_dims`)."""
     dev = resolve_device(device)
+    kv_heads = cfg.n_kv_heads
+    if mesh is not None:
+        batch //= spmd.batch_split(mesh)
+        kv_heads = local_kv_heads(cfg, mesh)
 
     def kv(n):
-        shape = (n, batch, max_len, cfg.n_kv_heads, cfg.hd)
+        shape = (n, batch, max_len, kv_heads, cfg.hd)
         return KVCache(torch.zeros(shape, dtype=dtype, device=dev),
                        torch.zeros(shape, dtype=dtype, device=dev), 0)
 
     def mb(*n):
-        one = init_mamba_cache(cfg, batch, dtype, dev)
+        one = init_mamba_cache(cfg, batch, dtype, dev, mesh)
         return MambaCache(*(a.expand(n + a.shape).contiguous() for a in one))
 
     caches = []
@@ -205,14 +218,16 @@ def remat(cfg, cache) -> bool:
 
 def rematted(fn, x, *args):
     """``fn(x, *args)`` with its activations recomputed in the backward
-    pass (``torch.utils.checkpoint``, non-reentrant), under the mesh and
-    profile of the forward: the backward of CUDA tensors runs on
+    pass (``torch.utils.checkpoint``, non-reentrant), under the mesh,
+    profile and rows of the forward: the backward of CUDA tensors runs on
     autograd's device thread, which does not see this thread's
     contexts."""
-    mesh, profile = get_mesh(), get_profile()
+    mesh, profile, rows = get_mesh(), get_profile(), get_rows()
 
     def run(*a):
-        with mesh_context(mesh), profile_context(profile):
+        with mesh_context(mesh), profile_context(profile), \
+                rows_context(rows) if rows is not None \
+                else contextlib.nullcontext():
             return fn(*a)
     return checkpoint(run, x, *args, use_reentrant=False)
 
@@ -433,14 +448,14 @@ class DecoderLM(nn.Module):
         `init_caches`): decode or cached prefill, returning (hidden, new
         caches).
 
-        On a sharded model: under its mesh and profile, tokens this
-        rank's rows of the global batch, training only; ``table`` the
+        On a sharded model: under its mesh and profile, tokens (and
+        ``prefix_embeds``) this rank's rows of the global batch, the
+        caches its blocks (`init_caches` with ``mesh``); ``table`` the
         embedding table already gathered (`sharded_head`, shared with
         the tied loss: one gradient, one reduce-scatter)."""
         cfg = self.cfg
         dt = torch_dtype(cfg.compute_dtype)
-        mesh = check_model_mesh(self, caches is not None
-                                or prefix_embeds is not None)
+        mesh = check_model_mesh(self)
         if mesh is not None:
             if table is None:
                 table = spmd.param(self.embed, "table", embed_decl(cfg),
@@ -480,10 +495,9 @@ class DecoderLM(nn.Module):
         return (x, new_caches) if decoding else x
 
 
-def check_model_mesh(model, serving: bool):
+def check_model_mesh(model):
     """The active mesh of more than one rank, checked against the one
-    ``model`` is sharded over (and the profile it was cut under); on a
-    mesh ``serving`` (caches or prefix embeddings) raises."""
+    ``model`` is sharded over (and the profile it was cut under)."""
     name = type(model).__name__
     mesh = spmd.active_mesh()
     if mesh is not model.mesh:
@@ -494,10 +508,6 @@ def check_model_mesh(model, serving: bool):
         if get_profile() != model.profile:
             raise RuntimeError(f"{name} cut under the {model.profile!r} "
                                f"profile run under {get_profile()!r}")
-        if serving:
-            raise NotImplementedError(
-                f"a sharded {name} trains (no caches, no prefix "
-                "embeddings)")
     return mesh
 
 
@@ -505,7 +515,8 @@ def sharded_init(tree, mesh, generator, dtype, dev):
     """This rank's blocks of the declaration ``tree`` on ``mesh`` under
     the active profile (reference layout): drawn leaf by leaf as
     `tree_init` draws the whole tree, each cut at once
-    (`sharding.block_of`); zeros without a generator."""
+    (`sharding.block_of`); zeros of the blocks' shapes without a
+    generator (no leaf made whole)."""
     rank = torch.distributed.get_rank()
     cuts = iter(tree_paths(tree_pspecs(tree, mesh)).values())  # its order
 
@@ -513,16 +524,24 @@ def sharded_init(tree, mesh, generator, dtype, dev):
         return block_of(t, next(cuts), mesh, rank).clone()
     if generator is not None:
         return tree_init(generator, tree, dtype, dev, cut=cut)
-    return tree_init(None, _zeros(tree), dtype, dev, cut=cut)
+    return tree_init(None, _blocks(tree, mesh, rank), dtype, dev)
 
 
-def _zeros(tree):
-    """The declaration tree with every leaf's init "zeros"."""
-    if isinstance(tree, dict):
-        return {k: _zeros(v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_zeros(t) for t in tree)
-    return PDecl(tree.shape, tree.logical, "zeros", tree.scale, tree.gated)
+def _blocks(tree, mesh, rank):
+    """The declaration tree with every leaf "zeros" of ``rank``'s block
+    shape under ``mesh`` (`sharding.block_of` of a meta tensor)."""
+    specs = iter(tree_paths(tree_pspecs(tree, mesh)).values())
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(node[k]) for k in sorted(node)}
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(t) for t in node)
+        shape = block_of(torch.empty(node.shape, device="meta"),
+                         next(specs), mesh, rank).shape
+        return PDecl(tuple(shape), node.logical, "zeros", node.scale,
+                     node.gated)
+    return walk(tree)
 
 
 # ---------------------------------------------------------------- heads ---

@@ -1,6 +1,14 @@
-"""The sweep's roofline: its analytic model and achieved-vs-peak.
+"""The roofline layer: the compiled-program half (the LM dry run's time
+terms) and the sweep's analytic model and achieved-vs-peak.
 
-Counterpart of the sweep half of `repro.perf.roofline`:
+Counterpart of `repro.perf.roofline`:
+
+  * the **program roofline**: the `Roofline` dataclass with its
+    compute / memory / collective time terms under this card's rates
+    (`PEAK_FLOPS`, `HBM_BW`, `LINK_BW`), `collective_bytes` over the
+    c10d calls a traced step made (where the reference parses post-SPMD
+    HLO), `compiled_cost` and `analyze` (`repro_torch.launch.dryrun`
+    traces the step, `repro_torch.launch.roofline.ProgramTrace`);
 
   * the **analytic per-kernel model**: `sweep_flops` / `sweep_bytes`
     count the O(n·c) FCM accumulation sweep exactly — two (N, C, d)
@@ -11,24 +19,171 @@ Counterpart of the sweep half of `repro.perf.roofline`:
     (`repro_torch.perf.microbench`) each rate reaches, the analytic
     roofline bound at those peaks and the fraction of it achieved;
     `roofline_report` fans this over backends × a shape ladder.
-
-The reference's TPU v5e datasheet constants and its compiled-program
-half (``Roofline``, ``collective_bytes``, ``compiled_cost``,
-``analyze``) serve the LM dry run and come with that stack.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Union
+import dataclasses
+from typing import Dict, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
 
-__all__ = ["sweep_flops", "sweep_bytes", "sweep_intensity",
-           "kernel_roofline", "roofline_report"]
+__all__ = ["PEAK_FLOPS", "HBM_BW", "LINK_BW", "Roofline",
+           "collective_bytes", "compiled_cost", "analyze", "COLLECTIVES",
+           "collective_kind", "sweep_flops", "sweep_bytes",
+           "sweep_intensity", "kernel_roofline", "roofline_report"]
 
 DeviceLike = Union[str, torch.device]
+
+# ------------------------------------------- the program roofline -------
+
+# The card's rates, per card: NVIDIA H100 SXM5 80GB HBM3, 700 W.
+# Dense bf16 tensor-core peak (NVIDIA's H100 datasheet, without
+# sparsity); chip_smoke.py's BF16_PEAK_FLOP_PER_S.
+PEAK_FLOPS = 989e12          # FLOP/s
+# HBM3 bandwidth (the same datasheet); chip_smoke.py's PEAK_BYTES_PER_S.
+HBM_BW = 3.35e12             # B/s
+# One card's network link: 400 Gb/s NDR InfiniBand (ConnectX-7, one per
+# card in an 8-card HGX node).  Every axis of the production meshes
+# crosses it: the 16×16 mesh's "model" axis is 16 consecutive ranks, so
+# it spans two 8-card NVLink nodes, and "data" and "pod" stride across
+# nodes; NVLink's 450 GB/s a direction is the rate of no axis.
+LINK_BW = 50e9               # B/s
+
+COLLECTIVES = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
+               "collective-permute")
+
+# c10d op → (kind, index of its result argument, index of its operand
+# argument): the reduce / broadcast ops work in place on their tensors
+_C10D = {
+    "allreduce_": ("all-reduce", 0, 0),
+    "allreduce_coalesced_": ("all-reduce", 0, 0),
+    "allgather_": ("all-gather", 0, 1),
+    "_allgather_base_": ("all-gather", 0, 1),
+    "allgather_coalesced_": ("all-gather", 0, 1),
+    "allgather_into_tensor_coalesced_": ("all-gather", 0, 1),
+    "reduce_scatter_": ("reduce-scatter", 0, 1),
+    "_reduce_scatter_base_": ("reduce-scatter", 0, 1),
+    "reduce_scatter_tensor_coalesced_": ("reduce-scatter", 0, 1),
+    "alltoall_": ("all-to-all", 0, 1),
+    "alltoall_base_": ("all-to-all", 0, 1),
+    "broadcast_": ("collective-permute", 0, 0),
+    "send": ("collective-permute", 0, 0),
+    "recv_": ("collective-permute", 0, 0),
+}
+
+
+def collective_kind(op_name: str):
+    """(kind, result arg, operand arg) of a c10d op by its name (``
+    "allgather_"``), or None for one that moves no payload (a barrier,
+    a monitored barrier).  An op of no known kind raises: an uncounted
+    collective would understate the term."""
+    if op_name in _C10D:
+        return _C10D[op_name]
+    if "barrier" in op_name:
+        return None
+    raise KeyError(f"c10d op {op_name!r} of no known collective kind")
+
+
+def collective_bytes(calls) -> Dict[str, int]:
+    """Bytes by collective kind of the c10d calls a traced step made —
+    ``calls`` an iterable of (kind, operand bytes, result bytes) — each
+    call counted as the larger of its operand and its result (the
+    reference's convention for an HLO collective).  The port's own
+    collectives count as what they are on the wire: `mesh.psum` an
+    all-gather of every member's payload, `mesh.reduce_scatter` an
+    all-to-all, a 16-bit payload its bytes."""
+    out = {k: 0 for k in COLLECTIVES}
+    for kind, operand, result in calls:
+        out[kind] += max(int(operand), int(result))
+    return out
+
+
+@dataclasses.dataclass
+class Roofline:
+    flops: float                 # per-device
+    hbm_bytes: float             # per-device
+    coll_bytes: float            # per-device
+    coll_breakdown: Dict[str, int]
+    model_flops: float           # 6·N_active·D global (useful FLOPs)
+    n_devices: int
+
+    @property
+    def t_compute(self) -> float:
+        return self.flops / PEAK_FLOPS
+
+    @property
+    def t_memory(self) -> float:
+        return self.hbm_bytes / HBM_BW
+
+    @property
+    def t_collective(self) -> float:
+        return self.coll_bytes / LINK_BW
+
+    @property
+    def bottleneck(self) -> str:
+        terms = {"compute": self.t_compute, "memory": self.t_memory,
+                 "collective": self.t_collective}
+        return max(terms, key=terms.get)
+
+    @property
+    def t_bound(self) -> float:
+        return max(self.t_compute, self.t_memory, self.t_collective)
+
+    @property
+    def useful_flops_ratio(self) -> float:
+        """MODEL_FLOPS / total program FLOPs (global)."""
+        tot = self.flops * self.n_devices
+        return self.model_flops / tot if tot else 0.0
+
+    @property
+    def mfu_bound(self) -> float:
+        """Model-FLOPs utilization at the roofline bound (upper bound on
+        achievable MFU for this program)."""
+        denom = self.t_bound * self.n_devices * PEAK_FLOPS
+        return self.model_flops / denom if denom else 0.0
+
+    def to_dict(self) -> dict:
+        return {
+            "flops_per_dev": self.flops,
+            "hbm_bytes_per_dev": self.hbm_bytes,
+            "coll_bytes_per_dev": self.coll_bytes,
+            "coll_breakdown": self.coll_breakdown,
+            "model_flops": self.model_flops,
+            "n_devices": self.n_devices,
+            "t_compute_s": self.t_compute,
+            "t_memory_s": self.t_memory,
+            "t_collective_s": self.t_collective,
+            "bottleneck": self.bottleneck,
+            "useful_flops_ratio": self.useful_flops_ratio,
+            "mfu_bound": self.mfu_bound,
+        }
+
+
+def compiled_cost(trace) -> Dict[str, float]:
+    """{"flops": the FLOPs counted over the traced step (its matmuls and
+    convolutions, ``FlopCounterMode``'s formulas), "bytes_accessed": the
+    operand and result bytes of every op it dispatched} — the traffic of
+    the unfused eager program; ``trace`` a
+    `repro_torch.launch.roofline.ProgramTrace`."""
+    return {"flops": float(trace.flops),
+            "bytes_accessed": float(trace.bytes_accessed)}
+
+
+def analyze(trace, model_flops: float, n_devices: int, *,
+            analytic_flops: float, analytic_bytes: float) -> Roofline:
+    """Compute and memory terms from the analytic model
+    (`launch.flops_model`: a per-device share of the step's FLOPs and
+    device-memory bytes); the collective term from the c10d calls the
+    traced step made (`collective_bytes`)."""
+    coll = collective_bytes(trace.calls)
+    return Roofline(flops=analytic_flops / n_devices,
+                    hbm_bytes=analytic_bytes / n_devices,
+                    coll_bytes=float(sum(coll.values())),
+                    coll_breakdown=coll, model_flops=model_flops,
+                    n_devices=n_devices)
 
 
 # ------------------------------------------ FCM sweep analytic model -----

@@ -28,7 +28,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-from ..mesh import _block, axis_sizes
+from ..mesh import _block, axis_sizes, layout
 
 # logical axis -> mesh axes (None = replicated)
 LOGICAL_RULES = {
@@ -78,6 +78,8 @@ _mesh_var: contextvars.ContextVar = contextvars.ContextVar(
     "repro_torch_mesh", default=None)
 _profile_var: contextvars.ContextVar[str] = contextvars.ContextVar(
     "repro_torch_profile", default="tp")
+_rows_var: contextvars.ContextVar = contextvars.ContextVar(
+    "repro_torch_rows", default=None)
 
 
 def set_mesh(mesh) -> None:
@@ -116,6 +118,25 @@ def mesh_context(mesh):
         yield mesh
     finally:
         _mesh_var.reset(tok)
+
+
+def get_rows() -> Optional[Tuple[str, ...]]:
+    """The mesh axes the active batch's rows split over (`rows_context`),
+    or None: every batch axis of the profile."""
+    return _rows_var.get()
+
+
+@contextlib.contextmanager
+def rows_context(axes: Sequence[str]):
+    """Run with the batch's rows split over ``axes`` (the largest
+    dividing prefix of the profile's batch axes, `launch.specs.
+    batch_axes_for`) and replicated over the profile's other batch
+    axes."""
+    tok = _rows_var.set(tuple(axes))
+    try:
+        yield
+    finally:
+        _rows_var.reset(tok)
 
 
 def data_axes(mesh=None) -> Tuple[str, ...]:
@@ -193,15 +214,26 @@ def constrain(x, *logical: Optional[str], shape: Sequence[int] = None):
     """``x`` itself, once checked to be this rank's block of a tensor of
     the global ``shape`` placed by ``logical`` (`logical_to_spec` with
     ``dims=shape`` under the active mesh and profile): each dim the
-    global size over the size of its entry's axes.  A no-op without a
-    mesh of more than one rank.  A wrong block raises."""
+    global size over the size of its entry's axes.  The port's rows are
+    its own layout: "batch" is split over the active rows' axes
+    (`get_rows`; every batch axis of the profile by default) and "seq"
+    stays whole (the reference's sequence split over "model" under
+    "fsdp" is not the port's).  A no-op without a mesh of more than one
+    rank.  A wrong block raises."""
     mesh = get_mesh()
-    if mesh is None or mesh.mesh.numel() == 1:
+    if mesh is None or layout(mesh).size == 1:
         return x
     if shape is None or len(shape) != x.dim():
         raise ValueError(f"constrain under a mesh needs the global shape "
                          f"of the {x.dim()}-d tensor, not {shape}")
-    spec = logical_to_spec(logical, mesh, dims=shape)
+    rows = get_rows()
+    if rows is None:
+        rows = tuple(a for a in PROFILES[get_profile()]["batch"]
+                     if a in mesh.mesh_dim_names)
+    spec = logical_to_spec([None if a in ("batch", "seq") else a
+                            for a in logical], mesh, dims=shape)
+    spec = tuple(_entry(rows) if a == "batch" else e
+                 for a, e in zip(logical, spec))
     sizes = axis_sizes(mesh)
     want = tuple(int(n) // math.prod(sizes[a] for a in spec_axes(e))
                  for n, e in zip(shape, spec))

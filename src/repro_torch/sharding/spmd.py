@@ -16,14 +16,19 @@ parameter by its logical axis:
   operators.  A layer whose weights are whole there runs whole on every
   rank, replicated.
 
-Activations are row blocks of the global batch over the profile's batch
-axes (`batch_axes`), replicated over the other axes.  The global batch
-must split over every one of them (`check_batch`): the reference's
-fallbacks for a batch that does not — the sequence split over "model"
-under "fsdp", replication over "data" — are not the port's.  A
-parameter's gradient is then summed over the storage axes by the
-reduce-scatter, and over the batch axes its placement leaves whole by
-the trainer (`grad_sum_axes`).
+Activations are row blocks of the global batch, replicated over
+"model" under "tp".  The rows split over the largest prefix of the
+profile's batch axes whose product divides the global batch
+(`launch.specs.batch_axes_for`, the reference's rule), set for a step
+with `rows` (`sharding.rules.rows_context`), and are replicated over
+the profile's other batch axes: a batch of 1 is whole on every rank, a
+batch of 32 on the (16, 16) mesh under "fsdp" is split over "data" and
+replicated over "model".  A parameter's gradient is summed over the
+storage axes by the reduce-scatter, and over the batch axes its
+placement leaves whole by the trainer (`grad_sum_axes`: every batch
+axis of the profile, split or not).  The ranks that replicate rows each
+weigh their copy by 1/`replication` in the backward, so those sums count
+each row once.
 """
 from __future__ import annotations
 
@@ -31,8 +36,8 @@ import math
 from typing import Tuple
 
 from .. import mesh as M
-from .rules import (PROFILES, Paired, get_mesh, get_profile,
-                    logical_to_spec, spec_axes)
+from .rules import (PROFILES, Paired, get_mesh, get_profile, get_rows,
+                    logical_to_spec, rows_context, spec_axes)
 
 STORAGE = ("embed", "expert_embed")
 
@@ -81,11 +86,43 @@ def model_rank(mesh) -> Tuple[int, int]:
     return M.block_index(mesh, ("model",))
 
 
-def batch_axes(mesh) -> Tuple[str, ...]:
+def profile_batch_axes(mesh) -> Tuple[str, ...]:
     """The active profile's batch axes that ``mesh`` has, in the rule's
     order (tp: ("pod", "data"); fsdp: ("pod", "data", "model"))."""
     return tuple(a for a in PROFILES[get_profile()]["batch"]
                  if a in mesh.mesh_dim_names)
+
+
+def dividing_axes(axes, rows: int, mesh) -> Tuple[str, ...]:
+    """Those of ``axes`` (in their order) whose running product divides
+    ``rows``, an axis that does not skipped."""
+    sizes = M.axis_sizes(mesh)
+    got, prod = [], 1
+    for a in axes:
+        if rows % (prod * sizes[a]) == 0:
+            got.append(a)
+            prod *= sizes[a]
+    return tuple(got)
+
+
+def rows_axes(rows: int, mesh) -> Tuple[str, ...]:
+    """The axes a global batch of ``rows`` splits over: the largest
+    prefix of the profile's batch axes whose product divides it
+    (`dividing_axes`; `launch.specs.batch_axes_for`)."""
+    return dividing_axes(profile_batch_axes(mesh), rows, mesh)
+
+
+def rows(global_rows: int, mesh):
+    """Context: a step on a global batch of ``global_rows`` rows, split
+    over `rows_axes` and replicated over the rest."""
+    return rows_context(rows_axes(global_rows, mesh))
+
+
+def batch_axes(mesh) -> Tuple[str, ...]:
+    """The axes the active batch's rows split over (`rows`); every batch
+    axis of the profile outside one."""
+    got = get_rows()
+    return profile_batch_axes(mesh) if got is None else got
 
 
 def batch_split(mesh) -> int:
@@ -93,21 +130,17 @@ def batch_split(mesh) -> int:
     return math.prod(sizes[a] for a in batch_axes(mesh))
 
 
+def replication(mesh) -> int:
+    """The ranks that hold each row of the active batch: the product of
+    the profile's batch axes that do not split it."""
+    sizes = M.axis_sizes(mesh)
+    return math.prod(sizes[a] for a in profile_batch_axes(mesh)
+                     if a not in batch_axes(mesh))
+
+
 def global_batch(local_rows: int, mesh) -> int:
     """The global batch of which ``local_rows`` is a rank's block."""
     return local_rows if mesh is None else local_rows * batch_split(mesh)
-
-
-def check_batch(rows: int, mesh) -> None:
-    """Raise unless a global batch of ``rows`` splits over every batch
-    axis of the profile that the mesh has."""
-    if rows % batch_split(mesh):
-        raise NotImplementedError(
-            f"a global batch of {rows} rows does not split over the batch "
-            f"axes {batch_axes(mesh)} of {M.axis_sizes(mesh)} under the "
-            f"{get_profile()!r} profile: the sharded LM takes a batch that "
-            "divides them (the reference would split the sequence or "
-            "replicate rows instead)")
 
 
 def check_ranks(mesh) -> None:
@@ -115,7 +148,7 @@ def check_ranks(mesh) -> None:
     SPMD, every rank of the mesh making the same call."""
     import torch.distributed as dist
     if not dist.is_initialized() or \
-            dist.get_rank() not in mesh.mesh.flatten().tolist():
+            dist.get_rank() not in M.layout(mesh).ravel().tolist():
         raise RuntimeError(
             f"a mesh of {M.mesh_size(mesh)} ranks trains sharded, every "
             "rank of its process group making the call (torchrun, "
@@ -133,10 +166,11 @@ def first_holder(spec, mesh, rank: int) -> bool:
 
 def grad_sum_axes(spec, mesh) -> Tuple[str, ...]:
     """The batch axes a leaf's gradient is still to be summed over after
-    the backward: those of more than one rank that its placement does not
-    split (the split ones were reduce-scattered by `param`, or hold
-    experts fed by the all-to-all)."""
+    the backward: those of the profile, of more than one rank, that its
+    placement does not split (the split ones were reduce-scattered by
+    `param`, or hold experts fed by the all-to-all) — the ones that
+    replicate the rows too, each copy weighed 1/`replication`."""
     split = {a for e in spec for a in spec_axes(e)}
     sizes = M.axis_sizes(mesh)
-    return tuple(a for a in batch_axes(mesh)
+    return tuple(a for a in profile_batch_axes(mesh)
                  if a not in split and sizes[a] > 1)

@@ -11,10 +11,13 @@ need no device sync.
 
 A model sharded over a mesh (``DecoderLM(…, mesh=)``, `sharding.spmd`)
 takes the sharded step: every rank is handed the same global batch and
-runs on its rows over the profile's batch axes (each microbatch's
-block, as the reference splits each microbatch), under the model's mesh
-and profile.  The loss is then the global mean on every rank; the
-backward has summed each gradient over its leaf's storage axes
+runs on its rows (each microbatch's block, as the reference splits each
+microbatch), under the model's mesh and profile.  The rows split over
+the largest prefix of the profile's batch axes that divides a
+microbatch (`spmd.rows`) and are replicated over the others.  The loss
+is then the global mean on every rank; the backward, seeded with
+1/`spmd.replication` on each rank (a row's copies count once), has
+summed each gradient over its leaf's storage axes
 (`mesh.gather_param`), and the step sums it over the batch axes its
 placement leaves whole (`sync_grads`: one rank-ordered f32 sum per set of
 axes) before the clip, whose norm counts each leaf once, and the
@@ -74,16 +77,17 @@ def model_loss(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor]):
         hidden = encdec_lib.decode(cfg, params, batch["tokens"], enc,
                                    table=head)
         return tf.lm_loss(cfg, params, hidden, batch["labels"], head=head)
+    prefix = batch.get("patch_embeds")
+    head = None
     if mesh is not None:            # sharded: one gathered head, tied or not
         head = tf.sharded_head(cfg, params, mesh)
-        hidden = params(batch["tokens"],
+        hidden = params(batch["tokens"], prefix_embeds=prefix,
                         table=head if cfg.tie_embeddings else None)
-        return tf.lm_loss(cfg, params, hidden, batch["labels"], head=head)
-    prefix = batch.get("patch_embeds")
-    hidden = params(batch["tokens"], prefix_embeds=prefix)
+    else:
+        hidden = params(batch["tokens"], prefix_embeds=prefix)
     if prefix is not None:
         hidden = hidden[:, prefix.shape[1]:]
-    return tf.lm_loss(cfg, params, hidden, batch["labels"])
+    return tf.lm_loss(cfg, params, hidden, batch["labels"], head=head)
 
 
 def model_device(model) -> torch.device:
@@ -106,14 +110,15 @@ def regroup(groups, flat: List[torch.Tensor]) -> Dict[str, list]:
     return out
 
 
-def loss_and_grads(cfg, model, groups, batch):
-    """(loss, {path: [gradient of each part]}) of `model_loss`; a
-    parameter the loss does not reach gets zeros, as ``jax.grad``
-    gives."""
+def loss_and_grads(cfg, model, groups, batch, weight: float = 1.0):
+    """(loss, {path: [gradient of each part]}) of `model_loss`, the
+    backward seeded with ``weight``; a parameter the loss does not reach
+    gets zeros, as ``jax.grad`` gives."""
     loss = model_loss(cfg, model, batch)
+    seed = None if weight == 1.0 else torch.full_like(loss, weight)
     grads = torch.autograd.grad(
         loss, [p for g in groups.values() for p in g.parts],
-        allow_unused=True, materialize_grads=True)
+        grad_outputs=seed, allow_unused=True, materialize_grads=True)
     return loss.detach(), regroup(groups, grads)
 
 
@@ -176,30 +181,37 @@ def sharded_step(cfg, state: TrainState, batch, optimizer, lr_fn,
                  grad_clip: float, microbatches: int):
     """One step of a sharded model on the global ``batch`` (see the
     module's docstring), under its mesh and profile."""
-    model = state.params
-    mesh = model.mesh
-    groups = param_groups(model)
-    dev = model_device(model)
     rows = int(next(iter(batch.values())).shape[0])
     if rows % microbatches:
         raise ValueError(f"{rows} rows do not split into {microbatches} "
                          "microbatches")
     per = rows // microbatches
-    spmd.check_batch(per, mesh)
+    with spmd.rows(per, state.params.mesh):
+        return _sharded_step(cfg, state, batch, optimizer, lr_fn, grad_clip,
+                             microbatches, per)
+
+
+def _sharded_step(cfg, state, batch, optimizer, lr_fn, grad_clip,
+                  microbatches, per):
+    model = state.params
+    mesh = model.mesh
+    groups = param_groups(model)
+    dev = model_device(model)
     axes = spmd.batch_axes(mesh)
+    weight = 1.0 / spmd.replication(mesh)
 
     def block(i):
         return on_device({k: M.shard_rows(v[i * per:(i + 1) * per], mesh,
                                           axes)
                           for k, v in batch.items()}, dev)
     if microbatches == 1:
-        loss, grads = loss_and_grads(cfg, model, groups, block(0))
+        loss, grads = loss_and_grads(cfg, model, groups, block(0), weight)
     else:
         loss = torch.zeros((), dtype=F32, device=dev)
         grads = {p: [torch.zeros(t.shape, dtype=F32, device=dev)
                      for t in g.parts] for p, g in groups.items()}
         for i in range(microbatches):
-            l, g = loss_and_grads(cfg, model, groups, block(i))
+            l, g = loss_and_grads(cfg, model, groups, block(i), weight)
             loss = loss + l
             for p, ts in g.items():
                 for acc, t in zip(grads[p], ts):

@@ -431,3 +431,30 @@ def test_trainer_raises_without_a_card():
     assert all(ln.startswith("raised:") and "device='cpu'" in ln
                for ln in out[:2]), out
     assert out[2] == "cpu: cpu"
+
+
+_ALL = """
+import json, sys
+for m in {modules!r}:
+    __import__(m)
+print(json.dumps(sorted(m for m in sys.modules
+                        if m == "jax" or m.startswith(("jax.", "jaxlib"))
+                        or m == "repro" or m.startswith("repro."))))
+"""
+
+
+def test_dryrun_and_sharded_serving_load_no_jax_and_no_reference_module():
+    """The dry run and every module it runs (the roofline layer, the mesh
+    under a fake group, the sharded serving path, the batch rule) load
+    nothing of `repro` (nor jax)."""
+    modules = ("repro_torch.launch.dryrun", "repro_torch.launch.roofline",
+               "repro_torch.perf.roofline", "repro_torch.launch.specs",
+               "repro_torch.launch.mesh", "repro_torch.launch.train",
+               "repro_torch.mesh", "repro_torch.serve.decode",
+               "repro_torch.sharding.spmd", "repro_torch.sharding.rules",
+               "repro_torch.train.step", "repro_torch.models.attention",
+               "repro_torch.models.mamba", "repro_torch.models.moe",
+               "repro_torch.models.transformer",
+               "repro_torch.models.encdec", "repro_torch.device")
+    out = _run(_ALL.format(modules=modules)).strip().splitlines()[-1]
+    assert json.loads(out) == []

@@ -71,6 +71,10 @@ CASES += [("padded/2x4/tp", "padded", (2, 4), "tp", {}),
           ("qwen2-1.5b/4x2/tp/mb2", "qwen2-1.5b", (4, 2), "tp",
            {"microbatches": 2})]
 ARCHS = ("qwen2-1.5b", "olmoe-1b-7b", "padded")
+# a batch of 4 on (2, 4) under "fsdp": split over "data", replicated over
+# "model" (the reference's prefix rule)
+SPLIT = ("qwen2-1.5b/2x4/fsdp/b4", "qwen2-1.5b", (2, 4), "fsdp",
+         {"batch": 4})
 
 _REFERENCE = textwrap.dedent("""
     import os
@@ -125,9 +129,11 @@ _REFERENCE = textwrap.dedent("""
     for name, arch, shape, profile, opts in args["cases"]:
         mesh = Mesh(np.asarray(jax.devices()).reshape(shape),
                     ("data", "model"))
+        opts = dict(opts)
+        batch = opts.pop("batch", args["batch"])
         with profile_context(profile):
             state, hist = RT.train(config(arch), mesh, steps=args["steps"],
-                                   batch=args["batch"], seq=args["seq"],
+                                   batch=batch, seq=args["seq"],
                                    log_fn=lambda *a: None, **opts)
         out["init"][arch] = rec["init"]
         out[name] = {{"losses": hist,
@@ -169,8 +175,8 @@ def runs():
     with tempfile.TemporaryDirectory() as tmp:
         inp, out = os.path.join(tmp, "in.pkl"), os.path.join(tmp, "out.pkl")
         with open(inp, "wb") as f:
-            pickle.dump(dict(cases=CASES, steps=STEPS, batch=BATCH, seq=SEQ,
-                             padded=J.PADDED), f)
+            pickle.dump(dict(cases=CASES + [SPLIT], steps=STEPS,
+                             batch=BATCH, seq=SEQ, padded=J.PADDED), f)
         res = subprocess.run(
             [sys.executable, "-c", _REFERENCE.format(
                 src=os.path.abspath(SRC), inp=inp, out=out)],
@@ -181,8 +187,11 @@ def runs():
     init = {arch: _nest(ref["init"][arch]) for arch in ARCHS}
     port = {}
     for shape in ((2, 4), (4, 2)):
-        cases = [(name, arch, init[arch], profile, STEPS, BATCH, SEQ, opts)
-                 for name, arch, s, profile, opts in CASES if s == shape]
+        cases = [(name, arch, init[arch], profile, STEPS,
+                  opts.get("batch", BATCH), SEQ,
+                  {k: v for k, v in opts.items() if k != "batch"})
+                 for name, arch, s, profile, opts in CASES + [SPLIT]
+                 if s == shape]
         port[shape] = M.spawn_mesh(
             J.run_cases, shape, NAMES, backend="gloo", device_type="cpu",
             timeout_s=DEADLINE_S, args=(cases, shape == (2, 4)))
@@ -396,9 +405,19 @@ def test_other_families_raise_on_a_mesh(arch):
         train(cfg, mesh, steps=1, batch=8, seq=8, device="cpu")
 
 
-def test_batch_that_does_not_split_raises():
-    cfg = treduced(tget_config("qwen2-1.5b"))
-    mesh = M.AbstractMesh((2, 4), NAMES)
-    with profile_context("fsdp"):
-        with pytest.raises(NotImplementedError, match="does not split"):
-            train(cfg, mesh, steps=1, batch=4, seq=8, device="cpu")
+def test_batch_replicated_over_model_matches_reference(runs):
+    """A batch of 4 on (2, 4) under "fsdp" splits over "data" only and is
+    replicated over "model" (the reference's rule): the losses and grad
+    norms are the reference's on the same mesh, every rank's final
+    blocks too."""
+    name, arch, shape, profile, _ = SPLIT
+    want = runs["ref"][name]
+    ranks = runs["port"][shape]
+    for r in ranks:
+        np.testing.assert_allclose(r[name]["losses"], want["losses"],
+                                   rtol=LOSS_RTOL)
+        np.testing.assert_allclose(r[name]["grad_norms"],
+                                   want["grad_norms"], rtol=LOSS_RTOL)
+    _hold_blocks([r[name] for r in ranks], want["params"],
+                 runs["ref"]["init"][arch], arch, shape, profile,
+                 _noise_bar(want))

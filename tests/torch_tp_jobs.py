@@ -89,36 +89,45 @@ def backward_in_a_thread(mesh, arch, params) -> bool:
     """The sharded loss's gradients with the backward run on a fresh
     thread, which sees none of this thread's contexts — as autograd's
     device thread runs a CUDA backward (and with it each rematted block's
-    recompute) — equal to those of a backward on this thread."""
+    recompute) — equal to those of a backward on this thread: under
+    "tp" on a batch of 8, and under "fsdp" on a batch of 4, whose rows
+    split over "data" only (the recompute re-enters the rows too)."""
     import threading
-    from repro_torch.sharding import mesh_context
+    from repro_torch.sharding import mesh_context, spmd
     from repro_torch.train.step import model_loss, on_device
     torch.set_num_threads(1)
     cfg = config(arch)
-    with profile_context("tp"):
-        state, _ = build(cfg, mesh, device="cpu",
-                         params=whole_model(cfg, params))
-    model = state.params
-    tokens, labels = next(synthetic_token_batches(cfg.vocab, 8, 16,
-                                                  steps=1, seed=5))
-    leaves = list(model.parameters())
-    grads = []
-    for threaded in (False, True):
-        with mesh_context(mesh), profile_context("tp"):
-            batch = on_device({"tokens": M.shard_rows(tokens, mesh),
-                               "labels": M.shard_rows(labels, mesh)},
-                              torch.device("cpu"))
-            loss = model_loss(cfg, model, batch)
-        box = []
-        run = lambda: box.append(torch.autograd.grad(loss, leaves))
-        if threaded:
-            t = threading.Thread(target=run)
-            t.start()
-            t.join()
-        else:
-            run()
-        grads.append(box[0])
-    return all(torch.equal(a, b) for a, b in zip(*grads))
+    same = True
+    for profile, rows in (("tp", 8), ("fsdp", 4)):
+        with profile_context(profile):
+            state, _ = build(cfg, mesh, device="cpu",
+                             params=whole_model(cfg, params))
+        model = state.params
+        tokens, labels = next(synthetic_token_batches(cfg.vocab, rows, 16,
+                                                      steps=1, seed=5))
+        leaves = list(model.parameters())
+        grads = []
+        for threaded in (False, True):
+            with mesh_context(mesh), profile_context(profile), \
+                    spmd.rows(rows, mesh):
+                axes = spmd.batch_axes(mesh)
+                batch = on_device({"tokens": M.shard_rows(tokens, mesh,
+                                                          axes),
+                                   "labels": M.shard_rows(labels, mesh,
+                                                          axes)},
+                                  torch.device("cpu"))
+                loss = model_loss(cfg, model, batch)
+            box = []
+            run = lambda: box.append(torch.autograd.grad(loss, leaves))
+            if threaded:
+                t = threading.Thread(target=run)
+                t.start()
+                t.join()
+            else:
+                run()
+            grads.append(box[0])
+        same &= all(torch.equal(a, b) for a, b in zip(*grads))
+    return same
 
 
 def collectives(mesh, seed: int) -> dict:
