@@ -252,11 +252,13 @@ any failure raises and exits non-zero:
    sharing the card.  Held in f32 (TF32 off), one AdamW step at lr 1e-3
    on 4 × 64 tokens against the one-rank step on the card from the same
    draws: Qwen2-1.5B at its published widths cut to 2 layers under "tp"
-   and "fsdp", OLMoE-1B-7B cut to 1 MoE layer at cf 8 under "tp",
-   Mamba2-2.7B cut to 2 layers under "tp", Zamba2-7B cut to 7 layers
-   (one period of 5 Mamba2 layers and the shared attention block, one
-   tail layer) under "tp" and "fsdp", Whisper-medium cut to 2 + 2
-   layers under "tp" on 4 × 1500 N(0, 1) frames — the loss and grad
+   and "fsdp", OLMoE-1B-7B cut to 1 MoE layer at cf 8 under "tp", both
+   under "fsdp" at 2 × 64 tokens too (rows over "data" only: each rank
+   holds 32 positions, K/V and the MoE layer's input gathered over
+   "model"), Mamba2-2.7B cut to 2 layers under "tp", Zamba2-7B cut to 7
+   layers (one period of 5 Mamba2 layers and the shared attention
+   block, one tail layer) under "tp" and "fsdp", Whisper-medium cut to
+   2 + 2 layers under "tp" on 4 × 1500 N(0, 1) frames — the loss and grad
    norm within 1e-5, each rank's block of every updated leaf within
    2.02 · lr of the one-rank leaf's block and all but 0.1 % of its
    elements within 1e-5 of the weight plus 0.01 · lr; printed per case:
@@ -276,15 +278,19 @@ any failure raises and exits non-zero:
    prefill and greedy decode (`serve.decode` on a sharded model, caches
    in each rank's blocks).  Held in f32 (TF32 off) against the one-rank
    path on the card from the same draws, 4 × 64-token prompts and 2
-   tokens generated (the prefill's and one decode step's): Qwen2-1.5B (2 layers) under "tp" and "fsdp", a batch
-   of 1 under "tp" (replicated over every batch axis) and of 2 under
-   "fsdp" (replicated over "model"), OLMoE-1B-7B (1 MoE layer, cf 8)
-   under "tp" and "fsdp", Mamba2-2.7B (2 layers) under "tp": each rank's
-   block of the prefill's last logits within 1e-5 of the one-rank
-   logits' largest magnitude, the tokens equal on every rank.  Timed:
-   Qwen2-1.5B (2 layers, bf16) under "tp" and "fsdp", a prefill of 4 ×
-   2048 tokens, then 8 greedy decode steps: per rank the prefill ms, the
-   decode ms a token, the bytes by kind and the collective seconds.
+   tokens generated (the prefill's and one decode step's): Qwen2-1.5B
+   (2 layers) under "tp" and "fsdp", a batch of 1 under "tp" (replicated
+   over every batch axis) and of 2 under "fsdp" (split over "data" only:
+   the prompt's positions split over "model", the last position's
+   logits from the rank holding it), OLMoE-1B-7B (1 MoE layer, cf 8)
+   under "tp" and "fsdp" and at a batch of 2 under "fsdp", Mamba2-2.7B
+   (2 layers) under "tp": each rank's block of the prefill's last logits
+   within 1e-5 of the one-rank logits' largest magnitude, the tokens
+   equal on every rank.  Timed: Qwen2-1.5B (2 layers, bf16) under "tp"
+   and "fsdp", a prefill of 4 × 2048 tokens, and under "fsdp" of 2 ×
+   4096 (the sequence split), each then 8 greedy decode steps: per rank
+   the prefill ms, the decode ms a token, the bytes by kind (the
+   sequence's K/V gathers among them) and the collective seconds.
    ``dryrun``: ``python -m repro_torch.launch.dryrun`` in a subprocess
    started before the build, on one torch thread (it does no card work:
    fake tensors), collected before the kernels line — Qwen2-1.5B
@@ -293,8 +299,10 @@ any failure raises and exits non-zero:
    and Kimi-K2 ``decode_32k`` pod1, each traced as rank 0 of the
    production mesh; printed per cell: the status, a rank's argument and
    peak GB, the FLOPs, the collective bytes by kind, the three roofline
-   terms and the bottleneck under the card's rates; a cell that errs
-   fails the phase.
+   terms and the bottleneck under the card's rates (OLMoE's, whose rows
+   leave "model", traced with its sequence split, beside its counted
+   FLOPs and peak with the sequence whole); a cell that errs fails the
+   phase.
 8. LM families — four published configs at full width and depth, bf16
    weights from `tree_init` on the card from ``--seed``, each served
    through `greedy_generate` and its loop timed call by call (prefill
@@ -337,6 +345,14 @@ any failure raises and exits non-zero:
    stub frame embeddings from ``--seed``, 4 prompt tokens, 32 new, a
    448-slot cache, the encoder timed apart; held: in f32 decode against
    one decoder forward over the 68 tokens.
+   ``examples``: the port's six examples (examples/torch_*.py) at their
+   default sizes with ``--device cuda``, each in a process of its own,
+   all started together after ``lm_families``; held: exit 0 and the reference
+   example's final "OK" line, and for the BigFCM ones (quickstart,
+   stream, cluster service, router init) the printed launches of the
+   hand-written kernels by wrapper and path — all on a kernel's path,
+   the fits on K1 or K2 (whichever kernel backend "auto"'s race picked),
+   the cluster service's tenant fit on a tenant-stacked kernel.
 9. the kernels line (one entry per kernel), the ``nvidia-smi`` line,
    and the final ``{"ok": true, ...}`` line.
 
@@ -1772,29 +1788,32 @@ def sweep64(X, W, V, m):
     return v_new, (wum * d2).sum((1, 2)), w_i
 
 
-def exact_trajectory(X, W, V0, m, counts, chunk=8192):
-    """The exact trajectory: each tenant's float64 centers after
-    ``counts[t]`` sweeps from its seeds V0, and max_i ‖ΔV_i‖² of its
-    sweeps number counts[t] and counts[t] − 1."""
+def exact_trajectory(X, W, V0, m, count_sets, chunk=8192):
+    """The exact trajectory, run once for every array of sweep counts in
+    ``count_sets`` (one run of sweeps to the largest count): for each
+    array, each tenant's float64 centers after ``counts[t]`` sweeps from
+    its seeds V0, and max_i ‖ΔV_i‖² of its sweeps number counts[t] and
+    counts[t] − 1 → [[centers, last, prev] for each array]."""
     import torch
-    out = ([], [], [])
+    out = [([], [], []) for _ in count_sets]
     for s in range(0, X.shape[0], chunk):
         sl = slice(s, s + chunk)
         v = V0[sl].double()
-        c = torch.as_tensor(counts[sl], device=X.device)
-        snap = v.clone()
-        last = torch.zeros(v.shape[0], dtype=torch.float64, device=X.device)
-        prev = last.clone()
-        for k in range(1, int(c.max()) + 1):
+        cs = [torch.as_tensor(c[sl], device=X.device) for c in count_sets]
+        zero = torch.zeros(v.shape[0], dtype=torch.float64, device=X.device)
+        held = [[v.clone(), zero.clone(), zero.clone()] for _ in cs]
+        for k in range(1, max(int(c.max()) for c in cs) + 1):
             v_new = sweep64(X[sl], W[sl], v, m[sl])[0]
             dv2 = ((v_new - v) ** 2).sum(-1).amax(-1)
             v = v_new
-            snap = torch.where((c == k)[:, None, None], v, snap)
-            last = torch.where(c == k, dv2, last)
-            prev = torch.where(c == k + 1, dv2, prev)
-        for o, a in zip(out, (snap, last, prev)):
-            o.append(a)
-    return [torch.cat(o) for o in out]
+            for c, h in zip(cs, held):
+                h[0] = torch.where((c == k)[:, None, None], v, h[0])
+                h[1] = torch.where(c == k, dv2, h[1])
+                h[2] = torch.where(c == k + 1, dv2, h[2])
+        for o, h in zip(out, held):
+            for part, a in zip(o, h):
+                part.append(a)
+    return [[torch.cat(part) for part in o] for o in out]
 
 
 def exact_sweep(X, W, V, m, chunk=8192):
@@ -1820,18 +1839,21 @@ def q_bound(X, W, V):
     return 4 * gamma * (W.double() * (x2 + v2)).sum(1)
 
 
-def exactness(fit, X, W, V0, m):
+def exactness(fit, X, W, V0, m, exact=None):
     """How far fit's tenants lie from the exact trajectory at their own
     sweep counts: per tenant, the excess of |v − v_exact| over
     1e-4 + 1e-4·|v_exact| (≤ 0 passes, as `np.allclose` at rtol = atol
     = 1e-4, tests/test_tenant.py's center bar), the float64 objective's
     relative gap, and the exact trajectory's ΔV² at the fit's last two
-    sweeps."""
+    sweeps.  ``exact``: `exact_trajectory`'s entry for fit's counts,
+    where a run shared with another fit's made it."""
     import numpy as np
     import torch
     t = fit.n_tenants
     X, W, V0, m = X[:t], W[:t], V0[:t], m[:t]
-    exact, last, prev = exact_trajectory(X, W, V0, m, fit.n_iter)
+    if exact is None:
+        exact = exact_trajectory(X, W, V0, m, [fit.n_iter])[0]
+    exact, last, prev = exact
     v = torch.from_numpy(fit.centers).to(X.device).double()
     excess = ((v - exact).abs() - 1e-4 - 1e-4 * exact.abs()).amax((1, 2))
     ja, je = objective64(X, W, v, m), objective64(X, W, exact, m)
@@ -1841,7 +1863,7 @@ def exactness(fit, X, W, V0, m):
 
 
 def hold_tenant_fits(a, b, X, W, V0, m, fixed, allowed_gap, obj_rtol,
-                     what, held=True) -> dict:
+                     what, held=True, exact=None) -> dict:
     """Fit ``a`` (through a kernel) against fit ``b`` (the plain ``torch``
     backend) and against the exact float64 trajectory, tenant by tenant.
 
@@ -1856,12 +1878,12 @@ def hold_tenant_fits(a, b, X, W, V0, m, fixed, allowed_gap, obj_rtol,
     convergence) or ε is crossed slowly, two f32 fits part by more than
     those bars while both follow the exact trajectory (PERF.md, section 6).
     With ``held`` false the record is only returned (`hold_step_locked`
-    holds such a run)."""
+    holds such a run).  ``exact``: as `exactness` takes it, for ``a``."""
     import numpy as np
     import torch
     t = a.n_tenants
     fixed, allowed_gap = fixed[:t], allowed_gap[:t]
-    exc, rel, _, _ = exactness(a, X, W, V0, m)
+    exc, rel, _, _ = exactness(a, X, W, V0, m, exact)
     gap = np.abs(a.n_iter.astype(np.int64) - b.n_iter)
     same = (gap == 0) & fixed
     va, vb = (torch.from_numpy(s.centers).to(X.device) for s in (a, b))
@@ -1900,7 +1922,7 @@ def hold_tenant_fits(a, b, X, W, V0, m, fixed, allowed_gap, obj_rtol,
     return rec
 
 
-def fixed_at_f32(ref, nudged, X, W, V0, m, obj_rtol):
+def fixed_at_f32(ref, nudged, X, W, V0, m, obj_rtol, exact=None):
     """(fixed, allowed_gap) per tenant, from the plain ``torch`` backend's
     fit ``ref``.  A tenant is fixed at f32 precision where ``ref`` lies
     on the exact float64 trajectory within tests/test_tenant.py's bars
@@ -1911,9 +1933,10 @@ def fixed_at_f32(ref, nudged, X, W, V0, m, obj_rtol):
     ``ref``'s: a rounding error of less than a factor 2 in ΔV² moves the
     crossing of ε by at most ⌈ln 2 / ln(1/ρ²)⌉ sweeps, where ρ² is the
     exact trajectory's ΔV² ratio over ``ref``'s last sweep (at least 1;
-    unbounded where ΔV² does not fall there)."""
+    unbounded where ΔV² does not fall there).  ``exact``: as
+    `exactness` takes it, for ``ref``."""
     import numpy as np
-    exc, rel, last, prev = exactness(ref, X, W, V0, m)
+    exc, rel, last, prev = exactness(ref, X, W, V0, m, exact)
     fixed = (exc <= 0) & (rel <= obj_rtol)
     for n in nudged:
         fixed &= n.n_iter == ref.n_iter
@@ -2164,13 +2187,19 @@ def run_tenant_path(run: TenantRun, seed: int, device, reps: int):
     tor = fit_tenants(data, torch_cfg, m_t=m_t, device=device)
     synchronize(device)
     record["torch_wall_s"] = time.perf_counter() - t0
+    # one float64 trajectory for both fits' sweep counts
+    t = ts.n_tenants
+    exact_tor, exact_ts = exact_trajectory(
+        X[:t], W[:t], V0[:t], m_dev[:t], [tor.n_iter, ts.n_iter])
     fixed, allowed = fixed_at_f32(tor, [
         fit_tenants([x * np.float32(1 + sign * 2.0 ** -22) for x in data],
                     torch_cfg, m_t=m_t, device=device) for sign in (1, -1)],
-        X, W, V0, m_dev, run.obj_rtol)
+        X, W, V0, m_dev, run.obj_rtol, exact_tor)
     record["vs_torch"] = hold_tenant_fits(
         ts, tor, X, W, V0, m_dev, fixed, allowed, run.obj_rtol,
-        f"hopper vs torch at {run.name}", held=not run.step_locked)
+        f"hopper vs torch at {run.name}", held=not run.step_locked,
+        exact=exact_ts)
+    del exact_tor, exact_ts
     if run.step_locked:
         record["step_locked"] = hold_step_locked(
             X, W, V0, m_dev, tor.n_iter, f"step-locked K3 at {run.name}")
@@ -7124,19 +7153,29 @@ def mp_config(arch, layers, dtype, **kw):
 
 
 def mp_cases():
-    """(name, config, profile) of the f32 holds."""
+    """(name, config, profile, rows) of the f32 holds: MP_HOLD's rows,
+    and 2 under "fsdp" (split over "data" only: the sequence splits over
+    "model")."""
     qwen = mp_config(LM_ARCH, MP_LAYERS, "float32")
     olmoe = mp_config(EP_ARCH, MP_MOE_LAYERS, "float32",
                       capacity_factor=MP_MOE_CF)
     fam = {arch: mp_config(arch, n, "float32", **(
         {"n_enc_layers": n} if arch == "whisper-medium" else {}))
         for arch, n in MP_FAM_LAYERS.items()}
-    return [("qwen2_tp", qwen, "tp"), ("qwen2_fsdp", qwen, "fsdp"),
-            ("olmoe_tp", olmoe, "tp"),
-            ("mamba2_tp", fam["mamba2-2.7b"], "tp"),
-            ("zamba2_tp", fam["zamba2-7b"], "tp"),
-            ("zamba2_fsdp", fam["zamba2-7b"], "fsdp"),
-            ("whisper_tp", fam["whisper-medium"], "tp")]
+    b = MP_HOLD[0]
+    return [("qwen2_tp", qwen, "tp", b), ("qwen2_fsdp", qwen, "fsdp", b),
+            ("qwen2_fsdp_b2", qwen, "fsdp", 2),
+            ("olmoe_tp", olmoe, "tp", b),
+            ("olmoe_fsdp_b2", olmoe, "fsdp", 2),
+            ("mamba2_tp", fam["mamba2-2.7b"], "tp", b),
+            ("zamba2_tp", fam["zamba2-7b"], "tp", b),
+            ("zamba2_fsdp", fam["zamba2-7b"], "fsdp", b),
+            ("whisper_tp", fam["whisper-medium"], "tp", b)]
+
+
+def mp_key(cfg, rows) -> str:
+    """A hold's batch and one-rank step: its config's, at ``rows``."""
+    return f"{cfg.name}_b{rows}"
 
 
 # lm_serve_mp (run by lm_train_mp's 4 ranks): (a) f32 holds of the
@@ -7145,18 +7184,24 @@ def mp_cases():
 # draws: each rank's block of the prefill's last logits within
 # SERVE_LOGIT_REL of the one-rank logits' largest magnitude, the tokens
 # equal; (b) bf16 Qwen2-1.5B (MP_LAYERS layers) under "tp" and "fsdp",
-# a prefill of SERVE_TIME tokens, then SERVE_NEW decode steps, timed.
+# a prefill of SERVE_TIME tokens, then SERVE_NEW decode steps, timed,
+# and under "fsdp" a prefill of SERVE_TIME_SPLIT tokens (2 rows: split
+# over "data" only, the sequence over "model").
 SERVE_HOLD = (4, 64)
 SERVE_HOLD_NEW = 2     # the prefill's token and one decode step
 SERVE_LOGIT_REL = 1e-5
 SERVE_TIME = (4, 2048)
+SERVE_TIME_SPLIT = (2, 4096)
 SERVE_NEW = 8
+# (record key, profile, prompt shape) of the timed runs
+SERVE_TIMED = (("tp", "tp", SERVE_TIME), ("fsdp", "fsdp", SERVE_TIME),
+               ("fsdp_b2", "fsdp", SERVE_TIME_SPLIT))
 
 
 def serve_cases():
     """(name, config, profile, batch) of lm_serve_mp's f32 holds: a batch
     of 1 is whole on every rank, one of 2 under "fsdp" split over "data"
-    and replicated over "model"."""
+    only, the prompt's positions over "model" (the sequence split)."""
     qwen = mp_config(LM_ARCH, MP_LAYERS, "float32")
     olmoe = mp_config(EP_ARCH, MP_MOE_LAYERS, "float32",
                       capacity_factor=MP_MOE_CF)
@@ -7166,6 +7211,7 @@ def serve_cases():
             ("qwen2_tp_b1", qwen, "tp", 1),
             ("qwen2_fsdp_b2", qwen, "fsdp", 2),
             ("olmoe_tp", olmoe, "tp", 4), ("olmoe_fsdp", olmoe, "fsdp", 4),
+            ("olmoe_fsdp_b2", olmoe, "fsdp", 2),
             ("mamba2_tp", mamba, "tp", 4)]
 
 
@@ -7276,8 +7322,8 @@ def serve_rank(mesh, seed, serve_wants, dev) -> dict:
         torch.cuda.empty_cache()
     torch.backends.cuda.matmul.allow_tf32 = True
     cfg = mp_config(LM_ARCH, MP_LAYERS, "bfloat16")
-    tokens = train_batches(cfg, 1, seed + 24, *SERVE_TIME)[0]["tokens"]
-    for profile in ("tp", "fsdp"):
+    for key, profile, shape in SERVE_TIMED:
+        tokens = train_batches(cfg, 1, seed + 24, *shape)[0]["tokens"]
         t0 = time.perf_counter()
         with profile_context(profile):
             state, _ = build(cfg, mesh, seed=seed + 1, device=dev.type)
@@ -7285,7 +7331,7 @@ def serve_rank(mesh, seed, serve_wants, dev) -> dict:
             before = mp_counters()
             got = serve_run(cfg, state.params, tokens, SERVE_NEW, dev)
             del state
-        out["timed"][profile] = {
+        out["timed"][key] = {
             "prefill_ms": got["prefill_ms"], "step_ms": got["step_ms"],
             "prefill_moved": got["prefill_moved"],
             "decode_moved": got["decode_moved"],
@@ -7374,7 +7420,7 @@ def mp_counters() -> dict:
     from repro_torch import obs
     return {k: obs.counter("mesh." + k).value for k in (
         "param_gather_bytes", "reduce_scatter_bytes", "psum_bytes",
-        "all_to_all_bytes", "collective_s")}
+        "all_to_all_bytes", "seq_gather_bytes", "collective_s")}
 
 
 def mp_rank_job(mesh, seed, hold_batches, wants, batches, ckpt_dir,
@@ -7402,7 +7448,8 @@ def mp_rank_job(mesh, seed, hold_batches, wants, batches, ckpt_dir,
     torch.backends.cuda.matmul.allow_tf32 = False
     out = {"rank": rank, "hold": {}, "hold_s": {}, "t_ready": t_ready,
            "t_start": t_start, "want_wait_s": {}}
-    for name, cfg, profile in mp_cases():
+    for name, cfg, profile, rows in mp_cases():
+        key = mp_key(cfg, rows)
         t0 = time.perf_counter()
         with profile_context(profile):
             state, _ = build(cfg, mesh, seed=seed, device=dev.type)
@@ -7411,17 +7458,17 @@ def mp_rank_job(mesh, seed, hold_batches, wants, batches, ckpt_dir,
             dist.barrier()
             synchronize(dev)
             t1 = time.perf_counter()
-            state, m = step(state, hold_batches[cfg.name])
+            state, m = step(state, hold_batches[key])
             synchronize(dev)
             ms = (time.perf_counter() - t1) * 1e3
             moved = {k: v - before[k] for k, v in mp_counters().items()}
             t1 = time.perf_counter()
-            mp_wait(wants[cfg.name])
+            mp_wait(wants[key])
             out["want_wait_s"][name] = time.perf_counter() - t1
             out["hold"][name] = {
                 "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
                 "ms": ms, "bytes": moved,
-                "leaves": mp_hold_blocks(state, wants[cfg.name], mesh, rank)}
+                "leaves": mp_hold_blocks(state, wants[key], mesh, rank)}
         out["hold_s"][name] = time.perf_counter() - t0
         del state
         torch.cuda.empty_cache()
@@ -7532,9 +7579,11 @@ def start_lm_train_mp(seed, device, work_dir):
     import threading
     from repro_torch import mesh as M
     hold_batches, wants = {}, {}
-    for _, cfg, _ in mp_cases():
-        hold_batches[cfg.name] = mp_hold_batch(cfg, seed + 21)
-        wants[cfg.name] = str(work_dir / f"want_{cfg.name}.pt")
+    for _, cfg, _, rows in mp_cases():
+        key = mp_key(cfg, rows)
+        hold_batches[key] = {k: v[:rows] for k, v in
+                             mp_hold_batch(cfg, seed + 21).items()}
+        wants[key] = str(work_dir / f"want_{key}.pt")
     serve_wants = {serve_key(cfg, b): str(
         work_dir / f"serve_want_{serve_key(cfg, b)}.pt")
         for _, cfg, _, b in serve_cases()}
@@ -7593,11 +7642,11 @@ def run_lm_train_mp(seed, device, work_dir, dp_rec, started):
     serve_wants = started["serve_wants"]
     served = set()
     try:
-        for _, cfg, _ in mp_cases():
-            if cfg.name not in want_rec:
-                want_rec[cfg.name] = mp_want(cfg, seed,
-                                             hold_batches[cfg.name], device,
-                                             wants[cfg.name])
+        for _, cfg, _, rows in mp_cases():
+            key = mp_key(cfg, rows)
+            if key not in want_rec:
+                want_rec[key] = mp_want(cfg, seed, hold_batches[key],
+                                        device, wants[key])
         for _, cfg, _, b in serve_cases():
             key = serve_key(cfg, b)
             if key not in served:
@@ -7627,8 +7676,8 @@ def run_lm_train_mp(seed, device, work_dir, dp_rec, started):
                            r["t_end"] for r in got[name])}
                 for name in spawns}
     hold = {}
-    for name, cfg, profile in mp_cases():
-        want = want_rec[cfg.name]
+    for name, cfg, profile, rows in mp_cases():
+        want = want_rec[mp_key(cfg, rows)]
         per = [r["hold"][name] for r in ranks]
         gaps = {}
         for key in ("loss", "grad_norm"):
@@ -7649,7 +7698,8 @@ def run_lm_train_mp(seed, device, work_dir, dp_rec, started):
                     if e["loose"] > MP_LOOSE_SHARE * e["numel"]:
                         raise AssertionError(f"lm_train_mp: {name} rank {r} "
                                              f"{path}: {e}")
-        hold[name] = {"arch": cfg.name, "profile": profile, "want": want,
+        hold[name] = {"arch": cfg.name, "profile": profile, "rows": rows,
+                      "want": want,
                       "losses": [p["loss"] for p in per],
                       "grad_norms": [p["grad_norm"] for p in per],
                       **gaps, "leaves": len(per[0]["leaves"]),
@@ -7684,7 +7734,7 @@ def run_lm_train_mp(seed, device, work_dir, dp_rec, started):
            "spawned_before_phase_s": t_go - walls["four_ranks"][0],
            "spawn_overhead_s": overhead,
            "hold_s": {name: max(r["hold_s"][name] for r in ranks)
-                      for name, _, _ in mp_cases()},
+                      for name, _, _, _ in mp_cases()},
            "timed_s": max(r["timed_s"] for r in ranks),
            "hold_f32": {"tokens": list(MP_HOLD), "lr": MP_LR,
                         "cases": hold,
@@ -7742,12 +7792,13 @@ def serve_record(ranks) -> dict:
                                                      for p in per),
                       "decode_bytes_rank0": per[0]["decode_moved"]}
     timed = {}
-    for profile in ("tp", "fsdp"):
-        per = [r["serve"]["timed"][profile] for r in ranks]
+    for key, profile, shape in SERVE_TIMED:
+        per = [r["serve"]["timed"][key] for r in ranks]
         if any(p["tokens"] != per[0]["tokens"] for p in per):
-            raise AssertionError(f"lm_serve_mp: {profile}: the ranks' "
+            raise AssertionError(f"lm_serve_mp: {key}: the ranks' "
                                  f"tokens differ: {per}")
-        timed[profile] = {
+        timed[key] = {
+            "profile": profile, "tokens": list(shape),
             "per_rank": [{
                 "prefill_ms": p["prefill_ms"],
                 "decode_ms_per_token": float(np.median(p["step_ms"])),
@@ -7760,8 +7811,7 @@ def serve_record(ranks) -> dict:
             "hold_f32": {"tokens": list(SERVE_HOLD), "new": SERVE_HOLD_NEW,
                          "logit_rel_bar": SERVE_LOGIT_REL, "cases": hold},
             "timed_bf16": {"arch": LM_ARCH, "layers": MP_LAYERS,
-                           "tokens": list(SERVE_TIME), "new": SERVE_NEW,
-                           "profiles": timed},
+                           "new": SERVE_NEW, "runs": timed},
             "seconds": max(r["serve_s"] for r in ranks)}
 
 
@@ -7900,6 +7950,8 @@ def run_dryrun(started, out_dir: Path) -> dict:
             "card_gb": rec["card_memory_bytes"] / 1e9,
             "counted_flops": rec["compiled_cost"]["flops"],
             "flops_per_dev": ro["flops_per_dev"],
+            "counted_over_flops_per_dev": (rec["compiled_cost"]["flops"]
+                                           / ro["flops_per_dev"]),
             "coll_breakdown": ro["coll_breakdown"],
             "t_compute_s": ro["t_compute_s"], "t_memory_s": ro["t_memory_s"],
             "t_collective_s": ro["t_collective_s"],
@@ -7912,6 +7964,105 @@ def run_dryrun(started, out_dir: Path) -> dict:
     return {"phase": "dryrun", "cells": cells,
             "seconds": time.perf_counter() - t0, "done_after_s": done_s,
             "waited_s": waited, "nvidia_smi": nvidia_smi()}
+
+
+# Phase ``examples``: the port's six examples (examples/torch_*.py) on
+# the card, each in a process of its own with ``--device cuda`` and its
+# default sizes, all started together after ``lm_families`` (whose
+# timed loops have the card and the host to themselves).  Each must exit
+# 0 with its reference's final "OK" line; the BigFCM ones print their
+# kernels' launches by wrapper and plan path, held: every one on a path
+# of the hand-written kernels, and for each of the example's roles some
+# launch of one of its wrappers.  Backend "auto" races the two kernel
+# backends per bucket ("hopper" sweeps with K2, "hopper_accumulate" with
+# K1 and a normalization), so a role names both: the single-model fits
+# K1 or K2, the cluster service's tenant fit their tenant-stacked twins.
+EXAMPLES = {"torch_quickstart.py":
+            "OK -- BigFCM recovered the mixture centers",
+            "torch_stream_clustering.py":
+            "OK -- bounded-skew disorder is absorbed by the event-time "
+            "window.",
+            "torch_cluster_service.py":
+            "OK -- restart restores the clustering state bit-exactly.",
+            "torch_serve_batch.py":
+            "OK -- batched KV-cached serving matches the uncached oracle.",
+            "torch_moe_router_init.py":
+            "OK -- FCM-seeded router routes coherently",
+            "torch_train_lm.py":
+            "OK -- loss decreased; rerun the same command to test "
+            "restart."}
+SINGLE_MODEL = ("fcm_accumulate_cuda", "fcm_sweep_cuda")
+TENANT_STACKED = ("fcm_accumulate_batched_cuda", "fcm_sweep_batched_cuda")
+EXAMPLE_KERNELS = {"torch_quickstart.py": (SINGLE_MODEL,),
+                   "torch_stream_clustering.py": (SINGLE_MODEL,),
+                   "torch_cluster_service.py": (SINGLE_MODEL,
+                                                TENANT_STACKED),
+                   "torch_moe_router_init.py": (SINGLE_MODEL,)}
+KERNEL_PATHS = {path for _, path in PATH_SOURCE}
+EXAMPLES_DEADLINE_S = 600.0
+
+def run_examples(work_dir: Path) -> dict:
+    """Phase ``examples``: each of EXAMPLES in a process of its own, its
+    own directory under ``work_dir`` for its output, temporary files and
+    calibration, all started at once; then each one's exit, its "OK"
+    line and its launches, held."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    procs = {}
+    try:
+        for name in EXAMPLES:
+            d = work_dir / name[:-3]
+            d.mkdir()
+            with open(d / "out.txt", "w") as out, \
+                    open(d / "err.txt", "w") as err:
+                procs[name] = subprocess.Popen(
+                    [sys.executable, str(ROOT / "examples" / name),
+                     "--device", "cuda"], stdout=out, stderr=err,
+                    env=dict(env, TMPDIR=str(d),
+                             REPRO_CALIB_DIR=str(d / "calib")),
+                    cwd=str(d))
+        rec = {}
+        for name, proc in procs.items():
+            code = proc.wait(timeout=max(1.0, EXAMPLES_DEADLINE_S
+                                         - (time.perf_counter() - t0)))
+            d = work_dir / name[:-3]
+            lines = (d / "out.txt").read_text().splitlines()
+            if code != 0:
+                raise AssertionError(f"examples: {name} exited {code}: "
+                                     + (d / "err.txt").read_text()[-3000:])
+            ok = [ln for ln in lines if ln.startswith("OK")]
+            if not ok or not ok[-1].startswith(EXAMPLES[name]):
+                raise AssertionError(f"examples: {name} printed no "
+                                     f"{EXAMPLES[name]!r}: {lines[-20:]}")
+            rec[name] = {"seconds": time.perf_counter() - t0,
+                         "ok": ok[-1], "last_lines": lines[-4:]}
+            if name in EXAMPLE_KERNELS:
+                rec[name]["launches"] = example_launches(name, lines)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return {"phase": "examples", "examples": rec,
+            "seconds": time.perf_counter() - t0, "nvidia_smi": nvidia_smi()}
+
+
+def example_launches(name, lines) -> dict:
+    """An example's printed launches by wrapper and path, held (see the
+    phase's note)."""
+    got = [ln for ln in lines if ln.startswith("kernel launches: ")]
+    if not got:
+        raise AssertionError(f"examples: {name} printed no launches")
+    launches = json.loads(got[-1][len("kernel launches: "):])
+    for fn, paths in launches.items():
+        if set(paths) - KERNEL_PATHS:
+            raise AssertionError(f"examples: {name}: {fn} launched on "
+                                 f"{sorted(paths)}")
+    for role in EXAMPLE_KERNELS[name]:
+        if not sum(sum(launches.get(fn, {}).values()) for fn in role):
+            raise AssertionError(f"examples: {name} launched none of "
+                                 f"{role}: {launches}")
+    return launches
 
 
 def build_all() -> dict:
@@ -8079,6 +8230,13 @@ def run_phases(args, device, dry, dry_dir) -> int:
         shutil.rmtree(mp_dir, ignore_errors=True)
     torch.cuda.empty_cache()
     entries += run_lm_families(args.seed, device, reps=20)
+    torch.cuda.empty_cache()
+    ex_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_examples_",
+                                   dir=stores))
+    try:
+        emit(run_examples(ex_dir))
+    finally:
+        shutil.rmtree(ex_dir, ignore_errors=True)
     emit(run_dryrun(dry, dry_dir))
     return finish(entries, device)
 

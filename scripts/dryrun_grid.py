@@ -12,6 +12,7 @@ summary is printed as a Markdown table and written to
 
   PYTHONPATH=src python scripts/dryrun_grid.py --out-dir results/dryrun_torch
   PYTHONPATH=src python scripts/dryrun_grid.py --device cpu --jobs 4
+  PYTHONPATH=src python scripts/dryrun_grid.py --profile fsdp   # 80 cells
 
 Exits 1 when a cell is an "error" (the table names it and its reason).
 """
@@ -48,13 +49,13 @@ def run_one(arch: str, profile: str, out_dir: str, device: str) -> tuple:
 def line(r: dict) -> str:
     head = f"| {r['arch']} | {r['shape']} | {r['mesh']} | {r['profile']} |"
     if r["status"] == "skipped":
-        return head + " skipped |" + " — |" * 9
+        return head + " skipped |" + " — |" * 10
     if r["status"] != "ok":
         peak = r.get("peak_bytes_per_rank")
         return (head + f" error: {r['error'][:90]} |"
                 + (f" {r['memory_analysis']['argument_size_in_bytes'] / 1e9:.3f} |"
                    f" {peak / 1e9:.3f} |" if peak else " — | — |")
-                + " — |" * 7)
+                + " — |" * 8)
     ro, mem = r["roofline"], r["memory_analysis"]
     coll = ", ".join(f"{k} {v / 1e9:.4g}" for k, v in
                      ro["coll_breakdown"].items() if v)
@@ -63,7 +64,8 @@ def line(r: dict) -> str:
             f" {ro['flops_per_dev']:.4g} | {coll or '—'} |"
             f" {ro['t_compute_s']:.4g} | {ro['t_memory_s']:.4g} |"
             f" {ro['t_collective_s']:.4g} | {ro['bottleneck']} |"
-            f" {ro['mfu_bound']:.4g} | {r['t_lower_s']:.1f} |")
+            f" {ro['mfu_bound']:.4g} | {r['t_lower_s']:.1f} |"
+            f" {r['compiled_cost']['flops']:.4g} |")
 
 
 def main(argv=None) -> int:
@@ -72,10 +74,12 @@ def main(argv=None) -> int:
     ap.add_argument("--out-dir", default="results/dryrun_torch")
     ap.add_argument("--jobs", type=int, default=os.cpu_count() or 4)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    ap.add_argument("--profile", default="both",
+                    choices=["tp", "fsdp", "both"])
     args = ap.parse_args(argv)
     os.makedirs(args.out_dir, exist_ok=True)
-    tasks = [(arch, profile) for profile in ("tp", "fsdp")
-             for arch in ARCHS]
+    profiles = ("tp", "fsdp") if args.profile == "both" else (args.profile,)
+    tasks = [(arch, profile) for profile in profiles for arch in ARCHS]
     # the largest configs first, so that the pool ends together
     tasks.sort(key=lambda t: t[0] not in ("kimi-k2-1t-a32b", "zamba2-7b",
                                           "pixtral-12b", "stablelm-12b"))
@@ -92,7 +96,7 @@ def main(argv=None) -> int:
     out = ["| arch | shape | mesh | profile | status | argument GB/rank |"
            " peak GB/rank | FLOPs/rank | collective GB/rank by kind |"
            " t_compute s | t_memory s | t_collective s | bottleneck |"
-           " mfu_bound | trace s |", "|" + "---|" * 15]
+           " mfu_bound | trace s | counted FLOPs/rank |", "|" + "---|" * 16]
     out += [line(r) for r in recs]
     counts = {s: sum(r["status"] == s for r in recs)
               for s in ("ok", "skipped", "error")}

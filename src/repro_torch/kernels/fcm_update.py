@@ -1184,3 +1184,17 @@ def reset_counts() -> None:
 
 
 reset_counts()
+
+
+def launches_by_path() -> dict:
+    """Each wrapper's launches since `reset_counts`, by launch-plan path:
+    {wrapper name: {path: launches}} (empty where it launched nothing,
+    as on the CPU, where each wrapper takes its plain version)."""
+    out = {}
+    with _COUNT_LOCK:
+        for fn in WRAPPERS:
+            paths = collections.Counter()
+            for key, n in fn.shapes.items():
+                paths[key[0]] += n
+            out[fn.__name__] = dict(paths)
+    return out

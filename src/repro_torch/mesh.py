@@ -34,6 +34,10 @@ tensor-parallel activations and FSDP parameter gathers.
     only store it (FSDP), under autograd: its backward is
     `reduce_scatter`, each member's use of the whole a part of one
     global use.
+  * `gather_seq` / `scatter_seq` — the same gather for an activation's
+    sequence split over the axes (K and V around attention, a MoE
+    layer's input), and its transpose: the partials' sum of which each
+    member keeps its block, whose backward gathers the cotangent.
   * `all_to_all` — ``jax.lax.all_to_all(t, axis, 0, 0, tiled=False)``
     over one mesh axis, on that axis's subgroup (its payload is the
     routed tokens of expert parallelism, hundreds of MB, not summaries);
@@ -76,8 +80,9 @@ Instrumentation: each collective adds its host seconds to
 — `all_to_all` to ``mesh.all_to_all_bytes``, `reduce_scatter` to
 ``mesh.reduce_scatter_bytes`` — (`repro_torch.obs` counters; the
 process's own, like every counter).  By kind besides: `psum`'s gathers
-also go to ``mesh.psum_bytes`` (a tensor-parallel all-reduce) and
-`gather_param`'s to ``mesh.param_gather_bytes``.
+also go to ``mesh.psum_bytes`` (a tensor-parallel all-reduce),
+`gather_param`'s to ``mesh.param_gather_bytes`` and `gather_seq`'s (and
+`scatter_seq`'s backward's) to ``mesh.seq_gather_bytes``.
 """
 from __future__ import annotations
 
@@ -433,22 +438,40 @@ def reduce_scatter(t: torch.Tensor, mesh, axes: Axes = ("data",),
     return out
 
 
+def _gather_along(t: torch.Tensor, dim: int, mesh, axes: Tuple[str, ...],
+                  counter: str) -> torch.Tensor:
+    """The members' ``t`` over ``axes`` side by side along ``dim`` (block
+    order), its bytes added to the obs counter ``counter``."""
+    parts = _gather_stack(t, mesh, axes)
+    obs.counter(counter).add(t.numel() * t.element_size() * len(parts))
+    # (P, …, n, …) → (…, P·n, …): the blocks side by side along dim
+    whole = parts.movedim(0, dim)
+    return whole.reshape(tuple(t.shape[:dim]) + (-1,)
+                         + tuple(t.shape[dim + 1:]))
+
+
 class _GatherParam(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, t, dim, mesh, axes):
+    def forward(ctx, t, dim, mesh, axes, counter):
         ctx.dim, ctx.mesh, ctx.axes = dim, mesh, axes
-        parts = _gather_stack(t, mesh, axes)
-        obs.counter("mesh.param_gather_bytes").add(
-            t.numel() * t.element_size() * len(parts))
-        # (P, …, n, …) → (…, P·n, …): the blocks side by side along dim
-        whole = parts.movedim(0, dim)
-        return whole.reshape(tuple(t.shape[:dim]) + (-1,)
-                             + tuple(t.shape[dim + 1:]))
+        return _gather_along(t, dim, mesh, axes, counter)
 
     @staticmethod
     def backward(ctx, g):
         return (reduce_scatter(g.contiguous(), ctx.mesh, ctx.axes, ctx.dim),
-                None, None, None)
+                None, None, None, None)
+
+
+class _ScatterSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, dim, mesh, axes):
+        ctx.dim, ctx.mesh, ctx.axes = dim, mesh, axes
+        return reduce_scatter(t.contiguous(), mesh, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_gather_along(g.contiguous(), ctx.dim, ctx.mesh, ctx.axes,
+                              "mesh.seq_gather_bytes"), None, None, None)
 
 
 def gather_param(block: torch.Tensor, dim: int, mesh, axes: Axes
@@ -462,7 +485,34 @@ def gather_param(block: torch.Tensor, dim: int, mesh, axes: Axes
     axes = _axes(axes)
     if not axes:
         return block
-    return _GatherParam.apply(block, dim % block.dim(), mesh, axes)
+    return _GatherParam.apply(block, dim % block.dim(), mesh, axes,
+                              "mesh.param_gather_bytes")
+
+
+def gather_seq(block: torch.Tensor, dim: int, mesh, axes: Axes
+               ) -> torch.Tensor:
+    """`gather_param` of an activation: the whole sequence along ``dim``
+    from the members' blocks of it over ``axes`` (K and V around
+    attention, a MoE layer's input, under the sequence split), its
+    cotangent reduce-scattered; its bytes go to ``mesh.seq_gather_bytes``.
+    No axes: ``block`` itself."""
+    axes = _axes(axes)
+    if not axes:
+        return block
+    return _GatherParam.apply(block, dim % block.dim(), mesh, axes,
+                              "mesh.seq_gather_bytes")
+
+
+def scatter_seq(t: torch.Tensor, dim: int, mesh, axes: Axes
+                ) -> torch.Tensor:
+    """`gather_seq`'s transpose: the sum of the members' partial ``t``
+    over ``axes``, of which this rank keeps its block along ``dim``
+    (`reduce_scatter`); under autograd its cotangent is gathered along
+    ``dim`` (every member's part reads the whole).  No axes: ``t``."""
+    axes = _axes(axes)
+    if not axes:
+        return t
+    return _ScatterSum.apply(t, dim % t.dim(), mesh, axes)
 
 
 def _all_to_all(t: torch.Tensor, mesh, axis: str) -> torch.Tensor:
@@ -533,6 +583,25 @@ class _ReduceReplicated(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g, None, None
+
+
+class _SumReplicas(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return psum(t, mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return psum(g, ctx.mesh, ctx.axes), None, None
+
+
+def sum_replicas(t: torch.Tensor, mesh, axes: Axes) -> torch.Tensor:
+    """`psum` of the members' parts ``t`` over ``axes`` where the members
+    hold copies of the same rows, each weighed 1/P in the backward (a
+    trainer's seeding): under autograd each part's cotangent is the sum
+    of the copies' (`psum`), the whole output's."""
+    return _SumReplicas.apply(t, mesh, _axes(axes))
 
 
 def enter_replicated(t: torch.Tensor, mesh, axes: Axes) -> torch.Tensor:

@@ -19,13 +19,23 @@ on every rank — ``wk`` / ``wv`` gathered over "model" where their
 columns are split mid-head, their cotangents reduce-scattered — and
 each rank takes the KV head of each of its Q heads.
 
+Under the sequence split (`sharding.rules.get_seq`: "fsdp", where the rows
+leave "model"), x is this rank's block of positions: Q stays local, K
+and V are projected on the block, take RoPE at its global positions and
+are gathered over "model" around `_sdpa` (`mesh.gather_seq`, whose
+backward reduce-scatters their cotangents), the causal mask and the
+KV-chunked softmax see Q from the block's offset on, and the output
+stays local.
+
 Serving under a mesh: a rank's KV cache block holds its rows and its
 KV heads (`local_kv_heads`) — where K and V are computed whole, all of
 them, where the reference splits the head dim over "model"
 (`cache_logical`): a rank-local layout, so that a decode step reads its
 cache and moves nothing but the row-parallel sum.  The new token's K/V
 go into the block at the cache's length, and the rank attends over its
-heads.  Cross-attention's cached K/V are blocks alike (`cross_kv`).
+heads; a prefill under the sequence split writes the gathered K/V, every
+position, into each rank's block.  Cross-attention's cached K/V are
+blocks alike (`cross_kv`).
 """
 from __future__ import annotations
 
@@ -36,7 +46,7 @@ import torch
 from .. import mesh as M
 from ..mesh import axis_sizes
 from ..sharding import spmd
-from ..sharding.rules import constrain, get_mesh
+from ..sharding.rules import constrain, get_mesh, get_seq
 from .layers import apply_rope, rounded
 from .params import ParamTree, PDecl
 
@@ -410,10 +420,14 @@ def _attention_spmd(cfg, p, x, positions, mesh, *, causal=True,
     `local_kv_heads`); cross-attention against ``kv_input`` (B_loc,
     S_enc, D), likewise replicated (its K/V without bias, no RoPE, no
     mask), or against this rank's block ``kv`` = (k, v) of them
-    (`cross_kv`: the cached decode)."""
+    (`cross_kv`: the cached decode).  Under the sequence split x is this
+    rank's block of positions, K and V gathered over its axes."""
     decl = attention_decl(cfg)
     b, s, _ = x.shape
     gb = spmd.global_batch(b, mesh)
+    seq = get_seq()
+    offset = 0 if seq is None else seq.offset
+    gs = spmd.global_seq(s)
     hd, hp, nkv = cfg.hd, cfg.n_heads_padded, cfg.n_kv_heads
     lay = _layout(cfg, mesh)
     cross = kv_input is not None or kv is not None
@@ -431,16 +445,20 @@ def _attention_spmd(cfg, p, x, positions, mesh, *, causal=True,
     else:
         k, v = (t.to(x.dtype) for t in kv)
     kvlog = _kv_logical(cfg)
-    se = k.shape[1]
-    q = constrain(q, "batch", "seq", "heads", None, shape=(gb, s, hp, hd))
+    se = k.shape[1] if cross else gs    # K/V's global positions
+    q = constrain(q, "batch", "seq", "heads", None, shape=(gb, gs, hp, hd))
     k = constrain(k, "batch", "seq", kvlog, None, shape=(gb, se, nkv, hd))
     v = constrain(v, "batch", "seq", kvlog, None, shape=(gb, se, nkv, hd))
     base = cache.length if cache is not None else 0
     if cfg.pos == "rope" and not cross:
         if positions is None:
-            positions = (base + torch.arange(s, device=x.device)).expand(b, s)
+            positions = (base + offset + torch.arange(
+                s, device=x.device)).expand(b, s)
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
+    if seq is not None and not cross:   # K/V of every position
+        k = M.gather_seq(k, 1, mesh, seq.axes)
+        v = M.gather_seq(v, 1, mesh, seq.axes)
     new_cache = None
     if cache is not None:
         new_cache = _write(cache, k, v)
@@ -448,13 +466,14 @@ def _attention_spmd(cfg, p, x, positions, mesh, *, causal=True,
     h = q.shape[2]
     if lay.whole_kv:                    # each Q head's KV head
         k, v = _group_kv(k, v, lay.m, h, hp, nkv)
-    out = _sdpa(q, k, v, causal=causal and not cross, q_offset=base,
-                scale=cfg.hd ** -0.5, chunk=cfg.attn_chunk)
+    out = _sdpa(q, k, v, causal=causal and not cross,
+                q_offset=base + offset, scale=cfg.hd ** -0.5,
+                chunk=cfg.attn_chunk)
     hm = head_mask(cfg, out.dtype, out.device)
     if hm is not None:
         out = out * hm[lay.m * h:(lay.m + 1) * h][None, None, :, None]
     out = out.reshape(b, s, h * hd).to(x.dtype)
-    out = constrain(out, "batch", "seq", "heads", shape=(gb, s, hp * hd))
+    out = constrain(out, "batch", "seq", "heads", shape=(gb, gs, hp * hd))
     y = out @ spmd.param(p, "wo", decl, mesh).to(x.dtype)
     if lay.tp:                          # row-parallel output
         y = M.reduce_replicated(y, mesh, "model")

@@ -144,7 +144,8 @@ def mlp(cfg, p, x):
         h = gelu_tanh(h)
     if mesh is not None:
         h = constrain(h, "batch", "seq", "act_mlp", shape=(
-            spmd.global_batch(h.shape[0], mesh), h.shape[1], cfg.d_ff))
+            spmd.global_batch(h.shape[0], mesh), spmd.global_seq(h.shape[1]),
+            cfg.d_ff))
     y = h @ spmd.param(p, "w_out", decl, mesh).to(x.dtype)
     if tp:                                  # row-parallel output
         y = M.reduce_replicated(y, mesh, "model")

@@ -68,6 +68,18 @@ experts tensor-parallel.  Without an expert-parallel branch (one
 "model" rank, or experts that do not split over it) the ranks' rows are
 gathered and the single-rank layer runs on the global batch, as the
 reference's capacity is the global batch's; each rank keeps its rows.
+Under the sequence split (`sharding.rules.get_seq`: "fsdp", rows that leave
+"model", so the branch is ``tp`` or none) x is a block of positions: the
+layer gathers its rows' whole sequence over "model" first, as the
+reference's ``shard_map`` in_spec ``P(data axes, None, None)`` does, so
+that capacity counts the same tokens, and each rank keeps its block
+after — under ``tp`` the experts' partial outputs reduce-scattered over
+"model" (`mesh.scatter_seq`), the router's gradient parts summed with
+the other leaves' over "model" (no rank replicates another's tokens).
+Where such rows stay copied over "model" instead (a length "model" does
+not divide), each copy weighed 1/"model" in the backward, the partial
+outputs sum both ways (`mesh.sum_replicas`): each rank's experts take
+the whole output's cotangent.
 
 BigFCM tie-in: `repro_torch.integration.fcm_router_init` seeds
 ``w_router`` with FCM centroids of token embeddings.
@@ -82,7 +94,7 @@ import torch
 from .. import mesh as M
 from ..device import is_fake
 from ..sharding import spmd
-from ..sharding.rules import data_axes, get_mesh, get_profile
+from ..sharding.rules import data_axes, get_mesh, get_profile, get_seq
 from .layers import silu
 from .params import ParamTree, PDecl
 
@@ -400,15 +412,21 @@ def moe_spmd(cfg, p, x, mesh):
     branch = ep_branch(cfg, mesh, gb)
     w = {k: spmd.param(p, k, decl, mesh)
          for k in ("w_router", "w_in", "w_out")}
+    seq = get_seq()
     if branch is None:
         # the reference's capacity is the global batch's: gather the
-        # rows, run one rank's layer on them, keep this rank's
+        # rows (and their sequence), run one rank's layer on them, keep
+        # this rank's block
         axes = spmd.batch_axes(mesh)
         b, _ = M.block_index(mesh, axes)
         x_all = M.gather_param(x, 0, mesh, axes)
+        lo, hi = 0, x.shape[1]
+        if seq is not None:
+            x_all = M.gather_seq(x_all, 1, mesh, seq.axes)
+            lo, hi = seq.offset, seq.offset + seq.size
         y = _moe_local(x_all, w["w_router"], w["w_in"], w["w_out"],
                        cfg=cfg)
-        y = y[b * x.shape[0]:(b + 1) * x.shape[0]]
+        y = y[b * x.shape[0]:(b + 1) * x.shape[0], lo:hi]
     else:
         if ep_batch_axes(branch, mesh, gb) != spmd.batch_axes(mesh):
             raise NotImplementedError(
@@ -416,10 +434,9 @@ def moe_spmd(cfg, p, x, mesh):
                 f"{ep_batch_axes(branch, mesh, gb)}, the step over "
                 f"{spmd.batch_axes(mesh)}")
         if branch == "tp":
-            # each rank routes for its own experts: the router's gradient
-            # parts add over "model"
-            w["w_router"] = M.enter_replicated(w["w_router"], mesh, "model")
-        y = _routed(cfg, w, x, mesh, branch)
+            y = _moe_tp(cfg, w, x, mesh, seq)
+        else:
+            y = _routed(cfg, w, x, mesh, branch)
     if cfg.n_shared_experts:
         tp = spmd.model_split(decl["w_shared_in"], 1, mesh)
         xs = M.enter_replicated(x, mesh, "model") if tp else x
@@ -429,6 +446,35 @@ def moe_spmd(cfg, p, x, mesh):
                                         mesh).to(x.dtype)
         y = y + (M.reduce_replicated(ys, mesh, "model") if tp else ys)
     return y
+
+
+def _moe_tp(cfg, w, x, mesh, seq):
+    """The routed experts of `moe_spmd` under ``tp``: every rank of
+    "model" routes the same tokens (under the sequence split ``seq``,
+    its rows' whole sequence, gathered over "model") and runs its E/n
+    experts on them.  The collective that closes the layer follows how
+    the rows lie over "model": a block of positions takes its block of
+    the partial outputs' sum (`mesh.scatter_seq`); rows copied over
+    "model" under "fsdp" (a length it does not divide), each copy weighed
+    1/n in the backward, sum both ways (`mesh.sum_replicas`), their
+    router's gradient parts adding over "model" with the other leaves';
+    rows replicated over "model" ("tp") sum (`mesh.reduce_replicated`),
+    x's and the router's gradient parts summed over "model" here."""
+    r, n = spmd.model_rank(mesh)
+    copied = "model" in spmd.profile_batch_axes(mesh)
+    router = w["w_router"]
+    if seq is not None:
+        x = M.gather_seq(x, 1, mesh, seq.axes)
+    elif not copied:
+        x = M.enter_replicated(x, mesh, "model")
+        router = M.enter_replicated(router, mesh, "model")
+    y = _moe_local(x, router, w["w_in"], w["w_out"], cfg=cfg, n_ranks=n,
+                   rank=r)
+    if seq is not None:
+        return M.scatter_seq(y, 1, mesh, seq.axes)
+    if copied:
+        return M.sum_replicas(y, mesh, "model")
+    return M.reduce_replicated(y, mesh, "model")
 
 
 def router_load(cfg, p, x):
@@ -467,4 +513,5 @@ class MoE(ParamTree):
         mesh = spmd.active_mesh()
         if mesh is not None:
             return moe_spmd(self.cfg, self, x, mesh)
-        return moe(self.cfg, self, x)
+        # no mesh, or one of one rank: x is the whole batch
+        return moe(self.cfg, self, x, global_batch=x.shape[0])

@@ -35,6 +35,16 @@ gathers its storage dims at each period that applies it (its gradient
 the sum over the periods).  A recomputed block (a hybrid period as one)
 re-issues its collectives in the backward, in the same order on every
 rank.
+
+The sequence splits where the reference's does (`spmd.rows` with the
+length `split_length` gives: under "fsdp", where the rows leave "model"
+and the length divides it) for the decoders of attention blocks, dense
+and MoE: each rank's forward takes its block of positions
+(`sharding.rules.get_seq`) — its tokens' embeddings, its prefix embeddings at
+their global positions, RoPE and learned positions from the block's
+offset —, attention gathers K and V over "model", and `lm_loss` sums
+the rank's positions over "model" too.  The Mamba2 and hybrid families
+keep the whole sequence (their scans would pass state along "model").
 """
 from __future__ import annotations
 
@@ -51,7 +61,7 @@ from .attention import Attention, KVCache, attention_decl, local_kv_heads
 from .. import mesh as M
 from ..sharding import spmd
 from ..sharding.rules import (block_of, constrain, get_mesh, get_profile,
-                              get_rows, rows_context,
+                              get_rows, get_seq, rows_context,
                               mesh_context, profile_context)
 from .layers import (MLP, Embed, Norm, embed_decl, mlp_decl, norm_decl,
                      rounded, vocab_embed)
@@ -219,17 +229,32 @@ def remat(cfg, cache) -> bool:
 def rematted(fn, x, *args):
     """``fn(x, *args)`` with its activations recomputed in the backward
     pass (``torch.utils.checkpoint``, non-reentrant), under the mesh,
-    profile and rows of the forward: the backward of CUDA tensors runs on
-    autograd's device thread, which does not see this thread's
-    contexts."""
-    mesh, profile, rows = get_mesh(), get_profile(), get_rows()
+    profile, rows and sequence block of the forward: the backward of
+    CUDA tensors runs on autograd's device thread, which does not see
+    this thread's contexts."""
+    mesh, profile, rows, seq = get_mesh(), get_profile(), get_rows(), \
+        get_seq()
 
     def run(*a):
         with mesh_context(mesh), profile_context(profile), \
-                rows_context(rows) if rows is not None \
+                rows_context(rows, seq) if rows is not None \
                 else contextlib.nullcontext():
             return fn(*a)
     return checkpoint(run, x, *args, use_reentrant=False)
+
+
+def split_length(cfg: ModelConfig, batch) -> Optional[int]:
+    """The positions a forward of ``batch`` (its "tokens", and its
+    "patch_embeds" before them) runs over, for a model whose sequence
+    may split over the mesh (`spmd.rows`' ``seq_len``): a decoder whose
+    stages are all attention blocks, dense or MoE.  None for the others,
+    which keep the whole sequence."""
+    if cfg.family not in ("dense", "moe"):
+        return None
+    n = int(batch["tokens"].shape[1])
+    if "patch_embeds" in batch:
+        n += int(batch["patch_embeds"].shape[1])
+    return n
 
 
 class Block(nn.Module):
@@ -255,8 +280,8 @@ class Block(nn.Module):
         mesh = spmd.active_mesh()
         if mesh is not None:
             x = constrain(x, "batch", "seq", "act_embed", shape=(
-                spmd.global_batch(x.shape[0], mesh), x.shape[1],
-                x.shape[2]))
+                spmd.global_batch(x.shape[0], mesh),
+                spmd.global_seq(x.shape[1]), x.shape[2]))
         return x, new_cache
 
 
@@ -452,10 +477,18 @@ class DecoderLM(nn.Module):
         ``prefix_embeds``) this rank's rows of the global batch, the
         caches its blocks (`init_caches` with ``mesh``); ``table`` the
         embedding table already gathered (`sharded_head`, shared with
-        the tied loss: one gradient, one reduce-scatter)."""
+        the tied loss: one gradient, one reduce-scatter).  Where the
+        sequence splits (`get_seq`: the rows' whole P + S
+        positions given), the hidden state is this rank's block of
+        them."""
         cfg = self.cfg
         dt = torch_dtype(cfg.compute_dtype)
         mesh = check_model_mesh(self)
+        seq = get_seq() if mesh is not None else None
+        offset = 0
+        if seq is not None:
+            tokens, prefix_embeds = _seq_part(seq, tokens, prefix_embeds)
+            offset = seq.offset
         if mesh is not None:
             if table is None:
                 table = spmd.param(self.embed, "table", embed_decl(cfg),
@@ -471,17 +504,16 @@ class DecoderLM(nn.Module):
         if cfg.pos == "learned":
             base = caches_length(caches) if caches is not None else 0
             table = self.pos_embed.table
-            pos = torch.clamp(base + torch.arange(x.shape[1],
-                                                  device=x.device),
-                              max=table.shape[0] - 1)
+            pos = torch.clamp(base + offset + torch.arange(
+                x.shape[1], device=x.device), max=table.shape[0] - 1)
             if mesh is not None:
                 table = spmd.param(self.pos_embed, "table",
                                    _pos_embed_decl(cfg), mesh)
             x = x + table[pos].to(dt)[None]
         if mesh is not None:
             x = constrain(x, "batch", "seq", "act_embed", shape=(
-                spmd.global_batch(x.shape[0], mesh), x.shape[1],
-                x.shape[2]))
+                spmd.global_batch(x.shape[0], mesh),
+                spmd.global_seq(x.shape[1]), x.shape[2]))
         decoding = caches is not None
         new_caches = []
         for i, stage in enumerate(self.stages):
@@ -493,6 +525,29 @@ class DecoderLM(nn.Module):
             new_caches.append(nc)
         x = self.final_norm(x)
         return (x, new_caches) if decoding else x
+
+
+def _seq_part(seq, tokens, prefix):
+    """This rank's part of the tokens and the prefix embeddings (B, P,
+    D) whose P + S positions split as ``seq``: positions [offset, offset
+    + size), the prefix's first."""
+    p = 0 if prefix is None else int(prefix.shape[1])
+    if p + tokens.shape[1] != seq.length:
+        raise ValueError(f"a sequence of {p} + {tokens.shape[1]} "
+                         f"positions under a split of {seq.length}")
+    lo, hi = seq.offset, seq.offset + seq.size
+    if prefix is not None:
+        prefix = prefix[:, min(lo, p):min(hi, p)]
+    return tokens[:, max(lo - p, 0):max(hi - p, 0)], prefix
+
+
+def label_part(seq, hidden, labels, p: int):
+    """This rank's hidden states and labels of the token positions where
+    its block ``seq`` of the P + S positions (``p`` of the prefix) holds
+    any (`_seq_part`'s block): (hidden (B, n, D), labels (B, n))."""
+    lo, hi = seq.offset, seq.offset + seq.size
+    return hidden[:, max(p - lo, 0):], labels[:, max(lo - p, 0):
+                                              max(hi - p, 0)]
 
 
 def check_model_mesh(model):
@@ -618,7 +673,8 @@ def _chunk_nll_vp(cfg, head, hidden, labels, mesh):
     return torch.sum(logz - gold)
 
 
-def lm_loss(cfg: ModelConfig, params, hidden, labels, head=None):
+def lm_loss(cfg: ModelConfig, params, hidden, labels, head=None,
+            n_positions: Optional[int] = None):
     """Chunked-over-sequence vocab cross-entropy: the mean over the
     (B, S) tokens, the sequence cut into chunks of ``cfg.loss_chunk``
     positions (lowered until it divides S, as the reference).  Under
@@ -631,9 +687,13 @@ def lm_loss(cfg: ModelConfig, params, hidden, labels, head=None):
     if not given); where "model" splits the vocabulary each chunk's loss
     is vocab-parallel (`_chunk_nll_vp`, its collectives recomputed with
     it).  The result is the global mean on every rank: this rank's sum
-    over the global token count, summed over the batch axes."""
+    over the global token count, summed over the batch axes — and over
+    the sequence's where hidden and labels are this rank's block of
+    positions (`get_seq`; ``n_positions`` the rows' label
+    positions in all where that block is not S/n of them, as with a
+    prefix)."""
     b, s, _ = hidden.shape
-    chunk = min(cfg.loss_chunk, s)
+    chunk = max(1, min(cfg.loss_chunk, s))
     while s % chunk:
         chunk -= 1
     mesh = spmd.active_mesh()
@@ -649,6 +709,11 @@ def lm_loss(cfg: ModelConfig, params, hidden, labels, head=None):
             nll, args = _chunk_nll_vp, (mesh,)
     grad = torch.is_grad_enabled()
     total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    if s == 0 and grad:
+        # a block of prefix positions alone holds no label, yet its
+        # backward runs this rank's part of every collective: its hidden
+        # state's (the K/V gathers) and the head's gather
+        total = total + 0.0 * (hidden.float().sum() + head.float().sum())
     for c0 in range(0, s, chunk):
         h, y = hidden[:, c0:c0 + chunk], labels[:, c0:c0 + chunk]
         total = total + (checkpoint(nll, cfg, head, h, y, *args,
@@ -656,5 +721,6 @@ def lm_loss(cfg: ModelConfig, params, hidden, labels, head=None):
                          else nll(cfg, head, h, y, *args))
     if mesh is None:
         return total / (b * s)
-    return M.reduce_replicated(total / (spmd.global_batch(b, mesh) * s),
-                               mesh, spmd.batch_axes(mesh))
+    n = spmd.global_seq(s) if n_positions is None else n_positions
+    return M.reduce_replicated(total / (spmd.global_batch(b, mesh) * n),
+                               mesh, spmd.token_axes(mesh))

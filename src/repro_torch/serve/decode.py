@@ -11,7 +11,12 @@ same call with the same global batch, as the sharded trainer does, under
 the model's mesh and profile: the rows split over the largest prefix of
 the profile's batch axes that divides the batch and are replicated over
 the others (`spmd.rows`), and each rank keeps its block of the caches
-(`init_caches` / `init_dec_caches` with the mesh).  ``prefill`` returns
+(`init_caches` / `init_dec_caches` with the mesh).  Under "fsdp", where
+the rows leave "model", a dense or MoE decoder's prefill splits the
+prompt's positions over "model" (`transformer.split_length`), each rank
+writing the gathered K/V of every position into its cache block, and the
+last position's hidden state is taken from the rank that holds it;
+decode's one position stays replicated.  ``prefill`` returns
 this rank's block of the last position's logits — its rows, and its
 block of the vocabulary where "model" splits it ("tp") — and
 ``serve_step`` the global batch's next tokens on every rank: the greedy
@@ -32,7 +37,7 @@ from ..device import resolve_device
 from ..models import encdec as encdec_lib
 from ..models import transformer as tf
 from ..sharding import spmd
-from ..sharding.rules import mesh_context, profile_context
+from ..sharding.rules import get_seq, mesh_context, profile_context
 
 
 def _model_device(params) -> torch.device:
@@ -40,15 +45,16 @@ def _model_device(params) -> torch.device:
 
 
 @contextlib.contextmanager
-def _sharded(params, rows: int):
+def _sharded(params, rows: int, seq_len=None):
     """The model's mesh (None on one rank) with its profile and the rows
-    of a global batch of ``rows`` entered."""
+    of a global batch of ``rows`` entered (their ``seq_len`` positions
+    split where `spmd.rows` splits them)."""
     mesh = getattr(params, "mesh", None)
     if mesh is None:
         yield None
         return
     with mesh_context(mesh), profile_context(params.profile), \
-            spmd.rows(rows, mesh):
+            spmd.rows(rows, mesh, seq_len):
         yield mesh
 
 
@@ -71,7 +77,7 @@ def make_prefill(cfg: ModelConfig, max_len: int):
     def prefill(params, batch: Dict[str, torch.Tensor]):
         b = batch["tokens"].shape[0]
         dt = tf.torch_dtype(cfg.compute_dtype)
-        with _sharded(params, b) as mesh:
+        with _sharded(params, b, tf.split_length(cfg, batch)) as mesh:
             local = {k: _rows(v, mesh) for k, v in batch.items()}
             tokens = local["tokens"]
             if cfg.family == "encdec":
@@ -86,7 +92,11 @@ def make_prefill(cfg: ModelConfig, max_len: int):
                 hidden, caches = params(
                     tokens, caches=caches,
                     prefix_embeds=local.get("patch_embeds"))
-            return _logits(cfg, params, hidden[:, -1:], mesh), caches
+            last = hidden[:, -1:]
+            seq = get_seq() if mesh is not None else None
+            if seq is not None:         # the last block's rank holds it
+                last = M.all_gather(last, mesh, seq.axes)[-1]
+            return _logits(cfg, params, last, mesh), caches
     return prefill
 
 

@@ -82,7 +82,8 @@ class Scorer:
         """Hot-swap to a new snapshot; returns its version.
 
         Accepts a `CenterSnapshot` or the raw ``(version, centers,
-        weights)`` listener signature.  The centers are on the device
+        weights)`` listener signature; the centers may be a host array or
+        a tensor on any device (copied).  The centers are on the device
         before the one attribute store that publishes them: in-flight
         requests keep the snapshot they already read; the next dispatch
         sees the new one."""
@@ -90,7 +91,13 @@ class Scorer:
             version, centers = snapshot[0], snapshot[1]
         else:
             version, centers = snapshot.version, snapshot.centers
-        centers = as_real(np.asarray(centers, np.float32), self.device)
+        if isinstance(centers, torch.Tensor):
+            # a copy: the learner goes on updating its own tensor
+            centers = centers.detach().to(self.device, torch.float32,
+                                          copy=True)
+        else:
+            centers = np.asarray(centers, np.float32)
+        centers = as_real(centers, self.device)
         if centers.dim() != 2:
             raise ValueError(f"centers must be (C, d), got "
                              f"{tuple(centers.shape)}")

@@ -18,13 +18,18 @@ cuts a `Paired` placement, a gated MLP's [u | g] columns).
 axes.  The port is SPMD with explicit collectives, so its model code
 knows its layouts: `constrain` checks that a tensor is the block its
 logical axes give this rank, and raises otherwise.
+
+A step's activations are laid out by `rows_context`: the mesh axes its
+batch's rows split over, and where the sequence splits too (the "seq"
+rule under "fsdp", `sharding.spmd.rows`), this rank's block of it
+(`SeqBlock`).
 """
 from __future__ import annotations
 
 import contextlib
 import contextvars
 import math
-from typing import Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -80,6 +85,19 @@ _profile_var: contextvars.ContextVar[str] = contextvars.ContextVar(
     "repro_torch_profile", default="tp")
 _rows_var: contextvars.ContextVar = contextvars.ContextVar(
     "repro_torch_rows", default=None)
+_seq_var: contextvars.ContextVar = contextvars.ContextVar(
+    "repro_torch_seq", default=None)
+
+
+class SeqBlock(NamedTuple):
+    """This rank's block of a sequence split over the mesh ``axes``:
+    ``length`` positions in all, of which the block holds ``size`` from
+    position ``offset`` on (its coordinate over the axes times
+    ``size``)."""
+    axes: Tuple[str, ...]
+    length: int
+    offset: int
+    size: int
 
 
 def set_mesh(mesh) -> None:
@@ -126,16 +144,25 @@ def get_rows() -> Optional[Tuple[str, ...]]:
     return _rows_var.get()
 
 
+def get_seq() -> Optional[SeqBlock]:
+    """This rank's block of the active sequence where it splits over the
+    mesh (`rows_context`), else None: the sequence is whole."""
+    return _seq_var.get()
+
+
 @contextlib.contextmanager
-def rows_context(axes: Sequence[str]):
+def rows_context(axes: Sequence[str], seq: Optional[SeqBlock] = None):
     """Run with the batch's rows split over ``axes`` (the largest
     dividing prefix of the profile's batch axes, `launch.specs.
-    batch_axes_for`) and replicated over the profile's other batch
-    axes."""
+    batch_axes_for`) and replicated over the profile's other batch axes
+    that ``seq`` leaves; with ``seq``, each row's sequence split over
+    ``seq.axes``, this rank holding the block ``seq`` (else whole)."""
     tok = _rows_var.set(tuple(axes))
+    tok_seq = _seq_var.set(seq)
     try:
         yield
     finally:
+        _seq_var.reset(tok_seq)
         _rows_var.reset(tok)
 
 
@@ -215,11 +242,12 @@ def constrain(x, *logical: Optional[str], shape: Sequence[int] = None):
     the global ``shape`` placed by ``logical`` (`logical_to_spec` with
     ``dims=shape`` under the active mesh and profile): each dim the
     global size over the size of its entry's axes.  The port's rows are
-    its own layout: "batch" is split over the active rows' axes
-    (`get_rows`; every batch axis of the profile by default) and "seq"
-    stays whole (the reference's sequence split over "model" under
-    "fsdp" is not the port's).  A no-op without a mesh of more than one
-    rank.  A wrong block raises."""
+    its own layout (`rows_context`): "batch" is split over the active
+    rows' axes (`get_rows`; every batch axis of the profile by default)
+    and "seq" over the active sequence block's axes (`get_seq`: the
+    reference's "seq" over "model" under "fsdp", where the rows leave
+    "model" and the length divides it), else whole.  A no-op without a
+    mesh of more than one rank.  A wrong block raises."""
     mesh = get_mesh()
     if mesh is None or layout(mesh).size == 1:
         return x
@@ -230,10 +258,12 @@ def constrain(x, *logical: Optional[str], shape: Sequence[int] = None):
     if rows is None:
         rows = tuple(a for a in PROFILES[get_profile()]["batch"]
                      if a in mesh.mesh_dim_names)
-    spec = logical_to_spec([None if a in ("batch", "seq") else a
-                            for a in logical], mesh, dims=shape)
-    spec = tuple(_entry(rows) if a == "batch" else e
-                 for a, e in zip(logical, spec))
+    seq = get_seq()
+    own = {"batch": _entry(rows),
+           "seq": None if seq is None else _entry(seq.axes)}
+    spec = logical_to_spec([None if a in own else a for a in logical],
+                           mesh, dims=shape)
+    spec = tuple(own[a] if a in own else e for a, e in zip(logical, spec))
     sizes = axis_sizes(mesh)
     want = tuple(int(n) // math.prod(sizes[a] for a in spec_axes(e))
                  for n, e in zip(shape, spec))

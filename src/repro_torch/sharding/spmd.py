@@ -23,21 +23,32 @@ profile's batch axes whose product divides the global batch
 with `rows` (`sharding.rules.rows_context`), and are replicated over
 the profile's other batch axes: a batch of 1 is whole on every rank, a
 batch of 32 on the (16, 16) mesh under "fsdp" is split over "data" and
-replicated over "model".  A parameter's gradient is summed over the
-storage axes by the reduce-scatter, and over the batch axes its
-placement leaves whole by the trainer (`grad_sum_axes`: every batch
-axis of the profile, split or not).  The ranks that replicate rows each
-weigh their copy by 1/`replication` in the backward, so those sums count
-each row once.
+not over "model".  There the sequence splits instead (the reference's
+"seq" over "model" under "fsdp"), where the step's length divides
+"model" and the model can (`models.transformer.split_length`: a
+decoder of attention blocks, dense or MoE): the caller passes the
+length to `rows`, and each rank holds its block of S/"model" positions
+(`rules.get_seq`, its offset the rank's coordinate on "model" times the
+block) — MLPs, norms and the loss run on it, attention gathers K and V
+over "model" and the MoE layer its rows' whole sequence.  Elsewhere
+(decode's one position, a length "model" does not divide, the SSM,
+hybrid and encoder–decoder families) the rows stay replicated over
+"model".  A parameter's gradient is summed over the storage axes by the
+reduce-scatter, and over the batch axes its placement leaves whole by
+the trainer (`grad_sum_axes`: every batch axis of the profile, split or
+not).  The ranks that replicate tokens — neither their rows nor their
+positions split there — each weigh their copy by 1/`replication` in the
+backward, so those sums count each token once.
 """
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 from .. import mesh as M
-from .rules import (PROFILES, Paired, get_mesh, get_profile, get_rows,
-                    logical_to_spec, rows_context, spec_axes)
+from .rules import (PROFILES, Paired, SeqBlock, get_mesh, get_profile,
+                    get_rows, get_seq, logical_to_spec, rows_context,
+                    spec_axes)
 
 STORAGE = ("embed", "expert_embed")
 
@@ -112,10 +123,40 @@ def rows_axes(rows: int, mesh) -> Tuple[str, ...]:
     return dividing_axes(profile_batch_axes(mesh), rows, mesh)
 
 
-def rows(global_rows: int, mesh):
+def seq_axes(rows: Tuple[str, ...], length: int, mesh) -> Tuple[str, ...]:
+    """The axes a sequence of ``length`` positions splits over beside
+    rows split over ``rows``: the profile's "seq" axes ("model" under
+    "fsdp", none under "tp") that the rows leave, dropped from the tail
+    until their product divides ``length`` (`logical_to_spec`'s dims
+    rule), those of one rank left out."""
+    sizes = M.axis_sizes(mesh)
+    got = [a for a in spec_axes(PROFILES[get_profile()]["seq"])
+           if a in sizes and a not in rows]
+    while got and length % math.prod(sizes[a] for a in got):
+        got.pop()
+    return tuple(a for a in got if sizes[a] > 1)
+
+
+def rows(global_rows: int, mesh, seq_len: Optional[int] = None):
     """Context: a step on a global batch of ``global_rows`` rows, split
-    over `rows_axes` and replicated over the rest."""
-    return rows_context(rows_axes(global_rows, mesh))
+    over `rows_axes` and replicated over the rest; with ``seq_len`` (a
+    model that can split its sequence: `models.transformer.
+    split_length`), each row's ``seq_len`` positions split over
+    `seq_axes`, this rank holding its block of them (`rules.get_seq`)."""
+    axes = rows_axes(global_rows, mesh)
+    seq = None
+    saxes = () if seq_len is None else seq_axes(axes, seq_len, mesh)
+    if saxes:
+        b, n = M.block_index(mesh, saxes)
+        seq = SeqBlock(saxes, seq_len, b * (seq_len // n), seq_len // n)
+    return rows_context(axes, seq)
+
+
+def global_seq(local: int) -> int:
+    """The positions of which this rank's ``local`` are its block: the
+    active sequence's length where it splits, else ``local``."""
+    seq = get_seq()
+    return local if seq is None else local * (seq.length // seq.size)
 
 
 def batch_axes(mesh) -> Tuple[str, ...]:
@@ -130,12 +171,20 @@ def batch_split(mesh) -> int:
     return math.prod(sizes[a] for a in batch_axes(mesh))
 
 
+def token_axes(mesh) -> Tuple[str, ...]:
+    """The axes the active batch's tokens split over: its rows' axes
+    (`batch_axes`), then its sequence's (`rules.get_seq`)."""
+    seq = get_seq()
+    return batch_axes(mesh) + (() if seq is None else seq.axes)
+
+
 def replication(mesh) -> int:
-    """The ranks that hold each row of the active batch: the product of
-    the profile's batch axes that do not split it."""
+    """The ranks that hold each token of the active batch: the product
+    of the profile's batch axes that split neither its rows nor its
+    sequence."""
     sizes = M.axis_sizes(mesh)
     return math.prod(sizes[a] for a in profile_batch_axes(mesh)
-                     if a not in batch_axes(mesh))
+                     if a not in token_axes(mesh))
 
 
 def global_batch(local_rows: int, mesh) -> int:

@@ -14,9 +14,12 @@ takes the sharded step: every rank is handed the same global batch and
 runs on its rows (each microbatch's block, as the reference splits each
 microbatch), under the model's mesh and profile.  The rows split over
 the largest prefix of the profile's batch axes that divides a
-microbatch (`spmd.rows`) and are replicated over the others.  The loss
-is then the global mean on every rank; the backward, seeded with
-1/`spmd.replication` on each rank (a row's copies count once), has
+microbatch (`spmd.rows`) and are replicated over the others — where
+the rows leave "model" under "fsdp", a dense or MoE decoder splits the
+sequence over it instead (`transformer.split_length`), each rank on its
+block of positions, no longer a copy of its neighbours'.  The loss is
+then the global mean on every rank; the backward, seeded with
+1/`spmd.replication` on each rank (a token's copies count once), has
 summed each gradient over its leaf's storage axes
 (`mesh.gather_param`), and the step sums it over the batch axes its
 placement leaves whole (`sync_grads`: one rank-ordered f32 sum per set of
@@ -40,7 +43,7 @@ from ..models.params import param_groups as _param_groups
 from ..optim import (Optimizer, clip_by_global_norm, state_from_reference,
                      state_to_reference)
 from ..sharding import spmd
-from ..sharding.rules import mesh_context, profile_context
+from ..sharding.rules import get_seq, mesh_context, profile_context
 
 F32 = torch.float32
 
@@ -85,9 +88,16 @@ def model_loss(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor]):
                         table=head if cfg.tie_embeddings else None)
     else:
         hidden = params(batch["tokens"], prefix_embeds=prefix)
+    labels = batch["labels"]
+    seq = get_seq() if mesh is not None else None
+    if seq is not None:             # this rank's block of the positions
+        p = 0 if prefix is None else prefix.shape[1]
+        hidden, labels = tf.label_part(seq, hidden, labels, p)
+        return tf.lm_loss(cfg, params, hidden, labels, head=head,
+                          n_positions=batch["labels"].shape[1])
     if prefix is not None:
         hidden = hidden[:, prefix.shape[1]:]
-    return tf.lm_loss(cfg, params, hidden, batch["labels"], head=head)
+    return tf.lm_loss(cfg, params, hidden, labels, head=head)
 
 
 def model_device(model) -> torch.device:
@@ -186,7 +196,8 @@ def sharded_step(cfg, state: TrainState, batch, optimizer, lr_fn,
         raise ValueError(f"{rows} rows do not split into {microbatches} "
                          "microbatches")
     per = rows // microbatches
-    with spmd.rows(per, state.params.mesh):
+    with spmd.rows(per, state.params.mesh,
+                   tf.split_length(cfg, batch)):
         return _sharded_step(cfg, state, batch, optimizer, lr_fn, grad_clip,
                              microbatches, per)
 

@@ -10,14 +10,18 @@ skip status and reason, and every (arch × shape)'s ``model_flops_for``,
 ``run_cell`` with ``lower_cell`` stubbed, so nothing is lowered).  (c)
 Reduced Qwen2, OLMoE, Mamba2, Zamba2 and Whisper under small shape cells
 (train, prefill, decode at batches of 8, 4 and 1) traced as rank 0 of
-an 8-rank fake group on a (2, 4) mesh: ``argument_size_in_bytes`` equal
+an 8-rank fake group on a (2, 4) mesh, and a dense and a MoE train cell
+under "fsdp" at a batch of 4, whose sequence splits over "model":
+``argument_size_in_bytes`` equal
 to the byte to the reference's ``memory_analysis`` of its compiled
 ``lower_cell`` on 8 forced devices of a `jax.sharding.Mesh` (auto axes:
 ``run_cell``'s ``jax.make_mesh`` gives explicit axes, under which its
 embedding raises), and the status the same.  Cells the reference
 refuses on its own placements are left out (tests/test_torch_serve_mp.py
-names them).  (d) One reduced train cell a family kind (dense under
-"tp", MoE under "fsdp", its all-to-all branch): the fake trace's bytes
+names them); the two split cells' FLOPs a rank within 0.85–1.15 of
+``step_flops`` / 8.  (d) One reduced train cell a family kind (dense
+under "tp", MoE under "fsdp", its all-to-all branch) and the two split
+cells: the fake trace's bytes
 by collective kind and its counted FLOPs equal, byte for byte, rank 0's
 of the same step run on real zeros on 8 spawned gloo ranks, and its
 count of c10d calls ``CommDebugMode``'s.  (e) The
@@ -39,7 +43,7 @@ import textwrap
 import pytest
 
 from repro_torch import mesh as M
-from repro_torch.configs import ARCHS, get_config
+from repro_torch.configs import ARCHS, get_config, reduced
 from repro_torch.configs.base import SHAPES, shape_cell
 from repro_torch.launch import dryrun as D
 from repro_torch.launch import specs as TS
@@ -71,8 +75,16 @@ for _arch in ("qwen2-1.5b", "olmoe-1b-7b", "mamba2-2.7b", "zamba2-7b",
                                       ("fsdp", "decode", 16, _fsdp_dec)):
         CASES.append((f"{_arch}/{_profile}/{_kind}/b{_b}", _arch, _profile,
                       _kind, _seq, _b))
+# train cells under "fsdp" whose batch of 4 leaves "model" out: their 16
+# positions split over it (4 a rank)
+SPLIT = [(f"{arch}/fsdp/train/b4", arch, "fsdp", "train", 16, 4)
+         for arch in ("qwen2-1.5b", "olmoe-1b-7b")]
+CASES += SPLIT
 REAL = [("dense/tp/train", "qwen2-1.5b", "tp", "train", 16, 8),
-        ("moe/fsdp/train", "olmoe-1b-7b", "fsdp", "train", 16, 8)]
+        ("moe/fsdp/train", "olmoe-1b-7b", "fsdp", "train", 16, 8),
+        ("dense/fsdp/train/b4", "qwen2-1.5b", "fsdp", "train", 16, 4),
+        ("moe/fsdp/train/b4", "olmoe-1b-7b", "fsdp", "train", 16, 4)]
+FLOPS_BAND = (0.85, 1.15)       # counted against step_flops (PERF.md §2)
 
 _REFERENCE = textwrap.dedent("""
     import os
@@ -274,6 +286,25 @@ def test_fake_trace_moves_what_a_real_run_moves(runs, case):
     assert sum(fake["kinds"].values()) > 0
     if case[2] == "fsdp" and "moe" in name:
         assert fake["kinds"]["all-to-all"] > 0
+    # K/V (and the MoE layer's input) gathered where the sequence splits
+    split = case[5] == 4
+    assert (fake["seq_gather_bytes"] > 0) == split
+    assert fake["seq_gather_bytes"] == real["seq_gather_bytes"]
+
+
+@pytest.mark.parametrize("case", SPLIT, ids=[c[0] for c in SPLIT])
+def test_split_cell_counts_a_ranks_share_of_the_flops(runs, case):
+    """With the sequence split over "model" a rank runs its eighth of
+    the step — not the whole rows' work, replicated over "model" — the
+    trace's FLOPs within the band of ``step_flops`` / 8."""
+    name, arch, _, kind, seq, b = case
+    got = runs["got"][name]
+    assert got["status"] == "ok", got.get("traceback")
+    want = step_flops(reduced(get_config(arch)),
+                      J.shape_cell(kind, seq, b)) / 8
+    lo, hi = FLOPS_BAND
+    assert lo <= got["flops"] / want <= hi, (got["flops"], want)
+    assert got["seq_gather_bytes"] > 0
 
 
 def test_full_size_cell_through_the_cli(runs):

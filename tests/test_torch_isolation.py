@@ -458,3 +458,48 @@ def test_dryrun_and_sharded_serving_load_no_jax_and_no_reference_module():
                "repro_torch.models.encdec", "repro_torch.device")
     out = _run(_ALL.format(modules=modules)).strip().splitlines()[-1]
     assert json.loads(out) == []
+
+
+def _imported_roots(path) -> set:
+    """The top-level package of every module ``path`` imports (its
+    ``import`` and ``from … import`` statements, nested ones too)."""
+    import ast
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+_EXAMPLES_LOADED = """
+import json, runpy, sys
+for path in {paths!r}:
+    runpy.run_path(path, run_name="imported")   # its imports, not main()
+print(json.dumps(sorted(m for m in sys.modules
+                        if m == "jax" or m.startswith(("jax.", "jaxlib"))
+                        or m == "repro" or m.startswith("repro."))))
+"""
+
+
+def test_examples_and_chip_smoke_load_no_jax_and_no_reference_module():
+    """The port's examples (`examples/torch_*.py`) and `chip_smoke.py`
+    import neither `jax` nor `repro` anywhere in their text, and the
+    examples' imports, all run in one process, load neither
+    (tests/test_torch_examples.py runs each one through)."""
+    root = os.path.join(os.path.dirname(__file__), "..")
+    examples = sorted(
+        os.path.join(root, "examples", f)
+        for f in os.listdir(os.path.join(root, "examples"))
+        if f.startswith("torch_") and f.endswith(".py"))
+    assert len(examples) == 6, examples
+    for path in examples + [os.path.join(root, "chip_smoke.py")]:
+        roots = _imported_roots(path)
+        assert not roots & {"jax", "jaxlib", "repro"}, (path, roots)
+    for path in examples:
+        assert "repro_torch" in _imported_roots(path), path
+    out = _run(_EXAMPLES_LOADED.format(paths=examples))
+    assert json.loads(out.strip().splitlines()[-1]) == []

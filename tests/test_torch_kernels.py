@@ -138,6 +138,24 @@ def test_wrappers_on_cpu_take_plain_path_and_launch_nothing():
     assert not fcm_accumulate_cuda.shapes and not fcm_sweep_cuda.shapes
 
 
+def test_launches_by_path_sums_each_wrappers_shapes():
+    """`launches_by_path`: each wrapper's counted launches by plan path,
+    summed over shapes; empty after `reset_counts`."""
+    fcm_update.reset_counts()
+    try:
+        for key in (("tile", 4096, 23), ("tile", 2048, 23),
+                    ("rows", 2048, 2)):
+            fcm_update._count(fcm_sweep_cuda, key)
+        fcm_update._count(fcm_update.fcm_sweep_batched_cuda, ("rows", 8, 32))
+        got = fcm_update.launches_by_path()
+        assert got["fcm_sweep_cuda"] == {"tile": 2, "rows": 1}
+        assert got["fcm_sweep_batched_cuda"] == {"rows": 1}
+        assert got["fcm_accumulate_cuda"] == {}
+    finally:
+        fcm_update.reset_counts()
+    assert all(v == {} for v in fcm_update.launches_by_path().values())
+
+
 # ------------------------------------------------------------ launch plan --
 
 # an H100 SXM's SM count and shared memory per block

@@ -400,6 +400,27 @@ def test_swap_handles_grown_and_shrunk_center_counts():
         np.testing.assert_array_equal(a, b)
 
 
+def test_scorer_takes_device_centers_as_the_reference_does():
+    """The reference's replicas boot from the learner's device array; the
+    port's take its tensor as it is (one that numpy cannot read, as a
+    card's is not) and keep a copy the learner cannot change."""
+    import jax.numpy as jnp
+    import torch
+    x = np.random.default_rng(5).normal(size=(64, D)).astype(np.float32)
+    live = torch.tensor(_centers(), requires_grad=True)
+    port = TS.Scorer(TS.CenterSnapshot(0, live), **PORT)
+    ref = RS.Scorer(RS.CenterSnapshot(0, jnp.asarray(_centers())), **REF)
+    with torch.no_grad():
+        live.mul_(-1.0)
+    got, version = port.assign(x)
+    want, _ = ref.assign(x)
+    assert version == 0
+    np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
+    assert port.swap((1, live.detach(), None)) == 1
+    np.testing.assert_array_equal(port.read().centers.numpy(),
+                                  -_centers())
+
+
 # ------------------------------------------------------ compile economy --
 
 def test_assign_store_ragged_tail_scores_one_shape():

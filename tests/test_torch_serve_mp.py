@@ -10,10 +10,12 @@ over a `jax.sharding.Mesh` (auto axes: `jax.make_mesh`'s explicit axes
 make the reference's embedding raise), which writes its parameters
 first and serves while the port's ranks do.  Cases: reduced Qwen2, OLMoE, Mamba2, Zamba2
 and Whisper under "tp" with batches of 8 and 1 and under "fsdp" with 8
-and 2 (2 is split over "data" and replicated over "model"), a prompt of
-8 positions into a 16-slot cache, the greedy token of the prefill and 3
-decode steps.  The port starts from the reference's parameters
-(`from_reference`, cut by `launch.train.shard_model`).
+and 2 (2 is split over "data" only: the dense and MoE prefills split its
+8 positions over "model", 2 a rank, K/V gathered into every rank's
+cache block; the other families and the decode steps replicate it over
+"model"), a prompt of 8 positions into a 16-slot cache, the greedy token
+of the prefill and 3 decode steps.  The port starts from the reference's
+parameters (`from_reference`, cut by `launch.train.shard_model`).
 
 Bars: every rank's block of the prefill's last-position f32 logits (its
 rows; its vocabulary block under "tp") within 1e-5 of the reference's
@@ -220,6 +222,18 @@ def test_sharded_serving_matches_reference(runs, case):
         np.testing.assert_allclose(
             got["logits"], local_block(want["logits"], spec, mesh, rank),
             rtol=RTOL, atol=ATOL, err_msg=f"{name} rank {rank}")
+
+
+def test_fsdp_prefill_splits_the_sequence(runs):
+    """Under "fsdp" at a batch of 2 (rows over "data" only) the dense and
+    MoE prefills gather their sequence's K/V (and the MoE layer's input)
+    over "model"; at a batch of 8, and for the SSM, hybrid and
+    encoder–decoder families, nothing is gathered so."""
+    for name, arch, profile, b in CASES:
+        moved = [r[name]["bytes"]["seq_gather_bytes"] for r in runs["port"]]
+        split = profile == "fsdp" and b == 2 and arch in ("qwen2-1.5b",
+                                                          "olmoe-1b-7b")
+        assert all((m > 0) == split for m in moved), (name, moved)
 
 
 def test_decode_moves_what_its_layout_needs(runs):

@@ -13,7 +13,14 @@ Cases: reduced Qwen2 and reduced OLMoE on (2, 4) and (4, 2) ("data",
 "model") meshes under "tp" and "fsdp", and the head-padded dense config
 (6 → 8 Q heads over 2 KV heads, vocab 250 → 256) on (2, 4): 3 steps of
 8 × 32 tokens, AdamW at its defaults; and OLMoE under Adafactor, Qwen2 in
-2 microbatches.
+2 microbatches.  The sequence split under "fsdp" (batches of 4 on (2,
+4), rows over "data" only, positions over "model"): Qwen2, OLMoE at one
+MoE layer and cf 8, Qwen2 with KV chunks of 4 under a rank's block of 8,
+and OLMoE at 30 positions ("model" does not divide it: rows replicated
+over "model"), with a witness of each rank's block and gathers; and
+reduced Pixtral (4 patch embeddings and 12 tokens, the first rank's
+block all prefix) through each package's ``build`` and its step, 3 steps
+on the same batches.
 
 Bars: losses and grad norms rtol 1e-5 (the sums split over ranks round
 in another order); each rank's blocks after the last step against
@@ -70,17 +77,36 @@ CASES += [("padded/2x4/tp", "padded", (2, 4), "tp", {}),
           # each microbatch split over the ranks as the reference splits it
           ("qwen2-1.5b/4x2/tp/mb2", "qwen2-1.5b", (4, 2), "tp",
            {"microbatches": 2})]
-ARCHS = ("qwen2-1.5b", "olmoe-1b-7b", "padded")
-# a batch of 4 on (2, 4) under "fsdp": split over "data", replicated over
-# "model" (the reference's prefix rule)
+ARCHS = ("qwen2-1.5b", "olmoe-1b-7b", "padded", "pixtral-12b") \
+    + tuple(J.VARIANTS)
+# a batch of 4 on (2, 4) under "fsdp": its rows split over "data" only
+# (the reference's prefix rule), its 32 positions over "model" (the
+# reference's "seq" rule) — 8 a rank
 SPLIT = ("qwen2-1.5b/2x4/fsdp/b4", "qwen2-1.5b", (2, 4), "fsdp",
          {"batch": 4})
+# the same split for OLMoE (its MoE layer gathers the rows' sequence) and
+# for Qwen2 with KV chunks of 4 under a rank's block of 8; at 30
+# positions, which "model" does not divide, the rows stay replicated
+SEQ_CASES = [("olmoe-1l/2x4/fsdp/b4", "olmoe-1l", (2, 4), "fsdp",
+              {"batch": 4}),
+             ("qwen2-chunk/2x4/fsdp/b4", "qwen2-chunk", (2, 4), "fsdp",
+              {"batch": 4}),
+             ("olmoe-1l/2x4/fsdp/b4/s30", "olmoe-1l", (2, 4), "fsdp",
+              {"batch": 4, "seq": 30})]
+
+# reduced Pixtral under "fsdp" on (2, 4): 4 rows of 4 patch embeddings
+# and 12 tokens, 4 positions a rank — the first rank's block all prefix,
+# no label — through each package's ``build`` and its step on the same
+# batches (the reference's ``train`` feeds tokens only)
+PREFIX = ("pixtral-12b/2x4/fsdp/b4", "pixtral-12b", (2, 4), "fsdp",
+          {"batches": J.prefix_batches(J.config("pixtral-12b"), STEPS)})
 
 _REFERENCE = textwrap.dedent("""
     import os
     os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
     import pickle, sys
     sys.path.insert(0, {src!r})
+    import dataclasses
     import jax, numpy as np
     from jax.sharding import Mesh
     from repro.configs import get_config, reduced
@@ -108,6 +134,9 @@ _REFERENCE = textwrap.dedent("""
     def config(arch):
         if arch == "padded":
             return ModelConfig(**args["padded"])
+        if arch in args["variants"]:
+            base, kw = args["variants"][arch]
+            return dataclasses.replace(reduced(get_config(base)), **kw)
         return reduced(get_config(arch))
 
     orig_build = RT.build
@@ -125,16 +154,40 @@ _REFERENCE = textwrap.dedent("""
         return state, step, sh
     RT.build = build
 
+    def build_and_step(cfg, mesh, batches):
+        # Pixtral: RT.train feeds no patch embeddings
+        from jax.sharding import NamedSharding, PartitionSpec as P
+        from repro.launch import specs as S
+        from repro.sharding.rules import mesh_context
+        with mesh_context(mesh), mesh:
+            state, step_fn, _ = RT.build(cfg, mesh,
+                                         total_steps=max(len(batches), 2))
+            axes = S.batch_axes_for(len(batches[0]["tokens"]), mesh) or None
+            hist = []
+            for b in batches:
+                placed = {{k: jax.device_put(v, NamedSharding(
+                    mesh, P(axes, *([None] * (v.ndim - 1)))))
+                    for k, v in b.items()}}
+                state, m = step_fn(state, placed)
+                hist.append(float(jax.device_get(m)["loss"]))
+            return state, hist
+
     out = {{"init": {{}}}}
     for name, arch, shape, profile, opts in args["cases"]:
         mesh = Mesh(np.asarray(jax.devices()).reshape(shape),
                     ("data", "model"))
         opts = dict(opts)
         batch = opts.pop("batch", args["batch"])
+        seq = opts.pop("seq", args["seq"])
         with profile_context(profile):
-            state, hist = RT.train(config(arch), mesh, steps=args["steps"],
-                                   batch=batch, seq=args["seq"],
-                                   log_fn=lambda *a: None, **opts)
+            if "batches" in opts:
+                state, hist = build_and_step(config(arch), mesh,
+                                             opts["batches"])
+            else:
+                state, hist = RT.train(config(arch), mesh,
+                                       steps=args["steps"], batch=batch,
+                                       seq=seq, log_fn=lambda *a: None,
+                                       **opts)
         out["init"][arch] = rec["init"]
         out[name] = {{"losses": hist,
                      "grad_norms": [float(m["grad_norm"])
@@ -175,8 +228,10 @@ def runs():
     with tempfile.TemporaryDirectory() as tmp:
         inp, out = os.path.join(tmp, "in.pkl"), os.path.join(tmp, "out.pkl")
         with open(inp, "wb") as f:
-            pickle.dump(dict(cases=CASES + [SPLIT], steps=STEPS,
-                             batch=BATCH, seq=SEQ, padded=J.PADDED), f)
+            pickle.dump(dict(cases=CASES + [SPLIT] + SEQ_CASES + [PREFIX],
+                             steps=STEPS,
+                             batch=BATCH, seq=SEQ, padded=J.PADDED,
+                             variants=J.VARIANTS), f)
         res = subprocess.run(
             [sys.executable, "-c", _REFERENCE.format(
                 src=os.path.abspath(SRC), inp=inp, out=out)],
@@ -188,13 +243,16 @@ def runs():
     port = {}
     for shape in ((2, 4), (4, 2)):
         cases = [(name, arch, init[arch], profile, STEPS,
-                  opts.get("batch", BATCH), SEQ,
-                  {k: v for k, v in opts.items() if k != "batch"})
+                  opts.get("batch", BATCH), opts.get("seq", SEQ),
+                  {k: v for k, v in opts.items()
+                   if k not in ("batch", "seq")})
                  for name, arch, s, profile, opts in CASES + [SPLIT]
-                 if s == shape]
+                 + SEQ_CASES if s == shape]
+        prefix = (PREFIX[0], init[PREFIX[1]], PREFIX[4]["batches"]) \
+            if shape == PREFIX[2] else None
         port[shape] = M.spawn_mesh(
             J.run_cases, shape, NAMES, backend="gloo", device_type="cpu",
-            timeout_s=DEADLINE_S, args=(cases, shape == (2, 4)))
+            timeout_s=DEADLINE_S, args=(cases, shape == (2, 4), 0, prefix))
     return dict(ref=ref, port=port, init=init)
 
 
@@ -405,12 +463,10 @@ def test_other_families_raise_on_a_mesh(arch):
         train(cfg, mesh, steps=1, batch=8, seq=8, device="cpu")
 
 
-def test_batch_replicated_over_model_matches_reference(runs):
-    """A batch of 4 on (2, 4) under "fsdp" splits over "data" only and is
-    replicated over "model" (the reference's rule): the losses and grad
-    norms are the reference's on the same mesh, every rank's final
-    blocks too."""
-    name, arch, shape, profile, _ = SPLIT
+def _hold_case(runs, case):
+    """Losses, grad norms and every rank's final blocks of ``case``
+    against the reference's."""
+    name, arch, shape, profile, _ = case
     want = runs["ref"][name]
     ranks = runs["port"][shape]
     for r in ranks:
@@ -421,3 +477,85 @@ def test_batch_replicated_over_model_matches_reference(runs):
     _hold_blocks([r[name] for r in ranks], want["params"],
                  runs["ref"]["init"][arch], arch, shape, profile,
                  _noise_bar(want))
+
+
+def test_batch_replicated_over_model_matches_reference(runs):
+    """A batch of 4 on (2, 4) under "fsdp" splits its rows over "data"
+    only (the reference's rule), and its 32 positions over "model" (the
+    reference's "seq" rule, 8 a rank: the ranks on "model" no longer
+    replicate each other's work): the losses and grad norms are the
+    reference's on the same mesh, every rank's final blocks too."""
+    _hold_case(runs, SPLIT)
+    for r in runs["port"][SPLIT[2]]:
+        assert r[SPLIT[0]]["bytes"]["seq_gather_bytes"] > 0
+
+
+@pytest.mark.parametrize("case", SEQ_CASES, ids=[c[0] for c in SEQ_CASES])
+def test_sequence_split_matches_reference(runs, case):
+    """OLMoE's MoE layer on the gathered sequence, Qwen2's KV-chunked
+    softmax over the gathered K/V from a rank's offset, and a length
+    "model" does not divide (rows replicated over it, the MoE layer's
+    parts summed both ways): the reference's "fsdp" ``train`` on the
+    same mesh, at the file's bars."""
+    _hold_case(runs, case)
+    moved = [r[case[0]]["bytes"]["seq_gather_bytes"]
+             for r in runs["port"][case[2]]]
+    split = case[4].get("seq", SEQ) % case[2][1] == 0
+    assert all((m > 0) == split for m in moved), moved
+
+
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "olmoe-1l"])
+def test_each_rank_holds_its_block_of_the_sequence(runs, arch):
+    """The split on: a rank's hidden state holds S/"model" = 8 of 32
+    positions from its coordinate on "model" times 8, and its K/V (and
+    MoE input) gathers move bytes; at 30 positions the rows are whole on
+    every rank and nothing is gathered."""
+    model = 4
+    for rank, r in enumerate(runs["port"][(2, 4)]):
+        shape, blk, moved = r["witness"][arch][32]
+        assert shape == (2, 32 // model, 64) and moved > 0
+        assert blk == (("model",), 32, (rank % model) * 8, 8)
+        shape, blk, moved = r["witness"][arch][30]
+        assert shape == (2, 30, 64) and blk is None and moved == 0
+
+
+def test_prefix_only_block_trains_as_one_rank(runs):
+    """Reduced Pixtral's 4 patch embeddings and 12 tokens under "fsdp"
+    on (2, 4): 4 positions a rank, the first rank's all prefix and no
+    label — it still runs its part of every collective in the backward,
+    and the step's loss and grad norm are one rank's."""
+    cfg = J.config("pixtral-12b")
+    whole = J.DecoderLM(cfg, torch.Generator().manual_seed(0), device="cpu")
+    state, step = build(cfg, device="cpu", params=whole)
+    _, m = step(state, J.prefix_batch(cfg))
+    for r in runs["port"][(2, 4)]:
+        np.testing.assert_allclose(r["prefix"], (float(m["loss"]),
+                                                 float(m["grad_norm"])),
+                                   rtol=LOSS_RTOL)
+
+
+def test_prefix_split_matches_reference(runs):
+    """Reduced Pixtral's patch embeddings under the split: the first
+    rank's block all prefix, the others' prefix embeddings at their
+    global positions, K/V gathered over "model" — the losses, grad norms
+    and every rank's final blocks of 3 steps are the reference's sharded
+    step's on the same mesh, at the file's bars."""
+    _hold_case(runs, PREFIX)
+    for r in runs["port"][PREFIX[2]]:
+        assert r[PREFIX[0]]["bytes"]["seq_gather_bytes"] > 0
+
+
+def test_scatter_seq_is_gather_seqs_transpose(runs):
+    """`scatter_seq` over "model" keeps this rank's block (dim 1) of the
+    partials summed in rank order, and its backward gathers the
+    cotangent blocks along that dim."""
+    def t(rank):                        # torch_tp_jobs.collectives' draw
+        return torch.tensor(np.random.default_rng(rank).normal(
+            size=(8, 4)).astype(np.float32))
+    weights = 1 + torch.arange(8, dtype=torch.float32).reshape(8, 1)
+    for rank, r in enumerate(runs["port"][(2, 4)]):
+        blk, grad = r["collectives"]["scatter_seq"]
+        first, m = rank - rank % 4, rank % 4
+        want = M.sum_in_order([t(j) for j in range(first, first + 4)])
+        assert torch.equal(blk, want[:, m:m + 1])
+        assert torch.equal(grad, weights.expand(8, 4))

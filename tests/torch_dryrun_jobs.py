@@ -12,6 +12,7 @@ import traceback
 import torch
 
 from repro_torch import mesh as M
+from repro_torch import obs
 from repro_torch.configs import get_config, reduced
 from repro_torch.configs.base import ShapeCell
 from repro_torch.launch import dryrun as D
@@ -25,11 +26,12 @@ def shape_cell(kind: str, seq: int, batch: int) -> ShapeCell:
     return ShapeCell(f"{kind}_{seq}x{batch}", seq, batch, kind)
 
 
-def summary(low, comm) -> dict:
+def summary(low, comm, seq_gathered) -> dict:
     tr = low["trace"]
     return {"status": "ok", "memory": low["memory"],
             "kinds": collective_bytes(tr.calls), "flops": tr.flops,
-            "calls": len(tr.calls), "comm_debug_calls": comm}
+            "calls": len(tr.calls), "comm_debug_calls": comm,
+            "seq_gather_bytes": seq_gathered}
 
 
 def run(mesh, cases, fake: bool, comm: bool = False) -> dict:
@@ -37,18 +39,21 @@ def run(mesh, cases, fake: bool, comm: bool = False) -> dict:
     batch) of ``cases`` on ``mesh``: this rank's trace's summary, or the
     error; with ``comm``, ``CommDebugMode``'s count of its c10d calls
     too (its module tracker does not follow nested recomputes: the dense
-    and MoE cases only)."""
+    and MoE cases only), and the bytes its sequence gathers moved
+    (``mesh.seq_gather_bytes``)."""
     from torch.distributed.tensor.debug import CommDebugMode
     out = {}
     for name, arch, profile, kind, seq, batch in cases:
         cfg = reduced(get_config(arch))
         try:
             counter = CommDebugMode() if comm else contextlib.nullcontext()
+            before = obs.counter("mesh.seq_gather_bytes").value
             with profile_context(profile), mesh_context(mesh), counter:
                 low = D.lower_cell(cfg, shape_cell(kind, seq, batch), mesh,
                                    "cpu", fake=fake)
             out[name] = summary(
-                low, counter.get_total_counts() if comm else None)
+                low, counter.get_total_counts() if comm else None,
+                obs.counter("mesh.seq_gather_bytes").value - before)
         except Exception as e:   # noqa: BLE001 — the test reads it
             out[name] = {"status": "error",
                          "error": f"{type(e).__name__}: {e}",

@@ -14,7 +14,7 @@ from repro_torch.serve.decode import (first_tokens, make_prefill,
 from repro_torch.sharding import profile_context
 
 KINDS = ("param_gather_bytes", "reduce_scatter_bytes", "psum_bytes",
-         "all_to_all_bytes", "gathered_bytes")
+         "all_to_all_bytes", "gathered_bytes", "seq_gather_bytes")
 
 
 def config(arch: str):

@@ -2,6 +2,8 @@
 what each spawned rank of a gloo CPU mesh runs (`repro_torch.mesh.
 spawn_mesh` imports this module in every rank, so it loads torch and
 `repro_torch` only, never jax)."""
+import dataclasses
+
 import numpy as np
 import torch
 import torch.distributed as dist
@@ -29,10 +31,22 @@ PADDED = dict(name="padded", family="dense", n_layers=2, d_model=48,
               param_dtype="float32", attn_chunk=0, head_pad_quantum=4)
 
 
+# the sequence split's configs: an arch's reduced config with fields
+# replaced — OLMoE at one MoE layer and cf 8 (no pair dropped), Qwen2
+# with a KV chunk of 4 positions, under a rank's block of 8
+VARIANTS = {"olmoe-1l": ("olmoe-1b-7b", dict(n_layers=1,
+                                             capacity_factor=8.0)),
+            "qwen2-chunk": ("qwen2-1.5b", dict(attn_chunk=4))}
+
+
 def config(arch: str) -> ModelConfig:
-    """A case's port config: an arch's reduced config, or "padded"."""
+    """A case's port config: an arch's reduced config, a `VARIANTS`
+    entry, or "padded"."""
     if arch == "padded":
         return ModelConfig(**PADDED)
+    if arch in VARIANTS:
+        base, kw = VARIANTS[arch]
+        return dataclasses.replace(reduced(get_config(base)), **kw)
     return reduced(get_config(arch))
 
 
@@ -58,7 +72,7 @@ def run_train(mesh, arch, params, profile, steps, batch, seq,
     norms = []
     counters = {k: obs.counter("mesh." + k) for k in (
         "param_gather_bytes", "reduce_scatter_bytes", "psum_bytes",
-        "all_to_all_bytes")}
+        "all_to_all_bytes", "seq_gather_bytes")}
     before = {k: c.value for k, c in counters.items()}
     with profile_context(profile):
         state, losses = train(
@@ -70,18 +84,111 @@ def run_train(mesh, arch, params, profile, steps, batch, seq,
             "bytes": {k: c.value - before[k] for k, c in counters.items()}}
 
 
-def run_cases(mesh, cases, probes: bool = False, seed: int = 0) -> dict:
+def run_cases(mesh, cases, probes: bool = False, seed: int = 0,
+              prefix=None) -> dict:
     """`run_train` for each (name, arch, params, profile, steps, batch,
-    seq, train's options) of ``cases``; with ``probes``, then
+    seq, train's options) of ``cases``, and `run_prefix` of ``prefix``
+    (name, params, batches) if given; with ``probes``, then
     `collectives`, `meshes` and `run_remesh` of the first case's arch and
-    params under "tp"."""
+    params under "tp", and `seq_witness` of the dense and MoE archs."""
     torch.set_num_threads(1)
     out = {c[0]: run_train(mesh, *c[1:]) for c in cases}
+    if prefix is not None:
+        out[prefix[0]] = run_prefix(mesh, *prefix[1:])
     if probes:
+        params = {c[1]: c[2] for c in cases}
         out["collectives"] = collectives(mesh, seed)
         out["meshes"] = meshes(mesh)
         out["remesh"] = run_remesh(mesh, cases[0][1], cases[0][2], "tp")
         out["thread"] = backward_in_a_thread(mesh, cases[0][1], cases[0][2])
+        out["witness"] = {a: seq_witness(mesh, a, params[a])
+                          for a in ("qwen2-1.5b", "olmoe-1l")}
+        out["prefix"] = prefix_step(mesh)
+    return out
+
+
+def prefix_batches(cfg, steps: int) -> list:
+    """``steps`` batches of 4 rows of 4 patch embeddings and 12 tokens:
+    16 positions, 4 a rank of "model" — the first rank's block all
+    prefix, no label."""
+    rng = np.random.default_rng(3)
+    out = []
+    for _ in range(steps):
+        tokens = rng.integers(0, cfg.vocab, (4, 12))
+        out.append({"tokens": tokens, "labels": np.roll(tokens, -1, 1),
+                    "patch_embeds": rng.normal(
+                        size=(4, cfg.n_patches, cfg.d_model)
+                    ).astype(np.float32)})
+    return out
+
+
+def prefix_batch(cfg):
+    """The first of `prefix_batches`."""
+    return prefix_batches(cfg, 1)[0]
+
+
+def run_prefix(mesh, params, batches) -> dict:
+    """Reduced Pixtral under "fsdp" on this mesh from the reference's
+    ``params``: `build` and its step on each of ``batches`` (the step's
+    total of max(steps, 2), as the reference's) → losses, grad norms,
+    this rank's blocks after the last step and the bytes its collectives
+    moved by kind."""
+    cfg = config("pixtral-12b")
+    counters = {k: obs.counter("mesh." + k) for k in (
+        "param_gather_bytes", "psum_bytes", "seq_gather_bytes")}
+    before = {k: c.value for k, c in counters.items()}
+    losses, norms = [], []
+    with profile_context("fsdp"):
+        state, step = build(cfg, mesh, device="cpu",
+                            params=whole_model(cfg, params),
+                            total_steps=max(len(batches), 2))
+        for b in batches:
+            state, m = step(state, b)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+    return {"losses": losses, "grad_norms": norms, "blocks": blocks(state),
+            "bytes": {k: c.value - before[k] for k, c in counters.items()}}
+
+
+def prefix_step(mesh) -> tuple:
+    """One AdamW step of reduced Pixtral (4 patch embeddings) under
+    "fsdp" on this mesh, from the draw of seed 0, on `prefix_batch` →
+    (loss, grad norm)."""
+    cfg = config("pixtral-12b")
+    whole = DecoderLM(cfg, torch.Generator().manual_seed(0), device="cpu")
+    with profile_context("fsdp"):
+        state, step = build(cfg, mesh, device="cpu", params=whole)
+        _, m = step(state, prefix_batch(cfg))
+    return float(m["loss"]), float(m["grad_norm"])
+
+
+def seq_witness(mesh, arch, params) -> dict:
+    """A forward of a batch of 4 on this (2, 4) mesh under "fsdp" (rows
+    split over "data" only), at 32 positions and at 30 ("model" does not
+    divide it) → {positions: (this rank's hidden state's shape, its
+    sequence block as a tuple or None, the bytes its sequence gathers
+    moved)}."""
+    from repro_torch.models.transformer import split_length
+    from repro_torch.sharding import mesh_context, spmd
+    from repro_torch.sharding.rules import get_seq
+    cfg = config(arch)
+    with profile_context("fsdp"):
+        state, _ = build(cfg, mesh, device="cpu",
+                         params=whole_model(cfg, params))
+    out = {}
+    for seq in (32, 30):
+        tokens, _ = next(synthetic_token_batches(cfg.vocab, 4, seq,
+                                                 steps=1, seed=5))
+        moved = obs.counter("mesh.seq_gather_bytes")
+        before = moved.value
+        with mesh_context(mesh), profile_context("fsdp"), \
+                spmd.rows(4, mesh, split_length(cfg, {"tokens": tokens})), \
+                torch.no_grad():
+            blk = get_seq()
+            hidden = state.params(torch.as_tensor(M.shard_rows(
+                tokens, mesh, spmd.batch_axes(mesh))))
+        out[seq] = (tuple(hidden.shape), None if blk is None
+                    else tuple(blk), moved.value - before)
     return out
 
 
@@ -91,7 +198,9 @@ def backward_in_a_thread(mesh, arch, params) -> bool:
     device thread runs a CUDA backward (and with it each rematted block's
     recompute) — equal to those of a backward on this thread: under
     "tp" on a batch of 8, and under "fsdp" on a batch of 4, whose rows
-    split over "data" only (the recompute re-enters the rows too)."""
+    split over "data" only and whose 16 positions over "model" (the
+    recompute re-enters the rows and the sequence block too)."""
+    from repro_torch.models.transformer import split_length
     import threading
     from repro_torch.sharding import mesh_context, spmd
     from repro_torch.train.step import model_loss, on_device
@@ -109,7 +218,8 @@ def backward_in_a_thread(mesh, arch, params) -> bool:
         grads = []
         for threaded in (False, True):
             with mesh_context(mesh), profile_context(profile), \
-                    spmd.rows(rows, mesh):
+                    spmd.rows(rows, mesh,
+                              split_length(cfg, {"tokens": tokens})):
                 axes = spmd.batch_axes(mesh)
                 batch = on_device({"tokens": M.shard_rows(tokens, mesh,
                                                           axes),
@@ -162,6 +272,13 @@ def collectives(mesh, seed: int) -> dict:
     (full * torch.arange(full.numel(), dtype=torch.float32)
      .reshape(full.shape)).sum().backward()
     out["gather_param"] = (full.detach(), x.grad)
+    # scatter_seq over "model" along dim 1: the summed block; its
+    # backward gathers the cotangent
+    x = t.clone().requires_grad_(True)
+    blk = M.scatter_seq(x, 1, mesh, ("model",))
+    (blk * (1 + torch.arange(blk.numel(), dtype=torch.float32)
+            .reshape(blk.shape))).sum().backward()
+    out["scatter_seq"] = (blk.detach(), x.grad)
     return out
 
 
